@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``eventstreamgpt_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout on a machine with a CUDA device:
+
+    python3 chip_smoke.py
+
+Phases (a failed phase exits non-zero; nothing is caught and passed over):
+
+1. Device: the card's name and power limit (``nvidia-smi``), TF32 off, the
+   kernels built from the checkout's sources (``nvcc`` for ``csrc/``,
+   Triton's first compile).
+2. Engine at full width: the serving benchmark's CI model (hidden 256,
+   4 heads x 64, 2 layers local/global with window 32, intermediate 1024,
+   lognormal-mixture TTE with 3 components, bf16, a 4,057-entry vocabulary
+   laid out as ``data/synthetic.py`` writes it) with numpy-seeded random
+   weights behind `GenerationEngine` (32 slots, ``max_len`` 256, prompts up to
+   192 events, buckets from 32, chunks of 16), serving 64 requests with
+   prompts of 128-192 events and budgets of 16-64 new events, once greedy
+   and once sampled. Every request must finish without error, with
+   ``n_events == prompt_len + n_generated`` and finite outputs; both
+   kernels' launch counters must move (kernel A only samples). A small
+   fp32 greedy engine on the card must also match the same engine on the
+   CPU (plain PyTorch versions of the kernels).
+3. Kernels against their plain versions, on the card, on inputs captured
+   from the sampled run's first decode step: kernel A's indices exactly
+   equal (fp32 and bf16, with and without keep and active masks); kernel
+   B's ``h`` within rtol=atol=1e-4 in fp32 and atol=2e-2 in bf16, cache
+   positions other than the cursor bit-equal, the cursor entries within the
+   same tolerances, mask and length exact. Each kernel and its plain
+   version is timed with CUDA events (median of 30 after warm-up).
+4. One ``{"kernels": [...]}`` line, then the device line as the last line.
+
+It exits non-zero, printing no result, when no CUDA device is available or
+when the repository is not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
+N_REQUESTS, SEED = 64, 0
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# ---------------------------------------------------------------- phase 1
+def device_phase():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]  # fmt: skip
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from eventstreamgpt_tpu_torch.ops import build, decode_step, fused_sampling
+
+    t0 = time.perf_counter()
+    errors = []
+    nvcc = threading.Thread(target=lambda: errors.extend(_try(build.build_all, [decode_step.SOURCE])))
+    nvcc.start()
+    z = torch.zeros(2, 40, device="cuda")
+    fused_sampling.fused_categorical(z, z)  # Triton compiles here, while nvcc runs
+    nvcc.join()
+    if errors:
+        raise errors[0]
+    build.load_library(decode_step.SOURCE)
+    torch.cuda.synchronize()
+    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    return smi
+
+
+def _try(fn, *args):
+    try:
+        fn(*args)
+        return []
+    except Exception as e:  # re-raised by the caller's thread
+        return [e]
+
+
+# ---------------------------------------------------------------- phase 2
+def check_results(results, requests, label):
+    import torch
+
+    check(len(results) == len(requests), f"{label}: {len(results)} results for {len(requests)} requests")
+    for r in results:
+        check(r.error is None, f"{label}: request {r.request_id} failed: {r.error!r}")
+        check(r.n_events == r.prompt_len + r.n_generated, f"{label}: request {r.request_id} accounting")
+        b = r.batch
+        check(b.event_mask.shape == (1, r.n_events), f"{label}: request {r.request_id} shape {tuple(b.event_mask.shape)}")
+        for f in ("time_delta", "dynamic_values", "start_time"):
+            check(bool(torch.isfinite(getattr(b, f)).all()), f"{label}: request {r.request_id} non-finite {f}")
+
+
+class Capture:
+    """Wraps the engine's two kernel entry points to keep the inputs of the
+    first call after `arm()` (cloned before the in-place cache write)."""
+
+    def __init__(self, engine_module):
+        self.mod, self.armed, self.a, self.b = engine_module, False, None, None
+        self.orig_a, self.orig_b = engine_module.fused_categorical, engine_module.decode_stack_step
+
+        def a(logits, gumbel, keep=None, active=None, fill=0):
+            if self.armed and self.a is None and active is not None:  # a decode step, not a prefill
+                self.a = dict(logits=logits.clone(), gumbel=gumbel.clone(), keep=keep, active=active.clone())
+            return self.orig_a(logits, gumbel, keep, active, fill)
+
+        def b(weights, kc, vc, h0, start, em, mask, **kw):
+            if self.armed and self.b is None:
+                self.b = dict(weights=weights, kc=kc.clone(), vc=vc.clone(), h0=h0.clone(), start=start.clone(),
+                              em=em.clone(), mask=mask.clone(), kw=kw)  # fmt: skip
+            return self.orig_b(weights, kc, vc, h0, start, em, mask, **kw)
+
+        engine_module.fused_categorical, engine_module.decode_stack_step = a, b
+
+
+def engine_phase(smi):
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.serving.engine as engine_module
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import log_time_stats, serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    rng = np.random.default_rng(SEED)
+    prompts = synthetic_prompts(rng, N_REQUESTS, serving_config(), (128, 192), (16, 64))
+    mean_log, std_log = log_time_stats(prompts)
+    config = serving_config(mean_log=mean_log, std_log=std_log)
+    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=SEED)
+    capture = Capture(engine_module)
+    engine_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    # Warm-up (cuBLAS handles, allocator) on a few requests, not counted.
+    GenerationEngine(model, config, template=prompts[0][0], **engine_kw).run(requests()[:4])
+    out = {}
+    for mode in ("greedy", "sampled"):
+        engine = GenerationEngine(model, config, template=prompts[0][0], greedy=mode == "greedy", **engine_kw)
+        reqs = requests()
+        capture.armed = mode == "sampled"
+        decode_stack_step.launches = 0
+        fused_categorical.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"decode_stack_step": decode_stack_step.launches, "fused_categorical": fused_categorical.launches}
+        check_results(results, reqs, mode)
+        check(launches["decode_stack_step"] > 0, f"{mode}: the decode kernel was never launched")
+        if mode == "sampled":
+            check(launches["fused_categorical"] > 0, "sampled: the sampling kernel was never launched")
+        else:
+            check(launches["fused_categorical"] == 0, "greedy: the sampling kernel launched in greedy mode")
+        generated = sum(r.n_generated for r in results)
+        stats = engine.stats()
+        out[mode] = dict(launches=launches, generated=generated, wall_s=wall, stats=stats)
+        print(
+            f"phase 2 [{mode}] {len(results)} requests, {generated} generated events in {wall:.3f} s: "
+            f"{generated / wall:.1f} events/s, {launches}, decode steps {stats['dispatched_chunks'] * 16}, "
+            f"wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
+            flush=True,
+        )
+    engine_module.fused_categorical, engine_module.decode_stack_step = capture.orig_a, capture.orig_b
+    check(capture.a is not None and capture.b is not None, "no decode-step inputs were captured")
+    small_engine_matches_cpu()
+    return model, config, capture, out
+
+
+def small_engine_matches_cpu():
+    """The whole path on the card against the same engine on the CPU (plain
+    versions of both kernels), fp32 greedy at a small size: a small
+    vocabulary (few Bernoulli draws that float noise could tip over 0.5) and
+    a narrow log-time scale (moderate times for the sinusoidal encoding)."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
+                            head_dim=8, intermediate_size=64, seq_window_size=4)  # fmt: skip
+    # Weights of std ~ 1/sqrt(hidden): unit gain, so float noise is not amplified from event to event.
+    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=1, std=0.15)
+    with torch.no_grad():  # a near-constant TTE head: inter-event times of about e^1 minutes
+        model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    prompts = synthetic_prompts(np.random.default_rng(1), 6, config, (6, 12), (4, 8))
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+        res[dev] = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw).run(reqs)
+    for g, c in zip(res["cuda"], res["cpu"]):
+        check((g.n_events, g.n_generated) == (c.n_events, c.n_generated), f"small engine: request {g.request_id}")
+        for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
+            a, b = getattr(g.batch, f), getattr(c.batch, f)
+            if not torch.equal(a, b):
+                first = int((a != b).reshape(a.shape[0], a.shape[1], -1).any(-1)[0].nonzero()[0])
+                td = (g.batch.time_delta - c.batch.time_delta)[0, :first].abs().max().item() if first else 0.0
+                fail(f"small engine: {f} of request {g.request_id} differs from event {first} of "
+                     f"{a.shape[1]} (prompt {g.prompt_len}); max |time_delta diff| before it {td:.3g}; "
+                     f"card {a[0, first].tolist()} cpu {b[0, first].tolist()}")  # fmt: skip
+        for f in ("time_delta", "dynamic_values"):
+            torch.testing.assert_close(getattr(g.batch, f), getattr(c.batch, f), rtol=1e-4, atol=1e-4)
+    print("phase 2: small fp32 greedy engine on the card matches the CPU engine", flush=True)
+
+
+# ---------------------------------------------------------------- phase 3
+def time_ms(fn, n=30, warmup=5) -> float:
+    """Median over ``n`` single launches, each timed by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def kernel_a_phase(capture):
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import (
+        fused_categorical,
+        fused_categorical_reference,
+        topk_topp_mask,
+    )
+
+    cap = capture.a
+    logits, gumbel, active = cap["logits"], cap["gumbel"], cap["active"]
+    rows, V = logits.shape
+    max_err = 0
+    for dt in (torch.float32, torch.bfloat16):
+        z, g = logits.to(dt), gumbel.to(dt)
+        for keep in (None, topk_topp_mask(z, top_k=5)):
+            for act in (None, active):
+                want = fused_categorical_reference(z, g, keep, act, fill=0)
+                got = fused_categorical(z, g, keep, act, fill=0)
+                max_err = max(max_err, (got.long() - want.long()).abs().max().item())
+                check(torch.equal(got, want), f"kernel A disagrees ({dt}, keep={keep is not None}, active={act is not None})")
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: fused_categorical(logits, gumbel, None, active))
+    plain_ms = time_ms(lambda: fused_categorical_reference(logits, gumbel, None, active))
+    library_ms = time_ms(lambda: torch.argmax(gumbel + logits, dim=-1))
+    nbytes = 2 * rows * V * logits.element_size() + rows + rows * 4
+    ops = 4 * rows * V  # add, compare, max and min per element
+    bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]) * 1e3
+    print(f"phase 3: kernel A exact vs plain at ({rows}, {V}); {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= ops / PEAK_FLOPS["fp32"] else "operations",
+                max_abs_err=float(max_err), shape=[rows, V])  # fmt: skip
+
+
+def live_rows(start, event_mask, mask, window):
+    """Per row, the cache positions kernel B's output depends on: those that
+    pass the causal, window and padding tests (the padding mask already
+    holding this event's bit at the cursor). Returns ``(live, cursor_live)``."""
+    import torch
+
+    pos = torch.arange(mask.shape[1], device=mask.device)[None, :]
+    st = start.long()[:, None]
+    ok = (pos <= st) & torch.where(pos == st, event_mask[:, None], mask)
+    if window > 0:
+        ok &= pos > st - window
+    return ok.sum(1), (ok & (pos == st)).sum(1)
+
+
+def kernel_b_phase(model, config, capture):
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.decode_step import (
+        decode_stack_step,
+        decode_stack_step_reference,
+        stack_layer_weights,
+    )
+
+    cap = capture.b
+    kw = cap["kw"]
+    L, B, H, M, D = cap["kc"].shape
+    blocks = model.to("cuda").encoder.blocks()
+    max_err = 0.0
+    for dt, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-4)), (torch.bfloat16, dict(rtol=0.0, atol=2e-2))):
+        weights = cap["weights"] if dt == torch.bfloat16 else stack_layer_weights(blocks, dt)
+        inputs = [cap["h0"].to(dt), cap["start"], cap["em"], cap["mask"]]
+
+        def run(fn):
+            kc, vc = cap["kc"].to(dt).clone(), cap["vc"].to(dt).clone()
+            return fn(weights, kc, vc, *inputs, **kw)
+
+        want, got = run(decode_stack_step_reference), run(decode_stack_step)
+        torch.cuda.synchronize()
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        torch.testing.assert_close(got[0].float(), want[0].float(), **tol)
+        at = torch.arange(M, device="cuda")[None, :] == cap["start"][:, None].long()
+        at = at[None, :, None, :, None].expand(L, B, H, M, D)
+        for i in (1, 2):
+            check(torch.equal(got[i][~at], want[i][~at]), f"kernel B ({dt}): cache changed off the cursor")
+            torch.testing.assert_close(got[i][at].float(), want[i][at].float(), **tol)
+        check(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]), f"kernel B ({dt}): mask/length")
+        print(f"phase 3: kernel B ({dt}) within {tol}: max |h diff| {err:.3g}", flush=True)
+        if dt == torch.bfloat16:
+            max_err = err
+    weights = cap["weights"]
+    kc, vc = cap["kc"].clone(), cap["vc"].clone()
+    args = (weights, kc, vc, cap["h0"], cap["start"], cap["em"], cap["mask"])
+    ms = time_ms(lambda: decode_stack_step(*args, **kw))
+    plain_ms = time_ms(lambda: decode_stack_step_reference(*args, **kw))
+    # The bound counts what the function needs on this run's inputs: the
+    # weights once, K and V only at each row's live positions (the cursor's
+    # are computed, not read; a row with none live averages V over all M),
+    # the cursor writes and the small inputs and outputs.
+    E, I, esz = H * D, weights["wfc"].shape[-1], kc.element_size()
+    w_bytes = sum(t.numel() * t.element_size() for t in weights.values())
+    k_rows = v_rows = attn_rows = 0
+    for window in kw["windows"]:
+        live, cursor = live_rows(cap["start"], cap["em"], cap["mask"], int(window))
+        k_rows += int((live - cursor).sum())
+        v_rows += int(torch.where(live > 0, live - cursor, M).sum())
+        attn_rows += int(live.sum() + torch.where(live > 0, live, M).sum())
+    written = int((cap["start"] < M).sum())
+    small = 2 * B * E * esz + B * (4 + 1 + M + 1) + 4 * L + B * (M + 4)  # h0, h; start, em, mask, active; out
+    nbytes = w_bytes + (k_rows + v_rows) * E * esz + 2 * L * written * E * esz + small
+    flops = 2 * B * L * (4 * E * E + 2 * E * I) + 2 * H * D * attn_rows
+    bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
+    print(f"phase 3: kernel B at (L={L}, B={B}, H={H}, M={M}, D={D}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; whole cache "
+          f"{2 * kc.numel() * esz / 1e6:.2f} MB)", flush=True)  # fmt: skip
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+                bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_FLOPS["bf16"] else "operations",
+                max_abs_err=max_err, shape=[L, B, H, M, D])  # fmt: skip
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this smoke run needs one", file=sys.stderr)
+        return 2
+    if not (REPO / "eventstreamgpt_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the eventstreamgpt_tpu_torch package is not beside {__file__}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    t0 = time.perf_counter()
+    smi = device_phase()
+    model, config, capture, runs = engine_phase(smi)
+    a = kernel_a_phase(capture)
+    b = kernel_b_phase(model, config, capture)
+    kernels = [
+        dict(name="fused_categorical", route="triton", source="eventstreamgpt_tpu_torch/ops/fused_sampling.py",
+             replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171",
+             launches=runs["sampled"]["launches"]["fused_categorical"], **a),
+        dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
+             replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
+             launches=runs["greedy"]["launches"]["decode_stack_step"]
+             + runs["sampled"]["launches"]["decode_stack_step"], **b),
+    ]  # fmt: skip
+    for k in kernels:
+        check(all(isinstance(k[f], (int, float)) and math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")),
+              f"{k['name']}: a timing is missing")  # fmt: skip
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}), flush=True)  # fmt: skip
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

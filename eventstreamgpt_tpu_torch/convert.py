@@ -1,0 +1,93 @@
+"""Loading JAX (flax) parameters into the port's modules.
+
+`load_jax_params` takes the flax parameter tree of a
+``CIPPTForGenerativeSequenceModeling`` as a nested dict of numpy arrays
+(the caller does the ``np.asarray``; this module imports no JAX) and fills
+the port model's parameters in place:
+
+* a Dense ``kernel`` ``(in, out)`` becomes ``Linear.weight`` ``(out, in)``;
+* a LayerNorm ``scale``/``bias`` becomes ``weight``/``bias``;
+* embedding tables and biases carry across as they are.
+
+Every flax leaf must land on exactly one port parameter of the same shape,
+and every port parameter must be filled; anything else raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def port_name(path: tuple) -> tuple[str, bool]:
+    """The port parameter name of a flax leaf path, and whether to transpose.
+
+    Examples:
+        >>> port_name(("encoder", "h0", "attn", "attention", "q_proj", "kernel"))
+        ('encoder.h0.attn.attention.q_proj.weight', True)
+        >>> port_name(("encoder", "ln_f", "scale"))
+        ('encoder.ln_f.weight', False)
+    """
+    *parents, leaf = path
+    if leaf == "kernel":
+        return ".".join(parents + ["weight"]), True
+    if leaf == "scale":
+        return ".".join(parents + ["weight"]), False
+    return ".".join(parents + [leaf]), False
+
+
+def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
+    """Fills ``model``'s parameters from a flax tree of numpy arrays; returns ``model``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    targets = dict(model.named_parameters())
+    filled = set()
+    for path, arr in _flatten(params).items():
+        name, transpose = port_name(path)
+        if name not in targets:
+            raise ValueError(f"flax leaf {'/'.join(path)} has no port parameter ({name})")
+        if transpose:
+            if arr.ndim != 2:
+                raise ValueError(f"flax kernel {'/'.join(path)} is not 2-D: {arr.shape}")
+            arr = arr.T
+        p = targets[name]
+        if tuple(p.shape) != arr.shape:
+            raise ValueError(f"{name}: port shape {tuple(p.shape)} != flax shape {arr.shape}")
+        with torch.no_grad():
+            p.copy_(torch.tensor(arr))
+        filled.add(name)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise ValueError(f"port parameters left unfilled by the flax tree: {missing}")
+    return model
+
+
+def init_params_from_seed(model: nn.Module, seed: int, std: float = 0.02) -> nn.Module:
+    """Fills every parameter with numpy-seeded random values (weights for
+    smoke runs and tests that need no trained checkpoint).
+
+    LayerNorm scales start at 1 and their biases at 0, as in flax; every
+    other parameter is ``N(0, std)``. The values depend only on ``seed`` and
+    the parameter names, never on torch's global generator.
+    """
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("layer_norm.weight") or name.endswith("ln_f.weight"):
+                p.fill_(1.0)
+            elif name.endswith("layer_norm.bias") or name.endswith("ln_f.bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.from_numpy(rng.normal(0.0, std, size=tuple(p.shape)).astype(np.float32)))
+    return model

@@ -1,0 +1,127 @@
+"""Sparse event-data embedding.
+
+Counterpart: ``eventstreamgpt_tpu/models/embedding.py::DataEmbeddingLayer``
+(joint and split modes, static sum/drop, measurement-index normalization).
+Tables hold fp32 parameters; like the JAX layer, lookups run in the compute
+dtype the module has been cast to. The dep-graph grouping
+(``split_by_measurement_indices``) belongs to nested-attention models and
+raises here.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+from torch import nn
+
+from ..data.types import EventStreamBatch
+from ..ops.tensor_ops import dense, embedding_bag, measurement_index_normalization
+from ..utils import StrEnum
+
+
+class MeasIndexGroupOptions(StrEnum):
+    """How a measurement's categorical/numerical parts join a dep-graph group."""
+
+    CATEGORICAL_ONLY = enum.auto()
+    CATEGORICAL_AND_NUMERICAL = enum.auto()
+    NUMERICAL_ONLY = enum.auto()
+
+
+class StaticEmbeddingMode(StrEnum):
+    """How static embeddings combine with dynamic embeddings."""
+
+    DROP = enum.auto()
+    SUM_ALL = enum.auto()
+
+
+class DataEmbeddingLayer(nn.Module):
+    """Embeds an `EventStreamBatch` into ``(B, L, out_dim)`` per-event embeddings."""
+
+    def __init__(
+        self,
+        n_total_embeddings: int,
+        out_dim: int,
+        static_embedding_mode: str = StaticEmbeddingMode.SUM_ALL,
+        categorical_embedding_dim: int | None = None,
+        numerical_embedding_dim: int | None = None,
+        split_by_measurement_indices=None,
+        do_normalize_by_measurement_index: bool = False,
+        static_weight: float = 0.5,
+        dynamic_weight: float = 0.5,
+        categorical_weight: float = 0.5,
+        numerical_weight: float = 0.5,
+    ):
+        super().__init__()
+        if split_by_measurement_indices is not None:
+            raise ValueError(
+                "split_by_measurement_indices (nested-attention dep-graph grouping) is not "
+                "part of the PyTorch port yet"
+            )
+        if (categorical_embedding_dim is None) != (numerical_embedding_dim is None):
+            raise ValueError(
+                "If either `categorical_embedding_dim` or `numerical_embedding_dim` is not `None`, "
+                "then both must be not `None`."
+            )
+        self.static_embedding_mode = StaticEmbeddingMode(static_embedding_mode)
+        self.do_normalize_by_measurement_index = do_normalize_by_measurement_index
+        self.static_frac = static_weight / (static_weight + dynamic_weight)
+        self.dynamic_frac = dynamic_weight / (static_weight + dynamic_weight)
+        self.categorical_frac = categorical_weight / (categorical_weight + numerical_weight)
+        self.numerical_frac = numerical_weight / (categorical_weight + numerical_weight)
+        self.joint = categorical_embedding_dim is None
+        if self.joint:
+            self.embed_table = nn.Parameter(torch.empty(n_total_embeddings, out_dim))
+        else:
+            self.categorical_embed_table = nn.Parameter(
+                torch.empty(n_total_embeddings, categorical_embedding_dim)
+            )
+            self.cat_proj = nn.Linear(categorical_embedding_dim, out_dim)
+            self.numerical_embed_table = nn.Parameter(
+                torch.empty(n_total_embeddings, numerical_embedding_dim)
+            )
+            self.num_proj = nn.Linear(numerical_embedding_dim, out_dim)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return (self.embed_table if self.joint else self.categorical_embed_table).dtype
+
+    def _embed(self, indices, measurement_indices, values=None, values_mask=None):
+        cdt = self.compute_dtype
+        if self.joint:
+            if values is None:
+                values = torch.ones(indices.shape, dtype=cdt, device=indices.device)
+            else:
+                values = torch.where(values_mask, values, 1.0)
+            if self.do_normalize_by_measurement_index:
+                values = values * measurement_index_normalization(measurement_indices)
+            return embedding_bag(self.embed_table, indices, values)
+
+        cat_values = torch.ones(indices.shape, dtype=cdt, device=indices.device)
+        if self.do_normalize_by_measurement_index:
+            meas_norm = measurement_index_normalization(measurement_indices)
+            cat_values = cat_values * meas_norm
+        cat_embeds = dense(embedding_bag(self.categorical_embed_table, indices, cat_values), self.cat_proj)
+        if values is None:
+            return cat_embeds
+        num_values = torch.where(values_mask, values, 0.0)
+        if self.do_normalize_by_measurement_index:
+            num_values = num_values * meas_norm
+        num_embeds = dense(embedding_bag(self.numerical_embed_table, indices, num_values), self.num_proj)
+        return self.categorical_frac * cat_embeds + self.numerical_frac * num_embeds
+
+    def forward(self, batch: EventStreamBatch) -> torch.Tensor:
+        embedded = self._embed(
+            batch.dynamic_indices,
+            batch.dynamic_measurement_indices,
+            batch.dynamic_values,
+            batch.dynamic_values_mask,
+        )
+        mask = batch.event_mask[..., None]
+        embedded = torch.where(mask, embedded, 0.0)
+        if self.static_embedding_mode == StaticEmbeddingMode.DROP or batch.static_indices is None:
+            return embedded
+        static_embedded = self._embed(batch.static_indices, batch.static_measurement_indices)[:, None]
+        embedded = self.dynamic_frac * embedded + self.static_frac * static_embedded
+        return torch.where(mask, embedded, 0.0)
+

@@ -1,0 +1,362 @@
+"""The conditionally-independent point-process transformer encoder.
+
+Counterpart: the CI half of ``eventstreamgpt_tpu/models/transformer.py``:
+`KVCache`, `time_from_deltas`, `TemporalPositionEncoding`,
+`make_causal_mask`, `InnerSelfAttention` (the einsum path and its cache
+branches), `InnerMLP`, `InnerBlock`, the CI input layer and the CI
+transformer. Module attribute names follow the flax parameter paths
+(``encoder.h0.attn.attention.q_proj``...), so `convert.load_jax_params`
+maps one tree onto the other by name.
+
+Numerics kept from the JAX model: attention logits are **not** scaled by
+``1/sqrt(head_dim)``; logits and softmax are fp32; masked logits take the
+fp32 minimum and are clamped there (a fully masked row softmaxes to
+uniform); LayerNorm is flax's formula (`ops.tensor_ops.flax_layer_norm`);
+``gelu`` is the tanh approximation (``flax.linen.gelu``'s default).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..data.types import EventStreamBatch
+from ..ops.tensor_ops import dense, flax_layer_norm, segment_starts
+from .config import StructuredTransformerConfig
+from .embedding import DataEmbeddingLayer
+
+F32_MIN = torch.finfo(torch.float32).min
+
+
+def activation(name: str):
+    """The activation named by ``config.activation_function`` (flax's ACT2FN)."""
+    if name in ("gelu", "gelu_new"):
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    if name in ("silu", "swish"):
+        return F.silu
+    if name == "tanh":
+        return torch.tanh
+    raise ValueError(f"Unknown activation_function {name!r}")
+
+
+@dataclasses.dataclass
+class KVCache:
+    """A fixed-size per-layer key/value cache with a write cursor.
+
+    ``key``/``value`` are ``(B, H, max_len, head_dim)``; ``mask`` is the
+    accumulated key-padding mask ``(B, max_len)``; ``length`` is the number
+    of positions written: a python int on the prefill path, or a per-row
+    ``(B,)`` int32 tensor on the serving engine's decode path.
+    """
+
+    key: torch.Tensor
+    value: torch.Tensor
+    mask: torch.Tensor
+    length: object
+
+    @classmethod
+    def init(cls, batch_size, num_heads, max_len, head_dim, dtype=torch.float32, *, device):
+        def z():
+            return torch.zeros(batch_size, num_heads, max_len, head_dim, dtype=dtype, device=device)
+
+        return cls(
+            key=z(),
+            value=z(),
+            mask=torch.zeros(batch_size, max_len, dtype=torch.bool, device=device),
+            length=0,
+        )
+
+
+def init_kv_caches(config: StructuredTransformerConfig, batch_size: int, max_len: int, device) -> tuple:
+    """One `KVCache` per hidden layer, in the model's compute dtype."""
+    return tuple(
+        KVCache.init(
+            batch_size,
+            config.num_attention_heads,
+            max_len,
+            config.head_dim,
+            dtype=config.compute_dtype,
+            device=device,
+        )
+        for _ in range(config.num_hidden_layers)
+    )
+
+
+def time_from_deltas(batch: EventStreamBatch) -> torch.Tensor:
+    """Cumulative time-since-start from per-event deltas.
+
+    Examples:
+        >>> b = EventStreamBatch(event_mask=torch.tensor([[True, True, True], [True, True, False]]),
+        ...                      time_delta=torch.tensor([[1.0, 3.2, 0.0], [1.4, 0.0, 1.0]]))
+        >>> time_from_deltas(b)
+        tensor([[0.0000, 1.0000, 4.2000],
+                [0.0000, 1.4000, 1.4000]])
+    """
+    t_deltas = batch.time_delta
+    if batch.event_mask is not None:
+        t_deltas = torch.where(batch.event_mask, t_deltas, 0.0)
+    csum = torch.cumsum(t_deltas, dim=-1)
+    t = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
+    if batch.segment_ids is not None:
+        seg_start = segment_starts(batch.segment_ids)
+        offsets = torch.cummax(torch.where(seg_start, t, -math.inf), dim=1).values
+        t = t - offsets
+    return t
+
+
+def temporal_position_encoding(t: torch.Tensor, embedding_dim: int, max_timepoint: float = 10000.0):
+    """Sinusoids over continuous time, interleaved: ``out[..., 0::2] = sin``,
+    ``out[..., 1::2] = cos`` (counterpart: `TemporalPositionEncoding`)."""
+    div_term = torch.exp(
+        torch.arange(0, embedding_dim, 2, dtype=torch.float32, device=t.device)
+        * (-math.log(max_timepoint) / embedding_dim)
+    )
+    cos_div = div_term if embedding_dim % 2 == 0 else div_term[:-1]
+    t = t[..., None]
+    out = torch.zeros(t.shape[:-1] + (embedding_dim,), dtype=torch.float32, device=t.device)
+    out[..., 0::2] = torch.sin(t * div_term)
+    out[..., 1::2] = torch.cos(t * cos_div)
+    return out
+
+
+def make_causal_mask(q_positions, k_positions, window_size: int | None = None):
+    """Boolean ``(..., Q, K)`` mask: ``k <= q``, and ``k > q - window`` when local."""
+    q = q_positions[..., :, None]
+    k = k_positions[..., None, :]
+    mask = k <= q
+    if window_size is not None:
+        mask = mask & (k > q - window_size)
+    return mask
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=compute_dtype)``: fp32 ``weight``/``bias``
+    (flax ``scale``/``bias``) whatever the compute dtype, output in it."""
+
+    def __init__(self, dim: int, eps: float, out_dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = float(eps)
+        self.out_dtype = out_dtype
+
+    def forward(self, x):
+        return flax_layer_norm(x, self.weight, self.bias, self.eps, self.out_dtype)
+
+
+class InnerSelfAttention(nn.Module):
+    """Multi-head causal self-attention with optional local windowing."""
+
+    def __init__(self, config: StructuredTransformerConfig, window_size: int | None):
+        super().__init__()
+        E = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.head_dim = config.head_dim
+        self.window_size = window_size
+        self.q_proj = nn.Linear(E, E, bias=False)
+        self.k_proj = nn.Linear(E, E, bias=False)
+        self.v_proj = nn.Linear(E, E, bias=False)
+        self.out_proj = nn.Linear(E, E, bias=True)
+
+    def forward(self, hidden_states, attention_mask=None, layer_past: Optional[KVCache] = None, use_cache=False):
+        B, S, E = hidden_states.shape
+        H, D = self.num_heads, self.head_dim
+
+        def heads(x):  # (B, S, E) -> (B, H, S, D)
+            return x.reshape(B, S, H, D).transpose(1, 2)
+
+        query = heads(dense(hidden_states, self.q_proj))
+        key = heads(dense(hidden_states, self.k_proj))
+        value = heads(dense(hidden_states, self.v_proj))
+        chunk_mask = (
+            attention_mask
+            if attention_mask is not None
+            else torch.ones(B, S, dtype=torch.bool, device=hidden_states.device)
+        )
+
+        present = None
+        if layer_past is not None and torch.is_tensor(layer_past.length):
+            # Per-row cursors (the serving engine's decode slots): row b writes
+            # its one new key/value at position length[b].
+            if S != 1:
+                raise ValueError(
+                    "per-row-cursor caches take one event per step in the port (the multi-event "
+                    "verify window belongs to speculative decoding, not ported yet)"
+                )
+            max_len = layer_past.key.shape[2]
+            start = layer_past.length
+            pos = torch.arange(max_len, device=hidden_states.device)
+            write = pos[None, :] == start[:, None]  # (B, max_len)
+            new_key = torch.where(write[:, None, :, None], key.to(layer_past.key.dtype), layer_past.key)
+            new_value = torch.where(write[:, None, :, None], value.to(layer_past.value.dtype), layer_past.value)
+            new_mask = torch.where(write, chunk_mask, layer_past.mask)
+            q_positions = start[:, None]  # (B, 1)
+            valid_k = pos[None, :] < (start[:, None] + 1)
+            present = KVCache(new_key, new_value, new_mask, start + 1)
+            key, value, attention_mask = new_key, new_value, new_mask
+            k_positions = pos
+        elif layer_past is not None:
+            # Fixed buffer with one shared cursor (prefill into a fresh cache).
+            max_len = layer_past.key.shape[2]
+            start = int(layer_past.length)
+            new_key = layer_past.key.clone()
+            new_value = layer_past.value.clone()
+            new_mask = layer_past.mask.clone()
+            new_key[:, :, start : start + S] = key.to(new_key.dtype)
+            new_value[:, :, start : start + S] = value.to(new_value.dtype)
+            new_mask[:, start : start + S] = chunk_mask
+            k_positions = torch.arange(max_len, device=hidden_states.device)
+            q_positions = start + torch.arange(S, device=hidden_states.device)
+            valid_k = k_positions < (start + S)
+            present = KVCache(new_key, new_value, new_mask, start + S)
+            key, value, attention_mask = new_key, new_value, new_mask
+        else:
+            k_positions = torch.arange(S, device=hidden_states.device)
+            q_positions = k_positions
+            valid_k = None
+            if use_cache:
+                present = KVCache(key, value, chunk_mask, S)
+
+        causal = make_causal_mask(q_positions, k_positions, self.window_size)
+        mask = causal[None, None] if causal.ndim == 2 else causal[:, None]
+        if valid_k is not None:
+            mask = mask & (valid_k[None, None, None, :] if valid_k.ndim == 1 else valid_k[:, None, None, :])
+        # fp32 logits, no 1/sqrt(d) scaling (GPT-Neo lineage, as the JAX model).
+        attn = torch.matmul(query.float(), key.float().transpose(-1, -2))
+        attn = torch.where(mask, attn, F32_MIN)
+        if attention_mask is not None:
+            attn = attn + torch.where(attention_mask[:, None, None, :], 0.0, F32_MIN)
+        attn = torch.clamp(attn, min=F32_MIN)
+        attn = torch.softmax(attn, dim=-1).to(value.dtype)
+        out = torch.matmul(attn, value)  # (B, H, S, D)
+        out = out.transpose(1, 2).reshape(B, S, E)
+        return dense(out, self.out_proj), (present if use_cache else None)
+
+
+class InnerAttention(nn.Module):
+    """LayerNorm + attention (flax paths ``attn/layer_norm``, ``attn/attention``)."""
+
+    def __init__(self, config: StructuredTransformerConfig, layer_id: int):
+        super().__init__()
+        attention_type = config.seq_attention_layers[layer_id]
+        if attention_type not in ("global", "local"):
+            raise ValueError(f"Only attn layer types 'global' and 'local' exist, got {attention_type}")
+        window = config.seq_window_size if attention_type == "local" else None
+        self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
+        self.attention = InnerSelfAttention(config, window)
+
+    def forward(self, hidden_states, **kwargs):
+        return self.attention(self.layer_norm(hidden_states), **kwargs)
+
+
+class InnerMLP(nn.Module):
+    """Feed-forward block: ``c_fc`` -> activation -> ``c_proj``."""
+
+    def __init__(self, config: StructuredTransformerConfig):
+        super().__init__()
+        inner = config.intermediate_size if config.intermediate_size is not None else 4 * config.hidden_size
+        self.c_fc = nn.Linear(config.hidden_size, inner)
+        self.c_proj = nn.Linear(inner, config.hidden_size)
+        self.act = activation(config.activation_function)
+
+    def forward(self, x):
+        return dense(self.act(dense(x, self.c_fc)), self.c_proj)
+
+
+class InnerBlock(nn.Module):
+    """Pre-LN attention + MLP residual block."""
+
+    def __init__(self, config: StructuredTransformerConfig, layer_id: int):
+        super().__init__()
+        self.attn = InnerAttention(config, layer_id)
+        self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
+        self.mlp = InnerMLP(config)
+
+    def forward(self, hidden_states, attention_mask=None, layer_past=None, use_cache=False):
+        attn_output, present = self.attn(
+            hidden_states, attention_mask=attention_mask, layer_past=layer_past, use_cache=use_cache
+        )
+        hidden_states = attn_output + hidden_states
+        hidden_states = hidden_states + self.mlp(self.layer_norm(hidden_states))
+        return hidden_states, present
+
+
+class ConditionallyIndependentPointProcessInputLayer(nn.Module):
+    """Data embedding + temporal encoding for CI models."""
+
+    def __init__(self, config: StructuredTransformerConfig):
+        super().__init__()
+        self.hidden_size = config.hidden_size
+        self.compute_dtype = config.compute_dtype
+        self.data_embedding_layer = DataEmbeddingLayer(
+            n_total_embeddings=max(config.vocab_size, 1),
+            out_dim=config.hidden_size,
+            categorical_embedding_dim=config.categorical_embedding_dim,
+            numerical_embedding_dim=config.numerical_embedding_dim,
+            static_embedding_mode=config.static_embedding_mode,
+            do_normalize_by_measurement_index=config.do_normalize_by_measurement_index,
+            static_weight=config.static_embedding_weight,
+            dynamic_weight=config.dynamic_embedding_weight,
+            categorical_weight=config.categorical_embedding_weight,
+            numerical_weight=config.numerical_embedding_weight,
+        )
+
+    def forward(self, batch: EventStreamBatch) -> torch.Tensor:
+        data_embed = self.data_embedding_layer(batch)
+        t = batch.time if batch.time is not None else time_from_deltas(batch)
+        # Sinusoids in fp32; the sum drops to the compute dtype afterwards.
+        embed = (data_embed + temporal_position_encoding(t, self.hidden_size)).to(self.compute_dtype)
+        return torch.where(batch.event_mask[..., None], embed, 0.0)
+
+
+@dataclasses.dataclass
+class TransformerOutputWithPast:
+    last_hidden_state: torch.Tensor
+    past_key_values: Optional[tuple] = None
+
+
+class ConditionallyIndependentPointProcessTransformer(nn.Module):
+    """Stack of `InnerBlock`s over whole-event embeddings (flax names ``h{i}``)."""
+
+    def __init__(self, config: StructuredTransformerConfig):
+        super().__init__()
+        if config.scan_layers:
+            raise ValueError(
+                "scan_layers checkpoints store the stacked h_scan layout; migrate with "
+                "eventstreamgpt_tpu's unstack_layer_params before loading into the port"
+            )
+        self.config = config
+        self.input_layer = ConditionallyIndependentPointProcessInputLayer(config)
+        self.layer_names = [f"h{i}" for i in range(config.num_hidden_layers)]
+        for i, name in enumerate(self.layer_names):
+            setattr(self, name, InnerBlock(config, i))
+        self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
+
+    def blocks(self) -> list[InnerBlock]:
+        return [getattr(self, n) for n in self.layer_names]
+
+    def forward(self, batch: EventStreamBatch, past=None, use_cache=False) -> TransformerOutputWithPast:
+        hidden_states = self.input_layer(batch)
+        presents = [] if use_cache else None
+        for i, block in enumerate(self.blocks()):
+            hidden_states, present = block(
+                hidden_states,
+                attention_mask=batch.event_mask,
+                layer_past=past[i] if past is not None else None,
+                use_cache=use_cache,
+            )
+            # Zero masked events' hidden states between layers (JAX parity).
+            hidden_states = torch.where(batch.event_mask[..., None], hidden_states, 0.0)
+            if use_cache:
+                presents.append(present)
+        return TransformerOutputWithPast(
+            last_hidden_state=self.ln_f(hidden_states),
+            past_key_values=tuple(presents) if use_cache else None,
+        )

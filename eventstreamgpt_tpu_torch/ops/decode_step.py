@@ -1,0 +1,264 @@
+"""The fused CI decode step through the whole layer stack (kernel B).
+
+Replaces the TPU kernel ``eventstreamgpt_tpu/ops/pallas_decode_step.py::
+decode_stack_step`` (``_stack_kernel`` / ``_layer_math``): everything
+between the input embedding and ``ln_f`` for one event per slot row. The
+CUDA source, its design and its bound are in ``csrc/decode_step.cu``: one
+thread block per slot row looping over the layers. The step needs the
+weights once and K and V only at each row's live positions (causal, window
+and padding tests), about 9-10 MB or 3 us at 3.35 TB/s at the serving
+shape; the simple block-per-row design sits far from that.
+
+`decode_stack_step` runs `decode_stack_step_reference` (the plain PyTorch
+version of the same function) on CPU tensors, and on CUDA tensors launches
+the kernel or raises. Both write the new keys/values into the caches IN
+PLACE at each row's cursor (the JAX function returns new arrays) and return
+``(h, key_cache, value_cache, new_mask, new_length)``; given an ``active``
+row mask, inactive rows keep their old mask and length (the engine's merge,
+done in the kernel). Weights come stacked
+by `stack_layer_weights` with a leading layer axis and the flax ``(in, out)``
+kernel layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..models.transformer import activation as act_fn
+from .build import load_library
+from .tensor_ops import flax_layer_norm
+
+__all__ = ["WEIGHT_NAMES", "decode_stack_step", "decode_stack_step_reference", "stack_layer_weights"]
+
+F32_MIN = torch.finfo(torch.float32).min
+SOURCE = "decode_step.cu"
+THREADS = 256
+ACTIVATIONS = {"gelu": 0, "gelu_new": 0, "relu": 1}
+# Kernel argument order; LayerNorm parameters (ln*) stay fp32.
+WEIGHT_NAMES = ("ln1_s", "ln1_b", "wq", "wk", "wv", "wo", "bo", "ln2_s", "ln2_b", "wfc", "bfc", "wpr", "bpr")
+
+
+def stack_layer_weights(blocks, dtype: torch.dtype) -> dict:
+    """Stacks the port's ``InnerBlock`` parameters into leading-``L`` tensors.
+
+    Dense weights are transposed to the flax ``(in, out)`` layout and cast to
+    ``dtype`` (the compute dtype); LayerNorm parameters stay fp32. Done once
+    per engine, not per step.
+    """
+
+    def stack(get, dt, transpose=False):
+        ts = [get(b).detach() for b in blocks]
+        return torch.stack([t.T if transpose else t for t in ts]).to(dt).contiguous()
+
+    f32 = torch.float32
+    return {
+        "ln1_s": stack(lambda b: b.attn.layer_norm.weight, f32),
+        "ln1_b": stack(lambda b: b.attn.layer_norm.bias, f32),
+        "wq": stack(lambda b: b.attn.attention.q_proj.weight, dtype, True),
+        "wk": stack(lambda b: b.attn.attention.k_proj.weight, dtype, True),
+        "wv": stack(lambda b: b.attn.attention.v_proj.weight, dtype, True),
+        "wo": stack(lambda b: b.attn.attention.out_proj.weight, dtype, True),
+        "bo": stack(lambda b: b.attn.attention.out_proj.bias, dtype),
+        "ln2_s": stack(lambda b: b.layer_norm.weight, f32),
+        "ln2_b": stack(lambda b: b.layer_norm.bias, f32),
+        "wfc": stack(lambda b: b.mlp.c_fc.weight, dtype, True),
+        "bfc": stack(lambda b: b.mlp.c_fc.bias, dtype),
+        "wpr": stack(lambda b: b.mlp.c_proj.weight, dtype, True),
+        "bpr": stack(lambda b: b.mlp.c_proj.bias, dtype),
+    }
+
+
+def _mask_update(start, event_mask, mask):
+    """The layer-shared cache-tracking update: this event's bit at the cursor."""
+    pos = torch.arange(mask.shape[1], device=mask.device)
+    new_mask = torch.where(pos[None, :] == start[:, None], event_mask[:, None], mask)
+    return new_mask, start + 1
+
+
+def _gate(active, new_mask, new_length, mask, start):
+    """Inactive rows keep their old mask and length."""
+    if active is None:
+        return new_mask, new_length
+    return torch.where(active[:, None], new_mask, mask), torch.where(active, new_length, start)
+
+
+def _layer_reference(h, kc, vc, start, event_mask, new_mask, w, window, act, eps):
+    """One InnerBlock at S=1 against the per-row-cursor cache (``_layer_math``)."""
+    B, E = h.shape
+    H, M, D = kc.shape[1], kc.shape[2], kc.shape[3]
+    cdt = h.dtype
+
+    def dense(x, k, b=None):
+        y = x @ k
+        return y if b is None else y + b
+
+    n1 = flax_layer_norm(h, w["ln1_s"], w["ln1_b"], eps, cdt)
+    q = dense(n1, w["wq"]).reshape(B, H, D)
+    k = dense(n1, w["wk"]).reshape(B, H, D)
+    v = dense(n1, w["wv"]).reshape(B, H, D)
+    rows = torch.nonzero((start >= 0) & (start < M)).flatten()
+    kc[rows, :, start[rows].long(), :] = k[rows].to(kc.dtype)  # in place
+    vc[rows, :, start[rows].long(), :] = v[rows].to(vc.dtype)
+
+    pos = torch.arange(M, device=h.device)
+    causal = pos[None, :] <= start[:, None]
+    if window > 0:
+        causal = causal & (pos[None, :] > start[:, None] - window)
+    logits = torch.einsum("bhd,bhmd->bhm", q.float(), kc.float())
+    logits = torch.where(causal[:, None, :], logits, F32_MIN)
+    logits = logits + torch.where(new_mask[:, None, :], 0.0, F32_MIN)
+    probs = torch.softmax(torch.clamp(logits, min=F32_MIN), dim=-1).to(vc.dtype)
+    out = torch.einsum("bhm,bhmd->bhd", probs, vc).reshape(B, E)
+    x = dense(out, w["wo"], w["bo"]) + h
+    m = act(dense(flax_layer_norm(x, w["ln2_s"], w["ln2_b"], eps, cdt), w["wfc"], w["bfc"]))
+    x = x + dense(m, w["wpr"], w["bpr"])
+    return torch.where(event_mask[:, None], x, 0.0)
+
+
+def decode_stack_step_reference(
+    weights, key_cache, value_cache, h0, start, event_mask, mask, *, windows, activation, layer_norm_eps, active=None
+):
+    """The plain PyTorch version of the kernel; see `decode_stack_step`."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"decode_stack_step supports {sorted(ACTIVATIONS)}, got {activation!r}")
+    new_mask, new_length = _mask_update(start, event_mask, mask)
+    act = act_fn(activation)
+    h = h0
+    for l in range(key_cache.shape[0]):
+        w = {name: weights[name][l] for name in WEIGHT_NAMES}
+        h = _layer_reference(
+            h, key_cache[l], value_cache[l], start, event_mask, new_mask, w, int(windows[l]), act, layer_norm_eps
+        )
+    return (h, key_cache, value_cache, *_gate(active, new_mask, new_length, mask, start))
+
+
+def _check(weights, key_cache, value_cache, h0, start, event_mask, mask, windows, active):
+    L, B, H, M, D = key_cache.shape
+    E = H * D
+    cdt = h0.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"decode_stack_step takes fp32 or bf16 activations, got {cdt}")
+    I = weights["wfc"].shape[-1]
+    shapes = {
+        "ln1_s": (L, E), "ln1_b": (L, E), "wq": (L, E, E), "wk": (L, E, E), "wv": (L, E, E),
+        "wo": (L, E, E), "bo": (L, E), "ln2_s": (L, E), "ln2_b": (L, E), "wfc": (L, E, I),
+        "bfc": (L, I), "wpr": (L, I, E), "bpr": (L, E),
+    }  # fmt: skip
+    tensors = dict(weights, key_cache=key_cache, value_cache=value_cache, h0=h0, start=start,
+                   event_mask=event_mask, mask=mask)  # fmt: skip
+    if active is not None:
+        tensors["active"] = active
+    for name, t in tensors.items():
+        if t.device != h0.device:
+            raise ValueError(f"{name} is on {t.device}, h0 on {h0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, shape in shapes.items():
+        if tuple(weights[name].shape) != shape:
+            raise ValueError(f"weights[{name!r}] has shape {tuple(weights[name].shape)}, expected {shape}")
+        want = torch.float32 if name.startswith("ln") else cdt
+        if weights[name].dtype != want:
+            raise ValueError(f"weights[{name!r}] is {weights[name].dtype}, expected {want}")
+    if value_cache.shape != key_cache.shape or key_cache.dtype != cdt or value_cache.dtype != cdt:
+        raise ValueError("key/value caches must be (L, B, H, M, D) in h0's dtype")
+    if h0.shape != (B, E) or start.shape != (B,) or event_mask.shape != (B,) or mask.shape != (B, M):
+        raise ValueError("h0 (B, E), start (B,), event_mask (B,), mask (B, M) expected")
+    if start.dtype != torch.int32 or event_mask.dtype != torch.bool or mask.dtype != torch.bool:
+        raise ValueError("start must be int32; event_mask and mask bool")
+    if active is not None and (active.shape != (B,) or active.dtype != torch.bool):
+        raise ValueError("active must be a (B,) bool mask")
+    if len(windows) != L:
+        raise ValueError(f"windows must have one entry per layer ({L}), got {len(windows)}")
+    return L, B, H, M, D, I
+
+
+_WINDOWS: dict = {}
+
+
+def _windows_tensor(windows: tuple, device) -> torch.Tensor:
+    """The per-layer windows as a device tensor, made once per device: a
+    fresh host-to-device copy per step would block the host on the stream."""
+    key = (windows, str(device))
+    if key not in _WINDOWS:
+        _WINDOWS[key] = torch.tensor(windows, dtype=torch.int32, device=device)
+    return _WINDOWS[key]
+
+
+@functools.cache
+def _kernel():
+    """The C entry point, built and loaded once, with its signature set once."""
+    fn = load_library(SOURCE).esgpt_decode_stack_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    fn.argtypes += [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    return fn
+
+
+def decode_stack_step(
+    weights: dict,
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    h0: torch.Tensor,
+    start: torch.Tensor,
+    event_mask: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    windows: tuple,
+    activation: str,
+    layer_norm_eps: float,
+    active: torch.Tensor | None = None,
+):
+    """One CI decode step through the whole layer stack.
+
+    Args:
+        weights: `stack_layer_weights` dict (leading axis ``L``).
+        key_cache / value_cache: ``(L, B, H, M, D)``; updated in place.
+        h0: ``(B, E)`` input-layer embedding of the current event.
+        start: ``(B,)`` int32 per-row cache cursors.
+        event_mask: ``(B,)`` bool mask bit of the decoded event.
+        mask: ``(B, M)`` bool padding mask BEFORE this event.
+        windows: per-layer window sizes, 0 = global.
+        activation: ``config.activation_function`` (gelu or relu).
+        layer_norm_eps: ``config.layer_norm_epsilon``.
+        active: optional ``(B,)`` bool; rows that are False keep ``mask``
+            and ``start`` as their new mask and length.
+
+    Returns:
+        ``(h, key_cache, value_cache, new_mask, new_length)``: ``h`` is the
+        hidden state before ``ln_f``; ``new_length = start + 1``.
+    """
+    if h0.device.type == "cpu":
+        return decode_stack_step_reference(
+            weights, key_cache, value_cache, h0, start, event_mask, mask,
+            windows=windows, activation=activation, layer_norm_eps=layer_norm_eps, active=active,
+        )  # fmt: skip
+    if h0.device.type != "cuda":
+        raise ValueError(f"decode_stack_step runs on CUDA or CPU tensors, got {h0.device}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"decode_stack_step supports {sorted(ACTIVATIONS)}, got {activation!r}")
+    L, B, H, M, D, I = _check(weights, key_cache, value_cache, h0, start, event_mask, mask, windows, active)
+    win = _windows_tensor(tuple(int(w) for w in windows), h0.device)
+    h, new_mask, new_length = torch.empty_like(h0), torch.empty_like(mask), torch.empty_like(start)
+    ptrs = [t.data_ptr() for t in (h0, start, event_mask, mask)]
+    ptrs += [None if active is None else active.data_ptr(), win.data_ptr()]
+    ptrs += [weights[name].data_ptr() for name in WEIGHT_NAMES]
+    ptrs += [t.data_ptr() for t in (key_cache, value_cache, h, new_mask, new_length)]
+    err = _kernel()(
+        1 if h0.dtype == torch.bfloat16 else 0,
+        *ptrs,
+        L, B, H, M, D, I,
+        float(layer_norm_eps),
+        ACTIVATIONS[activation],
+        THREADS,
+        torch.cuda.current_stream(h0.device).cuda_stream,
+    )  # fmt: skip
+    if err != 0:
+        raise RuntimeError(f"decode_stack_step kernel launch failed: CUDA error {err}")
+    decode_stack_step.launches += 1
+    return h, key_cache, value_cache, new_mask, new_length
+
+
+decode_stack_step.launches = 0

@@ -1,0 +1,533 @@
+"""Continuous-batching generation engine for CI models: slot-based decode.
+
+Counterpart: the core of ``eventstreamgpt_tpu/serving/engine.py``
+(`GenerationEngine`), single device. A fixed set of decode **slots** holds
+requests at different depths: per-slot cursors, budgets, done/live/health
+flags and random-stream counters live on the device; a decode chunk runs
+``decode_chunk`` one-event steps over all slots and finished or empty slots
+are masked out of every write, so no step syncs with the host. The host
+reads one packed ``(5, n_slots)`` boundary per chunk, harvests finished
+rows and refills free slots with bucketed prefill groups.
+
+Per decode step on the card: the input layer (PyTorch), the whole layer
+stack through kernel B (`ops.decode_step.decode_stack_step`, CUDA), ``ln_f``
+and the output heads (PyTorch), the categorical heads through kernel A
+(`ops.fused_sampling.fused_categorical`, Triton) with the Gumbel noise drawn
+outside it, and the in-place buffer updates. On CPU tensors both kernels
+take their plain PyTorch versions. Prefill runs the model forward on a
+fresh cache at the bucket width and scatters the rows into their slots.
+
+Randomness: request ``i`` draws from the counter-based stream
+`derive_request_seed(engine seed, i)` (or its own ``key``), advanced once
+per step the row is active, so a trajectory depends only on the request's
+seed, never on its slot, co-residents or refill order.
+
+Stop rules per row: the budget, dead rows (a masked newest event), extra
+`generation.stopping_criteria.DeviceCriterion`s, and the health sentinel
+(non-finite predictions or samples quarantine the slot; its request fails
+with `serving.errors.SlotHealthError`).
+
+Not ported yet, each a ``ValueError`` at construction: speculative
+decoding, the paged cache and ``fork()``, int8/fp8 caches, meshes and
+tensor parallelism, hot swap, the dedicated prefill stream,
+``dispatch_depth > 1``, health retries, nested-attention models, and
+functional-time-dependent measurements.
+"""
+
+from __future__ import annotations
+
+import copy
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.types import EventStreamBatch
+from ..distributions import dist_tensors, gumbel
+from ..generation.generation_utils import _mask_through_cursor, _slice_preds_at, _trim_to_event
+from ..generation.sampling import (
+    RowStreams,
+    append_new_event,
+    assemble_event_sample,
+    check_generation_config,
+    derive_request_seed,
+    measurements_to_fill,
+    sample_head_draws,
+    update_last_event_data,
+)
+from ..generation.stopping_criteria import DeadRowCriteria, DeviceCriterion
+from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
+from ..models.transformer import init_kv_caches
+from ..ops.decode_step import decode_stack_step, stack_layer_weights
+from ..ops.fused_sampling import fused_categorical, topk_topp_mask
+from ..ops.tensor_ops import take_event
+from .errors import MalformedPromptRejected, SlotHealthError
+from .scheduler import EngineResult, Request, Scheduler, check_prompt_finite, make_buckets
+
+# EventStreamBatch fields a slot row carries.
+_CORE_FIELDS = (
+    "event_mask",
+    "time_delta",
+    "static_indices",
+    "static_measurement_indices",
+    "dynamic_indices",
+    "dynamic_measurement_indices",
+    "dynamic_values",
+    "dynamic_values_mask",
+    "start_time",
+)
+_SEQ_FIELDS = (
+    "event_mask",
+    "time_delta",
+    "dynamic_indices",
+    "dynamic_measurement_indices",
+    "dynamic_values",
+    "dynamic_values_mask",
+)
+# The JAX engine's options this slice does not port: name -> its off value.
+_NOT_PORTED = {
+    "mesh": None,
+    "hot_swap": False,
+    "spec": None,
+    "paged_kv": False,
+    "kv_cache_dtype": None,
+    "health_retries": 0,
+    "prefill_stream": None,
+}
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the CUDA device; there is no silent CPU fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "GenerationEngine runs on a CUDA device by default and none is available; "
+                "pass device='cpu' to run the plain PyTorch versions of the kernels on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class GenerationEngine:
+    """Continuous-batching engine over one CI model.
+
+    Args:
+        model: a `models.ci_model.CIPPTForGenerativeSequenceModeling` with
+            its weights loaded (fp32 parameters; the engine casts a copy of
+            the Dense weights to the compute dtype once).
+        config: the model configuration.
+        template: any `EventStreamBatch` from the same data pipeline: fixes
+            the data-element and static widths.
+        n_slots, max_len, decode_chunk, max_prompt_len, min_bucket, max_queue,
+        stop_dead_rows, device_criteria, greedy, top_k, top_p,
+        health_sentinel, validate_prompts: as in the JAX engine.
+        seed: the engine seed request streams derive from.
+        dispatch_depth: must be 1 (boundaries resolve synchronously).
+        device: ``None`` (the CUDA device, raising without one) or an
+            explicit device such as ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        model,
+        config: StructuredTransformerConfig,
+        *,
+        template: EventStreamBatch,
+        n_slots: int,
+        max_len: int,
+        decode_chunk: int = 8,
+        dispatch_depth: int = 1,
+        max_queue: Optional[int] = None,
+        max_prompt_len: int | None = None,
+        min_bucket: int = 8,
+        seed: int = 0,
+        device_criteria: Sequence[DeviceCriterion] = (),
+        stop_dead_rows: bool = True,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        greedy: bool = False,
+        health_sentinel: bool = True,
+        validate_prompts: bool = True,
+        device=None,
+        **not_ported,
+    ):
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"GenerationEngine got an unexpected keyword argument {name!r}")
+            if value != _NOT_PORTED[name]:
+                raise ValueError(f"{name}={value!r} is not part of the PyTorch port's serving slice yet")
+        if int(dispatch_depth) != 1:
+            raise ValueError("dispatch_depth > 1 (pipelined boundaries) is not part of the PyTorch port yet")
+        if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
+            raise ValueError("nested-attention models are not part of the PyTorch port yet")
+        check_generation_config(config)
+        self.device = resolve_device(device)
+        self.config = config
+        self.cdt = config.compute_dtype
+        self.greedy = bool(greedy)
+        self.top_k = None if top_k is None else int(top_k)
+        self.top_p = None if top_p is None else float(top_p)
+        self.health_sentinel = bool(health_sentinel)
+        self.validate_prompts = bool(validate_prompts)
+        self.n_slots = int(n_slots)
+        self.max_len = int(max_len)
+        self.decode_chunk = int(decode_chunk)
+        self.max_prompt_len = int(max_prompt_len or (max_len - 1))
+        if self.max_prompt_len >= self.max_len:
+            raise ValueError("max_prompt_len must leave room to generate (< max_len)")
+        self.device_criteria = tuple(device_criteria)
+        self.stop_dead_rows = bool(stop_dead_rows)
+        self.seed = int(seed)
+        self.scheduler = Scheduler(self.n_slots, make_buckets(min_bucket, self.max_prompt_len), max_pending=max_queue)
+        self._to_fill = measurements_to_fill(config)
+
+        # Weights in the compute dtype, once: the model keeps fp32 for callers.
+        self._model = copy.deepcopy(model).to(self.device).eval().cast_to_compute_dtype()
+        self._stacked = stack_layer_weights(self._model.encoder.blocks(), self.cdt)
+        self._windows = tuple(
+            config.seq_window_size if t == "local" else 0 for t in config.seq_attention_layers
+        )
+
+        self._template = self._normalize_prompt(template)
+        self._init_state()
+        self._table: list[Optional[Request]] = [None] * self.n_slots
+        self._dispatched_chunks = 0
+        self._health_quarantined = 0
+        self._health_failed = 0
+
+    # ------------------------------------------------------------ state init
+    def _normalize_prompt(self, batch: EventStreamBatch) -> EventStreamBatch:
+        out = EventStreamBatch(**{f: getattr(batch, f) for f in _CORE_FIELDS})
+        for f in ("event_mask", "time_delta", "dynamic_indices"):
+            if getattr(out, f) is None:
+                raise ValueError(f"Engine prompts need `{f}`")
+        if out.start_time is None:
+            out = out.replace(start_time=torch.zeros(out.batch_size, dtype=torch.float32))
+        return out
+
+    def _init_state(self) -> None:
+        S, L, t, dev = self.n_slots, self.max_len, self._template, self.device
+
+        def rows(x, seq_axis):
+            if x is None:
+                return None
+            shape = (S, L) + tuple(x.shape[2:]) if seq_axis else (S,) + tuple(x.shape[1:])
+            return torch.zeros(shape, dtype=x.dtype, device=dev)
+
+        self.big = EventStreamBatch(
+            event_mask=torch.zeros(S, L, dtype=torch.bool, device=dev),
+            time_delta=rows(t.time_delta, True),
+            static_indices=rows(t.static_indices, False),
+            static_measurement_indices=rows(t.static_measurement_indices, False),
+            dynamic_indices=rows(t.dynamic_indices, True),
+            dynamic_measurement_indices=rows(t.dynamic_measurement_indices, True),
+            dynamic_values=rows(t.dynamic_values, True),
+            dynamic_values_mask=rows(t.dynamic_values_mask, True),
+            start_time=rows(t.start_time, False),
+        )
+        cfg = self.config
+        shape = (cfg.num_hidden_layers, S, cfg.num_attention_heads, L, cfg.head_dim)
+        self.key_cache = torch.zeros(shape, dtype=self.cdt, device=dev)
+        self.value_cache = torch.zeros(shape, dtype=self.cdt, device=dev)
+        self.cache_mask = torch.zeros(S, L, dtype=torch.bool, device=dev)
+        self.cache_len = torch.zeros(S, dtype=torch.int32, device=dev)
+
+        def i32(v):
+            return torch.full((S,), v, dtype=torch.int32, device=dev)
+
+        self.cursor, self.base_len, self.budget, self.n_generated = i32(1), i32(1), i32(0), i32(0)
+        self.done = torch.ones(S, dtype=torch.bool, device=dev)
+        self.live = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.health = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.seeds = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.counters = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.active_steps = torch.zeros((), dtype=torch.int64, device=dev)
+
+    # --------------------------------------------------------- device pieces
+    def _categorical_sampler(self, active):
+        def sampler(logits, stream):
+            g = gumbel(stream, logits.shape, logits.device).to(logits.dtype)
+            keep = topk_topp_mask(logits, self.top_k, self.top_p)
+            return fused_categorical(logits, g, keep, active, fill=0)
+
+        return sampler
+
+    def _sample_rows(self, preds_last, em_last, seeds, counters, active=None):
+        """Per-row draws (named heads, per-row streams) assembled into events."""
+        if self.greedy:
+            draws = sample_head_draws(preds_last, None, greedy=True)
+        else:
+            draws = sample_head_draws(
+                preds_last, RowStreams(seeds, counters), categorical_sampler=self._categorical_sampler(active)
+            )
+        return assemble_event_sample(preds_last, draws, em_last)
+
+    def _row_done(self, big, cursor, base_len, n_generated, budget):
+        done = (cursor - base_len) >= budget
+        kw = dict(big=big, cursor=cursor, base_len=base_len, n_generated=n_generated, budget=budget)
+        if self.stop_dead_rows:
+            done = done | DeadRowCriteria().row_done(**kw)
+        for crit in self.device_criteria:
+            done = done | crit.row_done(**kw)
+        return done
+
+    def _rows_nonfinite(self, preds_last, sample) -> torch.Tensor:
+        """Per-slot any-non-finite over the float tensors of the step (the
+        health sentinel's detector; row-local, no cross-slot op)."""
+        leaves = []
+        for group in (preds_last.classification, preds_last.regression):
+            for pair in (group or {}).values():
+                leaves += [t for d in pair if d is not None for t in dist_tensors(d)]
+        if preds_last.time_to_event is not None:
+            leaves += dist_tensors(preds_last.time_to_event)
+        leaves += [sample.time_to_event] + list((sample.classification or {}).values())
+        leaves += list((sample.regression or {}).values())
+        bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
+        for x in leaves:
+            if x is not None and x.is_floating_point() and x.ndim >= 1 and x.shape[0] == self.n_slots:
+                bad = bad | ~torch.isfinite(x.reshape(self.n_slots, -1)).all(dim=1)
+        return bad
+
+    def _decode_step(self) -> None:
+        """One event for every active slot; inactive slots are left as they are."""
+        cfg, m = self.config, self._model
+        active = self.live & ~self.done
+        view = _trim_to_event(self.big, self.cursor - 1)
+        h0 = m.encoder.input_layer(view)[:, 0]
+        h, _, _, self.cache_mask, self.cache_len = decode_stack_step(
+            self._stacked, self.key_cache, self.value_cache, h0, self.cache_len,
+            view.event_mask[:, 0], self.cache_mask, windows=self._windows,
+            activation=cfg.activation_function, layer_norm_eps=float(cfg.layer_norm_epsilon), active=active,
+        )  # fmt: skip
+        encoded = m.encoder.ln_f(h[:, None, :])
+        out = m.output_layer(view, encoded, is_generation=True)
+        preds_last = _slice_preds_at(out.preds, 0)
+        em_last = take_event(self.big.event_mask, self.cursor - 1)
+        sample = self._sample_rows(preds_last, em_last, self.seeds, self.counters, active=active)
+        append_new_event(self.big, sample, self.cursor, active)
+        update_last_event_data(self.big, sample, cfg, self.cursor + 1, self._to_fill, active)
+
+        self.cursor = torch.where(active, self.cursor + 1, self.cursor)
+        self.n_generated = self.n_generated + (active & sample.event_mask).to(torch.int32)
+        self.counters = torch.where(active, self.counters + 1, self.counters)
+        done = self.done | (active & self._row_done(self.big, self.cursor, self.base_len, self.n_generated, self.budget))
+        if self.health_sentinel:
+            hit = active & self._rows_nonfinite(preds_last, sample)
+            done, self.health = done | hit, self.health | hit
+        self.done = done
+        self.active_steps = self.active_steps + active.sum()
+
+    # ----------------------------------------------------------- prefill
+    def _pad_prompt_row(self, prompt: EventStreamBatch) -> EventStreamBatch:
+        """One request row, normalized and padded (on the host) to ``max_len``."""
+        p = self._normalize_prompt(prompt).map(lambda x: x.detach().cpu())
+        if p.batch_size != 1:
+            raise ValueError("Requests hold one-row prompts; split cohorts first")
+        if p.n_data_elements != self._template.n_data_elements:
+            raise ValueError(
+                f"Prompt data-element width {p.n_data_elements} != engine width {self._template.n_data_elements}"
+            )
+        pad = self.max_len - p.sequence_length
+        if pad < 0:
+            raise ValueError(f"Prompt of {p.sequence_length} events exceeds max_len={self.max_len}")
+        t = self._template
+        updates = {}
+        for f in _SEQ_FIELDS:
+            x = getattr(p, f)
+            if x is not None:
+                widths = [0, 0] * (x.ndim - 2) + [0, pad, 0, 0]
+                updates[f] = torch.nn.functional.pad(x, widths).to(getattr(t, f).dtype)
+        return p.replace(**updates)
+
+    def _request_seed(self, req: Request) -> int:
+        return int(req.key) if req.key is not None else derive_request_seed(self.seed, req.admission_index)
+
+    def _dispatch_group(self, group) -> None:
+        """Bucketed prefill forward + first-event sample + admission into the slots.
+
+        Eager PyTorch compiles nothing per shape, so the group runs at its
+        true row count (the JAX engine pads it to a compiled group width)."""
+        reqs, Lb, dev = group.requests, group.bucket_len, self.device
+        rows = [self._pad_prompt_row(r.prompt) for r in reqs]
+        pbig = EventStreamBatch(
+            **{
+                f: None if getattr(rows[0], f) is None else torch.cat([getattr(r, f) for r in rows]).to(dev)
+                for f in _CORE_FIELDS
+            }
+        )
+        n = len(reqs)
+        plen = torch.tensor([r.prompt_len for r in reqs], dtype=torch.int32, device=dev)
+        budgets = torch.tensor([r.max_new_events for r in reqs], dtype=torch.int32, device=dev)
+        seeds = torch.tensor([self._request_seed(r) for r in reqs], dtype=torch.int64, device=dev)
+        slots = torch.tensor(group.slots, dtype=torch.int64, device=dev)
+
+        view = pbig.slice((slice(None), slice(0, Lb)))
+        out = self._model(view, past=init_kv_caches(self.config, n, self.max_len, dev), use_cache=True)
+        preds_last = _slice_preds_at(out.preds, plen.long() - 1)
+        em_last = take_event(pbig.event_mask, plen.long() - 1)
+        sample = self._sample_rows(preds_last, em_last, seeds, torch.zeros_like(seeds))
+        append_new_event(pbig, sample, plen.long())
+        update_last_event_data(pbig, sample, self.config, plen.long() + 1, self._to_fill)
+
+        # Admission: whole rows into the slots (cache rows past the bucket are zeros).
+        for f in _CORE_FIELDS:
+            dst = getattr(self.big, f)
+            if dst is not None:
+                dst[slots] = getattr(pbig, f).to(dst.dtype)
+        self.key_cache[:, slots] = torch.stack([c.key for c in out.past_key_values])
+        self.value_cache[:, slots] = torch.stack([c.value for c in out.past_key_values])
+        self.cache_mask[slots] = out.past_key_values[0].mask
+        self.cache_len[slots] = plen
+        cursor1 = plen + 1
+        n_gen1 = sample.event_mask.to(torch.int32)
+        self.cursor[slots] = cursor1
+        self.base_len[slots] = plen
+        self.budget[slots] = budgets
+        self.n_generated[slots] = n_gen1
+        self.done[slots] = self._row_done(pbig, cursor1, plen, n_gen1, budgets)
+        self.live[slots] = True
+        self.seeds[slots] = seeds
+        self.counters[slots] = 1
+        self.health[slots] = False
+        for r, s in zip(reqs, group.slots):
+            self._table[s] = r
+
+    # ---------------------------------------------------------- host pieces
+    def _harvest(self, boundary: np.ndarray, chunk_index: int, now: float) -> list[EngineResult]:
+        """Harvests slots whose request finished (rows: done, cursor, base_len,
+        n_generated, health); a quarantined slot's request fails typed."""
+        done_np, health_np = boundary[0].astype(bool), boundary[4].astype(bool)
+        finished = [s for s in range(self.n_slots) if self._table[s] is not None and done_np[s]]
+        if not finished:
+            return []
+        ok_slots = [s for s in finished if not (health_np[s] and self.health_sentinel)]
+        fetched = {}
+        if ok_slots:
+            idx = torch.tensor(ok_slots, dtype=torch.int64, device=self.device)
+            rows = self.big.map(lambda x: x[idx])
+            rows = _mask_through_cursor(rows, self.cursor[idx]).map(lambda x: x.cpu())
+            fetched = {s: i for i, s in enumerate(ok_slots)}
+        results = []
+        for s in finished:
+            req = self._table[s]
+            self._table[s] = None
+            n_events, prompt_len, n_gen = (int(boundary[1][s]), int(boundary[2][s]), int(boundary[3][s]))
+            row, error = None, None
+            if s in fetched:
+                i = fetched[s]
+                row = rows.slice((slice(i, i + 1), slice(0, n_events)))
+            else:
+                self._health_quarantined += 1
+                self._health_failed += 1
+                error = SlotHealthError(
+                    f"non-finite logits/values detected in decode slot {s} (request {req.request_id!r}, "
+                    f"admission index {req.admission_index}); the slot was quarantined at chunk "
+                    f"{chunk_index} and its co-residents are untouched",
+                    request_id=req.request_id, admission_index=req.admission_index, slot=s,
+                    chunk_index=chunk_index,
+                )  # fmt: skip
+            results.append(
+                EngineResult(
+                    request_id=req.request_id,
+                    admission_index=req.admission_index,
+                    batch=row,
+                    prompt_len=prompt_len,
+                    n_events=n_events,
+                    n_generated=n_gen,
+                    completion_time=now,
+                    error=error,
+                )
+            )
+        return results
+
+    def submit(self, request: Request) -> Request:
+        if request.max_new_events < 1:
+            raise ValueError("max_new_events must be >= 1")
+        if request.prompt_len + request.max_new_events > self.max_len:
+            raise ValueError(
+                f"prompt ({request.prompt_len}) + budget ({request.max_new_events}) exceeds max_len ({self.max_len})"
+            )
+        if self.validate_prompts and not request.prompt_validated:
+            reason = check_prompt_finite(request.prompt)
+            if reason is not None:
+                self.scheduler.note_malformed_reject()
+                raise MalformedPromptRejected(f"request {request.request_id!r}: {reason} — rejected at the door")
+        return self.scheduler.submit(request)
+
+    def fork(self, *args, **kwargs):
+        raise ValueError("fork() needs the paged KV cache, which is not part of the PyTorch port yet")
+
+    @property
+    def occupied(self) -> int:
+        return sum(t is not None for t in self._table)
+
+    def free_slots(self) -> list[int]:
+        return [s for s in range(self.n_slots) if self._table[s] is None]
+
+    @torch.inference_mode()
+    def plan_and_dispatch(self, now: float | None = None, max_padded_events: int | None = None) -> int:
+        free = self.free_slots()
+        if not free or not self.scheduler.pending:
+            return 0
+        groups = self.scheduler.plan_admissions(free, now=now, max_padded_events=max_padded_events)
+        for g in groups:
+            self._dispatch_group(g)
+        return sum(len(g.requests) for g in groups)
+
+    @torch.inference_mode()
+    def run_chunk(self, t0: float) -> list[EngineResult]:
+        """Runs one decode chunk, reads its packed boundary back (the one host
+        sync per chunk) and harvests; ``t0`` is the run's start on the
+        `time.perf_counter` clock."""
+        for _ in range(self.decode_chunk):
+            self._decode_step()
+        self._dispatched_chunks += 1
+        boundary = torch.stack(
+            [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)]
+        )
+        boundary = boundary.cpu().numpy()
+        return self._harvest(boundary, self._dispatched_chunks, time.perf_counter() - t0)
+
+    def run(
+        self, requests: Sequence[Request] = (), *, use_arrival_times: bool = False,
+        max_padded_events: int | None = None,
+    ) -> list[EngineResult]:  # fmt: skip
+        """Drains the queue (plus ``requests``) to completion; results in admission order."""
+        for r in requests:
+            self.submit(r)
+        results: list[EngineResult] = []
+        t0 = time.perf_counter()
+        while self.scheduler.pending or self.occupied:
+            now = time.perf_counter() - t0
+            self.plan_and_dispatch(now=now if use_arrival_times else None, max_padded_events=max_padded_events)
+            if self.occupied:
+                results.extend(self.run_chunk(t0))
+            elif self.scheduler.pending:
+                time.sleep(1e-3)  # waiting on arrivals
+        return sorted(results, key=lambda r: r.admission_index)
+
+    def stats(self) -> dict:
+        total = self._dispatched_chunks * self.decode_chunk * self.n_slots
+        active = int(self.active_steps.item())
+        report = dict(self.scheduler.padding_report())
+        report.update(
+            {
+                "n_slots": self.n_slots,
+                "decode_chunk": self.decode_chunk,
+                "dispatch_depth": 1,
+                "dispatched_chunks": self._dispatched_chunks,
+                "slot_steps": total,
+                "active_slot_steps": active,
+                "wasted_decode_frac": round(1.0 - active / max(total, 1), 4),
+                "sampling_impl": "greedy" if self.greedy else "fused_categorical",
+                "decode_step_impl": "decode_stack_step",
+                "device": str(self.device),
+                "greedy": self.greedy,
+                "health_sentinel": self.health_sentinel,
+                "health_quarantined_total": self._health_quarantined,
+                "health_failed_total": self._health_failed,
+                "kv_cache_bytes": 2 * self.key_cache.numel() * self.key_cache.element_size(),
+            }
+        )
+        return report

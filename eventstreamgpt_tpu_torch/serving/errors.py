@@ -1,0 +1,35 @@
+"""Typed serving errors (counterpart: ``eventstreamgpt_tpu/serving/errors.py``).
+
+An accepted request either completes or fails with a typed error on its
+result; a malformed prompt is rejected at the door before it is admitted.
+"""
+
+from __future__ import annotations
+
+from .scheduler import AdmissionRejected
+
+__all__ = ["MalformedPromptRejected", "ServingError", "SlotHealthError"]
+
+
+class ServingError(RuntimeError):
+    """Base class for post-acceptance serving faults."""
+
+
+class SlotHealthError(ServingError):
+    """Non-finite logits/values were detected in a decode slot on the device.
+
+    The slot was quarantined the step it went bad; co-resident slots are
+    untouched (no decode op mixes rows).
+    """
+
+    def __init__(self, message: str, *, request_id=None, admission_index=None, slot=None, chunk_index=None):
+        super().__init__(message)
+        self.request_id = request_id
+        self.admission_index = admission_index
+        self.slot = slot
+        self.chunk_index = chunk_index
+
+
+class MalformedPromptRejected(AdmissionRejected):
+    """The prompt carried non-finite observed values or times and was
+    rejected at submission, before any admission index was bound."""

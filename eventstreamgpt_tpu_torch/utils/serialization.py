@@ -1,0 +1,66 @@
+"""JSON round-tripping for config objects.
+
+Counterpart: ``eventstreamgpt_tpu/utils/serialization.py`` (``JSONableMixin``)
+and ``utils/config_tool.py`` (``config_dataclass``). The port has no config
+store, so `config_dataclass` only makes the class a dataclass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import json
+from pathlib import Path
+from typing import Any, TypeVar
+
+T = TypeVar("T", bound="JSONableMixin")
+
+
+def _jsonify(obj: Any) -> Any:
+    """Recursively converts an object into JSON-compatible primitives."""
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, JSONableMixin):
+        return obj.to_dict()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _jsonify(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, dict):
+        return {k: _jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonify(v) for v in obj]
+    if isinstance(obj, Path):
+        return str(obj)
+    return obj
+
+
+def config_dataclass(cls: type[T]) -> type[T]:
+    """Makes ``cls`` a dataclass (if it is not one already)."""
+    return cls if dataclasses.is_dataclass(cls) else dataclasses.dataclass(cls)
+
+
+class JSONableMixin:
+    """Mixin granting ``to_dict``/``from_dict``/``to_json_file``/``from_json_file``.
+
+    Dataclass subclasses get ``to_dict`` for free; other classes override it.
+    """
+
+    @classmethod
+    def from_dict(cls: type[T], as_dict: dict) -> T:
+        return cls(**as_dict)
+
+    def to_dict(self) -> dict[str, Any]:
+        if dataclasses.is_dataclass(self):
+            return {f.name: _jsonify(getattr(self, f.name)) for f in dataclasses.fields(self)}
+        raise NotImplementedError("This must be overwritten in non-dataclass derived classes!")
+
+    def to_json_file(self, fp: Path | str, do_overwrite: bool = False) -> None:
+        fp = Path(fp)
+        if fp.exists() and not do_overwrite:
+            raise FileExistsError(f"{fp} exists and do_overwrite = {do_overwrite}")
+        fp.parent.mkdir(parents=True, exist_ok=True)
+        fp.write_text(json.dumps(self.to_dict()))
+
+    @classmethod
+    def from_json_file(cls: type[T], fp: Path | str) -> T:
+        with open(fp) as f:
+            return cls.from_dict(json.load(f))

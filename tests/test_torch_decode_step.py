@@ -1,0 +1,138 @@
+"""Kernel B (the fused CI decode step) of the PyTorch port against the JAX kernel.
+
+The JAX side runs ``decode_stack_step(impl="pallas_interpret")``; the port's
+side is the plain PyTorch version the wrapper runs on CPU tensors. Two
+layers with windows ``(2, 0)``, a ``(B, H, M, D)`` cache with mixed cursors
+(one at the end of the buffer, which writes nothing), fp32: ``h`` within
+1e-5, cache positions other than the cursor exact, mask and length exact.
+The CUDA kernel itself is checked on the card (``tests/test_torch_kernels_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventstreamgpt_tpu.models.ci_model import CIPPTForGenerativeSequenceModeling as JaxModel
+from eventstreamgpt_tpu.models.config import StructuredTransformerConfig as JaxConfig
+from eventstreamgpt_tpu.ops.pallas_decode_step import decode_stack_step as jax_decode_stack_step
+from eventstreamgpt_tpu.ops.pallas_decode_step import stack_layer_weights as jax_stack_layer_weights
+from eventstreamgpt_tpu_torch.convert import load_jax_params
+from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+from eventstreamgpt_tpu_torch.ops.decode_step import (
+    decode_stack_step,
+    decode_stack_step_reference,
+    stack_layer_weights,
+)
+
+from .test_generation import BASE_KWARGS, MEASUREMENT_CONFIGS, make_prompt
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+B, M = 5, 8
+START = np.array([0, 3, 5, 7, 8], np.int32)  # 8 == M: the write falls off the buffer
+WINDOWS = (2, 0)
+
+
+@pytest.fixture(scope="module")
+def case():
+    kw = dict(BASE_KWARGS, seq_attention_types=["local", "global"], seq_window_size=2, hidden_size=32, head_dim=8)
+    jcfg = JaxConfig(measurement_configs=dict(MEASUREMENT_CONFIGS), **kw)
+    params = JaxModel(jcfg).init(jax.random.PRNGKey(1), make_prompt(B=2, L=3))
+    tmodel = CIPPTForGenerativeSequenceModeling(StructuredTransformerConfig.from_dict(jcfg.to_dict()))
+    load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    rng = np.random.default_rng(0)
+    L, H, D, E = jcfg.num_hidden_layers, jcfg.num_attention_heads, jcfg.head_dim, jcfg.hidden_size
+    inputs = dict(
+        kc=rng.normal(size=(L, B, H, M, D)).astype(np.float32),
+        vc=rng.normal(size=(L, B, H, M, D)).astype(np.float32),
+        h0=rng.normal(size=(B, E)).astype(np.float32),
+        em=np.array([True, True, False, True, True]),
+        mask=(np.arange(M)[None, :] < START[:, None]) & (rng.random((B, M)) < 0.8),
+    )
+    return jcfg, params, tmodel, inputs
+
+
+def run_jax(jcfg, params, x):
+    weights = jax_stack_layer_weights(params["params"]["encoder"], jcfg.num_hidden_layers)
+    out = jax_decode_stack_step(
+        weights, jnp.asarray(x["kc"]), jnp.asarray(x["vc"]), None, None, jnp.asarray(x["h0"]),
+        jnp.asarray(START), jnp.asarray(x["em"]), jnp.asarray(x["mask"]),
+        windows=WINDOWS, activation=jcfg.activation_function,
+        layer_norm_eps=float(jcfg.layer_norm_epsilon), impl="pallas_interpret",
+    )  # fmt: skip
+    h, kc, vc, _, _, mask, length = (None if a is None else np.asarray(a) for a in out)
+    return h, kc, vc, mask, length
+
+
+def run_port(tmodel, x, fn=decode_stack_step_reference, device="cpu", dtype=torch.float32):
+    cfg = tmodel.config
+    weights = {k: v.to(device) for k, v in stack_layer_weights(tmodel.encoder.blocks(), dtype).items()}
+    kc = torch.from_numpy(x["kc"]).to(device, dtype)
+    vc = torch.from_numpy(x["vc"]).to(device, dtype)
+    out = fn(
+        weights, kc, vc, torch.from_numpy(x["h0"]).to(device, dtype), torch.from_numpy(START).to(device),
+        torch.from_numpy(x["em"]).to(device), torch.from_numpy(x["mask"]).to(device),
+        windows=WINDOWS, activation=cfg.activation_function, layer_norm_eps=cfg.layer_norm_epsilon,
+    )  # fmt: skip
+    h, kc2, vc2, mask, length = out
+    assert kc2 is kc and vc2 is vc  # the cache is updated in place
+    return tuple(t.float().cpu().numpy() for t in (h, kc, vc, mask, length))
+
+
+def cursor_onehot():
+    return (np.arange(M)[None, :] == START[:, None])[None, :, None, :, None]  # (1, B, 1, M, 1)
+
+
+def test_plain_version_matches_pallas_kernel(case):
+    jcfg, params, tmodel, x = case
+    want = run_jax(jcfg, params, x)
+    got = run_port(tmodel, x)
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    at = np.broadcast_to(cursor_onehot(), x["kc"].shape)
+    for i in (1, 2):
+        np.testing.assert_array_equal(got[i][~at], want[i][~at])  # untouched positions: exact
+        np.testing.assert_allclose(got[i][at], want[i][at], **TOL)  # the written keys/values
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(got[4], want[4])
+
+
+def test_wrapper_takes_plain_version_on_cpu(case):
+    _, _, tmodel, x = case
+    a, b = run_port(tmodel, x, fn=decode_stack_step), run_port(tmodel, x)
+    for u, v in zip(a, b):
+        np.testing.assert_array_equal(u, v)
+
+
+def test_inactive_rows_keep_mask_and_length(case):
+    _, _, tmodel, x = case
+    active = np.array([True, False, True, False, True])
+    cfg = tmodel.config
+    weights = stack_layer_weights(tmodel.encoder.blocks(), torch.float32)
+    args = [torch.from_numpy(x[k]) for k in ("h0", "em", "mask")]
+    start, mask = torch.from_numpy(START), torch.from_numpy(x["mask"])
+    kw = dict(windows=WINDOWS, activation=cfg.activation_function, layer_norm_eps=cfg.layer_norm_epsilon)
+
+    def run(**extra):
+        kc, vc = torch.from_numpy(x["kc"]).clone(), torch.from_numpy(x["vc"]).clone()
+        return decode_stack_step(weights, kc, vc, args[0], start, args[1], args[2], **kw, **extra)
+
+    full, gated = run(), run(active=torch.from_numpy(active))
+    for u, v in zip(full[:3], gated[:3]):  # h and the caches do not depend on `active`
+        torch.testing.assert_close(u, v, rtol=0, atol=0)
+    act = torch.from_numpy(active)
+    torch.testing.assert_close(gated[3], torch.where(act[:, None], full[3], mask), rtol=0, atol=0)
+    torch.testing.assert_close(gated[4], torch.where(act, full[4], start), rtol=0, atol=0)
+
+
+def test_unsupported_activation_raises(case):
+    _, _, tmodel, x = case
+    with pytest.raises(ValueError, match="supports"):
+        decode_stack_step_reference(
+            stack_layer_weights(tmodel.encoder.blocks(), torch.float32), torch.zeros(2, 1, 1, 2, 1),
+            torch.zeros(2, 1, 1, 2, 1), torch.zeros(1, 1), torch.zeros(1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.bool), torch.zeros(1, 2, dtype=torch.bool),
+            windows=(0, 0), activation="silu", layer_norm_eps=1e-5,
+        )  # fmt: skip
+

@@ -1,0 +1,184 @@
+"""The PyTorch port's serving engine against the JAX engine, on the CPU.
+
+* Greedy decoding: the JAX `GenerationEngine(greedy=True)` and the port's
+  engine, same weights (carried by `load_jax_params`) and prompts, more
+  requests than slots: every integer and structure field of every result is
+  exact, floats within 1e-4.
+* Sampled decoding: the port's results are identical when the slot count or
+  the request order changes (a request's stream depends only on its seed);
+  a one-slot engine's floats may differ in the last bits (one-row products).
+* Device: with no ``device`` argument and no CUDA device, construction raises.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from eventstreamgpt_tpu.models.ci_model import CIPPTForGenerativeSequenceModeling as JaxModel
+from eventstreamgpt_tpu.models.config import StructuredTransformerConfig as JaxConfig
+from eventstreamgpt_tpu.serving import GenerationEngine as JaxEngine
+from eventstreamgpt_tpu.serving import Request as JaxRequest
+from eventstreamgpt_tpu_torch.convert import load_jax_params
+from eventstreamgpt_tpu_torch.data.types import EventStreamBatch
+from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+from eventstreamgpt_tpu_torch.serving import GenerationEngine, MalformedPromptRejected, Request, SlotHealthError
+
+from .test_generation import BASE_KWARGS, MEASUREMENT_CONFIGS, make_prompt
+
+MAX_LEN = 8
+ENGINE = dict(n_slots=2, max_len=MAX_LEN, decode_chunk=2, min_bucket=2)
+EXACT = ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask",
+         "static_indices", "static_measurement_indices")  # fmt: skip
+CLOSE = ("time_delta", "dynamic_values", "start_time")
+CONFIGS = {
+    "global_exponential": {},
+    "local_lognormal": dict(
+        seq_attention_types=["local", "global"],
+        seq_window_size=2,
+        TTE_generation_layer_type="log_normal_mixture",
+        TTE_lognormal_generation_num_components=2,
+        # A narrow log-time scale keeps an untrained head's greedy means (and
+        # so the temporal encoding's inputs) moderate: at the default scale
+        # they reach 1e7 minutes, where fp32 sin/cos of the cumulative time
+        # turns last-ulp differences into different events.
+        mean_log_inter_event_time_min=1.0,
+        std_log_inter_event_time_min=0.1,
+    ),
+}
+
+
+def to_torch(batch) -> EventStreamBatch:
+    fields = {f.name: getattr(batch, f.name) for f in dataclasses.fields(EventStreamBatch)}
+    return EventStreamBatch(**{k: None if v is None else torch.from_numpy(np.array(v)) for k, v in fields.items()})
+
+
+def build(name="global_exponential"):
+    jcfg = JaxConfig(measurement_configs=dict(MEASUREMENT_CONFIGS), **dict(BASE_KWARGS, **CONFIGS[name]))
+    prompt = make_prompt(B=4, L=5)
+    jmodel = JaxModel(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0), prompt)
+    tcfg = StructuredTransformerConfig.from_dict(jcfg.to_dict())
+    tmodel = load_jax_params(CIPPTForGenerativeSequenceModeling(tcfg), jax.tree_util.tree_map(np.asarray, params))
+    return jcfg, jmodel, params, tcfg, tmodel, prompt
+
+
+def prompt_rows(prompt, n=5):
+    """(row, prompt_len, budget) for n requests of mixed lengths and budgets."""
+    out = []
+    for i in range(n):
+        Lp = (3, 4, 5)[i % 3]
+        out.append((prompt.slice((slice(i % 4, i % 4 + 1), slice(0, Lp))), Lp, MAX_LEN - Lp - (i % 2)))
+    return out
+
+
+def port_requests(prompt, keys=False, order=None):
+    rows = prompt_rows(prompt)
+    order = range(len(rows)) if order is None else order
+    return [
+        Request(prompt=to_torch(rows[i][0]), max_new_events=rows[i][2], request_id=i, key=(1000 + i) if keys else None)
+        for i in order
+    ]
+
+
+def by_id(results):
+    return {r.request_id: r for r in results}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_greedy_engine_matches_jax_engine(name):
+    jcfg, jmodel, params, tcfg, tmodel, prompt = build(name)
+    jeng = JaxEngine(jmodel, params, jcfg, template=prompt, greedy=True, **ENGINE)
+    jres = by_id(jeng.run([JaxRequest(prompt=p, max_new_events=b, request_id=i)
+                           for i, (p, _, b) in enumerate(prompt_rows(prompt))]))  # fmt: skip
+    teng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), greedy=True, device="cpu", **ENGINE)
+    tres = by_id(teng.run(port_requests(prompt)))
+    assert sorted(jres) == sorted(tres) == list(range(5))
+    for i, j in jres.items():
+        t = tres[i]
+        assert t.error is None and j.error is None
+        for f in ("admission_index", "prompt_len", "n_events", "n_generated"):
+            assert getattr(t, f) == getattr(j, f), (i, f)
+        for f in EXACT:
+            np.testing.assert_array_equal(getattr(t.batch, f).numpy(), np.asarray(getattr(j.batch, f)), err_msg=f)
+        for f in CLOSE:
+            np.testing.assert_allclose(
+                getattr(t.batch, f).numpy(), np.asarray(getattr(j.batch, f)), rtol=1e-4, atol=1e-4, err_msg=f
+            )
+    s = teng.stats()
+    assert s["dispatched_chunks"] > 0
+    assert s["slot_steps"] == s["dispatched_chunks"] * ENGINE["decode_chunk"] * ENGINE["n_slots"]
+    assert s["prompt_events"] == jeng.stats()["prompt_events"]
+
+
+def assert_same_results(a, b, float_tol=0.0):
+    a, b = by_id(a), by_id(b)
+    assert sorted(a) == sorted(b)
+    for i in a:
+        assert (a[i].n_events, a[i].n_generated, a[i].prompt_len) == (b[i].n_events, b[i].n_generated, b[i].prompt_len)
+        for f in EXACT:
+            torch.testing.assert_close(getattr(a[i].batch, f), getattr(b[i].batch, f), rtol=0, atol=0)
+        for f in CLOSE:
+            torch.testing.assert_close(getattr(a[i].batch, f), getattr(b[i].batch, f), rtol=float_tol, atol=float_tol)
+
+
+def test_sampled_engine_is_invariant_to_slots_and_order():
+    _, _, _, tcfg, tmodel, prompt = build("local_lognormal")
+    template = to_torch(prompt)
+
+    def run(n_slots, order=None, keys=True, **kw):
+        eng = GenerationEngine(tmodel, tcfg, template=template, device="cpu",
+                               **dict(ENGINE, n_slots=n_slots, **kw))  # fmt: skip
+        return eng.run(port_requests(prompt, keys=keys, order=order))
+
+    base = run(2)
+    assert_same_results(base, run(3))
+    assert_same_results(base, run(2, order=[4, 2, 0, 3, 1]))
+    # A one-slot engine multiplies one-row matrices, which the CPU BLAS runs
+    # down another code path: the same events, floats within the last bits.
+    assert_same_results(run(1, keys=False), run(4, keys=False), float_tol=1e-6)
+    # Filtering changes the categorical draws' support but keeps the invariance.
+    assert_same_results(run(2, top_k=2), run(4, top_k=2, order=[3, 1, 4, 0, 2]))
+    greedy = run(2, greedy=True)
+    assert any(
+        not torch.equal(a.batch.dynamic_indices, b.batch.dynamic_indices)
+        for a, b in zip(sorted(base, key=lambda r: r.request_id), sorted(greedy, key=lambda r: r.request_id))
+    )
+
+
+def test_default_device_needs_cuda():
+    _, _, _, tcfg, tmodel, prompt = build()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GenerationEngine(tmodel, tcfg, template=to_torch(prompt), **ENGINE)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [dict(dispatch_depth=2), dict(spec=object()), dict(paged_kv=True), dict(kv_cache_dtype="int8"),
+     dict(mesh=object()), dict(hot_swap=True), dict(health_retries=1)],
+    ids=lambda kw: next(iter(kw)),
+)  # fmt: skip
+def test_features_outside_the_slice_raise(kw):
+    _, _, _, tcfg, tmodel, prompt = build()
+    with pytest.raises(ValueError, match="not part of the PyTorch port"):
+        GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+
+
+def test_malformed_prompt_rejected_and_nonfinite_slot_quarantined():
+    _, _, _, tcfg, tmodel, prompt = build()
+    eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **ENGINE)
+    bad = port_requests(prompt)[0]
+    bad.prompt.time_delta[0, 0] = float("nan")
+    with pytest.raises(MalformedPromptRejected):
+        eng.submit(bad)
+    with torch.no_grad():
+        tmodel.output_layer.ClassificationLayer.bias[1] = float("nan")  # an event_type logit
+    eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **ENGINE)
+    results = eng.run(port_requests(prompt))
+    assert len(results) == 5 and all(isinstance(r.error, SlotHealthError) and r.batch is None for r in results)
+    assert eng.stats()["health_failed_total"] == 5

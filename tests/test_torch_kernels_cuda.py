@@ -1,0 +1,95 @@
+"""The PyTorch port's hand-written kernels against their plain versions, on the card.
+
+A CUDA or Triton kernel has no CPU mode, so these tests carry the ``cuda``
+marker and skip without a CUDA device. The file imports no JAX (the machine
+with the card has none); run it there without the JAX conftest:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+from eventstreamgpt_tpu_torch.ops.decode_step import (
+    decode_stack_step,
+    decode_stack_step_reference,
+    stack_layer_weights,
+)
+from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_reference
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("the port's kernels run only on a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("V", [3, 40, 1000])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_categorical_matches_plain_version(cuda, dtype, V):
+    rng = np.random.default_rng(V)
+    z = torch.from_numpy(rng.integers(-2, 3, size=(33, V)).astype(np.float32)).to(DTYPES[dtype])
+    g = torch.from_numpy(rng.gumbel(size=(33, V)).astype(np.float32)).to(DTYPES[dtype])
+    g[::2] = 0  # exact ties on half the rows
+    keep = torch.from_numpy(rng.random((33, V)) < 0.5)
+    active = torch.arange(33) % 4 != 0
+    for k, a in ((None, None), (keep, None), (keep, active)):
+        want = fused_categorical_reference(z, g, k, a, fill=5)
+        got = fused_categorical(
+            z.to(cuda), g.to(cuda), None if k is None else k.to(cuda), None if a is None else a.to(cuda), fill=5
+        )
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("with_active", [False, True])
+@pytest.mark.parametrize("dtype,tol", [("fp32", 1e-4), ("bf16", 2e-2)])
+def test_decode_stack_step_matches_plain_version(cuda, dtype, tol, with_active):
+    cfg = StructuredTransformerConfig(
+        vocab_sizes_by_measurement={"event_type": 3},
+        vocab_offsets_by_measurement={"event_type": 1},
+        measurements_idxmap={"event_type": 1},
+        measurements_per_generative_mode={"single_label_classification": ["event_type"]},
+        hidden_size=48, head_dim=12, num_attention_heads=4, num_hidden_layers=3, intermediate_size=72,
+        seq_attention_types=["local", "global", "local"], seq_window_size=3,
+    )  # fmt: skip
+    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(cfg), seed=0, std=0.2)
+    cdt = DTYPES[dtype]
+    weights = {k: v.to(cuda) for k, v in stack_layer_weights(model.encoder.blocks(), cdt).items()}
+    L, B, H, M, D = 3, 6, 4, 10, 12
+    rng = np.random.default_rng(1)
+    start = torch.tensor([0, 2, 5, 9, 10, 4], dtype=torch.int32)
+    kc = torch.from_numpy(rng.normal(size=(L, B, H, M, D)).astype(np.float32)).to(cdt)
+    vc = torch.from_numpy(rng.normal(size=(L, B, H, M, D)).astype(np.float32)).to(cdt)
+    h0 = torch.from_numpy(rng.normal(size=(B, H * D)).astype(np.float32)).to(cdt)
+    em = torch.tensor([True, True, False, True, True, True])
+    mask = torch.from_numpy((np.arange(M)[None] < start.numpy()[:, None]) & (rng.random((B, M)) < 0.8))
+    kw = dict(windows=(3, 0, 3), activation="gelu", layer_norm_eps=1e-5)
+    if with_active:
+        kw["active"] = torch.tensor([True, False, True, True, False, True], device=cuda)
+
+    def run(fn):
+        k2, v2 = kc.clone().to(cuda), vc.clone().to(cuda)
+        return fn(weights, k2, v2, h0.to(cuda), start.to(cuda), em.to(cuda), mask.to(cuda), **kw)
+
+    want = [t.float().cpu() for t in run(decode_stack_step_reference)]
+    got = [t.float().cpu() for t in run(decode_stack_step)]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+    at = torch.arange(M)[None, :] == start[:, None].long()  # (B, M) cursor positions
+    at = at[None, :, None, :, None].expand(L, B, H, M, D)
+    for i in (1, 2):
+        torch.testing.assert_close(got[i][~at], want[i][~at], rtol=0, atol=0)
+        torch.testing.assert_close(got[i][at], want[i][at], rtol=tol, atol=tol)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=0)

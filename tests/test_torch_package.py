@@ -1,0 +1,127 @@
+"""The PyTorch port stands alone: no JAX in it, configs and weights cross over.
+
+* ``import eventstreamgpt_tpu_torch`` (every module) works with JAX blocked.
+* An AST scan finds no ``jax``, ``flax`` or ``eventstreamgpt_tpu`` import in
+  the port or in ``chip_smoke.py``.
+* A JAX config's ``to_dict()`` round-trips through the port's config (and
+  through JSON) to the same dictionary.
+* `load_jax_params` raises on a flax leaf it cannot place and on a port
+  parameter left unfilled.
+"""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+import eventstreamgpt_tpu_torch
+from eventstreamgpt_tpu.models.ci_model import CIPPTForGenerativeSequenceModeling as JaxModel
+from eventstreamgpt_tpu.models.config import StructuredTransformerConfig as JaxConfig
+from eventstreamgpt_tpu_torch.convert import load_jax_params
+from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+
+from .test_generation import BASE_KWARGS, MEASUREMENT_CONFIGS, make_prompt
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "eventstreamgpt_tpu_torch"
+FORBIDDEN = ("jax", "flax", "eventstreamgpt_tpu")
+MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(eventstreamgpt_tpu_torch.__path__, prefix="eventstreamgpt_tpu_torch.")
+)
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'eventstreamgpt_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {['eventstreamgpt_tpu_torch'] + MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module",
+            "__import__",
+        ):
+            roots |= {a.value.split(".")[0] for a in node.args if isinstance(a, ast.Constant) and isinstance(a.value, str)}
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_jax_imports(path):
+    assert not (imported_roots(path) & set(FORBIDDEN)), path
+
+
+def jax_config():
+    return JaxConfig(
+        measurement_configs=dict(MEASUREMENT_CONFIGS),
+        **dict(BASE_KWARGS, TTE_generation_layer_type="log_normal_mixture", TTE_lognormal_generation_num_components=3),
+    )
+
+
+def test_config_round_trips():
+    jd = jax_config().to_dict()
+    assert StructuredTransformerConfig.from_dict(jd).to_dict() == jd
+    via_json = json.loads(json.dumps(jd))
+    port = StructuredTransformerConfig.from_dict(via_json)
+    assert port.to_dict() == jd
+    assert JaxConfig.from_dict(json.loads(json.dumps(port.to_dict()))).to_dict() == jd
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    params = JaxModel(jax_config()).init(jax.random.PRNGKey(0), make_prompt(B=2, L=3))
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def port_model():
+    return CIPPTForGenerativeSequenceModeling(StructuredTransformerConfig.from_dict(jax_config().to_dict()))
+
+
+def test_load_fills_every_parameter(flax_params):
+    model = load_jax_params(port_model(), flax_params)
+    q = flax_params["params"]["encoder"]["h0"]["attn"]["attention"]["q_proj"]["kernel"]
+    np.testing.assert_array_equal(model.encoder.h0.attn.attention.q_proj.weight.detach().numpy(), q.T)
+
+
+def test_load_raises_on_missing_leaf(flax_params):
+    params = jax.tree_util.tree_map(lambda x: x, flax_params)
+    del params["params"]["output_layer"]["TTE_layer"]["proj"]["bias"]
+    with pytest.raises(ValueError, match="unfilled"):
+        load_jax_params(port_model(), params)
+
+
+def test_load_raises_on_extra_leaf(flax_params):
+    params = jax.tree_util.tree_map(lambda x: x, flax_params)
+    params["params"]["encoder"]["h0"]["mlp"]["c_gate"] = {"kernel": np.zeros((16, 16), np.float32)}
+    with pytest.raises(ValueError, match="no port parameter"):
+        load_jax_params(port_model(), params)
+
+
+def test_load_raises_on_shape_mismatch(flax_params):
+    params = jax.tree_util.tree_map(lambda x: x, flax_params)
+    params["params"]["encoder"]["ln_f"]["scale"] = np.ones(17, np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        load_jax_params(port_model(), params)
