@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with a CUDA device:
 Phases (a failed phase exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name and power limit (``nvidia-smi``), TF32 off, the
-   kernels built from the checkout's sources (``nvcc`` for ``csrc/``,
-   Triton's first compile).
+   kernels built from the checkout's sources (one ``nvcc`` per ``csrc/``
+   source, all at once, while Triton compiles its first kernel).
 2. Engine at full width: the serving benchmark's CI model (hidden 256,
    4 heads x 64, 2 layers local/global with window 32, intermediate 1024,
    lognormal-mixture TTE with 3 components, bf16, a 4,057-entry vocabulary
@@ -27,9 +27,29 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    equal (fp32 and bf16, with and without keep and active masks); kernel
    B's ``h`` within rtol=atol=1e-4 in fp32 and atol=2e-2 in bf16, cache
    positions other than the cursor bit-equal, the cursor entries within the
-   same tolerances, mask and length exact. Each kernel and its plain
-   version is timed with CUDA events (median of 30 after warm-up).
-4. One ``{"kernels": [...]}`` line, then the device line as the last line.
+   same tolerances, mask and length exact.
+4. Training at full width: the same model with dropout 0.1 and fp32 master
+   weights, AdamW with warmup (``bench.py``'s optimizer settings), 20 train
+   steps through `make_train_step` on one fixed synthetic batch of 32
+   subjects x 256 events (up to 24 data elements an event). Every loss is
+   finite, the loss falls from step 1 to step 20, and kernel C's forward
+   and backward each launch exactly once a step. Median step time and
+   trained events/s (real events a step over the step time). A small fp32
+   train step on the card must also match the same step on the CPU (loss
+   and every gradient within 1e-4, dropout 0).
+5. Kernel C against its plain version, on the card, on the regression
+   plane, indices and cotangent captured from a phase-4 step, in bf16 and
+   fp32: forward bit-exact; backward within one bf16 ulp (fp32: rtol 1e-6,
+   atol 1e-6 of the largest cotangent), the plain version summing
+   duplicates with atomics in no fixed order; the kernel's backward also
+   equals the CPU's plain version (ordered sums) bit for bit.
+6. One ``{"kernels": [...]}`` line, then the device line as the last line.
+
+Timing: each kernel, its plain version and the nearest single PyTorch call
+are timed by CUDA events around N back-to-back launches queued behind a
+device-side sleep, so the device runs them without waiting on the host
+(``ms``, per launch, median of 5); the time of one synchronised call, host
+work included, is printed beside it.
 
 It exits non-zero, printing no result, when no CUDA device is available or
 when the repository is not beside it.
@@ -37,6 +57,7 @@ when the repository is not beside it.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -49,6 +70,7 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
 N_REQUESTS, SEED = 64, 0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 256, 20
 
 
 def fail(msg: str) -> None:
@@ -73,18 +95,20 @@ def device_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from eventstreamgpt_tpu_torch.ops import build, decode_step, fused_sampling
+    from eventstreamgpt_tpu_torch.ops import build, decode_step, fused_sampling, vocab_gather
 
     t0 = time.perf_counter()
     errors = []
-    nvcc = threading.Thread(target=lambda: errors.extend(_try(build.build_all, [decode_step.SOURCE])))
+    sources = [decode_step.SOURCE, vocab_gather.SOURCE]
+    nvcc = threading.Thread(target=lambda: errors.extend(_try(build.build_all, sources)))
     nvcc.start()
     z = torch.zeros(2, 40, device="cuda")
     fused_sampling.fused_categorical(z, z)  # Triton compiles here, while nvcc runs
     nvcc.join()
     if errors:
         raise errors[0]
-    build.load_library(decode_step.SOURCE)
+    for source in sources:
+        build.load_library(source)
     torch.cuda.synchronize()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     return smi
@@ -234,22 +258,72 @@ def small_engine_matches_cpu():
 
 
 # ---------------------------------------------------------------- phase 3
-def time_ms(fn, n=30, warmup=5) -> float:
-    """Median over ``n`` single launches, each timed by CUDA events."""
+@functools.cache
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card (measured once)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
+
+
+def time_ms(fn, n=50, repeats=5, warmup=3) -> dict:
+    """``ms``: device time per launch, from CUDA events around ``n``
+    back-to-back calls queued behind a device-side sleep long enough for the
+    host to enqueue them all (median of ``repeats``); ``single_ms``: one
+    synchronised call, host work included (median of 30)."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(n):
+    torch.cuda.synchronize()
+    singles = []
+    for _ in range(30):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+        singles.append(start.elapsed_time(end))
+    singles.sort()
+    single = singles[len(singles) // 2]
+    cycles = int(_sleep_cycles_per_ms() * min(2.0 * n * single + 5.0, 2000.0))
+    device = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end) / n)
+    device.sort()
+    return dict(ms=device[len(device) // 2], single_ms=single)
+
+
+def timings(kernel, plain, library=None, **kw) -> dict:
+    """``ms``/``plain_ms``/``library_ms`` and their single-call times."""
+    out = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        if fn is None:
+            out[key], out[f"single_{key}"] = None, None
+        else:
+            t = time_ms(fn, **kw)
+            out[key], out[f"single_{key}"] = t["ms"], t["single_ms"]
+    return out
+
+
+def fmt_times(t: dict) -> str:
+    return ", ".join(
+        f"{k} {t[k]:.4f} (one synchronised call {t['single_' + k]:.4f})" for k in ("ms", "plain_ms", "library_ms")
+        if t[k] is not None
+    )
 
 
 def kernel_a_phase(capture):
@@ -274,14 +348,16 @@ def kernel_a_phase(capture):
                 max_err = max(max_err, (got.long() - want.long()).abs().max().item())
                 check(torch.equal(got, want), f"kernel A disagrees ({dt}, keep={keep is not None}, active={act is not None})")
     torch.cuda.synchronize()
-    ms = time_ms(lambda: fused_categorical(logits, gumbel, None, active))
-    plain_ms = time_ms(lambda: fused_categorical_reference(logits, gumbel, None, active))
-    library_ms = time_ms(lambda: torch.argmax(gumbel + logits, dim=-1))
+    t = timings(
+        lambda: fused_categorical(logits, gumbel, None, active),
+        lambda: fused_categorical_reference(logits, gumbel, None, active),
+        lambda: torch.argmax(gumbel + logits, dim=-1),
+    )
     nbytes = 2 * rows * V * logits.element_size() + rows + rows * 4
     ops = 4 * rows * V  # add, compare, max and min per element
     bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]) * 1e3
-    print(f"phase 3: kernel A exact vs plain at ({rows}, {V}); {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+    print(f"phase 3: kernel A exact vs plain at ({rows}, {V}); {fmt_times(t)}", flush=True)
+    return dict(t, bound_ms=bound,
                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= ops / PEAK_FLOPS["fp32"] else "operations",
                 max_abs_err=float(max_err), shape=[rows, V])  # fmt: skip
 
@@ -338,8 +414,7 @@ def kernel_b_phase(model, config, capture):
     weights = cap["weights"]
     kc, vc = cap["kc"].clone(), cap["vc"].clone()
     args = (weights, kc, vc, cap["h0"], cap["start"], cap["em"], cap["mask"])
-    ms = time_ms(lambda: decode_stack_step(*args, **kw))
-    plain_ms = time_ms(lambda: decode_stack_step_reference(*args, **kw))
+    t = timings(lambda: decode_stack_step(*args, **kw), lambda: decode_stack_step_reference(*args, **kw), n=20)
     # The bound counts what the function needs on this run's inputs: the
     # weights once, K and V only at each row's live positions (the cursor's
     # are computed, not read; a row with none live averages V over all M),
@@ -357,12 +432,196 @@ def kernel_b_phase(model, config, capture):
     nbytes = w_bytes + (k_rows + v_rows) * E * esz + 2 * L * written * E * esz + small
     flops = 2 * B * L * (4 * E * E + 2 * E * I) + 2 * H * D * attn_rows
     bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
-    print(f"phase 3: kernel B at (L={L}, B={B}, H={H}, M={M}, D={D}); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"phase 3: kernel B at (L={L}, B={B}, H={H}, M={M}, D={D}); {fmt_times(t)}, "
           f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; whole cache "
           f"{2 * kc.numel() * esz / 1e6:.2f} MB)", flush=True)  # fmt: skip
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+    return dict(t, bound_ms=bound,
                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_FLOPS["bf16"] else "operations",
                 max_abs_err=max_err, shape=[L, B, H, M, D])  # fmt: skip
+
+
+# ---------------------------------------------------------------- phase 4
+class GatherCapture:
+    """Wraps the regression head's `vocab_gather` to keep the plane, the
+    indices and the cotangent of the first call made while ``armed``."""
+
+    def __init__(self, layers_module):
+        self.mod, self.armed, self.z, self.ci, self.g = layers_module, False, None, None, None
+        self.orig = layers_module.vocab_gather
+
+        def wrapped(z, ci):
+            out = self.orig(z, ci)
+            if self.armed and self.z is None:
+                self.z, self.ci = z.detach().clone(), ci.clone()
+                out.register_hook(lambda g: setattr(self, "g", g.detach().clone()))
+            return out
+
+        layers_module.vocab_gather = wrapped
+
+    def restore(self):
+        self.mod.vocab_gather = self.orig
+
+
+def training_phase(smi):
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.models.generative_layers as layers_module
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_training_batches, training_config
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
+
+    rng = np.random.default_rng(SEED)
+    batch = next(synthetic_training_batches(rng, serving_config(), TRAIN_BATCH, TRAIN_SEQ))
+    config = training_config([batch])  # bf16, dropout 0.1 (the config defaults)
+    batch = batch.map(lambda t: t.cuda())  # resident, as a prefetching loader leaves it
+    check(config.precision == "bf16" and config.resid_dropout == 0.1, "phase 4: not the benchmark's training config")
+
+    def fresh():
+        model = init_params_from_seed(build_model(config), seed=SEED)
+        oc = OptimizationConfig(init_lr=1e-3, batch_size=TRAIN_BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
+        oc.set_to_dataset(n_subjects=512)  # bench.py's 512 training subjects
+        optimizer, scheduler = build_optimizer(model, oc)
+        return model, make_train_step(model, optimizer, scheduler, with_health=True)
+
+    _, warm = fresh()  # cuBLAS handles, allocator, kernel loads: not counted
+    for _ in range(2):
+        warm(batch, SEED)
+    torch.cuda.synchronize()
+
+    model, step = fresh()
+    capture = GatherCapture(layers_module)
+    vocab_gather_fwd.launches = vocab_gather_bwd.launches = 0
+    losses, norms, walls = [], [], []
+    for i in range(TRAIN_STEPS):
+        capture.armed = i == TRAIN_STEPS - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, health = step(batch, SEED)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(float(health[1]))
+    launches = {"vocab_gather_fwd": vocab_gather_fwd.launches, "vocab_gather_bwd": vocab_gather_bwd.launches}
+    capture.restore()
+    check(all(math.isfinite(x) for x in losses + norms), f"phase 4: a loss or gradient norm is not finite: {losses}")
+    check(losses[-1] < losses[0], f"phase 4: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    check(launches == {k: TRAIN_STEPS for k in launches}, f"phase 4: kernel C launches {launches}, not 1 a step")
+    check(capture.z is not None and capture.g is not None, "phase 4: no regression-plane inputs were captured")
+    events = int(batch.event_mask.sum())
+    step_ms = float(np.median(walls)) * 1e3
+    print(f"phase 4: {TRAIN_STEPS} train steps at (B={TRAIN_BATCH}, L={TRAIN_SEQ}, n_data="
+          f"{batch.dynamic_indices.shape[-1]}), {events} real events a step: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; median step {step_ms:.3f} ms (min {min(walls) * 1e3:.3f}), "
+          f"{events / (step_ms / 1e3):.1f} trained events/s; kernel C launches {launches} ({smi})",
+          flush=True)  # fmt: skip
+    small_train_step_matches_cpu()
+    return dict(launches=launches, step_ms=step_ms, events=events, losses=losses), capture
+
+
+def small_train_step_matches_cpu():
+    """One fp32 train step at a small size on the card against the same step
+    on the CPU (plain version of kernel C), dropout 0."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_training_batches, training_config
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
+
+    small = dict(sizes=(5, 40, 6, 3), hidden_size=32, head_dim=8, intermediate_size=64, seq_window_size=4,
+                 attention_dropout=0.0, input_dropout=0.0, resid_dropout=0.0)  # fmt: skip
+    vocab = serving_config(precision="fp32", **small)
+    batch = next(synthetic_training_batches(np.random.default_rng(1), vocab, 4, 24, mean_seq_len=16))
+    config = training_config([batch], precision="fp32", **small)
+    base = init_params_from_seed(build_model(config), seed=1, std=0.1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base)
+        oc = OptimizationConfig(init_lr=1e-3, lr_num_warmup_steps=0, lr_frac_warmup_steps=None, max_training_steps=10)
+        optimizer, scheduler = build_optimizer(model, oc)
+        loss = float(make_train_step(model, optimizer, scheduler, device=dev)(batch, 0))
+        out[dev] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()})
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    # Gradients, not the updated parameters: Adam's first step moves each
+    # element by about lr * sign(grad), so an element whose gradient is float
+    # noise around 0 moves either way.
+    for name, grad in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], grad, rtol=1e-4, atol=1e-4, msg=lambda m: f"{name}: {m}")
+    print(f"phase 4: small fp32 train step on the card matches the CPU (loss {out['cpu'][0]:.6f})", flush=True)
+
+
+# ---------------------------------------------------------------- phase 5
+def bf16_ulp(x):
+    import torch
+
+    mag = x.abs().clamp(min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def kernel_c_phase(capture):
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd, vocab_gather_reference
+
+    V = capture.z.shape[-1]
+    z0 = capture.z.reshape(-1, V)
+    ci = capture.ci.reshape(-1, capture.ci.shape[-1]).contiguous()
+    g = capture.g.reshape(ci.shape).float().contiguous()
+    rows, M = ci.shape
+    valid = (ci >= 0) & (ci < V)
+    ci64 = ci.long()
+    result = {}
+    for dt in (torch.bfloat16, torch.float32):
+        z = z0.to(dt).contiguous()
+        zr = z.detach().requires_grad_(True)
+        ref_out = vocab_gather_reference(zr, ci)
+        got = vocab_gather_fwd(z, ci)
+        check(torch.equal(got, ref_out.detach()), f"kernel C forward ({dt}) differs from its plain version")
+        (want_dz,) = torch.autograd.grad(ref_out, zr, g, retain_graph=True)
+        got_dz = vocab_gather_bwd(g, ci, V, dt)
+        torch.cuda.synchronize()
+        diff = (got_dz.float() - want_dz.float()).abs()
+        if dt == torch.bfloat16:
+            tol = bf16_ulp(torch.maximum(got_dz.float().abs(), want_dz.float().abs()))
+        else:
+            tol = 1e-6 * want_dz.abs() + 1e-6 * g.abs().max()
+        check(bool((diff <= tol).all()), f"kernel C backward ({dt}) off its plain version by {diff.max().item():.3g}")
+        cpu_z = z.detach().cpu().clone().requires_grad_(True)
+        vocab_gather_reference(cpu_z, ci.cpu()).backward(g.cpu())
+        check(torch.equal(got_dz.cpu(), cpu_z.grad), f"kernel C backward ({dt}) differs from the CPU's ordered sums")
+        print(f"phase 5: kernel C ({dt}) at rows {rows}, V {V}, M {M}: forward bit-exact, backward max |diff| "
+              f"{diff.max().item():.3g} vs the card's plain version, exact vs the CPU's", flush=True)  # fmt: skip
+        if dt != torch.bfloat16:
+            continue
+        esz = z.element_size()
+        # Forward: indices and outputs once, and each distinct in-range element once.
+        s = torch.sort(torch.where(valid, ci, -1), dim=-1).values
+        distinct = int((s[:, :1] >= 0).sum() + ((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum())
+        fwd_bytes = rows * M * 4 * 2 + distinct * esz
+        fwd_ops = int(valid.sum())  # one conversion per gathered element
+        # Backward: the whole dz plane once, g and ci once; one add per in-range slot.
+        bwd_bytes = rows * V * esz + rows * M * 4 * 2
+        bwd_ops = fwd_ops
+        t_fwd = timings(lambda: vocab_gather_fwd(z, ci), lambda: vocab_gather_reference(z, ci),
+                        lambda: torch.gather(z, -1, ci64).float(), n=100)  # fmt: skip
+        t_bwd = timings(
+            lambda: vocab_gather_bwd(g, ci, V, dt),
+            lambda: torch.autograd.grad(ref_out, zr, g, retain_graph=True),
+            lambda: torch.zeros_like(z).scatter_add_(-1, ci64, g.to(dt)),  # accumulates in z's dtype
+        )
+        for name, t, nbytes, ops in (("fwd", t_fwd, fwd_bytes, fwd_ops), ("bwd", t_bwd, bwd_bytes, bwd_ops)):
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["fp32"] * 1e3
+            result[name] = dict(t, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                max_abs_err=0.0 if name == "fwd" else diff.max().item(), shape=[rows, V, M])  # fmt: skip
+            print(f"phase 5: kernel C {name} (bf16): {fmt_times(t)}; bound {result[name]['bound_ms']:.5f} ms "
+                  f"({nbytes / 1e6:.2f} MB, {distinct} distinct gathered elements)", flush=True)  # fmt: skip
+    return result
 
 
 def main() -> int:
@@ -383,6 +642,8 @@ def main() -> int:
     model, config, capture, runs = engine_phase(smi)
     a = kernel_a_phase(capture)
     b = kernel_b_phase(model, config, capture)
+    train, gather_capture = training_phase(smi)
+    c = kernel_c_phase(gather_capture)
     kernels = [
         dict(name="fused_categorical", route="triton", source="eventstreamgpt_tpu_torch/ops/fused_sampling.py",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171",
@@ -391,10 +652,18 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
              + runs["sampled"]["launches"]["decode_stack_step"], **b),
+    ] + [
+        dict(name=f"vocab_gather_{d}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/vocab_gather.cu",
+             replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182", launches=train["launches"][f"vocab_gather_{d}"],
+             **c[d])
+        for d in ("fwd", "bwd")
     ]  # fmt: skip
     for k in kernels:
         check(all(isinstance(k[f], (int, float)) and math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")),
               f"{k['name']}: a timing is missing")  # fmt: skip
+        check(k["launches"] > 0, f"{k['name']}: never launched on the main path")
+    single = {k["name"]: {f: k.pop(f"single_{f}") for f in ("ms", "plain_ms", "library_ms")} for k in kernels}
+    print(f"chip_smoke: one synchronised call each, host work included: {json.dumps(single)}", flush=True)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

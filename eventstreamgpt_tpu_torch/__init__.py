@@ -1,4 +1,4 @@
-"""EventStreamGPT serving on PyTorch and CUDA (NVIDIA Hopper).
+"""EventStreamGPT serving and training on PyTorch and CUDA (NVIDIA Hopper).
 
 The PyTorch port of ``eventstreamgpt_tpu``: each module sits at the same
 relative path as its JAX counterpart. The JAX package stays the reference
@@ -6,7 +6,7 @@ the port is tested against; this package imports ``torch``, numpy and the
 standard library only.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; nothing falls back to the CPU on its own. The two
-hand-written kernels live in `ops.fused_sampling` (Triton) and
-`ops.decode_step` (CUDA C++ under ``csrc/``).
+``device="cpu"``; nothing falls back to the CPU on its own. The
+hand-written kernels live in `ops.fused_sampling` (Triton),
+`ops.decode_step` and `ops.vocab_gather` (CUDA C++ under ``csrc/``).
 """

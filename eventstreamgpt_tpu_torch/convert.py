@@ -1,4 +1,4 @@
-"""Loading JAX (flax) parameters into the port's modules.
+"""Moving parameters between JAX (flax) trees and the port's modules.
 
 `load_jax_params` takes the flax parameter tree of a
 ``CIPPTForGenerativeSequenceModeling`` as a nested dict of numpy arrays
@@ -11,6 +11,8 @@ the port model's parameters in place:
 
 Every flax leaf must land on exactly one port parameter of the same shape,
 and every port parameter must be filled; anything else raises.
+`export_params` is the inverse: the port model's parameters as a flax-shaped
+tree of fp32 numpy arrays.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from .models.transformer import LayerNorm
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -71,6 +75,25 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
     if missing:
         raise ValueError(f"port parameters left unfilled by the flax tree: {missing}")
     return model
+
+
+def export_params(model: nn.Module) -> dict:
+    """``{"params": tree}`` of fp32 numpy arrays under the flax names
+    (`load_jax_params`' inverse: a Linear ``weight`` goes out transposed as
+    ``kernel``, a LayerNorm ``weight`` as ``scale``)."""
+    tree: dict = {}
+    for module_name, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            arr = p.detach().to(torch.float32).cpu().numpy()
+            if isinstance(module, nn.Linear) and name == "weight":
+                name, arr = "kernel", arr.T
+            elif isinstance(module, LayerNorm) and name == "weight":
+                name = "scale"
+            node = tree
+            for key in module_name.split(".") if module_name else []:
+                node = node.setdefault(key, {})
+            node[name] = arr
+    return {"params": tree}
 
 
 def init_params_from_seed(model: nn.Module, seed: int, std: float = 0.02) -> nn.Module:

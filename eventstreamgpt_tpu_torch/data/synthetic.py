@@ -1,10 +1,12 @@
-"""Synthetic prompts and the serving benchmark's model configuration.
+"""Synthetic prompts and training batches, and the benchmark's model configuration.
 
 Counterpart: ``eventstreamgpt_tpu/data/synthetic.py``, whose vocabulary
-layout (UNK at 0, then ``event_type``, ``lab``, ``med``, ``demo`` slices)
-and per-event recipe (one event type, labs by default, meds at the end of
-40% of events, at most 24 elements) these follow. Prompts are built in
-memory from a numpy generator; nothing is written to disk.
+layout (UNK at 0, then ``event_type``, ``lab``, ``med``, ``demo`` slices),
+per-subject recipe (lognormal lengths clipped to ``[4, 512]``, inter-event
+times uniform in 1-240 minutes) and per-event recipe (one event type, labs
+by default, meds at the end of 40% of events, at most 24 elements) these
+follow. Everything is built in memory from a numpy generator; nothing is
+written to disk.
 """
 
 from __future__ import annotations
@@ -64,6 +66,23 @@ def serving_config(
     )
 
 
+def synthetic_event(rng: np.random.Generator, config, max_obs: int = 24):
+    """One event's ``(measurement indices, indices, values)``: an event type,
+    then labs (with standard-normal values), the last 1-3 elements meds in
+    40% of events; values are 0 off the labs."""
+    off, size = config.vocab_offsets_by_measurement, config.vocab_sizes_by_measurement
+    n_obs = int(np.clip(rng.poisson(14), 1, max_obs))
+    m = np.full(n_obs, 2)
+    m[0] = 1
+    if n_obs > 2 and rng.random() < 0.4:
+        m[-(1 + int(rng.integers(0, min(3, n_obs - 2)))) :] = 3
+    idx = np.zeros(n_obs, np.int64)
+    for code, name in ((1, "event_type"), (2, "lab"), (3, "med")):
+        sel = m == code
+        idx[sel] = rng.integers(off[name] + 1, off[name] + size[name], size=int(sel.sum()))
+    return m, idx, np.where(m == 2, rng.normal(size=n_obs), 0.0)
+
+
 def synthetic_prompts(rng: np.random.Generator, n: int, config, len_range, budget_range, max_obs: int = 24):
     """``n`` one-row prompts with lengths and budgets drawn from the inclusive
     ranges; returns ``[(prompt, budget), ...]`` (CPU tensors)."""
@@ -75,16 +94,8 @@ def synthetic_prompts(rng: np.random.Generator, n: int, config, len_range, budge
         meas = np.zeros((1, L, max_obs), np.int64)
         vals = np.zeros((1, L, max_obs), np.float32)
         for e in range(L):
-            n_obs = int(np.clip(rng.poisson(14), 1, max_obs))
-            m = np.full(n_obs, 2)
-            m[0] = 1
-            if n_obs > 2 and rng.random() < 0.4:
-                m[-(1 + int(rng.integers(0, min(3, n_obs - 2)))) :] = 3
-            for code, name in ((1, "event_type"), (2, "lab"), (3, "med")):
-                sel = m == code
-                idx[0, e, :n_obs][sel] = rng.integers(off[name] + 1, off[name] + size[name], size=int(sel.sum()))
-            meas[0, e, :n_obs] = m
-            vals[0, e, :n_obs] = np.where(m == 2, rng.normal(size=n_obs), 0.0)
+            m, ix, v = synthetic_event(rng, config, max_obs)
+            meas[0, e, : len(m)], idx[0, e, : len(m)], vals[0, e, : len(m)] = m, ix, v
         prompt = EventStreamBatch(
             event_mask=torch.ones(1, L, dtype=torch.bool),
             time_delta=torch.from_numpy(rng.uniform(1.0, 240.0, size=(1, L)).astype(np.float32)),
@@ -105,3 +116,63 @@ def log_time_stats(prompts) -> tuple[float, float]:
     ``set_to_dataset`` gives a lognormal TTE head)."""
     logd = np.log(np.concatenate([p.time_delta.numpy().ravel() for p, _ in prompts]))
     return float(logd.mean()), float(logd.std())
+
+
+def synthetic_training_batches(
+    rng: np.random.Generator, config, batch_size: int, seq_len: int, mean_seq_len: int = 200, max_obs: int = 24
+):
+    """An endless iterator of training batches (CPU tensors) in the layout
+    ``JaxDataset.collate`` gives: right padding to ``seq_len`` events,
+    ``n_data`` the batch's widest event, values 0 and ``dynamic_values_mask``
+    False where unobserved, ``time_delta`` the minutes to the next event (1
+    after a subject's last event, 0 on padding).
+
+    Each subject follows ``write_synthetic_dataset``: a length drawn
+    lognormal around ``mean_seq_len`` (sigma 0.6) and clipped to
+    ``[4, 512]``, cropped to its first ``seq_len`` events, inter-event times
+    uniform in 1-240 minutes, one static ``demo`` element.
+    """
+    off, size = config.vocab_offsets_by_measurement, config.vocab_sizes_by_measurement
+    demo = config.measurements_idxmap["demo"]
+    while True:
+        subjects = []
+        for _ in range(batch_size):
+            n = int(np.clip(rng.lognormal(np.log(mean_seq_len), 0.6), 4, 512))
+            deltas = np.append(rng.uniform(1.0, 240.0, size=n - 1), 1.0)[:seq_len]
+            events = [synthetic_event(rng, config, max_obs) for _ in range(len(deltas))]
+            static = int(rng.integers(off["demo"] + 1, off["demo"] + size["demo"]))
+            subjects.append((deltas, events, static))
+        n_data = max(len(m) for _, events, _ in subjects for m, _, _ in events)
+        B, L = batch_size, seq_len
+        event_mask = np.zeros((B, L), bool)
+        time_delta = np.zeros((B, L), np.float32)
+        idx = np.zeros((B, L, n_data), np.int64)
+        meas = np.zeros((B, L, n_data), np.int64)
+        vals = np.zeros((B, L, n_data), np.float32)
+        for b, (deltas, events, _) in enumerate(subjects):
+            event_mask[b, : len(deltas)] = True
+            time_delta[b, : len(deltas)] = deltas
+            for e, (m, ix, v) in enumerate(events):
+                meas[b, e, : len(m)], idx[b, e, : len(m)], vals[b, e, : len(m)] = m, ix, v
+        yield EventStreamBatch(
+            event_mask=torch.from_numpy(event_mask),
+            time_delta=torch.from_numpy(time_delta),
+            static_indices=torch.tensor([[s] for _, _, s in subjects]),
+            static_measurement_indices=torch.full((B, 1), demo),
+            dynamic_indices=torch.from_numpy(idx),
+            dynamic_measurement_indices=torch.from_numpy(meas),
+            dynamic_values=torch.from_numpy(vals),
+            dynamic_values_mask=torch.from_numpy(meas == 2),
+        )
+
+
+def training_config(batches, precision: str = "bf16", **overrides) -> StructuredTransformerConfig:
+    """`serving_config` with the log inter-event-time statistics of
+    ``batches`` (over the gaps between two real events), as
+    ``set_to_dataset`` gives a lognormal TTE head."""
+    gaps = []
+    for b in batches:
+        real = (b.event_mask[:, 1:] & b.event_mask[:, :-1]).numpy()
+        gaps.append(b.time_delta[:, :-1].numpy()[real])
+    logd = np.log(np.concatenate(gaps))
+    return serving_config(precision=precision, mean_log=float(logd.mean()), std_log=float(logd.std()), **overrides)

@@ -2,7 +2,8 @@
 
 Counterpart: ``eventstreamgpt_tpu/distributions.py`` (Categorical,
 Bernoulli, Normal, Exponential, LogNormalMixture) with the same
-parameterizations; the log-densities come with the training slice.
+parameterizations and log-densities (``log_prob``, which the training
+losses read).
 ``sample(generator)`` draws with an explicit source of uniform noise: a
 ``torch.Generator``, or any object with a ``uniform(shape) -> Tensor``
 method (the serving engine passes
@@ -18,6 +19,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 # Open-interval clamp for uniforms drawn from a torch.Generator (log(0) guards).
 _U_EPS = 2.0**-25
@@ -49,6 +51,12 @@ class Categorical:
 
     logits: torch.Tensor
 
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        """Log-probability of integer labels; an out-of-range label reads the
+        nearest class (JAX's ``mode="clip"`` gather)."""
+        idx = value.long().clamp(0, self.logits.shape[-1] - 1)
+        return torch.gather(torch.log_softmax(self.logits, dim=-1), -1, idx[..., None])[..., 0]
+
     def sample(self, generator) -> torch.Tensor:
         g = gumbel(generator, self.logits.shape, self.logits.device).to(self.logits.dtype)
         return torch.argmax(g + self.logits, dim=-1).to(torch.int32)
@@ -67,6 +75,11 @@ class Bernoulli:
     def probs(self) -> torch.Tensor:
         return torch.sigmoid(self.logits)
 
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        """-BCE with logits: ``v * log sigmoid(l) + (1 - v) * log sigmoid(-l)``."""
+        value = value.to(self.logits.dtype)
+        return value * F.logsigmoid(self.logits) + (1 - value) * F.logsigmoid(-self.logits)
+
     def sample(self, generator) -> torch.Tensor:
         u = uniform(generator, self.logits.shape, self.logits.device)
         return (u < self.probs).to(torch.float32)
@@ -81,6 +94,10 @@ class Normal:
 
     loc: torch.Tensor
     scale: torch.Tensor
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        var = self.scale**2
+        return -((value - self.loc) ** 2) / (2 * var) - torch.log(self.scale) - 0.5 * math.log(2 * math.pi)
 
     def sample(self, generator) -> torch.Tensor:
         z = standard_normal(generator, self.loc.shape, self.loc.device).to(self.loc.dtype)
@@ -99,6 +116,9 @@ class Exponential:
     """An elementwise exponential distribution with rate parameterization."""
 
     rate: torch.Tensor
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return torch.log(self.rate) - self.rate * value
 
     def sample(self, generator) -> torch.Tensor:
         u = uniform(generator, self.rate.shape, self.rate.device).to(self.rate.dtype)
@@ -126,6 +146,16 @@ class LogNormalMixture:
     log_weights: torch.Tensor
     mean_log_inter_time: float = 0.0
     std_log_inter_time: float = 1.0
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        """The mixture's density over ``z`` with the Jacobian ``1 / (t * std)``;
+        ``t`` is clamped below at the smallest normal float (``log(0)`` guard)."""
+        value = torch.clamp(value, min=torch.finfo(self.locs.dtype).tiny)
+        log_t = torch.log(value)
+        z = (log_t - self.mean_log_inter_time) / self.std_log_inter_time
+        comp = Normal(self.locs, torch.exp(self.log_scales)).log_prob(z[..., None])
+        gmm = torch.logsumexp(torch.log_softmax(self.log_weights, dim=-1) + comp, dim=-1)
+        return gmm - log_t - math.log(self.std_log_inter_time)
 
     def sample(self, generator) -> torch.Tensor:
         comps = Normal(self.locs, torch.exp(self.log_scales)).sample(generator)  # (..., K)

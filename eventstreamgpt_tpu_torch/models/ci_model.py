@@ -1,10 +1,12 @@
-"""The conditionally-independent event stream model, generation path.
+"""The conditionally-independent event stream model.
 
 Counterpart: ``eventstreamgpt_tpu/models/ci_model.py``
 (`ConditionallyIndependentGenerativeOutputLayer`,
-`CIPPTForGenerativeSequenceModeling`). Generation keeps the unshifted
-encodings (the last event predicts the next); the shifted training
-alignment and the losses come with the training slice.
+`CIPPTForGenerativeSequenceModeling`). Training shifts the encodings right
+by one event, so position ``j``'s content predictions come from event
+``j - 1`` (zeros at each row's and each packed segment's first event);
+generation keeps the unshifted encodings (the last event predicts the
+next).
 """
 
 from __future__ import annotations
@@ -13,10 +15,13 @@ import torch
 from torch import nn
 
 from ..data.types import DataModality, EventStreamBatch
+from ..ops.tensor_ops import segment_starts
 from .config import StructuredEventProcessingMode, StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
 from .model_output import (
     GenerativeOutputLayerBase,
+    GenerativeSequenceModelLabels,
+    GenerativeSequenceModelLosses,
     GenerativeSequenceModelOutput,
     GenerativeSequenceModelPredictions,
 )
@@ -30,23 +35,42 @@ class ConditionallyIndependentGenerativeOutputLayer(GenerativeOutputLayerBase):
         cfg = self.config
         if cfg.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
             raise ValueError(f"{cfg.structured_event_processing_mode} invalid!")
-        if not is_generation:
-            raise ValueError("the training forward (losses, shifted alignment) is not ported yet")
         regression_measurements = set(
             cfg.measurements_for(DataModality.MULTIVARIATE_REGRESSION)
             + cfg.measurements_for(DataModality.UNIVARIATE_REGRESSION)
         )
-        preds = GenerativeSequenceModelPredictions(
-            classification=self.get_classification_outputs(
-                encoded, set(self.classification_mode_per_measurement)
-            ),
-            regression=self.get_regression_outputs(encoded, regression_measurements),
-            regression_indices=None,
-            time_to_event=self.TTE_layer(encoded),
+        contents = encoded
+        if not is_generation:
+            contents = torch.cat([torch.zeros_like(encoded[:, :1]), encoded[:, :-1]], dim=1)
+            if batch.segment_ids is not None:
+                contents = torch.where(segment_starts(batch.segment_ids)[..., None], 0.0, contents)
+        classification = self.get_classification_outputs(
+            batch, contents, set(self.classification_mode_per_measurement), is_generation
         )
-        return GenerativeSequenceModelOutput(
+        regression = self.get_regression_outputs(batch, contents, regression_measurements, is_generation)
+        TTE_LL, TTE_dist, TTE_true = self.get_TTE_outputs(batch, encoded, is_generation)
+        preds = GenerativeSequenceModelPredictions(
+            classification=classification[1],
+            regression=regression[1],
+            regression_indices=None if is_generation else regression[3],
+            time_to_event=TTE_dist,
+        )
+        out = GenerativeSequenceModelOutput(
             preds=preds, event_mask=batch.event_mask, dynamic_values_mask=batch.dynamic_values_mask
         )
+        if is_generation:
+            return out
+        out.loss = sum(classification[0].values()) + sum(regression[0].values()) - TTE_LL
+        out.losses = GenerativeSequenceModelLosses(
+            classification=classification[0], regression=regression[0], time_to_event=-TTE_LL
+        )
+        out.labels = GenerativeSequenceModelLabels(
+            classification=classification[2],
+            regression=regression[2],
+            regression_indices=regression[3],
+            time_to_event=TTE_true,
+        )
+        return out
 
 
 class CIPPTForGenerativeSequenceModeling(nn.Module):
@@ -63,8 +87,13 @@ class CIPPTForGenerativeSequenceModeling(nn.Module):
         self.encoder = ConditionallyIndependentPointProcessTransformer(config)
         self.output_layer = ConditionallyIndependentGenerativeOutputLayer(config)
 
-    def forward(self, batch: EventStreamBatch, past=None, use_cache: bool = False, is_generation: bool = True):
-        encoded = self.encoder(batch, past=past, use_cache=use_cache)
+    def forward(
+        self, batch: EventStreamBatch, past=None, use_cache: bool = False, is_generation: bool = True, dropout=None
+    ):
+        """``is_generation=False`` computes the losses; ``dropout`` (a
+        ``torch.Generator`` on the batch's device) turns dropout on, as a
+        ``"dropout"`` rng does for the flax model."""
+        encoded = self.encoder(batch, past=past, use_cache=use_cache, dropout=dropout)
         out = self.output_layer(batch, encoded.last_hidden_state, is_generation=is_generation)
         out.past_key_values = encoded.past_key_values
         return out

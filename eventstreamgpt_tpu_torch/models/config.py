@@ -1,21 +1,23 @@
-"""Model architecture configuration for structured event-stream transformers.
+"""Model and optimization configuration for structured event-stream transformers.
 
-Counterpart: ``eventstreamgpt_tpu/models/config.py::StructuredTransformerConfig``.
-The constructor, its validation and ``to_dict``/``from_dict`` follow the JAX
-class field for field, so one ``config.json`` loads in both packages and
-``to_dict`` gives the same dictionary. ``compute_dtype`` is a ``torch.dtype``.
+Counterpart: ``eventstreamgpt_tpu/models/config.py``
+(`StructuredTransformerConfig`, `OptimizationConfig`). The constructors,
+their validation and ``to_dict``/``from_dict`` follow the JAX classes field
+for field, so one ``config.json`` loads in both packages and ``to_dict``
+gives the same dictionary. ``compute_dtype`` is a ``torch.dtype``.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import Any, Hashable, Union
 
 import torch
 
 from ..data.config import MeasurementConfig
 from ..data.types import DataModality
-from ..utils import JSONableMixin, StrEnum
+from ..utils import JSONableMixin, StrEnum, config_dataclass
 from .embedding import MeasIndexGroupOptions, StaticEmbeddingMode
 
 
@@ -342,3 +344,72 @@ class StructuredTransformerConfig(JSONableMixin):
     def __eq__(self, other) -> bool:
         return isinstance(other, StructuredTransformerConfig) and self.to_dict() == other.to_dict()
 
+
+
+@config_dataclass
+class OptimizationConfig(JSONableMixin):
+    """Optimization settings: AdamW + polynomial decay with linear warmup.
+
+    ``set_to_dataset`` derives the step counts from the number of training
+    subjects (the JAX class reads it off a dataset).
+    """
+
+    init_lr: float = 1e-2
+    end_lr: float | None = None
+    end_lr_frac_of_init_lr: float | None = 1e-3
+    max_epochs: int = 100
+    batch_size: int = 32
+    validation_batch_size: int = 32
+    lr_frac_warmup_steps: float | None = 0.01
+    lr_num_warmup_steps: int | None = None
+    max_training_steps: int | None = None
+    lr_decay_power: float = 1.0
+    weight_decay: float = 0.01
+    patience: int | None = None
+    gradient_accumulation: int | None = None
+    num_dataloader_workers: int = 0
+
+    def __post_init__(self):
+        if self.end_lr_frac_of_init_lr is not None:
+            if self.end_lr_frac_of_init_lr <= 0.0 or self.end_lr_frac_of_init_lr >= 1.0:
+                raise ValueError("`end_lr_frac_of_init_lr` must be between 0.0 and 1.0!")
+            if self.end_lr is not None:
+                prod = self.end_lr_frac_of_init_lr * self.init_lr
+                if not math.isclose(self.end_lr, prod):
+                    raise ValueError(
+                        "If both set, `end_lr` must be equal to `end_lr_frac_of_init_lr * init_lr`! Got "
+                        f"end_lr={self.end_lr}, end_lr_frac_of_init_lr * init_lr = {prod}!"
+                    )
+            self.end_lr = self.end_lr_frac_of_init_lr * self.init_lr
+        else:
+            if self.end_lr is None:
+                raise ValueError("Must set either end_lr or end_lr_frac_of_init_lr!")
+            self.end_lr_frac_of_init_lr = self.end_lr / self.init_lr
+
+    def set_to_dataset(self, n_subjects: int | None = None, steps_per_epoch: int | None = None) -> None:
+        """Derives ``max_training_steps`` and the warmup steps from the number of
+        training subjects (``ceil(n_subjects / batch_size)`` steps an epoch) or
+        from ``steps_per_epoch`` directly."""
+        if steps_per_epoch is None:
+            if n_subjects is None:
+                raise ValueError("set_to_dataset needs n_subjects or steps_per_epoch")
+            steps_per_epoch = int(math.ceil(n_subjects / self.batch_size))
+        if self.max_training_steps is None:
+            self.max_training_steps = steps_per_epoch * self.max_epochs
+        if self.lr_num_warmup_steps is None:
+            if self.lr_frac_warmup_steps is None:
+                raise ValueError("set lr_frac_warmup_steps or lr_num_warmup_steps")
+            self.lr_num_warmup_steps = int(round(self.lr_frac_warmup_steps * self.max_training_steps))
+        elif self.lr_frac_warmup_steps is None:
+            self.lr_frac_warmup_steps = self.lr_num_warmup_steps / self.max_training_steps
+        if not (
+            math.floor(self.lr_frac_warmup_steps * self.max_training_steps) <= self.lr_num_warmup_steps
+            <= math.ceil(self.lr_frac_warmup_steps * self.max_training_steps)
+        ):
+            raise ValueError(
+                "`self.lr_frac_warmup_steps`, `self.max_training_steps`, and `self.lr_num_warmup_steps` "
+                "should be consistent, but they aren't! Got\n"
+                f"\tself.max_training_steps = {self.max_training_steps}\n"
+                f"\tself.lr_frac_warmup_steps = {self.lr_frac_warmup_steps}\n"
+                f"\tself.lr_num_warmup_steps = {self.lr_num_warmup_steps}"
+            )

@@ -2,8 +2,8 @@
 
 Counterpart: ``eventstreamgpt_tpu/models/embedding.py::DataEmbeddingLayer``
 (joint and split modes, static sum/drop, measurement-index normalization).
-Tables hold fp32 parameters; like the JAX layer, lookups run in the compute
-dtype the module has been cast to. The dep-graph grouping
+Tables hold fp32 parameters; like the JAX layer, each call casts them to
+the compute dtype and looks up in it. The dep-graph grouping
 (``split_by_measurement_indices``) belongs to nested-attention models and
 raises here.
 """
@@ -51,8 +51,10 @@ class DataEmbeddingLayer(nn.Module):
         dynamic_weight: float = 0.5,
         categorical_weight: float = 0.5,
         numerical_weight: float = 0.5,
+        compute_dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if split_by_measurement_indices is not None:
             raise ValueError(
                 "split_by_measurement_indices (nested-attention dep-graph grouping) is not "
@@ -82,10 +84,6 @@ class DataEmbeddingLayer(nn.Module):
             )
             self.num_proj = nn.Linear(numerical_embedding_dim, out_dim)
 
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        return (self.embed_table if self.joint else self.categorical_embed_table).dtype
-
     def _embed(self, indices, measurement_indices, values=None, values_mask=None):
         cdt = self.compute_dtype
         if self.joint:
@@ -95,19 +93,19 @@ class DataEmbeddingLayer(nn.Module):
                 values = torch.where(values_mask, values, 1.0)
             if self.do_normalize_by_measurement_index:
                 values = values * measurement_index_normalization(measurement_indices)
-            return embedding_bag(self.embed_table, indices, values)
+            return embedding_bag(self.embed_table.to(cdt), indices, values)
 
         cat_values = torch.ones(indices.shape, dtype=cdt, device=indices.device)
         if self.do_normalize_by_measurement_index:
             meas_norm = measurement_index_normalization(measurement_indices)
             cat_values = cat_values * meas_norm
-        cat_embeds = dense(embedding_bag(self.categorical_embed_table, indices, cat_values), self.cat_proj)
+        cat_embeds = dense(embedding_bag(self.categorical_embed_table.to(cdt), indices, cat_values), self.cat_proj, cdt)
         if values is None:
             return cat_embeds
         num_values = torch.where(values_mask, values, 0.0)
         if self.do_normalize_by_measurement_index:
             num_values = num_values * meas_norm
-        num_embeds = dense(embedding_bag(self.numerical_embed_table, indices, num_values), self.num_proj)
+        num_embeds = dense(embedding_bag(self.numerical_embed_table.to(cdt), indices, num_values), self.num_proj, cdt)
         return self.categorical_frac * cat_embeds + self.numerical_frac * num_embeds
 
     def forward(self, batch: EventStreamBatch) -> torch.Tensor:

@@ -1,11 +1,11 @@
-"""Distribution-producing emission heads (TTE + regression), generation path.
+"""Distribution-producing emission heads (TTE + regression).
 
 Counterpart: ``eventstreamgpt_tpu/models/generative_layers.py``. The
 strided slices of the projection output are kept exactly: ``0::3`` /
 ``1::3`` / ``2::3`` for the lognormal mixture, ``0::2`` / ``1::2`` for
-Gaussian heads; the positive transform is ``ELU + 1 + finfo.tiny``. Only the
-``idx=None`` (generation) path of the indexed regression head is ported;
-the indexed training path (the ``vocab_gather`` kernel) comes with training.
+Gaussian heads; the positive transform is ``ELU + 1 + finfo.tiny``. The
+indexed regression head's training path gathers the observed targets'
+parameters with `ops.vocab_gather` (kernel C on the card).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from torch import nn
 
 from ..distributions import Exponential, LogNormalMixture, Normal
 from ..ops.tensor_ops import dense
+from ..ops.vocab_gather import vocab_gather
 
 
 def elu_plus_one(x: torch.Tensor) -> torch.Tensor:
@@ -38,7 +39,7 @@ class LogNormalMixtureTTELayer(nn.Module):
         self.std_log_inter_time = std_log_inter_time
 
     def forward(self, T):
-        p = dense(T, self.proj).float()
+        p = dense(T, self.proj, torch.float32)
         return LogNormalMixture(
             locs=p[..., 0::3],
             log_scales=p[..., 1::3],
@@ -57,30 +58,43 @@ class ExponentialTTELayer(nn.Module):
         self.proj.keep_fp32 = True
 
     def forward(self, T):
-        return Exponential(rate=elu_plus_one(dense(T, self.proj).float())[..., 0])
+        return Exponential(rate=elu_plus_one(dense(T, self.proj, torch.float32))[..., 0])
 
 
 class GaussianIndexedRegressionLayer(nn.Module):
-    """Multivariate regression head; generation returns every target's Normal."""
+    """Multivariate regression head over an interleaved (mean, std) plane.
 
-    def __init__(self, in_dim, n_regression_targets):
+    Without ``idx`` (generation) it returns every target's Normal. With
+    ``idx`` ``(..., M)`` (training) it gathers the observed targets'
+    parameters straight from the compute-dtype plane (mean at ``2 * idx``,
+    std at ``2 * idx + 1``) and only then upcasts and activates, so the
+    elementwise work and its backward run on ``(..., 2M)``, not on the
+    ``(..., 2V)`` plane.
+    """
+
+    def __init__(self, in_dim, n_regression_targets, dtype: torch.dtype):
         super().__init__()
         self.proj = nn.Linear(in_dim, 2 * n_regression_targets)
+        self.dtype = dtype
 
     def forward(self, X, idx=None):
-        if idx is not None:
-            raise ValueError("the indexed (training) regression path is not ported yet")
-        Z = dense(X, self.proj).float()
-        return Normal(loc=Z[..., 0::2], scale=elu_plus_one(Z[..., 1::2]))
+        Z = dense(X, self.proj, self.dtype)
+        if idx is None:
+            Z = Z.float()
+            return Normal(loc=Z[..., 0::2], scale=elu_plus_one(Z[..., 1::2]))
+        m = idx.shape[-1]
+        both = vocab_gather(Z, torch.cat([2 * idx, 2 * idx + 1], dim=-1).to(torch.int32))
+        return Normal(loc=both[..., :m], scale=elu_plus_one(both[..., m:]))
 
 
 class GaussianRegressionLayer(nn.Module):
     """Univariate probabilistic regression head."""
 
-    def __init__(self, in_dim):
+    def __init__(self, in_dim, dtype: torch.dtype):
         super().__init__()
         self.proj = nn.Linear(in_dim, 2)
+        self.dtype = dtype
 
     def forward(self, X):
-        Z = dense(X, self.proj).float()
+        Z = dense(X, self.proj, self.dtype).float()
         return Normal(loc=Z[..., 0::2], scale=elu_plus_one(Z[..., 1::2]))

@@ -13,6 +13,12 @@ Numerics kept from the JAX model: attention logits are **not** scaled by
 fp32 minimum and are clamped there (a fully masked row softmaxes to
 uniform); LayerNorm is flax's formula (`ops.tensor_ops.flax_layer_norm`);
 ``gelu`` is the tanh approximation (``flax.linen.gelu``'s default).
+
+Parameters are fp32 and every dense layer casts them to the compute dtype
+on each call, as flax's ``nn.Dense(dtype=...)`` does (the serving engine
+casts them once instead). Dropout sits where the JAX model has it (input
+embedding, attention weights, attention output, MLP output) and is on only
+when the forward is given a ``torch.Generator`` (`ops.tensor_ops.dropout`).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.types import EventStreamBatch
-from ..ops.tensor_ops import dense, flax_layer_norm, segment_starts
+from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts
 from .config import StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
 
@@ -160,21 +166,32 @@ class InnerSelfAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.head_dim = config.head_dim
         self.window_size = window_size
+        self.dtype = config.compute_dtype
+        self.attention_dropout = float(config.attention_dropout)
+        self.resid_dropout = float(config.resid_dropout)
         self.q_proj = nn.Linear(E, E, bias=False)
         self.k_proj = nn.Linear(E, E, bias=False)
         self.v_proj = nn.Linear(E, E, bias=False)
         self.out_proj = nn.Linear(E, E, bias=True)
 
-    def forward(self, hidden_states, attention_mask=None, layer_past: Optional[KVCache] = None, use_cache=False):
+    def forward(
+        self,
+        hidden_states,
+        attention_mask=None,
+        layer_past: Optional[KVCache] = None,
+        use_cache=False,
+        segment_ids=None,
+        dropout_rng=None,
+    ):
         B, S, E = hidden_states.shape
         H, D = self.num_heads, self.head_dim
 
         def heads(x):  # (B, S, E) -> (B, H, S, D)
             return x.reshape(B, S, H, D).transpose(1, 2)
 
-        query = heads(dense(hidden_states, self.q_proj))
-        key = heads(dense(hidden_states, self.k_proj))
-        value = heads(dense(hidden_states, self.v_proj))
+        query = heads(dense(hidden_states, self.q_proj, self.dtype))
+        key = heads(dense(hidden_states, self.k_proj, self.dtype))
+        value = heads(dense(hidden_states, self.v_proj, self.dtype))
         chunk_mask = (
             attention_mask
             if attention_mask is not None
@@ -228,6 +245,11 @@ class InnerSelfAttention(nn.Module):
         mask = causal[None, None] if causal.ndim == 2 else causal[:, None]
         if valid_k is not None:
             mask = mask & (valid_k[None, None, None, :] if valid_k.ndim == 1 else valid_k[:, None, None, :])
+        if segment_ids is not None:
+            if layer_past is not None:
+                raise ValueError("packed (segment_ids) batches do not support KV caching")
+            # Packed rows: queries attend only within their own segment.
+            mask = mask & (segment_ids[:, None, :, None] == segment_ids[:, None, None, :])
         # fp32 logits, no 1/sqrt(d) scaling (GPT-Neo lineage, as the JAX model).
         attn = torch.matmul(query.float(), key.float().transpose(-1, -2))
         attn = torch.where(mask, attn, F32_MIN)
@@ -235,9 +257,11 @@ class InnerSelfAttention(nn.Module):
             attn = attn + torch.where(attention_mask[:, None, None, :], 0.0, F32_MIN)
         attn = torch.clamp(attn, min=F32_MIN)
         attn = torch.softmax(attn, dim=-1).to(value.dtype)
+        attn = dropout(attn, self.attention_dropout, dropout_rng)
         out = torch.matmul(attn, value)  # (B, H, S, D)
         out = out.transpose(1, 2).reshape(B, S, E)
-        return dense(out, self.out_proj), (present if use_cache else None)
+        out = dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
+        return out, (present if use_cache else None)
 
 
 class InnerAttention(nn.Module):
@@ -265,9 +289,12 @@ class InnerMLP(nn.Module):
         self.c_fc = nn.Linear(config.hidden_size, inner)
         self.c_proj = nn.Linear(inner, config.hidden_size)
         self.act = activation(config.activation_function)
+        self.dtype = config.compute_dtype
+        self.resid_dropout = float(config.resid_dropout)
 
-    def forward(self, x):
-        return dense(self.act(dense(x, self.c_fc)), self.c_proj)
+    def forward(self, x, dropout_rng=None):
+        h = dense(self.act(dense(x, self.c_fc, self.dtype)), self.c_proj, self.dtype)
+        return dropout(h, self.resid_dropout, dropout_rng)
 
 
 class InnerBlock(nn.Module):
@@ -279,12 +306,19 @@ class InnerBlock(nn.Module):
         self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
         self.mlp = InnerMLP(config)
 
-    def forward(self, hidden_states, attention_mask=None, layer_past=None, use_cache=False):
+    def forward(
+        self, hidden_states, attention_mask=None, layer_past=None, use_cache=False, segment_ids=None, dropout_rng=None
+    ):
         attn_output, present = self.attn(
-            hidden_states, attention_mask=attention_mask, layer_past=layer_past, use_cache=use_cache
+            hidden_states,
+            attention_mask=attention_mask,
+            layer_past=layer_past,
+            use_cache=use_cache,
+            segment_ids=segment_ids,
+            dropout_rng=dropout_rng,
         )
         hidden_states = attn_output + hidden_states
-        hidden_states = hidden_states + self.mlp(self.layer_norm(hidden_states))
+        hidden_states = hidden_states + self.mlp(self.layer_norm(hidden_states), dropout_rng)
         return hidden_states, present
 
 
@@ -295,6 +329,7 @@ class ConditionallyIndependentPointProcessInputLayer(nn.Module):
         super().__init__()
         self.hidden_size = config.hidden_size
         self.compute_dtype = config.compute_dtype
+        self.input_dropout = float(config.input_dropout)
         self.data_embedding_layer = DataEmbeddingLayer(
             n_total_embeddings=max(config.vocab_size, 1),
             out_dim=config.hidden_size,
@@ -306,14 +341,16 @@ class ConditionallyIndependentPointProcessInputLayer(nn.Module):
             dynamic_weight=config.dynamic_embedding_weight,
             categorical_weight=config.categorical_embedding_weight,
             numerical_weight=config.numerical_embedding_weight,
+            compute_dtype=config.compute_dtype,
         )
 
-    def forward(self, batch: EventStreamBatch) -> torch.Tensor:
+    def forward(self, batch: EventStreamBatch, dropout_rng=None) -> torch.Tensor:
         data_embed = self.data_embedding_layer(batch)
         t = batch.time if batch.time is not None else time_from_deltas(batch)
         # Sinusoids in fp32; the sum drops to the compute dtype afterwards.
         embed = (data_embed + temporal_position_encoding(t, self.hidden_size)).to(self.compute_dtype)
-        return torch.where(batch.event_mask[..., None], embed, 0.0)
+        embed = torch.where(batch.event_mask[..., None], embed, 0.0)
+        return dropout(embed, self.input_dropout, dropout_rng)
 
 
 @dataclasses.dataclass
@@ -342,8 +379,10 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
     def blocks(self) -> list[InnerBlock]:
         return [getattr(self, n) for n in self.layer_names]
 
-    def forward(self, batch: EventStreamBatch, past=None, use_cache=False) -> TransformerOutputWithPast:
-        hidden_states = self.input_layer(batch)
+    def forward(self, batch: EventStreamBatch, past=None, use_cache=False, dropout=None) -> TransformerOutputWithPast:
+        """``dropout``: a ``torch.Generator`` on the batch's device turns
+        dropout on; None (the default) is deterministic."""
+        hidden_states = self.input_layer(batch, dropout)
         presents = [] if use_cache else None
         for i, block in enumerate(self.blocks()):
             hidden_states, present = block(
@@ -351,6 +390,8 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
                 attention_mask=batch.event_mask,
                 layer_past=past[i] if past is not None else None,
                 use_cache=use_cache,
+                segment_ids=batch.segment_ids,
+                dropout_rng=dropout,
             )
             # Zero masked events' hidden states between layers (JAX parity).
             hidden_states = torch.where(batch.event_mask[..., None], hidden_states, 0.0)

@@ -1,4 +1,5 @@
-"""Sparse-feature ops and event selection on tensors.
+"""Sparse-feature ops, event selection, dense layers, dropout and the loss
+reductions, on tensors.
 
 Counterpart: ``eventstreamgpt_tpu/ops/tensor_ops.py``. The JAX versions
 rewrite gathers as one-hot reductions for the TPU; here they are plain
@@ -8,6 +9,7 @@ gathers, which select the same values exactly.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def embedding_bag(
@@ -18,6 +20,10 @@ def embedding_bag(
     Equivalent to ``torch.nn.EmbeddingBag(mode="sum", padding_idx=0)`` with
     ``per_sample_weights``: index 0 contributes nothing whatever its weight.
     Out-of-range indices read the edge row (the JAX ``mode="clip"`` gather).
+    The lookup is ``F.embedding`` with ``padding_idx=0``, whose backward
+    skips the padding slots (row 0's gradient is 0 either way, its weight
+    being 0): an indexing gather's backward sums the many padding duplicates
+    of a training batch one after another.
 
     Examples:
         >>> t = torch.arange(6.0).reshape(3, 2)
@@ -26,7 +32,7 @@ def embedding_bag(
     """
     pad_mask = (indices != 0).to(table.dtype)
     w = pad_mask if weights is None else weights.to(table.dtype) * pad_mask
-    gathered = table[indices.clamp(0, table.shape[0] - 1)]  # (..., M, D)
+    gathered = F.embedding(indices.clamp(0, table.shape[0] - 1), table, padding_idx=0)  # (..., M, D)
     return torch.einsum("...md,...m->...d", gathered, w)
 
 
@@ -85,16 +91,73 @@ def segment_starts(segment_ids: torch.Tensor) -> torch.Tensor:
     )
 
 
-def dense(x: torch.Tensor, layer) -> torch.Tensor:
-    """flax ``nn.Dense``: operands in the layer's dtype, the product, then the bias add.
+def safe_weighted_avg(X: torch.Tensor, weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted average over the last axis; ``(0, 0)`` where the weights sum to zero.
 
-    ``layer`` is an ``nn.Linear`` whose weight already holds the dtype the
-    flax layer computes in (the port casts ``Dense(dtype=bf16)`` weights to
-    bf16 once at load, which gives the numbers flax's per-call cast gives).
-    The bias is added after the product, as flax does, not fused into it.
+    Returns ``(avg, denom)``. ``weights`` has X's shape, or X's shape without
+    its second-to-last axis (column weights). A slot of weight 0 gets a
+    gradient of exactly 0, and a zero denominator no NaN.
+
+    Examples:
+        >>> X = torch.tensor([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
+        >>> safe_weighted_avg(X, torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]]))
+        (tensor([0., 4.]), tensor([0., 1.]))
     """
-    y = x.to(layer.weight.dtype) @ layer.weight.T
-    return y if layer.bias is None else y + layer.bias
+    if weights.ndim < X.ndim:
+        if weights.shape != X.shape[:-2] + X.shape[-1:]:
+            raise AssertionError(f"weights {tuple(weights.shape)} do not fit X {tuple(X.shape)}")
+        weights = weights[..., None, :].expand(X.shape)
+    elif weights.shape != X.shape:
+        raise AssertionError(f"weights {tuple(weights.shape)} do not fit X {tuple(X.shape)}")
+    weights = weights.to(torch.float32)
+    denom = weights.sum(dim=-1)
+    safe_denom = torch.where(denom > 0, denom, 1.0)
+    avg = torch.where(denom > 0, (X * weights).sum(dim=-1) / safe_denom, 0.0)
+    return avg, denom
+
+
+def weighted_loss(loss_per_event: torch.Tensor, event_mask: torch.Tensor) -> torch.Tensor:
+    """Macro-average: per-event -> per-subject mean -> mean over subjects with events.
+
+    Examples:
+        >>> weighted_loss(torch.tensor([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]]),
+        ...               torch.tensor([[1.0, 1.0, 1.0], [1.0, 0.0, 0.0]]))
+        tensor(3.)
+    """
+    loss_per_subject, events_per_subject = safe_weighted_avg(loss_per_event, event_mask)
+    return safe_weighted_avg(loss_per_subject, events_per_subject > 0)[0]
+
+
+def dense(x: torch.Tensor, layer, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: input, weight and bias cast to ``dtype``,
+    the product, then the bias add.
+
+    ``layer`` is an ``nn.Linear``. Training keeps its parameters in fp32 and
+    casts them on every call, as flax does; the serving engine casts them to
+    the compute dtype once (``cast_to_compute_dtype``), after which the casts
+    here do nothing. The bias is added after the product, as flax does, not
+    fused into it.
+    """
+    y = x.to(dtype) @ layer.weight.to(dtype).T
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(keep, x / keep_prob, 0)`` in x's dtype,
+    with the keep mask drawn from ``generator``; the identity when
+    ``generator`` is None (deterministic mode) or ``rate`` is 0.
+
+    Examples:
+        >>> dropout(torch.ones(4), 0.5, None)
+        tensor([1., 1., 1., 1.])
+        >>> sorted(set(dropout(torch.ones(64), 0.5, torch.Generator().manual_seed(0)).tolist()))
+        [0.0, 2.0]
+    """
+    if generator is None or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def flax_layer_norm(

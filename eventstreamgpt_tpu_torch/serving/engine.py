@@ -62,6 +62,7 @@ from ..models.transformer import init_kv_caches
 from ..ops.decode_step import decode_stack_step, stack_layer_weights
 from ..ops.fused_sampling import fused_categorical, topk_topp_mask
 from ..ops.tensor_ops import take_event
+from ..utils.device import resolve_device
 from .errors import MalformedPromptRejected, SlotHealthError
 from .scheduler import EngineResult, Request, Scheduler, check_prompt_finite, make_buckets
 
@@ -95,18 +96,6 @@ _NOT_PORTED = {
     "health_retries": 0,
     "prefill_stream": None,
 }
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the CUDA device; there is no silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "GenerationEngine runs on a CUDA device by default and none is available; "
-                "pass device='cpu' to run the plain PyTorch versions of the kernels on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class GenerationEngine:
@@ -162,7 +151,7 @@ class GenerationEngine:
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
             raise ValueError("nested-attention models are not part of the PyTorch port yet")
         check_generation_config(config)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "GenerationEngine")
         self.config = config
         self.cdt = config.compute_dtype
         self.greedy = bool(greedy)

@@ -40,9 +40,12 @@ N_SLOTS, PROFILED_STEPS, TIMED_STEPS = 32, 5, 20
 
 
 def _kernel_time_us(evt) -> float:
-    """Device time of a kernel entry; 0 for host-side ops, whose entries also
-    carry their kernels' device time and would count it twice."""
+    """Device time of a kernel entry; 0 for host-side ops and for user
+    annotations (``Optimizer.step#AdamW.step``), whose entries also carry
+    their kernels' device time and would count it twice."""
     if "CUDA" not in str(getattr(evt, "device_type", "")):
+        return 0.0
+    if getattr(evt, "is_user_annotation", False) or evt.key.startswith(("Optimizer.", "ProfilerStep")):
         return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)

@@ -1,0 +1,117 @@
+"""Where a train step's time goes, on one CUDA device.
+
+Builds the benchmark's CI training model (`data.synthetic.training_config`:
+hidden 256, 2 layers, bf16 compute over fp32 master weights, dropout 0.1,
+numpy-seeded random weights) with AdamW under warmup, and one synthetic
+batch of 32 subjects x 256 events resident on the device. It measures:
+
+* the wall time of one train step (host clock around a synchronised step,
+  median of 20, after 3 warm-up steps) and trained events/s (real events a
+  step over that time);
+* with ``torch.profiler`` over 3 steps: the device time of every kernel
+  (summed per kernel name), the launches per step, and the device's busy
+  share of the wall time.
+
+Run from the root of a checkout:
+
+    python -m eventstreamgpt_tpu_torch.tools.profile_train --out build/profile_train.json
+
+It prints one JSON object (also written to ``--out``) and exits non-zero
+without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..convert import init_params_from_seed
+from ..data.synthetic import serving_config, synthetic_training_batches, training_config
+from ..models.config import OptimizationConfig
+from ..training import build_model, build_optimizer, make_train_step
+from .profile_decode import _kernel_time_us
+
+BATCH, SEQ_LEN, PROFILED_STEPS, TIMED_STEPS = 32, 256, 3, 20
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]  # fmt: skip
+    batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(), BATCH, SEQ_LEN))
+    config = training_config([batch])
+    batch = batch.map(lambda t: t.cuda())
+    model = init_params_from_seed(build_model(config), seed=0)
+    oc = OptimizationConfig(init_lr=1e-3, batch_size=BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
+    oc.set_to_dataset(n_subjects=512)
+    optimizer, scheduler = build_optimizer(model, oc)
+    step = make_train_step(model, optimizer, scheduler)
+    for _ in range(3):
+        step(batch, 0)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(batch, 0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(batch, 0)
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        us = _kernel_time_us(evt)
+        if us > 0:
+            k = kernels.setdefault(evt.key, [0, 0.0])
+            k[0] += evt.count
+            k[1] += us
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3
+    step_ms = float(np.median(walls))
+    events = int(batch.event_mask.sum())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:20]
+    out = {
+        "card": smi,
+        "shape": {"batch": BATCH, "seq_len": SEQ_LEN, "n_data": int(batch.dynamic_indices.shape[-1])},
+        "real_events_per_step": events,
+        "step_wall_ms_median": step_ms,
+        "step_wall_ms_min": float(np.min(walls)),
+        "trained_events_per_s": events / (step_ms / 1e3),
+        "profiled_step_wall_ms": profiled_wall_ms / PROFILED_STEPS,
+        "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
+        "device_idle_share_profiled": 1.0 - busy_ms / profiled_wall_ms,
+        "device_idle_share_unprofiled": 1.0 - (busy_ms / PROFILED_STEPS) / step_ms,
+        "kernel_launches_per_step": sum(c for c, _ in kernels.values()) / PROFILED_STEPS,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "top_kernels_per_step": [
+            {"name": name[:90], "launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
+            for name, (c, us) in top
+        ],
+    }
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(out, indent=1))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,69 @@
+"""Optimizer construction from ``OptimizationConfig``.
+
+Counterpart: ``eventstreamgpt_tpu/training/optimizer.py``. AdamW (betas 0.9
+and 0.999, eps 1e-8) with the learning rate warming up linearly from 0 to
+``init_lr`` and then decaying polynomially to ``end_lr``, as
+``optax.adamw(schedule, weight_decay)``: update ``k`` (from 0) uses
+``schedule(k)``, so the first update under warmup moves only the moments,
+and the decoupled weight decay applies to every parameter (optax's default
+mask is None), biases and LayerNorm scales included.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.config import OptimizationConfig
+
+
+def polynomial_decay_with_warmup(
+    init_lr: float, end_lr: float, num_warmup_steps: int, num_training_steps: int, power: float = 1.0
+) -> Callable[[int], float]:
+    """The learning rate at a step, as HF's ``get_polynomial_decay_schedule_with_warmup``.
+
+    step < warmup:  init_lr * step / warmup
+    step >= total:  end_lr
+    otherwise:      end_lr + (init_lr - end_lr) * (1 - (step - warmup) / (total - warmup)) ** power
+
+    Examples:
+        >>> s = polynomial_decay_with_warmup(1.0, 0.0, 2, 6)
+        >>> [s(k) for k in (0, 1, 2, 4, 6, 9)]
+        [0.0, 0.5, 1.0, 0.5, 0.0, 0.0]
+    """
+    if init_lr <= end_lr:
+        raise ValueError(f"end_lr ({end_lr}) must be smaller than init_lr ({init_lr})")
+
+    def schedule(step: int) -> float:
+        if step >= num_training_steps:
+            return end_lr
+        if step < num_warmup_steps:
+            return init_lr * step / max(num_warmup_steps, 1)
+        remaining = 1.0 - (step - num_warmup_steps) / max(num_training_steps - num_warmup_steps, 1)
+        return (init_lr - end_lr) * remaining**power + end_lr
+
+    return schedule
+
+
+def build_optimizer(
+    model: torch.nn.Module, optimization_config: OptimizationConfig
+) -> tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+    """``(optimizer, scheduler)`` over every parameter of ``model``; call
+    ``scheduler.step()`` after each ``optimizer.step()``."""
+    oc = optimization_config
+    if oc.max_training_steps is None or oc.lr_num_warmup_steps is None:
+        raise ValueError(
+            "OptimizationConfig.max_training_steps / lr_num_warmup_steps are unset; "
+            "call optimization_config.set_to_dataset(...) first."
+        )
+    if oc.gradient_accumulation is not None and oc.gradient_accumulation > 1:
+        raise ValueError("gradient_accumulation > 1 is not part of the PyTorch port yet")
+    schedule = polynomial_decay_with_warmup(
+        oc.init_lr, oc.end_lr, oc.lr_num_warmup_steps, oc.max_training_steps, oc.lr_decay_power
+    )
+    optimizer = torch.optim.AdamW(
+        model.parameters(), lr=oc.init_lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=oc.weight_decay
+    )
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: schedule(step) / oc.init_lr)
+    return optimizer, scheduler

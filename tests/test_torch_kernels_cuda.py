@@ -20,6 +20,12 @@ from eventstreamgpt_tpu_torch.ops.decode_step import (
     stack_layer_weights,
 )
 from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_reference
+from eventstreamgpt_tpu_torch.ops.vocab_gather import (
+    vocab_gather,
+    vocab_gather_bwd,
+    vocab_gather_fwd,
+    vocab_gather_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -93,3 +99,42 @@ def test_decode_stack_step_matches_plain_version(cuda, dtype, tol, with_active):
         torch.testing.assert_close(got[i][at], want[i][at], rtol=tol, atol=tol)
     torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
     torch.testing.assert_close(got[4], want[4], rtol=0, atol=0)
+
+
+def gather_inputs(rows, V, M, seed):
+    """A plane, indices with duplicates and out-of-range entries, and a cotangent."""
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.normal(size=(rows, V)).astype(np.float32))
+    ci = rng.integers(0, V, size=(rows, M))
+    ci[:, : M // 3] = rng.integers(0, 2, size=(rows, M // 3))  # many duplicates of 0 and 1
+    ci[::3, -1] = -1
+    ci[1::5, -2] = V + 3
+    g = torch.from_numpy(rng.normal(size=(rows, M)).astype(np.float32))
+    return z, torch.from_numpy(ci.astype(np.int32)), g
+
+
+# (rows, V, M): tiny; odd widths; V above one shared-memory tile; the
+# training shape's width; M above the staged limit (indices read in place).
+@pytest.mark.parametrize("shape", [(7, 5, 3), (33, 1000, 48), (4, 9001, 130), (300, 7000, 48), (3, 300, 5000)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_vocab_gather_matches_plain_version(cuda, dtype, shape):
+    rows, V, M = shape
+    z, ci, g = gather_inputs(rows, V, M, seed=V)
+    z = z.to(DTYPES[dtype])
+
+    def run(fn, dev):
+        zz = z.detach().to(dev).requires_grad_(True)
+        out = fn(zz, ci.to(dev))
+        out.backward(g.to(dev))
+        return out.detach().cpu(), zz.grad.cpu()
+
+    want, want_dz = run(vocab_gather_reference, "cpu")
+    launches = vocab_gather_fwd.launches, vocab_gather_bwd.launches
+    got, got_dz = run(vocab_gather, cuda)
+    torch.cuda.synchronize()
+    assert (vocab_gather_fwd.launches, vocab_gather_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # The plain version on the CPU sums duplicates in slot order in fp32, as the kernel does.
+    torch.testing.assert_close(got_dz, want_dz, rtol=0, atol=0)
+    again = run(vocab_gather, cuda)[1]
+    assert torch.equal(again, got_dz)  # no atomics: bitwise reproducible
