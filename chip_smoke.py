@@ -43,7 +43,29 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    atol 1e-6 of the largest cotangent), the plain version summing
    duplicates with atomics in no fixed order; the kernel's backward also
    equals the CPU's plain version (ordered sums) bit for bit.
-6. One ``{"kernels": [...]}`` line, then the device line as the last line.
+6. Nested-attention training at full width: ``bench.py``'s NA model (the
+   phase-4 widths with three dep-graph levels ``[[], ["event_type"], ["lab",
+   "med"]]``, global dep-graph attention, bare sequence attention and a full
+   dep-graph block) with dropout 0.1, 20 train steps through
+   `make_train_step(build_model(...))` on the phase-4 batch. Every loss and
+   gradient norm is finite, the loss falls from step 1 to step 20, kernel D's
+   forward and backward each launch ``num_hidden_layers`` times a step and
+   kernel C's once a step. Median step time and trained events/s. A small
+   fp32 NA train step on the card must also match the CPU's (loss and every
+   gradient within 1e-4, dropout 0; hidden 32, one head of 32), and at hidden
+   128 (4 heads of 32) the same step with kernels C and D must match the
+   step with their plain versions on the card (loss within 1e-5, every
+   gradient within 2e-5 of its tensor's largest magnitude).
+7. Kernel D against its plain version, on the card, on the query (as the
+   ``[:, 1:]`` view the model passes), key, value, keep-mask and output
+   cotangent (scaled to a largest magnitude of 1) captured from a phase-6
+   step, in bf16 and fp32, with and without the keep-mask: forward and
+   backward within 1e-5 of the largest magnitude in fp32; in bf16 within
+   1e-2 of it, and the output also within 2e-2 absolute. Timed in bf16 with the
+   keep-mask beside its bound, its plain version (autograd for the
+   backward) and ``scaled_dot_product_attention`` with the same graph mask
+   and no dropout (a yardstick only: it takes no external keep-mask).
+8. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -95,11 +117,11 @@ def device_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from eventstreamgpt_tpu_torch.ops import build, decode_step, fused_sampling, vocab_gather
+    from eventstreamgpt_tpu_torch.ops import build, decode_step, dep_graph, fused_sampling, vocab_gather
 
     t0 = time.perf_counter()
     errors = []
-    sources = [decode_step.SOURCE, vocab_gather.SOURCE]
+    sources = [decode_step.SOURCE, vocab_gather.SOURCE, dep_graph.SOURCE]
     nvcc = threading.Thread(target=lambda: errors.extend(_try(build.build_all, sources)))
     nvcc.start()
     z = torch.zeros(2, 40, device="cuda")
@@ -462,41 +484,38 @@ class GatherCapture:
         self.mod.vocab_gather = self.orig
 
 
-def training_phase(smi):
+def training_run(label, smi, config, batch, counters, capture=None):
+    """``TRAIN_STEPS`` steps of a fresh model through `make_train_step`
+    (after 2 warm-up steps of another fresh model, not counted); the
+    counters in ``counters`` (launch-counted kernel entry points) are set to 0
+    just before the counted steps and read just after. ``capture.armed`` is
+    set for the last step. Returns ``(losses, launches, step_ms, events)``."""
     import numpy as np
     import torch
 
-    import eventstreamgpt_tpu_torch.models.generative_layers as layers_module
     from eventstreamgpt_tpu_torch.convert import init_params_from_seed
-    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_training_batches, training_config
     from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
-    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
     from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
-
-    rng = np.random.default_rng(SEED)
-    batch = next(synthetic_training_batches(rng, serving_config(), TRAIN_BATCH, TRAIN_SEQ))
-    config = training_config([batch])  # bf16, dropout 0.1 (the config defaults)
-    batch = batch.map(lambda t: t.cuda())  # resident, as a prefetching loader leaves it
-    check(config.precision == "bf16" and config.resid_dropout == 0.1, "phase 4: not the benchmark's training config")
 
     def fresh():
         model = init_params_from_seed(build_model(config), seed=SEED)
         oc = OptimizationConfig(init_lr=1e-3, batch_size=TRAIN_BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
         oc.set_to_dataset(n_subjects=512)  # bench.py's 512 training subjects
         optimizer, scheduler = build_optimizer(model, oc)
-        return model, make_train_step(model, optimizer, scheduler, with_health=True)
+        return make_train_step(model, optimizer, scheduler, with_health=True)
 
-    _, warm = fresh()  # cuBLAS handles, allocator, kernel loads: not counted
+    warm = fresh()  # cuBLAS handles, allocator, kernel loads: not counted
     for _ in range(2):
         warm(batch, SEED)
     torch.cuda.synchronize()
 
-    model, step = fresh()
-    capture = GatherCapture(layers_module)
-    vocab_gather_fwd.launches = vocab_gather_bwd.launches = 0
+    step = fresh()
+    for fn in counters:
+        fn.launches = 0
     losses, norms, walls = [], [], []
     for i in range(TRAIN_STEPS):
-        capture.armed = i == TRAIN_STEPS - 1
+        if capture is not None:
+            capture.armed = i == TRAIN_STEPS - 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, health = step(batch, SEED)
@@ -504,56 +523,179 @@ def training_phase(smi):
         walls.append(time.perf_counter() - t0)
         losses.append(float(loss))
         norms.append(float(health[1]))
-    launches = {"vocab_gather_fwd": vocab_gather_fwd.launches, "vocab_gather_bwd": vocab_gather_bwd.launches}
-    capture.restore()
-    check(all(math.isfinite(x) for x in losses + norms), f"phase 4: a loss or gradient norm is not finite: {losses}")
-    check(losses[-1] < losses[0], f"phase 4: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
-    check(launches == {k: TRAIN_STEPS for k in launches}, f"phase 4: kernel C launches {launches}, not 1 a step")
-    check(capture.z is not None and capture.g is not None, "phase 4: no regression-plane inputs were captured")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if capture is not None:
+        capture.restore()
+    check(all(math.isfinite(x) for x in losses + norms), f"{label}: a loss or gradient norm is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
     events = int(batch.event_mask.sum())
     step_ms = float(np.median(walls)) * 1e3
-    print(f"phase 4: {TRAIN_STEPS} train steps at (B={TRAIN_BATCH}, L={TRAIN_SEQ}, n_data="
+    print(f"{label}: {TRAIN_STEPS} train steps at (B={TRAIN_BATCH}, L={TRAIN_SEQ}, n_data="
           f"{batch.dynamic_indices.shape[-1]}), {events} real events a step: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; median step {step_ms:.3f} ms (min {min(walls) * 1e3:.3f}), "
-          f"{events / (step_ms / 1e3):.1f} trained events/s; kernel C launches {launches} ({smi})",
-          flush=True)  # fmt: skip
+          f"{events / (step_ms / 1e3):.1f} trained events/s; launches {launches} ({smi})", flush=True)  # fmt: skip
+    return losses, launches, step_ms, events
+
+
+def training_batch():
+    """The phase-4 batch: 32 subjects x 256 events, numpy seed 0, on the card."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_training_batches
+
+    return next(synthetic_training_batches(np.random.default_rng(SEED), serving_config(), TRAIN_BATCH, TRAIN_SEQ))
+
+
+def training_phase(smi):
+    import eventstreamgpt_tpu_torch.models.generative_layers as layers_module
+    from eventstreamgpt_tpu_torch.data.synthetic import training_config
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+
+    batch = training_batch()
+    config = training_config([batch])  # bf16, dropout 0.1 (the config defaults)
+    batch = batch.map(lambda t: t.cuda())  # resident, as a prefetching loader leaves it
+    check(config.precision == "bf16" and config.resid_dropout == 0.1, "phase 4: not the benchmark's training config")
+    capture = GatherCapture(layers_module)
+    counters = (vocab_gather_fwd, vocab_gather_bwd)
+    losses, launches, step_ms, events = training_run("phase 4", smi, config, batch, counters, capture)
+    check(launches == {k: TRAIN_STEPS for k in launches}, f"phase 4: kernel C launches {launches}, not 1 a step")
+    check(capture.z is not None and capture.g is not None, "phase 4: no regression-plane inputs were captured")
     small_train_step_matches_cpu()
     return dict(launches=launches, step_ms=step_ms, events=events, losses=losses), capture
 
 
-def small_train_step_matches_cpu():
-    """One fp32 train step at a small size on the card against the same step
-    on the CPU (plain version of kernel C), dropout 0."""
-    import copy
-
+def small_fp32_setup(na, **widths):
+    """A small fp32 model (numpy seed 1, std-0.1 weights, dropout 0) and a
+    4 x 24-event batch on the CPU."""
     import numpy as np
-    import torch
 
     from eventstreamgpt_tpu_torch.convert import init_params_from_seed
-    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_training_batches, training_config
-    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
-    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        serving_config,
+        synthetic_training_batches,
+        training_config,
+    )
+    from eventstreamgpt_tpu_torch.training import build_model
 
-    small = dict(sizes=(5, 40, 6, 3), hidden_size=32, head_dim=8, intermediate_size=64, seq_window_size=4,
-                 attention_dropout=0.0, input_dropout=0.0, resid_dropout=0.0)  # fmt: skip
+    small = dict(sizes=(5, 40, 6, 3), intermediate_size=64, seq_window_size=4, attention_dropout=0.0,
+                 input_dropout=0.0, resid_dropout=0.0, **widths)  # fmt: skip
     vocab = serving_config(precision="fp32", **small)
     batch = next(synthetic_training_batches(np.random.default_rng(1), vocab, 4, 24, mean_seq_len=16))
-    config = training_config([batch], precision="fp32", **small)
-    base = init_params_from_seed(build_model(config), seed=1, std=0.1)
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = copy.deepcopy(base)
-        oc = OptimizationConfig(init_lr=1e-3, lr_num_warmup_steps=0, lr_frac_warmup_steps=None, max_training_steps=10)
-        optimizer, scheduler = build_optimizer(model, oc)
-        loss = float(make_train_step(model, optimizer, scheduler, device=dev)(batch, 0))
-        out[dev] = (loss, {n: p.grad.cpu() for n, p in model.named_parameters()})
-    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    config = (na_training_config if na else training_config)([batch], precision="fp32", **small)
+    return init_params_from_seed(build_model(config), seed=1, std=0.1), batch
+
+
+def one_fp32_step(base, batch, dev):
+    """One train step of a copy of ``base`` on ``dev``: ``(loss, {name: grad on the CPU})``."""
+    import copy
+
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_optimizer, make_train_step
+
+    model = copy.deepcopy(base)
+    oc = OptimizationConfig(init_lr=1e-3, lr_num_warmup_steps=0, lr_frac_warmup_steps=None, max_training_steps=10)
+    optimizer, scheduler = build_optimizer(model, oc)
+    loss = float(make_train_step(model, optimizer, scheduler, device=dev)(batch, 0))
+    return loss, {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def steps_match(a, b, tol, what):
+    """Loss and every gradient of two `one_fp32_step` results within ``tol`` (rtol = atol)."""
+    import torch
+
+    torch.testing.assert_close(a[0], b[0], rtol=tol, atol=tol, msg=lambda m: f"{what}, loss: {m}")
     # Gradients, not the updated parameters: Adam's first step moves each
     # element by about lr * sign(grad), so an element whose gradient is float
     # noise around 0 moves either way.
-    for name, grad in out["cpu"][1].items():
-        torch.testing.assert_close(out["cuda"][1][name], grad, rtol=1e-4, atol=1e-4, msg=lambda m: f"{name}: {m}")
-    print(f"phase 4: small fp32 train step on the card matches the CPU (loss {out['cpu'][0]:.6f})", flush=True)
+    for name, grad in b[1].items():
+        torch.testing.assert_close(a[1][name], grad, rtol=tol, atol=tol, msg=lambda m: f"{what}, {name}: {m}")
+
+
+def grad_diff(a, b, relative=False) -> float:
+    """The largest gradient difference; with ``relative``, as a share of each tensor's largest |gradient|."""
+    return max(
+        (a[1][n] - g).abs().max().item() / (g.abs().max().item() if relative else 1.0) for n, g in b[1].items()
+    )
+
+
+def small_train_step_matches_cpu(na=False):
+    """One fp32 train step at a small size on the card against the same step
+    on the CPU (plain versions of kernels C and D), dropout 0, within 1e-4.
+
+    The NA model keeps the CI check's hidden 32, as one head of 32 (kernel
+    D's narrowest): at hidden 128 the card and the CPU differ by up to ~2e-3
+    whichever versions of C and D the card runs. `na_kernels_match_plain_on_card`
+    holds the kernels at hidden 128 on the card alone and prints those
+    card-vs-CPU differences."""
+    heads = dict(num_attention_heads=1, head_dim=32) if na else dict(head_dim=8)
+    base, batch = small_fp32_setup(na, hidden_size=32, **heads)
+    cuda, cpu = one_fp32_step(base, batch, "cuda"), one_fp32_step(base, batch, "cpu")
+    steps_match(cuda, cpu, 1e-4, "card vs CPU")
+    print(f"phase {6 if na else 4}: small fp32 {'NA ' if na else ''}train step on the card matches the CPU "
+          f"(loss {cpu[0]:.6f}, max |grad diff| {grad_diff(cuda, cpu):.3g})", flush=True)  # fmt: skip
+
+
+def dep_graph_attention_f64(query, key, value, q_offset=0, window=None, dropout_mask=None, dropout_rate=0.0):
+    """Kernel D's function without dropout, computed in fp64 both ways and
+    rounded once to the value dtype: one change of fp32 rounding, for the
+    envelope `na_kernels_match_plain_on_card` prints."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.dep_graph import graph_mask
+
+    check(dropout_mask is None, "the fp64 dep-graph attention takes no dropout")
+    mask = graph_mask(query.shape[1], key.shape[1], q_offset, window, query.device)
+    logits = (query.double()[:, :, None] * key.double()[:, None]).sum(dim=-1)  # (N, Q, S, H)
+    probs = torch.softmax(logits.masked_fill(~mask[None, :, :, None], float("-inf")), dim=2)
+    return (probs[..., None] * value.double()[:, None]).sum(dim=2).to(value.dtype)
+
+
+def na_kernels_match_plain_on_card():
+    """The small fp32 NA step at hidden 128 (4 heads of 32), dropout 0, on the
+    card with kernels C and D against the same step on the card with their
+    plain versions swapped in: the loss within 1e-5 of it and every gradient
+    within 2e-5 of its tensor's largest. Rounding kernel D's output and
+    gradients once from fp64 instead of the plain version's fp32 sums moves
+    gradients by up to ~7e-6 of their tensor's largest at these widths (the
+    model amplifies last-bit changes), so a kernel summing in another order
+    moves them as far; a wrong kernel moves them by far more. The step with
+    that fp64 version and each card step's distance from the CPU's are
+    printed, not checked."""
+    import eventstreamgpt_tpu_torch.models.generative_layers as layers_module
+    import eventstreamgpt_tpu_torch.models.transformer as transformer_module
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_attention_reference, dep_graph_bwd, dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd, vocab_gather_reference
+
+    counters = (dep_graph_fwd, dep_graph_bwd, vocab_gather_fwd, vocab_gather_bwd)
+    base, batch = small_fp32_setup(True, hidden_size=128, num_attention_heads=4, head_dim=32)
+    before = [fn.launches for fn in counters]
+    kernels = one_fp32_step(base, batch, "cuda")
+    check(all(fn.launches > n for fn, n in zip(counters, before)), "phase 6: the hidden-128 step missed a kernel")
+    orig = transformer_module.dep_graph_attention, layers_module.vocab_gather
+
+    def plain_step(dep_graph):
+        before = [fn.launches for fn in counters]
+        transformer_module.dep_graph_attention, layers_module.vocab_gather = dep_graph, vocab_gather_reference
+        try:
+            out = one_fp32_step(base, batch, "cuda")
+        finally:
+            transformer_module.dep_graph_attention, layers_module.vocab_gather = orig
+        check([fn.launches for fn in counters] == before, "phase 6: a plain hidden-128 step launched a kernel")
+        return out
+
+    plain, rounded = plain_step(dep_graph_attention_reference), plain_step(dep_graph_attention_f64)
+    cpu = one_fp32_step(base, batch, "cpu")
+    loss_err, rel = abs(kernels[0] - plain[0]), grad_diff(kernels, plain, relative=True)
+    check(loss_err <= 1e-5 * abs(plain[0]) and rel <= 2e-5,
+          f"phase 6: hidden 128, kernels vs plain versions on the card: loss {kernels[0]} vs {plain[0]}, largest "
+          f"gradient difference {rel:.3g} of its tensor's largest (tolerance 2e-5)")  # fmt: skip
+    print(f"phase 6: small fp32 NA step at hidden 128 on the card, kernels vs plain versions: loss {kernels[0]:.6f} "
+          f"vs {plain[0]:.6f}, max |grad diff| {grad_diff(kernels, plain):.3g} ({rel:.3g} of its tensor's largest); "
+          f"not checked: plain with kernel D rounded once from fp64 vs plain {grad_diff(rounded, plain):.3g} "
+          f"({grad_diff(rounded, plain, relative=True):.3g}); card vs CPU, kernels {grad_diff(kernels, cpu):.3g}, "
+          f"plain versions {grad_diff(plain, cpu):.3g}; largest |grad| "
+          f"{max(g.abs().max().item() for g in cpu[1].values()):.3g}", flush=True)  # fmt: skip
 
 
 # ---------------------------------------------------------------- phase 5
@@ -624,6 +766,144 @@ def kernel_c_phase(capture):
     return result
 
 
+# ---------------------------------------------------------------- phase 6
+class DepGraphCapture:
+    """Wraps the transformer's `dep_graph_attention` to keep the query, key,
+    value, keep-mask and output cotangent of the first call made while ``armed``."""
+
+    def __init__(self, transformer_module):
+        self.mod, self.armed, self.args, self.g = transformer_module, False, None, None
+        self.orig = transformer_module.dep_graph_attention
+
+        def wrapped(query, key, value, q_offset=0, window=None, dropout_mask=None, dropout_rate=0.0):
+            out = self.orig(query, key, value, q_offset, window, dropout_mask, dropout_rate)
+            if self.armed and self.args is None:
+                keep = None if dropout_mask is None else dropout_mask.clone()
+                self.args = dict(q=query.detach().clone(), k=key.detach().clone(), v=value.detach().clone(),
+                                 keep=keep, q_offset=q_offset, window=window, rate=dropout_rate)  # fmt: skip
+                out.register_hook(lambda g: setattr(self, "g", g.detach().clone()))
+            return out
+
+        transformer_module.dep_graph_attention = wrapped
+
+    def restore(self):
+        self.mod.dep_graph_attention = self.orig
+
+
+def na_training_phase(smi):
+    import eventstreamgpt_tpu_torch.models.transformer as transformer_module
+    from eventstreamgpt_tpu_torch.data.synthetic import na_training_config
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_bwd, dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+
+    batch = training_batch()
+    config = na_training_config([batch])  # bf16, dropout 0.1, bench.py's three levels
+    batch = batch.map(lambda t: t.cuda())
+    check(config.hidden_size == 256 and config.attention_dropout == 0.1 and config.precision == "bf16",
+          "phase 6: not the benchmark's NA training config")  # fmt: skip
+    capture = DepGraphCapture(transformer_module)
+    counters = (dep_graph_fwd, dep_graph_bwd, vocab_gather_fwd, vocab_gather_bwd)
+    losses, launches, step_ms, events = training_run("phase 6 [NA]", smi, config, batch, counters, capture)
+    layers = config.num_hidden_layers
+    want = {"dep_graph_fwd": layers * TRAIN_STEPS, "dep_graph_bwd": layers * TRAIN_STEPS,
+            "vocab_gather_fwd": TRAIN_STEPS, "vocab_gather_bwd": TRAIN_STEPS}  # fmt: skip
+    check(launches == want, f"phase 6: launches {launches}, expected {want}")
+    check(capture.args is not None and capture.g is not None, "phase 6: no dep-graph inputs were captured")
+    check(capture.args["keep"] is not None, "phase 6: the dep-graph attention ran without its dropout keep-mask")
+    small_train_step_matches_cpu(na=True)
+    na_kernels_match_plain_on_card()
+    return dict(launches=launches, step_ms=step_ms, events=events, losses=losses), capture
+
+
+# ---------------------------------------------------------------- phase 7
+def kernel_d_phase(capture):
+    import torch
+    import torch.nn.functional as F
+
+    from eventstreamgpt_tpu_torch.ops.dep_graph import (
+        dep_graph_attention_reference,
+        dep_graph_bwd,
+        dep_graph_fwd,
+        graph_mask,
+    )
+
+    a = capture.args
+    q_offset, window, rate = a["q_offset"], a["window"], a["rate"]
+    N, Q, H, D = a["q"].shape
+    S = a["k"].shape[1]
+    result, max_err = {}, {"fwd": 0.0, "bwd": 0.0}
+    # The captured cotangent is small (the loss averages over ~8k rows); scaled
+    # to a largest magnitude of 1 it gives O(1) gradients, which the bf16
+    # tolerance below can tell from zeros.
+    g_unit = capture.g / capture.g.float().abs().max()
+    for dt in (torch.bfloat16, torch.float32):
+        k, v, g = a["k"].to(dt), a["v"].to(dt), g_unit.to(dt)
+        # The query as the model passes it: a [:, q_offset:] view of the (N, S, H, D) projection.
+        q = torch.cat([k[:, :q_offset], a["q"].to(dt)], dim=1)[:, q_offset:]
+        for keep in (a["keep"], None):
+            keep_prob = 1.0 - rate if keep is not None else 1.0
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            want = dep_graph_attention_reference(*leaves, q_offset, window, keep, rate if keep is not None else 0.0)
+            want_grads = torch.autograd.grad(want, leaves, g)
+            got = dep_graph_fwd(q, k, v, q_offset, window, keep, keep_prob)
+            got_grads = dep_graph_bwd(q, k, v, g, q_offset, window, keep, keep_prob)
+            torch.cuda.synchronize()
+            errs = []
+            for name, x, y in zip(("out", "dq", "dk", "dv"), (got, *got_grads), (want, *want_grads)):
+                err = (x.float() - y.float()).abs().max().item()
+                # fp32: 1e-5 of the largest magnitude. bf16: 1e-2 of it (the
+                # card tests' rule), and 2e-2 absolute for the O(1) output.
+                top = y.float().abs().max().item()
+                tol = 1e-5 * top if dt == torch.float32 else 1e-2 * top
+                if dt == torch.bfloat16 and name == "out":
+                    tol = min(tol, 2e-2)
+                check(err <= tol, f"kernel D {name} ({dt}, keep-mask={keep is not None}) off its plain version by "
+                                  f"{err:.3g} (tolerance {tol:.3g})")  # fmt: skip
+                errs.append(err)
+                if dt == torch.bfloat16 and keep is not None:
+                    max_err["fwd" if name == "out" else "bwd"] = max(max_err["fwd" if name == "out" else "bwd"], err)
+            print(f"phase 7: kernel D ({dt}, keep-mask={keep is not None}) at N={N}, Q={Q}, S={S}, H={H}, D={D}: "
+                  f"max |diff| out/dq/dk/dv {', '.join(f'{e:.3g}' for e in errs)} (largest |plain| "
+                  f"{', '.join(f'{y.float().abs().max().item():.3g}' for y in (want, *want_grads))})", flush=True)  # fmt: skip
+
+    # Timing at the main path's shapes and type: bf16, with the keep-mask, the strided query.
+    dt, keep = torch.bfloat16, a["keep"]
+    k, v, g = a["k"].to(dt), a["v"].to(dt), capture.g.to(dt)
+    q = torch.cat([k[:, :q_offset], a["q"].to(dt)], dim=1)[:, q_offset:]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    ref_out = dep_graph_attention_reference(*leaves, q_offset, window, keep, rate)
+    # Library yardstick: scaled_dot_product_attention on (N, H, Q|S, D) with the
+    # same graph mask, unscaled, without dropout (it takes no external keep-mask).
+    heads = [t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    sdpa_mask = graph_mask(Q, S, q_offset, window, q.device)
+    sdpa_out = F.scaled_dot_product_attention(*heads, attn_mask=sdpa_mask, scale=1.0)
+    g_heads = g.transpose(1, 2).contiguous()
+    keep_prob = 1.0 - rate
+    t_fwd = timings(lambda: dep_graph_fwd(q, k, v, q_offset, window, keep, keep_prob),
+                    lambda: dep_graph_attention_reference(q, k, v, q_offset, window, keep, rate),
+                    lambda: F.scaled_dot_product_attention(*heads, attn_mask=sdpa_mask, scale=1.0))  # fmt: skip
+    t_bwd = timings(lambda: dep_graph_bwd(q, k, v, g, q_offset, window, keep, keep_prob),
+                    lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True),
+                    lambda: torch.autograd.grad(sdpa_out, heads, g_heads, retain_graph=True))  # fmt: skip
+    esz = q.element_size()
+    pairs = int(graph_mask(Q, S, q_offset, window).sum())  # visible (query, position) pairs a row and head
+    qo_bytes, kv_bytes, mask_bytes = N * Q * H * D * esz, N * S * H * D * esz, N * Q * S * H
+    fwd_bytes = 2 * qo_bytes + 2 * kv_bytes + mask_bytes  # q, k, v, mask in; out
+    bwd_bytes = 3 * qo_bytes + 4 * kv_bytes + mask_bytes  # q, k, v, g, mask in; dq, dk, dv out
+    # fp32 arithmetic outside the tensor cores: per visible pair and head, a
+    # D-long dot product and a D-long PV update (fwd); logits, dv, dP, dq and
+    # dk, each D long (bwd); plus the softmax's handful per pair.
+    fwd_ops = N * H * pairs * (4 * D + 6)
+    bwd_ops = N * H * pairs * (10 * D + 10)
+    for name, t, nbytes, ops in (("fwd", t_fwd, fwd_bytes, fwd_ops), ("bwd", t_bwd, bwd_bytes, bwd_ops)):
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["fp32"] * 1e3
+        result[name] = dict(t, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                            max_abs_err=max_err[name], shape=[N, Q, S, H, D])  # fmt: skip
+        print(f"phase 7: kernel D {name} (bf16, keep-mask, strided query): {fmt_times(t)}; bound "
+              f"{result[name]['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)  # fmt: skip
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -644,6 +924,8 @@ def main() -> int:
     b = kernel_b_phase(model, config, capture)
     train, gather_capture = training_phase(smi)
     c = kernel_c_phase(gather_capture)
+    na_train, dep_capture = na_training_phase(smi)
+    d_times = kernel_d_phase(dep_capture)
     kernels = [
         dict(name="fused_categorical", route="triton", source="eventstreamgpt_tpu_torch/ops/fused_sampling.py",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171",
@@ -657,6 +939,11 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182", launches=train["launches"][f"vocab_gather_{d}"],
              **c[d])
         for d in ("fwd", "bwd")
+    ] + [
+        dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
+             replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397", launches=na_train["launches"][f"dep_graph_{k}"],
+             **d_times[k])
+        for k in ("fwd", "bwd")
     ]  # fmt: skip
     for k in kernels:
         check(all(isinstance(k[f], (int, float)) and math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")),

@@ -1,7 +1,9 @@
 """Moving parameters between JAX (flax) trees and the port's modules.
 
 `load_jax_params` takes the flax parameter tree of a
-``CIPPTForGenerativeSequenceModeling`` as a nested dict of numpy arrays
+``CIPPTForGenerativeSequenceModeling`` or ``NAPPTForGenerativeSequenceModeling``
+(or of any module whose attribute paths follow the flax names, such as a
+``DataEmbeddingLayer``) as a nested dict of numpy arrays
 (the caller does the ``np.asarray``; this module imports no JAX) and fills
 the port model's parameters in place:
 

@@ -1,4 +1,4 @@
-"""Synthetic prompts and training batches, and the benchmark's model configuration.
+"""Synthetic prompts and training batches, and the benchmark's model configurations.
 
 Counterpart: ``eventstreamgpt_tpu/data/synthetic.py``, whose vocabulary
 layout (UNK at 0, then ``event_type``, ``lab``, ``med``, ``demo`` slices),
@@ -53,16 +53,21 @@ def serving_config(
             "multi_label_classification": ["lab", "med"],
             "multivariate_regression": ["lab"],
         },
-        max_seq_len=256,
-        num_attention_heads=4,
-        num_hidden_layers=2,
-        seq_attention_types=["local", "global"],
-        TTE_generation_layer_type="log_normal_mixture",
-        TTE_lognormal_generation_num_components=3,
         mean_log_inter_event_time_min=mean_log,
         std_log_inter_event_time_min=std_log,
         precision=precision,
-        **dict(BENCH_WIDTHS, **overrides),
+        **{
+            **dict(
+                BENCH_WIDTHS,
+                max_seq_len=256,
+                num_attention_heads=4,
+                num_hidden_layers=2,
+                seq_attention_types=["local", "global"],
+                TTE_generation_layer_type="log_normal_mixture",
+                TTE_lognormal_generation_num_components=3,
+            ),
+            **overrides,
+        },
     )
 
 
@@ -176,3 +181,20 @@ def training_config(batches, precision: str = "bf16", **overrides) -> Structured
         gaps.append(b.time_delta[:, :-1].numpy()[real])
     logd = np.log(np.concatenate(gaps))
     return serving_config(precision=precision, mean_log=float(logd.mean()), std_log=float(logd.std()), **overrides)
+
+
+# bench.py's nested-attention model: three dep-graph levels, global dep-graph
+# attention, bare attention for the sequence and a full block for the graph.
+NA_OVERRIDES = dict(
+    structured_event_processing_mode="nested_attention",
+    measurements_per_dep_graph_level=[[], ["event_type"], ["lab", "med"]],
+    dep_graph_attention_types="global",
+    do_full_block_in_seq_attention=False,
+    do_full_block_in_dep_graph_attention=True,
+)
+
+
+def na_training_config(batches, precision: str = "bf16", **overrides) -> StructuredTransformerConfig:
+    """`training_config` for ``bench.py``'s nested-attention (NA) model
+    (``bench.py``'s NA section: the CI widths with `NA_OVERRIDES`)."""
+    return training_config(batches, precision=precision, **{**NA_OVERRIDES, **overrides})

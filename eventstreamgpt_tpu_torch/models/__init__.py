@@ -2,5 +2,6 @@
 
 from .ci_model import CIPPTForGenerativeSequenceModeling
 from .config import StructuredTransformerConfig
+from .na_model import NAPPTForGenerativeSequenceModeling
 
-__all__ = ["CIPPTForGenerativeSequenceModeling", "StructuredTransformerConfig"]
+__all__ = ["CIPPTForGenerativeSequenceModeling", "NAPPTForGenerativeSequenceModeling", "StructuredTransformerConfig"]

@@ -17,13 +17,13 @@ from torch import nn
 from ..data.types import DataModality, EventStreamBatch
 from ..ops.tensor_ops import segment_starts
 from .config import StructuredEventProcessingMode, StructuredTransformerConfig
-from .embedding import DataEmbeddingLayer
 from .model_output import (
     GenerativeOutputLayerBase,
     GenerativeSequenceModelLabels,
     GenerativeSequenceModelLosses,
     GenerativeSequenceModelOutput,
     GenerativeSequenceModelPredictions,
+    cast_to_compute_dtype,
 )
 from .transformer import ConditionallyIndependentPointProcessTransformer
 
@@ -79,10 +79,7 @@ class CIPPTForGenerativeSequenceModeling(nn.Module):
     def __init__(self, config: StructuredTransformerConfig):
         super().__init__()
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
-            raise ValueError(
-                "nested-attention models are not part of the PyTorch port yet; "
-                "only conditionally-independent models are"
-            )
+            raise ValueError(f"{config.structured_event_processing_mode} invalid for a CI model")
         self.config = config
         self.encoder = ConditionallyIndependentPointProcessTransformer(config)
         self.output_layer = ConditionallyIndependentGenerativeOutputLayer(config)
@@ -99,19 +96,5 @@ class CIPPTForGenerativeSequenceModeling(nn.Module):
         return out
 
     def cast_to_compute_dtype(self) -> "CIPPTForGenerativeSequenceModeling":
-        """Casts, once, the weights flax casts on every call.
-
-        flax keeps fp32 parameters and ``nn.Dense(dtype=compute_dtype)``
-        casts kernel and bias to the compute dtype inside each call, as the
-        embedding layer does its tables; casting them here gives the same
-        numbers. LayerNorm parameters and the TTE projection (a flax Dense
-        without ``dtype``, which computes in fp32) stay fp32.
-        """
-        cdt = self.config.compute_dtype
-        for module in self.modules():
-            if isinstance(module, nn.Linear) and not getattr(module, "keep_fp32", False):
-                module.to(cdt)
-            elif isinstance(module, DataEmbeddingLayer):
-                for name, p in module.named_parameters(recurse=False):
-                    p.data = p.data.to(cdt)
-        return self
+        """Casts, once, the weights flax casts on every call (`model_output.cast_to_compute_dtype`)."""
+        return cast_to_compute_dtype(self)

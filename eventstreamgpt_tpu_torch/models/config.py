@@ -5,6 +5,9 @@ Counterpart: ``eventstreamgpt_tpu/models/config.py``
 their validation and ``to_dict``/``from_dict`` follow the JAX classes field
 for field, so one ``config.json`` loads in both packages and ``to_dict``
 gives the same dictionary. ``compute_dtype`` is a ``torch.dtype``.
+``dep_graph_fused_attention`` and ``dep_graph_attention_impl`` are kept so
+a JAX ``config.json`` loads; they select nothing in the port, where the
+tensors' device routes dep-graph attention (`ops.dep_graph`).
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 Counterpart: ``eventstreamgpt_tpu/models/embedding.py::DataEmbeddingLayer``
 (joint and split modes, static sum/drop, measurement-index normalization).
 Tables hold fp32 parameters; like the JAX layer, each call casts them to
-the compute dtype and looks up in it. The dep-graph grouping
-(``split_by_measurement_indices``) belongs to nested-attention models and
-raises here.
+the compute dtype and looks up in it. With ``split_by_measurement_indices``
+(the nested-attention dep-graph grouping) the output is ``(B, L, G, out_dim)``:
+every group sums the event's tokens with its own weights, from one table
+gather (`ops.tensor_ops.grouped_embedding_bag`).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from ..data.types import EventStreamBatch
-from ..ops.tensor_ops import dense, embedding_bag, measurement_index_normalization
+from ..ops.tensor_ops import dense, embedding_bag, grouped_embedding_bag, measurement_index_normalization
 from ..utils import StrEnum
 
 
@@ -55,11 +56,7 @@ class DataEmbeddingLayer(nn.Module):
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
-        if split_by_measurement_indices is not None:
-            raise ValueError(
-                "split_by_measurement_indices (nested-attention dep-graph grouping) is not "
-                "part of the PyTorch port yet"
-            )
+        self.split_by_measurement_indices = split_by_measurement_indices
         if (categorical_embedding_dim is None) != (numerical_embedding_dim is None):
             raise ValueError(
                 "If either `categorical_embedding_dim` or `numerical_embedding_dim` is not `None`, "
@@ -108,18 +105,75 @@ class DataEmbeddingLayer(nn.Module):
         num_embeds = dense(embedding_bag(self.numerical_embed_table.to(cdt), indices, num_values), self.num_proj, cdt)
         return self.categorical_frac * cat_embeds + self.numerical_frac * num_embeds
 
-    def forward(self, batch: EventStreamBatch) -> torch.Tensor:
-        embedded = self._embed(
+    def _split_batch_into_measurement_index_buckets(self, measurement_indices):
+        """Per-group categorical and numerical membership masks, ``(B, L, G, M)`` each."""
+        categorical, numerical = [], []
+        for i, group in enumerate(self.split_by_measurement_indices):
+            if len(group) == 0 and i > 0:
+                raise ValueError(
+                    f"Empty measurement index group: {group} at index {i}! Only the first (i=0) group can be "
+                    "empty (in cases where there are no FUNCTIONAL_TIME_DEPENDENT measurements)."
+                )
+            group_cat = torch.zeros_like(measurement_indices, dtype=torch.bool)
+            group_num = torch.zeros_like(measurement_indices, dtype=torch.bool)
+            for meas_index in group:
+                mode = MeasIndexGroupOptions.CATEGORICAL_AND_NUMERICAL
+                if isinstance(meas_index, (tuple, list)):
+                    meas_index, mode = meas_index
+                if mode not in MeasIndexGroupOptions.values():
+                    raise ValueError(f"Invalid group mode: {mode}")
+                new_mask = measurement_indices == meas_index
+                if mode != MeasIndexGroupOptions.NUMERICAL_ONLY:
+                    group_cat = group_cat | new_mask
+                if mode != MeasIndexGroupOptions.CATEGORICAL_ONLY:
+                    group_num = group_num | new_mask
+            categorical.append(group_cat)
+            numerical.append(group_num)
+        return torch.stack(categorical, dim=-2), torch.stack(numerical, dim=-2)
+
+    def _embed_grouped(self, indices, measurement_indices, values, values_mask_g, cat_mask):
+        """The G groups' embeddings: in each group a token weighs its value
+        inside the group's numerical mask and 1 elsewhere (joint mode), or
+        its categorical and numerical weights inside the group's masks and 0
+        elsewhere (split mode)."""
+        cdt = self.compute_dtype
+        if self.do_normalize_by_measurement_index:
+            norm = measurement_index_normalization(measurement_indices)[..., None, :]
+        else:
+            norm = torch.ones(indices.shape, device=indices.device)[..., None, :]
+        if self.joint:
+            w = torch.where(values_mask_g, values[..., None, :], 1.0) * norm
+            return grouped_embedding_bag(self.embed_table.to(cdt), indices, w)
+        cat_w = torch.where(cat_mask, norm, 0.0)
+        cat_embeds = grouped_embedding_bag(self.categorical_embed_table.to(cdt), indices, cat_w)
+        cat_embeds = dense(cat_embeds, self.cat_proj, cdt)
+        num_w = torch.where(values_mask_g, values[..., None, :] * norm, 0.0)
+        num_embeds = grouped_embedding_bag(self.numerical_embed_table.to(cdt), indices, num_w)
+        num_embeds = dense(num_embeds, self.num_proj, cdt)
+        return self.categorical_frac * cat_embeds + self.numerical_frac * num_embeds
+
+    def _dynamic_embedding(self, batch: EventStreamBatch) -> torch.Tensor:
+        if self.split_by_measurement_indices:
+            cat_mask, num_mask = self._split_batch_into_measurement_index_buckets(batch.dynamic_measurement_indices)
+            values_mask_g = batch.dynamic_values_mask[..., None, :] & num_mask
+            return self._embed_grouped(
+                batch.dynamic_indices, batch.dynamic_measurement_indices, batch.dynamic_values, values_mask_g, cat_mask
+            )
+        return self._embed(
             batch.dynamic_indices,
             batch.dynamic_measurement_indices,
             batch.dynamic_values,
             batch.dynamic_values_mask,
         )
-        mask = batch.event_mask[..., None]
+
+    def forward(self, batch: EventStreamBatch) -> torch.Tensor:
+        """``(B, L, out_dim)``, or ``(B, L, G, out_dim)`` with dep-graph groups."""
+        embedded = self._dynamic_embedding(batch)
+        mask = batch.event_mask.reshape(batch.event_mask.shape + (1,) * (embedded.ndim - 2))
         embedded = torch.where(mask, embedded, 0.0)
         if self.static_embedding_mode == StaticEmbeddingMode.DROP or batch.static_indices is None:
             return embedded
-        static_embedded = self._embed(batch.static_indices, batch.static_measurement_indices)[:, None]
+        static_embedded = self._embed(batch.static_indices, batch.static_measurement_indices)  # (B, E)
+        static_embedded = static_embedded.reshape((embedded.shape[0],) + (1,) * (embedded.ndim - 2) + (-1,))
         embedded = self.dynamic_frac * embedded + self.static_frac * static_embedded
         return torch.where(mask, embedded, 0.0)
-

@@ -21,6 +21,7 @@ from ..data.types import DataModality, EventStreamBatch
 from ..distributions import Bernoulli, Categorical, dist_map
 from ..ops.tensor_ops import dense, safe_weighted_avg, weighted_loss
 from .config import StructuredTransformerConfig, TimeToEventGenerationHeadType
+from .embedding import DataEmbeddingLayer
 from .generative_layers import (
     ExponentialTTELayer,
     GaussianIndexedRegressionLayer,
@@ -254,3 +255,22 @@ class GenerativeOutputLayerBase(nn.Module):
             labels_out[m] = values
             indices_out[m] = None
         return losses, dists, labels_out, indices_out
+
+
+def cast_to_compute_dtype(model: nn.Module) -> nn.Module:
+    """Casts, once, the weights flax casts on every call; returns ``model``.
+
+    flax keeps fp32 parameters and ``nn.Dense(dtype=compute_dtype)`` casts
+    kernel and bias to the compute dtype inside each call, as the embedding
+    layer does its tables; casting them here gives the same numbers.
+    LayerNorm parameters and the TTE projection (a flax Dense without
+    ``dtype``, which computes in fp32) stay fp32.
+    """
+    cdt = model.config.compute_dtype
+    for module in model.modules():
+        if isinstance(module, nn.Linear) and not getattr(module, "keep_fp32", False):
+            module.to(cdt)
+        elif isinstance(module, DataEmbeddingLayer):
+            for name, p in module.named_parameters(recurse=False):
+                p.data = p.data.to(cdt)
+    return model

@@ -1,0 +1,129 @@
+"""The nested-attention event stream model, end to end.
+
+Counterpart: ``eventstreamgpt_tpu/models/na_model.py``
+(`NestedAttentionGenerativeOutputLayer`, `NAPPTForGenerativeSequenceModeling`).
+The encoding of dep-graph level ``i - 1`` predicts the measurements of level
+``i``, and the time to the next event comes from the whole-event (last)
+element. The structured attention already keeps level ``i - 1`` from seeing
+levels ``>= i``, so nothing is shifted. Only the uncached forward is
+ported: training, evaluation and the full-graph generation outputs
+(``dep_graph_el_generation_target=None``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..data.types import DataModality, EventStreamBatch
+from .config import StructuredEventProcessingMode, StructuredTransformerConfig
+from .embedding import MeasIndexGroupOptions
+from .model_output import (
+    GenerativeOutputLayerBase,
+    GenerativeSequenceModelLabels,
+    GenerativeSequenceModelLosses,
+    GenerativeSequenceModelOutput,
+    GenerativeSequenceModelPredictions,
+    cast_to_compute_dtype,
+)
+from .transformer import NA_WAITS, NestedAttentionPointProcessTransformer
+
+
+def level_measurements(level: list) -> tuple[set, set]:
+    """The categorical and numerical measurements of one dep-graph level."""
+    categorical, numerical = set(), set()
+    for measurement in level:
+        mode = MeasIndexGroupOptions.CATEGORICAL_AND_NUMERICAL
+        if isinstance(measurement, (tuple, list)):
+            measurement, mode = measurement
+        if mode not in MeasIndexGroupOptions.values():
+            raise ValueError(f"Unknown mode {mode}")
+        if mode != MeasIndexGroupOptions.NUMERICAL_ONLY:
+            categorical.add(measurement)
+        if mode != MeasIndexGroupOptions.CATEGORICAL_ONLY:
+            numerical.add(measurement)
+    return categorical, numerical
+
+
+class NestedAttentionGenerativeOutputLayer(GenerativeOutputLayerBase):
+    """NA output layer: level ``i``'s heads read the encoding of level ``i - 1``."""
+
+    def forward(
+        self,
+        batch: EventStreamBatch,
+        encoded: torch.Tensor,
+        is_generation: bool = False,
+        dep_graph_el_generation_target: int | None = None,
+    ) -> GenerativeSequenceModelOutput:
+        cfg = self.config
+        if cfg.structured_event_processing_mode != StructuredEventProcessingMode.NESTED_ATTENTION:
+            raise ValueError(f"{cfg.structured_event_processing_mode} invalid for this model!")
+        if dep_graph_el_generation_target is not None:
+            raise ValueError(f"dep_graph_el_generation_target (the cached per-level walk) {NA_WAITS}")
+        classification_measurements = set(self.classification_mode_per_measurement)
+        regression_measurements = set(
+            cfg.measurements_for(DataModality.MULTIVARIATE_REGRESSION)
+            + cfg.measurements_for(DataModality.UNIVARIATE_REGRESSION)
+        )
+        classification = ({}, {}, {})  # losses, dists, labels
+        regression = ({}, {}, {}, {})  # losses, dists, labels, indices
+        for i in range(1, encoded.shape[2]):
+            level_encoded = encoded[:, :, i - 1]
+            categorical, numerical = level_measurements(cfg.measurements_per_dep_graph_level[i])
+            out = self.get_classification_outputs(
+                batch, level_encoded, categorical & classification_measurements, is_generation
+            )
+            for acc, part in zip(classification, out):
+                acc.update(part)
+            out = self.get_regression_outputs(batch, level_encoded, numerical & regression_measurements, is_generation)
+            for acc, part in zip(regression, out):
+                acc.update(part)
+        TTE_LL, TTE_dist, TTE_true = self.get_TTE_outputs(batch, encoded[:, :, -1], is_generation)
+        out = GenerativeSequenceModelOutput(
+            preds=GenerativeSequenceModelPredictions(
+                classification=classification[1],
+                regression=regression[1],
+                regression_indices=None if is_generation else regression[3],
+                time_to_event=TTE_dist,
+            ),
+            event_mask=batch.event_mask,
+            dynamic_values_mask=batch.dynamic_values_mask,
+        )
+        if is_generation:
+            return out
+        out.loss = sum(classification[0].values()) + sum(regression[0].values()) - TTE_LL
+        out.losses = GenerativeSequenceModelLosses(
+            classification=classification[0], regression=regression[0], time_to_event=-TTE_LL
+        )
+        out.labels = GenerativeSequenceModelLabels(
+            classification=classification[2],
+            regression=regression[2],
+            regression_indices=regression[3],
+            time_to_event=TTE_true,
+        )
+        return out
+
+
+class NAPPTForGenerativeSequenceModeling(nn.Module):
+    """End-to-end NA generative model (``encoder`` + ``output_layer``)."""
+
+    def __init__(self, config: StructuredTransformerConfig):
+        super().__init__()
+        if config.structured_event_processing_mode != StructuredEventProcessingMode.NESTED_ATTENTION:
+            raise ValueError(f"{config.structured_event_processing_mode} invalid for an NA model")
+        self.config = config
+        self.encoder = NestedAttentionPointProcessTransformer(config)
+        self.output_layer = NestedAttentionGenerativeOutputLayer(config)
+
+    def forward(
+        self, batch: EventStreamBatch, past=None, use_cache: bool = False, is_generation: bool = True, dropout=None
+    ):
+        """``is_generation=False`` computes the losses; ``dropout`` (a
+        ``torch.Generator`` on the batch's device) turns dropout on. ``past``
+        and ``use_cache`` raise: the NA caches are not ported yet."""
+        encoded = self.encoder(batch, past=past, use_cache=use_cache, dropout=dropout)
+        return self.output_layer(batch, encoded.last_hidden_state, is_generation=is_generation)
+
+    def cast_to_compute_dtype(self) -> "NAPPTForGenerativeSequenceModeling":
+        """Casts, once, the weights flax casts on every call (`model_output.cast_to_compute_dtype`)."""
+        return cast_to_compute_dtype(self)

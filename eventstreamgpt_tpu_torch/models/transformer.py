@@ -1,12 +1,14 @@
-"""The conditionally-independent point-process transformer encoder.
+"""The point-process transformer encoders, conditionally independent and nested.
 
-Counterpart: the CI half of ``eventstreamgpt_tpu/models/transformer.py``:
-`KVCache`, `time_from_deltas`, `TemporalPositionEncoding`,
-`make_causal_mask`, `InnerSelfAttention` (the einsum path and its cache
-branches), `InnerMLP`, `InnerBlock`, the CI input layer and the CI
-transformer. Module attribute names follow the flax parameter paths
-(``encoder.h0.attn.attention.q_proj``...), so `convert.load_jax_params`
-maps one tree onto the other by name.
+Counterpart: ``eventstreamgpt_tpu/models/transformer.py``: `KVCache`,
+`time_from_deltas`, `TemporalPositionEncoding`, `make_causal_mask`,
+`InnerSelfAttention` (the einsum path and its cache branches, and the fused
+dep-graph route to kernel D), `InnerMLP`, `InnerBlock`, the CI input layer
+and transformer, and the uncached nested-attention (NA) input layer and
+transformer with `StructuredTransformerBlock`. Module attribute names
+follow the flax parameter paths (``encoder.h0.attn.attention.q_proj``,
+``encoder.h0.block.dep_graph_block.mlp.c_fc``...), so
+`convert.load_jax_params` maps one tree onto the other by name.
 
 Numerics kept from the JAX model: attention logits are **not** scaled by
 ``1/sqrt(head_dim)``; logits and softmax are fp32; masked logits take the
@@ -32,9 +34,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.types import EventStreamBatch
+from ..ops.dep_graph import dep_graph_attention
 from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts
 from .config import StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
+from .structured_attention import StructuredAttention
 
 F32_MIN = torch.finfo(torch.float32).min
 
@@ -158,14 +162,21 @@ class LayerNorm(nn.Module):
 
 
 class InnerSelfAttention(nn.Module):
-    """Multi-head causal self-attention with optional local windowing."""
+    """Multi-head causal self-attention with optional local windowing.
 
-    def __init__(self, config: StructuredTransformerConfig, window_size: int | None):
+    ``is_dep_graph`` marks the nested-attention dep-graph attention, which
+    runs `ops.dep_graph.dep_graph_attention` (kernel D on the card) on the
+    ``(N, S, H, D)`` projections as they are. It takes no cache, padding
+    mask or packing; the cached NA walk is not ported.
+    """
+
+    def __init__(self, config: StructuredTransformerConfig, window_size: int | None, is_dep_graph: bool = False):
         super().__init__()
         E = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.head_dim = config.head_dim
         self.window_size = window_size
+        self.is_dep_graph = is_dep_graph
         self.dtype = config.compute_dtype
         self.attention_dropout = float(config.attention_dropout)
         self.resid_dropout = float(config.resid_dropout)
@@ -182,9 +193,21 @@ class InnerSelfAttention(nn.Module):
         use_cache=False,
         segment_ids=None,
         dropout_rng=None,
+        static_kv_first: bool = False,
     ):
+        """``static_kv_first`` (dep-graph only): graph position 0 is key/value-only
+        history; the query (and the output) drop it, and query ``i`` sits at position ``i + 1``."""
         B, S, E = hidden_states.shape
         H, D = self.num_heads, self.head_dim
+        if self.is_dep_graph:
+            if layer_past is not None or use_cache or attention_mask is not None or segment_ids is not None:
+                raise ValueError(
+                    "dep-graph attention takes no cache, padding mask or segment_ids in the port "
+                    "(ROADMAP Queue 1 item 4: the NA caches and cached walk)"
+                )
+            return self._dep_graph(hidden_states, static_kv_first, dropout_rng), None
+        if static_kv_first:
+            raise ValueError("static_kv_first belongs to dep-graph attention")
 
         def heads(x):  # (B, S, E) -> (B, H, S, D)
             return x.reshape(B, S, H, D).transpose(1, 2)
@@ -263,18 +286,43 @@ class InnerSelfAttention(nn.Module):
         out = dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
         return out, (present if use_cache else None)
 
+    def _dep_graph(self, hidden_states, static_kv_first, dropout_rng):
+        B, S, E = hidden_states.shape
+        H, D = self.num_heads, self.head_dim
+        q_offset = 1 if static_kv_first else 0
+        query = dense(hidden_states, self.q_proj, self.dtype).reshape(B, S, H, D)[:, q_offset:]
+        key = dense(hidden_states, self.k_proj, self.dtype).reshape(B, S, H, D)
+        value = dense(hidden_states, self.v_proj, self.dtype).reshape(B, S, H, D)
+        q_len = S - q_offset
+        # The keep-mask is drawn here, outside the kernel, as the JAX model draws it.
+        keep = None
+        if dropout_rng is not None and self.attention_dropout > 0.0:
+            keep_prob = 1.0 - self.attention_dropout
+            keep = torch.rand((B, q_len, S, H), generator=dropout_rng, device=query.device) < keep_prob
+        out = dep_graph_attention(
+            query, key, value, q_offset=q_offset, window=self.window_size, dropout_mask=keep,
+            dropout_rate=self.attention_dropout,
+        )  # fmt: skip
+        return dropout(dense(out.reshape(B, q_len, E), self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
+
 
 class InnerAttention(nn.Module):
-    """LayerNorm + attention (flax paths ``attn/layer_norm``, ``attn/attention``)."""
+    """LayerNorm + attention (flax paths ``attn/layer_norm``, ``attn/attention``).
 
-    def __init__(self, config: StructuredTransformerConfig, layer_id: int):
+    ``is_seq`` picks the sequence layer types and window, else the dep-graph ones.
+    """
+
+    def __init__(self, config: StructuredTransformerConfig, layer_id: int, is_seq: bool = True):
         super().__init__()
-        attention_type = config.seq_attention_layers[layer_id]
+        layers = config.seq_attention_layers if is_seq else config.dep_graph_attention_layers
+        attention_type = layers[layer_id]
         if attention_type not in ("global", "local"):
             raise ValueError(f"Only attn layer types 'global' and 'local' exist, got {attention_type}")
-        window = config.seq_window_size if attention_type == "local" else None
+        window = None
+        if attention_type == "local":
+            window = config.seq_window_size if is_seq else config.dep_graph_window_size
         self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
-        self.attention = InnerSelfAttention(config, window)
+        self.attention = InnerSelfAttention(config, window, is_dep_graph=not is_seq)
 
     def forward(self, hidden_states, **kwargs):
         return self.attention(self.layer_norm(hidden_states), **kwargs)
@@ -300,14 +348,21 @@ class InnerMLP(nn.Module):
 class InnerBlock(nn.Module):
     """Pre-LN attention + MLP residual block."""
 
-    def __init__(self, config: StructuredTransformerConfig, layer_id: int):
+    def __init__(self, config: StructuredTransformerConfig, layer_id: int, is_seq: bool = True):
         super().__init__()
-        self.attn = InnerAttention(config, layer_id)
+        self.attn = InnerAttention(config, layer_id, is_seq)
         self.layer_norm = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
         self.mlp = InnerMLP(config)
 
     def forward(
-        self, hidden_states, attention_mask=None, layer_past=None, use_cache=False, segment_ids=None, dropout_rng=None
+        self,
+        hidden_states,
+        attention_mask=None,
+        layer_past=None,
+        use_cache=False,
+        segment_ids=None,
+        dropout_rng=None,
+        static_kv_first: bool = False,
     ):
         attn_output, present = self.attn(
             hidden_states,
@@ -316,8 +371,9 @@ class InnerBlock(nn.Module):
             use_cache=use_cache,
             segment_ids=segment_ids,
             dropout_rng=dropout_rng,
+            static_kv_first=static_kv_first,
         )
-        hidden_states = attn_output + hidden_states
+        hidden_states = attn_output + (hidden_states[:, 1:] if static_kv_first else hidden_states)
         hidden_states = hidden_states + self.mlp(self.layer_norm(hidden_states), dropout_rng)
         return hidden_states, present
 
@@ -401,3 +457,116 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
             last_hidden_state=self.ln_f(hidden_states),
             past_key_values=tuple(presents) if use_cache else None,
         )
+
+
+NA_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: the NA caches and cached walk)"
+
+
+class StructuredTransformerBlock(nn.Module):
+    """One nested-attention layer: a sequence module and a dep-graph module
+    under `StructuredAttention` (flax path ``h{i}/block``), each a full
+    `InnerBlock` or a bare `InnerAttention` per
+    ``do_full_block_in_{seq,dep_graph}_attention``."""
+
+    def __init__(self, config: StructuredTransformerConfig, layer_id: int):
+        super().__init__()
+        if config.do_full_block_in_seq_attention:
+            seq = ("seq_block", InnerBlock(config, layer_id, is_seq=True))
+        else:
+            seq = ("seq_attn", InnerAttention(config, layer_id, is_seq=True))
+        if config.do_full_block_in_dep_graph_attention:
+            dep = ("dep_graph_block", InnerBlock(config, layer_id, is_seq=False))
+        else:
+            dep = ("dep_graph_attn", InnerAttention(config, layer_id, is_seq=False))
+        self.block = StructuredAttention(seq, dep)
+
+    def forward(self, hidden_states, **kwargs):
+        return self.block(hidden_states, **kwargs)
+
+
+def dep_graph_split(config: StructuredTransformerConfig) -> tuple:
+    """``measurements_per_dep_graph_level`` as measurement indices (and modes)."""
+    levels = []
+    for measurement_list in config.measurements_per_dep_graph_level:
+        out = []
+        for m in measurement_list:
+            if isinstance(m, str):
+                out.append(config.measurements_idxmap[m])
+            elif isinstance(m, (tuple, list)) and len(m) == 2:
+                out.append((config.measurements_idxmap[m[0]], m[1]))
+            else:
+                raise ValueError(f"Unexpected measurement {type(m)}: {m}\n{config.measurements_per_dep_graph_level}")
+        levels.append(tuple(out))
+    return tuple(levels)
+
+
+class NestedAttentionPointProcessInputLayer(nn.Module):
+    """Dep-graph-split input embeddings ``(B, L, G, hidden)`` for NA models.
+
+    The time embedding joins graph slot 0 and a cumsum over the graph axis
+    makes the last slot a whole-event summary, both in fp32, then the cast
+    to the compute dtype, the event-mask zeroing and the input dropout.
+    """
+
+    def __init__(self, config: StructuredTransformerConfig):
+        super().__init__()
+        self.hidden_size = config.hidden_size
+        self.compute_dtype = config.compute_dtype
+        self.input_dropout = float(config.input_dropout)
+        self.data_embedding_layer = DataEmbeddingLayer(
+            n_total_embeddings=max(config.vocab_size, 1),
+            out_dim=config.hidden_size,
+            categorical_embedding_dim=config.categorical_embedding_dim,
+            numerical_embedding_dim=config.numerical_embedding_dim,
+            static_embedding_mode=config.static_embedding_mode,
+            split_by_measurement_indices=dep_graph_split(config),
+            do_normalize_by_measurement_index=config.do_normalize_by_measurement_index,
+            static_weight=config.static_embedding_weight,
+            dynamic_weight=config.dynamic_embedding_weight,
+            categorical_weight=config.categorical_embedding_weight,
+            numerical_weight=config.numerical_embedding_weight,
+            compute_dtype=config.compute_dtype,
+        )
+
+    def forward(self, batch: EventStreamBatch, dropout_rng=None) -> torch.Tensor:
+        t = batch.time if batch.time is not None else time_from_deltas(batch)
+        time_embed = temporal_position_encoding(t, self.hidden_size)
+        e = self.data_embedding_layer(batch).float()
+        e = torch.cat([(e[:, :, 0] + time_embed)[:, :, None], e[:, :, 1:]], dim=2)
+        embed = torch.cumsum(e, dim=2).to(self.compute_dtype)
+        embed = torch.where(batch.event_mask[:, :, None, None], embed, 0.0)
+        return dropout(embed, self.input_dropout, dropout_rng)
+
+
+class NestedAttentionPointProcessTransformer(nn.Module):
+    """NA encoder: `StructuredTransformerBlock`s ``h{i}`` over the graph
+    embeddings, then ``ln_f``. Only the uncached forward (training and
+    evaluation) is ported."""
+
+    def __init__(self, config: StructuredTransformerConfig):
+        super().__init__()
+        if config.scan_layers:
+            raise ValueError(f"scan_layers for nested-attention models {NA_WAITS}")
+        if config.gradient_checkpointing != "none":
+            raise ValueError(f"gradient_checkpointing (remat) for nested-attention models {NA_WAITS}")
+        self.config = config
+        self.input_layer = NestedAttentionPointProcessInputLayer(config)
+        self.layer_names = [f"h{i}" for i in range(config.num_hidden_layers)]
+        for i, name in enumerate(self.layer_names):
+            setattr(self, name, StructuredTransformerBlock(config, i))
+        self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
+
+    def forward(self, batch: EventStreamBatch, past=None, use_cache=False, dropout=None) -> TransformerOutputWithPast:
+        """``dropout``: a ``torch.Generator`` on the batch's device turns dropout on."""
+        if use_cache or past is not None:
+            raise ValueError(f"use_cache/past for nested-attention models {NA_WAITS}")
+        hidden_states = self.input_layer(batch, dropout)
+        for name in self.layer_names:
+            hidden_states = getattr(self, name)(
+                hidden_states,
+                seq_attention_mask=batch.event_mask,
+                event_mask=batch.event_mask,
+                segment_ids=batch.segment_ids,
+                dropout_rng=dropout,
+            )
+        return TransformerOutputWithPast(last_hidden_state=self.ln_f(hidden_states))

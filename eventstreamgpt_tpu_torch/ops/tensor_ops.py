@@ -39,10 +39,18 @@ def embedding_bag(
 def grouped_embedding_bag(
     table: torch.Tensor, indices: torch.Tensor, group_weights: torch.Tensor
 ) -> torch.Tensor:
-    """`embedding_bag` over G weight groups ``(..., G, M)`` sharing one gather."""
+    """`embedding_bag` over G weight groups ``(..., G, M)`` sharing one gather
+    (``F.embedding`` with ``padding_idx=0``, as in `embedding_bag`).
+
+    Examples:
+        >>> t = torch.arange(6.0).reshape(3, 2)
+        >>> grouped_embedding_bag(t, torch.tensor([[0, 1, 2]]), torch.tensor([[[5.0, 1.0, 2.0], [1.0, 0.0, 1.0]]]))
+        tensor([[[10., 13.],
+                 [ 4.,  5.]]])
+    """
     pad_mask = (indices != 0).to(table.dtype)
     w = group_weights.to(table.dtype) * pad_mask[..., None, :]
-    gathered = table[indices.clamp(0, table.shape[0] - 1)]
+    gathered = F.embedding(indices.clamp(0, table.shape[0] - 1), table, padding_idx=0)  # (..., M, D)
     return torch.einsum("...md,...gm->...gd", gathered, w)
 
 

@@ -149,7 +149,7 @@ class GenerationEngine:
         if int(dispatch_depth) != 1:
             raise ValueError("dispatch_depth > 1 (pipelined boundaries) is not part of the PyTorch port yet")
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
-            raise ValueError("nested-attention models are not part of the PyTorch port yet")
+            raise ValueError("nested-attention serving (the NA engine) is not part of the PyTorch port yet")
         check_generation_config(config)
         self.device = resolve_device(device, "GenerationEngine")
         self.config = config

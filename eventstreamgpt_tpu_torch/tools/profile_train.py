@@ -2,19 +2,22 @@
 
 Builds the benchmark's CI training model (`data.synthetic.training_config`:
 hidden 256, 2 layers, bf16 compute over fp32 master weights, dropout 0.1,
-numpy-seeded random weights) with AdamW under warmup, and one synthetic
-batch of 32 subjects x 256 events resident on the device. It measures:
+numpy-seeded random weights), or with ``--na`` its nested-attention model
+(`data.synthetic.na_training_config`: the same widths over three dep-graph
+levels), with AdamW under warmup, and one synthetic batch of 32 subjects x
+256 events resident on the device. It measures:
 
 * the wall time of one train step (host clock around a synchronised step,
   median of 20, after 3 warm-up steps) and trained events/s (real events a
   step over that time);
 * with ``torch.profiler`` over 3 steps: the device time of every kernel
-  (summed per kernel name), the launches per step, and the device's busy
-  share of the wall time.
+  (summed per kernel name; the top 20 and every name are reported), the
+  launches per step, and the device's busy share of the wall time.
 
 Run from the root of a checkout:
 
     python -m eventstreamgpt_tpu_torch.tools.profile_train --out build/profile_train.json
+    python -m eventstreamgpt_tpu_torch.tools.profile_train --na --out build/profile_train_na.json
 
 It prints one JSON object (also written to ``--out``) and exits non-zero
 without a CUDA device.
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..convert import init_params_from_seed
-from ..data.synthetic import serving_config, synthetic_training_batches, training_config
+from ..data.synthetic import na_training_config, serving_config, synthetic_training_batches, training_config
 from ..models.config import OptimizationConfig
 from ..training import build_model, build_optimizer, make_train_step
 from .profile_decode import _kernel_time_us
@@ -44,6 +47,7 @@ BATCH, SEQ_LEN, PROFILED_STEPS, TIMED_STEPS = 32, 256, 3, 20
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--na", action="store_true", help="profile the nested-attention model's step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device is available", file=sys.stderr)
@@ -54,7 +58,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]  # fmt: skip
     batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(), BATCH, SEQ_LEN))
-    config = training_config([batch])
+    config = (na_training_config if args.na else training_config)([batch])
     batch = batch.map(lambda t: t.cuda())
     model = init_params_from_seed(build_model(config), seed=0)
     oc = OptimizationConfig(init_lr=1e-3, batch_size=BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
@@ -90,6 +94,7 @@ def main(argv=None) -> int:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:20]
     out = {
         "card": smi,
+        "model": config.structured_event_processing_mode,
         "shape": {"batch": BATCH, "seq_len": SEQ_LEN, "n_data": int(batch.dynamic_indices.shape[-1])},
         "real_events_per_step": events,
         "step_wall_ms_median": step_ms,
@@ -105,6 +110,7 @@ def main(argv=None) -> int:
             {"name": name[:90], "launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
             for name, (c, us) in top
         ],
+        "kernel_names": sorted(name[:120] for name in kernels),
     }
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,4 +1,4 @@
-"""The single-device CI train step.
+"""The single-device train step, for CI and nested-attention models.
 
 Counterpart: ``eventstreamgpt_tpu/training/pretrain.py`` (`TrainState`,
 `build_model`, `_train_step_body` behind `make_train_step`). One step runs
@@ -24,6 +24,7 @@ import torch
 
 from ..data.types import EventStreamBatch
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
+from ..models.na_model import NAPPTForGenerativeSequenceModeling
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
 from ..utils.device import resolve_device
 
@@ -35,11 +36,16 @@ class TrainState:
     step: int = 0
 
 
-def build_model(config: StructuredTransformerConfig) -> CIPPTForGenerativeSequenceModeling:
-    """The generative model ``config`` describes (CI only in the port)."""
-    if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
-        raise ValueError("nested-attention models are not part of the PyTorch port yet")
-    return CIPPTForGenerativeSequenceModeling(config)
+def build_model(
+    config: StructuredTransformerConfig,
+) -> CIPPTForGenerativeSequenceModeling | NAPPTForGenerativeSequenceModeling:
+    """The generative model ``config`` describes: CI or nested attention."""
+    mode = config.structured_event_processing_mode
+    if mode == StructuredEventProcessingMode.NESTED_ATTENTION:
+        return NAPPTForGenerativeSequenceModeling(config)
+    if mode == StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
+        return CIPPTForGenerativeSequenceModeling(config)
+    raise ValueError(f"Unsupported structured event processing mode: {mode}")
 
 
 def dropout_seed(seed: int, step: int) -> int:
@@ -49,7 +55,7 @@ def dropout_seed(seed: int, step: int) -> int:
 
 
 def make_train_step(
-    model: CIPPTForGenerativeSequenceModeling,
+    model: CIPPTForGenerativeSequenceModeling | NAPPTForGenerativeSequenceModeling,
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
     device=None,

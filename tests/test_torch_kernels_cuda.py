@@ -19,6 +19,12 @@ from eventstreamgpt_tpu_torch.ops.decode_step import (
     decode_stack_step_reference,
     stack_layer_weights,
 )
+from eventstreamgpt_tpu_torch.ops.dep_graph import (
+    dep_graph_attention,
+    dep_graph_attention_reference,
+    dep_graph_bwd,
+    dep_graph_fwd,
+)
 from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_reference
 from eventstreamgpt_tpu_torch.ops.vocab_gather import (
     vocab_gather,
@@ -138,3 +144,70 @@ def test_vocab_gather_matches_plain_version(cuda, dtype, shape):
     torch.testing.assert_close(got_dz, want_dz, rtol=0, atol=0)
     again = run(vocab_gather, cuda)[1]
     assert torch.equal(again, got_dz)  # no atomics: bitwise reproducible
+
+
+# (N, S, H, D, q_offset, window): the training shape's geometry at an odd N;
+# q_offset 0 (every position a query); a local window; wider heads, more
+# positions and one head at the kernel's largest D.
+DEP_GRAPH_CASES = [
+    (301, 4, 4, 64, 1, None),
+    (77, 4, 2, 64, 0, None),
+    (129, 5, 3, 32, 1, 2),
+    (33, 8, 2, 128, 0, 3),
+    (9, 3, 1, 256, 1, None),
+]
+
+
+@pytest.mark.parametrize("with_mask", [False, True], ids=["no_mask", "keep_mask"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", DEP_GRAPH_CASES, ids=lambda c: "N{}-S{}-H{}-D{}-q{}-w{}".format(*c))
+def test_dep_graph_matches_plain_version(cuda, case, dtype, with_mask):
+    """Kernel D, forward and backward, against its plain version (autograd
+    for the backward) on the card: within 1e-5 of the largest magnitude in
+    fp32; in bf16 within 1e-2 of it (the plain version's autograd rounds the
+    probabilities' cotangent to bf16 through their cast, the kernel keeps it
+    in fp32, as the TPU kernel does)."""
+    N, S, H, D, q_offset, window = case
+    Q = S - q_offset
+    rng = np.random.default_rng(N)
+    dt = DTYPES[dtype]
+    full = torch.from_numpy(rng.normal(size=(N, S, H, D)).astype(np.float32)).to(dt).to(cuda)
+    q = full[:, q_offset:]  # the strided view the model passes
+    k, v = (torch.from_numpy(rng.normal(size=(N, S, H, D)).astype(np.float32)).to(dt).to(cuda) for _ in range(2))
+    g = torch.from_numpy(rng.normal(size=(N, Q, H, D)).astype(np.float32)).to(dt).to(cuda)
+    rate = 0.25 if with_mask else 0.0
+    mask = torch.from_numpy(rng.random((N, Q, S, H)) < 1.0 - rate).to(cuda) if with_mask else None
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = dep_graph_attention_reference(*leaves, q_offset, window, mask, rate)
+    want_grads = torch.autograd.grad(want, leaves, g)
+    launches = dep_graph_fwd.launches, dep_graph_bwd.launches
+    got_leaves = [full.detach().clone().requires_grad_(True), k.clone().requires_grad_(True), v.clone().requires_grad_(True)]
+    got = dep_graph_attention(got_leaves[0][:, q_offset:], got_leaves[1], got_leaves[2], q_offset, window, mask, rate)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (dep_graph_fwd.launches, dep_graph_bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    got_grads = [got_leaves[0].grad[:, q_offset:], got_leaves[1].grad, got_leaves[2].grad]
+    if q_offset:
+        assert not got_leaves[0].grad[:, :q_offset].any()  # the history position is no query
+    rel = 1e-5 if dtype == "fp32" else 1e-2
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (got, *got_grads), (want, *want_grads)):
+        assert a.dtype == dt
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * b.float().abs().max().item(), (name, err, b.float().abs().max().item())
+    again = dep_graph_bwd(q, k, v, g, q_offset, window, mask, 1.0 - rate)
+    for a, b in zip(again, got_grads):
+        assert torch.equal(a, b)  # no atomics: bitwise reproducible
+
+
+def test_dep_graph_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((4, 3, 2, 48), device=cuda)
+    kv = torch.zeros((4, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        dep_graph_fwd(q, kv, kv, q_offset=1)
+    q, kv = torch.zeros((4, 9, 2, 32), device=cuda), torch.zeros((4, 10, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match=r"\[1, 8\]"):
+        dep_graph_fwd(q, kv, kv, q_offset=1)
+    q, kv = torch.zeros((4, 3, 2, 32), device=cuda), torch.zeros((4, 4, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        dep_graph_fwd(q, kv.bfloat16(), kv, q_offset=1)

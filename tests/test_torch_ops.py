@@ -9,6 +9,7 @@ a row's draws independent of the other rows, and distinct draws per head
 name, step and call.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +47,27 @@ def test_embedding_bags_match():
         tops.grouped_embedding_bag(T(table), T(idx), T(gw)),
         jops.grouped_embedding_bag(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(gw)),
     )
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_grouped_embedding_bag_gradient_matches(dtype):
+    """Forward and table gradient against JAX, with most slots on padding index 0
+    (the lookup is ``F.embedding(..., padding_idx=0)``; row 0's gradient is 0)."""
+    table = rng.normal(size=(11, 5)).astype(np.float32)
+    idx = rng.integers(0, 13, size=(3, 4, 9))
+    idx[:, :, 3:] = 0  # padding duplicates, as a training batch has them
+    gw = rng.normal(size=(3, 4, 3, 9)).astype(np.float32)
+    cot = rng.normal(size=(3, 4, 3, 5)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    jout, vjp = jax.vjp(lambda t: jops.grouped_embedding_bag(t, jnp.asarray(idx), jnp.asarray(gw)), jnp.asarray(table).astype(jdt))
+    (jgrad,) = vjp(jnp.asarray(cot).astype(jdt))
+    t = T(table).to(tdt).requires_grad_(True)
+    out = tops.grouped_embedding_bag(t, T(idx), T(gw))
+    out.backward(T(cot).to(tdt))
+    tol = TOL if dtype == "fp32" else dict(rtol=2e-2, atol=2e-2)  # bf16: one rounding of each sum's terms
+    close(out.detach().float(), jnp.asarray(jout, jnp.float32), **tol)
+    close(t.grad.float(), jnp.asarray(jgrad, jnp.float32), **tol)
+    assert not t.grad[0].any()
 
 
 def test_selection_ops_match():

@@ -21,8 +21,9 @@ decay 0.01) against JAX's ``make_train_step`` (losses within 1e-5;
 exported parameters within 1e-5 but for at most 0.1% of the elements,
 which stay within 1e-4), and the bf16 forward loss within 2e-2 relative.
 Beside them: the learning-rate schedule and AdamW against optax, parameter
-export, dropout's statistics and a step's reproducibility, and the CUDA
-default of `make_train_step`.
+export, dropout's statistics and a step's reproducibility, the CUDA
+default of `make_train_step`, and `build_model` on a nested-attention config
+(its JAX parity is `tests/test_torch_na_model.py`).
 """
 
 import dataclasses
@@ -49,6 +50,7 @@ from eventstreamgpt_tpu.training.optimizer import polynomial_decay_with_warmup a
 from eventstreamgpt_tpu_torch.convert import export_params, load_jax_params, port_name
 from eventstreamgpt_tpu_torch.data.types import EventStreamBatch
 from eventstreamgpt_tpu_torch.models.config import OptimizationConfig, StructuredTransformerConfig
+from eventstreamgpt_tpu_torch.models.na_model import NAPPTForGenerativeSequenceModeling
 from eventstreamgpt_tpu_torch.ops.tensor_ops import dropout
 from eventstreamgpt_tpu_torch.training import (
     build_model,
@@ -319,7 +321,19 @@ def test_make_train_step_defaults_to_cuda(cases):
 
 
 def test_build_model_refuses_nested_attention():
-    config = StructuredTransformerConfig(**SMALL)
-    config.structured_event_processing_mode = "nested_attention"
-    with pytest.raises(ValueError, match="nested-attention"):
-        build_model(config)
+    """`build_model` builds the NA model; what the port still refuses of it
+    is the cached NA paths (the NA caches, the per-level walk, scan, remat)."""
+    na = dict(SMALL, structured_event_processing_mode="nested_attention", measurements_per_dep_graph_level=[[], ["a"]])
+    config = StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na)
+    model = build_model(config)
+    assert isinstance(model, NAPPTForGenerativeSequenceModeling)
+    batch = EventStreamBatch(event_mask=torch.ones(1, 2, dtype=torch.bool), time_delta=torch.ones(1, 2))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        model(batch, use_cache=True)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        model(batch, past=())
+    with pytest.raises(ValueError, match="ROADMAP"):
+        model.output_layer(batch, torch.zeros(1, 2, 2, 32), is_generation=True, dep_graph_el_generation_target=1)
+    for knob in (dict(scan_layers=True), dict(gradient_checkpointing="block")):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            build_model(StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na, **knob))
