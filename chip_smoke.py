@@ -65,7 +65,31 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    keep-mask beside its bound, its plain version (autograd for the
    backward) and ``scaled_dot_product_attention`` with the same graph mask
    and no dropout (a yardstick only: it takes no external keep-mask).
-8. One ``{"kernels": [...]}`` line, then the device line as the last line.
+8. Packed long-context training at full width: ``bench.py``'s packed model
+   (the phase-4 widths under ``attention_implementation="pallas_flash"`` with
+   attention dropout 0, input and residual dropout 0.1) on its packed batch:
+   the first of ``packed_batches(synthetic_csr(seed 0, 512 subjects), 8,
+   seq_len=1024, seed=1)``. 20 steps with the benchmark's local window of 32
+   (the global layer on kernel E, the local one on the band product): kernel
+   E and kernel C each launch once a step each way, kernel F never. Then 10
+   steps with a local window of 256: kernels E and F each launch once a step
+   each way. Every loss is finite and falls. Small fp32 packed steps on the
+   card must match the CPU's (hidden 32, one head of 32, windows 32 and 160,
+   within 1e-4; both given the same float64-derived event time), and at
+   hidden 128 (4 heads of 32, window 160) the step with kernels C, E and F
+   must match the step with their plain versions on the card (loss within
+   1e-5, every gradient within 2e-5 of its tensor's largest).
+9. Kernels E and F against their plain versions, on the card, on the query,
+   key, value, segment ids and output cotangent (scaled to a largest
+   magnitude of 1) captured from a phase-8 step (E from the window-32 run,
+   F from the window-256 run), in fp32 (within 3e-5 of each tensor's
+   largest) and bf16 (within 5e-2 of it: the kernel takes ``di`` from the
+   rounded output, as the TPU kernels do), each version's distance from the
+   function computed in fp64 printed beside; then timed in bf16 beside their
+   bound (bytes of q, k, v, o, segment ids and each row's softmax statistics,
+   plus do, dq, dk, dv backward; FLOPs of the batch's allowed pairs), their plain
+   versions and ``scaled_dot_product_attention`` with the same boolean mask.
+10. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -93,6 +117,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
 N_REQUESTS, SEED = 64, 0
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 256, 20
+PACKED_BATCH, PACKED_SEQ, WIDE_WINDOW, WIDE_STEPS = 8, 1024, 256, 10
 
 
 def fail(msg: str) -> None:
@@ -117,11 +142,18 @@ def device_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from eventstreamgpt_tpu_torch.ops import build, decode_step, dep_graph, fused_sampling, vocab_gather
+    from eventstreamgpt_tpu_torch.ops import (
+        build,
+        decode_step,
+        dep_graph,
+        flash_attention,
+        fused_sampling,
+        vocab_gather,
+    )
 
     t0 = time.perf_counter()
     errors = []
-    sources = [decode_step.SOURCE, vocab_gather.SOURCE, dep_graph.SOURCE]
+    sources = [decode_step.SOURCE, vocab_gather.SOURCE, dep_graph.SOURCE, flash_attention.SOURCE]
     nvcc = threading.Thread(target=lambda: errors.extend(_try(build.build_all, sources)))
     nvcc.start()
     z = torch.zeros(2, 40, device="cuda")
@@ -484,8 +516,8 @@ class GatherCapture:
         self.mod.vocab_gather = self.orig
 
 
-def training_run(label, smi, config, batch, counters, capture=None):
-    """``TRAIN_STEPS`` steps of a fresh model through `make_train_step`
+def training_run(label, smi, config, batch, counters, capture=None, steps=TRAIN_STEPS):
+    """``steps`` steps of a fresh model through `make_train_step`
     (after 2 warm-up steps of another fresh model, not counted); the
     counters in ``counters`` (launch-counted kernel entry points) are set to 0
     just before the counted steps and read just after. ``capture.armed`` is
@@ -513,9 +545,9 @@ def training_run(label, smi, config, batch, counters, capture=None):
     for fn in counters:
         fn.launches = 0
     losses, norms, walls = [], [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         if capture is not None:
-            capture.armed = i == TRAIN_STEPS - 1
+            capture.armed = i == steps - 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, health = step(batch, SEED)
@@ -527,10 +559,11 @@ def training_run(label, smi, config, batch, counters, capture=None):
     if capture is not None:
         capture.restore()
     check(all(math.isfinite(x) for x in losses + norms), f"{label}: a loss or gradient norm is not finite: {losses}")
-    check(losses[-1] < losses[0], f"{label}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall over {steps} steps: {losses}")
     events = int(batch.event_mask.sum())
     step_ms = float(np.median(walls)) * 1e3
-    print(f"{label}: {TRAIN_STEPS} train steps at (B={TRAIN_BATCH}, L={TRAIN_SEQ}, n_data="
+    B, L = batch.event_mask.shape
+    print(f"{label}: {steps} train steps at (B={B}, L={L}, n_data="
           f"{batch.dynamic_indices.shape[-1]}), {events} real events a step: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; median step {step_ms:.3f} ms (min {min(walls) * 1e3:.3f}), "
           f"{events / (step_ms / 1e3):.1f} trained events/s; launches {launches} ({smi})", flush=True)  # fmt: skip
@@ -652,49 +685,60 @@ def dep_graph_attention_f64(query, key, value, q_offset=0, window=None, dropout_
 
 
 def na_kernels_match_plain_on_card():
-    """The small fp32 NA step at hidden 128 (4 heads of 32), dropout 0, on the
-    card with kernels C and D against the same step on the card with their
-    plain versions swapped in: the loss within 1e-5 of it and every gradient
-    within 2e-5 of its tensor's largest. Rounding kernel D's output and
-    gradients once from fp64 instead of the plain version's fp32 sums moves
-    gradients by up to ~7e-6 of their tensor's largest at these widths (the
-    model amplifies last-bit changes), so a kernel summing in another order
-    moves them as far; a wrong kernel moves them by far more. The step with
-    that fp64 version and each card step's distance from the CPU's are
-    printed, not checked."""
+    """The small fp32 NA step at hidden 128 (4 heads of 32), dropout 0, held
+    by `kernels_match_plain_on_card` with kernels C and D."""
     import eventstreamgpt_tpu_torch.models.generative_layers as layers_module
     import eventstreamgpt_tpu_torch.models.transformer as transformer_module
     from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_attention_reference, dep_graph_bwd, dep_graph_fwd
     from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd, vocab_gather_reference
 
-    counters = (dep_graph_fwd, dep_graph_bwd, vocab_gather_fwd, vocab_gather_bwd)
     base, batch = small_fp32_setup(True, hidden_size=128, num_attention_heads=4, head_dim=32)
+    kernels_match_plain_on_card(
+        "phase 6", "NA", base, batch, (dep_graph_fwd, dep_graph_bwd, vocab_gather_fwd, vocab_gather_bwd),
+        [(transformer_module, "dep_graph_attention", dep_graph_attention_reference, dep_graph_attention_f64),
+         (layers_module, "vocab_gather", vocab_gather_reference, vocab_gather_reference)],
+    )  # fmt: skip
+
+
+def kernels_match_plain_on_card(phase, what, base, batch, counters, swaps):
+    """One small fp32 step on the card with the kernels in ``counters``
+    against the same step on the card with their plain versions swapped in
+    (``swaps``: ``(module, name, plain, fp64)``): the loss within 1e-5 of it
+    and every gradient within 2e-5 of its tensor's largest. Rounding the
+    attention kernel's output and gradients once from fp64 instead of the
+    plain version's fp32 sums moves gradients by up to ~7e-6 of their
+    tensor's largest at these widths (the model amplifies last-bit changes),
+    so a kernel summing in another order moves them as far; a wrong kernel
+    moves them by far more. The step with those fp64 versions and each card
+    step's distance from the CPU's are printed, not checked."""
     before = [fn.launches for fn in counters]
     kernels = one_fp32_step(base, batch, "cuda")
-    check(all(fn.launches > n for fn, n in zip(counters, before)), "phase 6: the hidden-128 step missed a kernel")
-    orig = transformer_module.dep_graph_attention, layers_module.vocab_gather
+    check(all(fn.launches > n for fn, n in zip(counters, before)), f"{phase}: the hidden-128 step missed a kernel")
+    orig = [getattr(mod, name) for mod, name, _, _ in swaps]
 
-    def plain_step(dep_graph):
+    def plain_step(which):
         before = [fn.launches for fn in counters]
-        transformer_module.dep_graph_attention, layers_module.vocab_gather = dep_graph, vocab_gather_reference
+        for (mod, name, *versions) in swaps:
+            setattr(mod, name, versions[which])
         try:
             out = one_fp32_step(base, batch, "cuda")
         finally:
-            transformer_module.dep_graph_attention, layers_module.vocab_gather = orig
-        check([fn.launches for fn in counters] == before, "phase 6: a plain hidden-128 step launched a kernel")
+            for (mod, name, _, _), fn in zip(swaps, orig):
+                setattr(mod, name, fn)
+        check([fn.launches for fn in counters] == before, f"{phase}: a plain hidden-128 step launched a kernel")
         return out
 
-    plain, rounded = plain_step(dep_graph_attention_reference), plain_step(dep_graph_attention_f64)
+    plain, rounded = plain_step(0), plain_step(1)
     cpu = one_fp32_step(base, batch, "cpu")
     loss_err, rel = abs(kernels[0] - plain[0]), grad_diff(kernels, plain, relative=True)
     check(loss_err <= 1e-5 * abs(plain[0]) and rel <= 2e-5,
-          f"phase 6: hidden 128, kernels vs plain versions on the card: loss {kernels[0]} vs {plain[0]}, largest "
+          f"{phase}: hidden 128, kernels vs plain versions on the card: loss {kernels[0]} vs {plain[0]}, largest "
           f"gradient difference {rel:.3g} of its tensor's largest (tolerance 2e-5)")  # fmt: skip
-    print(f"phase 6: small fp32 NA step at hidden 128 on the card, kernels vs plain versions: loss {kernels[0]:.6f} "
-          f"vs {plain[0]:.6f}, max |grad diff| {grad_diff(kernels, plain):.3g} ({rel:.3g} of its tensor's largest); "
-          f"not checked: plain with kernel D rounded once from fp64 vs plain {grad_diff(rounded, plain):.3g} "
-          f"({grad_diff(rounded, plain, relative=True):.3g}); card vs CPU, kernels {grad_diff(kernels, cpu):.3g}, "
-          f"plain versions {grad_diff(plain, cpu):.3g}; largest |grad| "
+    print(f"{phase}: small fp32 {what} step at hidden 128 on the card, kernels vs plain versions: loss "
+          f"{kernels[0]:.6f} vs {plain[0]:.6f}, max |grad diff| {grad_diff(kernels, plain):.3g} ({rel:.3g} of its "
+          f"tensor's largest); not checked: plain with the attention rounded once from fp64 vs plain "
+          f"{grad_diff(rounded, plain):.3g} ({grad_diff(rounded, plain, relative=True):.3g}); card vs CPU, kernels "
+          f"{grad_diff(kernels, cpu):.3g}, plain versions {grad_diff(plain, cpu):.3g}; largest |grad| "
           f"{max(g.abs().max().item() for g in cpu[1].values()):.3g}", flush=True)  # fmt: skip
 
 
@@ -904,6 +948,252 @@ def kernel_d_phase(capture):
     return result
 
 
+# ---------------------------------------------------------------- phase 8
+class FlashCapture:
+    """Wraps the transformer's `flash_attention` to keep the query, key,
+    value, segment ids and output cotangent of each window's first call
+    made while ``armed`` (``args[window]``, ``None`` for a global layer)."""
+
+    def __init__(self, transformer_module):
+        self.mod, self.armed, self.args = transformer_module, False, {}
+        self.orig = transformer_module.flash_attention
+
+        def wrapped(query, key, value, segment_ids, window=None):
+            out = self.orig(query, key, value, segment_ids, window)
+            if self.armed and window not in self.args:
+                a = dict(q=query.detach().clone(), k=key.detach().clone(), v=value.detach().clone(),
+                         seg=segment_ids.clone(), g=None)  # fmt: skip
+                self.args[window] = a
+                out.register_hook(lambda g: a.__setitem__("g", g.detach().clone()))
+            return out
+
+        transformer_module.flash_attention = wrapped
+
+    def restore(self):
+        self.mod.flash_attention = self.orig
+
+
+def packed_batch(config, n_subjects, batch_size, seq_len, **kw):
+    """``bench.py``'s packed batch: the first of `packed_batches` (seed 1)
+    over `synthetic_csr` (numpy seed 0), on the CPU."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.data.synthetic import synthetic_csr
+    from eventstreamgpt_tpu_torch.data.torch_dataset import packed_batches
+
+    csr = synthetic_csr(np.random.default_rng(SEED), config, n_subjects, **kw)
+    return next(packed_batches(csr, batch_size, seq_len, seed=1))
+
+
+def with_segment_time(batch):
+    """``batch`` with each event's minutes since its segment's first event,
+    summed in float64 and rounded once to fp32. A packed row's fp32
+    cumulative time runs on across its subjects (~3e4 minutes in 1,024
+    events), where the card's and the CPU's cumulative sums differ by ulps
+    of ~4e-3 minutes; given the same ``time``, card and CPU steps compare
+    the rest of the model."""
+    import torch
+
+    td = torch.where(batch.event_mask, batch.time_delta.double(), 0.0)
+    t = torch.cat([torch.zeros_like(td[:, :1]), td.cumsum(1)[:, :-1]], dim=1)
+    seg = batch.segment_ids
+    start = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool), seg[:, 1:] != seg[:, :-1]], dim=1)
+    offsets = torch.cummax(torch.where(start, t, -math.inf), dim=1).values
+    return batch.replace(time=(t - offsets).float())
+
+
+def packed_training_phase(smi):
+    import eventstreamgpt_tpu_torch.models.transformer as transformer_module
+    from eventstreamgpt_tpu_torch.data.synthetic import packed_training_config, serving_config
+    from eventstreamgpt_tpu_torch.ops import flash_attention as fa
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+
+    batch = packed_batch(serving_config(), 512, PACKED_BATCH, PACKED_SEQ)
+    n_seg = [int(s.max()) + 1 for s in batch.segment_ids]
+    print(f"phase 8: packed batch {tuple(batch.event_mask.shape)}, {int(batch.event_mask.sum())} real events, "
+          f"subjects a row {n_seg}", flush=True)  # fmt: skip
+    batch = batch.map(lambda t: t.cuda())
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_window_fwd,
+                fa.flash_attention_window_bwd, vocab_gather_fwd, vocab_gather_bwd)  # fmt: skip
+    runs, args = {}, {}
+    for window, steps in ((None, TRAIN_STEPS), (WIDE_WINDOW, WIDE_STEPS)):
+        overrides = {} if window is None else {"seq_window_size": window}
+        config = packed_training_config([batch.map(lambda t: t.cpu())], **overrides)
+        check(config.precision == "bf16" and config.resid_dropout == 0.1 and config.attention_dropout == 0.0
+              and config.seq_attention_layers == ["local", "global"] and config.hidden_size == 256,
+              "phase 8: not the benchmark's packed training config")  # fmt: skip
+        label = f"phase 8 [packed, local window {config.seq_window_size}]"
+        capture = FlashCapture(transformer_module)  # restored by training_run
+        losses, launches, step_ms, events = training_run(label, smi, config, batch, counters, capture, steps=steps)
+        wide = window is not None
+        want = {"flash_attention_fwd": steps, "flash_attention_bwd": steps, "vocab_gather_fwd": steps,
+                "vocab_gather_bwd": steps, "flash_attention_window_fwd": steps if wide else 0,
+                "flash_attention_window_bwd": steps if wide else 0}  # fmt: skip
+        check(launches == want, f"{label}: launches {launches}, expected {want}")
+        # Kernel E's inputs from the benchmark's run, F's from the wide-window one.
+        a = capture.args.get(window)
+        check(a is not None and a["g"] is not None, f"{label}: the attention inputs were not captured")
+        runs[window], args[window] = dict(launches=launches, step_ms=step_ms, events=events, losses=losses), a
+    small_packed_step_matches_cpu()
+    packed_kernels_match_plain_on_card()
+    return runs, args
+
+
+def small_packed_setup(**widths):
+    """A small fp32 packed model (numpy seed 1, std-0.1 weights, dropout 0)
+    and 2 packed rows of 256 events on the CPU, with float64-derived ``time``."""
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import packed_training_config, serving_config
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    small = dict(sizes=(5, 40, 6, 3), intermediate_size=64, input_dropout=0.0, resid_dropout=0.0, **widths)
+    # Short subjects (16 events on average, as phase 4's small batch): event times of a few thousand minutes.
+    batch = packed_batch(serving_config(precision="fp32", **small), 40, 2, 256, mean_seq_len=16)
+    config = packed_training_config([batch], precision="fp32", **small)
+    return init_params_from_seed(build_model(config), seed=1, std=0.1), with_segment_time(batch)
+
+
+def small_packed_step_matches_cpu():
+    """One fp32 packed step at hidden 32 (one head of 32) on the card
+    against the CPU, once with a local window of 32 (the band and kernel E)
+    and once of 160 (kernels F and E), within 1e-4 as phase 4's small step."""
+    for window in (32, 160):
+        base, batch = small_packed_setup(hidden_size=32, num_attention_heads=1, head_dim=32, seq_window_size=window)
+        cuda, cpu = one_fp32_step(base, batch, "cuda"), one_fp32_step(base, batch, "cpu")
+        steps_match(cuda, cpu, 1e-4, f"packed, window {window}: card vs CPU")
+        print(f"phase 8: small fp32 packed step (window {window}) on the card matches the CPU (loss {cpu[0]:.6f}, "
+              f"max |grad diff| {grad_diff(cuda, cpu):.3g})", flush=True)  # fmt: skip
+
+
+def flash_attention_f64(query, key, value, segment_ids, window=None):
+    """Kernels E and F's function computed in fp64 and rounded once to the value dtype."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.flash_attention import attention_mask
+
+    logits = torch.matmul(query.double(), key.double().transpose(-1, -2))
+    probs = torch.softmax(logits.masked_fill(~attention_mask(segment_ids, window), float("-inf")), dim=-1)
+    return torch.matmul(probs, value.double()).to(value.dtype)
+
+
+def packed_kernels_match_plain_on_card():
+    """The small fp32 packed step at hidden 128 (4 heads of 32), local window
+    160, held by `kernels_match_plain_on_card` with kernels C, E and F."""
+    import eventstreamgpt_tpu_torch.models.generative_layers as layers_module
+    import eventstreamgpt_tpu_torch.models.transformer as transformer_module
+    from eventstreamgpt_tpu_torch.ops import flash_attention as fa
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd, vocab_gather_reference
+
+    base, batch = small_packed_setup(hidden_size=128, num_attention_heads=4, head_dim=32, seq_window_size=160)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, fa.flash_attention_window_fwd,
+                fa.flash_attention_window_bwd, vocab_gather_fwd, vocab_gather_bwd)  # fmt: skip
+    kernels_match_plain_on_card(
+        "phase 8", "packed", base, batch, counters,
+        [(transformer_module, "flash_attention", fa.flash_attention_reference, flash_attention_f64),
+         (layers_module, "vocab_gather", vocab_gather_reference, vocab_gather_reference)],
+    )  # fmt: skip
+
+
+# ---------------------------------------------------------------- phase 9
+def kernel_ef_phase(args):
+    """Kernels E (``window`` None) and F against their plain versions on the
+    captured inputs, then timed in bf16 beside their bound and the library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventstreamgpt_tpu_torch.ops import flash_attention as fa
+
+    result = {}
+    for window, a in args.items():
+        B, H, S, D = a["q"].shape
+        seg = a["seg"]
+        fwd = fa.flash_attention_fwd if window is None else fa.flash_attention_window_fwd
+        bwd = fa.flash_attention_bwd if window is None else fa.flash_attention_window_bwd
+        extra = () if window is None else (window,)
+        name = "flash_attention" if window is None else "flash_attention_window"
+        # The captured cotangent is small (the loss averages over ~8k events);
+        # scaled to a largest magnitude of 1 it gives O(1) gradients.
+        g_unit = a["g"] / a["g"].float().abs().max()
+        max_err = {"fwd": 0.0, "bwd": 0.0}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = (t.to(dt) for t in (a["q"], a["k"], a["v"], g_unit))
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            want = fa.flash_attention_reference(*leaves, seg, window)
+            want_grads = torch.autograd.grad(want, leaves, g)
+            out, stats = fwd(q, k, v, seg, *extra)
+            got_grads = bwd(q, k, v, seg, out, stats, g, *extra)
+            # Not checked: each version's distance from the function computed in fp64.
+            leaves64 = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+            exact = flash_attention_f64(*leaves64, seg, window)
+            exact = (exact, *torch.autograd.grad(exact, leaves64, g.double()))
+            # Not checked either: the kernel's backward given the fp64 output, so
+            # that its di = sum(o * do) carries no rounding of o.
+            exact_di = bwd(q, k, v, seg, exact[0].to(dt), stats, g, *extra)
+            torch.cuda.synchronize()
+            errs, tols, kernel64, plain64 = [], [], [], []
+            for part, x, y, z in zip(("out", "dq", "dk", "dv"), (out, *got_grads), (want, *want_grads), exact):
+                # fp32: 3e-5 of the largest magnitude; bf16: 5e-2 of it. The
+                # kernel takes di = sum(o * do) from the rounded output, as the
+                # TPU kernels do, where the plain version's autograd sums p * dP:
+                # on trained activations, whose softmax rows are peaked, dP - di
+                # cancels and leaves the output's rounding (fp32 ulps, or a bf16
+                # ulp: 2^-9 of |o| |do|) in dS, which the plain version does not
+                # carry. In bf16 the kernel also rounds the unnormalised
+                # probabilities and the plain version the normalised ones and,
+                # through its bf16 product, dP. Each version's distance from the
+                # fp64 function is printed.
+                top = y.float().abs().max().item()
+                errs.append((x.float() - y.float()).abs().max().item())
+                tols.append((3e-5 if dt == torch.float32 else 5e-2) * top)
+                kernel64.append((x.double() - z).abs().max().item())
+                plain64.append((y.double() - z).abs().max().item())
+                if dt == torch.bfloat16:
+                    key = "fwd" if part == "out" else "bwd"
+                    max_err[key] = max(max_err[key], errs[-1])
+            print(f"phase 9: {name} ({dt}) at (B={B}, H={H}, S={S}, D={D}), window {window}: max |diff| "
+                  f"out/dq/dk/dv {', '.join(f'{e:.3g}' for e in errs)} (largest |plain| "
+                  f"{', '.join(f'{y.float().abs().max().item():.3g}' for y in (want, *want_grads))}); not "
+                  f"checked, vs fp64: kernel {', '.join(f'{e:.3g}' for e in kernel64)}, plain "
+                  f"{', '.join(f'{e:.3g}' for e in plain64)}, kernel backward with di from the fp64 output "
+                  f"{', '.join(f'{(x.double() - z).abs().max().item():.3g}' for x, z in zip(exact_di, exact[1:]))}",
+                  flush=True)  # fmt: skip
+            for part, err, tol in zip(("out", "dq", "dk", "dv"), errs, tols):
+                check(err <= tol, f"kernel {name} {part} ({dt}) off its plain version by {err:.3g} "
+                                  f"(tolerance {tol:.3g})")  # fmt: skip
+
+        # Timing at the main path's shapes and type: bf16, the views the model passes.
+        dt = torch.bfloat16
+        q, k, v, g = (t.to(dt) for t in (a["q"], a["k"], a["v"], a["g"]))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out = fa.flash_attention_reference(*leaves, seg, window)
+        out, stats = fwd(q, k, v, seg, *extra)
+        mask = fa.attention_mask(seg, window)  # (B, 1, S, S)
+        lib = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, attn_mask=mask, scale=1.0)
+        t_fwd = timings(lambda: fwd(q, k, v, seg, *extra),
+                        lambda: fa.flash_attention_reference(q, k, v, seg, window),
+                        lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))  # fmt: skip
+        t_bwd = timings(lambda: bwd(q, k, v, seg, out, stats, g, *extra),
+                        lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True),
+                        lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True))  # fmt: skip
+        esz = q.element_size()
+        pairs = int(mask.sum()) * H  # allowed (query, key) pairs of this batch, every head
+        tensor = B * H * S * D * esz
+        small = B * S * 4 + 2 * B * H * S * 4  # segment ids; each row's m and l
+        fwd_bytes, bwd_bytes = 4 * tensor + small, 8 * tensor + small  # q, k, v, o (+ do, dq, dk, dv)
+        parts = (("fwd", t_fwd, fwd_bytes, 4 * D * pairs), ("bwd", t_bwd, bwd_bytes, 10 * D * pairs))
+        for part, t, nbytes, flops in parts:
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
+            result[f"{name}_{part}"] = dict(t, bound_ms=max(bytes_ms, ops_ms),
+                                            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                                            max_abs_err=max_err[part], shape=[B, H, S, D], window=window)  # fmt: skip
+            print(f"phase 9: {name} {part} (bf16, window {window}): {fmt_times(t)}; bound "
+                  f"{result[f'{name}_{part}']['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP over "
+                  f"{pairs} allowed pairs, {pairs / (B * H * S * (S + 1) / 2):.3f} of the causal triangle)",
+                  flush=True)  # fmt: skip
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -926,6 +1216,8 @@ def main() -> int:
     c = kernel_c_phase(gather_capture)
     na_train, dep_capture = na_training_phase(smi)
     d_times = kernel_d_phase(dep_capture)
+    packed, flash_args = packed_training_phase(smi)
+    ef = kernel_ef_phase(flash_args)
     kernels = [
         dict(name="fused_categorical", route="triton", source="eventstreamgpt_tpu_torch/ops/fused_sampling.py",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171",
@@ -943,6 +1235,12 @@ def main() -> int:
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397", launches=na_train["launches"][f"dep_graph_{k}"],
              **d_times[k])
+        for k in ("fwd", "bwd")
+    ] + [
+        dict(name=f"{n}_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",
+             replaces=f"eventstreamgpt_tpu/models/transformer.py:{line}",
+             launches=sum(run["launches"][f"{n}_{k}"] for run in packed.values()), **ef[f"{n}_{k}"])
+        for n, line in (("flash_attention", 864), ("flash_attention_window", 900))
         for k in ("fwd", "bwd")
     ]  # fmt: skip
     for k in kernels:

@@ -8,6 +8,6 @@ standard library only.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; nothing falls back to the CPU on its own. The
 hand-written kernels live in `ops.fused_sampling` (Triton),
-`ops.decode_step`, `ops.vocab_gather` and `ops.dep_graph` (CUDA C++ under
-``csrc/``).
+`ops.decode_step`, `ops.vocab_gather`, `ops.dep_graph` and
+`ops.flash_attention` (CUDA C++ under ``csrc/``).
 """

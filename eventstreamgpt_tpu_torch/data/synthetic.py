@@ -1,4 +1,4 @@
-"""Synthetic prompts and training batches, and the benchmark's model configurations.
+"""Synthetic prompts, training batches and packing data, and the benchmark's model configurations.
 
 Counterpart: ``eventstreamgpt_tpu/data/synthetic.py``, whose vocabulary
 layout (UNK at 0, then ``event_type``, ``lab``, ``med``, ``demo`` slices),
@@ -16,6 +16,7 @@ import torch
 
 from ..models.config import StructuredTransformerConfig
 from .config import MeasurementConfig
+from .torch_dataset import CSRData
 from .types import EventStreamBatch
 
 # bench.py's serving shape: 40 event types, 3,500 labs, 500 meds, 16 statics.
@@ -177,10 +178,64 @@ def training_config(batches, precision: str = "bf16", **overrides) -> Structured
     ``set_to_dataset`` gives a lognormal TTE head."""
     gaps = []
     for b in batches:
-        real = (b.event_mask[:, 1:] & b.event_mask[:, :-1]).numpy()
-        gaps.append(b.time_delta[:, :-1].numpy()[real])
+        real = b.event_mask[:, 1:] & b.event_mask[:, :-1]
+        if b.segment_ids is not None:  # packed rows: no gap across two subjects
+            real = real & (b.segment_ids[:, 1:] == b.segment_ids[:, :-1])
+        gaps.append(b.time_delta[:, :-1].numpy()[real.numpy()])
     logd = np.log(np.concatenate(gaps))
     return serving_config(precision=precision, mean_log=float(logd.mean()), std_log=float(logd.std()), **overrides)
+
+
+def synthetic_csr(rng: np.random.Generator, config, n_subjects: int, mean_seq_len: int = 200, max_obs: int = 24):
+    """A `CSRData` split of ``n_subjects`` subjects drawn as
+    `synthetic_training_batches` draws them (lengths lognormal around
+    ``mean_seq_len`` with sigma 0.6, clipped to ``[4, 512]`` and not cropped;
+    inter-event times uniform in 1-240 minutes, 1 after a subject's last
+    event; `synthetic_event` contents; one static ``demo`` element), the
+    input of `data.torch_dataset.packed_batches`."""
+    off, size = config.vocab_offsets_by_measurement, config.vocab_sizes_by_measurement
+    demo = config.measurements_idxmap["demo"]
+    lengths, deltas, counts, meas, idx, vals, statics = [], [], [], [], [], [], []
+    for _ in range(n_subjects):
+        n = int(np.clip(rng.lognormal(np.log(mean_seq_len), 0.6), 4, 512))
+        lengths.append(n)
+        deltas.append(np.append(rng.uniform(1.0, 240.0, size=n - 1), 1.0))
+        for _ in range(n):
+            m, ix, v = synthetic_event(rng, config, max_obs)
+            counts.append(len(m))
+            meas.append(m)
+            idx.append(ix)
+            vals.append(v)
+        statics.append(int(rng.integers(off["demo"] + 1, off["demo"] + size["demo"])))
+
+    def offsets(n):
+        return np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+
+    return CSRData(
+        subject_event_offsets=offsets(lengths),
+        time_delta=np.concatenate(deltas).astype(np.float32),
+        event_data_offsets=offsets(counts),
+        dynamic_indices=np.concatenate(idx).astype(np.int64),
+        dynamic_measurement_indices=np.concatenate(meas).astype(np.int64),
+        dynamic_values=np.concatenate(vals).astype(np.float32),
+        dynamic_values_observed=np.concatenate(meas) == 2,
+        static_offsets=np.arange(n_subjects + 1, dtype=np.int64),
+        static_indices=np.asarray(statics, dtype=np.int64),
+        static_measurement_indices=np.full(n_subjects, demo, dtype=np.int64),
+        start_time_min=np.zeros(n_subjects, dtype=np.float64),
+    )
+
+
+# bench.py's packed long-context model: global layers on the flash kernel,
+# attention dropout off (the kernels have none), rows of 1,024 events.
+PACKED_OVERRIDES = dict(attention_implementation="pallas_flash", attention_dropout=0.0, max_seq_len=1024)
+
+
+def packed_training_config(batches, precision: str = "bf16", **overrides) -> StructuredTransformerConfig:
+    """`training_config` for ``bench.py``'s packed long-context model (its
+    packed section: the CI widths under ``pallas_flash``, attention dropout
+    0, ``max_seq_len`` 1024); ``batches`` are packed batches."""
+    return training_config(batches, precision=precision, **{**PACKED_OVERRIDES, **overrides})
 
 
 # bench.py's nested-attention model: three dep-graph levels, global dep-graph

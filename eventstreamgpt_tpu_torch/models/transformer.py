@@ -2,8 +2,10 @@
 
 Counterpart: ``eventstreamgpt_tpu/models/transformer.py``: `KVCache`,
 `time_from_deltas`, `TemporalPositionEncoding`, `make_causal_mask`,
-`InnerSelfAttention` (the einsum path and its cache branches, and the fused
-dep-graph route to kernel D), `InnerMLP`, `InnerBlock`, the CI input layer
+`InnerSelfAttention` (the einsum path and its cache branches, the fused
+dep-graph route to kernel D, and the ``pallas_flash`` routes: kernel E for
+global layers, the band for narrow local windows, kernel F for wide ones),
+`InnerMLP`, `InnerBlock`, the CI input layer
 and transformer, and the uncached nested-attention (NA) input layer and
 transformer with `StructuredTransformerBlock`. Module attribute names
 follow the flax parameter paths (``encoder.h0.attn.attention.q_proj``,
@@ -34,7 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..data.types import EventStreamBatch
+from ..ops.band_attention import band_local_attention
 from ..ops.dep_graph import dep_graph_attention
+from ..ops.flash_attention import flash_attention
 from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts
 from .config import StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
@@ -168,6 +172,15 @@ class InnerSelfAttention(nn.Module):
     runs `ops.dep_graph.dep_graph_attention` (kernel D on the card) on the
     ``(N, S, H, D)`` projections as they are. It takes no cache, padding
     mask or packing; the cached NA walk is not ported.
+
+    Under ``attention_implementation="pallas_flash"`` an uncached sequence
+    layer follows the JAX model's gates: a global layer runs
+    `ops.flash_attention.flash_attention` (kernel E on the card), a local
+    layer whose window is at most 128 and divides ``S`` the band product
+    `ops.band_attention.band_local_attention`, and any other local layer
+    `flash_attention` with its window (kernel F). Where a gate fails (a
+    cache, attention dropout with a dropout generator, ``S`` not a multiple
+    of 128) the layer keeps the einsum path, as the JAX model does.
     """
 
     def __init__(self, config: StructuredTransformerConfig, window_size: int | None, is_dep_graph: bool = False):
@@ -177,6 +190,7 @@ class InnerSelfAttention(nn.Module):
         self.head_dim = config.head_dim
         self.window_size = window_size
         self.is_dep_graph = is_dep_graph
+        self.attention_implementation = config.attention_implementation
         self.dtype = config.compute_dtype
         self.attention_dropout = float(config.attention_dropout)
         self.resid_dropout = float(config.resid_dropout)
@@ -220,6 +234,28 @@ class InnerSelfAttention(nn.Module):
             if attention_mask is not None
             else torch.ones(B, S, dtype=torch.bool, device=hidden_states.device)
         )
+
+        # The JAX model's fused-attention gates (its models/transformer.py
+        # fused_ok ... use_splash), but for the TPU-backend test: the tensors'
+        # device picks the kernel or its plain version in ops/flash_attention.py.
+        local = self.window_size is not None
+        pallas = self.attention_implementation == "pallas_flash"
+        fused_ok = layer_past is None and not use_cache and (self.attention_dropout == 0.0 or dropout_rng is None)
+        kernel_ok = pallas and fused_ok and S % 128 == 0
+        use_flash = kernel_ok and not local
+        use_band = fused_ok and pallas and local and 1 <= self.window_size <= 128 and S % self.window_size == 0
+        use_splash = kernel_ok and not use_band and local and self.window_size >= 1
+        if use_flash or use_band or use_splash:
+            # Padding rides as its own segment (-1): padded queries attend only
+            # among padded keys (finite, and zeroed between layers).
+            base = segment_ids if segment_ids is not None else torch.zeros_like(chunk_mask, dtype=torch.int32)
+            seg = torch.where(chunk_mask, base.to(torch.int32), -1)
+            if use_band:
+                out = band_local_attention(query, key, value, seg, self.window_size)
+            else:
+                out = flash_attention(query, key, value, seg, self.window_size if use_splash else None)
+            out = out.transpose(1, 2).reshape(B, S, E)
+            return dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng), None
 
         present = None
         if layer_past is not None and torch.is_tensor(layer_past.length):

@@ -4,8 +4,13 @@ Builds the benchmark's CI training model (`data.synthetic.training_config`:
 hidden 256, 2 layers, bf16 compute over fp32 master weights, dropout 0.1,
 numpy-seeded random weights), or with ``--na`` its nested-attention model
 (`data.synthetic.na_training_config`: the same widths over three dep-graph
-levels), with AdamW under warmup, and one synthetic batch of 32 subjects x
-256 events resident on the device. It measures:
+levels), or with ``--packed`` its packed long-context model
+(`data.synthetic.packed_training_config`: the same widths under
+``attention_implementation="pallas_flash"``, kernel E on the global layer)
+on ``bench.py``'s packed batch (the first of `data.torch_dataset.packed_batches`
+over `data.synthetic.synthetic_csr`: 8 rows x 1,024 events), with AdamW
+under warmup, and one synthetic batch of 32 subjects x 256 events (or the
+packed batch) resident on the device. It measures:
 
 * the wall time of one train step (host clock around a synchronised step,
   median of 20, after 3 warm-up steps) and trained events/s (real events a
@@ -18,6 +23,7 @@ Run from the root of a checkout:
 
     python -m eventstreamgpt_tpu_torch.tools.profile_train --out build/profile_train.json
     python -m eventstreamgpt_tpu_torch.tools.profile_train --na --out build/profile_train_na.json
+    python -m eventstreamgpt_tpu_torch.tools.profile_train --packed --out build/profile_train_packed.json
 
 It prints one JSON object (also written to ``--out``) and exits non-zero
 without a CUDA device.
@@ -36,18 +42,29 @@ import numpy as np
 import torch
 
 from ..convert import init_params_from_seed
-from ..data.synthetic import na_training_config, serving_config, synthetic_training_batches, training_config
+from ..data.synthetic import (
+    na_training_config,
+    packed_training_config,
+    serving_config,
+    synthetic_csr,
+    synthetic_training_batches,
+    training_config,
+)
+from ..data.torch_dataset import packed_batches
 from ..models.config import OptimizationConfig
 from ..training import build_model, build_optimizer, make_train_step
 from .profile_decode import _kernel_time_us
 
 BATCH, SEQ_LEN, PROFILED_STEPS, TIMED_STEPS = 32, 256, 3, 20
+PACKED_BATCH, PACKED_SEQ_LEN, PACKED_SUBJECTS = 8, 1024, 512
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--na", action="store_true", help="profile the nested-attention model's step")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--na", action="store_true", help="profile the nested-attention model's step")
+    mode.add_argument("--packed", action="store_true", help="profile the packed long-context model's step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device is available", file=sys.stderr)
@@ -57,8 +74,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]  # fmt: skip
-    batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(), BATCH, SEQ_LEN))
-    config = (na_training_config if args.na else training_config)([batch])
+    if args.packed:
+        csr = synthetic_csr(np.random.default_rng(0), serving_config(), PACKED_SUBJECTS)
+        batch = next(packed_batches(csr, PACKED_BATCH, PACKED_SEQ_LEN, seed=1))
+        config = packed_training_config([batch])
+    else:
+        batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(), BATCH, SEQ_LEN))
+        config = (na_training_config if args.na else training_config)([batch])
     batch = batch.map(lambda t: t.cuda())
     model = init_params_from_seed(build_model(config), seed=0)
     oc = OptimizationConfig(init_lr=1e-3, batch_size=BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
@@ -95,7 +117,12 @@ def main(argv=None) -> int:
     out = {
         "card": smi,
         "model": config.structured_event_processing_mode,
-        "shape": {"batch": BATCH, "seq_len": SEQ_LEN, "n_data": int(batch.dynamic_indices.shape[-1])},
+        "attention_implementation": config.attention_implementation,
+        "shape": {
+            "batch": int(batch.event_mask.shape[0]),
+            "seq_len": int(batch.event_mask.shape[1]),
+            "n_data": int(batch.dynamic_indices.shape[-1]),
+        },
         "real_events_per_step": events,
         "step_wall_ms_median": step_ms,
         "step_wall_ms_min": float(np.min(walls)),

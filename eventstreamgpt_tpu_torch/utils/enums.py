@@ -29,3 +29,12 @@ class StrEnum(str, enum.Enum):
     def values(cls) -> list[str]:
         """Returns all member values of this enum."""
         return [c.value for c in cls]
+
+
+class SubsequenceSamplingStrategy(StrEnum):
+    """How to sample a subsequence when a subject has more events than fit
+    (counterpart: ``eventstreamgpt_tpu/data/config.py``)."""
+
+    TO_END = enum.auto()
+    FROM_START = enum.auto()
+    RANDOM = enum.auto()

@@ -25,6 +25,14 @@ from eventstreamgpt_tpu_torch.ops.dep_graph import (
     dep_graph_bwd,
     dep_graph_fwd,
 )
+from eventstreamgpt_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_attention_reference,
+    flash_attention_window_bwd,
+    flash_attention_window_fwd,
+)
 from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_reference
 from eventstreamgpt_tpu_torch.ops.vocab_gather import (
     vocab_gather,
@@ -211,3 +219,85 @@ def test_dep_graph_refuses_what_the_kernel_does_not_take(cuda):
     q, kv = torch.zeros((4, 3, 2, 32), device=cuda), torch.zeros((4, 4, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="one dtype"):
         dep_graph_fwd(q, kv.bfloat16(), kv, q_offset=1)
+
+
+def packed_segment_ids(rng, B, S):
+    """2-4 segments a row, then 1-40 padding events as segment -1."""
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        pad = int(rng.integers(1, 41))
+        cuts = np.sort(rng.choice(np.arange(8, S - pad - 8), size=int(rng.integers(1, 4)), replace=False))
+        for i, c in enumerate(cuts):
+            seg[b, c:] = i + 1
+        seg[b, S - pad :] = -1
+    return torch.from_numpy(seg)
+
+
+# (B, H, S, D, window): global (kernel E) and windowed (kernel F), a window
+# narrower than a tile, one that does not divide S, and one wider than S.
+FLASH_CASES = [
+    (2, 3, 256, 64, None),
+    (3, 2, 192, 32, None),
+    (2, 2, 256, 64, 160),
+    (1, 4, 320, 32, 40),
+    (2, 1, 128, 64, 1000),
+]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "B{}-H{}-S{}-D{}-w{}".format(*c))
+def test_flash_attention_matches_plain_version(cuda, case, dtype):
+    """Kernels E and F, forward and backward, against their plain version
+    (autograd for the backward) on the card, on heads-first views of
+    (B, S, H, D) tensors as the model passes them: within 1e-5 of the largest
+    magnitude in fp32; in bf16 within 2e-2 of it (the kernel rounds the
+    unnormalised probabilities before P V and keeps dP in fp32, as the TPU
+    kernels do; the plain version rounds the normalised probabilities and,
+    through its bf16 product, dP)."""
+    B, H, S, D, window = case
+    rng = np.random.default_rng(S + D)
+    dt = DTYPES[dtype]
+
+    def heads_first():
+        return torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(np.float32)).to(dt).to(cuda).transpose(1, 2)
+
+    q, k, v, g = heads_first(), heads_first(), heads_first(), heads_first()
+    seg = packed_segment_ids(rng, B, S).to(cuda)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = flash_attention_reference(*leaves, seg, window)
+    want_grads = torch.autograd.grad(want, leaves, g)
+    if window is None:
+        fwd, bwd = flash_attention_fwd, flash_attention_bwd
+    else:
+        fwd, bwd = flash_attention_window_fwd, flash_attention_window_bwd
+    launches = fwd.launches, bwd.launches
+    got_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    got = flash_attention(*got_leaves, seg, window)
+    got.backward(g)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    rel = 1e-5 if dtype == "fp32" else 2e-2
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (got, *(t.grad for t in got_leaves)), (want, *want_grads)):
+        assert a.dtype == dt
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * b.float().abs().max().item(), (name, err, b.float().abs().max().item())
+    extra = () if window is None else (window,)
+    out, stats = fwd(q, k, v, seg, *extra)
+    assert torch.equal(out, got.detach())
+    again = bwd(q, k, v, seg, out, stats, g, *extra)
+    for a, t in zip(again, got_leaves):
+        assert torch.equal(a, t.grad)  # no atomics: bitwise reproducible
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    seg = torch.zeros((1, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention_fwd(*(torch.zeros((1, 2, 128, 48), device=cuda),) * 3, seg)
+    with pytest.raises(ValueError, match="multiple of the kernel's tile"):
+        x = torch.zeros((1, 2, 96, 32), device=cuda)
+        flash_attention_fwd(x, x, x, seg[:, :96])
+    x = torch.zeros((1, 2, 128, 32), device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention_fwd(x, x.bfloat16(), x, seg)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_window_fwd(x, x, x, seg, 0)
