@@ -89,6 +89,11 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    bound (bytes of q, k, v, o, segment ids and each row's softmax statistics,
    plus do, dq, dk, dv backward; FLOPs of the batch's allowed pairs), their plain
    versions and ``scaled_dot_product_attention`` with the same boolean mask.
+   Beside: the 64 x 64 tiles each kernel walked (forward, dq, dk/dv), counted
+   on the card and held equal to what `tile_schedule` visits, on the batch
+   and with one segment a row (every causal tile), their share of the causal
+   (and window) tiles (``visited_share``), and each kernel's time on the same
+   q, k, v with one segment a row, where no tile is skipped.
 10. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -312,57 +317,10 @@ def small_engine_matches_cpu():
 
 
 # ---------------------------------------------------------------- phase 3
-@functools.cache
-def _sleep_cycles_per_ms() -> float:
-    """Cycles of ``torch.cuda._sleep`` per millisecond on this card (measured once)."""
-    import torch
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(1000)
-    start.record()
-    torch.cuda._sleep(10_000_000)
-    end.record()
-    end.synchronize()
-    return 10_000_000 / start.elapsed_time(end)
-
-
-def time_ms(fn, n=50, repeats=5, warmup=3) -> dict:
-    """``ms``: device time per launch, from CUDA events around ``n``
-    back-to-back calls queued behind a device-side sleep long enough for the
-    host to enqueue them all (median of ``repeats``); ``single_ms``: one
-    synchronised call, host work included (median of 30)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    singles = []
-    for _ in range(30):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        singles.append(start.elapsed_time(end))
-    singles.sort()
-    single = singles[len(singles) // 2]
-    cycles = int(_sleep_cycles_per_ms() * min(2.0 * n * single + 5.0, 2000.0))
-    device = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        device.append(start.elapsed_time(end) / n)
-    device.sort()
-    return dict(ms=device[len(device) // 2], single_ms=single)
-
-
 def timings(kernel, plain, library=None, **kw) -> dict:
-    """``ms``/``plain_ms``/``library_ms`` and their single-call times."""
+    """``ms``/``plain_ms``/``library_ms`` and their single-call times (`time_ms`)."""
+    from eventstreamgpt_tpu_torch.utils.timing import time_ms
+
     out = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
         if fn is None:
@@ -973,18 +931,6 @@ class FlashCapture:
         self.mod.flash_attention = self.orig
 
 
-def packed_batch(config, n_subjects, batch_size, seq_len, **kw):
-    """``bench.py``'s packed batch: the first of `packed_batches` (seed 1)
-    over `synthetic_csr` (numpy seed 0), on the CPU."""
-    import numpy as np
-
-    from eventstreamgpt_tpu_torch.data.synthetic import synthetic_csr
-    from eventstreamgpt_tpu_torch.data.torch_dataset import packed_batches
-
-    csr = synthetic_csr(np.random.default_rng(SEED), config, n_subjects, **kw)
-    return next(packed_batches(csr, batch_size, seq_len, seed=1))
-
-
 def with_segment_time(batch):
     """``batch`` with each event's minutes since its segment's first event,
     summed in float64 and rounded once to fp32. A packed row's fp32
@@ -1004,11 +950,11 @@ def with_segment_time(batch):
 
 def packed_training_phase(smi):
     import eventstreamgpt_tpu_torch.models.transformer as transformer_module
-    from eventstreamgpt_tpu_torch.data.synthetic import packed_training_config, serving_config
+    from eventstreamgpt_tpu_torch.data.synthetic import packed_batch, packed_training_config, serving_config
     from eventstreamgpt_tpu_torch.ops import flash_attention as fa
     from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
 
-    batch = packed_batch(serving_config(), 512, PACKED_BATCH, PACKED_SEQ)
+    batch = packed_batch(serving_config(), 512, PACKED_BATCH, PACKED_SEQ, seed=SEED)
     n_seg = [int(s.max()) + 1 for s in batch.segment_ids]
     print(f"phase 8: packed batch {tuple(batch.event_mask.shape)}, {int(batch.event_mask.sum())} real events, "
           f"subjects a row {n_seg}", flush=True)  # fmt: skip
@@ -1043,12 +989,12 @@ def small_packed_setup(**widths):
     """A small fp32 packed model (numpy seed 1, std-0.1 weights, dropout 0)
     and 2 packed rows of 256 events on the CPU, with float64-derived ``time``."""
     from eventstreamgpt_tpu_torch.convert import init_params_from_seed
-    from eventstreamgpt_tpu_torch.data.synthetic import packed_training_config, serving_config
+    from eventstreamgpt_tpu_torch.data.synthetic import packed_batch, packed_training_config, serving_config
     from eventstreamgpt_tpu_torch.training import build_model
 
     small = dict(sizes=(5, 40, 6, 3), intermediate_size=64, input_dropout=0.0, resid_dropout=0.0, **widths)
     # Short subjects (16 events on average, as phase 4's small batch): event times of a few thousand minutes.
-    batch = packed_batch(serving_config(precision="fp32", **small), 40, 2, 256, mean_seq_len=16)
+    batch = packed_batch(serving_config(precision="fp32", **small), 40, 2, 256, seed=SEED, mean_seq_len=16)
     config = packed_training_config([batch], precision="fp32", **small)
     return init_params_from_seed(build_model(config), seed=1, std=0.1), with_segment_time(batch)
 
@@ -1176,6 +1122,33 @@ def kernel_ef_phase(args):
         t_bwd = timings(lambda: bwd(q, k, v, seg, out, stats, g, *extra),
                         lambda: torch.autograd.grad(ref_out, leaves, g, retain_graph=True),
                         lambda: torch.autograd.grad(lib_out, lib, g, retain_graph=True))  # fmt: skip
+        # What tile skipping leaves, counted on the card: the tiles each kernel
+        # walked in one forward and one backward, held equal to what
+        # `tile_schedule` visits (H times), over the causal (and window) tiles;
+        # and the time on the same q, k, v with one segment a row (no tile skipped).
+        from eventstreamgpt_tpu_torch.utils.timing import time_ms
+
+        one = torch.zeros_like(seg)
+        in_range = fa.causal_tiles(S // fa.TILE, window).sum().item() * B * H
+        walked = {}
+        for label, ids in (("packed", seg), ("one-segment", one)):
+            fa.tiles_walked()
+            o_ids, stats_ids = fwd(q, k, v, ids, *extra)
+            bwd(q, k, v, ids, o_ids, stats_ids, g, *extra)
+            walked[label] = fa.tiles_walked()
+            want = fa.tile_schedule(ids, window).sum().item() * H
+            check(all(n == want for n in walked[label].values()),
+                  f"kernel {name} walked {walked[label]} tiles on the {label} batch, where tile_schedule "
+                  f"visits {want}")  # fmt: skip
+        share = walked["packed"]["fwd"] / in_range
+        one_out, one_stats = fwd(q, k, v, one, *extra)
+        t_one = {"fwd": time_ms(lambda: fwd(q, k, v, one, *extra))["ms"],
+                 "bwd": time_ms(lambda: bwd(q, k, v, one, one_out, one_stats, g, *extra))["ms"]}  # fmt: skip
+        print(f"phase 9: {name} (window {window}) walked {walked['packed']} tiles (counted on the card; "
+              f"tile_schedule's count) of {in_range} causal tiles over {B} rows x {H} heads: share {share:.4f}; "
+              f"with one segment a row it walked {walked['one-segment']} (all) in forward {t_one['fwd']:.4f} ms, "
+              f"backward {t_one['bwd']:.4f} ms against {t_fwd['ms']:.4f} / {t_bwd['ms']:.4f} ms on the packed batch",
+              flush=True)  # fmt: skip
         esz = q.element_size()
         pairs = int(mask.sum()) * H  # allowed (query, key) pairs of this batch, every head
         tensor = B * H * S * D * esz
@@ -1186,7 +1159,8 @@ def kernel_ef_phase(args):
             bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
             result[f"{name}_{part}"] = dict(t, bound_ms=max(bytes_ms, ops_ms),
                                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                                            max_abs_err=max_err[part], shape=[B, H, S, D], window=window)  # fmt: skip
+                                            max_abs_err=max_err[part], shape=[B, H, S, D], window=window,
+                                            visited_share=share, one_segment_ms=t_one[part])  # fmt: skip
             print(f"phase 9: {name} {part} (bf16, window {window}): {fmt_times(t)}; bound "
                   f"{result[f'{name}_{part}']['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP over "
                   f"{pairs} allowed pairs, {pairs / (B * H * S * (S + 1) / 2):.3f} of the causal triangle)",

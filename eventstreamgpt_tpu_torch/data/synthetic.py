@@ -16,7 +16,7 @@ import torch
 
 from ..models.config import StructuredTransformerConfig
 from .config import MeasurementConfig
-from .torch_dataset import CSRData
+from .torch_dataset import CSRData, packed_batches
 from .types import EventStreamBatch
 
 # bench.py's serving shape: 40 event types, 3,500 labs, 500 meds, 16 statics.
@@ -229,6 +229,15 @@ def synthetic_csr(rng: np.random.Generator, config, n_subjects: int, mean_seq_le
 # bench.py's packed long-context model: global layers on the flash kernel,
 # attention dropout off (the kernels have none), rows of 1,024 events.
 PACKED_OVERRIDES = dict(attention_implementation="pallas_flash", attention_dropout=0.0, max_seq_len=1024)
+
+
+def packed_batch(config, n_subjects: int, batch_size: int, seq_len: int, seed: int = 0, **kw) -> EventStreamBatch:
+    """``bench.py``'s packed batch: the first of `packed_batches` (its seed 1)
+    over `synthetic_csr` of ``n_subjects`` (numpy seed ``seed``; ``kw`` to
+    it), on the CPU. ``packed_batch(serving_config(), 512, 8, 1024)`` is the
+    packed training configuration's batch."""
+    csr = synthetic_csr(np.random.default_rng(seed), config, n_subjects, **kw)
+    return next(packed_batches(csr, batch_size, seq_len, seed=1))
 
 
 def packed_training_config(batches, precision: str = "bf16", **overrides) -> StructuredTransformerConfig:

@@ -22,7 +22,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 KERNEL_DIR = BUILD_DIR / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -35,37 +35,43 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
 
 
-def library_path(source: str) -> Path:
-    """Where ``csrc/<source>`` builds to: named by the source's content hash."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return KERNEL_DIR / f"{Path(source).stem}-{digest}.so"
+def library_path(source: str, defines: tuple[str, ...] = ()) -> Path:
+    """Where ``csrc/<source>`` (or the file at an absolute ``source``) builds
+    to with the ``-D`` macros ``defines``: named by content and flags hash."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join((*NVCC_FLAGS, *defines)).encode()).hexdigest()[:16]
+    return KERNEL_DIR / f"{src.stem}-{digest}.so"
 
 
-def compile_command(source: str) -> list[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(library_path(source)), str(CSRC_DIR / source)]
+def compile_command(source: str, defines: tuple[str, ...] = ()) -> list[str]:
+    macros = [f"-D{d}" for d in defines]
+    return [nvcc_path(), *NVCC_FLAGS, *macros, "-o", str(library_path(source, defines)), str(CSRC_DIR / source)]
 
 
-def build_all(sources: list[str]) -> dict[str, Path]:
-    """Compiles every source not built yet, one ``nvcc`` per source, all at once."""
+def build_all(sources: list) -> dict:
+    """Compiles every source not built yet, one ``nvcc`` per source, all at
+    once. A source is a name under ``csrc/`` or a ``(source, defines)`` pair;
+    returns each one's library path."""
+    jobs = {s: (s, ()) if isinstance(s, str) else s for s in sources}
     KERNEL_DIR.mkdir(parents=True, exist_ok=True)
     procs = {
-        s: subprocess.Popen(compile_command(s), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for s in sources
-        if not library_path(s).exists()
+        s: subprocess.Popen(compile_command(*job), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, job in jobs.items()
+        if not library_path(*job).exists()
     }
     for s, p in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{s} (exit {p.returncode}):\n{out}")
-    return {s: library_path(s) for s in sources}
+            raise RuntimeError(f"nvcc failed on {jobs[s][0]} {' '.join(jobs[s][1])} (exit {p.returncode}):\n{out}")
+    return {s: library_path(*job) for s, job in jobs.items()}
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """The ``ctypes`` handle of ``csrc/<source>``, built first if needed."""
-    if source not in _LIBS:
-        path = build_all([source])[source]
-        _LIBS[source] = ctypes.CDLL(str(path))
-    return _LIBS[source]
+def load_library(source: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The ``ctypes`` handle of ``csrc/<source>`` built with ``defines``, built first if needed."""
+    key = (source, tuple(defines))
+    if key not in _LIBS:
+        _LIBS[key] = ctypes.CDLL(str(build_all([key])[key]))
+    return _LIBS[key]
 
 
 def triton_modules():

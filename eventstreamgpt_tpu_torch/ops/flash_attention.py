@@ -19,13 +19,15 @@ source, its design and its bounds are in ``csrc/flash_attention.cu``.
 version, differentiated by autograd) on CPU tensors and, on CUDA tensors, an
 autograd function whose forward saves the output and every row's fp32
 softmax statistics (its running max ``m`` and normaliser ``l``, the
-residuals the TPU kernel saves) and whose backward computes
-``di = sum(o * do)`` in fp32, as JAX does outside its kernels, then launches
-the dk/dv and dq kernels. Each direction counts its launches on its own
-entry point, the windowed calls apart: `flash_attention_fwd`,
-`flash_attention_bwd` (E) and `flash_attention_window_fwd`,
-`flash_attention_window_bwd` (F); one backward launch is the two backward
-kernels.
+residuals the TPU kernel saves) and whose backward launches the dq kernel,
+which also writes ``di = sum(o * do)`` in fp32, then the dk/dv kernel. On
+CUDA, bf16 q, k and v need 16-byte aligned rows. `tile_schedule` is the
+plain version of the (query tile, key tile) pairs the kernels visit;
+`tiles_walked` reads how many tiles the kernels walked, counted on the card. Each
+direction counts its launches on its own entry point, the windowed calls
+apart: `flash_attention_fwd`, `flash_attention_bwd` (E) and
+`flash_attention_window_fwd`, `flash_attention_window_bwd` (F); one backward
+launch is the two backward kernels.
 """
 
 from __future__ import annotations
@@ -38,19 +40,23 @@ import torch
 from .build import load_library
 
 __all__ = [
+    "causal_tiles",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_fwd",
     "flash_attention_reference",
     "flash_attention_window_bwd",
     "flash_attention_window_fwd",
+    "tile_schedule",
+    "tiles_walked",
 ]
 
 SOURCE = "flash_attention.cu"
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 HEAD_DIMS = (32, 64)  # the kernel's template instances
 TILE = 64  # queries and keys per tile: S must be a multiple
-MAX_ROWS = 65535  # (batch, head) pairs: the grid's y dimension
+MAX_TILES = 65535  # tiles of a row: the grid's y dimension
+ALIGN = 16  # bytes: the kernels load rows in 16-byte pieces
 F32_MIN = torch.finfo(torch.float32).min
 
 
@@ -78,6 +84,54 @@ def attention_mask(segment_ids: torch.Tensor, window: int | None = None) -> torc
     return mask[None, None] & (segment_ids[:, None, :, None] == segment_ids[:, None, None, :])
 
 
+def tile_schedule(segment_ids: torch.Tensor, window: int | None = None, tile: int = TILE) -> torch.Tensor:
+    """The ``(B, S/tile, S/tile)`` (query tile, key tile) pairs the kernels visit.
+
+    A pair inside the causal (and window) range is visited when the intervals
+    ``[min, max]`` of the two tiles' real segment ids (``>= 0``) meet, or when
+    both tiles hold padding (a negative id). Disjoint intervals share no id, so
+    every allowed pair of `attention_mask` lies in a visited tile, whatever the
+    ids; the schedule is tight when real ids do not decrease along a row. The
+    kernels compute the same predicate themselves.
+
+    Examples:
+        >>> tile_schedule(torch.tensor([[0, 0, 1, 1, 2, 2, -1, -1]]), tile=2)[0].int()
+        tensor([[1, 0, 0, 0],
+                [0, 1, 0, 0],
+                [0, 0, 1, 0],
+                [0, 0, 0, 1]], dtype=torch.int32)
+    """
+    B, S = segment_ids.shape
+    n = S // tile
+    ids = segment_ids.reshape(B, n, tile).long()
+    real = ids >= 0
+    lo = torch.where(real, ids, torch.iinfo(torch.int64).max).amin(-1)
+    hi = torch.where(real, ids, torch.iinfo(torch.int64).min).amax(-1)
+    pad = (~real).any(-1)
+    meet = torch.maximum(lo[:, :, None], lo[:, None, :]) <= torch.minimum(hi[:, :, None], hi[:, None, :])
+    visit = meet | (pad[:, :, None] & pad[:, None, :])
+    return visit & causal_tiles(n, window, tile, segment_ids.device)[None]
+
+
+def causal_tiles(n: int, window: int | None = None, tile: int = TILE, device=None) -> torch.Tensor:
+    """The ``(n, n)`` (query tile, key tile) pairs inside the causal (and
+    window) range: ``kt <= qt`` and some key of ``kt`` within the window of
+    some query of ``qt``.
+
+    Examples:
+        >>> causal_tiles(3, window=60, tile=64).int()
+        tensor([[1, 0, 0],
+                [1, 1, 0],
+                [0, 1, 1]], dtype=torch.int32)
+    """
+    qt = torch.arange(n, device=device)[:, None]
+    kt = torch.arange(n, device=device)[None, :]
+    in_range = kt <= qt
+    if window is not None:
+        in_range = in_range & (kt * tile + tile - 1 > qt * tile - window)
+    return in_range
+
+
 def flash_attention_reference(
     query: torch.Tensor,
     key: torch.Tensor,
@@ -93,17 +147,39 @@ def flash_attention_reference(
     return torch.matmul(torch.softmax(logits, dim=-1).to(value.dtype), value)
 
 
-@functools.cache
-def _kernels():
-    """The two C entry points, built and loaded once, with their signatures set once."""
-    lib = load_library(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the signatures of the C entry points of a build of ``csrc/flash_attention.cu``; returns ``lib``."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     shape = [ptr, i32, i32, i32, i32, i32, ptr]  # strides, B, H, S, D, window, stream
     lib.esgpt_flash_fwd.argtypes = [i32] + [ptr] * 6 + shape
-    lib.esgpt_flash_bwd.argtypes = [i32] + [ptr] * 10 + shape
-    for fn in (lib.esgpt_flash_fwd, lib.esgpt_flash_bwd):
+    lib.esgpt_flash_bwd.argtypes = [i32] + [ptr] * 11 + shape
+    lib.esgpt_flash_tiles.argtypes = [ptr]
+    entries = [lib.esgpt_flash_fwd, lib.esgpt_flash_bwd, lib.esgpt_flash_tiles]
+    if hasattr(lib, "esgpt_flash_trace"):  # built with -DESGPT_FLASH_TRACE
+        lib.esgpt_flash_trace.argtypes = [ptr]
+        entries.append(lib.esgpt_flash_trace)
+    for fn in entries:
         fn.restype = ctypes.c_int
-    return lib.esgpt_flash_fwd, lib.esgpt_flash_bwd
+    return lib
+
+
+@functools.cache
+def _kernels() -> ctypes.CDLL:
+    """The source's library, built and loaded once, with its signatures set once."""
+    return bind(load_library(SOURCE))
+
+
+def tiles_walked(lib: ctypes.CDLL | None = None) -> dict[str, int]:
+    """The tiles the kernels' blocks walked since the last call, read from
+    the card after every launch before it, then zeroed: ``fwd``, ``dq`` and
+    ``dkv`` (kernels E and F, both types). Each equals ``H`` times
+    ``tile_schedule(...).sum()`` summed over the launches."""
+    counts = (ctypes.c_uint64 * 3)()
+    torch.cuda.synchronize()  # launches on any stream
+    err = (lib or _kernels()).esgpt_flash_tiles(counts)
+    if err != 0:
+        raise RuntimeError(f"reading the flash attention tile counts failed: CUDA error {err}")
+    return dict(zip(("fwd", "dq", "dkv"), (int(c) for c in counts)))
 
 
 def _checked(query, key, value, segment_ids, window, what):
@@ -125,15 +201,41 @@ def _checked(query, key, value, segment_ids, window, what):
         raise ValueError(f"{what}: head_dim {D} is not one of the kernel's {HEAD_DIMS}")
     if S % TILE:
         raise ValueError(f"{what}: the sequence length {S} is not a multiple of the kernel's tile {TILE}")
-    if B * H > MAX_ROWS:
-        raise ValueError(f"{what}: B * H = {B * H} exceeds the kernel's grid of {MAX_ROWS} (batch, head) pairs")
+    if S // TILE > MAX_TILES:
+        raise ValueError(f"{what}: the sequence length {S} exceeds the kernel's grid of {MAX_TILES} tiles")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window {window} must be None or >= 1")
     if any(t.stride(3) != 1 for t in (query, key, value)):
         raise ValueError(f"{what}: the head_dim axis of q, k and v must be contiguous")
+    if not all(_rows_aligned(t) for t in (query, key, value)):
+        raise ValueError(
+            f"{what}: bf16 q, k and v need 16-byte aligned rows: a 16-byte aligned base pointer and (b, h, s) "
+            f"strides in multiples of {ALIGN // query.element_size()} elements"
+        )
     if segment_ids.dtype.is_floating_point or segment_ids.dtype == torch.bool:
         raise ValueError(f"{what}: segment ids must be integers, got {segment_ids.dtype}")
-    return (B, H, S, D), segment_ids.to(torch.int32).contiguous()
+    return (B, H, S, D), _aligned(segment_ids.to(torch.int32))
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the kernels can read ``t``'s ``(B, H, S, D)`` rows: any fp32
+    rows (the fp32 kernels read one element at a time); bf16 rows that start
+    on 16 bytes, as the bf16 kernels' 16-byte loads need."""
+    if t.dtype != torch.bfloat16:
+        return True
+    step = ALIGN // t.element_size()
+    return t.data_ptr() % ALIGN == 0 and all(t.stride(i) % step == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its ``D`` axis is contiguous and its rows 16-byte aligned, else an aligned copy."""
+    return t if t.stride(3) == 1 and _rows_aligned(t) else _aligned(t)
 
 
 def _strides(*tensors) -> torch.Tensor:
@@ -149,12 +251,12 @@ def _heads_first_like(x: torch.Tensor) -> torch.Tensor:
     return torch.empty((B, S, H, D), dtype=x.dtype, device=x.device).transpose(1, 2)
 
 
-def _fwd(query, key, value, segment_ids, window, what):
+def _fwd(query, key, value, segment_ids, window, what, lib=None):
     (B, H, S, D), seg = _checked(query, key, value, segment_ids, window, what)
     out = _heads_first_like(value)
     stats = torch.empty((2, B, H, S), dtype=torch.float32, device=value.device)
     strides = _strides(query, key, value, out)
-    err = _kernels()[0](
+    err = (lib or _kernels()).esgpt_flash_fwd(
         DTYPES[value.dtype], query.data_ptr(), key.data_ptr(), value.data_ptr(), seg.data_ptr(), out.data_ptr(),
         stats.data_ptr(), strides.data_ptr(), B, H, S, D, window or 0,
         torch.cuda.current_stream(value.device).cuda_stream,
@@ -164,21 +266,20 @@ def _fwd(query, key, value, segment_ids, window, what):
     return out, stats
 
 
-def _bwd(query, key, value, segment_ids, out, stats, g, window, what):
+def _bwd(query, key, value, segment_ids, out, stats, g, window, what, lib=None):
     (B, H, S, D), seg = _checked(query, key, value, segment_ids, window, what)
     if g.shape != out.shape or g.device != out.device or stats.shape != (2, B, H, S):
         raise ValueError(f"{what}: the cotangent {tuple(g.shape)} or statistics {tuple(stats.shape)} do not fit")
-    g = g.to(value.dtype)
-    if g.stride(3) != 1:
-        g = g.contiguous()
-    di = (out.float() * g.float()).sum(dim=-1).contiguous()  # (B, H, S) fp32
-    stats = stats.contiguous()
+    # The kernels read the output (for di = sum(o * do)) and the cotangent by stride, as q, k and v.
+    out, g = _aligned_rows(out.to(value.dtype)), _aligned_rows(g.to(value.dtype))
+    stats = _aligned(stats)
+    # Scratch the dq kernel writes and the dk/dv kernel reads: di, m log2(e) and 1 / l of every row.
+    rows = torch.empty((3, B, H, S), dtype=torch.float32, device=value.device)
     dq, dk, dv = _heads_first_like(query), _heads_first_like(key), _heads_first_like(value)
-    strides = _strides(query, key, value, g, dq, dk, dv)
-    err = _kernels()[1](
-        DTYPES[value.dtype], query.data_ptr(), key.data_ptr(), value.data_ptr(), seg.data_ptr(), g.data_ptr(),
-        stats.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides.data_ptr(), B, H, S, D,
-        window or 0, torch.cuda.current_stream(value.device).cuda_stream,
+    strides = _strides(query, key, value, out, g, dq, dk, dv)
+    err = (lib or _kernels()).esgpt_flash_bwd(
+        DTYPES[value.dtype], *(t.data_ptr() for t in (query, key, value, seg, out, g, stats, rows, dq, dk, dv)),
+        strides.data_ptr(), B, H, S, D, window or 0, torch.cuda.current_stream(value.device).cuda_stream,
     )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: CUDA error {err}")

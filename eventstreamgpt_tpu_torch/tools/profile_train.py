@@ -44,13 +44,12 @@ import torch
 from ..convert import init_params_from_seed
 from ..data.synthetic import (
     na_training_config,
+    packed_batch,
     packed_training_config,
     serving_config,
-    synthetic_csr,
     synthetic_training_batches,
     training_config,
 )
-from ..data.torch_dataset import packed_batches
 from ..models.config import OptimizationConfig
 from ..training import build_model, build_optimizer, make_train_step
 from .profile_decode import _kernel_time_us
@@ -75,8 +74,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]  # fmt: skip
     if args.packed:
-        csr = synthetic_csr(np.random.default_rng(0), serving_config(), PACKED_SUBJECTS)
-        batch = next(packed_batches(csr, PACKED_BATCH, PACKED_SEQ_LEN, seed=1))
+        batch = packed_batch(serving_config(), PACKED_SUBJECTS, PACKED_BATCH, PACKED_SEQ_LEN)
         config = packed_training_config([batch])
     else:
         batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(), BATCH, SEQ_LEN))

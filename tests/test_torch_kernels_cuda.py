@@ -32,6 +32,8 @@ from eventstreamgpt_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
     flash_attention_window_bwd,
     flash_attention_window_fwd,
+    tile_schedule,
+    tiles_walked,
 )
 from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_reference
 from eventstreamgpt_tpu_torch.ops.vocab_gather import (
@@ -221,31 +223,69 @@ def test_dep_graph_refuses_what_the_kernel_does_not_take(cuda):
         dep_graph_fwd(q, kv.bfloat16(), kv, q_offset=1)
 
 
-def packed_segment_ids(rng, B, S):
-    """2-4 segments a row, then 1-40 padding events as segment -1."""
+def packed_segment_ids(rng, B, S, layout="packed"):
+    """Segment ids of B rows, by layout (the kernels skip 64 x 64 tiles by them):
+
+    * packed: 2-4 segments a row, then 1-40 padding events as segment -1;
+    * aligned: segments of 64 or 128 events starting on tile boundaries, a
+      tile of padding at the end;
+    * crossing: segments of 40-90 events, crossing tile boundaries;
+    * unordered: the packed layout with its real ids permuted (not monotone);
+    * padmid: the packed layout with a run of padding inside the row;
+    * single: one segment a row, no padding (no tile is skipped).
+    """
     seg = np.zeros((B, S), np.int32)
     for b in range(B):
-        pad = int(rng.integers(1, 41))
-        cuts = np.sort(rng.choice(np.arange(8, S - pad - 8), size=int(rng.integers(1, 4)), replace=False))
-        for i, c in enumerate(cuts):
-            seg[b, c:] = i + 1
-        seg[b, S - pad :] = -1
+        if layout in ("packed", "unordered", "padmid"):
+            pad = int(rng.integers(1, 41))
+            cuts = np.sort(rng.choice(np.arange(8, S - pad - 8), size=int(rng.integers(1, 4)), replace=False))
+            for i, c in enumerate(cuts):
+                seg[b, c:] = i + 1
+            seg[b, S - pad :] = -1
+            if layout == "unordered":
+                ids = rng.permutation(len(cuts) + 1) * 3 + 1
+                seg[b] = np.where(seg[b] >= 0, ids[np.maximum(seg[b], 0)], -1)
+            if layout == "padmid":
+                start = int(rng.integers(20, S // 2))
+                seg[b, start : start + int(rng.integers(5, 70))] = -1
+        elif layout == "aligned":
+            ends = np.cumsum(rng.choice([64, 128], size=S // 64))
+            seg[b] = np.searchsorted(ends, np.arange(S), side="right")
+            seg[b, S - 64 :] = -1
+        elif layout == "crossing":
+            ends = np.cumsum(rng.integers(40, 91, size=S // 40 + 1))
+            seg[b] = np.searchsorted(ends, np.arange(S), side="right")
+        elif layout != "single":
+            raise ValueError(layout)
     return torch.from_numpy(seg)
 
 
-# (B, H, S, D, window): global (kernel E) and windowed (kernel F), a window
-# narrower than a tile, one that does not divide S, and one wider than S.
+# (B, H, S, D, window[, layout]): global (kernel E) and windowed (kernel F), a
+# window narrower than a tile, one that does not divide S, and one wider than
+# S, on the packed layout; then each segment layout that tile skipping meets.
 FLASH_CASES = [
     (2, 3, 256, 64, None),
     (3, 2, 192, 32, None),
     (2, 2, 256, 64, 160),
     (1, 4, 320, 32, 40),
     (2, 1, 128, 64, 1000),
+    (2, 2, 512, 64, None, "aligned"),
+    (2, 2, 512, 32, 160, "aligned"),
+    (2, 2, 512, 64, None, "crossing"),
+    (2, 2, 384, 64, None, "unordered"),
+    (2, 2, 384, 32, 100, "unordered"),
+    (2, 2, 384, 64, None, "padmid"),
+    (2, 2, 256, 64, None, "single"),
+    (1, 2, 256, 32, 200, "single"),
 ]
 
 
+def flash_case_id(c):
+    return "B{}-H{}-S{}-D{}-w{}".format(*c[:5]) + "".join(f"-{x}" for x in c[5:])
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "B{}-H{}-S{}-D{}-w{}".format(*c))
+@pytest.mark.parametrize("case", FLASH_CASES, ids=flash_case_id)
 def test_flash_attention_matches_plain_version(cuda, case, dtype):
     """Kernels E and F, forward and backward, against their plain version
     (autograd for the backward) on the card, on heads-first views of
@@ -253,8 +293,9 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
     magnitude in fp32; in bf16 within 2e-2 of it (the kernel rounds the
     unnormalised probabilities before P V and keeps dP in fp32, as the TPU
     kernels do; the plain version rounds the normalised probabilities and,
-    through its bf16 product, dP)."""
-    B, H, S, D, window = case
+    through its bf16 product, dP). The kernels walk the tiles `tile_schedule`
+    visits, counted on the card."""
+    B, H, S, D, window = case[:5]
     rng = np.random.default_rng(S + D)
     dt = DTYPES[dtype]
 
@@ -262,7 +303,7 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
         return torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(np.float32)).to(dt).to(cuda).transpose(1, 2)
 
     q, k, v, g = heads_first(), heads_first(), heads_first(), heads_first()
-    seg = packed_segment_ids(rng, B, S).to(cuda)
+    seg = packed_segment_ids(rng, B, S, *case[5:]).to(cuda)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     want = flash_attention_reference(*leaves, seg, window)
     want_grads = torch.autograd.grad(want, leaves, g)
@@ -272,10 +313,14 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
         fwd, bwd = flash_attention_window_fwd, flash_attention_window_bwd
     launches = fwd.launches, bwd.launches
     got_leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    tiles_walked()
     got = flash_attention(*got_leaves, seg, window)
     got.backward(g)
-    torch.cuda.synchronize()
+    walked = tiles_walked()
     assert (fwd.launches, bwd.launches) == (launches[0] + 1, launches[1] + 1)
+    # Each kernel (forward, dq, dk/dv) walks exactly the tiles `tile_schedule` visits, H times.
+    want_tiles = int(tile_schedule(seg, window).sum()) * H
+    assert walked == {"fwd": want_tiles, "dq": want_tiles, "dkv": want_tiles}
     rel = 1e-5 if dtype == "fp32" else 2e-2
     for name, a, b in zip(("out", "dq", "dk", "dv"), (got, *(t.grad for t in got_leaves)), (want, *want_grads)):
         assert a.dtype == dt
@@ -301,3 +346,61 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention_fwd(x, x.bfloat16(), x, seg)
     with pytest.raises(ValueError, match="window"):
         flash_attention_window_fwd(x, x, x, seg, 0)
+    # bf16 needs 16-byte aligned rows: a base pointer 2 bytes off, and an s stride of 36 elements.
+    xb = x.bfloat16()
+    off = torch.zeros(1 * 2 * 128 * 32 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(1, 2, 128, 32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(off, xb, xb, seg)
+    wide = torch.zeros((1, 2, 128, 36), dtype=torch.bfloat16, device=cuda)[..., :32]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(wide, wide, wide, seg)
+
+
+def test_flash_attention_fp32_takes_unaligned_rows(cuda):
+    """The fp32 kernels read one element at a time: views 4 bytes off and
+    with an s stride of 36 elements are taken, and match the plain version."""
+    B, H, S, D = 2, 2, 128, 32
+    rng = np.random.default_rng(7)
+    flat = torch.from_numpy(rng.normal(size=3 * B * S * H * 36 + 1).astype(np.float32)).to(cuda)
+    q, k, v = (flat[1 + i * B * S * H * 36 :][: B * S * H * 36].view(B, S, H, 36)[..., :D].transpose(1, 2)
+               for i in range(3))  # fmt: skip
+    assert q.data_ptr() % 16 == 4 and q.stride(2) == H * 36
+    g = torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).to(cuda)
+    seg = packed_segment_ids(rng, B, S).to(cuda)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = flash_attention_reference(*leaves, seg)
+    want_grads = torch.autograd.grad(want, leaves, g)
+    out, stats = flash_attention_fwd(q, k, v, seg)
+    got = (out, *flash_attention_bwd(q, k, v, seg, out, stats, g))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, (want, *want_grads)):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-5 * b.abs().max().item(), (name, err)
+
+
+def test_flash_attention_trace_build(cuda):
+    """The source built with its per-block trace (``-DESGPT_FLASH_TRACE``,
+    read by ``tools/ab_flash.py --trace``) computes what the plain build
+    computes, and records for every block of each bf16 kernel a start, walk
+    and end in order and the tiles it walked, adding up to `tile_schedule`'s."""
+    from eventstreamgpt_tpu_torch.ops import build
+    from eventstreamgpt_tpu_torch.ops import flash_attention as fa
+    from eventstreamgpt_tpu_torch.tools import ab_flash
+
+    lib = fa.bind(build.load_library(fa.SOURCE, (ab_flash.TRACE_DEFINE,)))
+    B, H, S, D = 2, 2, 512, 64
+    rng = np.random.default_rng(3)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, H, S, D)).astype(np.float32)).bfloat16().to(cuda)
+                  for _ in range(4))  # fmt: skip
+    seg = packed_segment_ids(rng, B, S, "crossing").to(cuda)
+    out, stats = fa._fwd(q, k, v, seg, None, "trace", lib)
+    grads = fa._bwd(q, k, v, seg, out, stats, g, None, "trace", lib)
+    torch.cuda.synchronize()
+    want_out, want_stats = flash_attention_fwd(q, k, v, seg)
+    assert torch.equal(out, want_out) and torch.equal(stats, want_stats)
+    for a, b in zip(grads, flash_attention_bwd(q, k, v, seg, out, stats, g)):
+        assert torch.equal(a, b)
+    records = ab_flash.read_trace(lib, B * H * S // 64)
+    want = int(tile_schedule(seg).sum()) * H
+    for kernel, rec in records.items():
+        assert (rec[:, 0] <= rec[:, 1]).all() and (rec[:, 1] <= rec[:, 2]).all(), kernel
+        assert int(rec[:, 4].sum()) == want, kernel
