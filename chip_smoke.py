@@ -27,7 +27,7 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    equal (fp32 and bf16, with and without keep and active masks); kernel
    B's ``h`` within rtol=atol=1e-4 in fp32 and atol=2e-2 in bf16, cache
    positions other than the cursor bit-equal, the cursor entries within the
-   same tolerances, mask and length exact.
+   same tolerances, mask and length exact; B's cluster shape and CTAs.
 4. Training at full width: the same model with dropout 0.1 and fp32 master
    weights, AdamW with warmup (``bench.py``'s optimizer settings), 20 train
    steps through `make_train_step` on one fixed synthetic batch of 32
@@ -42,7 +42,8 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    fp32: forward bit-exact; backward within one bf16 ulp (fp32: rtol 1e-6,
    atol 1e-6 of the largest cotangent), the plain version summing
    duplicates with atomics in no fixed order; the kernel's backward also
-   equals the CPU's plain version (ordered sums) bit for bit.
+   equals the CPU's plain version (ordered sums) bit for bit. The backward's
+   write rate of the plane beside its bound.
 6. Nested-attention training at full width: ``bench.py``'s NA model (the
    phase-4 widths with three dep-graph levels ``[[], ["event_type"], ["lab",
    "med"]]``, global dep-graph attention, bare sequence attention and a full
@@ -392,6 +393,7 @@ def kernel_b_phase(model, config, capture):
     import torch
 
     from eventstreamgpt_tpu_torch.ops.decode_step import (
+        cluster_size,
         decode_stack_step,
         decode_stack_step_reference,
         stack_layer_weights,
@@ -444,12 +446,13 @@ def kernel_b_phase(model, config, capture):
     nbytes = w_bytes + (k_rows + v_rows) * E * esz + 2 * L * written * E * esz + small
     flops = 2 * B * L * (4 * E * E + 2 * E * I) + 2 * H * D * attn_rows
     bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS["bf16"]) * 1e3
-    print(f"phase 3: kernel B at (L={L}, B={B}, H={H}, M={M}, D={D}); {fmt_times(t)}, "
-          f"bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; whole cache "
+    C = cluster_size(H)
+    print(f"phase 3: kernel B at (L={L}, B={B}, H={H}, M={M}, D={D}) in clusters of {C} CTAs, {B * C} CTAs; "
+          f"{fmt_times(t)}, bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; whole cache "
           f"{2 * kc.numel() * esz / 1e6:.2f} MB)", flush=True)  # fmt: skip
     return dict(t, bound_ms=bound,
                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_FLOPS["bf16"] else "operations",
-                max_abs_err=max_err, shape=[L, B, H, M, D])  # fmt: skip
+                max_abs_err=max_err, shape=[L, B, H, M, D], cluster=[C, 1, 1], blocks=B * C)  # fmt: skip
 
 
 # ---------------------------------------------------------------- phase 4
@@ -763,8 +766,11 @@ def kernel_c_phase(capture):
             bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["fp32"] * 1e3
             result[name] = dict(t, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                                 max_abs_err=0.0 if name == "fwd" else diff.max().item(), shape=[rows, V, M])  # fmt: skip
+            if name == "bwd":  # the plane's write, the bound's bytes, at the kernel's time
+                result[name]["write_GBps"] = rows * V * esz / (t["ms"] * 1e-3) / 1e9
+            rate = f", the plane written at {result[name]['write_GBps']:.1f} GB/s" if name == "bwd" else ""
             print(f"phase 5: kernel C {name} (bf16): {fmt_times(t)}; bound {result[name]['bound_ms']:.5f} ms "
-                  f"({nbytes / 1e6:.2f} MB, {distinct} distinct gathered elements)", flush=True)  # fmt: skip
+                  f"({nbytes / 1e6:.2f} MB, {distinct} distinct gathered elements){rate}", flush=True)  # fmt: skip
     return result
 
 

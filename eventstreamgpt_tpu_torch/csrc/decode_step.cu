@@ -3,48 +3,76 @@
 // Replaces the TPU kernel eventstreamgpt_tpu/ops/pallas_decode_step.py::
 // decode_stack_step (_stack_kernel / _layer_math): per layer LN1 -> q/k/v ->
 // cursor write into the KV cache -> masked, unscaled fp32-softmax attention
-// over the whole cache buffer (per-layer window, 0 = global) -> out-proj +
-// residual -> LN2 -> MLP + residual -> event-mask zeroing. Returns h before
-// ln_f, and writes the new padding mask (this event's bit at the cursor) and
-// lengths (cursor + 1); rows whose `active` bit is 0 keep their old mask and
-// length there (the attention itself always sees the new mask, as in JAX).
-//
-// Design: the step mixes no rows and its layers are sequential per row, so
-// one thread block serves one slot row and loops over the L layers; no grid
-// sync is needed. Shared memory holds the row's residual stream, the LN
-// output, q, the attention output, the H x M scores and the MLP
-// intermediate, all fp32. The projections are mat-vecs in the block: weights
-// are (L, in, out) row-major (the flax kernel layout), thread j owns output
-// column j, so a warp's loads of one weight row are coalesced and no
-// reduction is needed; LayerNorm and softmax use warp-shuffle block
-// reductions summed in a fixed order. Activations round to the compute type
-// (bf16 or fp32) at the points where the JAX layer rounds, so the kernel
-// tracks the plain version to bf16 rounding.
-//
-// The new k/v are written into the cache at each row's cursor IN PLACE (the
-// JAX kernel returns new arrays); a cursor at or past M writes nothing, as
-// the JAX one-hot write matches nothing there.
+// (per-layer window, 0 = global) -> out-proj + residual -> LN2 -> MLP +
+// residual -> event-mask zeroing. Returns h before ln_f, and writes the new
+// padding mask (this event's bit at the cursor) and lengths (cursor + 1);
+// rows whose `active` bit is 0 keep their old mask and length there (the
+// attention itself always sees the new mask, as in JAX).
 //
 // Bound: the step's output depends only on the cache positions that pass the
 // causal, window and padding tests, so its bytes are the weights (about
-// 3.1 MB in bf16 at the serving shape) plus K and V at those live positions:
-// at most 32 per row on the local layer and cursor + 1 on the global one.
-// With prompts of 128-192 events that is about 6 MB of cache, so roughly
-// 9-10 MB a step, about 3 us at 3.35 TB/s (chip_smoke.py computes it from the
-// captured inputs). The kernel skips K at masked positions but reads V over
-// the whole buffer (their probabilities are 0), the 16.8 MB the JAX kernel
-// reads. With one block per slot (32 blocks on 132 SMs) and scalar mat-vecs
-// it sits far from the bound; a split over (row, head), live-range V reads
-// and tensor-core products are later work.
+// 3.1 MB in bf16 at the serving shape L=2, B=32, H=4, M=256, D=64, I=1024)
+// plus K and V at those live positions (at most 32 a row on the local layer
+// and cursor + 1 on the global one): about 9.6 MB with prompts of 128-192
+// events, about 3 us at 3.35 TB/s (chip_smoke.py computes it from the
+// captured inputs). Every product is a mat-vec (about 1 FLOP a byte), far
+// below the ~295 FLOPs a byte at which the tensor cores would set the pace.
+//
+// Design: one thread-block cluster of C CTAs per slot row (C the largest
+// divisor of H up to 8; C = 4 at the serving shape: 128 CTAs on 132 SMs),
+// launched with cudaLaunchKernelEx and a cluster dimension.
+//
+// * CTA c owns heads [c H/C, (c+1) H/C): it computes their q/k/v columns,
+//   writes their k/v at the cursor, and runs their attention. In the
+//   out-projection, fc and MLP projection it owns 1/C of each product's
+//   output columns. Every CTA keeps the whole residual row and computes the
+//   LayerNorms redundantly, in the same order, so they agree bit for bit.
+// * Whole vectors are exchanged through distributed shared memory: the
+//   attention output before Wo, the new residual after Wo and after the MLP,
+//   and the MLP intermediate before Wpr. A CTA writes each value it computes
+//   into every CTA's copy of the vector (cluster.map_shared_rank), and one
+//   cluster.sync() makes the whole vector visible: 4 barriers a layer, plus
+//   one before the first remote write. The last layer's last barrier is the
+//   last remote access, so no CTA exits while a peer may still write to it.
+//   No copy is overwritten while it is read: a vector is written into a
+//   buffer only after the barrier that follows the buffer's last reads, and
+//   the residual's columns, which each CTA reads while the others write, are
+//   disjoint.
+// * Mat-vecs: weights are (L, in, out) row-major (the flax kernel layout). A
+//   thread holds 8 bf16 (4 fp32) output columns and reads each weight row
+//   slice with 16-byte loads, 16 rows in flight (the weights sit in L2
+//   across steps, so each mat-vec is paced by rounds of L2 latency); groups
+//   of threads split the input dimension, and the groups' partial sums are
+//   added in shared memory in a fixed order, so two runs are bitwise equal. Slices whose width, offset or row
+//   stride is not a multiple of 16 bytes take a scalar path (one column a
+//   thread), so every shape works.
+// * Attention reads K and V only over [max(0, st - w + 1), min(st, M - 1)]
+//   and only at positions whose padding bit is set; a warp reads K rows with
+//   16-byte loads, lanes across D. The cursor's k and v come from shared
+//   memory (computed, not re-read). JAX fills masked scores with
+//   finfo(float32).min, not -inf, so a row with no live position gets a
+//   uniform softmax over all M positions, the value just written at the
+//   cursor included: only such a row reads the whole buffer.
+// * Activations round to the compute type (bf16 or fp32) at the points where
+//   the JAX layer rounds, so the kernel tracks the plain version to bf16
+//   rounding. The new k/v are written into the cache IN PLACE (the JAX
+//   kernel returns new arrays); a cursor at or past M writes nothing and
+//   attends to m < M only. The new mask and length are written by rank 0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr float kF32Min = -3.4028234663852886e38f;
+constexpr int kMaxCluster = 8;
+constexpr int kThreads = 256;         // threads a CTA
+constexpr int kPartialPerThread = 8;  // floats of partial sums a thread may hold in a mat-vec
+constexpr int kCannotPlace = -1;      // returned when no cluster fits on the card
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -60,6 +88,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return
 template <typename T>
 __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
 
+// The 16 / sizeof(T) elements of a 16-byte word, as floats.
+__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
+  out[0] = __uint_as_float(u.x);
+  out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z);
+  out[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* out, __nv_bfloat16) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -70,39 +114,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Block-wide sum / max; every thread gets the result. `red` holds 32 floats.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = 0.f;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) r += red[i];
-  return r;
-}
-
-__device__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = -INFINITY;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) r = fmaxf(r, red[i]);
-  return r;
-}
-
 // flax LayerNorm: fp32 stats, var = max(0, E[x^2] - E[x]^2),
-// (x - mean) * (rsqrt(var + eps) * scale) + bias, rounded to T.
+// (x - mean) * (rsqrt(var + eps) * scale) + bias, rounded to T. Every warp
+// sums the whole row itself, in the same order, so no barrier comes before
+// the normalisation. Ends synchronised.
 template <typename T>
-__device__ void layer_norm(const float* x, float* y, const float* scale, const float* bias, int E, float eps,
-                           float* red) {
+__device__ void layer_norm(const float* x, float* y, const float* scale, const float* bias, int E, float eps) {
   float s = 0.f, ss = 0.f;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+  for (int i = threadIdx.x & 31; i < E; i += 32) {
     s += x[i];
     ss += x[i] * x[i];
   }
-  const float mean = block_sum(s, red) / E;
-  const float meansq = block_sum(ss, red) / E;
+  const float mean = warp_sum(s) / E;
+  const float meansq = warp_sum(ss) / E;
   const float inv = 1.0f / sqrtf(fmaxf(0.f, meansq - mean * mean) + eps);
   for (int i = threadIdx.x; i < E; i += blockDim.x) y[i] = rnd<T>((x[i] - mean) * (inv * scale[i]) + bias[i]);
   __syncthreads();
@@ -114,167 +138,412 @@ __device__ __forceinline__ float activate(float x, int act) {
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
-template <typename T>
-__global__ void decode_stack_kernel(const T* __restrict__ h0, const int32_t* __restrict__ start,
-                                    const uint8_t* __restrict__ event_mask, const uint8_t* __restrict__ mask,
-                                    const uint8_t* __restrict__ active, const int32_t* __restrict__ windows,
-                                    const float* __restrict__ ln1_s, const float* __restrict__ ln1_b,
-                                    const T* __restrict__ wq,
-                                    const T* __restrict__ wk, const T* __restrict__ wv, const T* __restrict__ wo,
-                                    const T* __restrict__ bo, const float* __restrict__ ln2_s,
-                                    const float* __restrict__ ln2_b, const T* __restrict__ wfc,
-                                    const T* __restrict__ bfc, const T* __restrict__ wpr,
-                                    const T* __restrict__ bpr, T* kc, T* vc, T* __restrict__ h_out,
-                                    uint8_t* __restrict__ new_mask, int32_t* __restrict__ new_length, int L,
-                                    int B, int H, int M, int D, int I, float eps, int act) {
-  extern __shared__ float smem[];
-  const int E = H * D;
-  float* x = smem;        // E: residual stream
-  float* n = x + E;       // E: LayerNorm output
-  float* q = n + E;       // E: query
-  float* o = q + E;       // E: attention output
-  float* s = o + E;       // H * M: scores, then probabilities
-  float* f = s + H * M;   // I: MLP intermediate
-  float* red = f + I;     // 32: reduction scratch
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int st = start[b];
-  const bool ev = event_mask[b] != 0;
-  const bool live = active == nullptr || active[b] != 0;
-  const uint8_t* mrow = mask + (size_t)b * M;
-
-  // The layer-shared cache tracking: this event's bit at the cursor.
-  for (int m = tid; m < M; m += nt) new_mask[(size_t)b * M + m] = (live && m == st) ? (uint8_t)ev : mrow[m];
-  if (tid == 0) new_length[b] = live ? st + 1 : st;
-  for (int i = tid; i < E; i += nt) x[i] = to_f(h0[(size_t)b * E + i]);
-  __syncthreads();
-
-  for (int l = 0; l < L; ++l) {
-    const size_t cache_row = ((size_t)l * B + b) * H * M * D;  // cache layout (L, B, H, M, D)
-    const T* Wq = wq + (size_t)l * E * E;
-    const T* Wk = wk + (size_t)l * E * E;
-    const T* Wv = wv + (size_t)l * E * E;
-    const T* Wo = wo + (size_t)l * E * E;
-    const T* Wfc = wfc + (size_t)l * E * I;
-    const T* Wpr = wpr + (size_t)l * I * E;
-
-    layer_norm<T>(x, n, ln1_s + (size_t)l * E, ln1_b + (size_t)l * E, E, eps, red);
-
-    // q/k/v projections; k/v land in the cache at the row's cursor, in place.
-    for (int j = tid; j < E; j += nt) {
-      float aq = 0.f, ak = 0.f, av = 0.f;
-      for (int i = 0; i < E; ++i) {
-        const float ni = n[i];
-        const size_t w = (size_t)i * E + j;
-        aq += ni * to_f(Wq[w]);
-        ak += ni * to_f(Wk[w]);
-        av += ni * to_f(Wv[w]);
+// y_w[j] = sum over i in [0, K) of x[i] * W_w[i * ldw + j], for j in [0, N)
+// and each of the NW matrices W_w (pointers already at the first column);
+// epi(w, j, y) receives each result once. SKIP: rows with x[i] == 0 or
+// i == skip_row are not read (their terms would add nothing or are added by
+// the caller). Groups of threads split the rows; each thread holds `per`
+// adjacent columns (8 bf16 or 4 fp32 on the 16-byte path, with kBatch rows'
+// loads in flight; 1 on the scalar path). The groups' partial sums are added
+// by as many threads per output as the block has to spare, each over a fixed
+// set of groups, then by shuffles in a fixed order. Ends synchronised.
+template <typename T, int NW, bool SKIP, typename Epi>
+__device__ void matvec(const float* x, int K, const T* const* W, size_t ldw, int N, int skip_row, float* partial,
+                       Epi epi) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kBatch = 16;
+  bool vec = (ldw * sizeof(T)) % 16 == 0 && N % kVec == 0;
+  for (int w = 0; w < NW; ++w) vec = vec && (reinterpret_cast<uintptr_t>(W[w]) & 15) == 0;
+  const int per = vec ? kVec : 1;
+  const int tpr = N / per + (N % per != 0);  // thread columns a matrix row needs
+  const int cols = NW * tpr;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  for (int c0 = 0; c0 < cols; c0 += nt) {
+    const int tc = min(nt, cols - c0);
+    const int groups = nt / tc;
+    const int g = tid / tc, cc = c0 + tid % tc;
+    const int w = cc / tpr, j0 = (cc % tpr) * per;
+    if (g < groups) {
+      float acc[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+      const T* base = W[w] + j0;
+      if (vec) {
+        for (int i0 = g; i0 < K; i0 += kBatch * groups) {
+          uint4 raw[kBatch];
+          float xs[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int i = i0 + u * groups;
+            xs[u] = 0.f;
+            raw[u] = make_uint4(0u, 0u, 0u, 0u);
+            if (i < K && (!SKIP || i != skip_row)) {
+              xs[u] = x[i];
+              if (!SKIP || xs[u] != 0.f) raw[u] = __ldg(reinterpret_cast<const uint4*>(base + (size_t)i * ldw));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            float v[kVec];
+            unpack(raw[u], v, T());
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc[e] += xs[u] * v[e];
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int i = g; i < K; i += groups) {
+          const float xi = x[i];
+          if (SKIP && (xi == 0.f || i == skip_row)) continue;
+          acc[0] += xi * to_f(base[(size_t)i * ldw]);
+        }
       }
-      q[j] = rnd<T>(aq);
-      if (st >= 0 && st < M) {
-        const size_t c = cache_row + ((size_t)(j / D) * M + st) * D + (j % D);
-        kc[c] = from_f<T>(ak);
-        vc[c] = from_f<T>(av);
+      float* out = partial + (size_t)g * tc * per + (tid % tc) * per;
+      if (vec) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) out[e] = acc[e];
+      } else {
+        out[0] = acc[0];
       }
     }
     __syncthreads();
-
-    // Scores: unscaled fp32 q.k; causal (k <= cursor), window, padding mask.
-    const int w = windows[l];
-    for (int e = tid; e < H * M; e += nt) {
-      const int h = e / M, m = e % M;
-      const bool ok = m <= st && (w <= 0 || m > st - w) && (m == st ? ev : mrow[m] != 0);
-      float acc = kF32Min;
-      if (ok) {
-        const T* kr = kc + cache_row + ((size_t)h * M + m) * D;
-        const float* qh = q + h * D;
-        acc = 0.f;
-        for (int d = 0; d < D; ++d) acc += qh[d] * to_f(kr[d]);
+    const int outs = tc * per;
+    int share = 1;  // threads an output, a power of two up to a warp
+    while (share < 32 && 2 * share * outs <= nt) share *= 2;
+    for (int t0 = 0; t0 < outs * share; t0 += nt) {
+      const int t = t0 + tid, o = t / share, part = t % share;
+      float y = 0.f;
+      if (o < outs)
+        for (int gg = part; gg < groups; gg += share) y += partial[(size_t)gg * outs + o];
+      for (int d = share / 2; d > 0; d >>= 1) y += __shfl_xor_sync(0xffffffffu, y, d);
+      if (o < outs && part == 0) {
+        const int ccol = c0 + o / per, e = o % per;
+        epi(ccol / tpr, (ccol % tpr) * per + e, y);
       }
-      s[e] = acc;
-    }
-    __syncthreads();
-
-    // Softmax per head in fp32; probabilities rounded to the value type.
-    for (int h = 0; h < H; ++h) {
-      float* sh = s + h * M;
-      float mx = -INFINITY;
-      for (int m = tid; m < M; m += nt) mx = fmaxf(mx, sh[m]);
-      mx = block_max(mx, red);
-      float sum = 0.f;
-      for (int m = tid; m < M; m += nt) {
-        const float e = expf(sh[m] - mx);
-        sh[m] = e;
-        sum += e;
-      }
-      sum = block_sum(sum, red);
-      for (int m = tid; m < M; m += nt) sh[m] = rnd<T>(sh[m] / sum);
-      __syncthreads();
-    }
-
-    // Probabilities x values over the whole buffer (masked weights are 0).
-    for (int j = tid; j < E; j += nt) {
-      const int h = j / D, d = j % D;
-      const T* vr = vc + cache_row + (size_t)h * M * D + d;
-      const float* ph = s + h * M;
-      float acc = 0.f;
-      for (int m = 0; m < M; ++m) acc += ph[m] * to_f(vr[(size_t)m * D]);
-      o[j] = rnd<T>(acc);
-    }
-    __syncthreads();
-
-    // Out-projection + bias + attention residual.
-    for (int j = tid; j < E; j += nt) {
-      float acc = 0.f;
-      for (int i = 0; i < E; ++i) acc += o[i] * to_f(Wo[(size_t)i * E + j]);
-      const float y = rnd<T>(rnd<T>(acc) + to_f(bo[(size_t)l * E + j]));
-      x[j] = rnd<T>(y + x[j]);
-    }
-    __syncthreads();
-
-    layer_norm<T>(x, n, ln2_s + (size_t)l * E, ln2_b + (size_t)l * E, E, eps, red);
-
-    for (int j = tid; j < I; j += nt) {
-      float acc = 0.f;
-      for (int i = 0; i < E; ++i) acc += n[i] * to_f(Wfc[(size_t)i * I + j]);
-      const float y = rnd<T>(rnd<T>(acc) + to_f(bfc[(size_t)l * I + j]));
-      f[j] = rnd<T>(activate(y, act));
-    }
-    __syncthreads();
-
-    // MLP projection + residual, then the between-layer event-mask zeroing.
-    for (int j = tid; j < E; j += nt) {
-      float acc = 0.f;
-      for (int i = 0; i < I; ++i) acc += f[i] * to_f(Wpr[(size_t)i * E + j]);
-      const float y = rnd<T>(rnd<T>(acc) + to_f(bpr[(size_t)l * E + j]));
-      x[j] = ev ? rnd<T>(x[j] + y) : 0.f;
     }
     __syncthreads();
   }
+}
 
-  for (int i = tid; i < E; i += nt) h_out[(size_t)b * E + i] = from_f<T>(x[i]);
+// Writes v at dst[j] in the shared memory of every CTA of the cluster.
+__device__ __forceinline__ void push(cg::cluster_group& cluster, float* dst, int j, float v, int C) {
+  for (int p = 0; p < C; ++p) cluster.map_shared_rank(dst, p)[j] = v;
+}
+
+// Compiled only with -DESGPT_DECODE_TRACE (tools/ab_kernels.py --trace): for
+// each CTA of the latest launch, the global timer (ns) at its start and at the
+// end of each phase of each layer (kPhases a layer, in the order of
+// kernel B's loop: LN1, q/k/v, attention, exchange, Wo, exchange, LN2, fc,
+// exchange, Wpr, exchange), then at its end.
+constexpr int kPhases = 11;
+#ifdef ESGPT_DECODE_TRACE
+constexpr int kTraceCtas = 1024, kTraceStamps = 64;
+__device__ unsigned long long g_trace[kTraceCtas][kTraceStamps];
+
+__device__ __forceinline__ void stamp(int i) {
+  if (threadIdx.x != 0 || blockIdx.x >= kTraceCtas || i >= kTraceStamps) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  g_trace[blockIdx.x][i] = t;
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+#endif
+
+struct Shared {
+  float *x, *n, *in, *qkv, *s, *partial, *flag;
+};
+
+// The shared-memory layout, in floats: sets sh's pointers from base and returns the total.
+__host__ __device__ inline size_t shared_layout(int H, int M, int D, int I, int C, int threads, Shared& sh,
+                                                float* base) {
+  const int E = H * D, Ec = E / C;
+  const size_t sizes[7] = {(size_t)E, (size_t)E, (size_t)(E > I ? E : I), (size_t)3 * Ec, (size_t)(H / C) * M,
+                           (size_t)threads * kPartialPerThread, 1};
+  float** slots[7] = {&sh.x, &sh.n, &sh.in, &sh.qkv, &sh.s, &sh.partial, &sh.flag};
+  size_t off = 0;
+  for (int i = 0; i < 7; ++i) {
+    *slots[i] = base + off;
+    off += (sizes[i] + 3) / 4 * 4;  // 16-byte aligned
+  }
+  return off;
+}
+
+// Unscaled fp32 q . k over [lo, hi] for one head into s[m - lo]; -inf where
+// the position is masked; the cursor (from shared memory) is scored apart.
+template <typename T>
+__device__ void scores(const float* q, const float* k_cur, const T* K, int D, int lo, int hi, int st, bool ev,
+                       const uint8_t* mrow, float* s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lanes = D / kVec;  // lanes a K row takes on the 16-byte path
+  const bool vec = D % kVec == 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
+                   (reinterpret_cast<uintptr_t>(K) & 15) == 0;
+  const int n = hi - lo + 1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  if (vec) {
+    const int warp = tid >> 5, lane = tid & 31, rows_per_warp = 32 / lanes, nwarps = nt >> 5;
+    const int lr = lane % lanes, step = nwarps * rows_per_warp;
+    constexpr int kRows = 4;  // K rows a lane group has in flight
+    for (int base = warp * rows_per_warp; base < n; base += kRows * step) {
+      uint4 raw[kRows];
+      bool live[kRows];
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int r = base + u * step + lane / lanes, m = lo + r;
+        live[u] = r < n && m != st && mrow[m];
+        raw[u] = live[u] ? __ldg(reinterpret_cast<const uint4*>(K + (size_t)m * D + lr * kVec)) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        const int r = base + u * step + lane / lanes, m = lo + r;
+        float v[kVec], acc = 0.f;
+        unpack(raw[u], v, T());
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc += q[lr * kVec + e] * v[e];
+        for (int o = lanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (lr == 0 && r < n && m != st) s[r] = live[u] ? acc : -INFINITY;
+      }
+    }
+  } else {
+    for (int r = tid; r < n; r += nt) {
+      const int m = lo + r;
+      if (m == st) continue;
+      float acc = -INFINITY;
+      if (mrow[m]) {
+        acc = 0.f;
+        for (int d = 0; d < D; ++d) acc += q[d] * to_f(K[(size_t)m * D + d]);
+      }
+      s[r] = acc;
+    }
+  }
+  if (tid < 32 && st >= lo && st <= hi) {  // the cursor: warp 0, lanes across D
+    float acc = 0.f;
+    for (int d = tid; d < D; d += 32) acc += q[d] * k_cur[d];
+    acc = warp_sum(acc);
+    if (tid == 0) s[st - lo] = ev ? acc : -INFINITY;
+  }
+  __syncthreads();
+}
+
+// The softmax of the n scores s (-inf where masked) in place, by warp 0, as
+// probabilities rounded to T; returns false, leaving s, when none is live.
+// Ends synchronised.
+template <typename T>
+__device__ bool softmax(float* s, int n, float* flag) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float mx = -INFINITY;
+    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, s[r]);
+    mx = warp_max(mx);
+    if (mx != -INFINITY) {
+      float sum = 0.f;
+      for (int r = lane; r < n; r += 32) {
+        const float e = s[r] == -INFINITY ? 0.f : expf(s[r] - mx);
+        s[r] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int r = lane; r < n; r += 32) s[r] = rnd<T>(s[r] / sum);
+    }
+    if (lane == 0) *flag = mx;
+  }
+  __syncthreads();
+  return *flag != -INFINITY;
+}
+
+// Two CTAs an SM (at most 128 registers a thread): a cluster needs C SMs of
+// one GPC with room, and at one CTA an SM the serving shape's 32 clusters of
+// 4 do not all fit on the card at once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const T* __restrict__ h0, const int32_t* __restrict__ start,
+                                    const uint8_t* __restrict__ event_mask, const uint8_t* __restrict__ mask,
+                                    const uint8_t* __restrict__ active, const int32_t* __restrict__ windows,
+                                    const float* __restrict__ ln1_s, const float* __restrict__ ln1_b,
+                                    const T* __restrict__ wq, const T* __restrict__ wk, const T* __restrict__ wv,
+                                    const T* __restrict__ wo, const T* __restrict__ bo,
+                                    const float* __restrict__ ln2_s, const float* __restrict__ ln2_b,
+                                    const T* __restrict__ wfc, const T* __restrict__ bfc, const T* __restrict__ wpr,
+                                    const T* __restrict__ bpr, T* kc, T* vc, T* __restrict__ h_out,
+                                    uint8_t* __restrict__ new_mask, int32_t* __restrict__ new_length, int L, int B,
+                                    int H, int M, int D, int I, float eps, int act, int C) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  Shared sh;
+  shared_layout(H, M, D, I, C, blockDim.x, sh, smem);
+  const int E = H * D, HC = H / C, Ec = HC * D;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / C;
+  const int e0 = rank * Ec, i0 = I * rank / C, Ic = I * (rank + 1) / C - i0;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int st = start[b];
+  const bool ev = event_mask[b] != 0;
+  const uint8_t* mrow = mask + (size_t)b * M;
+
+  if (rank == 0) {  // the layer-shared cache tracking: this event's bit at the cursor
+    const bool live = active == nullptr || active[b] != 0;
+    for (int m = tid; m < M; m += nt) new_mask[(size_t)b * M + m] = (live && m == st) ? (uint8_t)ev : mrow[m];
+    if (tid == 0) new_length[b] = live ? st + 1 : st;
+  }
+  for (int i = tid; i < E; i += nt) sh.x[i] = to_f(h0[(size_t)b * E + i]);
+  stamp(0);
+  cluster.sync();  // every CTA of the cluster runs before any remote write
+
+  for (int l = 0; l < L; ++l) {
+    const size_t ee = (size_t)l * E * E;
+    const int at = 1 + l * kPhases;
+    layer_norm<T>(sh.x, sh.n, ln1_s + (size_t)l * E, ln1_b + (size_t)l * E, E, eps);
+    stamp(at);
+
+    // This CTA's heads' q/k/v; k/v land in the cache at the row's cursor, in place.
+    {
+      const T* W[3] = {wq + ee + e0, wk + ee + e0, wv + ee + e0};
+      float* qkv = sh.qkv;
+      const bool write = st >= 0 && st < M;
+      matvec<T, 3, false>(sh.n, E, W, E, Ec, -1, sh.partial, [&](int w, int j, float y) {
+        const float r = rnd<T>(y);
+        qkv[w * Ec + j] = r;
+        if (w > 0 && write) {
+          const int h = (e0 + j) / D, d = j % D;
+          T* cache = w == 1 ? kc : vc;
+          cache[((((size_t)l * B + b) * H + h) * M + st) * D + d] = from_f<T>(r);
+        }
+      });
+    }
+    stamp(at + 1);
+
+    // Attention for this CTA's heads over the live range; the output goes to every CTA's `in`.
+    const int w = windows[l];
+    const int lo = w > 0 ? max(0, st - w + 1) : 0, hi = min(st, M - 1);
+    for (int hh = 0; hh < HC; ++hh) {
+      const int h = rank * HC + hh;
+      const size_t head = (((size_t)l * B + b) * H + h) * M * D;
+      const float* q = sh.qkv + hh * D;
+      const float* k_cur = sh.qkv + Ec + hh * D;
+      const float* v_cur = sh.qkv + 2 * Ec + hh * D;
+      float* s = sh.s + (size_t)hh * M;
+      bool live = false;
+      if (lo <= hi) {
+        scores<T>(q, k_cur, kc + head, D, lo, hi, st, ev, mrow, s);
+        live = softmax<T>(s, hi - lo + 1, sh.flag);
+      }
+      int plo = lo, phi = hi;
+      if (!live) {  // no live position: JAX's uniform softmax over the whole buffer
+        plo = 0;
+        phi = M - 1;
+        const float p = rnd<T>(1.0f / M);
+        for (int r = tid; r < M; r += nt) s[r] = p;
+        __syncthreads();
+      }
+      const bool cursor_in = st >= plo && st <= phi;
+      const float p_cur = cursor_in ? s[st - plo] : 0.f;
+      const T* V[1] = {vc + head + (size_t)plo * D};
+      float* o = sh.in + e0 + hh * D;
+      matvec<T, 1, true>(s, phi - plo + 1, V, D, D, st - plo, sh.partial, [&](int, int j, float y) {
+        push(cluster, o, j, rnd<T>(cursor_in ? y + p_cur * v_cur[j] : y), C);
+      });
+    }
+    stamp(at + 2);
+    cluster.sync();
+    stamp(at + 3);
+
+    // Out-projection + bias + attention residual, this CTA's columns, to every CTA's x.
+    {
+      const T* W[1] = {wo + ee + e0};
+      const T* bias = bo + (size_t)l * E + e0;
+      float* x = sh.x;
+      matvec<T, 1, false>(sh.in, E, W, E, Ec, -1, sh.partial, [&](int, int j, float y) {
+        push(cluster, x, e0 + j, rnd<T>(rnd<T>(rnd<T>(y) + to_f(bias[j])) + x[e0 + j]), C);
+      });
+    }
+    stamp(at + 4);
+    cluster.sync();
+    stamp(at + 5);
+
+    layer_norm<T>(sh.x, sh.n, ln2_s + (size_t)l * E, ln2_b + (size_t)l * E, E, eps);
+    stamp(at + 6);
+
+    // fc + bias + activation, this CTA's columns of the intermediate, to every CTA's `in`.
+    {
+      const T* W[1] = {wfc + (size_t)l * E * I + i0};
+      const T* bias = bfc + (size_t)l * I + i0;
+      float* f = sh.in + i0;
+      matvec<T, 1, false>(sh.n, E, W, I, Ic, -1, sh.partial, [&](int, int j, float y) {
+        push(cluster, f, j, rnd<T>(activate(rnd<T>(rnd<T>(y) + to_f(bias[j])), act)), C);
+      });
+    }
+    stamp(at + 7);
+    cluster.sync();
+    stamp(at + 8);
+
+    // MLP projection + residual, then the between-layer event-mask zeroing, to every CTA's x.
+    {
+      const T* W[1] = {wpr + (size_t)l * I * E + e0};
+      const T* bias = bpr + (size_t)l * E + e0;
+      float* x = sh.x;
+      matvec<T, 1, false>(sh.in, I, W, E, Ec, -1, sh.partial, [&](int, int j, float y) {
+        push(cluster, x, e0 + j, ev ? rnd<T>(x[e0 + j] + rnd<T>(rnd<T>(y) + to_f(bias[j]))) : 0.f, C);
+      });
+    }
+    stamp(at + 9);
+    cluster.sync();  // also the last remote access: no CTA exits while a peer may still write to it
+    stamp(at + 10);
+  }
+
+  for (int j = tid; j < Ec; j += nt) h_out[(size_t)b * E + e0 + j] = from_f<T>(sh.x[e0 + j]);
+  stamp(1 + L * kPhases);
+}
+
+// CTAs a cluster: the largest divisor of H up to kMaxCluster.
+int cluster_size(int H) {
+  int C = 0;
+  for (int c = 1; c <= kMaxCluster; ++c)
+    if (H % c == 0) C = c;
+  return C;
 }
 
 template <typename T>
 int launch(const void* h0, const void* start, const void* event_mask, const void* mask, const void* active,
            const void* windows, const void* ln1_s, const void* ln1_b, const void* wq, const void* wk, const void* wv,
-           const void* wo,
-           const void* bo, const void* ln2_s, const void* ln2_b, const void* wfc, const void* bfc,
-           const void* wpr, const void* bpr, void* kc, void* vc, void* h_out, void* new_mask, void* new_length,
-           int L, int B, int H, int M, int D, int I, float eps, int act, int threads, void* stream) {
-  const size_t smem = (size_t)(4 * H * D + H * M + I + 32) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(decode_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  decode_stack_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)h0, (const int32_t*)start, (const uint8_t*)event_mask, (const uint8_t*)mask,
-      (const uint8_t*)active, (const int32_t*)windows, (const float*)ln1_s, (const float*)ln1_b, (const T*)wq,
-      (const T*)wk, (const T*)wv, (const T*)wo, (const T*)bo, (const float*)ln2_s, (const float*)ln2_b, (const T*)wfc,
-      (const T*)bfc, (const T*)wpr, (const T*)bpr, (T*)kc, (T*)vc, (T*)h_out, (uint8_t*)new_mask,
-      (int32_t*)new_length, L, B, H, M, D, I, eps, act);
+           const void* wo, const void* bo, const void* ln2_s, const void* ln2_b, const void* wfc, const void* bfc,
+           const void* wpr, const void* bpr, void* kc, void* vc, void* h_out, void* new_mask, void* new_length, int L,
+           int B, int H, int M, int D, int I, float eps, int act, int threads, void* stream) {
+  const int C = cluster_size(H);
+  if (C < 1 || threads != kThreads) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  Shared layout;
+  const size_t smem = shared_layout(H, M, D, I, C, threads, layout, nullptr) * sizeof(float);
+  int device = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)max_smem) return kCannotPlace;
+  err = cudaFuncSetAttribute(decode_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)(B * C));
+  config.blockDim = dim3((unsigned)threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, decode_stack_kernel<T>, &config);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters == 0) return kCannotPlace;
+  err = cudaLaunchKernelEx(&config, decode_stack_kernel<T>, (const T*)h0, (const int32_t*)start,
+                           (const uint8_t*)event_mask, (const uint8_t*)mask, (const uint8_t*)active,
+                           (const int32_t*)windows, (const float*)ln1_s, (const float*)ln1_b, (const T*)wq,
+                           (const T*)wk, (const T*)wv, (const T*)wo, (const T*)bo, (const float*)ln2_s,
+                           (const float*)ln2_b, (const T*)wfc, (const T*)bfc, (const T*)wpr, (const T*)bpr, (T*)kc,
+                           (T*)vc, (T*)h_out, (uint8_t*)new_mask, (int32_t*)new_length, L, B, H, M, D, I, eps, act,
+                           C);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -282,8 +551,9 @@ int launch(const void* h0, const void* start, const void* event_mask, const void
 
 // dtype: 0 = fp32, 1 = bf16 (activations, caches, Dense weights and biases);
 // LayerNorm parameters are always fp32. act: 0 = gelu (tanh form), 1 = relu.
-// active may be null (every row active). Returns cudaGetLastError() after the
-// launch (0 = launched).
+// active may be null (every row active). Returns 0 when launched, -1 when no
+// cluster of esgpt_decode_cluster_size(H) CTAs with the shared memory this
+// shape needs fits on the card, else a CUDA error.
 extern "C" int esgpt_decode_stack_step(int dtype, const void* h0, const void* start, const void* event_mask,
                                        const void* mask, const void* active, const void* windows,
                                        const void* ln1_s, const void* ln1_b, const void* wq, const void* wk,
@@ -300,3 +570,13 @@ extern "C" int esgpt_decode_stack_step(int dtype, const void* h0, const void* st
                        wfc, bfc, wpr, bpr, kc, vc, h_out, new_mask, new_length, L, B, H, M, D, I, eps, act, threads,
                        stream);
 }
+
+// The CTAs of each slot row's cluster for H heads.
+extern "C" int esgpt_decode_cluster_size(int H) { return cluster_size(H); }
+
+#ifdef ESGPT_DECODE_TRACE
+// Copies the per-CTA trace (1024 x 64 uint64) to host memory `dst`.
+extern "C" int esgpt_decode_trace(void* dst) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g_trace, sizeof(g_trace)));
+}
+#endif

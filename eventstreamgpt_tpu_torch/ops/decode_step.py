@@ -4,10 +4,11 @@ Replaces the TPU kernel ``eventstreamgpt_tpu/ops/pallas_decode_step.py::
 decode_stack_step`` (``_stack_kernel`` / ``_layer_math``): everything
 between the input embedding and ``ln_f`` for one event per slot row. The
 CUDA source, its design and its bound are in ``csrc/decode_step.cu``: one
-thread block per slot row looping over the layers. The step needs the
-weights once and K and V only at each row's live positions (causal, window
-and padding tests), about 9-10 MB or 3 us at 3.35 TB/s at the serving
-shape; the simple block-per-row design sits far from that.
+thread-block cluster of `cluster_size` CTAs per slot row, each CTA owning
+some heads and a share of every product's columns, exchanging whole vectors
+through distributed shared memory, and reading K and V over each row's live
+positions only. The step needs the weights once and K and V at those
+positions, about 9.6 MB or 3 us at 3.35 TB/s at the serving shape.
 
 `decode_stack_step` runs `decode_stack_step_reference` (the plain PyTorch
 version of the same function) on CPU tensors, and on CUDA tensors launches
@@ -31,11 +32,18 @@ from ..models.transformer import activation as act_fn
 from .build import load_library
 from .tensor_ops import flax_layer_norm
 
-__all__ = ["WEIGHT_NAMES", "decode_stack_step", "decode_stack_step_reference", "stack_layer_weights"]
+__all__ = [
+    "WEIGHT_NAMES",
+    "cluster_size",
+    "decode_stack_step",
+    "decode_stack_step_reference",
+    "stack_layer_weights",
+]
 
 F32_MIN = torch.finfo(torch.float32).min
 SOURCE = "decode_step.cu"
 THREADS = 256
+CANNOT_PLACE = -1  # the C entry point's return when no cluster fits on the card
 ACTIVATIONS = {"gelu": 0, "gelu_new": 0, "relu": 1}
 # Kernel argument order; LayerNorm parameters (ln*) stay fp32.
 WEIGHT_NAMES = ("ln1_s", "ln1_b", "wq", "wk", "wv", "wo", "bo", "ln2_s", "ln2_b", "wfc", "bfc", "wpr", "bpr")
@@ -187,14 +195,56 @@ def _windows_tensor(windows: tuple, device) -> torch.Tensor:
     return _WINDOWS[key]
 
 
-@functools.cache
-def _kernel():
-    """The C entry point, built and loaded once, with its signature set once."""
-    fn = load_library(SOURCE).esgpt_decode_stack_step
+def cluster_size(H: int) -> int:
+    """CTAs in each slot row's cluster for ``H`` heads (asked of the built kernel)."""
+    return int(load_library(SOURCE).esgpt_decode_cluster_size(int(H)))
+
+
+def bind(lib: ctypes.CDLL):
+    """The C entry point of a build of ``csrc/decode_step.cu``, its signature set."""
+    fn = lib.esgpt_decode_stack_step
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 24 + [ctypes.c_int] * 6 + [ctypes.c_float]
     fn.argtypes += [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return fn
+
+
+@functools.cache
+def _kernel():
+    """The checkout's entry point, built and loaded once, with its signature set once."""
+    return bind(load_library(SOURCE))
+
+
+def _launch(weights, key_cache, value_cache, h0, start, event_mask, mask, windows, activation, layer_norm_eps,
+            active, fn=None):
+    """Checks the inputs and launches the entry point ``fn`` (default: the
+    checkout's), uncounted; returns the outputs."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"decode_stack_step supports {sorted(ACTIVATIONS)}, got {activation!r}")
+    L, B, H, M, D, I = _check(weights, key_cache, value_cache, h0, start, event_mask, mask, windows, active)
+    win = _windows_tensor(tuple(int(w) for w in windows), h0.device)
+    h, new_mask, new_length = torch.empty_like(h0), torch.empty_like(mask), torch.empty_like(start)
+    ptrs = [t.data_ptr() for t in (h0, start, event_mask, mask)]
+    ptrs += [None if active is None else active.data_ptr(), win.data_ptr()]
+    ptrs += [weights[name].data_ptr() for name in WEIGHT_NAMES]
+    ptrs += [t.data_ptr() for t in (key_cache, value_cache, h, new_mask, new_length)]
+    err = (fn or _kernel())(
+        1 if h0.dtype == torch.bfloat16 else 0,
+        *ptrs,
+        L, B, H, M, D, I,
+        float(layer_norm_eps),
+        ACTIVATIONS[activation],
+        THREADS,
+        torch.cuda.current_stream(h0.device).cuda_stream,
+    )  # fmt: skip
+    if err == CANNOT_PLACE:
+        raise RuntimeError(
+            f"decode_stack_step: no cluster of {cluster_size(H)} CTAs with the shared memory of (H={H}, M={M}, "
+            f"D={D}, I={I}) fits on {torch.cuda.get_device_name(h0.device)}"
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_stack_step kernel launch failed: CUDA error {err}")
+    return h, key_cache, value_cache, new_mask, new_length
 
 
 def decode_stack_step(
@@ -237,28 +287,10 @@ def decode_stack_step(
         )  # fmt: skip
     if h0.device.type != "cuda":
         raise ValueError(f"decode_stack_step runs on CUDA or CPU tensors, got {h0.device}")
-    if activation not in ACTIVATIONS:
-        raise ValueError(f"decode_stack_step supports {sorted(ACTIVATIONS)}, got {activation!r}")
-    L, B, H, M, D, I = _check(weights, key_cache, value_cache, h0, start, event_mask, mask, windows, active)
-    win = _windows_tensor(tuple(int(w) for w in windows), h0.device)
-    h, new_mask, new_length = torch.empty_like(h0), torch.empty_like(mask), torch.empty_like(start)
-    ptrs = [t.data_ptr() for t in (h0, start, event_mask, mask)]
-    ptrs += [None if active is None else active.data_ptr(), win.data_ptr()]
-    ptrs += [weights[name].data_ptr() for name in WEIGHT_NAMES]
-    ptrs += [t.data_ptr() for t in (key_cache, value_cache, h, new_mask, new_length)]
-    err = _kernel()(
-        1 if h0.dtype == torch.bfloat16 else 0,
-        *ptrs,
-        L, B, H, M, D, I,
-        float(layer_norm_eps),
-        ACTIVATIONS[activation],
-        THREADS,
-        torch.cuda.current_stream(h0.device).cuda_stream,
-    )  # fmt: skip
-    if err != 0:
-        raise RuntimeError(f"decode_stack_step kernel launch failed: CUDA error {err}")
+    out = _launch(weights, key_cache, value_cache, h0, start, event_mask, mask, windows, activation,
+                  layer_norm_eps, active)  # fmt: skip
     decode_stack_step.launches += 1
-    return h, key_cache, value_cache, new_mask, new_length
+    return out
 
 
 decode_stack_step.launches = 0

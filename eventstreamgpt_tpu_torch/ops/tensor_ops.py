@@ -19,11 +19,13 @@ def embedding_bag(
 
     Equivalent to ``torch.nn.EmbeddingBag(mode="sum", padding_idx=0)`` with
     ``per_sample_weights``: index 0 contributes nothing whatever its weight.
-    Out-of-range indices read the edge row (the JAX ``mode="clip"`` gather).
+    Out-of-range indices read the edge row and credit it in the backward (the
+    JAX ``mode="clip"`` gather): a negative index reads and credits row 0.
     The lookup is ``F.embedding`` with ``padding_idx=0``, whose backward
-    skips the padding slots (row 0's gradient is 0 either way, its weight
-    being 0): an indexing gather's backward sums the many padding duplicates
-    of a training batch one after another.
+    skips every slot that reads row 0, so the many padding duplicates of a
+    training batch are not summed one after another as an indexing gather's
+    backward sums them; `_negative_slots_grad` then credits row 0 for the
+    negative slots alone.
 
     Examples:
         >>> t = torch.arange(6.0).reshape(3, 2)
@@ -33,7 +35,8 @@ def embedding_bag(
     pad_mask = (indices != 0).to(table.dtype)
     w = pad_mask if weights is None else weights.to(table.dtype) * pad_mask
     gathered = F.embedding(indices.clamp(0, table.shape[0] - 1), table, padding_idx=0)  # (..., M, D)
-    return torch.einsum("...md,...m->...d", gathered, w)
+    out = torch.einsum("...md,...m->...d", gathered, w)
+    return out + _negative_slots_grad(table, indices, w)
 
 
 def grouped_embedding_bag(
@@ -51,7 +54,18 @@ def grouped_embedding_bag(
     pad_mask = (indices != 0).to(table.dtype)
     w = group_weights.to(table.dtype) * pad_mask[..., None, :]
     gathered = F.embedding(indices.clamp(0, table.shape[0] - 1), table, padding_idx=0)  # (..., M, D)
-    return torch.einsum("...md,...gm->...gd", gathered, w)
+    out = torch.einsum("...md,...gm->...gd", gathered, w)
+    return out + _negative_slots_grad(table, indices[..., None, :], w)
+
+
+def _negative_slots_grad(table: torch.Tensor, indices: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Zero in value; in the backward it credits row 0 with each output's
+    cotangent times the weight sum of its negative slots (``indices`` and
+    ``w`` broadcast to ``(..., M)``), which ``padding_idx=0`` withheld. The
+    weights are detached: their gradient already comes from the lookup."""
+    s = torch.where(indices < 0, w, 0).sum(dim=-1).detach()
+    row0 = table[0]
+    return (row0 - row0.detach()) * s[..., None]
 
 
 def measurement_index_normalization(measurement_indices: torch.Tensor) -> torch.Tensor:

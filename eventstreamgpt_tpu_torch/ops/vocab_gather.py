@@ -39,16 +39,20 @@ def vocab_gather_reference(z: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, out, 0.0)
 
 
-@functools.cache
-def _kernels():
-    """The two C entry points, built and loaded once, with their signatures set once."""
-    lib = load_library(SOURCE)
+def bind(lib: ctypes.CDLL) -> tuple:
+    """The forward and backward C entry points of a build of ``csrc/vocab_gather.cu``, their signatures set."""
     fns = (lib.esgpt_vocab_gather_fwd, lib.esgpt_vocab_gather_bwd)
     for fn in fns:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
         fn.argtypes += [ctypes.c_void_p]
     return fns
+
+
+@functools.cache
+def _kernels():
+    """The checkout's two entry points, built and loaded once, with their signatures set once."""
+    return bind(load_library(SOURCE))
 
 
 def _check(t: torch.Tensor, name: str, dtypes, device) -> None:
@@ -79,6 +83,14 @@ def vocab_gather_fwd(z: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
 
 def vocab_gather_bwd(g: torch.Tensor, ci: torch.Tensor, V: int, dtype: torch.dtype) -> torch.Tensor:
     """The backward kernel on CUDA tensors: fp32 ``(..., M)`` g -> ``(..., V)`` dz of ``dtype``."""
+    dz = _bwd(g, ci, V, dtype)
+    vocab_gather_bwd.launches += 1
+    return dz
+
+
+def _bwd(g: torch.Tensor, ci: torch.Tensor, V: int, dtype: torch.dtype, fn=None) -> torch.Tensor:
+    """Checks the inputs and launches the backward entry point ``fn`` (default:
+    the checkout's), uncounted."""
     _check(g, "g", (torch.float32,), g.device)
     _check(ci, "ci", (torch.int32,), g.device)
     if g.device.type != "cuda" or ci.shape != g.shape or dtype not in DTYPES:
@@ -86,11 +98,10 @@ def vocab_gather_bwd(g: torch.Tensor, ci: torch.Tensor, V: int, dtype: torch.dty
                          f"{g.device} {tuple(g.shape)}, {tuple(ci.shape)}, {dtype}")  # fmt: skip
     dz = torch.empty(ci.shape[:-1] + (V,), dtype=dtype, device=g.device)
     M = ci.shape[-1]
-    err = _kernels()[1](DTYPES[dtype], g.data_ptr(), ci.data_ptr(), dz.data_ptr(), math.prod(ci.shape[:-1]), V, M,
-                        torch.cuda.current_stream(g.device).cuda_stream)  # fmt: skip
+    err = (fn or _kernels()[1])(DTYPES[dtype], g.data_ptr(), ci.data_ptr(), dz.data_ptr(), math.prod(ci.shape[:-1]),
+                                V, M, torch.cuda.current_stream(g.device).cuda_stream)  # fmt: skip
     if err != 0:
         raise RuntimeError(f"vocab_gather backward kernel launch failed: CUDA error {err}")
-    vocab_gather_bwd.launches += 1
     return dz
 
 

@@ -54,11 +54,11 @@ def case():
     return jcfg, params, tmodel, inputs
 
 
-def run_jax(jcfg, params, x):
+def run_jax(jcfg, params, x, start=START):
     weights = jax_stack_layer_weights(params["params"]["encoder"], jcfg.num_hidden_layers)
     out = jax_decode_stack_step(
         weights, jnp.asarray(x["kc"]), jnp.asarray(x["vc"]), None, None, jnp.asarray(x["h0"]),
-        jnp.asarray(START), jnp.asarray(x["em"]), jnp.asarray(x["mask"]),
+        jnp.asarray(start), jnp.asarray(x["em"]), jnp.asarray(x["mask"]),
         windows=WINDOWS, activation=jcfg.activation_function,
         layer_norm_eps=float(jcfg.layer_norm_epsilon), impl="pallas_interpret",
     )  # fmt: skip
@@ -66,13 +66,13 @@ def run_jax(jcfg, params, x):
     return h, kc, vc, mask, length
 
 
-def run_port(tmodel, x, fn=decode_stack_step_reference, device="cpu", dtype=torch.float32):
+def run_port(tmodel, x, fn=decode_stack_step_reference, device="cpu", dtype=torch.float32, start=START):
     cfg = tmodel.config
     weights = {k: v.to(device) for k, v in stack_layer_weights(tmodel.encoder.blocks(), dtype).items()}
     kc = torch.from_numpy(x["kc"]).to(device, dtype)
     vc = torch.from_numpy(x["vc"]).to(device, dtype)
     out = fn(
-        weights, kc, vc, torch.from_numpy(x["h0"]).to(device, dtype), torch.from_numpy(START).to(device),
+        weights, kc, vc, torch.from_numpy(x["h0"]).to(device, dtype), torch.from_numpy(start).to(device),
         torch.from_numpy(x["em"]).to(device), torch.from_numpy(x["mask"]).to(device),
         windows=WINDOWS, activation=cfg.activation_function, layer_norm_eps=cfg.layer_norm_epsilon,
     )  # fmt: skip
@@ -81,8 +81,8 @@ def run_port(tmodel, x, fn=decode_stack_step_reference, device="cpu", dtype=torc
     return tuple(t.float().cpu().numpy() for t in (h, kc, vc, mask, length))
 
 
-def cursor_onehot():
-    return (np.arange(M)[None, :] == START[:, None])[None, :, None, :, None]  # (1, B, 1, M, 1)
+def cursor_onehot(start=START):
+    return (np.arange(M)[None, :] == start[:, None])[None, :, None, :, None]  # (1, B, 1, M, 1)
 
 
 def test_plain_version_matches_pallas_kernel(case):
@@ -94,6 +94,31 @@ def test_plain_version_matches_pallas_kernel(case):
     for i in (1, 2):
         np.testing.assert_array_equal(got[i][~at], want[i][~at])  # untouched positions: exact
         np.testing.assert_allclose(got[i][at], want[i][at], **TOL)  # the written keys/values
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_array_equal(got[4], want[4])
+
+
+def test_rows_without_live_positions_match_pallas_kernel(case):
+    """The rows whose attention averages V over the whole buffer in JAX
+    (masked scores are finfo(float32).min, not -inf): a cursor at 0 whose
+    event bit is 0 (no live position on any layer) and a cursor whose local
+    window holds only padding; beside them a cursor at M (writes nothing,
+    attends to m < M) and an ordinary row."""
+    jcfg, params, tmodel, x = case
+    start = np.array([0, 5, 8, 6, 3], np.int32)
+    em = np.array([False, False, True, True, False])
+    mask = x["mask"].copy()
+    mask[:, :] = np.arange(M)[None, :] < start[:, None]
+    mask[1, 5 - WINDOWS[0] + 1 :] = False  # the window [4, 5] holds only padding
+    mask[2] = True
+    y = dict(x, em=em, mask=mask)
+    want = run_jax(jcfg, params, y, start)
+    got = run_port(tmodel, y, start=start)
+    np.testing.assert_allclose(got[0], want[0], **TOL)
+    at = np.broadcast_to(cursor_onehot(start), x["kc"].shape)
+    for i in (1, 2):
+        np.testing.assert_array_equal(got[i][~at], want[i][~at])
+        np.testing.assert_allclose(got[i][at], want[i][at], **TOL)
     np.testing.assert_array_equal(got[3], want[3])
     np.testing.assert_array_equal(got[4], want[4])
 

@@ -7,6 +7,8 @@ with the card has none); run it there without the JAX conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -117,6 +119,108 @@ def test_decode_stack_step_matches_plain_version(cuda, dtype, tol, with_active):
     torch.testing.assert_close(got[4], want[4], rtol=0, atol=0)
 
 
+def decode_model(H, D, I, L, dtype, device):
+    """Stacked weights of a small CI model with H heads of D and L layers (std 0.2, seed 0)."""
+    cfg = StructuredTransformerConfig(
+        vocab_sizes_by_measurement={"event_type": 3},
+        vocab_offsets_by_measurement={"event_type": 1},
+        measurements_idxmap={"event_type": 1},
+        measurements_per_generative_mode={"single_label_classification": ["event_type"]},
+        hidden_size=H * D, head_dim=D, num_attention_heads=H, num_hidden_layers=L, intermediate_size=I,
+        seq_attention_types=["local", "global"] * (L // 2) + ["local"] * (L % 2), seq_window_size=4,
+    )  # fmt: skip
+    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(cfg), seed=0, std=0.2)
+    return {k: v.to(device) for k, v in stack_layer_weights(model.encoder.blocks(), dtype).items()}
+
+
+# (H, D, I, B, M, windows): the serving geometry's heads (4 x 64, clusters of
+# 4) at 40 slots, so the 160 CTAs take more than one wave; 6 heads (clusters
+# of 6) with an intermediate that 6 does not divide; 4 heads of 12 (the
+# scalar path: 24-byte bf16 rows); 3 heads of 32 (clusters of 3).
+DECODE_CASES = [
+    (4, 64, 256, 40, 64, (4, 0)),
+    (6, 64, 200, 9, 48, (5, 0)),
+    (4, 12, 72, 10, 20, (4, 0, 3)),
+    (3, 32, 96, 7, 33, (2, 0)),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [("fp32", 1e-4), ("bf16", 2e-2)])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "H{}-D{}-I{}-B{}-M{}".format(*c[:5]))
+def test_decode_stack_step_clusters_and_live_ranges(cuda, case, dtype, tol):
+    """Kernel B against its plain version on the card, with the rows whose
+    attention reads the whole buffer: a cursor at 0 whose event bit is 0 (no
+    live position), a windowed cursor whose window holds only padding, and a
+    cursor at M (writes nothing, attends to m < M); inactive rows keep their
+    mask and length; two runs are bitwise equal. In fp32, ``h`` is held to
+    the function computed in fp64 (the plain version in float64 on the
+    card): the kernel's largest error is at most twice the plain fp32
+    version's plus 1e-5. At hidden 256 with std-0.2 weights and unscaled
+    scores both sit ~3e-4 from it on outputs up to ~60 (summation order
+    alone), past a fixed 1e-4 between the two."""
+    H, D, I, B, M, windows = case
+    L, cdt = len(windows), DTYPES[dtype]
+    weights = decode_model(H, D, I, L, cdt, cuda)
+    rng = np.random.default_rng(H * D + B)
+    start = rng.integers(0, M, size=B).astype(np.int32)
+    em = rng.random(B) < 0.8
+    mask = (np.arange(M)[None] < start[:, None]) & (rng.random((B, M)) < 0.85)
+    start[0], em[0] = 0, False  # no live position on any layer
+    start[1], em[1] = 10, False  # the local window [10 - w + 1, 10] holds only padding
+    mask[1, 10 - windows[0] + 1 :] = False
+    start[2] = M  # past the buffer
+    mask[2] = rng.random(M) < 0.85
+    active = torch.from_numpy(rng.random(B) < 0.7).to(cuda)
+    kc = torch.from_numpy(rng.normal(size=(L, B, H, M, D)).astype(np.float32)).to(cdt)
+    vc = torch.from_numpy(rng.normal(size=(L, B, H, M, D)).astype(np.float32)).to(cdt)
+    h0 = torch.from_numpy(rng.normal(size=(B, H * D)).astype(np.float32)).to(cdt).to(cuda)
+    start_t, em_t, mask_t = (torch.from_numpy(a).to(cuda) for a in (start, em, mask))
+    kw = dict(windows=windows, activation="gelu", layer_norm_eps=1e-5, active=active)
+
+    def run(fn):
+        k2, v2 = kc.clone().to(cuda), vc.clone().to(cuda)
+        return fn(weights, k2, v2, h0, start_t, em_t, mask_t, **kw)
+
+    want = [t.float().cpu() for t in run(decode_stack_step_reference)]
+    launches = decode_stack_step.launches
+    got = run(decode_stack_step)
+    again = run(decode_stack_step)
+    torch.cuda.synchronize()
+    assert decode_stack_step.launches == launches + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)  # no atomics: bitwise reproducible
+    got = [t.float().cpu() for t in got]
+    if dtype == "fp32":
+        w64 = {k: v.double() for k, v in weights.items()}
+        k64, v64 = kc.double().to(cuda), vc.double().to(cuda)
+        exact = decode_stack_step_reference(w64, k64, v64, h0.double(), start_t, em_t, mask_t, **kw)[0].cpu()
+        err, plain_err = ((x.double() - exact).abs().max().item() for x in (got[0], want[0]))
+        assert err <= 2 * plain_err + 1e-5, (err, plain_err)
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+    at = torch.arange(M)[None, :] == torch.from_numpy(start)[:, None].long()
+    at = at[None, :, None, :, None].expand(L, B, H, M, D)
+    for i in (1, 2):
+        torch.testing.assert_close(got[i][~at], want[i][~at], rtol=0, atol=0)
+        torch.testing.assert_close(got[i][at], want[i][at], rtol=tol, atol=tol)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=0)
+
+
+def test_decode_stack_step_refuses_a_cluster_that_cannot_be_placed(cuda):
+    """A shape whose scores need more shared memory than a CTA can have (one
+    head a CTA, M = 60,000 fp32 scores) is refused, not run another way."""
+    H, D, M = 4, 8, 60_000
+    weights = decode_model(H, D, 16, 1, torch.float32, cuda)
+    kc = torch.zeros((1, 1, H, M, D), device=cuda)
+    args = (torch.zeros((1, H * D), device=cuda), torch.zeros(1, dtype=torch.int32, device=cuda),
+            torch.ones(1, dtype=torch.bool, device=cuda), torch.zeros((1, M), dtype=torch.bool, device=cuda))  # fmt: skip
+    launches = decode_stack_step.launches
+    with pytest.raises(RuntimeError, match="no cluster of 4 CTAs"):
+        decode_stack_step(weights, kc, kc.clone(), *args, windows=(0,), activation="gelu", layer_norm_eps=1e-5)
+    assert decode_stack_step.launches == launches
+
+
 def gather_inputs(rows, V, M, seed):
     """A plane, indices with duplicates and out-of-range entries, and a cotangent."""
     rng = np.random.default_rng(seed)
@@ -129,7 +233,7 @@ def gather_inputs(rows, V, M, seed):
     return z, torch.from_numpy(ci.astype(np.int32)), g
 
 
-# (rows, V, M): tiny; odd widths; V above one shared-memory tile; the
+# (rows, V, M): tiny; odd widths; a wide odd V (rows start unaligned); the
 # training shape's width; M above the staged limit (indices read in place).
 @pytest.mark.parametrize("shape", [(7, 5, 3), (33, 1000, 48), (4, 9001, 130), (300, 7000, 48), (3, 300, 5000)])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -154,6 +258,75 @@ def test_vocab_gather_matches_plain_version(cuda, dtype, shape):
     torch.testing.assert_close(got_dz, want_dz, rtol=0, atol=0)
     again = run(vocab_gather, cuda)[1]
     assert torch.equal(again, got_dz)  # no atomics: bitwise reproducible
+
+
+def test_decode_stack_step_trace_build(cuda):
+    """The source built with its per-CTA trace (``-DESGPT_DECODE_TRACE``, read
+    by ``tools/ab_kernels.py --trace``) computes what the plain build
+    computes, and records for every CTA stamps that rise phase by phase."""
+    from eventstreamgpt_tpu_torch.ops import build
+    from eventstreamgpt_tpu_torch.ops import decode_step as ds
+    from eventstreamgpt_tpu_torch.tools import ab_kernels
+
+    lib = build.load_library(ds.SOURCE, (ab_kernels.TRACE_DEFINE,))
+    H, D, I, B, M, windows = DECODE_CASES[0]
+    weights = decode_model(H, D, I, len(windows), torch.bfloat16, cuda)
+    rng = np.random.default_rng(5)
+    kc = torch.from_numpy(rng.normal(size=(len(windows), B, H, M, D)).astype(np.float32)).bfloat16().to(cuda)
+    h0 = torch.from_numpy(rng.normal(size=(B, H * D)).astype(np.float32)).bfloat16().to(cuda)
+    start = torch.from_numpy(rng.integers(0, M, size=B).astype(np.int32)).to(cuda)
+    em = torch.ones(B, dtype=torch.bool, device=cuda)
+    mask = torch.arange(M, device=cuda)[None, :] < start[:, None]
+    outs = [ds._launch(weights, kc.clone(), kc.clone(), h0, start, em, mask, windows, "gelu", 1e-5, None, fn)
+            for fn in (ds.bind(lib), None)]  # fmt: skip
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    buf = np.zeros(ab_kernels.TRACE_SHAPE, np.uint64)
+    assert lib.esgpt_decode_trace(ctypes.c_void_p(buf.ctypes.data)) == 0
+    rec = buf[: B * ds.cluster_size(H), : 2 + len(windows) * len(ab_kernels.PHASES)].astype(np.int64)
+    assert (np.diff(rec, axis=1) >= 0).all() and (rec[:, 0] > 0).all()
+
+
+def edge_rows(rows, V, M, seed):
+    """Indices whose rows are all one index, all out of range, all padding
+    index 0, all in one 16-byte chunk, or at the row's two ends; the rest as
+    `gather_inputs` makes them."""
+    z, ci, g = gather_inputs(rows, V, M, seed)
+    ci = ci.numpy().copy()
+    rng = np.random.default_rng(seed + 1)
+    kinds = [
+        np.full(M, V // 2),
+        rng.choice([-7, -1, V, V + 100], size=M),
+        np.zeros(M, dtype=np.int64),
+        min(8, V - 1) + rng.integers(0, min(8, V), size=M) % V,
+        rng.choice([0, V - 1], size=M),
+    ]
+    for r in range(rows):
+        if r % 3 == 0:
+            ci[r] = kinds[(r // 3) % len(kinds)]
+    return z, torch.from_numpy(ci.astype(np.int32)), g
+
+
+# (rows, V, M): an odd V at many rows (rows start at every 2-byte offset in
+# bf16), V below one 16-byte chunk, and the training width.
+@pytest.mark.parametrize("shape", [(257, 1001, 48), (40, 3, 10), (33, 7, 9), (96, 7000, 48)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_vocab_gather_bwd_edge_rows_match_cpu(cuda, dtype, shape):
+    """Kernel C's backward on rows that start unaligned, rows narrower than a
+    chunk, all-duplicate and all-out-of-range rows: bit-equal to the CPU's
+    ordered fp32 sums, and between two runs."""
+    rows, V, M = shape
+    z, ci, g = edge_rows(rows, V, M, seed=V + M)
+    zz = z.to(DTYPES[dtype]).requires_grad_(True)
+    vocab_gather_reference(zz, ci).backward(g)
+    launches = vocab_gather_bwd.launches
+    got = vocab_gather_bwd(g.to(cuda), ci.to(cuda), V, DTYPES[dtype])
+    again = vocab_gather_bwd(g.to(cuda), ci.to(cuda), V, DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert vocab_gather_bwd.launches == launches + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), zz.grad, rtol=0, atol=0)
 
 
 # (N, S, H, D, q_offset, window): the training shape's geometry at an odd N;

@@ -70,6 +70,32 @@ def test_grouped_embedding_bag_gradient_matches(dtype):
     assert not t.grad[0].any()
 
 
+@pytest.mark.parametrize("grouped", [False, True], ids=["bag", "grouped"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_embedding_bag_gradient_credits_clipped_rows(dtype, grouped):
+    """Negative indices read and credit row 0, indices >= V the last row, as
+    JAX's clip gather does; index 0 (most slots, as padding) adds nothing.
+    Forward and table gradient against ``jax.vjp``, row 0's gradient included."""
+    table = rng.normal(size=(11, 5)).astype(np.float32)
+    idx = rng.integers(-3, 15, size=(3, 4, 9))  # -3..-1 clip to row 0, 11..14 to row 10
+    idx[:, :, 5:] = 0
+    idx[0, 0, :3] = [-1, -2, 0]  # a bag whose only live slots are negative
+    w = rng.normal(size=(3, 4, 3, 9) if grouped else (3, 4, 9)).astype(np.float32)
+    cot = rng.normal(size=(3, 4, 3, 5) if grouped else (3, 4, 5)).astype(np.float32)
+    jfn, tfn = (jops.grouped_embedding_bag, tops.grouped_embedding_bag) if grouped else (jops.embedding_bag, tops.embedding_bag)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "fp32" else (jnp.bfloat16, torch.bfloat16)
+    jout, vjp = jax.vjp(lambda t: jfn(t, jnp.asarray(idx), jnp.asarray(w)), jnp.asarray(table).astype(jdt))
+    (jgrad,) = vjp(jnp.asarray(cot).astype(jdt))
+    t = T(table).to(tdt).requires_grad_(True)
+    out = tfn(t, T(idx), T(w))
+    out.backward(T(cot).to(tdt))
+    tol = TOL if dtype == "fp32" else dict(rtol=2e-2, atol=2e-2)  # bf16: one rounding of each sum's terms
+    close(out.detach().float(), jnp.asarray(jout, jnp.float32), **tol)
+    close(t.grad.float(), jnp.asarray(jgrad, jnp.float32), **tol)
+    close(t.grad[0].float(), jnp.asarray(jgrad, jnp.float32)[0], **tol)
+    assert t.grad[0].abs().max() > 0.1  # row 0 is credited, not left at 0
+
+
 def test_selection_ops_match():
     mi = rng.integers(0, 4, size=(5, 7))
     close(tops.measurement_index_normalization(T(mi)), jops.measurement_index_normalization(jnp.asarray(mi)))
