@@ -16,7 +16,10 @@ before the fp32 PV sum. The CUDA source, its design and its bounds are in
 PyTorch version, differentiated by autograd) on CPU tensors and, on CUDA
 tensors, an autograd function whose forward and backward launch the two
 kernels (`dep_graph_fwd`, `dep_graph_bwd`, each counting its launches) or
-raise. The JAX wrapper's ``probs_transform`` hook is not ported.
+raise. On CUDA the kernels move every head slice as 16-byte vectors, so q,
+k and v must start on 16-byte boundaries and the query's row and query
+strides be multiples of 16 bytes (`misalignment`); the wrapper raises
+otherwise. The JAX wrapper's ``probs_transform`` hook is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ SOURCE = "dep_graph.cu"
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 MAX_POSITIONS = 8  # the kernel's cap on Q and S (csrc/dep_graph.cu kMaxPos)
 F32_MIN = torch.finfo(torch.float32).min
+ALIGN = 16  # bytes: the kernels move every head slice as 16-byte vectors
 
 
 def graph_mask(Q: int, S: int, q_offset: int, window: int | None, device=None) -> torch.Tensor:
@@ -83,10 +87,8 @@ def dep_graph_attention_reference(
     return pv.sum(dim=2).to(value.dtype)
 
 
-@functools.cache
-def _kernels():
-    """The two C entry points, built and loaded once, with their signatures set once."""
-    lib = load_library(SOURCE)
+def bind(lib: ctypes.CDLL) -> tuple:
+    """The forward and backward C entry points of a build of ``csrc/dep_graph.cu``, their signatures set."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     # N, Q, S, H, D, q_offset, window, keep_prob, stream
     shape = [i64, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr]
@@ -95,6 +97,38 @@ def _kernels():
     for fn in (lib.esgpt_dep_graph_fwd, lib.esgpt_dep_graph_bwd):
         fn.restype = ctypes.c_int
     return lib.esgpt_dep_graph_fwd, lib.esgpt_dep_graph_bwd
+
+
+@functools.cache
+def _kernels():
+    """The checkout's two entry points, built and loaded once, with their signatures set once."""
+    return bind(load_library(SOURCE))
+
+
+def misalignment(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> str | None:
+    """What keeps the kernels' 16-byte vector loads off these tensors, or None.
+
+    Every tensor must start on a 16-byte boundary, and the query's row and
+    query strides (over axes longer than 1) must be multiples of 16 bytes;
+    the ``(H, D)`` axes are contiguous and ``D`` a multiple of 32, so every
+    head slice then starts on one. The model's projections and their
+    ``[:, 1:]`` views always do.
+
+    Examples:
+        >>> full = torch.zeros((2, 4, 2, 32), dtype=torch.bfloat16)
+        >>> misalignment(full[:, 1:], full, full) is None
+        True
+        >>> misalignment(torch.zeros(2 * 3 * 2 * 32 + 1, dtype=torch.bfloat16)[1:].view(2, 3, 2, 32), full, full)
+        'the query starts 2 bytes past a 16-byte boundary'
+    """
+    for name, t in (("the query", query), ("the key", key), ("the value", value)):
+        if t.data_ptr() % ALIGN:
+            return f"{name} starts {t.data_ptr() % ALIGN} bytes past a {ALIGN}-byte boundary"
+    esz = query.element_size()
+    for axis, what in ((0, "row"), (1, "query")):
+        if query.shape[axis] > 1 and (query.stride(axis) * esz) % ALIGN:
+            return f"the query's {what} stride of {query.stride(axis) * esz} bytes is not a multiple of {ALIGN}"
+    return None
 
 
 def _checked(query, key, value, dropout_mask, q_offset, window, what):
@@ -122,6 +156,9 @@ def _checked(query, key, value, dropout_mask, q_offset, window, what):
         raise ValueError(f"{what}: the query's (H, D) axes must be contiguous, got strides {query.stride()}")
     if not (key.is_contiguous() and value.is_contiguous()):
         raise ValueError(f"{what}: key and value must be contiguous")
+    problem = misalignment(query, key, value)
+    if problem is not None:
+        raise ValueError(f"{what}: {problem} (q, k and v must sit on {ALIGN}-byte boundaries)")
     if dropout_mask is not None:
         if dropout_mask.shape != (N, Q, S, H) or dropout_mask.dtype != torch.bool or dropout_mask.device != dev:
             raise ValueError(f"{what}: the keep-mask must be a bool {(N, Q, S, H)} tensor on {dev}")
@@ -136,36 +173,50 @@ def _mask_ptr(dropout_mask):
 
 def dep_graph_fwd(query, key, value, q_offset=0, window=None, dropout_mask=None, keep_prob=1.0) -> torch.Tensor:
     """The forward kernel on CUDA tensors: ``(N, Q, H, D)`` out in the value dtype."""
+    out = _fwd(query, key, value, q_offset, window, dropout_mask, keep_prob)
+    dep_graph_fwd.launches += 1
+    return out
+
+
+def _fwd(query, key, value, q_offset=0, window=None, dropout_mask=None, keep_prob=1.0, fn=None) -> torch.Tensor:
+    """Checks the inputs and launches the forward entry point ``fn`` (default: the checkout's), uncounted."""
     N, Q, S, H, D = _checked(query, key, value, dropout_mask, q_offset, window, "dep_graph_fwd")
     out = torch.empty((N, Q, H, D), dtype=value.dtype, device=value.device)
-    err = _kernels()[0](
+    err = (fn or _kernels()[0])(
         DTYPES[value.dtype], query.data_ptr(), query.stride(0), query.stride(1), key.data_ptr(), value.data_ptr(),
         _mask_ptr(dropout_mask), out.data_ptr(), N, Q, S, H, D, q_offset, window or 0, keep_prob,
         torch.cuda.current_stream(value.device).cuda_stream,
     )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"dep_graph forward kernel launch failed: CUDA error {err}")
-    dep_graph_fwd.launches += 1
     return out
 
 
 def dep_graph_bwd(query, key, value, g, q_offset=0, window=None, dropout_mask=None, keep_prob=1.0):
     """The backward kernel on CUDA tensors: ``(dq, dk, dv)`` from the output's
     cotangent ``g`` (cast to the value dtype, as the TPU kernel casts it)."""
+    grads = _bwd(query, key, value, g, q_offset, window, dropout_mask, keep_prob)
+    dep_graph_bwd.launches += 1
+    return grads
+
+
+def _bwd(query, key, value, g, q_offset=0, window=None, dropout_mask=None, keep_prob=1.0, fn=None):
+    """Checks the inputs and launches the backward entry point ``fn`` (default: the checkout's), uncounted."""
     N, Q, S, H, D = _checked(query, key, value, dropout_mask, q_offset, window, "dep_graph_bwd")
     if g.shape != (N, Q, H, D) or g.device != value.device:
         raise ValueError(f"dep_graph_bwd: g {tuple(g.shape)} on {g.device} does not fit {(N, Q, H, D)}")
     g = g.to(value.dtype).contiguous()
+    if g.data_ptr() % ALIGN:  # a view autograd handed over: an aligned copy
+        g = g.clone()
     dq = torch.empty((N, Q, H, D), dtype=query.dtype, device=value.device)
     dk, dv = torch.empty_like(key), torch.empty_like(value)
-    err = _kernels()[1](
+    err = (fn or _kernels()[1])(
         DTYPES[value.dtype], query.data_ptr(), query.stride(0), query.stride(1), key.data_ptr(), value.data_ptr(),
         _mask_ptr(dropout_mask), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), N, Q, S, H, D,
         q_offset, window or 0, keep_prob, torch.cuda.current_stream(value.device).cuda_stream,
     )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"dep_graph backward kernel launch failed: CUDA error {err}")
-    dep_graph_bwd.launches += 1
     return dq, dk, dv
 
 

@@ -1,10 +1,12 @@
-"""A/B timing of versions of kernel B (``csrc/decode_step.cu``) and kernel C's
-backward (``csrc/vocab_gather.cu``) on one CUDA device.
+"""A/B timing of versions of kernel B (``csrc/decode_step.cu``), kernel C's
+backward (``csrc/vocab_gather.cu``) and kernel D (``csrc/dep_graph.cu``,
+forward and backward) on one CUDA device.
 
-Builds the checkout's two sources and each given version (all at once, as
+Builds the checkout's sources and each given version (all at once, as
 `ops.build` builds the port's kernels), then, in turns (the checkout, each
 given version, then the same in reverse order), times each version through
-the port's own launch code on the same inputs:
+the port's own launch code on the same inputs. Only the kernels given a
+version run (all three, the checkout's alone, when none is given):
 
 * B at the serving shape: the serving benchmark's CI model
   (`data.synthetic.serving_config`, bf16, numpy-seeded weights of std 0.02),
@@ -15,12 +17,20 @@ the port's own launch code on the same inputs:
 * C backward at the training shape: a (8192, 7000) bf16 plane's gradient
   from (8192, 48) indices laid out as the regression head lays them out
   (``2 i`` and ``2 i + 1`` for 24 data elements an event, 60% of them
-  padding index 0) and a normal fp32 cotangent.
+  padding index 0) and a normal fp32 cotangent;
+* D forward and backward at the nested-attention training shape: N = 8192
+  rows, Q = 3 queries (the ``[:, 1:]`` view of an ``(N, 4, 4, 64)``
+  projection, as the model passes it), S = 4 positions, H = 4, D = 64,
+  bf16, normal q, k, v and cotangent of std 0.5 and a keep-mask at rate 0.1
+  (numpy seed 0).
 
 For each it prints the device time per call (`utils.timing.time_ms`, the
 timer `chip_smoke.py` uses) and each output's largest distance from the
-checkout's (C backward must be bit-equal). The card's name and power limit
-come first. With ``--trace`` the checkout's B is also built with
+checkout's (C backward must be bit-equal; D prints out, dq, dk and dv).
+Beside D it times two floors on the same inputs: the checkout's source
+built with ``-DESGPT_DG_COPY_ONLY=1`` (the same loads and stores, no
+arithmetic) and a PyTorch copy moving as many bytes (half read, half
+written). The card's name and power limit come first. With ``--trace`` the checkout's B is also built with
 ``-DESGPT_DECODE_TRACE`` and run once more, and its per-CTA record (global
 timer, ns) is summarised: for each layer's phases, the median and largest
 time a CTA spent in it, and the kernel's span. Run from the root of a
@@ -28,6 +38,7 @@ checkout:
 
     python -m eventstreamgpt_tpu_torch.tools.ab_kernels --b old=build/old_b.cu --c old=build/old_c.cu
     python -m eventstreamgpt_tpu_torch.tools.ab_kernels --trace
+    python -m eventstreamgpt_tpu_torch.tools.ab_kernels --d old=build/old_d.cu
 
 A version is ``name=path`` with optional ``:NAME=VALUE,NAME2`` macro
 definitions; it must have the same C interface as the checkout's source. It
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -51,13 +63,16 @@ from ..data.synthetic import serving_config
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..ops import build
 from ..ops import decode_step as ds
+from ..ops import dep_graph as dg
 from ..ops import vocab_gather as vg
 from ..utils.timing import time_ms
 
 B_SLOTS, M = 32, 256
 ROWS, V, ELEMENTS = 8192, 7000, 24
+D_SHAPE, D_RATE = (8192, 4, 4, 64), 0.1  # (N, S, H, D); Q = S - 1 queries at q_offset 1
 TRACE_DEFINE = "ESGPT_DECODE_TRACE"
 TRACE_SHAPE = (1024, 64)  # csrc/decode_step.cu's g_trace
+D_FLOOR_DEFINE = "ESGPT_DG_COPY_ONLY=1"
 PHASES = ("ln1", "qkv", "attention", "exchange_o", "wo", "exchange_x", "ln2", "fc", "exchange_f", "wpr", "exchange_h")
 
 
@@ -75,6 +90,7 @@ def load(jobs: dict, paths: dict) -> dict[str, ctypes.CDLL]:
     return {name: ctypes.CDLL(str(paths[job])) for name, job in jobs.items()}
 
 
+@functools.cache
 def b_inputs():
     config = serving_config()
     model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=0).cuda()
@@ -96,12 +112,44 @@ def b_inputs():
     return weights, kc, vc, h0, t(start), t(np.ones(B_SLOTS, bool)), t(mask), kw
 
 
+@functools.cache
 def c_inputs():
     rng = np.random.default_rng(0)
     idx = np.where(rng.random((ROWS, ELEMENTS)) < 0.4, rng.integers(1, V // 2, size=(ROWS, ELEMENTS)), 0)
     ci = torch.from_numpy(np.concatenate([2 * idx, 2 * idx + 1], axis=-1).astype(np.int32)).cuda()
     g = torch.from_numpy(rng.normal(size=(ROWS, 2 * ELEMENTS)).astype(np.float32)).cuda()
     return g, ci
+
+
+@functools.cache
+def d_inputs():
+    rng = np.random.default_rng(0)
+    N, S, H, D = D_SHAPE
+
+    def t(shape):
+        return torch.from_numpy(rng.normal(scale=0.5, size=shape).astype(np.float32)).cuda().bfloat16()
+
+    full, k, v, g = t(D_SHAPE), t(D_SHAPE), t(D_SHAPE), t((N, S - 1, H, D))
+    keep = torch.from_numpy(rng.random((N, S - 1, S, H)) >= D_RATE).cuda()
+    return full[:, 1:], k, v, g, keep
+
+
+def run_d_fwd(fn, inputs) -> tuple[float, tuple]:
+    q, k, v, g, keep = inputs
+
+    def call():
+        return dg._fwd(q, k, v, 1, None, keep, 1.0 - D_RATE, fn)
+
+    return time_ms(call)["ms"], (call(),)
+
+
+def run_d_bwd(fn, inputs) -> tuple[float, tuple]:
+    q, k, v, g, keep = inputs
+
+    def call():
+        return dg._bwd(q, k, v, g, 1, None, keep, 1.0 - D_RATE, fn)
+
+    return time_ms(call)["ms"], call()
 
 
 def run_b(fn, inputs) -> tuple[float, torch.Tensor]:
@@ -149,6 +197,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--b", action="append", default=[], help="name=path[:MACRO=VALUE,...] of decode_step.cu")
     parser.add_argument("--c", action="append", default=[], help="name=path[:MACRO=VALUE,...] of vocab_gather.cu")
+    parser.add_argument("--d", action="append", default=[], help="name=path[:MACRO=VALUE,...] of dep_graph.cu")
     parser.add_argument("--trace", action="store_true", help="summarise B's per-CTA phase trace")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
@@ -159,32 +208,56 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]  # fmt: skip
     print(smi, flush=True)
-    jobs = {"B": version_jobs(args.b, ds.SOURCE), "C bwd": version_jobs(args.c, vg.SOURCE)}
+    given = {"B": args.b, "C bwd": args.c, "D": args.d}
+    sources = {"B": ds.SOURCE, "C bwd": vg.SOURCE, "D": dg.SOURCE}
+    run_all = not any(given.values())
+    jobs = {kernel: version_jobs(specs, sources[kernel]) for kernel, specs in given.items() if specs or run_all}
     traced = (str(build.CSRC_DIR / ds.SOURCE), (TRACE_DEFINE,))
-    extra = [traced] if args.trace else []
+    d_floor = (str(build.CSRC_DIR / dg.SOURCE), (D_FLOOR_DEFINE,))
+    extra = ([traced] if args.trace else []) + ([d_floor] if "D" in jobs else [])
     paths = build.build_all([job for versions in jobs.values() for job in versions.values()] + extra)
     libs = {kernel: load(versions, paths) for kernel, versions in jobs.items()}
-    bound = {"B": (ds.bind, run_b, b_inputs()), "C bwd": (lambda lib: vg.bind(lib)[1], run_c, c_inputs())}
+    parts = {
+        "B": [("B", ds.bind, run_b, b_inputs)],
+        "C bwd": [("C bwd", lambda lib: vg.bind(lib)[1], run_c, c_inputs)],
+        "D": [("D fwd", lambda lib: dg.bind(lib)[0], run_d_fwd, d_inputs),
+              ("D bwd", lambda lib: dg.bind(lib)[1], run_d_bwd, d_inputs)],
+    }  # fmt: skip
     report = dict(card=smi, runs={})
     for kernel, versions in libs.items():
-        bind, run, inputs = bound[kernel]
-        names = list(versions)
-        order = names + names[::-1]
-        want = None
-        runs = report["runs"][kernel] = []
-        for turn, name in enumerate(order):
-            ms, out = run(bind(versions[name]), inputs)
-            torch.cuda.synchronize()
-            if want is None:
-                want = out
-            diff = (out.float() - want.float()).abs().max().item()
-            runs.append(dict(version=name, turn=turn, ms=ms, max_abs_diff_from_checkout=diff))
-            print(f"{kernel} {name} (turn {turn}): {ms:.4f} ms, max |diff| from the checkout {diff:.3g}", flush=True)
-        if kernel == "C bwd" and any(r["max_abs_diff_from_checkout"] != 0 for r in runs):
-            print("ab_kernels: a C backward version differs from the checkout's", file=sys.stderr)
-            return 1
+        for part, bind, run, make_inputs in parts[kernel]:
+            inputs = make_inputs()
+            names = list(versions)
+            order = names + names[::-1]
+            want = None
+            runs = report["runs"][part] = []
+            for turn, name in enumerate(order):
+                ms, out = run(bind(versions[name]), inputs)
+                torch.cuda.synchronize()
+                outs = out if isinstance(out, tuple) else (out,)
+                if want is None:
+                    want = outs
+                diffs = [(o.float() - w.float()).abs().max().item() for o, w in zip(outs, want)]
+                runs.append(dict(version=name, turn=turn, ms=ms, max_abs_diff_from_checkout=max(diffs),
+                                 max_abs_diffs=diffs))  # fmt: skip
+                print(f"{part} {name} (turn {turn}): {ms:.4f} ms, max |diff| from the checkout "
+                      f"{', '.join(f'{d:.3g}' for d in diffs)}", flush=True)  # fmt: skip
+            if part.startswith("D"):
+                floor_ms = run(bind(ctypes.CDLL(str(paths[d_floor]))), inputs)[0]
+                q, k, v, g, keep = inputs
+                read = (q, k, v, keep) if part == "D fwd" else (q, k, v, g, keep)
+                nbytes = sum(t.numel() * t.element_size() for t in (*read, *want))
+                src = torch.empty(nbytes // 4, dtype=torch.int16, device="cuda")
+                dst = torch.empty_like(src)
+                copy_ms = time_ms(lambda: dst.copy_(src))["ms"]
+                report["runs"][f"{part} floors"] = dict(bytes=nbytes, copy_only_ms=floor_ms, torch_copy_ms=copy_ms)
+                print(f"{part}: the same loads and stores without arithmetic {floor_ms:.4f} ms; a copy of the same "
+                      f"{nbytes / 1e6:.2f} MB {copy_ms:.4f} ms", flush=True)  # fmt: skip
+            if part == "C bwd" and any(r["max_abs_diff_from_checkout"] != 0 for r in runs):
+                print("ab_kernels: a C backward version differs from the checkout's", file=sys.stderr)
+                return 1
     if args.trace:
-        report["trace_b"] = trace_b(ctypes.CDLL(str(paths[traced])), bound["B"][2])
+        report["trace_b"] = trace_b(ctypes.CDLL(str(paths[traced])), b_inputs())
         for key, value in report["trace_b"].items():
             print(f"trace B {key}: {json.dumps(value)}", flush=True)
     print(json.dumps(report))

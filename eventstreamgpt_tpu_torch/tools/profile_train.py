@@ -16,7 +16,8 @@ packed batch) resident on the device. It measures:
   median of 20, after 3 warm-up steps) and trained events/s (real events a
   step over that time);
 * with ``torch.profiler`` over 3 steps: the device time of every kernel
-  (summed per kernel name; the top 20 and every name are reported), the
+  (summed per kernel name; the top 20, and every kernel's launches and time
+  a step under ``kernels_per_step``), the
   launches per step, and the device's busy share of the wall time.
 
 Run from the root of a checkout:
@@ -135,7 +136,10 @@ def main(argv=None) -> int:
             {"name": name[:90], "launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
             for name, (c, us) in top
         ],
-        "kernel_names": sorted(name[:120] for name in kernels),
+        "kernels_per_step": {
+            name[:120]: {"launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
+            for name, (c, us) in sorted(kernels.items())
+        },
     }
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -37,6 +37,7 @@ from eventstreamgpt_tpu_torch.ops.dep_graph import (
     dep_graph_bwd,
     dep_graph_fwd,
     graph_mask,
+    misalignment,
 )
 
 N, S, H, D = 300, 4, 2, 8
@@ -146,3 +147,41 @@ def test_wrapper_refuses_other_devices():
     kv = torch.zeros((2, S, H, D), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         dep_graph_attention(q, kv, kv, q_offset=1)
+
+
+def offset_view(shape, dtype, elements):
+    """A contiguous ``shape`` view starting ``elements`` into a fresh buffer."""
+    return torch.zeros(int(np.prod(shape)) + elements, dtype=dtype)[elements:].view(shape)
+
+
+MISALIGNED = {
+    "projection_view": (lambda: torch.zeros((5, 4, 2, 32), dtype=torch.bfloat16)[:, 1:], None),
+    "fp32_16_bytes_in": (lambda: offset_view((5, 3, 2, 32), torch.float32, 4), None),
+    "one_row_any_row_stride": (
+        lambda: torch.zeros(3 * 72, dtype=torch.bfloat16).as_strided((1, 3, 2, 32), (9, 72, 32, 1)), None),
+    "bf16_2_bytes_in": (lambda: offset_view((5, 3, 2, 32), torch.bfloat16, 1),
+                        "the query starts 2 bytes past a 16-byte boundary"),
+    "row_stride": (lambda: torch.zeros(5 * 196, dtype=torch.bfloat16).as_strided((5, 3, 2, 32), (196, 64, 32, 1)),
+                   "the query's row stride of 392 bytes is not a multiple of 16"),
+    "query_stride": (lambda: torch.zeros(5 * 208, dtype=torch.bfloat16).as_strided((5, 3, 2, 32), (208, 68, 32, 1)),
+                     "the query's query stride of 136 bytes is not a multiple of 16"),
+}  # fmt: skip
+
+
+@pytest.mark.parametrize("case", sorted(MISALIGNED))
+def test_misalignment_names_what_keeps_the_vector_loads_off(case):
+    """The rule the wrapper holds CUDA tensors to before a launch: every
+    tensor on a 16-byte boundary, the query's strides over axes longer than
+    one multiples of 16 bytes."""
+    make, want = MISALIGNED[case]
+    q = make()
+    kv = torch.zeros((q.shape[0], 4, 2, 32), dtype=q.dtype)
+    assert misalignment(q, kv, kv) == want
+
+
+@pytest.mark.parametrize("which", ["key", "value"])
+def test_misalignment_names_a_misaligned_key_or_value(which):
+    q = torch.zeros((5, 3, 2, 32))
+    kv, off = torch.zeros((5, 4, 2, 32)), offset_view((5, 4, 2, 32), torch.float32, 2)
+    args = (q, off, kv) if which == "key" else (q, kv, off)
+    assert misalignment(*args) == f"the {which} starts 8 bytes past a 16-byte boundary"

@@ -331,13 +331,24 @@ def test_vocab_gather_bwd_edge_rows_match_cpu(cuda, dtype, shape):
 
 # (N, S, H, D, q_offset, window): the training shape's geometry at an odd N;
 # q_offset 0 (every position a query); a local window; wider heads, more
-# positions and one head at the kernel's largest D.
+# positions and one head at the kernel's largest D; the training shape itself
+# (every warp of the persistent grid walks several row tiles); one row; 3
+# heads of 8191 rows (a warp tile of 4 (row, head) units straddles rows, the
+# last one ragged); D = 96 (12 of a 16-lane group hold bf16 data, 24 of 32
+# fp32) and D = 160 (fp32: two chunks a lane, 20 lanes); a 5 x 6 graph on the
+# 8 x 8 instance over many tiles.
 DEP_GRAPH_CASES = [
     (301, 4, 4, 64, 1, None),
     (77, 4, 2, 64, 0, None),
     (129, 5, 3, 32, 1, 2),
     (33, 8, 2, 128, 0, 3),
     (9, 3, 1, 256, 1, None),
+    (8192, 4, 4, 64, 1, None),
+    (1, 4, 4, 64, 1, None),
+    (8191, 4, 3, 64, 1, None),
+    (257, 4, 4, 96, 1, None),
+    (65, 3, 2, 160, 0, 2),
+    (4099, 6, 4, 64, 1, None),
 ]
 
 
@@ -394,6 +405,33 @@ def test_dep_graph_refuses_what_the_kernel_does_not_take(cuda):
     q, kv = torch.zeros((4, 3, 2, 32), device=cuda), torch.zeros((4, 4, 2, 32), device=cuda)
     with pytest.raises(ValueError, match="one dtype"):
         dep_graph_fwd(q, kv.bfloat16(), kv, q_offset=1)
+
+
+def test_dep_graph_refuses_misaligned_views(cuda):
+    """The kernels move 16-byte vectors: a query, key or value off a 16-byte
+    boundary, or a query stride that is no multiple of 16 bytes, raises (no
+    fallback to the plain version)."""
+    kv = torch.zeros((4, 4, 2, 32), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(4 * 3 * 2 * 32 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(4, 3, 2, 32)
+    with pytest.raises(ValueError, match="the query starts 2 bytes past a 16-byte boundary"):
+        dep_graph_fwd(q, kv, kv, q_offset=1)
+    with pytest.raises(ValueError, match="the query starts 2 bytes past a 16-byte boundary"):
+        dep_graph_bwd(q, kv, kv, torch.zeros((4, 3, 2, 32), dtype=torch.bfloat16, device=cuda), q_offset=1)
+    rows = torch.zeros(4 * 208, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="query stride of 136 bytes is not a multiple of 16"):
+        dep_graph_fwd(rows.as_strided((4, 3, 2, 32), (208, 68, 32, 1)), kv, kv, q_offset=1)
+    key = torch.zeros(kv.numel() + 4, device=cuda)[4:].view(4, 4, 2, 32)  # fp32, 16 bytes in: aligned
+    assert dep_graph_fwd(q.float().clone(), key, kv.float(), q_offset=1).shape == (4, 3, 2, 32)
+    with pytest.raises(ValueError, match="the key starts 4 bytes past"):
+        dep_graph_fwd(q.float().clone(), torch.zeros(kv.numel() + 1, device=cuda)[1:].view(4, 4, 2, 32), kv.float(),
+                      q_offset=1)  # fmt: skip
+    # The output's cotangent comes from autograd, not the caller: a misaligned one is copied, not refused.
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda) for s in ((4, 3, 2, 32), kv.shape, kv.shape))
+    g = torch.from_numpy(rng.normal(size=(4, 3, 2, 32)).astype(np.float32)).to(cuda)
+    g_off = torch.zeros(g.numel() + 1, device=cuda)[1:].view(g.shape).copy_(g)
+    for a, b in zip(dep_graph_bwd(q, k, v, g_off, q_offset=1), dep_graph_bwd(q, k, v, g, q_offset=1)):
+        assert torch.equal(a, b)
 
 
 def packed_segment_ids(rng, B, S, layout="packed"):
