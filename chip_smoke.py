@@ -9,7 +9,7 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
 
 1. Device: the card's name and power limit (``nvidia-smi``), TF32 off, the
    kernels built from the checkout's sources (one ``nvcc`` per ``csrc/``
-   source, all at once, while Triton compiles its first kernel).
+   source, all at once).
 2. Engine at full width: the serving benchmark's CI model (hidden 256,
    4 heads x 64, 2 layers local/global with window 32, intermediate 1024,
    lognormal-mixture TTE with 3 components, bf16, a 4,057-entry vocabulary
@@ -19,12 +19,22 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    prompts of 128-192 events and budgets of 16-64 new events, once greedy
    and once sampled. Every request must finish without error, with
    ``n_events == prompt_len + n_generated`` and finite outputs; both
-   kernels' launch counters must move (kernel A only samples). A small
+   kernels' launch counters must move (kernel A, which the engine calls as
+   `fused_categorical_stream`, only samples). A small
    fp32 greedy engine on the card must also match the same engine on the
    CPU (plain PyTorch versions of the kernels).
 3. Kernels against their plain versions, on the card, on inputs captured
-   from the sampled run's first decode step: kernel A's indices exactly
-   equal (fp32 and bf16, with and without keep and active masks); kernel
+   from the sampled run's first decode step (the logits, the stream's seeds,
+   counters and draw salt, keep and active): kernel A's noise bit for bit
+   ``gumbel(stream).to(dtype)`` (at the captured shape and on a 4,096 x
+   4,057 plane), and the indices of both its entries (noise drawn inside,
+   noise given) exactly equal to their plain versions' (fp32 and bf16, with
+   and without keep and active masks; then 4,096 rows of fresh seeds and
+   counters at V = 40 and 4,057 with NaN, +inf and all--inf rows). Kernel A
+   is timed with the noise drawn inside beside its plain version (the ATen
+   noise and the reference), ``torch.argmax`` of the given noise plus the
+   logits, the ATen ``gumbel(stream)`` alone (what the kernel replaces) and
+   the launch floor (an empty kernel, timed the same way); kernel
    B's ``h`` within rtol=atol=1e-4 in fp32 and atol=2e-2 in bf16, cache
    positions other than the cursor bit-equal, the cursor entries within the
    same tolerances, mask and length exact; B's cluster shape and CTAs.
@@ -43,7 +53,8 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    atol 1e-6 of the largest cotangent), the plain version summing
    duplicates with atomics in no fixed order; the kernel's backward also
    equals the CPU's plain version (ordered sums) bit for bit. The backward's
-   write rate of the plane beside its bound.
+   write rate of the plane beside its bound, the forward beside the launch
+   floor.
 6. Nested-attention training at full width: ``bench.py``'s NA model (the
    phase-4 widths with three dep-graph levels ``[[], ["event_type"], ["lab",
    "med"]]``, global dep-graph attention, bare sequence attention and a full
@@ -109,6 +120,7 @@ when the repository is not beside it.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 import math
@@ -159,11 +171,10 @@ def device_phase():
 
     t0 = time.perf_counter()
     errors = []
-    sources = [decode_step.SOURCE, vocab_gather.SOURCE, dep_graph.SOURCE, flash_attention.SOURCE]
+    sources = [fused_sampling.SOURCE, decode_step.SOURCE, vocab_gather.SOURCE, dep_graph.SOURCE, flash_attention.SOURCE]
     nvcc = threading.Thread(target=lambda: errors.extend(_try(build.build_all, sources)))
     nvcc.start()
-    z = torch.zeros(2, 40, device="cuda")
-    fused_sampling.fused_categorical(z, z)  # Triton compiles here, while nvcc runs
+    torch.zeros(1, device="cuda")  # the CUDA context, while nvcc runs
     nvcc.join()
     if errors:
         raise errors[0]
@@ -198,16 +209,18 @@ def check_results(results, requests, label):
 
 class Capture:
     """Wraps the engine's two kernel entry points to keep the inputs of the
-    first call after `arm()` (cloned before the in-place cache write)."""
+    first call made while ``armed`` (cloned before the in-place cache write;
+    for kernel A the stream's seeds, counters and the salt of the draw)."""
 
     def __init__(self, engine_module):
         self.mod, self.armed, self.a, self.b = engine_module, False, None, None
-        self.orig_a, self.orig_b = engine_module.fused_categorical, engine_module.decode_stack_step
+        self.orig_a, self.orig_b = engine_module.fused_categorical_stream, engine_module.decode_stack_step
 
-        def a(logits, gumbel, keep=None, active=None, fill=0):
+        def a(logits, stream, keep=None, active=None, fill=0):
             if self.armed and self.a is None and active is not None:  # a decode step, not a prefill
-                self.a = dict(logits=logits.clone(), gumbel=gumbel.clone(), keep=keep, active=active.clone())
-            return self.orig_a(logits, gumbel, keep, active, fill)
+                self.a = dict(logits=logits.clone(), seeds=stream.seeds.clone(), counters=stream.counters.clone(),
+                              salt=copy.copy(stream).next_draw_salt(), keep=keep, active=active.clone())  # fmt: skip
+            return self.orig_a(logits, stream, keep, active, fill)
 
         def b(weights, kc, vc, h0, start, em, mask, **kw):
             if self.armed and self.b is None:
@@ -215,7 +228,7 @@ class Capture:
                               em=em.clone(), mask=mask.clone(), kw=kw)  # fmt: skip
             return self.orig_b(weights, kc, vc, h0, start, em, mask, **kw)
 
-        engine_module.fused_categorical, engine_module.decode_stack_step = a, b
+        engine_module.fused_categorical_stream, engine_module.decode_stack_step = a, b
 
 
 def engine_phase(smi):
@@ -227,7 +240,7 @@ def engine_phase(smi):
     from eventstreamgpt_tpu_torch.data.synthetic import log_time_stats, serving_config, synthetic_prompts
     from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
     from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
-    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
     from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
 
     rng = np.random.default_rng(SEED)
@@ -249,19 +262,22 @@ def engine_phase(smi):
         reqs = requests()
         capture.armed = mode == "sampled"
         decode_stack_step.launches = 0
-        fused_categorical.launches = 0
+        fused_categorical.launches = fused_categorical_stream.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results = engine.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"decode_stack_step": decode_stack_step.launches, "fused_categorical": fused_categorical.launches}
+        launches = {"decode_stack_step": decode_stack_step.launches,
+                    "fused_categorical_stream": fused_categorical_stream.launches,
+                    "fused_categorical": fused_categorical.launches}  # fmt: skip
         check_results(results, reqs, mode)
         check(launches["decode_stack_step"] > 0, f"{mode}: the decode kernel was never launched")
+        check(launches["fused_categorical"] == 0, f"{mode}: the engine launched kernel A with given noise")
         if mode == "sampled":
-            check(launches["fused_categorical"] > 0, "sampled: the sampling kernel was never launched")
+            check(launches["fused_categorical_stream"] > 0, "sampled: the sampling kernel was never launched")
         else:
-            check(launches["fused_categorical"] == 0, "greedy: the sampling kernel launched in greedy mode")
+            check(launches["fused_categorical_stream"] == 0, "greedy: the sampling kernel launched in greedy mode")
         generated = sum(r.n_generated for r in results)
         stats = engine.stats()
         out[mode] = dict(launches=launches, generated=generated, wall_s=wall, stats=stats)
@@ -271,7 +287,7 @@ def engine_phase(smi):
             f"wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
             flush=True,
         )
-    engine_module.fused_categorical, engine_module.decode_stack_step = capture.orig_a, capture.orig_b
+    engine_module.fused_categorical_stream, engine_module.decode_stack_step = capture.orig_a, capture.orig_b
     check(capture.a is not None and capture.b is not None, "no decode-step inputs were captured")
     small_engine_matches_cpu()
     return model, config, capture, out
@@ -339,40 +355,117 @@ def fmt_times(t: dict) -> str:
     )
 
 
-def kernel_a_phase(capture):
+# Kernel A's operations an element, each counted as one: the hash (key plus
+# element, one mix32: 10), the uniform (shift, convert, add, multiply: 4), two
+# logs and two negations, the cast to the logits' type, the add and its
+# rounding, and the running max and index (3).
+A_OPS_PER_ELEMENT = 24
+
+
+def special_plane(rng, rows, V, dtype):
+    """Normal logits (scale 3) with NaN, +inf, all--inf and all-equal rows, on the card."""
     import torch
 
+    z = (rng.normal(size=(rows, V)) * 3).astype("float32")
+    z[0::97, rng.integers(V)] = float("nan")
+    z[1::97, rng.integers(V)] = float("inf")
+    z[2::97] = -float("inf")
+    z[3::97] = 1.0
+    return torch.from_numpy(z).to(dtype).cuda()
+
+
+def kernel_a_phase(capture):
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.distributions import gumbel
+    from eventstreamgpt_tpu_torch.generation.sampling import RowStreams
     from eventstreamgpt_tpu_torch.ops.fused_sampling import (
         fused_categorical,
         fused_categorical_reference,
+        fused_categorical_stream,
+        gumbel_noise,
+        launch_floor,
         topk_topp_mask,
     )
+    from eventstreamgpt_tpu_torch.utils.timing import time_ms
 
     cap = capture.a
-    logits, gumbel, active = cap["logits"], cap["gumbel"], cap["active"]
+    logits, active = cap["logits"], cap["active"]
     rows, V = logits.shape
+
+    def stream(seeds=cap["seeds"], counters=cap["counters"], salt=cap["salt"]):
+        return RowStreams(seeds, counters, salt)  # its next draw is the captured one
+
+    # The noise, bit for bit, at the captured shape and on a wide plane.
+    rng = np.random.default_rng(SEED)
+    wide = dict(seeds=torch.from_numpy(rng.integers(-(2**62), 2**62, size=4096)).cuda(),
+                counters=torch.from_numpy(rng.integers(0, 2**40, size=4096)).cuda(), salt=12345)  # fmt: skip
+    for kw, shape in ((dict(), (rows, V)), (wide, (4096, 4057))):
+        for dt, bits in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+            got, want = gumbel_noise(stream(**kw), shape, dt), gumbel(stream(**kw), shape, "cuda").to(dt)
+            differ = int((got.view(bits) != want.view(bits)).sum())
+            check(differ == 0, f"kernel A's noise differs from gumbel(stream) in {differ} of {got.numel()} ({dt}, {shape})")
+    print("phase 3: kernel A's noise equals gumbel(stream).to(dtype) bit for bit at "
+          f"({rows}, {V}) and (4096, 4057), fp32 and bf16", flush=True)  # fmt: skip
+
+    # Both entries against their plain versions, at the captured shape ...
     max_err = 0
     for dt in (torch.float32, torch.bfloat16):
-        z, g = logits.to(dt), gumbel.to(dt)
+        z = logits.to(dt)
+        g = gumbel(stream(), z.shape, "cuda").to(dt)
         for keep in (None, topk_topp_mask(z, top_k=5)):
             for act in (None, active):
                 want = fused_categorical_reference(z, g, keep, act, fill=0)
-                got = fused_categorical(z, g, keep, act, fill=0)
-                max_err = max(max_err, (got.long() - want.long()).abs().max().item())
-                check(torch.equal(got, want), f"kernel A disagrees ({dt}, keep={keep is not None}, active={act is not None})")
+                for name, got in (("stream", fused_categorical_stream(z, stream(), keep, act, fill=0)),
+                                  ("given noise", fused_categorical(z, g, keep, act, fill=0))):  # fmt: skip
+                    max_err = max(max_err, (got.long() - want.long()).abs().max().item())
+                    check(torch.equal(got, want), f"kernel A ({name}) disagrees ({dt}, keep={keep is not None}, "
+                                                  f"active={act is not None})")  # fmt: skip
+    # ... and on 4,096 rows of fresh streams with NaN, +inf and all--inf rows.
+    for V_sweep in (40, 4057):
+        for dt in (torch.float32, torch.bfloat16):
+            z = special_plane(rng, 4096, V_sweep, dt)
+            keep = torch.from_numpy(rng.random((4096, V_sweep)) < 0.5).cuda()
+            act = torch.from_numpy(rng.random(4096) < 0.9).cuda()
+            for k, a in ((None, None), (keep, act)):
+                for trial in range(2):
+                    kw = dict(seeds=torch.from_numpy(rng.integers(-(2**62), 2**62, size=4096)).cuda(),
+                              counters=torch.from_numpy(rng.integers(0, 2**40, size=4096)).cuda(),
+                              salt=int(rng.integers(0, 2**32)))  # fmt: skip
+                    want = fused_categorical_reference(z, gumbel(stream(**kw), z.shape, "cuda").to(dt), k, a, fill=-1)
+                    got = fused_categorical_stream(z, stream(**kw), k, a, fill=-1)
+                    max_err = max(max_err, (got.long() - want.long()).abs().max().item())
+                    check(torch.equal(got, want), f"kernel A (stream) disagrees on the sweep (V {V_sweep}, {dt}, "
+                                                  f"keep and active {k is not None}, trial {trial})")  # fmt: skip
     torch.cuda.synchronize()
-    t = timings(
-        lambda: fused_categorical(logits, gumbel, None, active),
-        lambda: fused_categorical_reference(logits, gumbel, None, active),
-        lambda: torch.argmax(gumbel + logits, dim=-1),
-    )
-    nbytes = 2 * rows * V * logits.element_size() + rows + rows * 4
-    ops = 4 * rows * V  # add, compare, max and min per element
-    bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS["fp32"]) * 1e3
-    print(f"phase 3: kernel A exact vs plain at ({rows}, {V}); {fmt_times(t)}", flush=True)
-    return dict(t, bound_ms=bound,
-                bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= ops / PEAK_FLOPS["fp32"] else "operations",
-                max_abs_err=float(max_err), shape=[rows, V])  # fmt: skip
+    print(f"phase 3: kernel A exact vs plain at ({rows}, {V}) (both entries) and on 4,096 rows at V 40 and 4057",
+          flush=True)  # fmt: skip
+
+    # Timing at the main path's shape and type (fp32 logits, an active mask, no keep).
+    dt = logits.dtype
+    g = gumbel(stream(), logits.shape, "cuda").to(dt)
+    s_kernel, s_plain, s_noise = stream(), stream(), stream()
+    t = timings(lambda: fused_categorical_stream(logits, s_kernel, None, active), None,
+                lambda: torch.argmax(g + logits, dim=-1))  # fmt: skip
+    # The ATen noise is about a hundred launches: 4 calls at a time keep the
+    # stream's queue of pending launches short, so the device is what is timed
+    # (`utils.timing.time_ms`).
+    plain = time_ms(lambda: fused_categorical_reference(logits, gumbel(s_plain, logits.shape, "cuda").to(dt), None,
+                                                        active), n=4)  # fmt: skip
+    t["plain_ms"], t["single_plain_ms"] = plain["ms"], plain["single_ms"]
+    extra = {"gumbel_ms": time_ms(lambda: gumbel(s_noise, logits.shape, "cuda").to(dt), n=4),
+             "given_noise_ms": time_ms(lambda: fused_categorical(logits, g, None, active)),
+             "launch_floor_ms": time_ms(launch_floor)}  # fmt: skip
+    nbytes = rows * V * logits.element_size() + 2 * rows * 8 + rows + rows * 4  # logits, seeds, counters, active, out
+    ops = A_OPS_PER_ELEMENT * rows * V
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["fp32"] * 1e3
+    print(f"phase 3: kernel A (noise drawn inside) at ({rows}, {V}) {dt}: {fmt_times(t)}; "
+          + "; ".join(f"{k} {v['ms']:.4f} (one synchronised call {v['single_ms']:.4f})" for k, v in extra.items())
+          + f"; bound {max(bytes_ms, ops_ms):.7f} ms ({nbytes} bytes, {ops} operations)", flush=True)  # fmt: skip
+    return dict(t, **{k: v["ms"] for k, v in extra.items()}, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=float(max_err),
+                shape=[rows, V])  # fmt: skip
 
 
 def live_rows(start, event_mask, mask, window):
@@ -714,7 +807,9 @@ def bf16_ulp(x):
 def kernel_c_phase(capture):
     import torch
 
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import launch_floor
     from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd, vocab_gather_reference
+    from eventstreamgpt_tpu_torch.utils.timing import time_ms
 
     V = capture.z.shape[-1]
     z0 = capture.z.reshape(-1, V)
@@ -757,6 +852,7 @@ def kernel_c_phase(capture):
         bwd_ops = fwd_ops
         t_fwd = timings(lambda: vocab_gather_fwd(z, ci), lambda: vocab_gather_reference(z, ci),
                         lambda: torch.gather(z, -1, ci64).float(), n=100)  # fmt: skip
+        floor = time_ms(launch_floor, n=100)
         t_bwd = timings(
             lambda: vocab_gather_bwd(g, ci, V, dt),
             lambda: torch.autograd.grad(ref_out, zr, g, retain_graph=True),
@@ -768,7 +864,10 @@ def kernel_c_phase(capture):
                                 max_abs_err=0.0 if name == "fwd" else diff.max().item(), shape=[rows, V, M])  # fmt: skip
             if name == "bwd":  # the plane's write, the bound's bytes, at the kernel's time
                 result[name]["write_GBps"] = rows * V * esz / (t["ms"] * 1e-3) / 1e9
-            rate = f", the plane written at {result[name]['write_GBps']:.1f} GB/s" if name == "bwd" else ""
+                rate = f", the plane written at {result[name]['write_GBps']:.1f} GB/s"
+            else:  # an empty kernel, timed the same way
+                result[name]["launch_floor_ms"] = floor["ms"]
+                rate = f"; launch floor {floor['ms']:.4f} ms (one synchronised call {floor['single_ms']:.4f})"
             print(f"phase 5: kernel C {name} (bf16): {fmt_times(t)}; bound {result[name]['bound_ms']:.5f} ms "
                   f"({nbytes / 1e6:.2f} MB, {distinct} distinct gathered elements){rate}", flush=True)  # fmt: skip
     return result
@@ -1199,9 +1298,9 @@ def main() -> int:
     packed, flash_args = packed_training_phase(smi)
     ef = kernel_ef_phase(flash_args)
     kernels = [
-        dict(name="fused_categorical", route="triton", source="eventstreamgpt_tpu_torch/ops/fused_sampling.py",
-             replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171",
-             launches=runs["sampled"]["launches"]["fused_categorical"], **a),
+        dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
+             replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
+             launches=runs["sampled"]["launches"]["fused_categorical_stream"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]

@@ -7,7 +7,7 @@ standard library only.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; nothing falls back to the CPU on its own. The
-hand-written kernels live in `ops.fused_sampling` (Triton),
-`ops.decode_step`, `ops.vocab_gather`, `ops.dep_graph` and
-`ops.flash_attention` (CUDA C++ under ``csrc/``).
+hand-written kernels live in `ops.fused_sampling`, `ops.decode_step`,
+`ops.vocab_gather`, `ops.dep_graph` and `ops.flash_attention` (CUDA C++
+under ``csrc/``).
 """

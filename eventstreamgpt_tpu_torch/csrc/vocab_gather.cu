@@ -15,10 +15,21 @@
 // padded to 128. None of that carries over: the card gathers and scatters
 // natively.
 //
-// * Forward: one thread per output element, a bounds test and one load. The
-//   function moves the index plane, the output and the gathered elements,
-//   about 3.5 MB at the training shape (rows 8192, V 7000 bf16, M 48), about
-//   1 us at 3.35 TB/s; the launch costs more than that.
+// * Forward: the function moves the index plane, the output and the
+//   gathered elements, 3.46 MB at the training shape (rows 8192, V 7000
+//   bf16, M 48): 1.03 us at 3.35 TB/s (H100 SXM). An empty kernel, timed the
+//   same way back to back, takes 1.7-1.9 us on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py phase 5 prints it beside the kernel), and each thread's
+//   gathers wait on its index load: two dependent round trips to memory.
+//   So the kernel spends as little as it can around its loads: where M % 4
+//   == 0, the index and output planes sit on 16-byte boundaries and
+//   rows * M < 2^31, a thread takes four consecutive slots of one row: one
+//   16-byte index load, its four gathers in flight together, one 16-byte
+//   store, and one 32-bit division to find the row (98,304 threads at the
+//   training shape: one wave of 384 blocks). Any other shape takes one slot
+//   a thread (32-bit arithmetic where it fits, else 64-bit). Measured 3.2-3.3
+//   us at the training shape, against 3.6 us for one slot a thread with a
+//   64-bit division (same card, tools/ab_kernels.py --c-fwd).
 // * Backward: bound by the dz plane's single write (114.7 MB in bf16 at the
 //   training shape, plus 3.1 MB of g and ci read: about 35 us at
 //   3.35 TB/s), so it spends nothing beyond that write and keeps no plane in
@@ -65,14 +76,31 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return __float2bfloat16_rn(x); }
 
+// One gathered slot: the plane's element, upcast, or 0 out of range (no load).
 template <typename T>
-__global__ void gather_fwd(const T* __restrict__ z, const int32_t* __restrict__ ci, float* __restrict__ out,
-                           int64_t rows, int V, int M) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= rows * M) return;
-  const int64_t r = i / M;
-  const int c = ci[i];
-  out[i] = (c >= 0 && c < V) ? to_f(z[r * V + c]) : 0.0f;
+__device__ __forceinline__ float gather_one(const T* __restrict__ row, int c, int V) {
+  return (c >= 0 && c < V) ? to_f(row[c]) : 0.0f;
+}
+
+// Four consecutive slots of one row a thread (M % 4 == 0, aligned planes, rows * M < 2^31).
+template <typename T>
+__global__ void gather_fwd4(const T* __restrict__ z, const int4* __restrict__ ci, float4* __restrict__ out, int quads,
+                            int V, int M) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= quads) return;
+  const int4 c = ci[q];
+  const T* row = z + static_cast<int64_t>(q * 4 / M) * V;
+  out[q] = make_float4(gather_one(row, c.x, V), gather_one(row, c.y, V), gather_one(row, c.z, V),
+                       gather_one(row, c.w, V));
+}
+
+// One slot a thread, any shape; Index is int where rows * M fits, else int64_t.
+template <typename T, typename Index>
+__global__ void gather_fwd1(const T* __restrict__ z, const int32_t* __restrict__ ci, float* __restrict__ out, Index n,
+                            int V, int M) {
+  const Index i = static_cast<Index>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = gather_one(z + static_cast<int64_t>(i / M) * V, ci[i], V);
 }
 
 // The fp32 sum of g over the slots of `idx` equal to `col`, in ascending slot order.
@@ -277,9 +305,21 @@ template <typename T>
 int launch_fwd(const void* z, const void* ci, void* out, int64_t rows, int V, int M, void* stream) {
   const int64_t n = rows * M;
   if (n == 0) return 0;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  gather_fwd<T><<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(z), static_cast<const int32_t*>(ci), static_cast<float*>(out), rows, V, M);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool fits = n < (int64_t{1} << 31);
+  const bool aligned = (reinterpret_cast<uintptr_t>(ci) | reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (fits && aligned && M % 4 == 0) {
+    const int quads = static_cast<int>(n / 4);
+    gather_fwd4<T><<<(quads + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+        static_cast<const T*>(z), static_cast<const int4*>(ci), static_cast<float4*>(out), quads, V, M);
+  } else if (fits) {
+    gather_fwd1<T, int><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        static_cast<const T*>(z), static_cast<const int32_t*>(ci), static_cast<float*>(out), static_cast<int>(n), V,
+        M);
+  } else {
+    gather_fwd1<T, int64_t><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+        static_cast<const T*>(z), static_cast<const int32_t*>(ci), static_cast<float*>(out), n, V, M);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -81,6 +81,14 @@ class RowStreams:
     def for_name(self, name: str) -> "RowStreams":
         return RowStreams(self.seeds, self.counters, zlib.crc32(name.encode()) & M32)
 
+    def next_draw_salt(self) -> int:
+        """The salt of this stream's next draw; advances the draw count. Every
+        draw takes its salt here (`uniform`, and kernel A drawing its noise
+        inside the kernel: `ops.fused_sampling.fused_categorical_stream`)."""
+        draw_salt = (self.salt + self._draws * _GOLDEN) & M32
+        self._draws += 1
+        return draw_salt
+
     def uniform(self, shape) -> torch.Tensor:
         """fp32 uniforms in (0, 1) of ``shape`` (``shape[0]`` is the row axis)."""
         B = shape[0]
@@ -89,8 +97,7 @@ class RowStreams:
         n = 1
         for s in shape[1:]:
             n *= int(s)
-        draw_salt = (self.salt + self._draws * _GOLDEN) & M32
-        self._draws += 1
+        draw_salt = self.next_draw_salt()
         row_key = mix32(mix32(mix32(self.seeds & M32) ^ (self.counters & M32)) ^ draw_salt)
         elem = torch.arange(n, dtype=torch.int64, device=self.seeds.device)
         bits = mix32((row_key[:, None] + elem[None, :] * _GOLDEN) & M32)

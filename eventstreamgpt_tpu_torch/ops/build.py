@@ -1,10 +1,9 @@
 """Building the port's kernels at first use, inside the checkout.
 
 CUDA sources under ``eventstreamgpt_tpu_torch/csrc/`` compile with ``nvcc``
-into shared libraries with a plain C interface, loaded with ``ctypes``;
-Triton kernels compile at their first launch. Everything built goes under
-``<checkout>/build/`` (``.gitignore`` lists it): the libraries in
-``build/kernels/``, Triton's cache in ``build/triton/``.
+(without fast math) into shared libraries with a plain C interface, loaded
+with ``ctypes``. Everything built goes under ``<checkout>/build/kernels/``
+(``.gitignore`` lists ``build/``).
 """
 
 from __future__ import annotations
@@ -73,11 +72,3 @@ def load_library(source: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         _LIBS[key] = ctypes.CDLL(str(build_all([key])[key]))
     return _LIBS[key]
 
-
-def triton_modules():
-    """Imports Triton with its cache inside the checkout; returns ``(triton, tl)``."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    return triton, tl

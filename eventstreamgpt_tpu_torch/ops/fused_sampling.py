@@ -3,38 +3,54 @@
 Replaces the TPU kernel ``eventstreamgpt_tpu/ops/fused_sampling.py::
 fused_categorical`` (``_sample_2d`` / ``_sample_kernel``). Per row: mask the
 logits by ``keep`` (to the fp32 minimum), ``score = f32(round_to_logits_dtype(
-f32(gumbel) + f32(logits)))``, the first index of the maximum, and ``fill``
-for inactive rows. The add-in-fp32-then-round chain is the JAX contract:
-it reproduces ``jax.random.categorical``'s bf16 add, and near-tied tokens
-order differently without it.
+f32(gumbel) + f32(logits)))``, the first index of the maximum (``V`` for a
+row holding a NaN score), and ``fill`` for inactive rows. The
+add-in-fp32-then-round chain is the JAX contract: it reproduces
+``jax.random.categorical``'s bf16 add, and near-tied tokens order
+differently without it.
 
-The Gumbel noise is drawn outside the kernel (as the JAX code draws it
-outside its Pallas call), so kernel and plain version see the same inputs.
+Two entries, one CUDA kernel template (``csrc/fused_sampling.cu``, where its
+design and bound are):
 
-Route: Triton, one program per row with a power-of-two block of
-``next_pow2(V)`` lanes: one elementwise prologue and one row reduction.
-Bound: at the serving shape (32 slots x the 40-way ``event_type`` head) the
-call moves about 10 KB, a few nanoseconds of memory time; it is bound by
-launch latency, and the design does nothing about that beyond being one
-launch. Tie-break: the minimum index where ``score == max``, written out,
-not left to ``tl.argmax``.
+* `fused_categorical` takes the Gumbel noise as a tensor, as the JAX kernel
+  does; the CPU tests hold it against JAX's ``_sample_2d``.
+* `fused_categorical_stream` takes a `generation.sampling.RowStreams` and
+  draws the noise inside the kernel, bit for bit ``gumbel(stream,
+  logits.shape).to(logits.dtype)``; the stream's draw count advances as one
+  ``uniform`` call advances it. The serving engine calls this one: the noise
+  never goes through memory and the sampled draw of a categorical head is
+  one launch.
 
-On CPU tensors `fused_categorical` runs `fused_categorical_reference`; on
-CUDA tensors it launches the kernel or raises.
+On CPU tensors each entry runs its plain version (`fused_categorical_reference`,
+after ``gumbel(stream)`` for the stream entry); on CUDA tensors it launches
+the kernel or raises. Each counts its launches. `gumbel_noise` (the kernel's
+noise alone) and `launch_floor` (an empty kernel) serve the tests and the
+measurements.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import math
+
 import torch
 
-from .build import triton_modules
+from ..distributions import gumbel as stream_gumbel
+from .build import load_library
 
-__all__ = ["fused_categorical", "fused_categorical_reference", "topk_topp_mask"]
+__all__ = [
+    "fused_categorical",
+    "fused_categorical_reference",
+    "fused_categorical_stream",
+    "gumbel_noise",
+    "launch_floor",
+    "topk_topp_mask",
+]
 
 F32_MIN = torch.finfo(torch.float32).min
-
-triton = tl = None  # bound by _kernel() at the first CUDA launch
-_KERNEL = None
+SOURCE = "fused_sampling.cu"
+DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def topk_topp_mask(logits: torch.Tensor, top_k: int | None = None, top_p: float | None = None):
@@ -82,46 +98,77 @@ def fused_categorical_reference(logits, gumbel, keep=None, active=None, fill: in
     return idx
 
 
-def _sample_rows_kernel(
-    z_ptr,
-    g_ptr,
-    keep_ptr,
-    active_ptr,
-    out_ptr,
-    V,
-    fill,
-    HAS_KEEP: "tl.constexpr",
-    HAS_ACTIVE: "tl.constexpr",
-    ROUND_BF16: "tl.constexpr",
-    BLOCK: "tl.constexpr",
-):
-    row = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    inb = cols < V
-    base = row.to(tl.int64) * V
-    z = tl.load(z_ptr + base + cols, mask=inb, other=0.0).to(tl.float32)
-    g = tl.load(g_ptr + base + cols, mask=inb, other=0.0).to(tl.float32)
-    if HAS_KEEP:
-        k = tl.load(keep_ptr + base + cols, mask=inb, other=0)
-        z = tl.where(k != 0, z, -3.4028234663852886e38)
-    score = g + z
-    if ROUND_BF16:
-        score = score.to(tl.bfloat16).to(tl.float32)
-    score = tl.where(inb, score, float("-inf"))
-    m = tl.max(score, axis=0)
-    idx = tl.min(tl.where(score == m, cols, V), axis=0)
-    if HAS_ACTIVE:
-        a = tl.load(active_ptr + row)
-        idx = tl.where(a != 0, idx, fill)
-    tl.store(out_ptr + row, idx.to(tl.int32))
+def bind(lib: ctypes.CDLL) -> dict:
+    """The C entry points of a build of ``csrc/fused_sampling.cu``, their signatures set."""
+    P, I, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+    signatures = {
+        "esgpt_fused_categorical": [I, P, LL, P, P, P, P, LL, I, I, P],
+        "esgpt_fused_categorical_stream": [I, P, LL, P, P, U, LL, P, P, P, LL, I, I, P],
+        "esgpt_gumbel_noise": [I, P, P, U, LL, P, LL, I, P],
+        "esgpt_launch_floor": [P],
+    }
+    fns = {}
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        fns[name] = fn
+    return fns
 
 
-def _kernel():
-    global triton, tl, _KERNEL
-    if _KERNEL is None:
-        triton, tl = triton_modules()
-        _KERNEL = triton.jit(_sample_rows_kernel)
-    return _KERNEL
+@functools.cache
+def _kernels() -> dict:
+    """The checkout's entry points, built and loaded once."""
+    return bind(load_library(SOURCE))
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _operands(name, logits, keep, active):
+    """Checks a CUDA call's logits, keep and active; returns the ``(rows, V)``
+    logits view (unit column stride, rows strided), keep and active as
+    contiguous bools (or None), and the batch shape."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got {logits.device}")
+    if logits.dtype not in DTYPES:
+        raise ValueError(f"{name} takes fp32 or bf16 logits, got {logits.dtype}")
+    if logits.dim() < 1 or logits.shape[-1] < 1:
+        raise ValueError(f"{name} takes logits (..., V) with V >= 1, got {tuple(logits.shape)}")
+    for label, t in (("keep", keep), ("active", active)):
+        if t is not None and t.device != logits.device:
+            raise ValueError(f"{name}: {label} is on {t.device}, logits on {logits.device}")
+    batch_shape, V = logits.shape[:-1], logits.shape[-1]
+    if keep is not None and keep.shape != logits.shape:
+        raise ValueError(f"{name}: keep must have the logits' shape {tuple(logits.shape)}, got {tuple(keep.shape)}")
+    if active is not None and active.shape != batch_shape:
+        raise ValueError(f"{name}: active must have shape {tuple(batch_shape)}, got {tuple(active.shape)}")
+    # 2-D logits with unit column stride and contiguous bool masks (the
+    # engine's) pass through untouched: no copy, no conversion launch, no
+    # view; the host's time is most of a launch-sized kernel's cost.
+    z = logits if logits.dim() == 2 else logits.reshape(-1, V)
+    if z.stride(-1) != 1 or (z.shape[0] > 1 and z.stride(0) < V):
+        z = z.contiguous()
+    k = None if keep is None else _contiguous_bool(keep if keep.dim() == 2 else keep.reshape(-1, V))
+    a = None if active is None else _contiguous_bool(active if active.dim() == 1 else active.reshape(-1))
+    return z, k, a, batch_shape
+
+
+def _contiguous_bool(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.bool and t.is_contiguous() else t.bool().contiguous()
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def fused_categorical(logits, gumbel, keep=None, active=None, fill: int = 0) -> torch.Tensor:
@@ -129,7 +176,7 @@ def fused_categorical(logits, gumbel, keep=None, active=None, fill: int = 0) -> 
 
     Args:
         logits: ``(..., V)`` fp32 or bf16 unnormalized log-probabilities.
-        gumbel: Gumbel noise of the same shape (drawn by the caller).
+        gumbel: Gumbel noise of the logits' shape and dtype (drawn by the caller).
         keep: optional bool ``(..., V)`` filter mask (`topk_topp_mask`).
         active: optional bool ``(...)``; inactive rows return ``fill``.
 
@@ -138,41 +185,85 @@ def fused_categorical(logits, gumbel, keep=None, active=None, fill: int = 0) -> 
     """
     if logits.device.type == "cpu":
         return fused_categorical_reference(logits, gumbel, keep, active, fill)
-    if logits.device.type != "cuda":
-        raise ValueError(f"fused_categorical runs on CUDA or CPU tensors, got {logits.device}")
-    if logits.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"fused_categorical takes fp32 or bf16 logits, got {logits.dtype}")
-    for name, t in (("gumbel", gumbel), ("keep", keep), ("active", active)):
-        if t is not None and t.device != logits.device:
-            raise ValueError(f"{name} is on {t.device}, logits on {logits.device}")
-    if gumbel.shape != logits.shape or (keep is not None and keep.shape != logits.shape):
-        raise ValueError("gumbel and keep must have the logits' shape")
-    batch_shape, V = logits.shape[:-1], logits.shape[-1]
-    if active is not None and active.shape != batch_shape:
-        raise ValueError(f"active must have shape {tuple(batch_shape)}, got {tuple(active.shape)}")
-    z = logits.reshape(-1, V).contiguous()
-    g = gumbel.reshape(-1, V).contiguous()
-    k = z if keep is None else keep.reshape(-1, V).to(torch.int8).contiguous()
-    a = z if active is None else active.reshape(-1).to(torch.int8).contiguous()
-    rows = z.shape[0]
-    out = torch.empty(rows, dtype=torch.int32, device=logits.device)
-    if rows:
-        _kernel()[(rows,)](
-            z,
-            g,
-            k,
-            a,
-            out,
-            V,
-            int(fill),
-            HAS_KEEP=keep is not None,
-            HAS_ACTIVE=active is not None,
-            ROUND_BF16=logits.dtype == torch.bfloat16,
-            BLOCK=max(16, 1 << (V - 1).bit_length()),
-            num_warps=1 if V <= 1024 else 4,
-        )
-        fused_categorical.launches += 1
-    return out.reshape(batch_shape)
+    z, k, a, batch_shape = _operands("fused_categorical", logits, keep, active)
+    if gumbel.device != logits.device or gumbel.shape != logits.shape or gumbel.dtype != logits.dtype:
+        raise ValueError(f"fused_categorical: gumbel must match the logits' device, shape and dtype, got "
+                         f"{gumbel.device} {tuple(gumbel.shape)} {gumbel.dtype}")  # fmt: skip
+    g = _contiguous(gumbel.reshape(z.shape))
+    out = torch.empty(z.shape[0], dtype=torch.int32, device=logits.device)
+    err = _kernels()["esgpt_fused_categorical"](
+        DTYPES[z.dtype], z.data_ptr(), z.stride(0), g.data_ptr(), _ptr(k), _ptr(a), out.data_ptr(), z.shape[0],
+        z.shape[1], int(fill), _stream_ptr(z.device),
+    )  # fmt: skip
+    _raise_on(err, "fused_categorical")
+    fused_categorical.launches += 1
+    return out if len(batch_shape) == 1 else out.reshape(batch_shape)
+
+
+def _stream_rows(name, shape, device, stream):
+    """The stream's seeds and counters (int64, contiguous, on ``device``) and
+    how many rows of a ``(B, ..., V)`` plane of ``shape`` one stream row covers."""
+    seeds, counters = stream.seeds, stream.counters
+    if len(shape) < 2 or shape[0] != seeds.shape[0]:
+        raise ValueError(f"{name}: the stream has {seeds.shape[0]} rows, the plane is {tuple(shape)}")
+    for label, t in (("seeds", seeds), ("counters", counters)):
+        if t.device != device or t.dtype != torch.int64 or t.shape != (shape[0],):
+            raise ValueError(f"{name}: stream {label} must be int64 ({shape[0]},) on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")  # fmt: skip
+    return _contiguous(seeds), _contiguous(counters), math.prod(shape[1:-1])
+
+
+def fused_categorical_stream(logits, stream, keep=None, active=None, fill: int = 0) -> torch.Tensor:
+    """`fused_categorical` with the noise of ``stream``'s next draw made in the kernel.
+
+    Args:
+        logits: ``(B, ..., V)`` fp32 or bf16 unnormalized log-probabilities.
+        stream: a `generation.sampling.RowStreams` of ``B`` rows (its
+            ``seeds``, ``counters`` and ``next_draw_salt()``); the noise is
+            ``gumbel(stream, logits.shape, logits.device).to(logits.dtype)``
+            and the stream advances by that one draw.
+        keep, active, fill: as in `fused_categorical`.
+
+    Returns:
+        ``(B, ...)`` int32 indices.
+    """
+    if logits.device.type == "cpu":
+        noise = stream_gumbel(stream, logits.shape, logits.device).to(logits.dtype)
+        return fused_categorical_reference(logits, noise, keep, active, fill)
+    z, k, a, batch_shape = _operands("fused_categorical_stream", logits, keep, active)
+    seeds, counters, inner = _stream_rows("fused_categorical_stream", logits.shape, logits.device, stream)
+    out = torch.empty(z.shape[0], dtype=torch.int32, device=logits.device)
+    err = _kernels()["esgpt_fused_categorical_stream"](
+        DTYPES[z.dtype], z.data_ptr(), z.stride(0), seeds.data_ptr(), counters.data_ptr(), stream.next_draw_salt(),
+        inner, _ptr(k), _ptr(a), out.data_ptr(), z.shape[0], z.shape[1], int(fill), _stream_ptr(z.device),
+    )  # fmt: skip
+    _raise_on(err, "fused_categorical_stream")
+    fused_categorical_stream.launches += 1
+    return out if len(batch_shape) == 1 else out.reshape(batch_shape)
+
+
+def gumbel_noise(stream, shape, dtype: torch.dtype) -> torch.Tensor:
+    """The noise `fused_categorical_stream` draws for logits of ``shape`` and
+    ``dtype``, written out by the kernel's own device function (CUDA only;
+    uncounted). The stream advances by one draw."""
+    shape, device = tuple(shape), stream.seeds.device
+    if device.type != "cuda" or dtype not in DTYPES:
+        raise ValueError(f"gumbel_noise takes a CUDA stream and fp32 or bf16, got {device}, {dtype}")
+    seeds, counters, inner = _stream_rows("gumbel_noise", shape, device, stream)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    err = _kernels()["esgpt_gumbel_noise"](
+        DTYPES[dtype], seeds.data_ptr(), counters.data_ptr(), stream.next_draw_salt(), inner, out.data_ptr(),
+        math.prod(shape[:-1]), shape[-1], _stream_ptr(device),
+    )  # fmt: skip
+    _raise_on(err, "gumbel_noise")
+    return out
+
+
+def launch_floor() -> None:
+    """Launches an empty kernel on the current CUDA stream (the launch floor
+    beside which the launch-sized kernels' times are read)."""
+    _raise_on(_kernels()["esgpt_launch_floor"](_stream_ptr(torch.device("cuda"))), "launch_floor")
 
 
 fused_categorical.launches = 0
+fused_categorical_stream.launches = 0

@@ -66,6 +66,14 @@ def _check(t: torch.Tensor, name: str, dtypes, device) -> None:
 
 def vocab_gather_fwd(z: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
     """The forward kernel on CUDA tensors: ``(..., V)`` z, ``(..., M)`` int32 ci -> ``(..., M)`` fp32."""
+    out = _fwd(z, ci)
+    vocab_gather_fwd.launches += 1
+    return out
+
+
+def _fwd(z: torch.Tensor, ci: torch.Tensor, fn=None) -> torch.Tensor:
+    """Checks the inputs and launches the forward entry point ``fn`` (default:
+    the checkout's), uncounted."""
     _check(z, "z", tuple(DTYPES), z.device)
     _check(ci, "ci", (torch.int32,), z.device)
     if z.device.type != "cuda" or ci.shape[:-1] != z.shape[:-1]:
@@ -73,11 +81,10 @@ def vocab_gather_fwd(z: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
                          f"{tuple(z.shape)} and {tuple(ci.shape)}")  # fmt: skip
     out = torch.empty(ci.shape, dtype=torch.float32, device=z.device)
     V, M = z.shape[-1], ci.shape[-1]
-    err = _kernels()[0](DTYPES[z.dtype], z.data_ptr(), ci.data_ptr(), out.data_ptr(), math.prod(ci.shape[:-1]), V, M,
-                        torch.cuda.current_stream(z.device).cuda_stream)  # fmt: skip
+    err = (fn or _kernels()[0])(DTYPES[z.dtype], z.data_ptr(), ci.data_ptr(), out.data_ptr(), math.prod(ci.shape[:-1]),
+                                V, M, torch.cuda.current_stream(z.device).cuda_stream)  # fmt: skip
     if err != 0:
         raise RuntimeError(f"vocab_gather forward kernel launch failed: CUDA error {err}")
-    vocab_gather_fwd.launches += 1
     return out
 
 

@@ -12,8 +12,9 @@ rows and refills free slots with bucketed prefill groups.
 Per decode step on the card: the input layer (PyTorch), the whole layer
 stack through kernel B (`ops.decode_step.decode_stack_step`, CUDA), ``ln_f``
 and the output heads (PyTorch), the categorical heads through kernel A
-(`ops.fused_sampling.fused_categorical`, Triton) with the Gumbel noise drawn
-outside it, and the in-place buffer updates. On CPU tensors both kernels
+(`ops.fused_sampling.fused_categorical_stream`, CUDA), which draws the
+Gumbel noise of each row's stream inside the kernel, and the in-place
+buffer updates. On CPU tensors both kernels
 take their plain PyTorch versions. Prefill runs the model forward on a
 fresh cache at the bucket width and scatters the rows into their slots.
 
@@ -44,7 +45,7 @@ import numpy as np
 import torch
 
 from ..data.types import EventStreamBatch
-from ..distributions import dist_tensors, gumbel
+from ..distributions import dist_tensors
 from ..generation.generation_utils import _mask_through_cursor, _slice_preds_at, _trim_to_event
 from ..generation.sampling import (
     RowStreams,
@@ -60,7 +61,7 @@ from ..generation.stopping_criteria import DeadRowCriteria, DeviceCriterion
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
 from ..models.transformer import init_kv_caches
 from ..ops.decode_step import decode_stack_step, stack_layer_weights
-from ..ops.fused_sampling import fused_categorical, topk_topp_mask
+from ..ops.fused_sampling import fused_categorical_stream, topk_topp_mask
 from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
 from .errors import MalformedPromptRejected, SlotHealthError
@@ -236,9 +237,8 @@ class GenerationEngine:
     # --------------------------------------------------------- device pieces
     def _categorical_sampler(self, active):
         def sampler(logits, stream):
-            g = gumbel(stream, logits.shape, logits.device).to(logits.dtype)
             keep = topk_topp_mask(logits, self.top_k, self.top_p)
-            return fused_categorical(logits, g, keep, active, fill=0)
+            return fused_categorical_stream(logits, stream, keep, active, fill=0)
 
         return sampler
 

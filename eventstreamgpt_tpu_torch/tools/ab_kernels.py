@@ -1,12 +1,25 @@
-"""A/B timing of versions of kernel B (``csrc/decode_step.cu``), kernel C's
-backward (``csrc/vocab_gather.cu``) and kernel D (``csrc/dep_graph.cu``,
+"""A/B timing of versions of kernel A (``csrc/fused_sampling.cu`` against
+another checkout's), kernel B (``csrc/decode_step.cu``), kernel C's forward
+and backward (``csrc/vocab_gather.cu``) and kernel D (``csrc/dep_graph.cu``,
 forward and backward) on one CUDA device.
 
 Builds the checkout's sources and each given version (all at once, as
 `ops.build` builds the port's kernels), then, in turns (the checkout, each
 given version, then the same in reverse order), times each version through
 the port's own launch code on the same inputs. Only the kernels given a
-version run (all three, the checkout's alone, when none is given):
+version run (all of them, the checkout's alone, when none is given):
+
+* A at the serving shape: the 40-way ``event_type`` columns of a (32, 4057)
+  fp32 plane (a strided view, as the heads pass it; normal logits of scale
+  3, 90% of rows active, numpy seed 0), through the checkout's
+  `fused_categorical_stream` (noise drawn inside) and `fused_categorical`
+  (noise given), and through each other checkout's `fused_categorical`
+  (``--a name=DIR``: the ``eventstreamgpt_tpu_torch`` package under DIR,
+  imported under its own name), with the noise given and with the ATen
+  ``gumbel(stream)`` drawn first as the engine drew it there; every
+  version's indices must equal the checkout's plain version's on the same
+  noise. Beside them the ATen noise alone and the launch floor (an empty
+  kernel);
 
 * B at the serving shape: the serving benchmark's CI model
   (`data.synthetic.serving_config`, bf16, numpy-seeded weights of std 0.02),
@@ -14,10 +27,11 @@ version run (all three, the checkout's alone, when none is given):
   cursor except a few, normal K, V and h0 (numpy seed 0), windows (32, 0)
   (every call writes the same k and v at the cursors, so repeated calls
   compute the same step);
-* C backward at the training shape: a (8192, 7000) bf16 plane's gradient
-  from (8192, 48) indices laid out as the regression head lays them out
-  (``2 i`` and ``2 i + 1`` for 24 data elements an event, 60% of them
-  padding index 0) and a normal fp32 cotangent;
+* C forward and backward at the training shape: a normal (8192, 7000) bf16
+  plane, gathered at and its gradient scattered from (8192, 48) indices
+  laid out as the regression head lays them out (``2 i`` and ``2 i + 1``
+  for 24 data elements an event, 60% of them padding index 0) with a
+  normal fp32 cotangent; beside the forward the launch floor;
 * D forward and backward at the nested-attention training shape: N = 8192
   rows, Q = 3 queries (the ``[:, 1:]`` view of an ``(N, 4, 4, 64)``
   projection, as the model passes it), S = 4 positions, H = 4, D = 64,
@@ -26,7 +40,7 @@ version run (all three, the checkout's alone, when none is given):
 
 For each it prints the device time per call (`utils.timing.time_ms`, the
 timer `chip_smoke.py` uses) and each output's largest distance from the
-checkout's (C backward must be bit-equal; D prints out, dq, dk and dv).
+checkout's (C must be bit-equal; D prints out, dq, dk and dv).
 Beside D it times two floors on the same inputs: the checkout's source
 built with ``-DESGPT_DG_COPY_ONLY=1`` (the same loads and stores, no
 arithmetic) and a PyTorch copy moving as many bytes (half read, half
@@ -39,6 +53,7 @@ checkout:
     python -m eventstreamgpt_tpu_torch.tools.ab_kernels --b old=build/old_b.cu --c old=build/old_c.cu
     python -m eventstreamgpt_tpu_torch.tools.ab_kernels --trace
     python -m eventstreamgpt_tpu_torch.tools.ab_kernels --d old=build/old_d.cu
+    python -m eventstreamgpt_tpu_torch.tools.ab_kernels --a parent=build/parent --c-fwd old=build/old_c.cu
 
 A version is ``name=path`` with optional ``:NAME=VALUE,NAME2`` macro
 definitions; it must have the same C interface as the checkout's source. It
@@ -50,6 +65,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -60,14 +77,18 @@ import torch
 
 from ..convert import init_params_from_seed
 from ..data.synthetic import serving_config
+from ..distributions import gumbel
+from ..generation.sampling import RowStreams
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..ops import build
 from ..ops import decode_step as ds
 from ..ops import dep_graph as dg
+from ..ops import fused_sampling as fs
 from ..ops import vocab_gather as vg
 from ..utils.timing import time_ms
 
 B_SLOTS, M = 32, 256
+A_VOCAB, A_COLUMNS, A_SALT = 4057, slice(1, 41), 7  # the event_type head's columns of the serving plane
 ROWS, V, ELEMENTS = 8192, 7000, 24
 D_SHAPE, D_RATE = (8192, 4, 4, 64), 0.1  # (N, S, H, D); Q = S - 1 queries at q_offset 1
 TRACE_DEFINE = "ESGPT_DECODE_TRACE"
@@ -170,6 +191,70 @@ def run_c(fn, inputs) -> tuple[float, torch.Tensor]:
     return time_ms(lambda: vg._bwd(g, ci, V, torch.bfloat16, fn))["ms"], dz
 
 
+@functools.cache
+def c_fwd_inputs():
+    ci = c_inputs()[1]
+    z = torch.from_numpy(np.random.default_rng(1).normal(size=(ROWS, V)).astype(np.float32)).cuda().bfloat16()
+    return z, ci
+
+
+def run_c_fwd(fn, inputs) -> tuple[float, torch.Tensor]:
+    z, ci = inputs
+    return time_ms(lambda: vg._fwd(z, ci, fn), n=100)["ms"], vg._fwd(z, ci, fn)
+
+
+def load_package(alias: str, root: str):
+    """Another checkout's ``eventstreamgpt_tpu_torch`` (under ``root``), imported as ``alias``."""
+    pkg = Path(root).resolve() / "eventstreamgpt_tpu_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def ab_a(specs: list[str]) -> list[dict]:
+    """Kernel A's versions in turns at the serving shape (module docstring)."""
+    rng = np.random.default_rng(0)
+    plane = torch.from_numpy((rng.normal(size=(B_SLOTS, A_VOCAB)) * 3).astype(np.float32)).cuda()
+    logits = plane[:, A_COLUMNS]
+    seeds = torch.from_numpy(rng.integers(-(2**62), 2**62, size=B_SLOTS)).cuda()
+    counters = torch.from_numpy(rng.integers(0, 2**20, size=B_SLOTS)).cuda()
+    active = torch.from_numpy(rng.random(B_SLOTS) < 0.9).cuda()
+
+    def stream():
+        return RowStreams(seeds, counters, A_SALT)
+
+    g = gumbel(stream(), logits.shape, "cuda")  # fp32, as the logits
+    want = fs.fused_categorical_reference(logits, g, None, active)
+    calls = {"checkout, noise inside": lambda s: fs.fused_categorical_stream(logits, s, None, active),
+             "checkout, noise given": lambda s: fs.fused_categorical(logits, g, None, active)}  # fmt: skip
+    for spec in specs:
+        name, root = spec.split("=", 1)
+        other = importlib.import_module(f"{load_package(f'ab_kernels_{name}', root).__name__}.ops.fused_sampling")
+        calls[f"{name}, noise given"] = lambda s, m=other: m.fused_categorical(logits, g, None, active)
+        calls[f"{name}, ATen noise then kernel"] = lambda s, m=other: m.fused_categorical(
+            logits, gumbel(s, logits.shape, "cuda"), None, active
+        )
+    calls["ATen noise alone"] = lambda s: gumbel(s, logits.shape, "cuda")
+    calls["launch floor"] = lambda s: fs.launch_floor()
+    runs = []
+    order = list(calls) + list(calls)[::-1]
+    for turn, name in enumerate(order):
+        out = calls[name](stream())
+        torch.cuda.synchronize()
+        if name not in ("ATen noise alone", "launch floor") and not torch.equal(out, want):
+            raise RuntimeError(f"ab_kernels: kernel A version {name!r} differs from the plain version")
+        s = stream()
+        # The ATen noise is about a hundred launches a call: 4 calls keep the
+        # queue of pending launches short enough that the device, not the
+        # host's enqueueing, is timed.
+        t = time_ms(lambda: calls[name](s), n=4 if "ATen" in name else 100)
+        runs.append(dict(version=name, turn=turn, ms=t["ms"], single_ms=t["single_ms"]))
+        print(f"A {name} (turn {turn}): {t['ms']:.4f} ms, one synchronised call {t['single_ms']:.4f} ms", flush=True)
+    return runs
+
+
 def trace_b(lib: ctypes.CDLL, inputs) -> dict:
     """One traced call of B; per layer and phase the median and largest CTA time (us), and the span."""
     weights, kc, vc, h0, start, em, mask, kw = inputs
@@ -196,7 +281,9 @@ def trace_b(lib: ctypes.CDLL, inputs) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("--b", action="append", default=[], help="name=path[:MACRO=VALUE,...] of decode_step.cu")
+    parser.add_argument("--a", action="append", default=[], help="name=DIR of another checkout (its kernel A)")
     parser.add_argument("--c", action="append", default=[], help="name=path[:MACRO=VALUE,...] of vocab_gather.cu")
+    parser.add_argument("--c-fwd", action="append", default=[], help="the same, C's forward timed")
     parser.add_argument("--d", action="append", default=[], help="name=path[:MACRO=VALUE,...] of dep_graph.cu")
     parser.add_argument("--trace", action="store_true", help="summarise B's per-CTA phase trace")
     parser.add_argument("--out", default=None)
@@ -208,22 +295,26 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]  # fmt: skip
     print(smi, flush=True)
-    given = {"B": args.b, "C bwd": args.c, "D": args.d}
-    sources = {"B": ds.SOURCE, "C bwd": vg.SOURCE, "D": dg.SOURCE}
-    run_all = not any(given.values())
+    given = {"B": args.b, "C fwd": args.c_fwd, "C bwd": args.c, "D": args.d}
+    sources = {"B": ds.SOURCE, "C fwd": vg.SOURCE, "C bwd": vg.SOURCE, "D": dg.SOURCE}
+    run_all = not any(given.values()) and not args.a
     jobs = {kernel: version_jobs(specs, sources[kernel]) for kernel, specs in given.items() if specs or run_all}
     traced = (str(build.CSRC_DIR / ds.SOURCE), (TRACE_DEFINE,))
     d_floor = (str(build.CSRC_DIR / dg.SOURCE), (D_FLOOR_DEFINE,))
     extra = ([traced] if args.trace else []) + ([d_floor] if "D" in jobs else [])
-    paths = build.build_all([job for versions in jobs.values() for job in versions.values()] + extra)
+    a_source = [fs.SOURCE] if args.a or run_all else []
+    paths = build.build_all([job for versions in jobs.values() for job in versions.values()] + extra + a_source)
     libs = {kernel: load(versions, paths) for kernel, versions in jobs.items()}
     parts = {
         "B": [("B", ds.bind, run_b, b_inputs)],
+        "C fwd": [("C fwd", lambda lib: vg.bind(lib)[0], run_c_fwd, c_fwd_inputs)],
         "C bwd": [("C bwd", lambda lib: vg.bind(lib)[1], run_c, c_inputs)],
         "D": [("D fwd", lambda lib: dg.bind(lib)[0], run_d_fwd, d_inputs),
               ("D bwd", lambda lib: dg.bind(lib)[1], run_d_bwd, d_inputs)],
     }  # fmt: skip
     report = dict(card=smi, runs={})
+    if a_source:
+        report["runs"]["A"] = ab_a(args.a)
     for kernel, versions in libs.items():
         for part, bind, run, make_inputs in parts[kernel]:
             inputs = make_inputs()
@@ -253,8 +344,12 @@ def main(argv=None) -> int:
                 report["runs"][f"{part} floors"] = dict(bytes=nbytes, copy_only_ms=floor_ms, torch_copy_ms=copy_ms)
                 print(f"{part}: the same loads and stores without arithmetic {floor_ms:.4f} ms; a copy of the same "
                       f"{nbytes / 1e6:.2f} MB {copy_ms:.4f} ms", flush=True)  # fmt: skip
-            if part == "C bwd" and any(r["max_abs_diff_from_checkout"] != 0 for r in runs):
-                print("ab_kernels: a C backward version differs from the checkout's", file=sys.stderr)
+            if part == "C fwd":
+                floor = time_ms(fs.launch_floor, n=100)
+                report["runs"]["C fwd floor"] = dict(launch_floor_ms=floor["ms"], single_ms=floor["single_ms"])
+                print(f"C fwd: launch floor (an empty kernel) {floor['ms']:.4f} ms", flush=True)
+            if part.startswith("C") and any(r["max_abs_diff_from_checkout"] != 0 for r in runs):
+                print(f"ab_kernels: a {part} version differs from the checkout's", file=sys.stderr)
                 return 1
     if args.trace:
         report["trace_b"] = trace_b(ctypes.CDLL(str(paths[traced])), b_inputs())

@@ -9,7 +9,11 @@ and sampled decoding measures:
   median of 20);
 * with ``torch.profiler`` over 5 steps: the device time of every kernel
   (summed per kernel name), the launches per step, and the device's busy
-  share of the wall time.
+  share of the wall time;
+* in one more step, under a dispatch mode: the ATen operations other than
+  views (each one kernel launch on the card) dispatched inside the sampling
+  tail (`generation.sampling.sample_head_draws`) and, of those, inside the
+  counter-hash generator (`RowStreams.uniform`).
 
 Run from the root of a checkout:
 
@@ -22,6 +26,8 @@ without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import subprocess
 import sys
@@ -30,11 +36,14 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..convert import init_params_from_seed
+from ..generation import sampling
 from ..data.synthetic import log_time_stats, serving_config, synthetic_prompts
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..serving import GenerationEngine, Request
+from ..serving import engine as engine_module
 
 N_SLOTS, PROFILED_STEPS, TIMED_STEPS = 32, 5, 20
 
@@ -52,6 +61,52 @@ def _kernel_time_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+class _ScopedOpCount(TorchDispatchMode):
+    """Counts the non-view ATen operations dispatched inside each open scope."""
+
+    def __init__(self):
+        super().__init__()
+        self.open, self.counts = [], collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not getattr(func, "is_view", False):
+            for scope in set(self.open):
+                self.counts[scope] += 1
+        return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def scope(self, name):
+        self.open.append(name)
+        try:
+            yield
+        finally:
+            self.open.pop()
+
+
+def sampling_ops(engine) -> dict:
+    """The ATen operations (views aside) one decode step dispatches inside the
+    sampling tail and inside `RowStreams.uniform`."""
+    counter = _ScopedOpCount()
+    uniform, draws = sampling.RowStreams.uniform, engine_module.sample_head_draws
+
+    def counted_uniform(self, shape):
+        with counter.scope("rng_uniform"):
+            return uniform(self, shape)
+
+    def counted_draws(*args, **kwargs):
+        with counter.scope("sample_head_draws"):
+            return draws(*args, **kwargs)
+
+    sampling.RowStreams.uniform, engine_module.sample_head_draws = counted_uniform, counted_draws
+    try:
+        with counter:
+            engine._decode_step()
+        torch.cuda.synchronize()
+    finally:
+        sampling.RowStreams.uniform, engine_module.sample_head_draws = uniform, draws
+    return {f"{k}_ops_per_step": counter.counts[k] for k in ("sample_head_draws", "rng_uniform")}
 
 
 def profile_mode(model, config, prompts, greedy: bool) -> dict:
@@ -81,6 +136,7 @@ def profile_mode(model, config, prompts, greedy: bool) -> dict:
                 engine._decode_step()
             torch.cuda.synchronize()
             profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+        ops = sampling_ops(engine)
     kernels = {}
     for evt in prof.key_averages():
         us = _kernel_time_us(evt)
@@ -101,6 +157,7 @@ def profile_mode(model, config, prompts, greedy: bool) -> dict:
         "device_idle_share_profiled": 1.0 - busy_ms / profiled_wall_ms,
         "device_idle_share_unprofiled": 1.0 - (busy_ms / PROFILED_STEPS) / float(np.median(walls)),
         "kernel_launches_per_step": sum(c for c, _ in kernels.values()) / PROFILED_STEPS,
+        **ops,
         "top_kernels_per_step": [
             {"name": name[:90], "launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
             for name, (c, us) in top

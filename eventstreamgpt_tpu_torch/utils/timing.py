@@ -27,7 +27,12 @@ def time_ms(fn, n=50, repeats=5, warmup=3) -> dict:
     """``ms``: device time per launch, from CUDA events around ``n``
     back-to-back calls queued behind a device-side sleep long enough for the
     host to enqueue them all (median of ``repeats``); ``single_ms``: one
-    synchronised call, host work included (median of 30)."""
+    synchronised call, host work included (median of 30). ``n`` times the
+    launches of one call must stay well under the depth of the stream's
+    queue of pending launches: past it the host waits for the device, and
+    the host's enqueueing rate is what gets timed (on an NVIDIA H100 80GB
+    HBM3 at 700 W a function of about a hundred launches read 0.81-0.85 ms a
+    call at ``n`` = 100 and 0.23 ms at ``n`` = 4)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()

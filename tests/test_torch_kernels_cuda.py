@@ -1,6 +1,6 @@
 """The PyTorch port's hand-written kernels against their plain versions, on the card.
 
-A CUDA or Triton kernel has no CPU mode, so these tests carry the ``cuda``
+A CUDA kernel has no CPU mode, so these tests carry the ``cuda``
 marker and skip without a CUDA device. The file imports no JAX (the machine
 with the card has none); run it there without the JAX conftest:
 
@@ -37,7 +37,14 @@ from eventstreamgpt_tpu_torch.ops.flash_attention import (
     tile_schedule,
     tiles_walked,
 )
-from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_reference
+from eventstreamgpt_tpu_torch.distributions import gumbel
+from eventstreamgpt_tpu_torch.generation.sampling import RowStreams
+from eventstreamgpt_tpu_torch.ops.fused_sampling import (
+    fused_categorical,
+    fused_categorical_reference,
+    fused_categorical_stream,
+    gumbel_noise,
+)
 from eventstreamgpt_tpu_torch.ops.vocab_gather import (
     vocab_gather,
     vocab_gather_bwd,
@@ -74,6 +81,85 @@ def test_fused_categorical_matches_plain_version(cuda, dtype, V):
             z.to(cuda), g.to(cuda), None if k is None else k.to(cuda), None if a is None else a.to(cuda), fill=5
         )
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def special_logits(rows, V, seed, dtype, device):
+    """Normal logits with a NaN row, a row with +inf, an all--inf row and a row of exact ties."""
+    rng = np.random.default_rng(seed)
+    z = (rng.normal(size=(rows, V)) * 3).astype(np.float32)
+    for r, kind in zip(range(0, rows, 7), ("nan", "inf", "neg_inf", "ties")):
+        if kind == "nan":
+            z[r, rng.integers(V)] = np.nan
+        elif kind == "inf":
+            z[r, rng.integers(V)] = np.inf
+        elif kind == "neg_inf":
+            z[r] = -np.inf
+        else:
+            z[r] = 1.0
+    return torch.from_numpy(z).to(dtype).to(device)
+
+
+# V: one column, two, the serving head, a lane past four warps, the
+# vocabulary; rows: one, the serving slots, one more, many.
+@pytest.mark.parametrize("rows", [1, 32, 33, 2048])
+@pytest.mark.parametrize("V", [1, 2, 40, 129, 4057])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_categorical_stream_matches_plain_version(cuda, dtype, V, rows):
+    """Indices equal to ``fused_categorical_reference`` given ``gumbel(stream)``
+    on the card, with and without keep and active, on NaN, +inf and
+    all--inf rows, for several seeds and salts."""
+    dt = DTYPES[dtype]
+    z = special_logits(rows, V, seed=V + rows, dtype=dt, device=cuda)
+    rng = np.random.default_rng(rows * V)
+    keep = torch.from_numpy(rng.random((rows, V)) < 0.5).to(cuda)
+    active = torch.from_numpy(rng.random(rows) < 0.8).to(cuda)
+    for trial in range(3):
+        seeds = torch.from_numpy(rng.integers(-(2**62), 2**62, size=rows, dtype=np.int64)).to(cuda)
+        counters = torch.from_numpy(rng.integers(0, 2**40, size=rows, dtype=np.int64)).to(cuda)
+        salt = int(rng.integers(0, 2**32))
+        for k, a in ((None, None), (keep, None), (None, active), (keep, active)):
+            plain = RowStreams(seeds, counters, salt)
+            want = fused_categorical_reference(z, gumbel(plain, z.shape, cuda).to(dt), k, a, fill=-2)
+            launches = fused_categorical_stream.launches
+            got = fused_categorical_stream(z, RowStreams(seeds, counters, salt), k, a, fill=-2)
+            torch.cuda.synchronize()
+            assert fused_categorical_stream.launches == launches + 1
+            assert torch.equal(got, want), (trial, k is not None, a is not None, (got != want).nonzero()[:5])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fused_categorical_stream_strided_rows_and_leading_shape(cuda, dtype):
+    """Columns of a wider plane (the heads' slices, read in place) and a
+    ``(B, X, V)`` plane whose stream rows each cover X rows."""
+    dt = DTYPES[dtype]
+    B, X, V = 5, 3, 40
+    wide = special_logits(B * X, 4057, seed=3, dtype=dt, device=cuda).reshape(B, X, 4057)
+    seeds = torch.arange(B, dtype=torch.int64, device=cuda) * 1_000_003
+    counters = torch.arange(B, dtype=torch.int64, device=cuda) + 17
+    for logits in (wide[:, 0, 100 : 100 + V], wide[..., 7 : 7 + V]):
+        want = fused_categorical_reference(logits, gumbel(RowStreams(seeds, counters, 9), logits.shape, cuda).to(dt))
+        got = fused_categorical_stream(logits, RowStreams(seeds, counters, 9))
+        assert got.shape == logits.shape[:-1] and torch.equal(got, want)
+
+
+# Shapes: the serving plane, the vocabulary at many rows (most of the 2**24
+# uniforms the hash can give), and a (B, X, V) plane.
+@pytest.mark.parametrize("shape", [(32, 40), (4096, 4057), (6, 3, 129)], ids=str)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_gumbel_noise_is_bitwise_gumbel_of_the_stream(cuda, dtype, shape):
+    """The kernel's noise (its own device function, written out) equals
+    ``gumbel(stream, shape).to(dtype)`` computed by ATen on the card, bit for
+    bit: the same hash, the same fp32 roundings and the same ``logf``."""
+    dt = DTYPES[dtype]
+    rng = np.random.default_rng(shape[-1])
+    seeds = torch.from_numpy(rng.integers(-(2**62), 2**62, size=shape[0], dtype=np.int64)).to(cuda)
+    counters = torch.from_numpy(rng.integers(0, 2**40, size=shape[0], dtype=np.int64)).to(cuda)
+    salt = int(rng.integers(0, 2**32))
+    got = gumbel_noise(RowStreams(seeds, counters, salt), shape, dt)
+    want = gumbel(RowStreams(seeds, counters, salt), shape, cuda).to(dt)
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    differ = got.view(bits) != want.view(bits)
+    assert not differ.any(), (int(differ.sum()), got[differ][:5].tolist(), want[differ][:5].tolist())
 
 
 @pytest.mark.parametrize("with_active", [False, True])
@@ -327,6 +413,34 @@ def test_vocab_gather_bwd_edge_rows_match_cpu(cuda, dtype, shape):
     assert vocab_gather_bwd.launches == launches + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got.cpu(), zz.grad, rtol=0, atol=0)
+
+
+# (rows, V, M): one slot and three (one slot a thread), the training width
+# and 48 at many rows (four slots a thread), 50 (M % 4 == 2), at odd rows.
+@pytest.mark.parametrize("rows,V,M", [(7, 5, 1), (33, 1000, 3), (257, 7000, 48), (99, 7000, 50), (8191, 300, 48)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_vocab_gather_fwd_matches_plain_version(cuda, dtype, rows, V, M):
+    """Kernel C's forward bitwise equal to its plain version on the card, with
+    negative, too-large and padding indices, on a contiguous index plane and
+    on one 4 bytes off a 16-byte boundary (which takes one slot a thread)."""
+    rng = np.random.default_rng(rows + V + M)
+    ci = rng.integers(0, V, size=(rows, M))
+    ci[rng.random((rows, M)) < 0.3] = 0
+    ci[rng.random((rows, M)) < 0.1] = -7
+    ci[rng.random((rows, M)) < 0.1] = V
+    ci[::5, -1] = 2**31 - 1
+    ci = torch.from_numpy(ci.astype(np.int32)).to(cuda)
+    z = torch.from_numpy(rng.normal(size=(rows, V)).astype(np.float32)).to(DTYPES[dtype]).to(cuda)
+    want = vocab_gather_reference(z, ci)
+    launches = vocab_gather_fwd.launches
+    got = vocab_gather_fwd(z, ci)
+    shifted = torch.empty(ci.numel() + 1, dtype=torch.int32, device=cuda)[1:].view(ci.shape)
+    shifted.copy_(ci)
+    assert shifted.data_ptr() % 16 != 0
+    got_shifted = vocab_gather_fwd(z, shifted)
+    torch.cuda.synchronize()
+    assert vocab_gather_fwd.launches == launches + 2
+    assert torch.equal(got, want) and torch.equal(got_shifted, want)
 
 
 # (N, S, H, D, q_offset, window): the training shape's geometry at an odd N;

@@ -2,7 +2,7 @@
 
 * ``import eventstreamgpt_tpu_torch`` (every module) works with JAX blocked.
 * An AST scan finds no ``jax``, ``flax`` or ``eventstreamgpt_tpu`` import in
-  the port or in ``chip_smoke.py``.
+  the port or in ``chip_smoke.py``, and no ``triton`` import.
 * A JAX config's ``to_dict()`` round-trips through the port's config (and
   through JSON) to the same dictionary.
 * `load_jax_params` raises on a flax leaf it cannot place and on a port
@@ -72,6 +72,16 @@ def imported_roots(path: Path) -> set[str]:
 )
 def test_no_jax_imports(path):
     assert not (imported_roots(path) & set(FORBIDDEN)), path
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_triton_imports(path):
+    """Every kernel of the port is CUDA C++ under ``csrc/``; nothing imports Triton."""
+    assert "triton" not in imported_roots(path), path
 
 
 def jax_config():

@@ -13,7 +13,7 @@ against ``eventstreamgpt_tpu.ops.pallas_heads.vocab_gather(impl=
   one bf16 ulp in bf16 (both sum in fp32 and round once).
 
 Shapes cover duplicate indices, negative and too-large indices, V and M
-that are not multiples of 128, and 3-D leading shapes.
+that are not multiples of 128 (nor M of 4), and 3-D leading shapes.
 """
 
 import jax
@@ -30,6 +30,7 @@ SHAPES = {
     "2d_odd": ((33,), 200, 48),
     "3d": ((2, 5), 130, 130),
     "3d_wide": ((3, 4), 1000, 20),
+    "2d_m50": ((17,), 300, 50),  # M % 4 != 0: the CUDA forward's one-slot-a-thread path
 }
 DTYPES = {"fp32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
