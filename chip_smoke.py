@@ -38,6 +38,24 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    B's ``h`` within rtol=atol=1e-4 in fp32 and atol=2e-2 in bf16, cache
    positions other than the cursor bit-equal, the cursor entries within the
    same tolerances, mask and length exact; B's cluster shape and CTAs.
+3b. The quantized decode cache: phase 2's model and 64 requests served with
+   ``kv_cache_dtype`` "int8" and then "fp8", greedy and sampled, at
+   ``dispatch_depth=2`` (every request finishes with ``n_events ==
+   prompt_len + n_generated`` and finite outputs; kernel B's quantized
+   launch counter for that dtype and, sampling, kernel A's counter move; the
+   float entry never launches). A small fp32 int8 engine on the card must
+   match the same engine on the CPU (events and integers exact, floats within
+   2e-2, the JAX package's quantized-cache tolerance). Quantized
+   B against its plain version on the inputs captured from each sampled
+   run's first decode step, fp32 and bf16: codes and scales off the cursor
+   bit-equal, the dequantized cursor keys and values within phase 3's
+   tolerances (of each row's largest) plus one quantisation step, ``h``
+   within phase 3's tolerance
+   on the rows whose cursor codes agree (a key one rounding apart can move
+   a code by a step), mask and length exact. Printed, not checked: quantized
+   B's time beside the bf16 B on the same rows (dequantized), its bound and
+   its plain version's; the share of greedy requests whose events equal the
+   bf16 run's; ``slots_report()`` at the card's own memory.
 4. Training at full width: the same model with dropout 0.1 and fp32 master
    weights, AdamW with warmup (``bench.py``'s optimizer settings), 20 train
    steps through `make_train_step` on one fixed synthetic batch of 32
@@ -224,11 +242,15 @@ class Capture:
 
         def b(weights, kc, vc, h0, start, em, mask, **kw):
             if self.armed and self.b is None:
+                kept = {k: v.clone() if k.endswith("_scale") and v is not None else v for k, v in kw.items()}
                 self.b = dict(weights=weights, kc=kc.clone(), vc=vc.clone(), h0=h0.clone(), start=start.clone(),
-                              em=em.clone(), mask=mask.clone(), kw=kw)  # fmt: skip
+                              em=em.clone(), mask=mask.clone(), kw=kept)  # fmt: skip
             return self.orig_b(weights, kc, vc, h0, start, em, mask, **kw)
 
         engine_module.fused_categorical_stream, engine_module.decode_stack_step = a, b
+
+    def restore(self):
+        self.mod.fused_categorical_stream, self.mod.decode_stack_step = self.orig_a, self.orig_b
 
 
 def engine_phase(smi):
@@ -280,24 +302,25 @@ def engine_phase(smi):
             check(launches["fused_categorical_stream"] == 0, "greedy: the sampling kernel launched in greedy mode")
         generated = sum(r.n_generated for r in results)
         stats = engine.stats()
-        out[mode] = dict(launches=launches, generated=generated, wall_s=wall, stats=stats)
+        out[mode] = dict(launches=launches, generated=generated, wall_s=wall, stats=stats, results=results)
         print(
             f"phase 2 [{mode}] {len(results)} requests, {generated} generated events in {wall:.3f} s: "
             f"{generated / wall:.1f} events/s, {launches}, decode steps {stats['dispatched_chunks'] * 16}, "
-            f"wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
+            f"dispatch_depth {stats['dispatch_depth']}, wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
             flush=True,
         )
-    engine_module.fused_categorical_stream, engine_module.decode_stack_step = capture.orig_a, capture.orig_b
+    capture.restore()
     check(capture.a is not None and capture.b is not None, "no decode-step inputs were captured")
     small_engine_matches_cpu()
     return model, config, capture, out
 
 
-def small_engine_matches_cpu():
+def small_engine_matches_cpu(**engine_kw):
     """The whole path on the card against the same engine on the CPU (plain
     versions of both kernels), fp32 greedy at a small size: a small
     vocabulary (few Bernoulli draws that float noise could tip over 0.5) and
-    a narrow log-time scale (moderate times for the sinusoidal encoding)."""
+    a narrow log-time scale (moderate times for the sinusoidal encoding).
+    ``engine_kw`` go to both engines (``kv_cache_dtype``)."""
     import numpy as np
     import torch
 
@@ -313,7 +336,11 @@ def small_engine_matches_cpu():
     with torch.no_grad():  # a near-constant TTE head: inter-event times of about e^1 minutes
         model.output_layer.TTE_layer.proj.weight.mul_(0.02)
     prompts = synthetic_prompts(np.random.default_rng(1), 6, config, (6, 12), (4, 8))
-    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True, **engine_kw)
+    # A quantized cache: a key one rounding apart can move a code by a step,
+    # and floats then agree to the JAX package's quantized-cache tolerance
+    # (tests/test_kv_quant.py, 2e-2); float caches to 1e-4.
+    float_tol, float_diff = (2e-2 if engine_kw.get("kv_cache_dtype") in QUANT_DTYPES else 1e-4), 0.0
     res = {}
     for dev in ("cuda", "cpu"):
         reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
@@ -329,8 +356,11 @@ def small_engine_matches_cpu():
                      f"{a.shape[1]} (prompt {g.prompt_len}); max |time_delta diff| before it {td:.3g}; "
                      f"card {a[0, first].tolist()} cpu {b[0, first].tolist()}")  # fmt: skip
         for f in ("time_delta", "dynamic_values"):
-            torch.testing.assert_close(getattr(g.batch, f), getattr(c.batch, f), rtol=1e-4, atol=1e-4)
-    print("phase 2: small fp32 greedy engine on the card matches the CPU engine", flush=True)
+            a, b = getattr(g.batch, f), getattr(c.batch, f)
+            float_diff = max(float_diff, (a - b).abs().max().item())
+            torch.testing.assert_close(a, b, rtol=float_tol, atol=float_tol)
+    print(f"phase 2: small fp32 greedy engine {engine_kw or ''} on the card matches the CPU engine: events and "
+          f"integers exact, floats within {float_tol} (max |diff| {float_diff:.3g})", flush=True)  # fmt: skip
 
 
 # ---------------------------------------------------------------- phase 3
@@ -514,7 +544,7 @@ def kernel_b_phase(model, config, capture):
         for i in (1, 2):
             check(torch.equal(got[i][~at], want[i][~at]), f"kernel B ({dt}): cache changed off the cursor")
             torch.testing.assert_close(got[i][at].float(), want[i][at].float(), **tol)
-        check(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]), f"kernel B ({dt}): mask/length")
+        check(torch.equal(got[5], want[5]) and torch.equal(got[6], want[6]), f"kernel B ({dt}): mask/length")
         print(f"phase 3: kernel B ({dt}) within {tol}: max |h diff| {err:.3g}", flush=True)
         if dt == torch.bfloat16:
             max_err = err
@@ -546,6 +576,206 @@ def kernel_b_phase(model, config, capture):
     return dict(t, bound_ms=bound,
                 bound_by="bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_FLOPS["bf16"] else "operations",
                 max_abs_err=max_err, shape=[L, B, H, M, D], cluster=[C, 1, 1], blocks=B * C)  # fmt: skip
+
+
+# ---------------------------------------------------------------- phase 3b
+QUANT_DTYPES = ("int8", "fp8")
+
+
+def quantized_engine_phase(smi, model, config, runs):
+    """Phase 2's model and requests served with an int8 and an fp8 cache at
+    ``dispatch_depth=2``, greedy and sampled; returns the captured inputs of
+    each sampled run's first decode step and the runs' launch counts."""
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.serving.engine as engine_module
+    from eventstreamgpt_tpu_torch.data.synthetic import synthetic_prompts, serving_config
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, serving_config(), (128, 192), (16, 64))
+    engine_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED,
+                     dispatch_depth=2)  # fmt: skip
+    counters = ("launches", "launches_int8", "launches_fp8")
+    captures, out = {}, {}
+    for kv in QUANT_DTYPES:
+        captures[kv] = capture = Capture(engine_module)
+        for mode in ("greedy", "sampled"):
+            engine = GenerationEngine(model, config, template=prompts[0][0], greedy=mode == "greedy",
+                                      kv_cache_dtype=kv, **engine_kw)  # fmt: skip
+            reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+            capture.armed = mode == "sampled"
+            for c in counters:
+                setattr(decode_stack_step, c, 0)
+            fused_categorical.launches = fused_categorical_stream.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = engine.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {f"decode_stack_step.{c}": getattr(decode_stack_step, c) for c in counters}
+            launches["fused_categorical_stream"] = fused_categorical_stream.launches
+            launches["fused_categorical"] = fused_categorical.launches
+            label = f"phase 3b [{kv} {mode}]"
+            check_results(results, reqs, label)
+            ours = launches[f"decode_stack_step.launches_{kv}"]
+            check(ours > 0, f"{label}: the quantized decode kernel never ran")
+            check(sum(launches[f"decode_stack_step.{c}"] for c in counters) == ours,
+                  f"{label}: another entry of kernel B launched: {launches}")  # fmt: skip
+            check(launches["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
+            if mode == "sampled":
+                check(launches["fused_categorical_stream"] > 0, f"{label}: the sampling kernel was never launched")
+            else:
+                check(launches["fused_categorical_stream"] == 0, f"{label}: the sampling kernel ran in greedy mode")
+            stats = engine.stats()
+            check(stats["kv_cache_dtype"] == kv and stats["dispatch_depth"] == 2, f"{label}: {stats}")
+            generated = sum(r.n_generated for r in results)
+            line = (f"{label} {len(results)} requests, {generated} generated events in {wall:.3f} s: "
+                    f"{generated / wall:.1f} events/s, {launches}, dispatched chunks {stats['dispatched_chunks']}, "
+                    f"wasted_decode_frac {stats['wasted_decode_frac']}, kv_cache_bytes {stats['kv_cache_bytes']}")  # fmt: skip
+            if mode == "greedy":
+                base = {r.request_id: r for r in runs["greedy"]["results"]}
+                agree = [same_generated_events(r, base[r.request_id]) for r in results]
+                same = sum(n == r.n_generated == base[r.request_id].n_generated for n, r in zip(agree, results))
+                line += (f"; greedy requests whose events equal the bf16 cache's: {same} of {len(results)}, generated "
+                         f"events equal before the first difference: median {float(np.median(agree))}, "
+                         f"{sum(agree)} of {generated} (not checked)")  # fmt: skip
+            print(f"{line} ({smi})", flush=True)
+            out[(kv, mode)] = dict(launches=launches, wall_s=wall, generated=generated)
+        capture.restore()
+        check(capture.b is not None, f"no quantized decode-step inputs were captured ({kv})")
+        if kv == "int8":
+            print(f"phase 3b: slots_report() at the card's memory: {json.dumps(engine.slots_report())} ({smi})",
+                  flush=True)  # fmt: skip
+    small_engine_matches_cpu(kv_cache_dtype="int8")
+    return captures, out
+
+
+def same_generated_events(a, b) -> int:
+    """The generated events of two results of one request (same prompt) that
+    are equal, event mask and every data element's index, before the first
+    that differs."""
+    import torch
+
+    n = min(a.n_events, b.n_events)
+    ea, eb = a.batch.event_mask[0, :n], b.batch.event_mask[0, :n]
+    ia, ib = a.batch.dynamic_indices[0, :n], b.batch.dynamic_indices[0, :n]
+    differ = torch.nonzero((ea != eb) | (ia != ib).flatten(1).any(-1)).flatten()
+    first = int(differ[0]) if len(differ) else n
+    return max(first - a.prompt_len, 0)
+
+
+def quant_step(value, scale, kv):
+    """One quantisation step at each dequantized value: the scale in int8; in
+    e4m3 (3 mantissa bits) at most 2^-3 of the scaled value, 2^-9 among the
+    subnormals, times the scale."""
+    import torch
+
+    if kv == "int8":
+        return scale
+    return scale * torch.clamp((value / scale).abs() * 2.0**-3, min=2.0**-9)
+
+
+def kernel_b_quant_phase(model, captures, smi):
+    """Quantized B against its plain version on the captured inputs, and timed."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.decode_step import (
+        decode_stack_step,
+        decode_stack_step_reference,
+        stack_layer_weights,
+    )
+    from eventstreamgpt_tpu_torch.ops.kv_quant import dequantize_kv, storage
+    from eventstreamgpt_tpu_torch.utils.timing import time_ms
+
+    result = {}
+    blocks = model.to("cuda").encoder.blocks()
+    for kv in QUANT_DTYPES:
+        cap = captures[kv].b
+        kw = {k: v for k, v in cap["kw"].items() if not k.endswith("_scale")}
+        scales = (cap["kw"]["key_scale"], cap["kw"]["value_scale"])
+        L, B, H, M, D = cap["kc"].shape
+        max_err = 0.0
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            weights = cap["weights"] if dt == torch.bfloat16 else stack_layer_weights(blocks, dt)
+            inputs = [cap["h0"].to(dt), cap["start"], cap["em"], cap["mask"]]
+
+            def run(fn):
+                kc, vc, ks, vs = (t.clone() for t in (cap["kc"], cap["vc"], *scales))
+                return fn(weights, kc, vc, *inputs, key_scale=ks, value_scale=vs, **kw)
+
+            want, got = run(decode_stack_step_reference), run(decode_stack_step)
+            torch.cuda.synchronize()
+            at_s = torch.arange(M, device="cuda")[None, :] == cap["start"][:, None].long()
+            at_s = at_s[None, :, None, :].expand(L, B, H, M)
+            at = at_s[..., None].expand(L, B, H, M, D)
+            same = torch.ones(B, dtype=torch.bool, device="cuda")
+            for plane, scale in ((1, 3), (2, 4)):
+                gb, wb = storage(got[plane]), storage(want[plane])
+                check(torch.equal(gb[~at], wb[~at]), f"quantized B ({kv}, {dt}): codes changed off the cursor")
+                check(torch.equal(got[scale][~at_s], want[scale][~at_s]),
+                      f"quantized B ({kv}, {dt}): scales changed off the cursor")  # fmt: skip
+                same &= (gb == wb).reshape(L, B, -1).all(-1).all(0)
+                # A key one rounding apart can move a code by a step.
+                # The layer's input differs by the earlier layers' roundings, a
+                # share of its magnitude: the tolerance scales with each row's largest.
+                gd = dequantize_kv(got[plane], got[scale], torch.float32)
+                wd = dequantize_kv(want[plane], want[scale], torch.float32)
+                top = wd.abs().amax(-1, keepdim=True).expand_as(wd)[at]
+                gd, wd = gd[at], wd[at]
+                limit = tol + tol * top + quant_step(wd, want[scale][..., None].expand(L, B, H, M, D)[at], kv)
+                check(bool(((gd - wd).abs() <= limit).all()),
+                      f"quantized B ({kv}, {dt}): a cursor key or value is off by more than {tol} plus a step")  # fmt: skip
+            check(torch.equal(got[5], want[5]) and torch.equal(got[6], want[6]),
+                  f"quantized B ({kv}, {dt}): mask/length")  # fmt: skip
+            # h on the rows whose cursor codes agree: a moved code moves the scores by a step.
+            check(bool(same.any()), f"quantized B ({kv}, {dt}): no row's cursor codes agree")
+            g, w = got[0].float()[same], want[0].float()[same]
+            err = (g - w).abs().max().item()
+            torch.testing.assert_close(g, w, rtol=tol if dt == torch.float32 else 0.0, atol=tol)
+            print(f"phase 3b: quantized B ({kv}, {dt}) within {tol} (+ one quantisation step at the cursor): max |h "
+                  f"diff| {err:.3g} on the {int(same.sum())} of {B} rows whose cursor codes agree", flush=True)  # fmt: skip
+            if dt == torch.bfloat16:
+                max_err = err
+
+        # Timing: quantized B, its plain version, and the bf16 B on the same rows (the caches dequantized).
+        weights = cap["weights"]
+        kc, vc, ks, vs = (t.clone() for t in (cap["kc"], cap["vc"], *scales))
+        args = (weights, kc, vc, cap["h0"], cap["start"], cap["em"], cap["mask"])
+        qkw = dict(kw, key_scale=ks, value_scale=vs)
+        t = timings(lambda: decode_stack_step(*args, **qkw), lambda: decode_stack_step_reference(*args, **qkw), n=20)
+        kd, vd = dequantize_kv(kc, ks, torch.bfloat16), dequantize_kv(vc, vs, torch.bfloat16)
+        fargs = (weights, kd, vd, cap["h0"], cap["start"], cap["em"], cap["mask"])
+        bf16_ms = time_ms(lambda: decode_stack_step(*fargs, **kw), n=20)["ms"]
+        # The bound: the weights once, codes and scales at each row's live
+        # positions (the cursor's are computed, not read; a row with none
+        # live averages V over all M), the cursor's codes and scales written,
+        # and the small inputs and outputs; the operations of the float B
+        # plus one multiply a dequantized element.
+        E, I = H * D, weights["wfc"].shape[-1]
+        per_pos = E * kc.element_size() + H * 4  # codes and scales of one position, every head
+        w_bytes = sum(x.numel() * x.element_size() for x in weights.values())
+        k_rows = v_rows = attn_rows = 0
+        for window in kw["windows"]:
+            live, cursor = live_rows(cap["start"], cap["em"], cap["mask"], int(window))
+            k_rows += int((live - cursor).sum())
+            v_rows += int(torch.where(live > 0, live - cursor, M).sum())
+            attn_rows += int(live.sum() + torch.where(live > 0, live, M).sum())
+        written = int((cap["start"] < M).sum())
+        esz = cap["h0"].element_size()
+        small = 2 * B * E * esz + B * (4 + 1 + M + 1) + 4 * L + B * (M + 4)
+        nbytes = w_bytes + (k_rows + v_rows) * per_pos + 2 * L * written * per_pos + small
+        flops = 2 * B * L * (4 * E * E + 2 * E * I) + 2 * H * D * attn_rows + (k_rows + v_rows) * E
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
+        print(f"phase 3b: quantized B ({kv}) at (L={L}, B={B}, H={H}, M={M}, D={D}): {fmt_times(t)}; the bf16 B on "
+              f"the same rows {bf16_ms:.4f}; bound {max(bytes_ms, ops_ms):.5f} ms ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP; whole cache {2 * (kc.numel() + 4 * ks.numel()) / 1e6:.2f} MB) ({smi})",
+              flush=True)  # fmt: skip
+        result[kv] = dict(t, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                          max_abs_err=max_err, bf16_ms=bf16_ms, shape=[L, B, H, M, D])  # fmt: skip
+    return result
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1291,6 +1521,8 @@ def main() -> int:
     model, config, capture, runs = engine_phase(smi)
     a = kernel_a_phase(capture)
     b = kernel_b_phase(model, config, capture)
+    captures_q, runs_q = quantized_engine_phase(smi, model, config, runs)
+    bq = kernel_b_quant_phase(model, captures_q, smi)
     train, gather_capture = training_phase(smi)
     c = kernel_c_phase(gather_capture)
     na_train, dep_capture = na_training_phase(smi)
@@ -1305,6 +1537,13 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
              + runs["sampled"]["launches"]["decode_stack_step"], **b),
+    ] + [
+        dict(name=f"decode_stack_step_{kv}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
+             replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297", entry="esgpt_decode_stack_step_quant",
+             launches=sum(runs_q[(kv, m)]["launches"][f"decode_stack_step.launches_{kv}"]
+                          for m in ("greedy", "sampled")),
+             **bq[kv])
+        for kv in QUANT_DTYPES
     ] + [
         dict(name=f"vocab_gather_{d}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/vocab_gather.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182", launches=train["launches"][f"vocab_gather_{d}"],

@@ -58,12 +58,30 @@
 //   rounding. The new k/v are written into the cache IN PLACE (the JAX
 //   kernel returns new arrays); a cursor at or past M writes nothing and
 //   attends to m < M only. The new mask and length are written by rank 0.
+//
+// Quantized caches (the second entry, esgpt_decode_stack_step_quant): the
+// planes hold int8 or fp8 (e4m3) codes Q with one fp32 scale a (layer, row,
+// head, position), as _layer_math with quantized=True. After the q/k/v
+// mat-vec a warp takes each of the CTA's heads' new k and v (a CTA owns whole
+// heads, so no exchange): amax = max |x| over D (NaN propagates, as in
+// torch and jnp), scale = amax > 0 ? amax / qmax : 1 (qmax 127 or 448),
+// codes rint(x / scale) clamped to +-127, or x / scale cast with
+// __NV_SATFINITE; true divisions and round-half-even, no fast math. Codes
+// and scale land at the cursor (only where 0 <= cursor < M), and the shared
+// copy of k and v becomes its dequantized value, so the cursor's term is
+// dequantize(quantize(k)) as in JAX. Every position attention reads is
+// rnd<T>(float(code) * scale[m]); the 16-byte paths take 16 codes a load.
+// Zero codes carry scale 1, so a row with no live position still averages
+// zeros over the unwritten positions.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -76,6 +94,8 @@ constexpr int kCannotPlace = -1;      // returned when no cluster fits on the ca
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -103,6 +123,43 @@ __device__ __forceinline__ void unpack(const uint4& u, float* out, __nv_bfloat16
     out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+
+// 16 one-byte codes.
+__device__ __forceinline__ void unpack(const uint4& u, float* out, int8_t) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = (float)(int8_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* out, __nv_fp8_e4m3) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    __nv_fp8_e4m3 c;
+    c.__x = (__nv_fp8_storage_t)((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+    out[i] = static_cast<float>(c);
+  }
+}
+
+// Quantized cache codes: the largest code and the code of a scaled value.
+template <typename Q>
+__device__ __forceinline__ float qmax();
+template <>
+__device__ __forceinline__ float qmax<int8_t>() { return 127.f; }
+template <>
+__device__ __forceinline__ float qmax<__nv_fp8_e4m3>() { return 448.f; }
+
+__device__ __forceinline__ int8_t quantize(float y, int8_t) {
+  const int c = __float2int_rn(y);  // round half to even; NaN gives 0
+  return (int8_t)max(-127, min(127, c));
+}
+__device__ __forceinline__ __nv_fp8_e4m3 quantize(float y, __nv_fp8_e4m3) {
+  __nv_fp8_e4m3 c;
+  c.__x = __nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+  return c;
+}
+
+// max that keeps a NaN from either side (fmaxf drops it), as torch.amax and jnp.max do.
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -147,12 +204,16 @@ __device__ __forceinline__ float activate(float x, int act) {
 // loads in flight; 1 on the scalar path). The groups' partial sums are added
 // by as many threads per output as the block has to spare, each over a fixed
 // set of groups, then by shuffles in a fixed order. Ends synchronised.
-template <typename T, int NW, bool SKIP, typename Epi>
-__device__ void matvec(const float* x, int K, const T* const* W, size_t ldw, int N, int skip_row, float* partial,
-                       Epi epi) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kBatch = 16;
-  bool vec = (ldw * sizeof(T)) % 16 == 0 && N % kVec == 0;
+// Q, when not T, is a quantized cache's code type (16 codes a load, fewer
+// groups so the partial sums fit), and row i of W reads as
+// rnd<T>(code * row_scale[i]).
+template <typename T, int NW, bool SKIP, typename Q = T, typename Epi>
+__device__ void matvec(const float* x, int K, const Q* const* W, size_t ldw, int N, int skip_row, float* partial,
+                       Epi epi, const float* row_scale = nullptr) {
+  constexpr bool kQuant = !std::is_same<Q, T>::value;
+  constexpr int kVec = 16 / sizeof(Q);
+  constexpr int kBatch = sizeof(Q) == 1 ? 8 : 16;
+  bool vec = (ldw * sizeof(Q)) % 16 == 0 && N % kVec == 0;
   for (int w = 0; w < NW; ++w) vec = vec && (reinterpret_cast<uintptr_t>(W[w]) & 15) == 0;
   const int per = vec ? kVec : 1;
   const int tpr = N / per + (N % per != 0);  // thread columns a matrix row needs
@@ -160,34 +221,41 @@ __device__ void matvec(const float* x, int K, const T* const* W, size_t ldw, int
   const int nt = blockDim.x, tid = threadIdx.x;
   for (int c0 = 0; c0 < cols; c0 += nt) {
     const int tc = min(nt, cols - c0);
-    const int groups = nt / tc;
+    const int groups = min(nt / tc, nt * kPartialPerThread / (tc * per));
     const int g = tid / tc, cc = c0 + tid % tc;
     const int w = cc / tpr, j0 = (cc % tpr) * per;
     if (g < groups) {
       float acc[kVec];
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
-      const T* base = W[w] + j0;
+      const Q* base = W[w] + j0;
       if (vec) {
         for (int i0 = g; i0 < K; i0 += kBatch * groups) {
           uint4 raw[kBatch];
-          float xs[kBatch];
+          float xs[kBatch], sc[kBatch];
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             const int i = i0 + u * groups;
             xs[u] = 0.f;
+            sc[u] = 1.f;
             raw[u] = make_uint4(0u, 0u, 0u, 0u);
             if (i < K && (!SKIP || i != skip_row)) {
               xs[u] = x[i];
-              if (!SKIP || xs[u] != 0.f) raw[u] = __ldg(reinterpret_cast<const uint4*>(base + (size_t)i * ldw));
+              if (!SKIP || xs[u] != 0.f) {
+                raw[u] = __ldg(reinterpret_cast<const uint4*>(base + (size_t)i * ldw));
+                if constexpr (kQuant) sc[u] = __ldg(row_scale + i);
+              }
             }
           }
 #pragma unroll
           for (int u = 0; u < kBatch; ++u) {
             float v[kVec];
-            unpack(raw[u], v, T());
+            unpack(raw[u], v, Q());
 #pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[e] += xs[u] * v[e];
+            for (int e = 0; e < kVec; ++e) {
+              if constexpr (kQuant) v[e] = rnd<T>(v[e] * sc[u]);
+              acc[e] += xs[u] * v[e];
+            }
           }
         }
       } else {
@@ -195,7 +263,9 @@ __device__ void matvec(const float* x, int K, const T* const* W, size_t ldw, int
         for (int i = g; i < K; i += groups) {
           const float xi = x[i];
           if (SKIP && (xi == 0.f || i == skip_row)) continue;
-          acc[0] += xi * to_f(base[(size_t)i * ldw]);
+          float wi = to_f(base[(size_t)i * ldw]);
+          if constexpr (kQuant) wi = rnd<T>(wi * row_scale[i]);
+          acc[0] += xi * wi;
         }
       }
       float* out = partial + (size_t)g * tc * per + (tid % tc) * per;
@@ -271,10 +341,12 @@ __host__ __device__ inline size_t shared_layout(int H, int M, int D, int I, int 
 
 // Unscaled fp32 q . k over [lo, hi] for one head into s[m - lo]; -inf where
 // the position is masked; the cursor (from shared memory) is scored apart.
-template <typename T>
-__device__ void scores(const float* q, const float* k_cur, const T* K, int D, int lo, int hi, int st, bool ev,
-                       const uint8_t* mrow, float* s) {
-  constexpr int kVec = 16 / sizeof(T);
+// A quantized cache (Q not T) reads row m as rnd<T>(code * ks[m]).
+template <typename T, typename Q>
+__device__ void scores(const float* q, const float* k_cur, const Q* K, const float* ks, int D, int lo, int hi, int st,
+                       bool ev, const uint8_t* mrow, float* s) {
+  constexpr bool kQuant = !std::is_same<Q, T>::value;
+  constexpr int kVec = 16 / sizeof(Q);
   const int lanes = D / kVec;  // lanes a K row takes on the 16-byte path
   const bool vec = D % kVec == 0 && lanes <= 32 && (lanes & (lanes - 1)) == 0 &&
                    (reinterpret_cast<uintptr_t>(K) & 15) == 0;
@@ -287,19 +359,25 @@ __device__ void scores(const float* q, const float* k_cur, const T* K, int D, in
     for (int base = warp * rows_per_warp; base < n; base += kRows * step) {
       uint4 raw[kRows];
       bool live[kRows];
+      float sc[kRows];
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         const int r = base + u * step + lane / lanes, m = lo + r;
         live[u] = r < n && m != st && mrow[m];
         raw[u] = live[u] ? __ldg(reinterpret_cast<const uint4*>(K + (size_t)m * D + lr * kVec)) : make_uint4(0, 0, 0, 0);
+        sc[u] = 1.f;
+        if constexpr (kQuant) sc[u] = live[u] ? __ldg(ks + m) : 1.f;
       }
 #pragma unroll
       for (int u = 0; u < kRows; ++u) {
         const int r = base + u * step + lane / lanes, m = lo + r;
         float v[kVec], acc = 0.f;
-        unpack(raw[u], v, T());
+        unpack(raw[u], v, Q());
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc += q[lr * kVec + e] * v[e];
+        for (int e = 0; e < kVec; ++e) {
+          if constexpr (kQuant) v[e] = rnd<T>(v[e] * sc[u]);
+          acc += q[lr * kVec + e] * v[e];
+        }
         for (int o = lanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (lr == 0 && r < n && m != st) s[r] = live[u] ? acc : -INFINITY;
       }
@@ -311,7 +389,11 @@ __device__ void scores(const float* q, const float* k_cur, const T* K, int D, in
       float acc = -INFINITY;
       if (mrow[m]) {
         acc = 0.f;
-        for (int d = 0; d < D; ++d) acc += q[d] * to_f(K[(size_t)m * D + d]);
+        for (int d = 0; d < D; ++d) {
+          float kd = to_f(K[(size_t)m * D + d]);
+          if constexpr (kQuant) kd = rnd<T>(kd * ks[m]);
+          acc += q[d] * kd;
+        }
       }
       s[r] = acc;
     }
@@ -351,10 +433,38 @@ __device__ bool softmax(float* s, int n, float* flag) {
   return *flag != -INFINITY;
 }
 
+// A quantized cache's write at the cursor: for each of the CTA's HC heads, a
+// warp quantizes the new k and v (qkv[Ec..3Ec)) over D, stores codes and
+// scale at position `st` of rows row0 + hh when `write`, and leaves the
+// dequantized values in qkv for the cursor's own attention terms. Ends
+// synchronised.
+template <typename T, typename Q>
+__device__ void quantize_cursor(float* qkv, int Ec, int HC, int D, Q* kc, Q* vc, float* ks, float* vs, size_t row0,
+                                int M, int st, bool write) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int p = warp; p < 2 * HC; p += nwarps) {
+    const int which = p / HC, hh = p % HC;  // 0: key, 1: value
+    float* x = qkv + (size_t)(1 + which) * Ec + hh * D;
+    float amax = 0.f;
+    for (int d = lane; d < D; d += 32) amax = nan_max(amax, fabsf(x[d]));
+    for (int o = 16; o > 0; o >>= 1) amax = nan_max(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = amax > 0.f ? amax / qmax<Q>() : 1.f;
+    const size_t at = (row0 + hh) * M + st;
+    Q* cache = which == 0 ? kc : vc;
+    for (int d = lane; d < D; d += 32) {
+      const Q c = quantize(x[d] / scale, Q());
+      if (write) cache[at * D + d] = c;
+      x[d] = rnd<T>(to_f(c) * scale);
+    }
+    if (write && lane == 0) (which == 0 ? ks : vs)[at] = scale;
+  }
+  __syncthreads();
+}
+
 // Two CTAs an SM (at most 128 registers a thread): a cluster needs C SMs of
 // one GPC with room, and at one CTA an SM the serving shape's 32 clusters of
 // 4 do not all fit on the card at once.
-template <typename T>
+template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const T* __restrict__ h0, const int32_t* __restrict__ start,
                                     const uint8_t* __restrict__ event_mask, const uint8_t* __restrict__ mask,
                                     const uint8_t* __restrict__ active, const int32_t* __restrict__ windows,
@@ -363,9 +473,10 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const T* __re
                                     const T* __restrict__ wo, const T* __restrict__ bo,
                                     const float* __restrict__ ln2_s, const float* __restrict__ ln2_b,
                                     const T* __restrict__ wfc, const T* __restrict__ bfc, const T* __restrict__ wpr,
-                                    const T* __restrict__ bpr, T* kc, T* vc, T* __restrict__ h_out,
+                                    const T* __restrict__ bpr, Q* kc, Q* vc, float* ks, float* vs, T* __restrict__ h_out,
                                     uint8_t* __restrict__ new_mask, int32_t* __restrict__ new_length, int L, int B,
                                     int H, int M, int D, int I, float eps, int act, int C) {
+  constexpr bool kQuant = !std::is_same<Q, T>::value;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   Shared sh;
@@ -402,12 +513,16 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const T* __re
       matvec<T, 3, false>(sh.n, E, W, E, Ec, -1, sh.partial, [&](int w, int j, float y) {
         const float r = rnd<T>(y);
         qkv[w * Ec + j] = r;
-        if (w > 0 && write) {
-          const int h = (e0 + j) / D, d = j % D;
-          T* cache = w == 1 ? kc : vc;
-          cache[((((size_t)l * B + b) * H + h) * M + st) * D + d] = from_f<T>(r);
+        if constexpr (!kQuant) {
+          if (w > 0 && write) {
+            const int h = (e0 + j) / D, d = j % D;
+            T* cache = w == 1 ? kc : vc;
+            cache[((((size_t)l * B + b) * H + h) * M + st) * D + d] = from_f<T>(r);
+          }
         }
       });
+      if constexpr (kQuant)
+        quantize_cursor<T, Q>(qkv, Ec, HC, D, kc, vc, ks, vs, ((size_t)l * B + b) * H + rank * HC, M, st, write);
     }
     stamp(at + 1);
 
@@ -416,14 +531,14 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const T* __re
     const int lo = w > 0 ? max(0, st - w + 1) : 0, hi = min(st, M - 1);
     for (int hh = 0; hh < HC; ++hh) {
       const int h = rank * HC + hh;
-      const size_t head = (((size_t)l * B + b) * H + h) * M * D;
+      const size_t head_s = (((size_t)l * B + b) * H + h) * M, head = head_s * D;
       const float* q = sh.qkv + hh * D;
       const float* k_cur = sh.qkv + Ec + hh * D;
       const float* v_cur = sh.qkv + 2 * Ec + hh * D;
       float* s = sh.s + (size_t)hh * M;
       bool live = false;
       if (lo <= hi) {
-        scores<T>(q, k_cur, kc + head, D, lo, hi, st, ev, mrow, s);
+        scores<T, Q>(q, k_cur, kc + head, kQuant ? ks + head_s : nullptr, D, lo, hi, st, ev, mrow, s);
         live = softmax<T>(s, hi - lo + 1, sh.flag);
       }
       int plo = lo, phi = hi;
@@ -436,11 +551,12 @@ __global__ void __launch_bounds__(kThreads, 2) decode_stack_kernel(const T* __re
       }
       const bool cursor_in = st >= plo && st <= phi;
       const float p_cur = cursor_in ? s[st - plo] : 0.f;
-      const T* V[1] = {vc + head + (size_t)plo * D};
+      const Q* V[1] = {vc + head + (size_t)plo * D};
       float* o = sh.in + e0 + hh * D;
-      matvec<T, 1, true>(s, phi - plo + 1, V, D, D, st - plo, sh.partial, [&](int, int j, float y) {
-        push(cluster, o, j, rnd<T>(cursor_in ? y + p_cur * v_cur[j] : y), C);
-      });
+      matvec<T, 1, true, Q>(
+          s, phi - plo + 1, V, D, D, st - plo, sh.partial,
+          [&](int, int j, float y) { push(cluster, o, j, rnd<T>(cursor_in ? y + p_cur * v_cur[j] : y), C); },
+          kQuant ? vs + head_s + plo : nullptr);
     }
     stamp(at + 2);
     cluster.sync();
@@ -501,12 +617,12 @@ int cluster_size(int H) {
   return C;
 }
 
-template <typename T>
+template <typename T, typename Q>
 int launch(const void* h0, const void* start, const void* event_mask, const void* mask, const void* active,
            const void* windows, const void* ln1_s, const void* ln1_b, const void* wq, const void* wk, const void* wv,
            const void* wo, const void* bo, const void* ln2_s, const void* ln2_b, const void* wfc, const void* bfc,
-           const void* wpr, const void* bpr, void* kc, void* vc, void* h_out, void* new_mask, void* new_length, int L,
-           int B, int H, int M, int D, int I, float eps, int act, int threads, void* stream) {
+           const void* wpr, const void* bpr, void* kc, void* vc, void* ks, void* vs, void* h_out, void* new_mask,
+           void* new_length, int L, int B, int H, int M, int D, int I, float eps, int act, int threads, void* stream) {
   const int C = cluster_size(H);
   if (C < 1 || threads != kThreads) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
@@ -517,7 +633,7 @@ int launch(const void* h0, const void* start, const void* event_mask, const void
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)max_smem) return kCannotPlace;
-  err = cudaFuncSetAttribute(decode_stack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(decode_stack_kernel<T, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
 
   cudaLaunchConfig_t config = {};
@@ -533,18 +649,36 @@ int launch(const void* h0, const void* start, const void* event_mask, const void
   config.attrs = attr;
   config.numAttrs = 1;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, decode_stack_kernel<T>, &config);
+  err = cudaOccupancyMaxActiveClusters(&clusters, decode_stack_kernel<T, Q>, &config);
   if (err != cudaSuccess) return (int)err;
   if (clusters == 0) return kCannotPlace;
-  err = cudaLaunchKernelEx(&config, decode_stack_kernel<T>, (const T*)h0, (const int32_t*)start,
+  err = cudaLaunchKernelEx(&config, decode_stack_kernel<T, Q>, (const T*)h0, (const int32_t*)start,
                            (const uint8_t*)event_mask, (const uint8_t*)mask, (const uint8_t*)active,
                            (const int32_t*)windows, (const float*)ln1_s, (const float*)ln1_b, (const T*)wq,
                            (const T*)wk, (const T*)wv, (const T*)wo, (const T*)bo, (const float*)ln2_s,
-                           (const float*)ln2_b, (const T*)wfc, (const T*)bfc, (const T*)wpr, (const T*)bpr, (T*)kc,
-                           (T*)vc, (T*)h_out, (uint8_t*)new_mask, (int32_t*)new_length, L, B, H, M, D, I, eps, act,
-                           C);
+                           (const float*)ln2_b, (const T*)wfc, (const T*)bfc, (const T*)wpr, (const T*)bpr, (Q*)kc,
+                           (Q*)vc, (float*)ks, (float*)vs, (T*)h_out, (uint8_t*)new_mask, (int32_t*)new_length, L, B,
+                           H, M, D, I, eps, act, C);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_quant(int cache_type, const void* h0, const void* start, const void* event_mask, const void* mask,
+                 const void* active, const void* windows, const void* ln1_s, const void* ln1_b, const void* wq,
+                 const void* wk, const void* wv, const void* wo, const void* bo, const void* ln2_s, const void* ln2_b,
+                 const void* wfc, const void* bfc, const void* wpr, const void* bpr, void* kc, void* vc, void* ks,
+                 void* vs, void* h_out, void* new_mask, void* new_length, int L, int B, int H, int M, int D, int I,
+                 float eps, int act, int threads, void* stream) {
+  if (cache_type == 1)
+    return launch<T, int8_t>(h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk, wv, wo, bo, ln2_s,
+                             ln2_b, wfc, bfc, wpr, bpr, kc, vc, ks, vs, h_out, new_mask, new_length, L, B, H, M, D, I,
+                             eps, act, threads, stream);
+  if (cache_type == 2)
+    return launch<T, __nv_fp8_e4m3>(h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk, wv, wo, bo,
+                                    ln2_s, ln2_b, wfc, bfc, wpr, bpr, kc, vc, ks, vs, h_out, new_mask, new_length, L,
+                                    B, H, M, D, I, eps, act, threads, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -563,12 +697,35 @@ extern "C" int esgpt_decode_stack_step(int dtype, const void* h0, const void* st
                                        void* new_length, int L, int B, int H, int M, int D, int I, float eps,
                                        int act, int threads, void* stream) {
   if (dtype == 1)
-    return launch<__nv_bfloat16>(h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk, wv, wo, bo,
-                                 ln2_s, ln2_b, wfc, bfc, wpr, bpr, kc, vc, h_out, new_mask, new_length, L, B, H, M,
-                                 D, I, eps, act, threads, stream);
-  return launch<float>(h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk, wv, wo, bo, ln2_s, ln2_b,
-                       wfc, bfc, wpr, bpr, kc, vc, h_out, new_mask, new_length, L, B, H, M, D, I, eps, act, threads,
-                       stream);
+    return launch<__nv_bfloat16, __nv_bfloat16>(h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk,
+                                                 wv, wo, bo, ln2_s, ln2_b, wfc, bfc, wpr, bpr, kc, vc, nullptr,
+                                                 nullptr, h_out, new_mask, new_length, L, B, H, M, D, I, eps, act,
+                                                 threads, stream);
+  return launch<float, float>(h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk, wv, wo, bo, ln2_s,
+                              ln2_b, wfc, bfc, wpr, bpr, kc, vc, nullptr, nullptr, h_out, new_mask, new_length, L, B,
+                              H, M, D, I, eps, act, threads, stream);
+}
+
+// The same step over a quantized cache: cache_type 1 = int8, 2 = fp8 (e4m3)
+// codes in kc / vc, with fp32 scale tables ks / vs of shape (L, B, H, M),
+// written at the cursor with the codes. Returns as esgpt_decode_stack_step,
+// and cudaErrorInvalidValue for another cache type.
+extern "C" int esgpt_decode_stack_step_quant(int dtype, int cache_type, const void* h0, const void* start,
+                                             const void* event_mask, const void* mask, const void* active,
+                                             const void* windows, const void* ln1_s, const void* ln1_b,
+                                             const void* wq, const void* wk, const void* wv, const void* wo,
+                                             const void* bo, const void* ln2_s, const void* ln2_b, const void* wfc,
+                                             const void* bfc, const void* wpr, const void* bpr, void* kc, void* vc,
+                                             void* ks, void* vs, void* h_out, void* new_mask, void* new_length, int L,
+                                             int B, int H, int M, int D, int I, float eps, int act, int threads,
+                                             void* stream) {
+  if (dtype == 1)
+    return launch_quant<__nv_bfloat16>(cache_type, h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk,
+                                       wv, wo, bo, ln2_s, ln2_b, wfc, bfc, wpr, bpr, kc, vc, ks, vs, h_out, new_mask,
+                                       new_length, L, B, H, M, D, I, eps, act, threads, stream);
+  return launch_quant<float>(cache_type, h0, start, event_mask, mask, active, windows, ln1_s, ln1_b, wq, wk, wv, wo,
+                             bo, ln2_s, ln2_b, wfc, bfc, wpr, bpr, kc, vc, ks, vs, h_out, new_mask, new_length, L, B,
+                             H, M, D, I, eps, act, threads, stream);
 }
 
 // The CTAs of each slot row's cluster for H heads.

@@ -39,6 +39,7 @@ from ..data.types import EventStreamBatch
 from ..ops.band_attention import band_local_attention
 from ..ops.dep_graph import dep_graph_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.kv_quant import dequantize_kv, is_quantized_dtype, quantize_kv, resolve_cache_dtype, storage
 from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts
 from .config import StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
@@ -67,40 +68,59 @@ class KVCache:
     ``key``/``value`` are ``(B, H, max_len, head_dim)``; ``mask`` is the
     accumulated key-padding mask ``(B, max_len)``; ``length`` is the number
     of positions written: a python int on the prefill path, or a per-row
-    ``(B,)`` int32 tensor on the serving engine's decode path.
+    ``(B,)`` int32 tensor on the serving engine's decode path. Quantized
+    caches (int8 or fp8 planes, `ops.kv_quant`) also carry ``key_scale`` /
+    ``value_scale``, ``(B, H, max_len)`` fp32, written with the planes and
+    read by the dequantization before attention; float caches carry ``None``.
     """
 
     key: torch.Tensor
     value: torch.Tensor
     mask: torch.Tensor
     length: object
+    key_scale: Optional[torch.Tensor] = None
+    value_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def init(cls, batch_size, num_heads, max_len, head_dim, dtype=torch.float32, *, device):
         def z():
             return torch.zeros(batch_size, num_heads, max_len, head_dim, dtype=dtype, device=device)
 
+        def scale():  # ones: zero codes dequantize to zeros
+            return torch.ones(batch_size, num_heads, max_len, device=device) if is_quantized_dtype(dtype) else None
+
         return cls(
             key=z(),
             value=z(),
             mask=torch.zeros(batch_size, max_len, dtype=torch.bool, device=device),
             length=0,
+            key_scale=scale(),
+            value_scale=scale(),
         )
 
+    def read(self, dtype: torch.dtype) -> tuple:
+        """The keys and values attention reads: the planes, dequantized to
+        ``dtype`` when the cache is quantized."""
+        if self.key_scale is None:
+            return self.key, self.value
+        return dequantize_kv(self.key, self.key_scale, dtype), dequantize_kv(self.value, self.value_scale, dtype)
 
-def init_kv_caches(config: StructuredTransformerConfig, batch_size: int, max_len: int, device) -> tuple:
-    """One `KVCache` per hidden layer, in the model's compute dtype."""
+
+def init_kv_caches(
+    config: StructuredTransformerConfig, batch_size: int, max_len: int, device, cache_dtype: str | None = None
+) -> tuple:
+    """One `KVCache` per hidden layer, in the model's compute dtype or in the
+    storage type ``cache_dtype`` names (`ops.kv_quant.resolve_cache_dtype`)."""
+    dtype, _ = resolve_cache_dtype(cache_dtype, config.compute_dtype)
     return tuple(
-        KVCache.init(
-            batch_size,
-            config.num_attention_heads,
-            max_len,
-            config.head_dim,
-            dtype=config.compute_dtype,
-            device=device,
-        )
+        KVCache.init(batch_size, config.num_attention_heads, max_len, config.head_dim, dtype=dtype, device=device)
         for _ in range(config.num_hidden_layers)
     )
+
+
+def _where_rows(cond, new, old):
+    """``torch.where`` into a cache plane of any storage type (fp8 as bytes)."""
+    return torch.where(cond, storage(new), storage(old)).view(old.dtype)
 
 
 def time_from_deltas(batch: EventStreamBatch) -> torch.Tensor:
@@ -270,29 +290,45 @@ class InnerSelfAttention(nn.Module):
             start = layer_past.length
             pos = torch.arange(max_len, device=hidden_states.device)
             write = pos[None, :] == start[:, None]  # (B, max_len)
-            new_key = torch.where(write[:, None, :, None], key.to(layer_past.key.dtype), layer_past.key)
-            new_value = torch.where(write[:, None, :, None], value.to(layer_past.value.dtype), layer_past.value)
+            (new_key, new_value), scales = self._cache_chunks(layer_past, key, value)
+            new_key, new_value = (
+                _where_rows(write[:, None, :, None], new, old)
+                for new, old in ((new_key, layer_past.key), (new_value, layer_past.value))
+            )
+            if scales is not None:  # quantize on write: the scales ride the same select
+                scales = tuple(
+                    torch.where(write[:, None, :], new, old)
+                    for new, old in zip(scales, (layer_past.key_scale, layer_past.value_scale))
+                )
             new_mask = torch.where(write, chunk_mask, layer_past.mask)
             q_positions = start[:, None]  # (B, 1)
             valid_k = pos[None, :] < (start[:, None] + 1)
-            present = KVCache(new_key, new_value, new_mask, start + 1)
-            key, value, attention_mask = new_key, new_value, new_mask
+            present = KVCache(new_key, new_value, new_mask, start + 1, *(scales or (None, None)))
+            key, value = present.read(self.dtype)
+            attention_mask = new_mask
             k_positions = pos
         elif layer_past is not None:
             # Fixed buffer with one shared cursor (prefill into a fresh cache).
             max_len = layer_past.key.shape[2]
             start = int(layer_past.length)
+            (k_chunk, v_chunk), scales = self._cache_chunks(layer_past, key, value)
             new_key = layer_past.key.clone()
             new_value = layer_past.value.clone()
             new_mask = layer_past.mask.clone()
-            new_key[:, :, start : start + S] = key.to(new_key.dtype)
-            new_value[:, :, start : start + S] = value.to(new_value.dtype)
+            storage(new_key)[:, :, start : start + S] = storage(k_chunk)
+            storage(new_value)[:, :, start : start + S] = storage(v_chunk)
             new_mask[:, start : start + S] = chunk_mask
+            new_scales = (None, None)
+            if scales is not None:
+                new_scales = (layer_past.key_scale.clone(), layer_past.value_scale.clone())
+                for dst, src in zip(new_scales, scales):
+                    dst[:, :, start : start + S] = src
             k_positions = torch.arange(max_len, device=hidden_states.device)
             q_positions = start + torch.arange(S, device=hidden_states.device)
             valid_k = k_positions < (start + S)
-            present = KVCache(new_key, new_value, new_mask, start + S)
-            key, value, attention_mask = new_key, new_value, new_mask
+            present = KVCache(new_key, new_value, new_mask, start + S, *new_scales)
+            key, value = present.read(self.dtype)
+            attention_mask = new_mask
         else:
             k_positions = torch.arange(S, device=hidden_states.device)
             q_positions = k_positions
@@ -321,6 +357,15 @@ class InnerSelfAttention(nn.Module):
         out = out.transpose(1, 2).reshape(B, S, E)
         out = dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
         return out, (present if use_cache else None)
+
+    @staticmethod
+    def _cache_chunks(layer_past: KVCache, key, value):
+        """The new keys and values in the cache's storage type, and their
+        ``(key_scale, value_scale)`` when the cache is quantized (else ``None``)."""
+        if layer_past.key_scale is None:
+            return (key.to(layer_past.key.dtype), value.to(layer_past.value.dtype)), None
+        (k_q, k_s), (v_q, v_s) = quantize_kv(key, layer_past.key.dtype), quantize_kv(value, layer_past.value.dtype)
+        return (k_q, v_q), (k_s, v_s)
 
     def _dep_graph(self, hidden_states, static_kv_first, dropout_rng):
         B, S, E = hidden_states.shape

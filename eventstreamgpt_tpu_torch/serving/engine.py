@@ -16,7 +16,23 @@ and the output heads (PyTorch), the categorical heads through kernel A
 Gumbel noise of each row's stream inside the kernel, and the in-place
 buffer updates. On CPU tensors both kernels
 take their plain PyTorch versions. Prefill runs the model forward on a
-fresh cache at the bucket width and scatters the rows into their slots.
+fresh float cache at the bucket width and scatters the rows into their
+slots. With ``kv_cache_dtype`` "int8" or "fp8" the slot caches hold codes
+and per-head-per-position fp32 scales (`ops.kv_quant`): the prefill's cache
+is quantized whole at admission, kernel B quantizes each new key and value
+at the cursor and dequantizes what it reads.
+
+Pipelined boundaries: after each chunk the packed ``(5, n_slots)`` boundary
+is computed on the device and its copy into pinned host memory started at
+once (``non_blocking``, with a CUDA event); up to ``dispatch_depth`` chunks
+are issued before the oldest boundary is resolved, strictly in issue order,
+so the host's harvest and admission planning overlap the device's decode.
+A finished slot's row is frozen (every write is masked by ``active``), so a
+stale boundary harvests the same content, and each slot carries its
+admission epoch (the chunk count when its request was admitted): a boundary
+issued before that admission never harvests the new tenant. Results are
+bitwise the same at every depth; a freed slot is refilled up to
+``dispatch_depth - 1`` chunks later.
 
 Randomness: request ``i`` draws from the counter-based stream
 `derive_request_seed(engine seed, i)` (or its own ``key``), advanced once
@@ -26,12 +42,13 @@ seed, never on its slot, co-residents or refill order.
 Stop rules per row: the budget, dead rows (a masked newest event), extra
 `generation.stopping_criteria.DeviceCriterion`s, and the health sentinel
 (non-finite predictions or samples quarantine the slot; its request fails
-with `serving.errors.SlotHealthError`).
+with `serving.errors.SlotHealthError`, or, with ``health_retries`` budget
+left, goes back to the front of the queue with its seed fixed, so the retry
+reproduces a clean run bit for bit).
 
 Not ported yet, each a ``ValueError`` at construction: speculative
-decoding, the paged cache and ``fork()``, int8/fp8 caches, meshes and
-tensor parallelism, hot swap, the dedicated prefill stream,
-``dispatch_depth > 1``, health retries, nested-attention models, and
+decoding, the paged cache and ``fork()``, meshes and tensor parallelism,
+hot swap, the dedicated prefill stream, nested-attention models, and
 functional-time-dependent measurements.
 """
 
@@ -39,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import time
+from collections import deque
 from typing import Optional, Sequence
 
 import numpy as np
@@ -62,6 +80,14 @@ from ..models.config import StructuredEventProcessingMode, StructuredTransformer
 from ..models.transformer import init_kv_caches
 from ..ops.decode_step import decode_stack_step, stack_layer_weights
 from ..ops.fused_sampling import fused_categorical_stream, topk_topp_mask
+from ..ops.kv_quant import (
+    CACHE_DTYPES,
+    cache_dtype_name,
+    kv_cache_bytes_per_slot,
+    quantize_kv,
+    resolve_cache_dtype,
+    storage,
+)
 from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
 from .errors import MalformedPromptRejected, SlotHealthError
@@ -93,8 +119,6 @@ _NOT_PORTED = {
     "hot_swap": False,
     "spec": None,
     "paged_kv": False,
-    "kv_cache_dtype": None,
-    "health_retries": 0,
     "prefill_stream": None,
 }
 
@@ -113,7 +137,16 @@ class GenerationEngine:
         stop_dead_rows, device_criteria, greedy, top_k, top_p,
         health_sentinel, validate_prompts: as in the JAX engine.
         seed: the engine seed request streams derive from.
-        dispatch_depth: must be 1 (boundaries resolve synchronously).
+        dispatch_depth: decode chunks in flight before the oldest boundary
+            is resolved (1: each chunk's boundary is resolved before the
+            next chunk is issued). Results do not depend on it.
+        health_retries: how often a request whose slot the health sentinel
+            quarantined is retried (from the front of the queue, with the
+            same seed) before it fails with `SlotHealthError`.
+        kv_cache_dtype: the slot caches' storage type: ``None`` (the
+            compute dtype), its own name, or ``"int8"`` / ``"fp8"`` (codes
+            with fp32 scale tables, `ops.kv_quant`). Kernel B reads float
+            caches in the compute dtype only.
         device: ``None`` (the CUDA device, raising without one) or an
             explicit device such as ``"cpu"``.
     """
@@ -127,7 +160,7 @@ class GenerationEngine:
         n_slots: int,
         max_len: int,
         decode_chunk: int = 8,
-        dispatch_depth: int = 1,
+        dispatch_depth: int = 2,
         max_queue: Optional[int] = None,
         max_prompt_len: int | None = None,
         min_bucket: int = 8,
@@ -138,7 +171,9 @@ class GenerationEngine:
         top_p: float | None = None,
         greedy: bool = False,
         health_sentinel: bool = True,
+        health_retries: int = 0,
         validate_prompts: bool = True,
+        kv_cache_dtype: str | None = None,
         device=None,
         **not_ported,
     ):
@@ -147,8 +182,9 @@ class GenerationEngine:
                 raise TypeError(f"GenerationEngine got an unexpected keyword argument {name!r}")
             if value != _NOT_PORTED[name]:
                 raise ValueError(f"{name}={value!r} is not part of the PyTorch port's serving slice yet")
-        if int(dispatch_depth) != 1:
-            raise ValueError("dispatch_depth > 1 (pipelined boundaries) is not part of the PyTorch port yet")
+        self.dispatch_depth = int(dispatch_depth)
+        if self.dispatch_depth < 1:
+            raise ValueError("dispatch_depth must be >= 1")
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
             raise ValueError("nested-attention serving (the NA engine) is not part of the PyTorch port yet")
         check_generation_config(config)
@@ -159,7 +195,14 @@ class GenerationEngine:
         self.top_k = None if top_k is None else int(top_k)
         self.top_p = None if top_p is None else float(top_p)
         self.health_sentinel = bool(health_sentinel)
+        self.health_retries = int(health_retries)
         self.validate_prompts = bool(validate_prompts)
+        self._kv_buf_dtype, self._kv_quantized = resolve_cache_dtype(kv_cache_dtype, self.cdt)
+        if not self._kv_quantized and self._kv_buf_dtype != self.cdt:
+            raise ValueError(
+                f"kv_cache_dtype={kv_cache_dtype!r} under compute dtype {self.cdt}: kernel B reads float caches "
+                "in the compute dtype only (or use 'int8' / 'fp8')"
+            )
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.decode_chunk = int(decode_chunk)
@@ -181,10 +224,17 @@ class GenerationEngine:
 
         self._template = self._normalize_prompt(template)
         self._init_state()
+        # Host slot table (slot -> Request) and each slot's admission epoch:
+        # the dispatched-chunk count when its request was admitted. A boundary
+        # issued at chunk c reflects that admission iff epoch < c.
         self._table: list[Optional[Request]] = [None] * self.n_slots
+        self._slot_epoch: list[int] = [0] * self.n_slots
         self._dispatched_chunks = 0
+        self._resolved_chunks = 0
+        self._inflight: deque = deque()  # (chunk index, host boundary, CUDA event or None), in issue order
         self._health_quarantined = 0
         self._health_failed = 0
+        self._health_retried = 0
 
     # ------------------------------------------------------------ state init
     def _normalize_prompt(self, batch: EventStreamBatch) -> EventStreamBatch:
@@ -218,8 +268,12 @@ class GenerationEngine:
         )
         cfg = self.config
         shape = (cfg.num_hidden_layers, S, cfg.num_attention_heads, L, cfg.head_dim)
-        self.key_cache = torch.zeros(shape, dtype=self.cdt, device=dev)
-        self.value_cache = torch.zeros(shape, dtype=self.cdt, device=dev)
+        self.key_cache = torch.zeros(shape, dtype=self._kv_buf_dtype, device=dev)
+        self.value_cache = torch.zeros(shape, dtype=self._kv_buf_dtype, device=dev)
+        self.key_scale = self.value_scale = None
+        if self._kv_quantized:  # ones: zero codes dequantize to zeros
+            self.key_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+            self.value_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
         self.cache_mask = torch.zeros(S, L, dtype=torch.bool, device=dev)
         self.cache_len = torch.zeros(S, dtype=torch.int32, device=dev)
 
@@ -284,10 +338,11 @@ class GenerationEngine:
         active = self.live & ~self.done
         view = _trim_to_event(self.big, self.cursor - 1)
         h0 = m.encoder.input_layer(view)[:, 0]
-        h, _, _, self.cache_mask, self.cache_len = decode_stack_step(
+        h, _, _, _, _, self.cache_mask, self.cache_len = decode_stack_step(
             self._stacked, self.key_cache, self.value_cache, h0, self.cache_len,
             view.event_mask[:, 0], self.cache_mask, windows=self._windows,
             activation=cfg.activation_function, layer_norm_eps=float(cfg.layer_norm_epsilon), active=active,
+            key_scale=self.key_scale, value_scale=self.value_scale,
         )  # fmt: skip
         encoded = m.encoder.ln_f(h[:, None, :])
         out = m.output_layer(view, encoded, is_generation=True)
@@ -364,8 +419,13 @@ class GenerationEngine:
             dst = getattr(self.big, f)
             if dst is not None:
                 dst[slots] = getattr(pbig, f).to(dst.dtype)
-        self.key_cache[:, slots] = torch.stack([c.key for c in out.past_key_values])
-        self.value_cache[:, slots] = torch.stack([c.value for c in out.past_key_values])
+        for plane, scale, rows_kv in (
+            (self.key_cache, self.key_scale, torch.stack([c.key for c in out.past_key_values])),
+            (self.value_cache, self.value_scale, torch.stack([c.value for c in out.past_key_values])),
+        ):
+            if scale is not None:  # quantize on admission: the prefill ran on float caches
+                rows_kv, scale[:, slots] = quantize_kv(rows_kv, plane.dtype)
+            storage(plane)[:, slots] = storage(rows_kv)
         self.cache_mask[slots] = out.past_key_values[0].mask
         self.cache_len[slots] = plen
         cursor1 = plen + 1
@@ -381,13 +441,32 @@ class GenerationEngine:
         self.health[slots] = False
         for r, s in zip(reqs, group.slots):
             self._table[s] = r
+            self._slot_epoch[s] = self._dispatched_chunks
 
     # ---------------------------------------------------------- host pieces
     def _harvest(self, boundary: np.ndarray, chunk_index: int, now: float) -> list[EngineResult]:
         """Harvests slots whose request finished (rows: done, cursor, base_len,
-        n_generated, health); a quarantined slot's request fails typed."""
+        n_generated, health), admitted before chunk ``chunk_index`` was
+        issued. A quarantined slot's request is requeued at the front with
+        its seed fixed while its retry budget lasts, else fails typed."""
         done_np, health_np = boundary[0].astype(bool), boundary[4].astype(bool)
-        finished = [s for s in range(self.n_slots) if self._table[s] is not None and done_np[s]]
+        finished = [
+            s for s in range(self.n_slots)
+            if self._table[s] is not None and done_np[s] and self._slot_epoch[s] < chunk_index
+        ]  # fmt: skip
+        kept = []
+        for s in finished:
+            req = self._table[s]
+            if health_np[s] and self.health_sentinel and req.health_retries < self.health_retries:
+                self._health_quarantined += 1
+                self._health_retried += 1
+                self._table[s] = None
+                req.key = self._request_seed(req)  # the retry keeps the stream of its admission index
+                req.health_retries += 1
+                self.scheduler.requeue_front(req)
+            else:
+                kept.append(s)
+        finished = kept
         if not finished:
             return []
         ok_slots = [s for s in finished if not (health_np[s] and self.health_sentinel)]
@@ -464,37 +543,103 @@ class GenerationEngine:
             self._dispatch_group(g)
         return sum(len(g.requests) for g in groups)
 
+    @property
+    def inflight_chunks(self) -> int:
+        """Decode chunks issued whose boundary has not been resolved."""
+        return len(self._inflight)
+
     @torch.inference_mode()
-    def run_chunk(self, t0: float) -> list[EngineResult]:
-        """Runs one decode chunk, reads its packed boundary back (the one host
-        sync per chunk) and harvests; ``t0`` is the run's start on the
-        `time.perf_counter` clock."""
+    def issue_chunk(self) -> None:
+        """Runs one decode chunk and starts its packed boundary's copy to the
+        host (pinned memory, ``non_blocking``, an event behind it on the card);
+        nothing waits for the device."""
         for _ in range(self.decode_chunk):
             self._decode_step()
         self._dispatched_chunks += 1
         boundary = torch.stack(
             [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)]
         )
-        boundary = boundary.cpu().numpy()
-        return self._harvest(boundary, self._dispatched_chunks, time.perf_counter() - t0)
+        event = None
+        if boundary.is_cuda:
+            host = torch.empty(boundary.shape, dtype=boundary.dtype, pin_memory=True)
+            host.copy_(boundary, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = boundary
+        self._inflight.append((self._dispatched_chunks, host, event))
+
+    @torch.inference_mode()
+    def resolve_chunk(self, now: float) -> list[EngineResult]:
+        """Resolves the OLDEST in-flight boundary and harvests its finished
+        rows; waits only until that boundary's copy has landed."""
+        chunk_index, host, event = self._inflight.popleft()
+        if event is not None:
+            event.synchronize()
+        self._resolved_chunks += 1
+        return self._harvest(host.numpy(), chunk_index, now)
 
     def run(
         self, requests: Sequence[Request] = (), *, use_arrival_times: bool = False,
         max_padded_events: int | None = None,
     ) -> list[EngineResult]:  # fmt: skip
-        """Drains the queue (plus ``requests``) to completion; results in admission order."""
+        """Drains the queue (plus ``requests``) to completion; results in
+        admission order. Up to ``dispatch_depth`` chunks are issued before the
+        oldest boundary is resolved."""
         for r in requests:
             self.submit(r)
         results: list[EngineResult] = []
         t0 = time.perf_counter()
-        while self.scheduler.pending or self.occupied:
+        while self.scheduler.pending or self.occupied or self._inflight:
             now = time.perf_counter() - t0
             self.plan_and_dispatch(now=now if use_arrival_times else None, max_padded_events=max_padded_events)
             if self.occupied:
-                results.extend(self.run_chunk(t0))
+                self.issue_chunk()
+                if len(self._inflight) < self.dispatch_depth and self.occupied:
+                    continue  # keep the pipe full before paying a resolve
+            if self._inflight:
+                results.extend(self.resolve_chunk(time.perf_counter() - t0))
             elif self.scheduler.pending:
                 time.sleep(1e-3)  # waiting on arrivals
         return sorted(results, key=lambda r: r.admission_index)
+
+    def slots_report(self, hbm_gb: float | None = None) -> dict:
+        """Device-memory capacity of each cache dtype (`ops.kv_quant.CACHE_DTYPES`),
+        allocating nothing: the sequence-cache bytes a slot pins at ``max_len``
+        (planes, scale tables, mask) and the most slots that fit a budget of
+        ``hbm_gb`` GB net of the engine's resident weights (the model in the
+        compute dtype and the stacked layer weights kernel B reads) and each
+        slot's other state (content rows, cursors, streams), as the JAX
+        engine's `slots_report` counts them. ``hbm_gb`` defaults to the engine
+        device's own memory; on the CPU it must be given."""
+        if hbm_gb is None:
+            if self.device.type != "cuda":
+                raise ValueError("slots_report: pass hbm_gb for an engine that is not on a CUDA device")
+            hbm_gb = torch.cuda.get_device_properties(self.device).total_memory / 1e9
+        cfg = self.config
+        rest = [getattr(self.big, f) for f in _CORE_FIELDS]
+        rest += [self.cursor, self.base_len, self.budget, self.n_generated, self.done, self.live, self.health,
+                 self.seeds, self.counters, self.active_steps]  # fmt: skip
+        row_bytes = max(sum(t.numel() * t.element_size() for t in rest if t is not None) // self.n_slots, 1)
+        resident = list(self._model.parameters()) + list(self._model.buffers()) + list(self._stacked.values())
+        params_bytes = sum(t.numel() * t.element_size() for t in resident)
+        budget = max(int(hbm_gb * 1e9) - params_bytes, 0)
+        per_dtype = {}
+        for name in CACHE_DTYPES:
+            kv = kv_cache_bytes_per_slot(cfg.num_hidden_layers, cfg.num_attention_heads, self.max_len, cfg.head_dim,
+                                         name, cfg.compute_dtype)  # fmt: skip
+            per_dtype[name] = {"kv_bytes_per_slot": kv, "max_slots": int(budget // (kv + row_bytes))}
+        active = cache_dtype_name(self._kv_buf_dtype)
+        return {
+            "kv_cache_dtype": active,
+            "hbm_budget_gb": hbm_gb,
+            "params_bytes": params_bytes,
+            "row_bytes_per_slot": row_bytes,
+            "per_dtype": per_dtype,
+            "slots_per_chip_ratio_vs_bf16": round(
+                per_dtype[active]["max_slots"] / max(per_dtype["bf16"]["max_slots"], 1), 3
+            ),
+        }
 
     def stats(self) -> dict:
         total = self._dispatched_chunks * self.decode_chunk * self.n_slots
@@ -504,8 +649,9 @@ class GenerationEngine:
             {
                 "n_slots": self.n_slots,
                 "decode_chunk": self.decode_chunk,
-                "dispatch_depth": 1,
+                "dispatch_depth": self.dispatch_depth,
                 "dispatched_chunks": self._dispatched_chunks,
+                "resolved_chunks": self._resolved_chunks,
                 "slot_steps": total,
                 "active_slot_steps": active,
                 "wasted_decode_frac": round(1.0 - active / max(total, 1), 4),
@@ -516,7 +662,13 @@ class GenerationEngine:
                 "health_sentinel": self.health_sentinel,
                 "health_quarantined_total": self._health_quarantined,
                 "health_failed_total": self._health_failed,
-                "kv_cache_bytes": 2 * self.key_cache.numel() * self.key_cache.element_size(),
+                "health_retried_total": self._health_retried,
+                "kv_cache_dtype": cache_dtype_name(self._kv_buf_dtype),
+                "kv_cache_bytes": sum(
+                    t.numel() * t.element_size()
+                    for t in (self.key_cache, self.value_cache, self.key_scale, self.value_scale)
+                    if t is not None
+                ),
             }
         )
         return report

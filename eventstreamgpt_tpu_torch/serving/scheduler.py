@@ -60,6 +60,9 @@ class Request:
     request_id: Any = None
     arrival_time: float = 0.0
     admission_index: int = -1
+    # Times this request was requeued after a slot quarantine (the engine's
+    # ``health_retries`` budget); the retry keeps its seed.
+    health_retries: int = 0
     prompt_validated: bool = dataclasses.field(default=False, repr=False)
 
     @property
@@ -141,6 +144,7 @@ class Scheduler:
         self._malformed_rejected = 0
         self._prefill_dispatches = 0
         self._prefill_rows = 0
+        self._health_requeued = 0
 
     def submit(self, request: Request) -> Request:
         if request.prompt_len > max(self.buckets):
@@ -162,6 +166,14 @@ class Scheduler:
     def note_malformed_reject(self) -> None:
         self._malformed_rejected += 1
         self._rejected += 1
+
+    def requeue_front(self, request: Request) -> None:
+        """Puts a health-quarantined request back at the FRONT of the queue
+        for its retry, with its admission index (and the seed the caller
+        fixed); ``max_pending`` does not apply, since it was admitted once."""
+        self.queue.insert(0, request)
+        self._health_requeued += 1
+        self._max_depth = max(self._max_depth, len(self.queue))
 
     @property
     def pending(self) -> int:
@@ -248,6 +260,7 @@ class Scheduler:
             "max_queue_depth": self._max_depth,
             "rejected_total": self._rejected,
             "malformed_rejected_total": self._malformed_rejected,
+            "health_requeued_total": self._health_requeued,
             "prefill_deferrals": self._prefill_deferrals,
             "prefill_dispatches": self._prefill_dispatches,
             "prefill_rows_computed": self._prefill_rows,

@@ -26,7 +26,10 @@ version run (all of them, the checkout's alone, when none is given):
   32 slots with cursors drawn from 128-255, padding bits set below each
   cursor except a few, normal K, V and h0 (numpy seed 0), windows (32, 0)
   (every call writes the same k and v at the cursors, so repeated calls
-  compute the same step);
+  compute the same step); beside the versions (all through the float entry,
+  whose C signature older builds share), the checkout's quantized entry on
+  the same caches as int8 and as fp8 codes with their scales
+  (`ops.kv_quant.quantize_kv`), each version in turns;
 * C forward and backward at the training shape: a normal (8192, 7000) bf16
   plane, gathered at and its gradient scattered from (8192, 48) indices
   laid out as the regression head lays them out (``2 i`` and ``2 i + 1``
@@ -85,6 +88,7 @@ from ..ops import decode_step as ds
 from ..ops import dep_graph as dg
 from ..ops import fused_sampling as fs
 from ..ops import vocab_gather as vg
+from ..ops.kv_quant import FP8_DTYPE, quantize_kv
 from ..utils.timing import time_ms
 
 B_SLOTS, M = 32, 256
@@ -95,6 +99,7 @@ TRACE_DEFINE = "ESGPT_DECODE_TRACE"
 TRACE_SHAPE = (1024, 64)  # csrc/decode_step.cu's g_trace
 D_FLOOR_DEFINE = "ESGPT_DG_COPY_ONLY=1"
 PHASES = ("ln1", "qkv", "attention", "exchange_o", "wo", "exchange_x", "ln2", "fc", "exchange_f", "wpr", "exchange_h")
+QUANT = {"int8": torch.int8, "fp8": FP8_DTYPE}
 
 
 def version_jobs(specs: list[str], source: str) -> dict[str, tuple]:
@@ -183,6 +188,38 @@ def run_b(fn, inputs) -> tuple[float, torch.Tensor]:
 
     h = call()[0].float()
     return time_ms(call, n=20)["ms"], h
+
+
+def b_quant_inputs(kv: str):
+    """`b_inputs` with the caches quantized to ``kv`` codes and fp32 scales."""
+    weights, kc, vc, h0, start, em, mask, kw = b_inputs()
+    (kq, ks), (vq, vs) = (quantize_kv(c, QUANT[kv]) for c in (kc, vc))
+    return weights, kq, vq, h0, start, em, mask, dict(kw, key_scale=ks, value_scale=vs)
+
+
+def run_b_quant(inputs) -> tuple[float, torch.Tensor]:
+    weights, kc, vc, h0, start, em, mask, kw = inputs
+    k2, v2, ks, vs = kc.clone(), vc.clone(), kw["key_scale"].clone(), kw["value_scale"].clone()
+
+    def call():
+        return ds._launch(weights, k2, v2, h0, start, em, mask, kw["windows"], kw["activation"],
+                          kw["layer_norm_eps"], kw["active"], key_scale=ks, value_scale=vs)  # fmt: skip
+
+    h = call()[0].float()
+    return time_ms(call, n=20)["ms"], h
+
+
+def ab_b_quant(float_h: torch.Tensor) -> list[dict]:
+    """The checkout's quantized B (int8, fp8) in turns, with each one's
+    largest distance of ``h`` from the checkout's float B on the float caches."""
+    runs = []
+    for turn, kv in enumerate(list(QUANT) + list(QUANT)[::-1]):
+        ms, h = run_b_quant(b_quant_inputs(kv))
+        torch.cuda.synchronize()
+        diff = (h - float_h).abs().max().item()
+        runs.append(dict(version=f"checkout {kv}", turn=turn, ms=ms, max_abs_diff_from_float_cache=diff))
+        print(f"B quantized {kv} (turn {turn}): {ms:.4f} ms, max |h diff| from the float cache {diff:.3g}", flush=True)
+    return runs
 
 
 def run_c(fn, inputs) -> tuple[float, torch.Tensor]:
@@ -344,6 +381,8 @@ def main(argv=None) -> int:
                 report["runs"][f"{part} floors"] = dict(bytes=nbytes, copy_only_ms=floor_ms, torch_copy_ms=copy_ms)
                 print(f"{part}: the same loads and stores without arithmetic {floor_ms:.4f} ms; a copy of the same "
                       f"{nbytes / 1e6:.2f} MB {copy_ms:.4f} ms", flush=True)  # fmt: skip
+            if part == "B":
+                report["runs"]["B quantized"] = ab_b_quant(want[0].float())
             if part == "C fwd":
                 floor = time_ms(fs.launch_floor, n=100)
                 report["runs"]["C fwd floor"] = dict(launch_floor_ms=floor["ms"], single_ms=floor["single_ms"])

@@ -159,14 +159,90 @@ def test_default_device_needs_cuda():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(dispatch_depth=2), dict(spec=object()), dict(paged_kv=True), dict(kv_cache_dtype="int8"),
-     dict(mesh=object()), dict(hot_swap=True), dict(health_retries=1)],
+    [dict(prefill_stream=object()), dict(spec=object()), dict(paged_kv=True), dict(mesh=object()),
+     dict(hot_swap=True)],
     ids=lambda kw: next(iter(kw)),
 )  # fmt: skip
 def test_features_outside_the_slice_raise(kw):
     _, _, _, tcfg, tmodel, prompt = build()
     with pytest.raises(ValueError, match="not part of the PyTorch port"):
         GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+
+
+@pytest.mark.parametrize(
+    "kw,match",
+    [(dict(kv_cache_dtype="int4"), "unknown kv_cache_dtype"), (dict(dispatch_depth=0), "dispatch_depth must be >= 1")],
+    ids=lambda x: next(iter(x)) if isinstance(x, dict) else None,
+)  # fmt: skip
+def test_invalid_engine_options_raise_as_in_jax(kw, match):
+    """The ported options refuse what the JAX engine refuses, with its messages."""
+    _, jmodel, params, tcfg, tmodel, prompt = build()
+    with pytest.raises(ValueError, match=match):
+        JaxEngine(jmodel, params, JaxConfig.from_dict(tcfg.to_dict()), template=prompt, **dict(ENGINE, **kw))
+    with pytest.raises(ValueError, match=match):
+        GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+
+
+def test_results_are_bitwise_invariant_to_dispatch_depth():
+    """Sampled decoding at depths 1, 2 and 3: a stale boundary harvests a
+    frozen row, and a slot admitted after a boundary was issued is never
+    harvested from it, so every result is bit-identical."""
+    _, _, _, tcfg, tmodel, prompt = build("local_lognormal")
+    runs = {}
+    for depth in (1, 2, 3):
+        eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu",
+                               **dict(ENGINE, dispatch_depth=depth))  # fmt: skip
+        runs[depth] = eng.run(port_requests(prompt))
+        s = eng.stats()
+        assert s["dispatch_depth"] == depth and s["resolved_chunks"] == s["dispatched_chunks"]
+        assert eng.inflight_chunks == 0
+    assert all(r.error is None for r in runs[1])
+    assert_same_results(runs[1], runs[2])
+    assert_same_results(runs[1], runs[3])
+
+
+def poisoned_engine(tcfg, tmodel, prompt, slot=0, chunk=1, **kw):
+    """An engine whose ``slot`` gets a NaN ``time_delta`` behind its last
+    committed event just before chunk ``chunk`` is issued (as the JAX
+    engine's ``nan_slot`` fault does): the next forward goes non-finite."""
+    eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+    issue = eng.issue_chunk
+
+    def poisoning_issue():
+        if eng._dispatched_chunks == chunk and eng._table[slot] is not None:
+            col = max(int(eng.cursor[slot]) - 2, 0)
+            eng.big.time_delta[slot, col] = float("nan")
+        issue()
+
+    eng.issue_chunk = poisoning_issue
+    return eng
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_health_retry_reproduces_the_clean_run_bitwise(depth):
+    """A NaN-poisoned slot with ``health_retries=1`` is requeued at the front
+    with its seed fixed and reproduces the clean run bit for bit (co-residents
+    untouched); with no budget the request fails with `SlotHealthError`
+    (JAX: tests/test_serving_faults.py, the slot-quarantine suite)."""
+    _, _, _, tcfg, tmodel, prompt = build("local_lognormal")
+    clean = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu",
+                             **dict(ENGINE, dispatch_depth=depth)).run(port_requests(prompt))  # fmt: skip
+    eng = poisoned_engine(tcfg, tmodel, prompt, health_retries=1, dispatch_depth=depth)
+    retried = eng.run(port_requests(prompt))
+    assert_same_results(clean, retried)
+    s = eng.stats()
+    assert (s["health_retried_total"], s["health_quarantined_total"], s["health_failed_total"]) == (1, 1, 0)
+    assert s["health_requeued_total"] == 1
+
+    eng = poisoned_engine(tcfg, tmodel, prompt, dispatch_depth=depth)
+    failed = by_id(eng.run(port_requests(prompt)))
+    bad = [r for r in failed.values() if r.error is not None]
+    assert len(bad) == 1 and isinstance(bad[0].error, SlotHealthError) and bad[0].batch is None
+    assert bad[0].error.slot == 0
+    ok = by_id([r for r in clean if r.request_id != bad[0].request_id])
+    assert_same_results(list(ok.values()), [r for r in failed.values() if r.error is None])
+    s = eng.stats()
+    assert (s["health_retried_total"], s["health_failed_total"]) == (0, 1)
 
 
 def test_malformed_prompt_rejected_and_nonfinite_slot_quarantined():
