@@ -17,14 +17,22 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    weights behind `GenerationEngine` (32 slots, ``max_len`` 256, prompts up to
    192 events, buckets from 32, chunks of 16), serving 64 requests with
    prompts of 128-192 events and budgets of 16-64 new events, once greedy
-   and once sampled. Every request must finish without error, with
-   ``n_events == prompt_len + n_generated`` and finite outputs; both
-   kernels' launch counters must move (kernel A, which the engine calls as
-   `fused_categorical_stream`, only samples). A small
+   and once sampled. The engine captures its decode chunk once, at
+   construction (one warm-up chunk run eagerly, then the capture), and
+   replays it once per dispatched chunk. Every request must finish without
+   error, with ``n_events == prompt_len + n_generated`` and finite outputs;
+   both kernels' launch counters, set to 0 before the engine is built and
+   counting through the replays, must move (kernel A, which the engine calls
+   as `fused_categorical_stream`, only samples); kernel B launches once a
+   decode step run, warm-up included; one capture, and one replay a
+   dispatched chunk. The same engine with ``cuda_graph=False`` (the chunk
+   run eagerly) must give every request's events, integers and floats bit
+   for bit (the same kernels on the same inputs in the same order); the
+   wall time a chunk, a step and events/s of both are printed. A small
    fp32 greedy engine on the card must also match the same engine on the
    CPU (plain PyTorch versions of the kernels).
 3. Kernels against their plain versions, on the card, on inputs captured
-   from the sampled run's first decode step (the logits, the stream's seeds,
+   from the eager sampled run's first decode step (the logits, the stream's seeds,
    counters and draw salt, keep and active): kernel A's noise bit for bit
    ``gumbel(stream).to(dtype)`` (at the captured shape and on a 4,096 x
    4,057 plane), and the indices of both its entries (noise drawn inside,
@@ -40,14 +48,17 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    same tolerances, mask and length exact; B's cluster shape and CTAs.
 3b. The quantized decode cache: phase 2's model and 64 requests served with
    ``kv_cache_dtype`` "int8" and then "fp8", greedy and sampled, at
-   ``dispatch_depth=2`` (every request finishes with ``n_events ==
-   prompt_len + n_generated`` and finite outputs; kernel B's quantized
-   launch counter for that dtype and, sampling, kernel A's counter move; the
-   float entry never launches). A small fp32 int8 engine on the card must
+   ``dispatch_depth=2``, on the captured chunk (every request finishes with
+   ``n_events == prompt_len + n_generated`` and finite outputs; kernel B's
+   quantized launch counter for that dtype and, sampling, kernel A's counter
+   move; the float entry never launches; kernel B launches once a decode step
+   run; one capture, one replay a chunk). Each sampled run is repeated with
+   the eager chunk and must give the same events, integers and floats bit
+   for bit. A small fp32 int8 engine on the card must
    match the same engine on the CPU (events and integers exact, floats within
    2e-2, the JAX package's quantized-cache tolerance). Quantized
    B against its plain version on the inputs captured from each sampled
-   run's first decode step, fp32 and bf16: codes and scales off the cursor
+   eager run's first decode step, fp32 and bf16: codes and scales off the cursor
    bit-equal, the dequantized cursor keys and values within phase 3's
    tolerances (of each row's largest) plus one quantisation step, ``h``
    within phase 3's tolerance
@@ -59,14 +70,20 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
 4. Training at full width: the same model with dropout 0.1 and fp32 master
    weights, AdamW with warmup (``bench.py``'s optimizer settings), 20 train
    steps through `make_train_step` on one fixed synthetic batch of 32
-   subjects x 256 events (up to 24 data elements an event). Every loss is
-   finite, the loss falls from step 1 to step 20, and kernel C's forward
-   and backward each launch exactly once a step. Median step time and
-   trained events/s (real events a step over the step time). A small fp32
+   subjects x 256 events (up to 24 data elements an event): the first step
+   eager (its warm-up), the second captured, and that and every later step
+   one replay. Every loss is finite, the loss falls from step 1 to step 20,
+   and kernel C's forward and backward each launch exactly once a step,
+   counted through the replays. 20 steps of the same model with
+   ``cuda_graph=False`` must give the first 5 losses and ``[loss, grad
+   norm]`` vectors bit for bit (a difference would mean the dropout stream
+   or the learning rate went wrong under capture). Median step time and
+   trained events/s (real events a step over the step time), captured and
+   eager. A small fp32
    train step on the card must also match the same step on the CPU (loss
    and every gradient within 1e-4, dropout 0).
 5. Kernel C against its plain version, on the card, on the regression
-   plane, indices and cotangent captured from a phase-4 step, in bf16 and
+   plane, indices and cotangent captured from phase 4's first step, in bf16 and
    fp32: forward bit-exact; backward within one bf16 ulp (fp32: rtol 1e-6,
    atol 1e-6 of the largest cotangent), the plain version summing
    duplicates with atomics in no fixed order; the kernel's backward also
@@ -80,7 +97,8 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    `make_train_step(build_model(...))` on the phase-4 batch. Every loss and
    gradient norm is finite, the loss falls from step 1 to step 20, kernel D's
    forward and backward each launch ``num_hidden_layers`` times a step and
-   kernel C's once a step. Median step time and trained events/s. A small
+   kernel C's once a step; captured and compared with the eager step as in
+   phase 4. Median step time and trained events/s. A small
    fp32 NA train step on the card must also match the CPU's (loss and every
    gradient within 1e-4, dropout 0; hidden 32, one head of 32), and at hidden
    128 (4 heads of 32) the same step with kernels C and D must match the
@@ -88,8 +106,8 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    gradient within 2e-5 of its tensor's largest magnitude).
 7. Kernel D against its plain version, on the card, on the query (as the
    ``[:, 1:]`` view the model passes), key, value, keep-mask and output
-   cotangent (scaled to a largest magnitude of 1) captured from a phase-6
-   step, in bf16 and fp32, with and without the keep-mask: forward and
+   cotangent (scaled to a largest magnitude of 1) captured from phase 6's
+   first step, in bf16 and fp32, with and without the keep-mask: forward and
    backward within 1e-5 of the largest magnitude in fp32; in bf16 within
    1e-2 of it, and the output also within 2e-2 absolute. Timed in bf16 with the
    keep-mask beside its bound, its plain version (autograd for the
@@ -103,7 +121,8 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    (the global layer on kernel E, the local one on the band product): kernel
    E and kernel C each launch once a step each way, kernel F never. Then 10
    steps with a local window of 256: kernels E and F each launch once a step
-   each way. Every loss is finite and falls. Small fp32 packed steps on the
+   each way. Every loss is finite and falls; each run captured and compared
+   with the eager step as in phase 4. Small fp32 packed steps on the
    card must match the CPU's (hidden 32, one head of 32, windows 32 and 160,
    within 1e-4; both given the same float64-derived event time), and at
    hidden 128 (4 heads of 32, window 160) the step with kernels C, E and F
@@ -111,7 +130,7 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    1e-5, every gradient within 2e-5 of its tensor's largest).
 9. Kernels E and F against their plain versions, on the card, on the query,
    key, value, segment ids and output cotangent (scaled to a largest
-   magnitude of 1) captured from a phase-8 step (E from the window-32 run,
+   magnitude of 1) captured from a phase-8 run's first step (E from the window-32 run,
    F from the window-256 run), in fp32 (within 3e-5 of each tensor's
    largest) and bf16 (within 5e-2 of it: the kernel takes ``di`` from the
    rounded output, as the TPU kernels do), each version's distance from the
@@ -152,7 +171,7 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 outside the tensor cores
 N_REQUESTS, SEED = 64, 0
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 256, 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, EQUAL_STEPS = 32, 256, 20, 5
 PACKED_BATCH, PACKED_SEQ, WIDE_WINDOW, WIDE_STEPS = 8, 1024, 256, 10
 
 
@@ -253,9 +272,80 @@ class Capture:
         self.mod.fused_categorical_stream, self.mod.decode_stack_step = self.orig_a, self.orig_b
 
 
+def engine_run(model, config, prompts, counters, **engine_kw):
+    """One engine built and run on ``prompts`` (64 requests): every counter in
+    ``counters`` (``name -> (wrapper, attribute)``) is set to 0 just before
+    the engine is built (its warm-up and capture included) and read just
+    after the run. Returns the results, requests, wall time of the run,
+    launches and the engine's stats."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    engine = GenerationEngine(model, config, template=prompts[0][0], **engine_kw)
+    reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    return dict(results=results, requests=reqs, wall_s=wall, launches=launches, stats=engine.stats(), engine=engine)
+
+
+def check_graph_counts(run, label, counter):
+    """The captured engine's program: one capture, one warm-up chunk, one
+    replay a dispatched chunk, and kernel B's ``counter`` counting every
+    decode step run through the replays (warm-up included)."""
+    s = run["stats"]
+    check(s["cuda_graph"] and s["graph_captures"] == 1 and s["graph_warmup_chunks"] == 1,
+          f"{label}: the decode chunk was not captured once: {s}")  # fmt: skip
+    check(s["graph_replays"] == s["dispatched_chunks"] > 0,
+          f"{label}: {s['graph_replays']} replays for {s['dispatched_chunks']} dispatched chunks")  # fmt: skip
+    steps = (s["graph_warmup_chunks"] + s["dispatched_chunks"]) * s["decode_chunk"]
+    check(run["launches"][counter] == steps,
+          f"{label}: kernel B launched {run['launches'][counter]} times for {steps} decode steps run")  # fmt: skip
+
+
+def same_as_eager(captured, eager, label):
+    """Every request's events, integers and floats from the captured chunk
+    equal the eager chunk's, bit for bit (NaN where NaN): the same kernels
+    on the same inputs in the same order. On a difference, fails with the
+    largest gap of each float field."""
+    import torch
+
+    gaps = {}
+    for a, b in zip(captured["results"], eager["results"]):
+        check(a.request_id == b.request_id, f"{label}: results in another order")
+        check((a.n_events, a.n_generated) == (b.n_events, b.n_generated),
+              f"{label}: request {a.request_id} has {a.n_generated} events captured, {b.n_generated} eager")  # fmt: skip
+        for k, t in vars(a.batch).items():
+            if not torch.is_tensor(t):
+                continue
+            u = getattr(b.batch, k)
+            if t.is_floating_point():
+                if not torch.equal(t.nan_to_num(-7.0), u.nan_to_num(-7.0)):
+                    gaps[k] = max(gaps.get(k, 0.0), (t - u).nan_to_num(0.0).abs().max().item())
+            else:
+                check(torch.equal(t, u), f"{label}: request {a.request_id}'s {k} differs captured vs eager")
+    check(not gaps, f"{label}: captured floats differ from eager; largest gaps {gaps}")
+
+
+def walls_line(captured, eager, generated) -> str:
+    """Wall time of the run per chunk and per decode step, and events/s, captured beside eager."""
+    parts = []
+    for name, run in (("captured", captured), ("eager", eager)):
+        s = run["stats"]
+        chunk_ms = run["wall_s"] * 1e3 / s["dispatched_chunks"]
+        parts.append(f"{name} {run['wall_s']:.3f} s, {chunk_ms:.3f} ms a chunk, {chunk_ms / s['decode_chunk']:.3f} ms "
+                     f"a step, {generated / run['wall_s']:.1f} events/s")  # fmt: skip
+    return "; ".join(parts)
+
+
 def engine_phase(smi):
     import numpy as np
-    import torch
 
     import eventstreamgpt_tpu_torch.serving.engine as engine_module
     from eventstreamgpt_tpu_torch.convert import init_params_from_seed
@@ -272,43 +362,44 @@ def engine_phase(smi):
     model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=SEED)
     capture = Capture(engine_module)
     engine_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
-
-    def requests():
-        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+    counters = {"decode_stack_step": (decode_stack_step, "launches"),
+                "fused_categorical_stream": (fused_categorical_stream, "launches"),
+                "fused_categorical": (fused_categorical, "launches")}  # fmt: skip
 
     # Warm-up (cuBLAS handles, allocator) on a few requests, not counted.
-    GenerationEngine(model, config, template=prompts[0][0], **engine_kw).run(requests()[:4])
+    requests = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts[:4])]
+    GenerationEngine(model, config, template=prompts[0][0], **engine_kw).run(requests)
     out = {}
     for mode in ("greedy", "sampled"):
-        engine = GenerationEngine(model, config, template=prompts[0][0], greedy=mode == "greedy", **engine_kw)
-        reqs = requests()
+        kw = dict(engine_kw, greedy=mode == "greedy")
+        run = engine_run(model, config, prompts, counters, **kw)
+        # The eager chunk (``cuda_graph=False``) for comparison; kernel
+        # inputs for phase 3 come from its first sampled decode step.
         capture.armed = mode == "sampled"
-        decode_stack_step.launches = 0
-        fused_categorical.launches = fused_categorical_stream.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results = engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"decode_stack_step": decode_stack_step.launches,
-                    "fused_categorical_stream": fused_categorical_stream.launches,
-                    "fused_categorical": fused_categorical.launches}  # fmt: skip
-        check_results(results, reqs, mode)
+        eager = engine_run(model, config, prompts, counters, cuda_graph=False, **kw)
+        capture.armed = False
+        results, launches, stats = run["results"], run["launches"], run["stats"]
+        check_results(results, run["requests"], mode)
         check(launches["decode_stack_step"] > 0, f"{mode}: the decode kernel was never launched")
         check(launches["fused_categorical"] == 0, f"{mode}: the engine launched kernel A with given noise")
         if mode == "sampled":
             check(launches["fused_categorical_stream"] > 0, "sampled: the sampling kernel was never launched")
         else:
             check(launches["fused_categorical_stream"] == 0, "greedy: the sampling kernel launched in greedy mode")
+        check_graph_counts(run, f"phase 2 [{mode}]", "decode_stack_step")
+        check(eager["launches"]["decode_stack_step"] == eager["stats"]["dispatched_chunks"] * 16,
+              f"phase 2 [{mode}]: the eager engine's kernel B launches {eager['launches']}")  # fmt: skip
+        same_as_eager(run, eager, f"phase 2 [{mode}]")
         generated = sum(r.n_generated for r in results)
-        stats = engine.stats()
-        out[mode] = dict(launches=launches, generated=generated, wall_s=wall, stats=stats, results=results)
+        out[mode] = dict(run, generated=generated, eager_wall_s=eager["wall_s"])
         print(
-            f"phase 2 [{mode}] {len(results)} requests, {generated} generated events in {wall:.3f} s: "
-            f"{generated / wall:.1f} events/s, {launches}, decode steps {stats['dispatched_chunks'] * 16}, "
-            f"dispatch_depth {stats['dispatch_depth']}, wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
+            f"phase 2 [{mode}] {len(results)} requests, {generated} generated events, every event, integer and float "
+            f"equal captured and eager; {walls_line(run, eager, generated)}; captured launches {launches} (decode "
+            f"steps {(stats['graph_warmup_chunks'] + stats['dispatched_chunks']) * 16}, warm-up included; "
+            f"{stats['graph_captures']} capture, {stats['graph_replays']} replays), dispatch_depth "
+            f"{stats['dispatch_depth']}, wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
             flush=True,
-        )
+        )  # fmt: skip
     capture.restore()
     check(capture.a is not None and capture.b is not None, "no decode-step inputs were captured")
     small_engine_matches_cpu()
@@ -584,57 +675,48 @@ QUANT_DTYPES = ("int8", "fp8")
 
 def quantized_engine_phase(smi, model, config, runs):
     """Phase 2's model and requests served with an int8 and an fp8 cache at
-    ``dispatch_depth=2``, greedy and sampled; returns the captured inputs of
-    each sampled run's first decode step and the runs' launch counts."""
+    ``dispatch_depth=2``, greedy and sampled, each sampled run also eagerly;
+    returns the captured inputs of each eager sampled run's first decode step
+    and the captured runs' launch counts."""
     import numpy as np
-    import torch
 
     import eventstreamgpt_tpu_torch.serving.engine as engine_module
     from eventstreamgpt_tpu_torch.data.synthetic import synthetic_prompts, serving_config
     from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
     from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
-    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
 
     prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, serving_config(), (128, 192), (16, 64))
     engine_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED,
                      dispatch_depth=2)  # fmt: skip
-    counters = ("launches", "launches_int8", "launches_fp8")
+    entries = ("launches", "launches_int8", "launches_fp8")
+    counters = {f"decode_stack_step.{c}": (decode_stack_step, c) for c in entries}
+    counters.update(fused_categorical_stream=(fused_categorical_stream, "launches"),
+                    fused_categorical=(fused_categorical, "launches"))  # fmt: skip
     captures, out = {}, {}
     for kv in QUANT_DTYPES:
         captures[kv] = capture = Capture(engine_module)
         for mode in ("greedy", "sampled"):
-            engine = GenerationEngine(model, config, template=prompts[0][0], greedy=mode == "greedy",
-                                      kv_cache_dtype=kv, **engine_kw)  # fmt: skip
-            reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
-            capture.armed = mode == "sampled"
-            for c in counters:
-                setattr(decode_stack_step, c, 0)
-            fused_categorical.launches = fused_categorical_stream.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results = engine.run(reqs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {f"decode_stack_step.{c}": getattr(decode_stack_step, c) for c in counters}
-            launches["fused_categorical_stream"] = fused_categorical_stream.launches
-            launches["fused_categorical"] = fused_categorical.launches
+            kw = dict(engine_kw, greedy=mode == "greedy", kv_cache_dtype=kv)
+            run = engine_run(model, config, prompts, counters, **kw)
+            results, launches, stats, wall = run["results"], run["launches"], run["stats"], run["wall_s"]
             label = f"phase 3b [{kv} {mode}]"
-            check_results(results, reqs, label)
+            check_results(results, run["requests"], label)
             ours = launches[f"decode_stack_step.launches_{kv}"]
             check(ours > 0, f"{label}: the quantized decode kernel never ran")
-            check(sum(launches[f"decode_stack_step.{c}"] for c in counters) == ours,
+            check(sum(launches[f"decode_stack_step.{c}"] for c in entries) == ours,
                   f"{label}: another entry of kernel B launched: {launches}")  # fmt: skip
             check(launches["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
             if mode == "sampled":
                 check(launches["fused_categorical_stream"] > 0, f"{label}: the sampling kernel was never launched")
             else:
                 check(launches["fused_categorical_stream"] == 0, f"{label}: the sampling kernel ran in greedy mode")
-            stats = engine.stats()
             check(stats["kv_cache_dtype"] == kv and stats["dispatch_depth"] == 2, f"{label}: {stats}")
+            check_graph_counts(run, label, f"decode_stack_step.launches_{kv}")
             generated = sum(r.n_generated for r in results)
             line = (f"{label} {len(results)} requests, {generated} generated events in {wall:.3f} s: "
-                    f"{generated / wall:.1f} events/s, {launches}, dispatched chunks {stats['dispatched_chunks']}, "
-                    f"wasted_decode_frac {stats['wasted_decode_frac']}, kv_cache_bytes {stats['kv_cache_bytes']}")  # fmt: skip
+                    f"{generated / wall:.1f} events/s, {launches}, dispatched chunks {stats['dispatched_chunks']} "
+                    f"({stats['graph_replays']} replays of 1 capture), wasted_decode_frac "
+                    f"{stats['wasted_decode_frac']}, kv_cache_bytes {stats['kv_cache_bytes']}")  # fmt: skip
             if mode == "greedy":
                 base = {r.request_id: r for r in runs["greedy"]["results"]}
                 agree = [same_generated_events(r, base[r.request_id]) for r in results]
@@ -642,13 +724,19 @@ def quantized_engine_phase(smi, model, config, runs):
                 line += (f"; greedy requests whose events equal the bf16 cache's: {same} of {len(results)}, generated "
                          f"events equal before the first difference: median {float(np.median(agree))}, "
                          f"{sum(agree)} of {generated} (not checked)")  # fmt: skip
+            else:  # the eager chunk, for equality; quantized B's inputs for this phase come from it
+                capture.armed = True
+                eager = engine_run(model, config, prompts, counters, cuda_graph=False, **kw)
+                capture.armed = False
+                same_as_eager(run, eager, label)
+                line += f"; every event, integer and float equal captured and eager: {walls_line(run, eager, generated)}"
             print(f"{line} ({smi})", flush=True)
             out[(kv, mode)] = dict(launches=launches, wall_s=wall, generated=generated)
+            if kv == "int8" and mode == "sampled":
+                print(f"phase 3b: slots_report() at the card's memory: {json.dumps(run['engine'].slots_report())} "
+                      f"({smi})", flush=True)  # fmt: skip
         capture.restore()
         check(capture.b is not None, f"no quantized decode-step inputs were captured ({kv})")
-        if kv == "int8":
-            print(f"phase 3b: slots_report() at the card's memory: {json.dumps(engine.slots_report())} ({smi})",
-                  flush=True)  # fmt: skip
     small_engine_matches_cpu(kv_cache_dtype="int8")
     return captures, out
 
@@ -801,11 +889,16 @@ class GatherCapture:
 
 
 def training_run(label, smi, config, batch, counters, capture=None, steps=TRAIN_STEPS):
-    """``steps`` steps of a fresh model through `make_train_step`
-    (after 2 warm-up steps of another fresh model, not counted); the
-    counters in ``counters`` (launch-counted kernel entry points) are set to 0
-    just before the counted steps and read just after. ``capture.armed`` is
-    set for the last step. Returns ``(losses, launches, step_ms, events)``."""
+    """``steps`` steps of a fresh model through `make_train_step` (after 2
+    warm-up steps of another fresh model, not counted): the first runs
+    eagerly (its warm-up), the second is captured, and every step from the
+    second on is a replay. The counters in ``counters`` (launch-counted
+    kernel entry points) are set to 0 just before the counted steps and
+    read just after. ``capture.armed`` is set for the first step (eager:
+    the captured steps run no Python). Then ``steps`` steps of a fresh
+    model with ``cuda_graph=False``: their first `EQUAL_STEPS` losses and
+    health vectors must equal the captured steps', bit for bit. Returns
+    ``(losses, launches, step_ms, events, eager_step_ms)``."""
     import numpy as np
     import torch
 
@@ -813,12 +906,27 @@ def training_run(label, smi, config, batch, counters, capture=None, steps=TRAIN_
     from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
     from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
 
-    def fresh():
+    def fresh(**kw):
         model = init_params_from_seed(build_model(config), seed=SEED)
         oc = OptimizationConfig(init_lr=1e-3, batch_size=TRAIN_BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
         oc.set_to_dataset(n_subjects=512)  # bench.py's 512 training subjects
         optimizer, scheduler = build_optimizer(model, oc)
-        return make_train_step(model, optimizer, scheduler, with_health=True)
+        return make_train_step(model, optimizer, scheduler, with_health=True, **kw)
+
+    def run(step, arm=False):
+        healths, walls = [], []
+        for i in range(steps):
+            if arm and capture is not None:
+                capture.armed = i == 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, health = step(batch, SEED)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            healths.append(health.cpu())
+        if arm and capture is not None:
+            capture.armed = False
+        return torch.stack(healths), walls
 
     warm = fresh()  # cuBLAS handles, allocator, kernel loads: not counted
     for _ in range(2):
@@ -828,30 +936,33 @@ def training_run(label, smi, config, batch, counters, capture=None, steps=TRAIN_
     step = fresh()
     for fn in counters:
         fn.launches = 0
-    losses, norms, walls = [], [], []
-    for i in range(steps):
-        if capture is not None:
-            capture.armed = i == steps - 1
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, health = step(batch, SEED)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-        norms.append(float(health[1]))
+    healths, walls = run(step, arm=True)
     launches = {fn.__name__: fn.launches for fn in counters}
     if capture is not None:
         capture.restore()
+    s = step.stats()
+    check((s["graph_warmup_steps"], s["graph_captures"], s["graph_replays"]) == (1, 1, steps - 1),
+          f"{label}: the train step was not warmed up once, captured once and replayed after: {s}")  # fmt: skip
+    eager_healths, eager_walls = run(fresh(cuda_graph=False))
+    n = EQUAL_STEPS
+    check(torch.equal(healths[:n], eager_healths[:n]),
+          f"{label}: the captured steps' [loss, grad norm] differ from the eager steps': {healths[:n].tolist()} vs "
+          f"{eager_healths[:n].tolist()}")  # fmt: skip
+    losses, norms = healths[:, 0].tolist(), healths[:, 1].tolist()
     check(all(math.isfinite(x) for x in losses + norms), f"{label}: a loss or gradient norm is not finite: {losses}")
     check(losses[-1] < losses[0], f"{label}: the loss did not fall over {steps} steps: {losses}")
     events = int(batch.event_mask.sum())
-    step_ms = float(np.median(walls)) * 1e3
+    step_ms, eager_ms = float(np.median(walls)) * 1e3, float(np.median(eager_walls)) * 1e3
     B, L = batch.event_mask.shape
     print(f"{label}: {steps} train steps at (B={B}, L={L}, n_data="
           f"{batch.dynamic_indices.shape[-1]}), {events} real events a step: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; median step {step_ms:.3f} ms (min {min(walls) * 1e3:.3f}), "
-          f"{events / (step_ms / 1e3):.1f} trained events/s; launches {launches} ({smi})", flush=True)  # fmt: skip
-    return losses, launches, step_ms, events
+          f"{losses[-1]:.4f}; captured: median step {step_ms:.3f} ms (min {min(walls) * 1e3:.3f}), "
+          f"{events / (step_ms / 1e3):.1f} trained events/s; eager: median step {eager_ms:.3f} ms (min "
+          f"{min(eager_walls) * 1e3:.3f}), {events / (eager_ms / 1e3):.1f} trained events/s; [loss, grad norm] "
+          f"equal captured and eager over the first {n} steps (all {steps}: "
+          f"{torch.equal(healths, eager_healths)}); launches {launches} ({s['graph_captures']} capture, "
+          f"{s['graph_replays']} replays) ({smi})", flush=True)  # fmt: skip
+    return losses, launches, step_ms, events, eager_ms
 
 
 def training_batch():
@@ -874,11 +985,11 @@ def training_phase(smi):
     check(config.precision == "bf16" and config.resid_dropout == 0.1, "phase 4: not the benchmark's training config")
     capture = GatherCapture(layers_module)
     counters = (vocab_gather_fwd, vocab_gather_bwd)
-    losses, launches, step_ms, events = training_run("phase 4", smi, config, batch, counters, capture)
+    losses, launches, step_ms, events, eager_ms = training_run("phase 4", smi, config, batch, counters, capture)
     check(launches == {k: TRAIN_STEPS for k in launches}, f"phase 4: kernel C launches {launches}, not 1 a step")
     check(capture.z is not None and capture.g is not None, "phase 4: no regression-plane inputs were captured")
     small_train_step_matches_cpu()
-    return dict(launches=launches, step_ms=step_ms, events=events, losses=losses), capture
+    return dict(launches=launches, step_ms=step_ms, eager_step_ms=eager_ms, events=events, losses=losses), capture
 
 
 def small_fp32_setup(na, **widths):
@@ -1140,7 +1251,8 @@ def na_training_phase(smi):
           "phase 6: not the benchmark's NA training config")  # fmt: skip
     capture = DepGraphCapture(transformer_module)
     counters = (dep_graph_fwd, dep_graph_bwd, vocab_gather_fwd, vocab_gather_bwd)
-    losses, launches, step_ms, events = training_run("phase 6 [NA]", smi, config, batch, counters, capture)
+    losses, launches, step_ms, events, eager_ms = training_run("phase 6 [NA]", smi, config, batch, counters,
+                                                               capture)  # fmt: skip
     layers = config.num_hidden_layers
     want = {"dep_graph_fwd": layers * TRAIN_STEPS, "dep_graph_bwd": layers * TRAIN_STEPS,
             "vocab_gather_fwd": TRAIN_STEPS, "vocab_gather_bwd": TRAIN_STEPS}  # fmt: skip
@@ -1149,7 +1261,7 @@ def na_training_phase(smi):
     check(capture.args["keep"] is not None, "phase 6: the dep-graph attention ran without its dropout keep-mask")
     small_train_step_matches_cpu(na=True)
     na_kernels_match_plain_on_card()
-    return dict(launches=launches, step_ms=step_ms, events=events, losses=losses), capture
+    return dict(launches=launches, step_ms=step_ms, eager_step_ms=eager_ms, events=events, losses=losses), capture
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1305,7 +1417,8 @@ def packed_training_phase(smi):
               "phase 8: not the benchmark's packed training config")  # fmt: skip
         label = f"phase 8 [packed, local window {config.seq_window_size}]"
         capture = FlashCapture(transformer_module)  # restored by training_run
-        losses, launches, step_ms, events = training_run(label, smi, config, batch, counters, capture, steps=steps)
+        losses, launches, step_ms, events, eager_ms = training_run(label, smi, config, batch, counters, capture,
+                                                                   steps=steps)  # fmt: skip
         wide = window is not None
         want = {"flash_attention_fwd": steps, "flash_attention_bwd": steps, "vocab_gather_fwd": steps,
                 "vocab_gather_bwd": steps, "flash_attention_window_fwd": steps if wide else 0,
@@ -1314,7 +1427,8 @@ def packed_training_phase(smi):
         # Kernel E's inputs from the benchmark's run, F's from the wide-window one.
         a = capture.args.get(window)
         check(a is not None and a["g"] is not None, f"{label}: the attention inputs were not captured")
-        runs[window], args[window] = dict(launches=launches, step_ms=step_ms, events=events, losses=losses), a
+        runs[window] = dict(launches=launches, step_ms=step_ms, eager_step_ms=eager_ms, events=events, losses=losses)
+        args[window] = a
     small_packed_step_matches_cpu()
     packed_kernels_match_plain_on_card()
     return runs, args

@@ -231,9 +231,14 @@ _WINDOWS: dict = {}
 
 def _windows_tensor(windows: tuple, device) -> torch.Tensor:
     """The per-layer windows as a device tensor, made once per device: a
-    fresh host-to-device copy per step would block the host on the stream."""
+    fresh host-to-device copy per step would block the host on the stream.
+    The first call for a key copies from the host, which a CUDA graph
+    capture forbids: the captured programs make it in their warm-up."""
     key = (windows, str(device))
     if key not in _WINDOWS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode_stack_step: its first call for these windows is under a CUDA graph capture; "
+                               "run it once before capturing")  # fmt: skip
         _WINDOWS[key] = torch.tensor(windows, dtype=torch.int32, device=device)
     return _WINDOWS[key]
 

@@ -173,7 +173,8 @@ def tiles_walked(lib: ctypes.CDLL | None = None) -> dict[str, int]:
     """The tiles the kernels' blocks walked since the last call, read from
     the card after every launch before it, then zeroed: ``fwd``, ``dq`` and
     ``dkv`` (kernels E and F, both types). Each equals ``H`` times
-    ``tile_schedule(...).sum()`` summed over the launches."""
+    ``tile_schedule(...).sum()`` summed over the launches. It synchronises
+    the device: never call it inside a captured region."""
     counts = (ctypes.c_uint64 * 3)()
     torch.cuda.synchronize()  # launches on any stream
     err = (lib or _kernels()).esgpt_flash_tiles(counts)
@@ -240,7 +241,10 @@ def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
 
 def _strides(*tensors) -> torch.Tensor:
     """The ``(b, h, s)`` element strides of each ``(B, H, S, D)`` tensor, as
-    an int64 host array the kernel reads (kept alive by the caller)."""
+    an int64 host array (kept alive by the caller). The C launcher reads it
+    on the host into the kernel's arguments before it returns, so a launch
+    captured into a CUDA graph carries the values and nothing is copied to
+    the device."""
     return torch.tensor([t.stride()[i] for t in tensors for i in range(3)], dtype=torch.int64)
 
 

@@ -221,7 +221,11 @@ def fused_categorical_stream(logits, stream, keep=None, active=None, fill: int =
         stream: a `generation.sampling.RowStreams` of ``B`` rows (its
             ``seeds``, ``counters`` and ``next_draw_salt()``); the noise is
             ``gumbel(stream, logits.shape, logits.device).to(logits.dtype)``
-            and the stream advances by that one draw.
+            and the stream advances by that one draw. The salt goes to the
+            kernel as a host integer, which a CUDA graph capture bakes in:
+            the engine's salts depend on the head and the draw only, the
+            same at every step, and its seeds and counters are read on the
+            device.
         keep, active, fill: as in `fused_categorical`.
 
     Returns:

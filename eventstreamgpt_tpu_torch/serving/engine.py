@@ -22,6 +22,16 @@ and per-head-per-position fp32 scales (`ops.kv_quant`): the prefill's cache
 is quantized whole at admission, kernel B quantizes each new key and value
 at the cursor and dequantizes what it reads.
 
+The decode chunk is one program (JAX's ``_decode_chunk_ci`` behind
+``_decode_jit``): `GenerationEngine._decode_chunk` threads the per-slot
+state through its steps and copies the result back into the engine's state
+buffers, which keep their addresses for the engine's life (admission writes
+into them in place). On the card it is captured once per engine into a CUDA
+graph (`utils.graphs.CapturedProgram`), at construction while every slot is
+inactive, and each chunk is one replay: one host launch for its
+``decode_chunk`` steps. ``cuda_graph=False`` runs it eagerly instead; the
+CPU always does.
+
 Pipelined boundaries: after each chunk the packed ``(5, n_slots)`` boundary
 is computed on the device and its copy into pinned host memory started at
 once (``non_blocking``, with a CUDA event); up to ``dispatch_depth`` chunks
@@ -90,6 +100,7 @@ from ..ops.kv_quant import (
 )
 from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
+from ..utils.graphs import CapturedProgram
 from .errors import MalformedPromptRejected, SlotHealthError
 from .scheduler import EngineResult, Request, Scheduler, check_prompt_finite, make_buckets
 
@@ -105,6 +116,9 @@ _CORE_FIELDS = (
     "dynamic_values_mask",
     "start_time",
 )
+# The per-slot state a decode step rebinds: the chunk threads it through its
+# steps and copies the result back into the engine's buffers of these names.
+_CHUNK_STATE = ("cursor", "n_generated", "counters", "done", "health", "active_steps", "cache_mask", "cache_len")
 _SEQ_FIELDS = (
     "event_mask",
     "time_delta",
@@ -149,6 +163,12 @@ class GenerationEngine:
             caches in the compute dtype only.
         device: ``None`` (the CUDA device, raising without one) or an
             explicit device such as ``"cpu"``.
+        cuda_graph: on a CUDA device, capture the decode chunk once, at
+            construction, and replay it for every chunk (the default, the
+            counterpart of the JAX engine's jitted chunk); ``False`` runs it
+            eagerly, one host launch per operation (the counterpart of
+            ``jax.disable_jit()``, for comparisons). The CPU always runs it
+            eagerly.
     """
 
     def __init__(
@@ -175,6 +195,7 @@ class GenerationEngine:
         validate_prompts: bool = True,
         kv_cache_dtype: str | None = None,
         device=None,
+        cuda_graph: bool = True,
         **not_ported,
     ):
         for name, value in not_ported.items():
@@ -224,6 +245,15 @@ class GenerationEngine:
 
         self._template = self._normalize_prompt(template)
         self._init_state()
+        # The chunk's program: captured now, while every slot is inactive, so
+        # the warm-up writes nothing a request can see (every write of a step
+        # is masked by ``active``, and admission replaces a slot's cache rows whole).
+        self._program = None
+        if self.device.type == "cuda" and cuda_graph:
+            self._program = CapturedProgram(self._decode_chunk, "the decode chunk", device=self.device)
+            with torch.inference_mode():
+                self._program.warmup()
+                self._program.capture()
         # Host slot table (slot -> Request) and each slot's admission epoch:
         # the dispatched-chunk count when its request was admitted. A boundary
         # issued at chunk c reflects that admission iff epoch < c.
@@ -287,6 +317,7 @@ class GenerationEngine:
         self.seeds = torch.zeros(S, dtype=torch.int64, device=dev)
         self.counters = torch.zeros(S, dtype=torch.int64, device=dev)
         self.active_steps = torch.zeros((), dtype=torch.int64, device=dev)
+        self._boundary = torch.zeros((5, S), dtype=torch.int32, device=dev)
 
     # --------------------------------------------------------- device pieces
     def _categorical_sampler(self, active):
@@ -332,35 +363,62 @@ class GenerationEngine:
                 bad = bad | ~torch.isfinite(x.reshape(self.n_slots, -1)).all(dim=1)
         return bad
 
-    def _decode_step(self) -> None:
-        """One event for every active slot; inactive slots are left as they are."""
+    def _decode_step(self, st: dict) -> dict:
+        """One event for every active slot of state ``st`` (`_CHUNK_STATE`);
+        returns the next state. Inactive slots keep theirs."""
         cfg, m = self.config, self._model
-        active = self.live & ~self.done
-        view = _trim_to_event(self.big, self.cursor - 1)
+        active = self.live & ~st["done"]
+        view = _trim_to_event(self.big, st["cursor"] - 1)
         h0 = m.encoder.input_layer(view)[:, 0]
-        h, _, _, _, _, self.cache_mask, self.cache_len = decode_stack_step(
-            self._stacked, self.key_cache, self.value_cache, h0, self.cache_len,
-            view.event_mask[:, 0], self.cache_mask, windows=self._windows,
+        h, _, _, _, _, cache_mask, cache_len = decode_stack_step(
+            self._stacked, self.key_cache, self.value_cache, h0, st["cache_len"],
+            view.event_mask[:, 0], st["cache_mask"], windows=self._windows,
             activation=cfg.activation_function, layer_norm_eps=float(cfg.layer_norm_epsilon), active=active,
             key_scale=self.key_scale, value_scale=self.value_scale,
         )  # fmt: skip
         encoded = m.encoder.ln_f(h[:, None, :])
         out = m.output_layer(view, encoded, is_generation=True)
         preds_last = _slice_preds_at(out.preds, 0)
-        em_last = take_event(self.big.event_mask, self.cursor - 1)
-        sample = self._sample_rows(preds_last, em_last, self.seeds, self.counters, active=active)
-        append_new_event(self.big, sample, self.cursor, active)
-        update_last_event_data(self.big, sample, cfg, self.cursor + 1, self._to_fill, active)
+        em_last = take_event(self.big.event_mask, st["cursor"] - 1)
+        sample = self._sample_rows(preds_last, em_last, self.seeds, st["counters"], active=active)
+        append_new_event(self.big, sample, st["cursor"], active)
+        update_last_event_data(self.big, sample, cfg, st["cursor"] + 1, self._to_fill, active)
 
-        self.cursor = torch.where(active, self.cursor + 1, self.cursor)
-        self.n_generated = self.n_generated + (active & sample.event_mask).to(torch.int32)
-        self.counters = torch.where(active, self.counters + 1, self.counters)
-        done = self.done | (active & self._row_done(self.big, self.cursor, self.base_len, self.n_generated, self.budget))
+        cursor = torch.where(active, st["cursor"] + 1, st["cursor"])
+        n_generated = st["n_generated"] + (active & sample.event_mask).to(torch.int32)
+        done = st["done"] | (active & self._row_done(self.big, cursor, self.base_len, n_generated, self.budget))
+        health = st["health"]
         if self.health_sentinel:
             hit = active & self._rows_nonfinite(preds_last, sample)
-            done, self.health = done | hit, self.health | hit
-        self.done = done
-        self.active_steps = self.active_steps + active.sum()
+            done, health = done | hit, health | hit
+        return dict(
+            cursor=cursor,
+            n_generated=n_generated,
+            counters=torch.where(active, st["counters"] + 1, st["counters"]),
+            done=done,
+            health=health,
+            active_steps=st["active_steps"] + active.sum(),
+            cache_mask=cache_mask,
+            cache_len=cache_len,
+        )
+
+    def _decode_chunk(self) -> None:
+        """The decode chunk (JAX's ``_decode_chunk_ci``): ``decode_chunk``
+        steps from the engine's state buffers, the final state copied back
+        into them and the packed ``(5, n_slots)`` boundary (done, cursor,
+        base_len, n_generated, health) written into its buffer. Every tensor
+        it reads or writes outside its temporaries keeps its address for the
+        engine's life: on the card this is the program captured once and
+        replayed per chunk; on the CPU it runs as it is."""
+        st = {k: getattr(self, k) for k in _CHUNK_STATE}
+        for _ in range(self.decode_chunk):
+            st = self._decode_step(st)
+        for k in _CHUNK_STATE:
+            getattr(self, k).copy_(st[k])
+        torch.stack(
+            [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)],
+            out=self._boundary,
+        )
 
     # ----------------------------------------------------------- prefill
     def _pad_prompt_row(self, prompt: EventStreamBatch) -> EventStreamBatch:
@@ -550,23 +608,23 @@ class GenerationEngine:
 
     @torch.inference_mode()
     def issue_chunk(self) -> None:
-        """Runs one decode chunk and starts its packed boundary's copy to the
-        host (pinned memory, ``non_blocking``, an event behind it on the card);
-        nothing waits for the device."""
-        for _ in range(self.decode_chunk):
-            self._decode_step()
+        """Runs one decode chunk (a replay of its captured program on the
+        card) and starts its packed boundary's copy to the host (pinned
+        memory, ``non_blocking``, an event behind it on the card); nothing
+        waits for the device."""
+        if self._program is not None:
+            self._program.replay()
+        else:
+            self._decode_chunk()
         self._dispatched_chunks += 1
-        boundary = torch.stack(
-            [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)]
-        )
         event = None
-        if boundary.is_cuda:
-            host = torch.empty(boundary.shape, dtype=boundary.dtype, pin_memory=True)
-            host.copy_(boundary, non_blocking=True)
+        if self._boundary.is_cuda:
+            host = torch.empty(self._boundary.shape, dtype=self._boundary.dtype, pin_memory=True)
+            host.copy_(self._boundary, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
-        else:
-            host = boundary
+        else:  # the next chunk rewrites the buffer
+            host = self._boundary.clone()
         self._inflight.append((self._dispatched_chunks, host, event))
 
     @torch.inference_mode()
@@ -657,6 +715,10 @@ class GenerationEngine:
                 "wasted_decode_frac": round(1.0 - active / max(total, 1), 4),
                 "sampling_impl": "greedy" if self.greedy else "fused_categorical",
                 "decode_step_impl": "decode_stack_step",
+                "cuda_graph": self._program is not None,
+                "graph_warmup_chunks": 0 if self._program is None else self._program.warmups,
+                "graph_captures": 0 if self._program is None else self._program.captures,
+                "graph_replays": 0 if self._program is None else self._program.replays,
                 "device": str(self.device),
                 "greedy": self.greedy,
                 "health_sentinel": self.health_sentinel,

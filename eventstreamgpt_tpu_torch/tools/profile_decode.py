@@ -1,34 +1,42 @@
-"""Where a decode step's time goes, on one CUDA device.
+"""Where a decode step's time goes, on one CUDA device: the captured chunk beside the eager one.
 
 Builds the serving benchmark's CI model (`data.synthetic.serving_config`,
-bf16, numpy-seeded random weights) behind a 32-slot `GenerationEngine`,
-fills every slot (prompts of 128-192 events, budgets of 64), and for greedy
-and sampled decoding measures:
+bf16, numpy-seeded random weights) behind 32-slot `GenerationEngine`s whose
+every slot is admitted (prompts of 128-192 events, budgets of 64), one
+whose decode chunk is captured into a CUDA graph (the default) and one that
+runs it eagerly (``cuda_graph=False``), and for greedy and sampled decoding
+measures each, in alternating runs (captured, eager, eager, captured), on
+fresh engines:
 
-* the wall time of one decode step (host clock around a synchronized step,
-  median of 20);
-* with ``torch.profiler`` over 5 steps: the device time of every kernel
-  (summed per kernel name), the launches per step, and the device's busy
-  share of the wall time;
-* in one more step, under a dispatch mode: the ATen operations other than
+* the wall time of one decode step: host clock around a chunk issued and
+  its boundary resolved, over the chunk's 16 steps (two chunks a run, after
+  one warm-up chunk; median and min over the runs);
+* with ``torch.profiler`` over one more chunk of each program's last run,
+  after every other measurement of both modes (and so every capture): the device time of every
+  kernel (summed per kernel name), the kernels the device ran a step, the
+  host's launches a step (kernel launches, graph launches, copies and
+  memsets issued through the ``cuda*`` or ``cu*`` API) and the device's busy
+  share of the wall time, profiled and unprofiled (the busy time over the
+  unprofiled step);
+* the peak device memory the engine's run reached;
+* in one eager step, under a dispatch mode: the ATen operations other than
   views (each one kernel launch on the card) dispatched inside the sampling
   tail (`generation.sampling.sample_head_draws`) and, of those, inside the
   counter-hash generator (`RowStreams.uniform`);
-* the wall time a step of the engine's own chunk loop: 3 chunks issued
-  and resolved as `GenerationEngine.run` does, with ``--dispatch-depth``
-  chunks in flight (host clock to the last boundary, over the steps);
-* end to end, `GenerationEngine.run` on 64 requests (prompts of 128-192
-  events, budgets of 16-64, numpy seed 0, after a warm-up run of 4): the
-  wall time, generated events per second, chunks dispatched and
-  ``wasted_decode_frac`` (a freed slot waits up to ``dispatch_depth - 1``
-  chunks for its next request).
+* at each ``--dispatch-depths`` depth: the wall time a step of the engine's
+  own chunk loop (3 chunks issued and resolved as `GenerationEngine.run`
+  does, ``depth`` chunks in flight), and end to end `GenerationEngine.run`
+  on 64 requests (prompts of 128-192 events, budgets of 16-64, numpy seed
+  0, after a warm-up run of 4): the wall time, generated events per second,
+  chunks dispatched and ``wasted_decode_frac``, captured and eager in
+  alternating runs (captured, eager, eager, captured).
 
 ``--kv-cache-dtype`` sets the slot caches' type (``bf16``, the compute
 dtype, or ``int8`` / ``fp8``: kernel B's quantized entry). Run from the
 root of a checkout:
 
     python -m eventstreamgpt_tpu_torch.tools.profile_decode --out build/profile_decode.json
-    python -m eventstreamgpt_tpu_torch.tools.profile_decode --kv-cache-dtype int8 --dispatch-depth 2
+    python -m eventstreamgpt_tpu_torch.tools.profile_decode --kv-cache-dtype int8 --dispatch-depths 1,2
 
 It prints one JSON object (also written to ``--out``) and exits non-zero
 without a CUDA device.
@@ -56,7 +64,12 @@ from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..serving import GenerationEngine, Request
 from ..serving import engine as engine_module
 
-N_SLOTS, PROFILED_STEPS, TIMED_STEPS, LOOP_CHUNKS = 32, 5, 20, 3
+N_SLOTS, TIMED_CHUNKS, LOOP_CHUNKS = 32, 2, 3
+PROGRAMS = {"captured": True, "eager": False}
+ORDER = ("captured", "eager", "eager", "captured")
+# Host-side calls that put work on the device's queue, as the profiler names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")  # fmt: skip
 
 
 def _kernel_time_us(evt) -> float:
@@ -72,6 +85,37 @@ def _kernel_time_us(evt) -> float:
         if v is not None:
             return float(v)
     return 0.0
+
+
+def profile_summary(prof, steps: int, wall_ms: float, profiled_wall_ms: float) -> dict:
+    """Per step of a profiled window of ``steps`` steps: device busy time,
+    kernels run, host launches (graph launches apart) and idle shares,
+    against the unprofiled step wall ``wall_ms`` and the profiled window's
+    wall ``profiled_wall_ms``; the top kernels by device time."""
+    kernels, host = {}, collections.Counter()
+    for evt in prof.key_averages():
+        us = _kernel_time_us(evt)
+        if us > 0:
+            k = kernels.setdefault(evt.key, [0, 0.0])
+            k[0] += evt.count
+            k[1] += us
+        elif evt.key in LAUNCH_CALLS:
+            host[evt.key] += evt.count
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3 / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
+    return {
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share_unprofiled": 1.0 - busy_ms / wall_ms,
+        "device_idle_share_profiled": 1.0 - busy_ms * steps / profiled_wall_ms,
+        "profiled_step_wall_ms": profiled_wall_ms / steps,
+        "device_kernels_per_step": sum(c for c, _ in kernels.values()) / steps,
+        "host_launches_per_step": sum(host.values()) / steps,
+        "graph_launches_per_step": host["cudaGraphLaunch"] / steps,
+        "host_launch_calls": {k: v / steps for k, v in sorted(host.items())},
+        "top_kernels_per_step": [
+            {"name": name[:90], "launches": c / steps, "device_us": us / steps} for name, (c, us) in top
+        ],
+    }
 
 
 class _ScopedOpCount(TorchDispatchMode):
@@ -97,8 +141,8 @@ class _ScopedOpCount(TorchDispatchMode):
 
 
 def sampling_ops(engine) -> dict:
-    """The ATen operations (views aside) one decode step dispatches inside the
-    sampling tail and inside `RowStreams.uniform`."""
+    """The ATen operations (views aside) one eager decode step dispatches
+    inside the sampling tail and inside `RowStreams.uniform`."""
     counter = _ScopedOpCount()
     uniform, draws = sampling.RowStreams.uniform, engine_module.sample_head_draws
 
@@ -112,20 +156,22 @@ def sampling_ops(engine) -> dict:
 
     sampling.RowStreams.uniform, engine_module.sample_head_draws = counted_uniform, counted_draws
     try:
-        with counter:
-            engine._decode_step()
+        with counter, torch.inference_mode():
+            engine._decode_step({k: getattr(engine, k) for k in engine_module._CHUNK_STATE})
         torch.cuda.synchronize()
     finally:
         sampling.RowStreams.uniform, engine_module.sample_head_draws = uniform, draws
     return {f"{k}_ops_per_step": counter.counts[k] for k in ("sample_head_draws", "rng_uniform")}
 
 
-def filled_engine(model, config, prompts, greedy: bool, kv_cache_dtype: str, dispatch_depth: int):
+def engine_kw(greedy: bool, kv_cache_dtype: str, dispatch_depth: int, cuda_graph: bool) -> dict:
+    return dict(n_slots=N_SLOTS, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, greedy=greedy,
+                kv_cache_dtype=kv_cache_dtype, dispatch_depth=dispatch_depth, cuda_graph=cuda_graph)  # fmt: skip
+
+
+def filled_engine(model, config, prompts, **kw):
     """The 32-slot engine with every slot admitted (budgets of 64 events)."""
-    engine = GenerationEngine(
-        model, config, template=prompts[0][0], n_slots=N_SLOTS, max_len=256, max_prompt_len=192,
-        min_bucket=32, decode_chunk=16, greedy=greedy, kv_cache_dtype=kv_cache_dtype, dispatch_depth=dispatch_depth,
-    )  # fmt: skip
+    engine = GenerationEngine(model, config, template=prompts[0][0], **kw)
     for i, (p, _) in enumerate(prompts):
         engine.submit(Request(prompt=p, max_new_events=64, request_id=i))
     engine.plan_and_dispatch()
@@ -134,18 +180,50 @@ def filled_engine(model, config, prompts, greedy: bool, kv_cache_dtype: str, dis
     return engine
 
 
-def chunk_loop_step_ms(model, config, prompts, greedy, kv_cache_dtype, dispatch_depth) -> float:
-    """Wall time a decode step of `LOOP_CHUNKS` chunks issued and resolved as
-    `GenerationEngine.run` does (``dispatch_depth`` in flight), on a fresh
-    filled engine after one warm-up chunk; no slot finishes in that span."""
-    engine = filled_engine(model, config, prompts, greedy, kv_cache_dtype, dispatch_depth)
+def chunk_ms(engine) -> float:
+    """Wall time of one chunk issued and its boundary resolved."""
+    t0 = time.perf_counter()
     engine.issue_chunk()
     engine.resolve_chunk(0.0)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def program_run(model, config, prompts, kw) -> dict:
+    """One fresh filled engine: a warm-up chunk and `TIMED_CHUNKS` timed
+    chunks; the engine is returned with one chunk of every slot's budget
+    left, for `profiled_chunk`."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = filled_engine(model, config, prompts, **kw)
+    chunk_ms(engine)
+    walls = [chunk_ms(engine) / engine.decode_chunk for _ in range(TIMED_CHUNKS)]
+    torch.cuda.synchronize()
+    return dict(walls=walls, engine=engine, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def profiled_chunk(engine) -> tuple:
+    """One chunk of ``engine`` under ``torch.profiler``: ``(profile, wall ms, active slots)``.
+    Every capture is made before the first profile: a capture after one
+    was seen to fail on the card."""
+    active = int((engine.live & ~engine.done).sum())
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall = chunk_ms(engine)
+        torch.cuda.synchronize()
+    return prof, wall, active
+
+
+def chunk_loop_step_ms(model, config, prompts, kw) -> float:
+    """Wall time a decode step of `LOOP_CHUNKS` chunks issued and resolved as
+    `GenerationEngine.run` does (``kw["dispatch_depth"]`` in flight), on a
+    fresh filled engine after one warm-up chunk; no slot finishes in that span."""
+    engine = filled_engine(model, config, prompts, **kw)
+    chunk_ms(engine)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(LOOP_CHUNKS):
         engine.issue_chunk()
-        if engine.inflight_chunks >= dispatch_depth:
+        if engine.inflight_chunks >= kw["dispatch_depth"]:
             engine.resolve_chunk(0.0)
     while engine.inflight_chunks:
         engine.resolve_chunk(0.0)
@@ -153,21 +231,15 @@ def chunk_loop_step_ms(model, config, prompts, greedy, kv_cache_dtype, dispatch_
     return wall * 1e3 / (LOOP_CHUNKS * engine.decode_chunk)
 
 
-def serve_run(model, config, greedy: bool, kv_cache_dtype: str, dispatch_depth: int) -> dict:
+def serve_run(model, config, kw) -> dict:
     """`GenerationEngine.run` on 64 requests, end to end (module docstring)."""
     prompts = synthetic_prompts(np.random.default_rng(0), 64, serving_config(), (128, 192), (16, 64))
-
-    def engine():
-        return GenerationEngine(
-            model, config, template=prompts[0][0], n_slots=N_SLOTS, max_len=256, max_prompt_len=192, min_bucket=32,
-            decode_chunk=16, greedy=greedy, kv_cache_dtype=kv_cache_dtype, dispatch_depth=dispatch_depth,
-        )  # fmt: skip
 
     def requests():
         return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
 
-    engine().run(requests()[:4])
-    eng = engine()
+    GenerationEngine(model, config, template=prompts[0][0], **kw).run(requests()[:4])
+    eng = GenerationEngine(model, config, template=prompts[0][0], **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(requests())
@@ -177,67 +249,56 @@ def serve_run(model, config, greedy: bool, kv_cache_dtype: str, dispatch_depth: 
     if any(r.error is not None for r in results):
         raise RuntimeError("profile_decode: a request failed")
     stats = eng.stats()
-    return {"requests": len(results), "generated": generated, "wall_s": wall, "generated_per_s": generated / wall,
-            "dispatched_chunks": stats["dispatched_chunks"], "wasted_decode_frac": stats["wasted_decode_frac"]}  # fmt: skip
+    return {"generated": generated, "wall_s": wall, "generated_per_s": generated / wall,
+            "dispatched_chunks": stats["dispatched_chunks"], "graph_replays": stats["graph_replays"],
+            "wasted_decode_frac": stats["wasted_decode_frac"]}  # fmt: skip
 
 
-def profile_mode(model, config, prompts, greedy: bool, kv_cache_dtype: str = "bf16", dispatch_depth: int = 2) -> dict:
-    engine = filled_engine(model, config, prompts, greedy, kv_cache_dtype, dispatch_depth)
-    with torch.inference_mode():
-        for _ in range(4):  # warm-up
-            engine._decode_step()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(TIMED_STEPS):
-            t0 = time.perf_counter()
-            engine._decode_step()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILED_STEPS):
-                engine._decode_step()
-            torch.cuda.synchronize()
-            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-        ops = sampling_ops(engine)
-    kernels = {}
-    for evt in prof.key_averages():
-        us = _kernel_time_us(evt)
-        if us > 0:
-            k = kernels.setdefault(evt.key, [0, 0.0])
-            k[0] += evt.count
-            k[1] += us
-    busy_ms = sum(us for _, us in kernels.values()) / 1e3
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
-    active_slots = int((engine.live & ~engine.done).sum())
-    return {
-        "mode": "greedy" if greedy else "sampled",
-        "kv_cache_dtype": kv_cache_dtype,
-        "dispatch_depth": dispatch_depth,
-        "chunk_loop_step_wall_ms": chunk_loop_step_ms(model, config, prompts, greedy, kv_cache_dtype, dispatch_depth),
-        "run_64_requests": serve_run(model, config, greedy, kv_cache_dtype, dispatch_depth),
-        "active_slots": active_slots,
-        "step_wall_ms_median": float(np.median(walls)),
-        "step_wall_ms_min": float(np.min(walls)),
-        "profiled_step_wall_ms": profiled_wall_ms / PROFILED_STEPS,
-        "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
-        "device_idle_share_profiled": 1.0 - busy_ms / profiled_wall_ms,
-        "device_idle_share_unprofiled": 1.0 - (busy_ms / PROFILED_STEPS) / float(np.median(walls)),
-        "kernel_launches_per_step": sum(c for c, _ in kernels.values()) / PROFILED_STEPS,
-        **ops,
-        "top_kernels_per_step": [
-            {"name": name[:90], "launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
-            for name, (c, us) in top
-        ],
-    }
+def timed_mode(model, config, prompts, greedy: bool, kv_cache_dtype: str, depths) -> tuple:
+    """Every timing of one mode (no profiler): ``(result, runs)``; `profiled_mode`
+    adds the profiles to ``result`` from ``runs``' engines."""
+    runs = collections.defaultdict(list)
+    for name in ORDER:
+        runs[name].append(program_run(model, config, prompts, engine_kw(greedy, kv_cache_dtype, 2, PROGRAMS[name])))
+    result = {"mode": "greedy" if greedy else "sampled", "kv_cache_dtype": kv_cache_dtype}
+    for depth in depths:
+        loop, serve = collections.defaultdict(list), collections.defaultdict(list)
+        for name in ORDER:
+            kw = engine_kw(greedy, kv_cache_dtype, depth, PROGRAMS[name])
+            loop[name].append(chunk_loop_step_ms(model, config, prompts, kw))
+            serve[name].append(serve_run(model, config, kw))
+        result[f"depth_{depth}"] = {
+            name: {"chunk_loop_step_wall_ms": loop[name], "run_64_requests": serve[name]} for name in PROGRAMS
+        }
+    return result, runs
+
+
+def profiled_mode(result: dict, runs) -> dict:
+    """``result`` with each program's step walls, profile of one more chunk
+    of its last run's engine, peak memory, and the eager step's sampling ops."""
+    programs = {}
+    for name, rs in runs.items():
+        walls = [w for r in rs for w in r["walls"]]
+        wall = float(np.median(walls))
+        engine = rs[-1]["engine"]
+        prof, profiled_ms, active = profiled_chunk(engine)
+        programs[name] = {
+            "step_wall_ms_median": wall,
+            "step_wall_ms_min": float(np.min(walls)),
+            "step_wall_ms_runs": walls,
+            **profile_summary(prof, engine.decode_chunk, wall, profiled_ms),
+            "peak_memory_gb": max(r["peak_memory_gb"] for r in rs),
+            "active_slots": active,
+        }
+    programs["eager"].update(sampling_ops(runs["eager"][-1]["engine"]))
+    return dict(result, programs=programs)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--kv-cache-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
-    ap.add_argument("--dispatch-depth", type=int, default=2)
+    ap.add_argument("--dispatch-depths", default="1,2", help="comma-separated dispatch depths of the chunk loop and run")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -252,13 +313,9 @@ def main(argv=None) -> int:
     mean_log, std_log = log_time_stats(prompts)
     config = serving_config(mean_log=mean_log, std_log=std_log)
     model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=0)
-    out = {
-        "card": smi,
-        "modes": [
-            profile_mode(model, config, prompts, greedy, args.kv_cache_dtype, args.dispatch_depth)
-            for greedy in (True, False)
-        ],
-    }
+    depths = [int(d) for d in args.dispatch_depths.split(",")]
+    timed = [timed_mode(model, config, prompts, greedy, args.kv_cache_dtype, depths) for greedy in (True, False)]
+    out = {"card": smi, "modes": [profiled_mode(result, runs) for result, runs in timed]}
     text = json.dumps(out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

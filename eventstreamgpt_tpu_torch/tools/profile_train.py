@@ -10,15 +10,20 @@ levels), or with ``--packed`` its packed long-context model
 on ``bench.py``'s packed batch (the first of `data.torch_dataset.packed_batches`
 over `data.synthetic.synthetic_csr`: 8 rows x 1,024 events), with AdamW
 under warmup, and one synthetic batch of 32 subjects x 256 events (or the
-packed batch) resident on the device. It measures:
+packed batch) resident on the device. It measures the step captured into
+a CUDA graph (the default of `training.make_train_step`) and the same step
+run eagerly (``cuda_graph=False``), each on a fresh model in alternating
+runs (captured, eager, eager, captured):
 
 * the wall time of one train step (host clock around a synchronised step,
-  median of 20, after 3 warm-up steps) and trained events/s (real events a
-  step over that time);
+  median and min of 20 a run, after 3 warm-up steps: the captured step is
+  warmed up on its first, captured on its second) and trained events/s
+  (real events a step over that time);
 * with ``torch.profiler`` over 3 steps: the device time of every kernel
-  (summed per kernel name; the top 20, and every kernel's launches and time
-  a step under ``kernels_per_step``), the
-  launches per step, and the device's busy share of the wall time.
+  (summed per kernel name; the top 15), the kernels the device ran a step,
+  the host's launches a step (kernel and graph launches, copies, memsets)
+  and the device's busy share of the wall time, profiled and unprofiled;
+* the peak device memory and the captures and replays.
 
 Run from the root of a checkout:
 
@@ -53,10 +58,40 @@ from ..data.synthetic import (
 )
 from ..models.config import OptimizationConfig
 from ..training import build_model, build_optimizer, make_train_step
-from .profile_decode import _kernel_time_us
+from .profile_decode import ORDER, PROGRAMS, profile_summary
 
 BATCH, SEQ_LEN, PROFILED_STEPS, TIMED_STEPS = 32, 256, 3, 20
 PACKED_BATCH, PACKED_SEQ_LEN, PACKED_SUBJECTS = 8, 1024, 512
+
+
+def program_run(config, batch, cuda_graph: bool) -> dict:
+    """A fresh model's step (``cuda_graph`` captured or eager): 3 warm-up
+    steps, `TIMED_STEPS` timed ones, `PROFILED_STEPS` under the profiler."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params_from_seed(build_model(config), seed=0)
+    oc = OptimizationConfig(init_lr=1e-3, batch_size=BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
+    oc.set_to_dataset(n_subjects=512)
+    optimizer, scheduler = build_optimizer(model, oc)
+    step = make_train_step(model, optimizer, scheduler, cuda_graph=cuda_graph)
+    for _ in range(3):
+        step(batch, 0)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(batch, 0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(batch, 0)
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    return dict(walls=walls, prof=prof, profiled_ms=profiled_wall_ms, stats=step.stats(),
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)  # fmt: skip
 
 
 def main(argv=None) -> int:
@@ -81,38 +116,25 @@ def main(argv=None) -> int:
         batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(), BATCH, SEQ_LEN))
         config = (na_training_config if args.na else training_config)([batch])
     batch = batch.map(lambda t: t.cuda())
-    model = init_params_from_seed(build_model(config), seed=0)
-    oc = OptimizationConfig(init_lr=1e-3, batch_size=BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
-    oc.set_to_dataset(n_subjects=512)
-    optimizer, scheduler = build_optimizer(model, oc)
-    step = make_train_step(model, optimizer, scheduler)
-    for _ in range(3):
-        step(batch, 0)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(TIMED_STEPS):
-        t0 = time.perf_counter()
-        step(batch, 0)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILED_STEPS):
-            step(batch, 0)
-        torch.cuda.synchronize()
-        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for evt in prof.key_averages():
-        us = _kernel_time_us(evt)
-        if us > 0:
-            k = kernels.setdefault(evt.key, [0, 0.0])
-            k[0] += evt.count
-            k[1] += us
-    busy_ms = sum(us for _, us in kernels.values()) / 1e3
-    step_ms = float(np.median(walls))
+    runs = {name: [] for name in PROGRAMS}
+    for name in ORDER:
+        runs[name].append(program_run(config, batch, PROGRAMS[name]))
     events = int(batch.event_mask.sum())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:20]
+    programs = {}
+    for name, rs in runs.items():
+        walls = [w for r in rs for w in r["walls"]]
+        step_ms = float(np.median(walls))
+        last = rs[-1]
+        summary = profile_summary(last["prof"], PROFILED_STEPS, step_ms, last["profiled_ms"])
+        programs[name] = {
+            "step_wall_ms_median": step_ms,
+            "step_wall_ms_min": float(np.min(walls)),
+            "step_wall_ms_median_per_run": [float(np.median(r["walls"])) for r in rs],
+            "trained_events_per_s": events / (step_ms / 1e3),
+            **summary,
+            "peak_memory_gb": max(r["peak_memory_gb"] for r in rs),
+            "graph": last["stats"],
+        }
     out = {
         "card": smi,
         "model": config.structured_event_processing_mode,
@@ -123,23 +145,7 @@ def main(argv=None) -> int:
             "n_data": int(batch.dynamic_indices.shape[-1]),
         },
         "real_events_per_step": events,
-        "step_wall_ms_median": step_ms,
-        "step_wall_ms_min": float(np.min(walls)),
-        "trained_events_per_s": events / (step_ms / 1e3),
-        "profiled_step_wall_ms": profiled_wall_ms / PROFILED_STEPS,
-        "device_busy_ms_per_step": busy_ms / PROFILED_STEPS,
-        "device_idle_share_profiled": 1.0 - busy_ms / profiled_wall_ms,
-        "device_idle_share_unprofiled": 1.0 - (busy_ms / PROFILED_STEPS) / step_ms,
-        "kernel_launches_per_step": sum(c for c, _ in kernels.values()) / PROFILED_STEPS,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "top_kernels_per_step": [
-            {"name": name[:90], "launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
-            for name, (c, us) in top
-        ],
-        "kernels_per_step": {
-            name[:120]: {"launches": c / PROFILED_STEPS, "device_us": us / PROFILED_STEPS}
-            for name, (c, us) in sorted(kernels.items())
-        },
+        "programs": programs,
     }
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -7,6 +7,16 @@ and 0.999, eps 1e-8) with the learning rate warming up linearly from 0 to
 ``schedule(k)``, so the first update under warmup moves only the moments,
 and the decoupled weight decay applies to every parameter (optax's default
 mask is None), biases and LayerNorm scales included.
+
+Two forms of the same optimizer. `build_optimizer` gives AdamW with a float
+rate that ``LambdaLR`` rebinds after each step: the CPU train step runs it,
+and the JAX parity tests hold it. On a CUDA device the train step first
+applies `make_capturable`: ``capturable=True`` (step counts and bias
+corrections on the device) and the rate as a 0-d device tensor that the
+scheduler writes in place, so a step captured into a CUDA graph reads each
+step's rate rather than the one it was captured with. (PyTorch refuses a
+tensor rate in its ``foreach`` path, the card's default, unless the
+optimizer is capturable.)
 """
 
 from __future__ import annotations
@@ -67,3 +77,15 @@ def build_optimizer(
     )
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: schedule(step) / oc.init_lr)
     return optimizer, scheduler
+
+
+def make_capturable(optimizer: torch.optim.Optimizer, device) -> None:
+    """Turns a `build_optimizer` AdamW into its capturable form (module
+    docstring) on ``device``, before its first step: each group's rate
+    becomes a 0-d fp32 tensor on ``device`` holding the current rate, which
+    an ``LRScheduler`` fills in place from then on, and ``capturable`` is set."""
+    if optimizer.state:
+        raise ValueError("make_capturable: the optimizer has taken a step already")
+    for group in optimizer.param_groups:
+        group["lr"] = torch.tensor(float(group["lr"]), dtype=torch.float32, device=device)
+        group["capturable"] = True

@@ -7,6 +7,7 @@ with the card has none); run it there without the JAX conftest:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import copy
 import ctypes
 
 import numpy as np
@@ -835,3 +836,90 @@ def test_flash_attention_trace_build(cuda):
     for kernel, rec in records.items():
         assert (rec[:, 0] <= rec[:, 1]).all() and (rec[:, 1] <= rec[:, 2]).all(), kernel
         assert int(rec[:, 4].sum()) == want, kernel
+
+
+# ------------------------------------------------ captured programs (CUDA graphs)
+GRAPH_WIDTHS = dict(sizes=(5, 8, 6, 3), hidden_size=128, num_attention_heads=4, head_dim=32, intermediate_size=256,
+                    seq_window_size=4)  # fmt: skip
+
+
+def same_results(a, b) -> None:
+    """Every integer, mask and float of two runs' results equal (NaN where NaN)."""
+    assert [r.request_id for r in a] == [r.request_id for r in b]
+    for x, y in zip(a, b):
+        assert (x.error, y.error) == (None, None)
+        assert (x.n_events, x.n_generated) == (y.n_events, y.n_generated), x.request_id
+        for k, t in vars(x.batch).items():
+            if torch.is_tensor(t):
+                u = getattr(y.batch, k)
+                assert torch.equal(t.nan_to_num(-7.0), u.nan_to_num(-7.0)) if t.is_floating_point() else torch.equal(t, u)
+
+
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_captured_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
+    """The decode chunk captured once and replayed gives what the same chunk
+    run eagerly gives, bit for bit; kernel B's launches are counted through
+    the replays (warm-up included)."""
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config = serving_config(mean_log=1.0, std_log=0.1, **GRAPH_WIDTHS)
+    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=0)
+    prompts = synthetic_prompts(np.random.default_rng(0), 6, config, (6, 12), (4, 8))
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, greedy=greedy,
+              kv_cache_dtype=kv_cache_dtype, device=cuda)  # fmt: skip
+    counter = "launches" if kv_cache_dtype is None else "launches_int8"
+    runs = {}
+    for graph in (True, False):
+        setattr(decode_stack_step, counter, 0)
+        eng = GenerationEngine(model, config, template=prompts[0][0], cuda_graph=graph, **kw)
+        runs[graph] = eng.run([Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)])
+        s = eng.stats()
+        chunks = s["graph_warmup_chunks"] + s["dispatched_chunks"]
+        assert getattr(decode_stack_step, counter) == chunks * kw["decode_chunk"]
+        if graph:
+            assert (s["cuda_graph"], s["graph_captures"], s["graph_warmup_chunks"]) == (True, 1, 1)
+            assert s["graph_replays"] == s["dispatched_chunks"] > 0
+        else:
+            assert (s["cuda_graph"], s["graph_captures"], s["graph_replays"]) == (False, 0, 0)
+    same_results(runs[True], runs[False])
+
+
+@pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
+def test_captured_train_step_equals_eager_step(cuda, na):
+    """Three bf16 steps with dropout 0.1: the step captured on its second call
+    and replayed gives the eager step's losses, health vectors and weights
+    bit for bit (the dropout generator reseeded before each replay, the rate
+    tensor written before each), and kernels C and D count their replays."""
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        serving_config,
+        synthetic_training_batches,
+        training_config,
+    )
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
+
+    batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(**GRAPH_WIDTHS), 4, 32))
+    config = (na_training_config if na else training_config)([batch], **GRAPH_WIDTHS)
+    assert config.attention_dropout == config.resid_dropout == 0.1
+    base = init_params_from_seed(build_model(config), seed=0)
+    oc = dict(init_lr=1e-3, lr_num_warmup_steps=0, lr_frac_warmup_steps=None, max_training_steps=10)
+    out = {}
+    for graph in (True, False):
+        model = copy.deepcopy(base)
+        step = make_train_step(model, *build_optimizer(model, OptimizationConfig(**oc)), device=cuda,
+                               with_health=True, cuda_graph=graph)  # fmt: skip
+        vocab_gather_fwd.launches = dep_graph_fwd.launches = 0
+        healths = [step(batch, 7)[1] for _ in range(3)]
+        assert vocab_gather_fwd.launches == 3
+        assert dep_graph_fwd.launches == (3 * config.num_hidden_layers if na else 0)
+        s = step.stats()
+        want = (1, 1, 2) if graph else (0, 0, 0)
+        assert (s["graph_warmup_steps"], s["graph_captures"], s["graph_replays"]) == want
+        out[graph] = torch.stack(healths).cpu(), [p.detach().cpu() for p in model.parameters()]
+    assert torch.equal(out[True][0], out[False][0]), (out[True][0], out[False][0])
+    assert len(set(out[True][0][:, 0].tolist())) == 3
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
