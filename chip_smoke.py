@@ -17,20 +17,32 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    weights behind `GenerationEngine` (32 slots, ``max_len`` 256, prompts up to
    192 events, buckets from 32, chunks of 16), serving 64 requests with
    prompts of 128-192 events and budgets of 16-64 new events, once greedy
-   and once sampled. The engine captures its decode chunk once, at
-   construction (one warm-up chunk run eagerly, then the capture), and
-   replays it once per dispatched chunk. Every request must finish without
-   error, with ``n_events == prompt_len + n_generated`` and finite outputs;
-   both kernels' launch counters, set to 0 before the engine is built and
-   counting through the replays, must move (kernel A, which the engine calls
-   as `fused_categorical_stream`, only samples); kernel B launches once a
-   decode step run, warm-up included; one capture, and one replay a
-   dispatched chunk. The same engine with ``cuda_graph=False`` (the chunk
-   run eagerly) must give every request's events, integers and floats bit
-   for bit (the same kernels on the same inputs in the same order); the
-   wall time a chunk, a step and events/s of both are printed. A small
-   fp32 greedy engine on the card must also match the same engine on the
-   CPU (plain PyTorch versions of the kernels).
+   and once sampled. Each engine serves them three times, as a benchmark
+   times an engine: a warm pass, ``reset()``, a pass that fetches every
+   row, ``reset()``, and a pass with ``fetch_results=False`` (its events/s
+   are the ones a throughput benchmark reads). The engine captures its
+   decode chunk at construction (one warm-up chunk run eagerly, then the
+   capture), each prefill (bucket, group width) key and each extraction
+   width at its first use in the warm pass (one warm-up on inert rows, then
+   the capture), and replays them: one capture a key, none after
+   ``reset()``, one decode replay a dispatched chunk and one prefill replay
+   a prefill dispatch. Every request must finish without error, with
+   ``n_events == prompt_len + n_generated`` and finite outputs; the passes
+   after ``reset()`` give the warm pass's events, integers and floats bit for
+   bit (the accounting pass no rows and the same accounting). Both kernels'
+   launch counters, set to 0 before the engine is built and before each
+   later pass and counting through the replays, must move (kernel A, which
+   the engine calls as `fused_categorical_stream`, only samples); kernel B
+   launches once a decode step run, warm-up chunk included; kernel A
+   launches as often as in the eager engine, plus the warm-ups. The same
+   engine with ``cuda_graph=False`` (every program run eagerly) must give
+   every request's events, integers and floats bit for bit in every pass
+   (the same kernels on the same inputs in the same order); the wall time,
+   a chunk, a step and events/s of both are printed, with
+   ``slots_report()`` at the card's memory. A small fp32 greedy engine on
+   the card whose groups are padded (group sizes 4 and 8 at 8 slots) must
+   also match the same engine on the CPU (plain PyTorch versions of the
+   kernels).
 3. Kernels against their plain versions, on the card, on inputs captured
    from the eager sampled run's first decode step (the logits, the stream's seeds,
    counters and draw salt, keep and active): kernel A's noise bit for bit
@@ -48,13 +60,15 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    same tolerances, mask and length exact; B's cluster shape and CTAs.
 3b. The quantized decode cache: phase 2's model and 64 requests served with
    ``kv_cache_dtype`` "int8" and then "fp8", greedy and sampled, at
-   ``dispatch_depth=2``, on the captured chunk (every request finishes with
+   ``dispatch_depth=2``, in three passes each as in phase 2, on the captured
+   programs (every request finishes with
    ``n_events == prompt_len + n_generated`` and finite outputs; kernel B's
    quantized launch counter for that dtype and, sampling, kernel A's counter
    move; the float entry never launches; kernel B launches once a decode step
-   run; one capture, one replay a chunk). Each sampled run is repeated with
-   the eager chunk and must give the same events, integers and floats bit
-   for bit. A small fp32 int8 engine on the card must
+   run; the captures and replays of phase 2; each pass after ``reset()``
+   equal to the warm pass). Each sampled run is repeated with the eager
+   programs and must give the same events, integers and floats bit for bit,
+   and kernel A's launches as in phase 2. A small fp32 int8 engine on the card must
    match the same engine on the CPU (events and integers exact, floats within
    2e-2, the JAX package's quantized-cache tolerance). Quantized
    B against its plain version on the inputs captured from each sampled
@@ -66,7 +80,7 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    a code by a step), mask and length exact. Printed, not checked: quantized
    B's time beside the bf16 B on the same rows (dequantized), its bound and
    its plain version's; the share of greedy requests whose events equal the
-   bf16 run's; ``slots_report()`` at the card's own memory.
+   bf16 run's; ``slots_report()`` at the card's own memory (int8 and fp8).
 4. Training at full width: the same model with dropout 0.1 and fp32 master
    weights, AdamW with warmup (``bench.py``'s optimizer settings), 20 train
    steps through `make_train_step` on one fixed synthetic batch of 32
@@ -272,55 +286,129 @@ class Capture:
         self.mod.fused_categorical_stream, self.mod.decode_stack_step = self.orig_a, self.orig_b
 
 
+PASSES = ("warm", "fetching", "accounting")
+
+
 def engine_run(model, config, prompts, counters, **engine_kw):
-    """One engine built and run on ``prompts`` (64 requests): every counter in
+    """One engine built and run three times on ``prompts`` (64 requests), as
+    a benchmark warms, resets and times an engine: pass 1 (``warm``) captures
+    every program key the schedule touches; ``reset()``; pass 2
+    (``fetching``) fetches every finished row; ``reset()``; pass 3
+    (``accounting``) runs with ``fetch_results=False``. Every counter in
     ``counters`` (``name -> (wrapper, attribute)``) is set to 0 just before
-    the engine is built (its warm-up and capture included) and read just
-    after the run. Returns the results, requests, wall time of the run,
-    launches and the engine's stats."""
+    the engine is built (its warm-up and capture included) and before each
+    later pass, and read just after each pass. Returns the engine and, per
+    pass, its results, wall time, launches and the engine's stats;
+    ``results``, ``wall_s`` and ``stats`` of pass 1 at the top, ``launches``
+    summed over the passes."""
     import torch
 
     from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
 
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    def zero():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    zero()
     engine = GenerationEngine(model, config, template=prompts[0][0], **engine_kw)
-    reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = engine.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-    return dict(results=results, requests=reqs, wall_s=wall, launches=launches, stats=engine.stats(), engine=engine)
+    passes = {}
+    for name in PASSES:
+        if name != "warm":
+            engine.reset()
+            zero()
+        reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run(reqs, fetch_results=name != "accounting")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+        passes[name] = dict(results=results, requests=reqs, wall_s=wall, launches=launches, stats=engine.stats())
+    warm = passes["warm"]
+    total = {k: sum(p["launches"][k] for p in passes.values()) for k in counters}
+    return dict(warm, launches=total, passes=passes, engine=engine)
 
 
 def check_graph_counts(run, label, counter):
-    """The captured engine's program: one capture, one warm-up chunk, one
-    replay a dispatched chunk, and kernel B's ``counter`` counting every
-    decode step run through the replays (warm-up included)."""
-    s = run["stats"]
-    check(s["cuda_graph"] and s["graph_captures"] == 1 and s["graph_warmup_chunks"] == 1,
-          f"{label}: the decode chunk was not captured once: {s}")  # fmt: skip
-    check(s["graph_replays"] == s["dispatched_chunks"] > 0,
-          f"{label}: {s['graph_replays']} replays for {s['dispatched_chunks']} dispatched chunks")  # fmt: skip
-    steps = (s["graph_warmup_chunks"] + s["dispatched_chunks"]) * s["decode_chunk"]
-    check(run["launches"][counter] == steps,
-          f"{label}: kernel B launched {run['launches'][counter]} times for {steps} decode steps run")  # fmt: skip
+    """The captured engine's programs: the decode chunk captured once with
+    one warm-up chunk and replayed once a dispatched chunk, kernel B's
+    ``counter`` counting every decode step run through the replays (warm-up
+    included); one prefill capture (after one warm-up) a (bucket, group)
+    key and one extraction capture a group width, all in the warm pass, one
+    prefill replay a prefill dispatch; nothing captured after ``reset()``."""
+    warm = run["passes"]["warm"]["stats"]
+    check(warm["cuda_graph"] and warm["graph_captures"] == 1 and warm["graph_warmup_chunks"] == 1,
+          f"{label}: the decode chunk was not captured once: {warm}")  # fmt: skip
+    check(warm["prefill_graph_captures"] == warm["prefill_graph_warmups"] == warm["prefill_graph_keys"] > 0,
+          f"{label}: not one prefill capture a key: {warm}")  # fmt: skip
+    check(warm["extract_graph_captures"] == warm["extract_graph_keys"] > 0,
+          f"{label}: not one extraction capture a width: {warm}")  # fmt: skip
+    before = dict.fromkeys(("graph_replays", "prefill_graph_replays"), 0)
+    for name in PASSES:
+        p = run["passes"][name]
+        s = p["stats"]
+        for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures", "prefill_graph_keys"):
+            check(s[k] == warm[k], f"{label} [{name} pass]: {k} {s[k]} after the warm pass's {warm[k]}")
+        check(s["graph_replays"] - before["graph_replays"] == s["dispatched_chunks"] > 0,
+              f"{label} [{name} pass]: {s['graph_replays']} chunk replays for {s['dispatched_chunks']} chunks")  # fmt: skip
+        check(s["prefill_graph_replays"] - before["prefill_graph_replays"] == s["prefill_dispatches"] > 0,
+              f"{label} [{name} pass]: {s['prefill_graph_replays']} prefill replays for {s['prefill_dispatches']} "
+              "prefill dispatches")  # fmt: skip
+        before = {k: s[k] for k in before}
+        steps = (s["dispatched_chunks"] + (s["graph_warmup_chunks"] if name == "warm" else 0)) * s["decode_chunk"]
+        check(p["launches"][counter] == steps,
+              f"{label} [{name} pass]: kernel B launched {p['launches'][counter]} times for {steps} decode steps run")
+    acct, fetching = (run["passes"][k]["stats"]["extract_graph_replays"] for k in ("accounting", "fetching"))
+    check(acct == fetching, f"{label}: the accounting pass extracted rows")
 
 
-def same_as_eager(captured, eager, label):
-    """Every request's events, integers and floats from the captured chunk
-    equal the eager chunk's, bit for bit (NaN where NaN): the same kernels
-    on the same inputs in the same order. On a difference, fails with the
-    largest gap of each float field."""
+def check_eager_counts(run, label, counter, sampled):
+    """The eager engine's kernel B launches once a decode step run, and kernel
+    A, sampling, once a categorical head a prefill row group and a step."""
+    for name in PASSES:
+        p = run["passes"][name]
+        s = p["stats"]
+        check(not s["cuda_graph"] and s["prefill_graph_captures"] == 0, f"{label}: the eager engine captured")
+        check(p["launches"][counter] == s["dispatched_chunks"] * s["decode_chunk"],
+              f"{label} [{name} pass]: the eager engine's kernel B launches {p['launches']}")  # fmt: skip
+        calls = s["prefill_dispatches"] + s["dispatched_chunks"] * s["decode_chunk"]
+        a = p["launches"]["fused_categorical_stream"]
+        check((a > 0 and a % calls == 0) if sampled else a == 0,
+              f"{label} [{name} pass]: kernel A launched {a} times for {calls} prefills and steps")  # fmt: skip
+
+
+def kernel_a_through_replays(captured, eager, label):
+    """Kernel A counted through the captured programs' replays as eager: the
+    same launches in the passes after ``reset()`` (no warm-up runs there), and
+    in the warm pass the eager count plus the warm-up chunk's and each
+    prefill key's warm-up."""
+    for name in PASSES[1:]:
+        a, b = (r["passes"][name]["launches"]["fused_categorical_stream"] for r in (captured, eager))
+        check(a == b, f"{label} [{name} pass]: kernel A launched {a} times captured, {b} eager")
+    s, e = captured["passes"]["warm"]["stats"], eager["passes"]["warm"]["stats"]
+    per_call = eager["passes"]["warm"]["launches"]["fused_categorical_stream"] // (
+        e["prefill_dispatches"] + e["dispatched_chunks"] * e["decode_chunk"])  # fmt: skip
+    want = per_call * (s["prefill_dispatches"] + s["prefill_graph_warmups"]
+                       + (s["dispatched_chunks"] + s["graph_warmup_chunks"]) * s["decode_chunk"])  # fmt: skip
+    got = captured["passes"]["warm"]["launches"]["fused_categorical_stream"]
+    check(got == want, f"{label} [warm pass]: kernel A launched {got} times captured, {want} expected")
+    return per_call
+
+
+def same_results(a_results, b_results, label, what="captured vs eager"):
+    """Every request's events, integers and floats equal in two runs, bit for
+    bit (NaN where NaN): the same kernels on the same inputs in the same
+    order. On a difference, fails with the largest gap of each float field."""
     import torch
 
     gaps = {}
-    for a, b in zip(captured["results"], eager["results"]):
+    check(len(a_results) == len(b_results), f"{label}: {len(a_results)} results against {len(b_results)}")
+    for a, b in zip(a_results, b_results):
         check(a.request_id == b.request_id, f"{label}: results in another order")
-        check((a.n_events, a.n_generated) == (b.n_events, b.n_generated),
-              f"{label}: request {a.request_id} has {a.n_generated} events captured, {b.n_generated} eager")  # fmt: skip
+        check((a.n_events, a.n_generated, a.prompt_len) == (b.n_events, b.n_generated, b.prompt_len),
+              f"{label}: request {a.request_id} has {a.n_generated} events, {b.n_generated} ({what})")  # fmt: skip
+        if a.batch is None and b.batch is None:  # accounting-only runs
+            continue
         for k, t in vars(a.batch).items():
             if not torch.is_tensor(t):
                 continue
@@ -329,19 +417,51 @@ def same_as_eager(captured, eager, label):
                 if not torch.equal(t.nan_to_num(-7.0), u.nan_to_num(-7.0)):
                     gaps[k] = max(gaps.get(k, 0.0), (t - u).nan_to_num(0.0).abs().max().item())
             else:
-                check(torch.equal(t, u), f"{label}: request {a.request_id}'s {k} differs captured vs eager")
-    check(not gaps, f"{label}: captured floats differ from eager; largest gaps {gaps}")
+                check(torch.equal(t, u), f"{label}: request {a.request_id}'s {k} differs ({what})")
+    check(not gaps, f"{label}: floats differ ({what}); largest gaps {gaps}")
+
+
+def check_passes(run, label):
+    """The passes after ``reset()`` give the warm pass's results bit for bit;
+    the accounting pass's results carry no rows and the same accounting."""
+    passes = run["passes"]
+    same_results(passes["warm"]["results"], passes["fetching"]["results"], label, "warm pass vs the pass after reset()")
+    fetched, acct = passes["fetching"]["results"], passes["accounting"]["results"]
+    check(len(acct) == len(fetched) and all(r.batch is None and r.error is None for r in acct),
+          f"{label}: the accounting pass fetched rows or failed")  # fmt: skip
+    for a, b in zip(fetched, acct):
+        check((a.request_id, a.n_events, a.n_generated, a.prompt_len) == (b.request_id, b.n_events, b.n_generated,
+              b.prompt_len), f"{label}: request {a.request_id}'s accounting differs in the accounting pass")  # fmt: skip
+
+
+def same_as_eager(captured, eager, label):
+    """The captured engine's results equal the eager engine's, bit for bit, in every pass."""
+    for name in PASSES:
+        same_results(captured["passes"][name]["results"], eager["passes"][name]["results"], f"{label} [{name} pass]")
 
 
 def walls_line(captured, eager, generated) -> str:
-    """Wall time of the run per chunk and per decode step, and events/s, captured beside eager."""
+    """Wall time of the timed passes, a chunk and a decode step, and events/s,
+    captured beside eager: the accounting pass (``fetch_results=False``, the
+    events/s a throughput benchmark reads) and the fetching pass; the warm
+    pass's wall (captures included) beside."""
     parts = []
     for name, run in (("captured", captured), ("eager", eager)):
-        s = run["stats"]
-        chunk_ms = run["wall_s"] * 1e3 / s["dispatched_chunks"]
-        parts.append(f"{name} {run['wall_s']:.3f} s, {chunk_ms:.3f} ms a chunk, {chunk_ms / s['decode_chunk']:.3f} ms "
-                     f"a step, {generated / run['wall_s']:.1f} events/s")  # fmt: skip
+        acct, fetch = (run["passes"][k] for k in ("accounting", "fetching"))
+        s = acct["stats"]
+        chunk_ms = acct["wall_s"] * 1e3 / s["dispatched_chunks"]
+        parts.append(f"{name} {generated / acct['wall_s']:.1f} events/s ({acct['wall_s']:.4f} s, {chunk_ms:.3f} ms a "
+                     f"chunk, {chunk_ms / s['decode_chunk']:.3f} ms a step; fetching {generated / fetch['wall_s']:.1f} "
+                     f"events/s in {fetch['wall_s']:.4f} s; warm pass {run['passes']['warm']['wall_s']:.3f} s)")  # fmt: skip
     return "; ".join(parts)
+
+
+def programs_line(run) -> str:
+    s = run["passes"]["accounting"]["stats"]
+    return (f"prefill programs {s['prefill_graph_keys']} keys ({s['prefill_graph_captures']} captures, "
+            f"{s['prefill_graph_replays']} replays over the three passes), extraction programs "
+            f"{s['extract_graph_keys']} widths ({s['extract_graph_captures']} captures, {s['extract_graph_replays']} "
+            f"replays), decode chunk {s['graph_captures']} capture, {s['graph_replays']} replays")  # fmt: skip
 
 
 def engine_phase(smi):
@@ -372,9 +492,10 @@ def engine_phase(smi):
     out = {}
     for mode in ("greedy", "sampled"):
         kw = dict(engine_kw, greedy=mode == "greedy")
+        label = f"phase 2 [{mode}]"
         run = engine_run(model, config, prompts, counters, **kw)
-        # The eager chunk (``cuda_graph=False``) for comparison; kernel
-        # inputs for phase 3 come from its first sampled decode step.
+        # The eager programs (``cuda_graph=False``) for comparison; kernel
+        # inputs for phase 3 come from their first sampled decode step.
         capture.armed = mode == "sampled"
         eager = engine_run(model, config, prompts, counters, cuda_graph=False, **kw)
         capture.armed = False
@@ -386,20 +507,24 @@ def engine_phase(smi):
             check(launches["fused_categorical_stream"] > 0, "sampled: the sampling kernel was never launched")
         else:
             check(launches["fused_categorical_stream"] == 0, "greedy: the sampling kernel launched in greedy mode")
-        check_graph_counts(run, f"phase 2 [{mode}]", "decode_stack_step")
-        check(eager["launches"]["decode_stack_step"] == eager["stats"]["dispatched_chunks"] * 16,
-              f"phase 2 [{mode}]: the eager engine's kernel B launches {eager['launches']}")  # fmt: skip
-        same_as_eager(run, eager, f"phase 2 [{mode}]")
+        check_graph_counts(run, label, "decode_stack_step")
+        check_eager_counts(eager, label, "decode_stack_step", mode == "sampled")
+        heads = kernel_a_through_replays(run, eager, label)
+        check_passes(run, label)
+        check_passes(eager, f"{label} eager")
+        same_as_eager(run, eager, label)
         generated = sum(r.n_generated for r in results)
-        out[mode] = dict(run, generated=generated, eager_wall_s=eager["wall_s"])
+        out[mode] = dict(run, generated=generated, eager=eager)
         print(
-            f"phase 2 [{mode}] {len(results)} requests, {generated} generated events, every event, integer and float "
-            f"equal captured and eager; {walls_line(run, eager, generated)}; captured launches {launches} (decode "
-            f"steps {(stats['graph_warmup_chunks'] + stats['dispatched_chunks']) * 16}, warm-up included; "
-            f"{stats['graph_captures']} capture, {stats['graph_replays']} replays), dispatch_depth "
+            f"{label} {len(results)} requests, {generated} generated events, every event, integer and float equal "
+            f"captured and eager and in each pass after reset(); {walls_line(run, eager, generated)}; "
+            f"{programs_line(run)}; captured launches {launches} over three passes (warm pass "
+            f"{run['passes']['warm']['launches']}; kernel A {heads} a prefill or step), dispatch_depth "
             f"{stats['dispatch_depth']}, wasted_decode_frac {stats['wasted_decode_frac']} ({smi})",
             flush=True,
         )  # fmt: skip
+    print(f"phase 2: slots_report() at the card's memory (bf16 cache): {json.dumps(run['engine'].slots_report())} "
+          f"({smi})", flush=True)  # fmt: skip
     capture.restore()
     check(capture.a is not None and capture.b is not None, "no decode-step inputs were captured")
     small_engine_matches_cpu()
@@ -427,15 +552,23 @@ def small_engine_matches_cpu(**engine_kw):
     with torch.no_grad():  # a near-constant TTE head: inter-event times of about e^1 minutes
         model.output_layer.TTE_layer.proj.weight.mul_(0.02)
     prompts = synthetic_prompts(np.random.default_rng(1), 6, config, (6, 12), (4, 8))
-    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True, **engine_kw)
+    kw = dict(n_slots=8, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True, **engine_kw)
     # A quantized cache: a key one rounding apart can move a code by a step,
     # and floats then agree to the JAX package's quantized-cache tolerance
     # (tests/test_kv_quant.py, 2e-2); float caches to 1e-4.
     float_tol, float_diff = (2e-2 if engine_kw.get("kv_cache_dtype") in QUANT_DTYPES else 1e-4), 0.0
     res = {}
+    widths = []
     for dev in ("cuda", "cpu"):
         reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
-        res[dev] = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw).run(reqs)
+        engine = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw)
+        engine.scheduler.group_sizes = (4, 8)  # groups of fewer than 4 requests padded to 4 rows
+        dispatch = engine._dispatch_group
+        engine._dispatch_group = lambda g, d=dispatch: (widths.append((dev, len(g.requests), g.group_size)), d(g))
+        res[dev] = engine.run(reqs)
+    padded = [(n, g) for dev, n, g in widths if dev == "cuda" and g > n]
+    check(padded and padded == [(n, g) for dev, n, g in widths if dev == "cpu" and g > n],
+          f"small engine: no padded group or not the same on both devices: {widths}")  # fmt: skip
     for g, c in zip(res["cuda"], res["cpu"]):
         check((g.n_events, g.n_generated) == (c.n_events, c.n_generated), f"small engine: request {g.request_id}")
         for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
@@ -450,8 +583,9 @@ def small_engine_matches_cpu(**engine_kw):
             a, b = getattr(g.batch, f), getattr(c.batch, f)
             float_diff = max(float_diff, (a - b).abs().max().item())
             torch.testing.assert_close(a, b, rtol=float_tol, atol=float_tol)
-    print(f"phase 2: small fp32 greedy engine {engine_kw or ''} on the card matches the CPU engine: events and "
-          f"integers exact, floats within {float_tol} (max |diff| {float_diff:.3g})", flush=True)  # fmt: skip
+    print(f"phase 2: small fp32 greedy engine {engine_kw or ''} on the card matches the CPU engine, groups padded "
+          f"(requests, rows) {padded}: events and integers exact, floats within {float_tol} (max |diff| "
+          f"{float_diff:.3g})", flush=True)  # fmt: skip
 
 
 # ---------------------------------------------------------------- phase 3
@@ -712,11 +846,14 @@ def quantized_engine_phase(smi, model, config, runs):
                 check(launches["fused_categorical_stream"] == 0, f"{label}: the sampling kernel ran in greedy mode")
             check(stats["kv_cache_dtype"] == kv and stats["dispatch_depth"] == 2, f"{label}: {stats}")
             check_graph_counts(run, label, f"decode_stack_step.launches_{kv}")
+            check_passes(run, label)
             generated = sum(r.n_generated for r in results)
-            line = (f"{label} {len(results)} requests, {generated} generated events in {wall:.3f} s: "
-                    f"{generated / wall:.1f} events/s, {launches}, dispatched chunks {stats['dispatched_chunks']} "
-                    f"({stats['graph_replays']} replays of 1 capture), wasted_decode_frac "
-                    f"{stats['wasted_decode_frac']}, kv_cache_bytes {stats['kv_cache_bytes']}")  # fmt: skip
+            acct = run["passes"]["accounting"]["wall_s"]
+            line = (f"{label} {len(results)} requests, {generated} generated events, each pass after reset() equal "
+                    f"to the warm pass: {generated / acct:.1f} events/s in {acct:.4f} s (fetch_results=False; "
+                    f"fetching {generated / run['passes']['fetching']['wall_s']:.1f}), launches {launches} over three "
+                    f"passes, dispatched chunks {stats['dispatched_chunks']} a pass, {programs_line(run)}, "
+                    f"wasted_decode_frac {stats['wasted_decode_frac']}, kv_cache_bytes {stats['kv_cache_bytes']}")  # fmt: skip
             if mode == "greedy":
                 base = {r.request_id: r for r in runs["greedy"]["results"]}
                 agree = [same_generated_events(r, base[r.request_id]) for r in results]
@@ -728,13 +865,16 @@ def quantized_engine_phase(smi, model, config, runs):
                 capture.armed = True
                 eager = engine_run(model, config, prompts, counters, cuda_graph=False, **kw)
                 capture.armed = False
+                check_eager_counts(eager, label, f"decode_stack_step.launches_{kv}", True)
+                kernel_a_through_replays(run, eager, label)
+                check_passes(eager, f"{label} eager")
                 same_as_eager(run, eager, label)
                 line += f"; every event, integer and float equal captured and eager: {walls_line(run, eager, generated)}"
             print(f"{line} ({smi})", flush=True)
             out[(kv, mode)] = dict(launches=launches, wall_s=wall, generated=generated)
-            if kv == "int8" and mode == "sampled":
-                print(f"phase 3b: slots_report() at the card's memory: {json.dumps(run['engine'].slots_report())} "
-                      f"({smi})", flush=True)  # fmt: skip
+            if mode == "sampled":
+                print(f"phase 3b: slots_report() at the card's memory ({kv} cache): "
+                      f"{json.dumps(run['engine'].slots_report())} ({smi})", flush=True)  # fmt: skip
         capture.restore()
         check(capture.b is not None, f"no quantized decode-step inputs were captured ({kv})")
     small_engine_matches_cpu(kv_cache_dtype="int8")

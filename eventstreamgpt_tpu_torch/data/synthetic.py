@@ -6,7 +6,8 @@ per-subject recipe (lognormal lengths clipped to ``[4, 512]``, inter-event
 times uniform in 1-240 minutes) and per-event recipe (one event type, labs
 by default, meds at the end of 40% of events, at most 24 elements) these
 follow. Everything is built in memory from a numpy generator; nothing is
-written to disk.
+written to disk. Index planes are int32, as the JAX package (x64 off)
+holds them.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ def synthetic_event(rng: np.random.Generator, config, max_obs: int = 24):
     m[0] = 1
     if n_obs > 2 and rng.random() < 0.4:
         m[-(1 + int(rng.integers(0, min(3, n_obs - 2)))) :] = 3
-    idx = np.zeros(n_obs, np.int64)
+    idx = np.zeros(n_obs, np.int32)
     for code, name in ((1, "event_type"), (2, "lab"), (3, "med")):
         sel = m == code
         idx[sel] = rng.integers(off[name] + 1, off[name] + size[name], size=int(sel.sum()))
@@ -96,8 +97,8 @@ def synthetic_prompts(rng: np.random.Generator, n: int, config, len_range, budge
     out = []
     for _ in range(n):
         L = int(rng.integers(len_range[0], len_range[1] + 1))
-        idx = np.zeros((1, L, max_obs), np.int64)
-        meas = np.zeros((1, L, max_obs), np.int64)
+        idx = np.zeros((1, L, max_obs), np.int32)
+        meas = np.zeros((1, L, max_obs), np.int32)
         vals = np.zeros((1, L, max_obs), np.float32)
         for e in range(L):
             m, ix, v = synthetic_event(rng, config, max_obs)
@@ -105,8 +106,9 @@ def synthetic_prompts(rng: np.random.Generator, n: int, config, len_range, budge
         prompt = EventStreamBatch(
             event_mask=torch.ones(1, L, dtype=torch.bool),
             time_delta=torch.from_numpy(rng.uniform(1.0, 240.0, size=(1, L)).astype(np.float32)),
-            static_indices=torch.tensor([[int(rng.integers(off["demo"] + 1, off["demo"] + size["demo"]))]]),
-            static_measurement_indices=torch.tensor([[config.measurements_idxmap["demo"]]]),
+            static_indices=torch.tensor([[int(rng.integers(off["demo"] + 1, off["demo"] + size["demo"]))]],
+                                        dtype=torch.int32),
+            static_measurement_indices=torch.tensor([[config.measurements_idxmap["demo"]]], dtype=torch.int32),
             dynamic_indices=torch.from_numpy(idx),
             dynamic_measurement_indices=torch.from_numpy(meas),
             dynamic_values=torch.from_numpy(vals),
@@ -152,8 +154,8 @@ def synthetic_training_batches(
         B, L = batch_size, seq_len
         event_mask = np.zeros((B, L), bool)
         time_delta = np.zeros((B, L), np.float32)
-        idx = np.zeros((B, L, n_data), np.int64)
-        meas = np.zeros((B, L, n_data), np.int64)
+        idx = np.zeros((B, L, n_data), np.int32)
+        meas = np.zeros((B, L, n_data), np.int32)
         vals = np.zeros((B, L, n_data), np.float32)
         for b, (deltas, events, _) in enumerate(subjects):
             event_mask[b, : len(deltas)] = True
@@ -163,8 +165,8 @@ def synthetic_training_batches(
         yield EventStreamBatch(
             event_mask=torch.from_numpy(event_mask),
             time_delta=torch.from_numpy(time_delta),
-            static_indices=torch.tensor([[s] for _, _, s in subjects]),
-            static_measurement_indices=torch.full((B, 1), demo),
+            static_indices=torch.tensor([[s] for _, _, s in subjects], dtype=torch.int32),
+            static_measurement_indices=torch.full((B, 1), demo, dtype=torch.int32),
             dynamic_indices=torch.from_numpy(idx),
             dynamic_measurement_indices=torch.from_numpy(meas),
             dynamic_values=torch.from_numpy(vals),
@@ -215,13 +217,13 @@ def synthetic_csr(rng: np.random.Generator, config, n_subjects: int, mean_seq_le
         subject_event_offsets=offsets(lengths),
         time_delta=np.concatenate(deltas).astype(np.float32),
         event_data_offsets=offsets(counts),
-        dynamic_indices=np.concatenate(idx).astype(np.int64),
-        dynamic_measurement_indices=np.concatenate(meas).astype(np.int64),
+        dynamic_indices=np.concatenate(idx).astype(np.int32),
+        dynamic_measurement_indices=np.concatenate(meas).astype(np.int32),
         dynamic_values=np.concatenate(vals).astype(np.float32),
         dynamic_values_observed=np.concatenate(meas) == 2,
         static_offsets=np.arange(n_subjects + 1, dtype=np.int64),
-        static_indices=np.asarray(statics, dtype=np.int64),
-        static_measurement_indices=np.full(n_subjects, demo, dtype=np.int64),
+        static_indices=np.asarray(statics, dtype=np.int32),
+        static_measurement_indices=np.full(n_subjects, demo, dtype=np.int32),
         start_time_min=np.zeros(n_subjects, dtype=np.float64),
     )
 

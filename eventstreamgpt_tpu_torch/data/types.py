@@ -11,7 +11,13 @@ import dataclasses
 import enum
 from typing import Any, Optional
 
+import torch
+
 from ..utils import StrEnum
+
+# The JAX package runs with x64 off: it holds 64-bit integers and floats in
+# 32 bits, and so do the port's engine rows and train-step buffers.
+X32 = {torch.int64: torch.int32, torch.float64: torch.float32}
 
 
 class TemporalityType(StrEnum):

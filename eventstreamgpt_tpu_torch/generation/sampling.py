@@ -227,15 +227,22 @@ def check_generation_config(config: StructuredTransformerConfig) -> None:
 def _masked_row_write(buf: torch.Tensor, rows, cols, values, active) -> None:
     """``buf[rows, cols] = values`` for active rows; inactive rows keep theirs.
 
+    ``values`` is a tensor or a python scalar (selected into the rows
+    without a kernel of its own when ``active`` is given; written as a
+    device constant otherwise: a CUDA graph may copy no host value).
     Columns are clamped into the buffer: an inactive row's cursor may sit at
     its end, and the clamped write puts back the value already there.
     """
     cols = cols.long().clamp(max=buf.shape[1] - 1)
+    if torch.is_tensor(values):
+        values = values.to(buf.dtype)
+    elif active is None:
+        values = torch.full((), values, dtype=buf.dtype, device=buf.device)
     if active is not None:
         old = buf[rows, cols]
         shape = active.shape + (1,) * (old.ndim - 1)
-        values = torch.where(active.reshape(shape), values.to(buf.dtype), old)
-    buf[rows, cols] = values.to(buf.dtype)
+        values = torch.where(active.reshape(shape), values, old)
+    buf[rows, cols] = values
 
 
 def append_new_event(batch: EventStreamBatch, sample, cursor: torch.Tensor, active=None) -> None:
@@ -249,20 +256,20 @@ def append_new_event(batch: EventStreamBatch, sample, cursor: torch.Tensor, acti
     _masked_row_write(
         batch.time_delta, rows, prev, torch.where(sample.event_mask, sample.time_to_event, td_prev), active
     )
-    _masked_row_write(batch.time_delta, rows, cursor, torch.ones_like(td_prev), active)
+    _masked_row_write(batch.time_delta, rows, cursor, 1.0, active)
     _masked_row_write(batch.event_mask, rows, cursor, sample.event_mask, active)
-    M = batch.dynamic_indices.shape[-1]
-    zeros = torch.zeros(B, M, dtype=torch.int64, device=cursor.device)
     for name in ("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask"):
-        _masked_row_write(getattr(batch, name), rows, cursor, zeros, active)
+        buf = getattr(batch, name)
+        _masked_row_write(buf, rows, cursor, False if buf.dtype == torch.bool else 0, active)
 
 
-def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: set):
-    """Fixed-layout content arrays for the sampled measurements (zeros where unsampled)."""
+def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: set, dtype: torch.dtype):
+    """Fixed-layout content arrays for the sampled measurements (zeros where
+    unsampled); indices in ``dtype``, the index planes' own."""
     idx_parts, meas_parts, val_parts, vmask_parts = [], [], [], []
 
     def add_single_label(m):
-        indices = (config.vocab_offsets_by_measurement[m] + sample.classification[m].long())[:, None]
+        indices = (config.vocab_offsets_by_measurement[m] + sample.classification[m].to(dtype))[:, None]
         idx_parts.append(indices)
         meas_parts.append(torch.full_like(indices, config.measurements_idxmap[m]))
         val_parts.append(torch.zeros(indices.shape, dtype=torch.float32, device=indices.device))
@@ -272,10 +279,10 @@ def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: s
         offset = config.vocab_offsets_by_measurement[m]
         V = config.vocab_sizes_by_measurement[m]
         preds = sample.classification[m]
-        ar = torch.arange(V, device=preds.device)[None, :] + offset
+        ar = torch.arange(V, dtype=dtype, device=preds.device)[None, :] + offset
         indices = torch.where(preds == 1, ar, 0)
         idx_parts.append(indices)
-        meas_parts.append(torch.where(indices != 0, config.measurements_idxmap[m], 0))
+        meas_parts.append(torch.where(indices != 0, config.measurements_idxmap[m], indices))
         return indices
 
     def add_multivariate_regression(m, indices):
@@ -290,8 +297,8 @@ def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: s
         obs = ~torch.isnan(preds)
         val_parts.append(torch.nan_to_num(preds, nan=0.0)[:, None])
         vmask_parts.append(obs[:, None])
-        idx_parts.append((config.vocab_offsets_by_measurement[m] * obs.long())[:, None])
-        meas_parts.append((config.measurements_idxmap[m] * obs.long())[:, None])
+        idx_parts.append((config.vocab_offsets_by_measurement[m] * obs.to(dtype))[:, None])
+        meas_parts.append((config.measurements_idxmap[m] * obs.to(dtype))[:, None])
 
     if "event_type" in to_fill:
         add_single_label("event_type")
@@ -329,7 +336,7 @@ def update_last_event_data(
     col = (cursor.long() - 1).clamp(max=batch.dynamic_indices.shape[1] - 1)
     prev = [getattr(batch, n)[rows, col] for n in ("dynamic_indices", "dynamic_measurement_indices",
                                                      "dynamic_values", "dynamic_values_mask")]  # fmt: skip
-    new_idx, new_meas, new_val, new_vmask = _format_new_elements(sample, config, to_fill)
+    new_idx, new_meas, new_val, new_vmask = _format_new_elements(sample, config, to_fill, prev[0].dtype)
     em = sample.event_mask[:, None]
     new_idx = torch.where(em, new_idx, 0)
     new_meas = torch.where(em, new_meas, 0)

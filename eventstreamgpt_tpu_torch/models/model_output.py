@@ -175,6 +175,7 @@ class GenerativeOutputLayerBase(nn.Module):
         # layer's narrow projections, which compute the same columns.
         scores_all = dense(encoded, self.ClassificationLayer, self.dtype).float()
         losses, dists, labels_out = {}, {}, {}
+        indices64 = None  # the index plane as scatter's int64 index, cast once
         for m, mode in self.classification_mode_per_measurement.items():
             if m not in valid_measurements:
                 continue
@@ -201,10 +202,12 @@ class GenerativeOutputLayerBase(nn.Module):
                 # slot value 0 (another measurement, padding or out of range)
                 # lands in column 0, which is dropped.
                 V = end - start
-                label_or_zero = torch.where(tensor_idx, batch.dynamic_indices - start + 1, 0)
+                if indices64 is None:
+                    indices64 = batch.dynamic_indices.long()
+                label_or_zero = torch.where(tensor_idx, indices64 - start + 1, 0)
                 label_or_zero = torch.where((label_or_zero >= 1) & (label_or_zero <= V), label_or_zero, 0)
                 plane = torch.zeros(label_or_zero.shape[:-1] + (V + 1,), dtype=scores.dtype, device=scores.device)
-                labels = plane.scatter_(-1, label_or_zero.long(), 1.0)[..., 1:]
+                labels = plane.scatter_(-1, label_or_zero, 1.0)[..., 1:]
                 loss_per_event = -dists[m][1].log_prob(labels).mean(dim=-1)
             losses[m] = weighted_loss(loss_per_event, event_mask)
             labels_out[m] = labels

@@ -16,21 +16,35 @@ and the output heads (PyTorch), the categorical heads through kernel A
 Gumbel noise of each row's stream inside the kernel, and the in-place
 buffer updates. On CPU tensors both kernels
 take their plain PyTorch versions. Prefill runs the model forward on a
-fresh float cache at the bucket width and scatters the rows into their
-slots. With ``kv_cache_dtype`` "int8" or "fp8" the slot caches hold codes
-and per-head-per-position fp32 scales (`ops.kv_quant`): the prefill's cache
-is quantized whole at admission, kernel B quantizes each new key and value
-at the cursor and dequantizes what it reads.
+fresh float cache at the bucket width for a group of requests padded, as
+the JAX engine pads it, to the scheduler's group width with inert rows, and
+admits the real rows into their slots. With ``kv_cache_dtype`` "int8" or
+"fp8" the slot caches hold codes and per-head-per-position fp32 scales
+(`ops.kv_quant`): the prefill's cache is quantized whole at admission,
+kernel B quantizes each new key and value at the cursor and dequantizes
+what it reads.
 
-The decode chunk is one program (JAX's ``_decode_chunk_ci`` behind
-``_decode_jit``): `GenerationEngine._decode_chunk` threads the per-slot
-state through its steps and copies the result back into the engine's state
-buffers, which keep their addresses for the engine's life (admission writes
-into them in place). On the card it is captured once per engine into a CUDA
-graph (`utils.graphs.CapturedProgram`), at construction while every slot is
-inactive, and each chunk is one replay: one host launch for its
-``decode_chunk`` steps. ``cuda_graph=False`` runs it eagerly instead; the
-CPU always does.
+Index planes are held in int32 and floats in fp32, whatever the template
+and prompts hold, as the JAX package (x64 off) holds them; request seeds
+and stream counters are int32 words (the counter hash reads 32 bits of
+each), cast to int64 once a program where kernel A and the hash take them.
+
+The engine runs three kinds of program, each the counterpart of a jitted
+JAX program: the decode chunk (JAX's ``_decode_chunk_ci`` behind
+``_decode_jit``), the prefill-and-admit program of a (bucket, group width)
+key (``_prefill_jit``: `GenerationEngine._prefill_admit`) and the
+harvest's extraction at a group width (``_extract_jit``:
+`GenerationEngine._extract`). Each reads its static inputs from one buffer
+that the host fills with one staging copy (`utils.graphs.ByteLayout`) and
+writes only the engine's state buffers and its static outputs, which keep
+their addresses for the engine's life (`GenerationEngine.reset` writes the
+initial values back in place). On the card each is captured into a CUDA
+graph (`utils.graphs.CapturedProgram`; an engine's programs share one
+memory pool): the decode chunk at construction while every slot is
+inactive, a prefill or extraction key at its first use, after a warm-up
+whose every row is inert. Each call is then one replay: one host launch.
+``cuda_graph=False`` runs the same programs eagerly instead; the CPU always
+does.
 
 Pipelined boundaries: after each chunk the packed ``(5, n_slots)`` boundary
 is computed on the device and its copy into pinned host memory started at
@@ -72,10 +86,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..data.types import EventStreamBatch
+from ..data.types import X32, EventStreamBatch
 from ..distributions import dist_tensors
 from ..generation.generation_utils import _mask_through_cursor, _slice_preds_at, _trim_to_event
 from ..generation.sampling import (
+    M32,
     RowStreams,
     append_new_event,
     assemble_event_sample,
@@ -100,7 +115,7 @@ from ..ops.kv_quant import (
 )
 from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
-from ..utils.graphs import CapturedProgram
+from ..utils.graphs import ByteLayout, CapturedProgram, ProgramFamily
 from .errors import MalformedPromptRejected, SlotHealthError
 from .scheduler import EngineResult, Request, Scheduler, check_prompt_finite, make_buckets
 
@@ -119,6 +134,8 @@ _CORE_FIELDS = (
 # The per-slot state a decode step rebinds: the chunk threads it through its
 # steps and copies the result back into the engine's buffers of these names.
 _CHUNK_STATE = ("cursor", "n_generated", "counters", "done", "health", "active_steps", "cache_mask", "cache_len")
+# The memory budget `stats` reports slots against off the card (the JAX engine's default).
+_REPORT_HBM_GB = 16.0
 _SEQ_FIELDS = (
     "event_mask",
     "time_delta",
@@ -135,6 +152,26 @@ _NOT_PORTED = {
     "paged_kv": False,
     "prefill_stream": None,
 }
+
+
+def _int32_word(v: int) -> int:
+    """The low 32 bits of ``v`` as a signed int32 value (the word the counter hash reads)."""
+    v &= M32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _admit_rows(dst: torch.Tensor, src, slots: torch.Tensor, valid: torch.Tensor, dim: int = 0) -> None:
+    """``dst``'s rows ``slots`` along ``dim`` set to ``src`` (a tensor of those
+    rows, or a scalar) where ``valid``, and to what they hold where not: the
+    JAX admission's ``.at[slots].set(src, mode="drop")`` for a padded group,
+    whose pad rows are aimed at slots outside the group. A gather, a select
+    and a scatter to distinct slots: deterministic, and an invalid row
+    writes back its slot's bits."""
+    old = dst.index_select(dim, slots)
+    shape = [1] * old.ndim
+    shape[dim] = -1
+    new = torch.where(valid.view(shape), src.to(dst.dtype) if torch.is_tensor(src) else src, old)
+    dst.index_copy_(dim, slots, new)
 
 
 class GenerationEngine:
@@ -163,12 +200,13 @@ class GenerationEngine:
             caches in the compute dtype only.
         device: ``None`` (the CUDA device, raising without one) or an
             explicit device such as ``"cpu"``.
-        cuda_graph: on a CUDA device, capture the decode chunk once, at
-            construction, and replay it for every chunk (the default, the
-            counterpart of the JAX engine's jitted chunk); ``False`` runs it
-            eagerly, one host launch per operation (the counterpart of
-            ``jax.disable_jit()``, for comparisons). The CPU always runs it
-            eagerly.
+        cuda_graph: on a CUDA device, capture each program once and replay
+            it for every call (the default, the counterpart of the JAX
+            engine's jitted programs): the decode chunk at construction, each
+            prefill (bucket, group width) and extraction width at its first
+            use. ``False`` runs them eagerly, one host launch per operation
+            (the counterpart of ``jax.disable_jit()``, for comparisons). The
+            CPU always runs them eagerly.
     """
 
     def __init__(
@@ -245,12 +283,20 @@ class GenerationEngine:
 
         self._template = self._normalize_prompt(template)
         self._init_state()
-        # The chunk's program: captured now, while every slot is inactive, so
-        # the warm-up writes nothing a request can see (every write of a step
-        # is masked by ``active``, and admission replaces a slot's cache rows whole).
+        # Static inputs and outputs of the prefill and extraction programs,
+        # by (kind, key); on the card, their captured programs by kind.
+        self._statics: dict = {}
         self._program = None
+        self._families: dict = {}
         if self.device.type == "cuda" and cuda_graph:
-            self._program = CapturedProgram(self._decode_chunk, "the decode chunk", device=self.device)
+            pool = torch.cuda.graph_pool_handle()
+            self._families = {kind: ProgramFamily(f"the {kind} program", device=self.device, pool=pool)
+                              for kind in ("prefill", "extract")}  # fmt: skip
+            # The chunk's program: captured now, while every slot is inactive,
+            # so the warm-up writes nothing a request can see (every write of a
+            # step is masked by ``active``, and admission replaces a slot's
+            # cache rows whole).
+            self._program = CapturedProgram(self._decode_chunk, "the decode chunk", device=self.device, pool=pool)
             with torch.inference_mode():
                 self._program.warmup()
                 self._program.capture()
@@ -268,13 +314,14 @@ class GenerationEngine:
 
     # ------------------------------------------------------------ state init
     def _normalize_prompt(self, batch: EventStreamBatch) -> EventStreamBatch:
+        """The fields a slot row carries, 64-bit integers and floats in 32 bits."""
         out = EventStreamBatch(**{f: getattr(batch, f) for f in _CORE_FIELDS})
         for f in ("event_mask", "time_delta", "dynamic_indices"):
             if getattr(out, f) is None:
                 raise ValueError(f"Engine prompts need `{f}`")
         if out.start_time is None:
             out = out.replace(start_time=torch.zeros(out.batch_size, dtype=torch.float32))
-        return out
+        return out.map(lambda x: x.to(X32.get(x.dtype, x.dtype)))
 
     def _init_state(self) -> None:
         S, L, t, dev = self.n_slots, self.max_len, self._template, self.device
@@ -283,10 +330,10 @@ class GenerationEngine:
             if x is None:
                 return None
             shape = (S, L) + tuple(x.shape[2:]) if seq_axis else (S,) + tuple(x.shape[1:])
-            return torch.zeros(shape, dtype=x.dtype, device=dev)
+            return torch.empty(shape, dtype=x.dtype, device=dev)
 
         self.big = EventStreamBatch(
-            event_mask=torch.zeros(S, L, dtype=torch.bool, device=dev),
+            event_mask=torch.empty(S, L, dtype=torch.bool, device=dev),
             time_delta=rows(t.time_delta, True),
             static_indices=rows(t.static_indices, False),
             static_measurement_indices=rows(t.static_measurement_indices, False),
@@ -298,26 +345,43 @@ class GenerationEngine:
         )
         cfg = self.config
         shape = (cfg.num_hidden_layers, S, cfg.num_attention_heads, L, cfg.head_dim)
-        self.key_cache = torch.zeros(shape, dtype=self._kv_buf_dtype, device=dev)
-        self.value_cache = torch.zeros(shape, dtype=self._kv_buf_dtype, device=dev)
+        self.key_cache = torch.empty(shape, dtype=self._kv_buf_dtype, device=dev)
+        self.value_cache = torch.empty(shape, dtype=self._kv_buf_dtype, device=dev)
         self.key_scale = self.value_scale = None
-        if self._kv_quantized:  # ones: zero codes dequantize to zeros
-            self.key_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
-            self.value_scale = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
-        self.cache_mask = torch.zeros(S, L, dtype=torch.bool, device=dev)
-        self.cache_len = torch.zeros(S, dtype=torch.int32, device=dev)
+        if self._kv_quantized:
+            self.key_scale = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+            self.value_scale = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+        self.cache_mask = torch.empty(S, L, dtype=torch.bool, device=dev)
+        self.cache_len, self.cursor, self.base_len, self.budget, self.n_generated = (
+            torch.empty(S, dtype=torch.int32, device=dev) for _ in range(5)
+        )
+        self.done, self.live, self.health = (torch.empty(S, dtype=torch.bool, device=dev) for _ in range(3))
+        # A request's seed and its stream's counter: the 32-bit words the
+        # counter hash reads (JAX keeps a (2,) uint32 key a slot).
+        self.seeds = torch.empty(S, dtype=torch.int32, device=dev)
+        self.counters = torch.empty(S, dtype=torch.int32, device=dev)
+        self.active_steps = torch.empty((), dtype=torch.int32, device=dev)
+        self._boundary = torch.empty((5, S), dtype=torch.int32, device=dev)
+        self._write_initial_state()
 
-        def i32(v):
-            return torch.full((S,), v, dtype=torch.int32, device=dev)
-
-        self.cursor, self.base_len, self.budget, self.n_generated = i32(1), i32(1), i32(0), i32(0)
-        self.done = torch.ones(S, dtype=torch.bool, device=dev)
-        self.live = torch.zeros(S, dtype=torch.bool, device=dev)
-        self.health = torch.zeros(S, dtype=torch.bool, device=dev)
-        self.seeds = torch.zeros(S, dtype=torch.int64, device=dev)
-        self.counters = torch.zeros(S, dtype=torch.int64, device=dev)
-        self.active_steps = torch.zeros((), dtype=torch.int64, device=dev)
-        self._boundary = torch.zeros((5, S), dtype=torch.int32, device=dev)
+    def _write_initial_state(self) -> None:
+        """Every state buffer to its initial value, in place (each keeps its
+        address): empty rows, zero caches with unit scales (zero codes
+        dequantize to zeros), every slot done and not live."""
+        for x in vars(self.big).values():
+            if torch.is_tensor(x):
+                x.zero_()
+        for x in (self.key_cache, self.value_cache):
+            storage(x).zero_()
+        for x in (self.key_scale, self.value_scale):
+            if x is not None:
+                x.fill_(1.0)
+        for x in (self.cache_mask, self.cache_len, self.budget, self.n_generated, self.live, self.health,
+                  self.seeds, self.counters, self.active_steps, self._boundary):  # fmt: skip
+            x.zero_()
+        self.cursor.fill_(1)
+        self.base_len.fill_(1)
+        self.done.fill_(True)
 
     # --------------------------------------------------------- device pieces
     def _categorical_sampler(self, active):
@@ -363,9 +427,10 @@ class GenerationEngine:
                 bad = bad | ~torch.isfinite(x.reshape(self.n_slots, -1)).all(dim=1)
         return bad
 
-    def _decode_step(self, st: dict) -> dict:
-        """One event for every active slot of state ``st`` (`_CHUNK_STATE`);
-        returns the next state. Inactive slots keep theirs."""
+    def _decode_step(self, st: dict, seeds: torch.Tensor) -> dict:
+        """One event for every active slot of state ``st`` (`_CHUNK_STATE`,
+        the counters in int64) with the slots' seeds in int64; returns the
+        next state. Inactive slots keep theirs."""
         cfg, m = self.config, self._model
         active = self.live & ~st["done"]
         view = _trim_to_event(self.big, st["cursor"] - 1)
@@ -380,7 +445,7 @@ class GenerationEngine:
         out = m.output_layer(view, encoded, is_generation=True)
         preds_last = _slice_preds_at(out.preds, 0)
         em_last = take_event(self.big.event_mask, st["cursor"] - 1)
-        sample = self._sample_rows(preds_last, em_last, self.seeds, st["counters"], active=active)
+        sample = self._sample_rows(preds_last, em_last, seeds, st["counters"], active=active)
         append_new_event(self.big, sample, st["cursor"], active)
         update_last_event_data(self.big, sample, cfg, st["cursor"] + 1, self._to_fill, active)
 
@@ -409,10 +474,13 @@ class GenerationEngine:
         base_len, n_generated, health) written into its buffer. Every tensor
         it reads or writes outside its temporaries keeps its address for the
         engine's life: on the card this is the program captured once and
-        replayed per chunk; on the CPU it runs as it is."""
+        replayed per chunk; on the CPU it runs as it is. The stream words are
+        cast to int64 once a chunk, where the hash and kernel A take them."""
         st = {k: getattr(self, k) for k in _CHUNK_STATE}
+        st["counters"] = self.counters.long()
+        seeds = self.seeds.long()
         for _ in range(self.decode_chunk):
-            st = self._decode_step(st)
+            st = self._decode_step(st, seeds)
         for k in _CHUNK_STATE:
             getattr(self, k).copy_(st[k])
         torch.stack(
@@ -420,93 +488,205 @@ class GenerationEngine:
             out=self._boundary,
         )
 
-    # ----------------------------------------------------------- prefill
-    def _pad_prompt_row(self, prompt: EventStreamBatch) -> EventStreamBatch:
-        """One request row, normalized and padded (on the host) to ``max_len``."""
-        p = self._normalize_prompt(prompt).map(lambda x: x.detach().cpu())
+    # ------------------------------------------------ prefill and extraction
+    def _run_program(self, kind: str, key, inputs: dict, outputs: dict, body, fill, inert) -> tuple:
+        """Runs the ``kind`` program of ``key``: ``body(x)``, where ``x`` holds
+        its static inputs and outputs, views of two device buffers laid out
+        by ``inputs`` and ``outputs`` (`ByteLayout`s made at the key's first
+        use). ``fill(views)`` first writes this call's inputs into a staging
+        buffer (pinned on the card, zeroed) that one copy moves to the
+        device. Eager on the CPU or with ``cuda_graph=False``; else one
+        replay of the key's captured program, which its first use warms up
+        on inputs that ``inert`` wrote (every row inert) and captures.
+        Returns the outputs' ``(layout, buffer)``."""
+        if (kind, key) not in self._statics:
+            layout, out_layout = ByteLayout(inputs), ByteLayout(outputs)
+            buf, out_buf = layout.empty(self.device), out_layout.empty(self.device)
+            x = {**layout.views(buf), **out_layout.views(out_buf)}
+            self._statics[(kind, key)] = layout, buf, out_layout, out_buf, x
+        layout, buf, out_layout, out_buf, x = self._statics[(kind, key)]
+
+        def upload(write):
+            host = layout.empty("cpu", pin_memory=buf.is_cuda).zero_()
+            write(layout.views(host))
+            buf.copy_(host, non_blocking=buf.is_cuda)
+
+        family = self._families.get(kind)
+        if family is None:
+            upload(fill)
+            body(x)
+            return out_layout, out_buf
+        program, new = family.get(key, lambda: body(x))
+        if new:
+            upload(inert)
+            program.warmup()
+            program.capture()
+        upload(fill)
+        program.replay()
+        return out_layout, out_buf
+
+    def _request_seed(self, req: Request) -> int:
+        return int(req.key) if req.key is not None else derive_request_seed(self.seed, req.admission_index)
+
+    def _stage_prompt(self, x: dict, i: int, prompt: EventStreamBatch) -> None:
+        """Request row ``i`` of a staged group: its prompt, zeros after it."""
+        p = self._normalize_prompt(prompt)
         if p.batch_size != 1:
             raise ValueError("Requests hold one-row prompts; split cohorts first")
         if p.n_data_elements != self._template.n_data_elements:
             raise ValueError(
                 f"Prompt data-element width {p.n_data_elements} != engine width {self._template.n_data_elements}"
             )
-        pad = self.max_len - p.sequence_length
-        if pad < 0:
-            raise ValueError(f"Prompt of {p.sequence_length} events exceeds max_len={self.max_len}")
-        t = self._template
-        updates = {}
-        for f in _SEQ_FIELDS:
-            x = getattr(p, f)
-            if x is not None:
-                widths = [0, 0] * (x.ndim - 2) + [0, pad, 0, 0]
-                updates[f] = torch.nn.functional.pad(x, widths).to(getattr(t, f).dtype)
-        return p.replace(**updates)
-
-    def _request_seed(self, req: Request) -> int:
-        return int(req.key) if req.key is not None else derive_request_seed(self.seed, req.admission_index)
+        n = p.sequence_length
+        if n > self.max_len:
+            raise ValueError(f"Prompt of {n} events exceeds max_len={self.max_len}")
+        for f in _CORE_FIELDS:
+            src = getattr(p, f)
+            if f in x and src is not None:
+                if f in _SEQ_FIELDS:
+                    x[f][i, :n] = src[0]
+                else:
+                    x[f][i] = src[0]
 
     def _dispatch_group(self, group) -> None:
-        """Bucketed prefill forward + first-event sample + admission into the slots.
+        """Bucketed prefill forward + first-event sample + admission into the
+        slots: one prefill program of key (bucket, group width), its group
+        padded to the width as JAX's ``_group_arrays`` pads it, with inert
+        rows (no content, ``plen`` 1, budget 1, seed 0). The pad rows are
+        aimed at distinct slots outside the group, whose contents the
+        admission writes back unchanged (`_admit_rows`)."""
+        reqs, n, g = group.requests, len(group.requests), group.group_size
+        taken = set(group.slots)
+        slots = list(group.slots) + [s for s in range(self.n_slots) if s not in taken][: g - n]
+        fields = {f: ((g,) + tuple(getattr(self.big, f).shape[1:]), getattr(self.big, f).dtype)
+                  for f in _CORE_FIELDS if getattr(self.big, f) is not None}  # fmt: skip
+        fields.update({k: ((g,), torch.int32) for k in ("plen", "budget", "seed", "slot")})
+        fields["valid"] = ((g,), torch.bool)
 
-        Eager PyTorch compiles nothing per shape, so the group runs at its
-        true row count (the JAX engine pads it to a compiled group width)."""
-        reqs, Lb, dev = group.requests, group.bucket_len, self.device
-        rows = [self._pad_prompt_row(r.prompt) for r in reqs]
-        pbig = EventStreamBatch(
-            **{
-                f: None if getattr(rows[0], f) is None else torch.cat([getattr(r, f) for r in rows]).to(dev)
-                for f in _CORE_FIELDS
-            }
-        )
-        n = len(reqs)
-        plen = torch.tensor([r.prompt_len for r in reqs], dtype=torch.int32, device=dev)
-        budgets = torch.tensor([r.max_new_events for r in reqs], dtype=torch.int32, device=dev)
-        seeds = torch.tensor([self._request_seed(r) for r in reqs], dtype=torch.int64, device=dev)
-        slots = torch.tensor(group.slots, dtype=torch.int64, device=dev)
+        def inert(x):
+            x["plen"].fill_(1)
+            x["budget"].fill_(1)
+            x["slot"].copy_(torch.arange(g))
 
-        view = pbig.slice((slice(None), slice(0, Lb)))
-        out = self._model(view, past=init_kv_caches(self.config, n, self.max_len, dev), use_cache=True)
-        preds_last = _slice_preds_at(out.preds, plen.long() - 1)
-        em_last = take_event(pbig.event_mask, plen.long() - 1)
-        sample = self._sample_rows(preds_last, em_last, seeds, torch.zeros_like(seeds))
-        append_new_event(pbig, sample, plen.long())
-        update_last_event_data(pbig, sample, self.config, plen.long() + 1, self._to_fill)
+        def fill(x):
+            inert(x)
+            for i, r in enumerate(reqs):
+                self._stage_prompt(x, i, r.prompt)
+            x["plen"][:n] = torch.tensor([r.prompt_len for r in reqs])
+            x["budget"][:n] = torch.tensor([r.max_new_events for r in reqs])
+            x["seed"][:n] = torch.tensor([_int32_word(self._request_seed(r)) for r in reqs])
+            x["slot"].copy_(torch.tensor(slots))
+            x["valid"][:n] = True
 
-        # Admission: whole rows into the slots (cache rows past the bucket are zeros).
-        for f in _CORE_FIELDS:
-            dst = getattr(self.big, f)
-            if dst is not None:
-                dst[slots] = getattr(pbig, f).to(dst.dtype)
-        for plane, scale, rows_kv in (
-            (self.key_cache, self.key_scale, torch.stack([c.key for c in out.past_key_values])),
-            (self.value_cache, self.value_scale, torch.stack([c.value for c in out.past_key_values])),
-        ):
-            if scale is not None:  # quantize on admission: the prefill ran on float caches
-                rows_kv, scale[:, slots] = quantize_kv(rows_kv, plane.dtype)
-            storage(plane)[:, slots] = storage(rows_kv)
-        self.cache_mask[slots] = out.past_key_values[0].mask
-        self.cache_len[slots] = plen
-        cursor1 = plen + 1
-        n_gen1 = sample.event_mask.to(torch.int32)
-        self.cursor[slots] = cursor1
-        self.base_len[slots] = plen
-        self.budget[slots] = budgets
-        self.n_generated[slots] = n_gen1
-        self.done[slots] = self._row_done(pbig, cursor1, plen, n_gen1, budgets)
-        self.live[slots] = True
-        self.seeds[slots] = seeds
-        self.counters[slots] = 1
-        self.health[slots] = False
+        body = lambda x: self._prefill_admit(group.bucket_len, x)  # noqa: E731
+        self._run_program("prefill", (group.bucket_len, g), fields, {}, body, fill, inert)
         for r, s in zip(reqs, group.slots):
             self._table[s] = r
             self._slot_epoch[s] = self._dispatched_chunks
 
+    def _prefill_admit(self, bucket_len: int, x: dict) -> None:
+        """The prefill program (JAX's ``_prefill_ci``: ``_prefill_forward_ci``
+        then ``_admit``) on the staged group ``x``: the model forward of the
+        rows' first ``bucket_len`` events on a fresh float cache, the first
+        event sampled (counter 0 of each row's stream) and written after each
+        prompt, and the rows admitted into slots ``x["slot"]``: whole rows,
+        KV planes (quantized for an int8 or fp8 cache), mask, cursors,
+        budget, seed and counter, flags. Rows not ``x["valid"]`` write back
+        what their slots hold. The staged rows are written in place."""
+        cfg, g = self.config, x["plen"].shape[0]
+        pbig = EventStreamBatch(**{f: x.get(f) for f in _CORE_FIELDS})
+        plen, budget = x["plen"], x["budget"]
+        plen64, seeds = plen.long(), x["seed"].long()
+        view = pbig.slice((slice(None), slice(0, bucket_len)))
+        out = self._model(view, past=init_kv_caches(cfg, g, self.max_len, self.device), use_cache=True)
+        preds_last = _slice_preds_at(out.preds, plen64 - 1)
+        em_last = take_event(pbig.event_mask, plen64 - 1)
+        sample = self._sample_rows(preds_last, em_last, seeds, torch.zeros_like(seeds))
+        append_new_event(pbig, sample, plen64)
+        update_last_event_data(pbig, sample, cfg, plen64 + 1, self._to_fill)
+
+        # Admission: whole rows into the slots (cache rows past the bucket are zeros).
+        slots, valid = x["slot"].long(), x["valid"]
+        for f in _CORE_FIELDS:
+            if f in x:
+                _admit_rows(getattr(self.big, f), x[f], slots, valid)
+        for plane, scale, which in ((self.key_cache, self.key_scale, "key"), (self.value_cache, self.value_scale, "value")):
+            rows_kv = torch.stack([getattr(c, which) for c in out.past_key_values])
+            if scale is not None:  # quantize on admission: the prefill ran on float caches
+                rows_kv, rows_scale = quantize_kv(rows_kv, plane.dtype)
+                _admit_rows(scale, rows_scale, slots, valid, dim=1)
+            _admit_rows(storage(plane), storage(rows_kv), slots, valid, dim=1)
+        cursor1 = plen + 1
+        n_gen1 = sample.event_mask.to(torch.int32)
+        admitted = (
+            (self.cache_mask, out.past_key_values[0].mask),
+            (self.cache_len, plen),
+            (self.cursor, cursor1),
+            (self.base_len, plen),
+            (self.budget, budget),
+            (self.n_generated, n_gen1),
+            (self.done, self._row_done(pbig, cursor1, plen, n_gen1, budget)),
+            (self.live, True),
+            (self.seeds, x["seed"]),
+            (self.counters, 1),
+            (self.health, False),
+        )
+        for dst, src in admitted:
+            _admit_rows(dst, src, slots, valid)
+
+    def _extract(self, x: dict) -> None:
+        """The extraction program (JAX's ``_extract_jit``): the rows of slots
+        ``x["slot"]`` with the event mask cut at each cursor
+        (`_mask_through_cursor`), and their cursor, base_len and
+        n_generated, written into the static outputs of ``x``."""
+        slots = x["slot"].long()
+        cursor = self.cursor.index_select(0, slots)
+        for f in _CORE_FIELDS:
+            if f in x:
+                torch.index_select(getattr(self.big, f), 0, slots, out=x[f])
+        x["event_mask"].copy_(_mask_through_cursor(EventStreamBatch(event_mask=x["event_mask"]), cursor).event_mask)
+        x["cursor"].copy_(cursor)
+        torch.index_select(self.base_len, 0, slots, out=x["base_len"])
+        torch.index_select(self.n_generated, 0, slots, out=x["n_generated"])
+
+    def _fetch_rows(self, fetch_slots: list[int]) -> tuple[dict, dict]:
+        """The finished rows of ``fetch_slots`` through the extraction program
+        of their group width (padded with slot 0), copied to the host once:
+        ``({slot: one-row CPU batch trimmed to its events}, {slot: (cursor,
+        base_len, n_generated)})``."""
+        g = self.scheduler.group_size_for(len(fetch_slots))
+        fields = {f: ((g,) + tuple(getattr(self.big, f).shape[1:]), getattr(self.big, f).dtype)
+                  for f in _CORE_FIELDS if getattr(self.big, f) is not None}  # fmt: skip
+        fields.update({k: ((g,), torch.int32) for k in ("cursor", "base_len", "n_generated")})
+
+        def fill(x):
+            x["slot"][: len(fetch_slots)] = torch.tensor(fetch_slots)
+
+        inputs = {"slot": ((g,), torch.int32)}
+        layout, buf = self._run_program("extract", g, inputs, fields, self._extract, fill, inert=lambda x: None)
+        host = buf
+        if buf.is_cuda:
+            host = layout.empty("cpu", pin_memory=True)
+            host.copy_(buf)
+        h = layout.views(host)
+        rows = EventStreamBatch(**{f: h.get(f) for f in _CORE_FIELDS})
+        acct, fetched = {}, {}
+        for i, s in enumerate(fetch_slots):
+            acct[s] = (int(h["cursor"][i]), int(h["base_len"][i]), int(h["n_generated"][i]))
+            fetched[s] = rows.slice((slice(i, i + 1), slice(0, acct[s][0]))).map(torch.clone)
+        return fetched, acct
+
     # ---------------------------------------------------------- host pieces
-    def _harvest(self, boundary: np.ndarray, chunk_index: int, now: float) -> list[EngineResult]:
+    def _harvest(
+        self, boundary: np.ndarray, chunk_index: int, now: float, fetch_results: bool = True
+    ) -> list[EngineResult]:
         """Harvests slots whose request finished (rows: done, cursor, base_len,
         n_generated, health), admitted before chunk ``chunk_index`` was
         issued. A quarantined slot's request is requeued at the front with
-        its seed fixed while its retry budget lasts, else fails typed."""
+        its seed fixed while its retry budget lasts, else fails typed. The
+        finished rows come through the extraction program (`_fetch_rows`);
+        with ``fetch_results=False`` nothing more is read than the boundary
+        (results carry ``batch=None`` and the boundary's accounting)."""
         done_np, health_np = boundary[0].astype(bool), boundary[4].astype(bool)
         finished = [
             s for s in range(self.n_slots)
@@ -528,22 +708,14 @@ class GenerationEngine:
         if not finished:
             return []
         ok_slots = [s for s in finished if not (health_np[s] and self.health_sentinel)]
-        fetched = {}
-        if ok_slots:
-            idx = torch.tensor(ok_slots, dtype=torch.int64, device=self.device)
-            rows = self.big.map(lambda x: x[idx])
-            rows = _mask_through_cursor(rows, self.cursor[idx]).map(lambda x: x.cpu())
-            fetched = {s: i for i, s in enumerate(ok_slots)}
+        fetched, acct = self._fetch_rows(ok_slots) if fetch_results and ok_slots else ({}, {})
         results = []
         for s in finished:
             req = self._table[s]
             self._table[s] = None
-            n_events, prompt_len, n_gen = (int(boundary[1][s]), int(boundary[2][s]), int(boundary[3][s]))
-            row, error = None, None
-            if s in fetched:
-                i = fetched[s]
-                row = rows.slice((slice(i, i + 1), slice(0, n_events)))
-            else:
+            n_events, prompt_len, n_gen = acct.get(s, (int(boundary[1][s]), int(boundary[2][s]), int(boundary[3][s])))
+            row, error = fetched.get(s), None
+            if s not in ok_slots:
                 self._health_quarantined += 1
                 self._health_failed += 1
                 error = SlotHealthError(
@@ -628,22 +800,24 @@ class GenerationEngine:
         self._inflight.append((self._dispatched_chunks, host, event))
 
     @torch.inference_mode()
-    def resolve_chunk(self, now: float) -> list[EngineResult]:
+    def resolve_chunk(self, now: float, fetch_results: bool = True) -> list[EngineResult]:
         """Resolves the OLDEST in-flight boundary and harvests its finished
-        rows; waits only until that boundary's copy has landed."""
+        rows; waits only until that boundary's copy has landed (and, fetching
+        results, for the rows' extraction)."""
         chunk_index, host, event = self._inflight.popleft()
         if event is not None:
             event.synchronize()
         self._resolved_chunks += 1
-        return self._harvest(host.numpy(), chunk_index, now)
+        return self._harvest(host.numpy(), chunk_index, now, fetch_results)
 
     def run(
-        self, requests: Sequence[Request] = (), *, use_arrival_times: bool = False,
+        self, requests: Sequence[Request] = (), *, use_arrival_times: bool = False, fetch_results: bool = True,
         max_padded_events: int | None = None,
     ) -> list[EngineResult]:  # fmt: skip
         """Drains the queue (plus ``requests``) to completion; results in
         admission order. Up to ``dispatch_depth`` chunks are issued before the
-        oldest boundary is resolved."""
+        oldest boundary is resolved. ``fetch_results=False`` reads no row
+        content (the accounting-only harvest of throughput benchmarks)."""
         for r in requests:
             self.submit(r)
         results: list[EngineResult] = []
@@ -656,10 +830,31 @@ class GenerationEngine:
                 if len(self._inflight) < self.dispatch_depth and self.occupied:
                     continue  # keep the pipe full before paying a resolve
             if self._inflight:
-                results.extend(self.resolve_chunk(time.perf_counter() - t0))
+                results.extend(self.resolve_chunk(time.perf_counter() - t0, fetch_results))
             elif self.scheduler.pending:
                 time.sleep(1e-3)  # waiting on arrivals
         return sorted(results, key=lambda r: r.admission_index)
+
+    def reset(self) -> None:
+        """Clears every slot, the queue and the counters of a run, keeping
+        every program (JAX's ``reset``): benchmarks warm the programs with one
+        run, reset, and time the next. The state buffers are written back to
+        their initial values in place, so each captured program stays valid;
+        the scheduler is rebuilt with its buckets, group sizes and queue
+        bound. Program captures and replays count over the engine's life."""
+        self._write_initial_state()
+        self._table = [None] * self.n_slots
+        self._slot_epoch = [0] * self.n_slots
+        self._dispatched_chunks = 0
+        self._resolved_chunks = 0
+        self._health_quarantined = 0
+        self._health_failed = 0
+        self._health_retried = 0
+        self._inflight.clear()
+        self.scheduler = Scheduler(
+            self.n_slots, self.scheduler.buckets, group_sizes=self.scheduler.group_sizes,
+            max_pending=self.scheduler.max_pending,
+        )  # fmt: skip
 
     def slots_report(self, hbm_gb: float | None = None) -> dict:
         """Device-memory capacity of each cache dtype (`ops.kv_quant.CACHE_DTYPES`),
@@ -699,6 +894,23 @@ class GenerationEngine:
             ),
         }
 
+    def program_stats(self) -> dict:
+        """Captures and replays of the engine's programs: ``graph_*`` the
+        decode chunk's, ``prefill_*`` and ``extract_*`` those of the prefill
+        (bucket, group width) and extraction (group width) keys, with the
+        keys' count (zeros when nothing is captured)."""
+        out = {
+            "cuda_graph": self._program is not None,
+            "graph_warmup_chunks": 0 if self._program is None else self._program.warmups,
+            "graph_captures": 0 if self._program is None else self._program.captures,
+            "graph_replays": 0 if self._program is None else self._program.replays,
+        }
+        for kind in ("prefill", "extract"):
+            family = self._families.get(kind)
+            counts = family.counts() if family else dict.fromkeys(("keys", "warmups", "captures", "replays"), 0)
+            out.update({f"{kind}_graph_{k}": v for k, v in counts.items()})
+        return out
+
     def stats(self) -> dict:
         total = self._dispatched_chunks * self.decode_chunk * self.n_slots
         active = int(self.active_steps.item())
@@ -715,10 +927,7 @@ class GenerationEngine:
                 "wasted_decode_frac": round(1.0 - active / max(total, 1), 4),
                 "sampling_impl": "greedy" if self.greedy else "fused_categorical",
                 "decode_step_impl": "decode_stack_step",
-                "cuda_graph": self._program is not None,
-                "graph_warmup_chunks": 0 if self._program is None else self._program.warmups,
-                "graph_captures": 0 if self._program is None else self._program.captures,
-                "graph_replays": 0 if self._program is None else self._program.replays,
+                **self.program_stats(),
                 "device": str(self.device),
                 "greedy": self.greedy,
                 "health_sentinel": self.health_sentinel,
@@ -731,6 +940,8 @@ class GenerationEngine:
                     for t in (self.key_cache, self.value_cache, self.key_scale, self.value_scale)
                     if t is not None
                 ),
+                # At the card's memory; off the card at the JAX engine's default budget.
+                "slots_report": self.slots_report(None if self.device.type == "cuda" else _REPORT_HBM_GB),
             }
         )
         return report

@@ -116,7 +116,7 @@ class AdmissionGroup:
     """One prefill dispatch: same-bucket requests onto specific slots."""
 
     bucket_len: int
-    group_size: int
+    group_size: int  # the prefill program's row count (>= len(requests))
     requests: list
     slots: list
 
@@ -124,15 +124,23 @@ class AdmissionGroup:
 class Scheduler:
     """FIFO admission policy + bucket/waste accounting for the engine."""
 
-    def __init__(self, n_slots: int, buckets: Iterable[int], max_pending: Optional[int] = None):
+    def __init__(
+        self,
+        n_slots: int,
+        buckets: Iterable[int],
+        group_sizes: Optional[Iterable[int]] = None,
+        max_pending: Optional[int] = None,
+    ):
         self.n_slots = n_slots
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
-        gs, g = [], 1
-        while g < n_slots:
-            gs.append(g)
-            g *= 2
-        gs.append(n_slots)
-        self.group_sizes = tuple(sorted(set(gs)))
+        if group_sizes is None:  # the power-of-two ladder up to n_slots
+            gs, g = [], 1
+            while g < n_slots:
+                gs.append(g)
+                g *= 2
+            gs.append(n_slots)
+            group_sizes = gs
+        self.group_sizes = tuple(sorted(set(int(g) for g in group_sizes)))
         self.max_pending = None if max_pending is None else int(max_pending)
         self.queue: list[Request] = []
         self._next_admission = 0

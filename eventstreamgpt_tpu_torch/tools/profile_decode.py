@@ -11,14 +11,17 @@ fresh engines:
 * the wall time of one decode step: host clock around a chunk issued and
   its boundary resolved, over the chunk's 16 steps (two chunks a run, after
   one warm-up chunk; median and min over the runs);
-* with ``torch.profiler`` over one more chunk of each program's last run,
-  after every other measurement of both modes (and so every capture): the device time of every
+* with ``torch.profiler`` over one more chunk of each program's last run
+  (resolved with ``fetch_results=False``: the harvest's extraction is
+  `--run-split`'s to time), after every other measurement of both modes
+  (and so every capture): the device time of every
   kernel (summed per kernel name), the kernels the device ran a step, the
   host's launches a step (kernel launches, graph launches, copies and
   memsets issued through the ``cuda*`` or ``cu*`` API) and the device's busy
   share of the wall time, profiled and unprofiled (the busy time over the
   unprofiled step);
-* the peak device memory the engine's run reached;
+* the peak device memory the engine's run reached, above what the process
+  held before the engine was built;
 * in one eager step, under a dispatch mode: the ATen operations other than
   views (each one kernel launch on the card) dispatched inside the sampling
   tail (`generation.sampling.sample_head_draws`) and, of those, inside the
@@ -27,16 +30,30 @@ fresh engines:
   own chunk loop (3 chunks issued and resolved as `GenerationEngine.run`
   does, ``depth`` chunks in flight), and end to end `GenerationEngine.run`
   on 64 requests (prompts of 128-192 events, budgets of 16-64, numpy seed
-  0, after a warm-up run of 4): the wall time, generated events per second,
+  0; the second run of an engine warmed by the first and reset): the wall time, generated events per second,
   chunks dispatched and ``wasted_decode_frac``, captured and eager in
   alternating runs (captured, eager, eager, captured).
 
 ``--kv-cache-dtype`` sets the slot caches' type (``bf16``, the compute
-dtype, or ``int8`` / ``fp8``: kernel B's quantized entry). Run from the
-root of a checkout:
+dtype, or ``int8`` / ``fp8``: kernel B's quantized entry).
+
+``--run-split`` measures whole runs instead: `GenerationEngine.run` on the
+64 requests, warmed by one run (every program key captured), ``reset()``,
+then timed with and without ``fetch_results``, greedy and sampled, at each
+``--dispatch-depths`` depth, captured and eager in alternating engines
+(captured, eager, eager, captured). Each timed run's host wall is split
+into prefill and admission (`GenerationEngine.plan_and_dispatch`), chunk
+issue (`issue_chunk`) and boundary resolve with harvest (`resolve_chunk`),
+with the rest of the loop beside; each engine's peak device memory is
+read (above what the process held before the engine was built). After every run (so after every capture), one replay of each prefill
+(bucket, group width) key and each extraction width of a depth-1 captured
+engine runs under ``torch.profiler``: its device time and kernels.
+
+Run from the root of a checkout:
 
     python -m eventstreamgpt_tpu_torch.tools.profile_decode --out build/profile_decode.json
     python -m eventstreamgpt_tpu_torch.tools.profile_decode --kv-cache-dtype int8 --dispatch-depths 1,2
+    python -m eventstreamgpt_tpu_torch.tools.profile_decode --run-split --out build/run_split.json
 
 It prints one JSON object (also written to ``--out``) and exits non-zero
 without a CUDA device.
@@ -157,7 +174,8 @@ def sampling_ops(engine) -> dict:
     sampling.RowStreams.uniform, engine_module.sample_head_draws = counted_uniform, counted_draws
     try:
         with counter, torch.inference_mode():
-            engine._decode_step({k: getattr(engine, k) for k in engine_module._CHUNK_STATE})
+            st = {k: getattr(engine, k) for k in engine_module._CHUNK_STATE}
+            engine._decode_step(dict(st, counters=engine.counters.long()), engine.seeds.long())
         torch.cuda.synchronize()
     finally:
         sampling.RowStreams.uniform, engine_module.sample_head_draws = uniform, draws
@@ -181,10 +199,11 @@ def filled_engine(model, config, prompts, **kw):
 
 
 def chunk_ms(engine) -> float:
-    """Wall time of one chunk issued and its boundary resolved."""
+    """Wall time of one chunk issued and its boundary resolved (accounting
+    only: a step's time is the decode chunk's; extraction is timed apart)."""
     t0 = time.perf_counter()
     engine.issue_chunk()
-    engine.resolve_chunk(0.0)
+    engine.resolve_chunk(0.0, fetch_results=False)
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -194,11 +213,13 @@ def program_run(model, config, prompts, kw) -> dict:
     left, for `profiled_chunk`."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     engine = filled_engine(model, config, prompts, **kw)
     chunk_ms(engine)
     walls = [chunk_ms(engine) / engine.decode_chunk for _ in range(TIMED_CHUNKS)]
     torch.cuda.synchronize()
-    return dict(walls=walls, engine=engine, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9  # above what earlier engines hold
+    return dict(walls=walls, engine=engine, peak_memory_gb=peak)
 
 
 def profiled_chunk(engine) -> tuple:
@@ -224,22 +245,25 @@ def chunk_loop_step_ms(model, config, prompts, kw) -> float:
     for _ in range(LOOP_CHUNKS):
         engine.issue_chunk()
         if engine.inflight_chunks >= kw["dispatch_depth"]:
-            engine.resolve_chunk(0.0)
+            engine.resolve_chunk(0.0, fetch_results=False)
     while engine.inflight_chunks:
-        engine.resolve_chunk(0.0)
+        engine.resolve_chunk(0.0, fetch_results=False)
     wall = time.perf_counter() - t0
     return wall * 1e3 / (LOOP_CHUNKS * engine.decode_chunk)
 
 
 def serve_run(model, config, kw) -> dict:
-    """`GenerationEngine.run` on 64 requests, end to end (module docstring)."""
+    """`GenerationEngine.run` on 64 requests, end to end (module docstring):
+    the engine warmed by one run of them (every program captured), reset,
+    and the second run timed."""
     prompts = synthetic_prompts(np.random.default_rng(0), 64, serving_config(), (128, 192), (16, 64))
 
     def requests():
         return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
 
-    GenerationEngine(model, config, template=prompts[0][0], **kw).run(requests()[:4])
     eng = GenerationEngine(model, config, template=prompts[0][0], **kw)
+    eng.run(requests())
+    eng.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(requests())
@@ -294,11 +318,117 @@ def profiled_mode(result: dict, runs) -> dict:
     return dict(result, programs=programs)
 
 
+SPLIT_PARTS = {"plan_and_dispatch": "prefill_and_admission_ms", "issue_chunk": "chunk_issue_ms",
+               "resolve_chunk": "resolve_and_harvest_ms"}  # fmt: skip
+
+
+def split_run(engine, requests, fetch_results: bool) -> dict:
+    """One `GenerationEngine.run` of ``requests``: its wall and the host time
+    spent in each of `SPLIT_PARTS` (ms)."""
+    spent = collections.Counter()
+
+    def timed(name):
+        fn = getattr(engine, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+
+        return wrapper
+
+    for name in SPLIT_PARTS:
+        setattr(engine, name, timed(name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = engine.run(requests, fetch_results=fetch_results)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name in SPLIT_PARTS:
+            delattr(engine, name)
+    if any(r.error is not None for r in results):
+        raise RuntimeError("profile_decode: a request failed")
+    generated = sum(r.n_generated for r in results)
+    stats = engine.stats()
+    out = {"wall_ms": wall * 1e3, "generated": generated, "generated_per_s": generated / wall,
+           **{part: spent[name] * 1e3 for name, part in SPLIT_PARTS.items()}}  # fmt: skip
+    out["rest_of_loop_ms"] = out["wall_ms"] - sum(out[p] for p in SPLIT_PARTS.values())
+    out.update({k: stats[k] for k in ("dispatched_chunks", "prefill_dispatches", "wasted_decode_frac")})
+    return out
+
+
+def split_engine(model, config, prompts, kw) -> dict:
+    """A fresh engine: one warm run of ``prompts``, ``reset()``, a timed run
+    fetching results, ``reset()``, a timed run with ``fetch_results=False``;
+    the engine's peak device memory and program counts."""
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    engine = GenerationEngine(model, config, template=prompts[0][0], **kw)
+    engine.run(requests())
+    out = {}
+    for fetch in (True, False):
+        engine.reset()
+        out["fetching" if fetch else "accounting"] = split_run(engine, requests(), fetch)
+    engine.reset()
+    torch.cuda.synchronize()
+    out["peak_memory_gb"] = (torch.cuda.max_memory_allocated() - before) / 1e9  # above what was held before it
+    out["programs"] = engine.program_stats()
+    return out, engine
+
+
+def profiled_programs(engine) -> dict:
+    """One replay of each prefill and extraction program of ``engine`` under
+    ``torch.profiler``: its device time and kernels (every capture is made
+    before the first profile)."""
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for kind, family in engine._families.items():
+        for key, program in family.programs.items():
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                program.replay()
+                torch.cuda.synchronize()
+            kernels = [(evt.count, _kernel_time_us(evt)) for evt in prof.key_averages()]
+            kernels = [(c, us) for c, us in kernels if us > 0]
+            out[f"{kind} {key}"] = {"device_ms": sum(us for _, us in kernels) / 1e3,
+                                    "kernels": sum(c for c, _ in kernels)}  # fmt: skip
+    engine.reset()
+    return out
+
+
+def run_split(model, config, depths) -> dict:
+    """The ``--run-split`` measurements (module docstring)."""
+    prompts = synthetic_prompts(np.random.default_rng(0), 64, serving_config(), (128, 192), (16, 64))
+    out, keep = [], {}
+    for greedy in (True, False):
+        for depth in depths:
+            runs = collections.defaultdict(list)
+            for name in ORDER:
+                kw = engine_kw(greedy, "bf16", depth, PROGRAMS[name])
+                result, engine = split_engine(model, config, prompts, kw)
+                runs[name].append(result)
+                if PROGRAMS[name] and depth == depths[0]:
+                    keep[greedy] = engine
+            out.append({"mode": "greedy" if greedy else "sampled", "dispatch_depth": depth, **runs})
+    programs = {("greedy" if g else "sampled"): profiled_programs(e) for g, e in keep.items()}
+    return {"runs": out, "program_device_time": programs}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--kv-cache-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
     ap.add_argument("--dispatch-depths", default="1,2", help="comma-separated dispatch depths of the chunk loop and run")
+    ap.add_argument("--run-split", action="store_true", help="time whole runs split into their parts instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -314,8 +444,17 @@ def main(argv=None) -> int:
     config = serving_config(mean_log=mean_log, std_log=std_log)
     model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=0)
     depths = [int(d) for d in args.dispatch_depths.split(",")]
-    timed = [timed_mode(model, config, prompts, greedy, args.kv_cache_dtype, depths) for greedy in (True, False)]
-    out = {"card": smi, "modes": [profiled_mode(result, runs) for result, runs in timed]}
+    if args.run_split:
+        # phase 2's model of chip_smoke.py: the log-time statistics of its 64 prompts
+        mean_log, std_log = log_time_stats(
+            synthetic_prompts(np.random.default_rng(0), 64, serving_config(), (128, 192), (16, 64))
+        )
+        rconfig = serving_config(mean_log=mean_log, std_log=std_log)
+        rmodel = init_params_from_seed(CIPPTForGenerativeSequenceModeling(rconfig), seed=0)
+        out = {"card": smi, "run_split": run_split(rmodel, rconfig, depths)}
+    else:
+        timed = [timed_mode(model, config, prompts, greedy, args.kv_cache_dtype, depths) for greedy in (True, False)]
+        out = {"card": smi, "modes": [profiled_mode(result, runs) for result, runs in timed]}
     text = json.dumps(out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -24,7 +24,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
-from ..data.types import EventStreamBatch
+from ..data.types import X32, EventStreamBatch
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..models.na_model import NAPPTForGenerativeSequenceModeling
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
@@ -70,17 +70,19 @@ def _leaves(batch: EventStreamBatch) -> list[tuple]:
 
 
 def _signature(batch: EventStreamBatch) -> tuple:
-    """The fields present, their shapes and dtypes: one captured program each
-    (the counterpart of a retrace)."""
-    return tuple((name, key, tuple(t.shape), t.dtype) for name, key, t in _leaves(batch))
+    """The fields present, their shapes and the static buffers' dtypes: one
+    captured program each (the counterpart of a retrace)."""
+    return tuple((name, key, tuple(t.shape), X32.get(t.dtype, t.dtype)) for name, key, t in _leaves(batch))
 
 
 def _copy_batch(dst: EventStreamBatch, src: EventStreamBatch) -> None:
-    """Copies ``src`` into the static buffers ``dst``; host tensors go
-    through pinned memory, ``non_blocking``."""
+    """Copies ``src`` into the static buffers ``dst`` (int64 and fp64 cast to
+    32 bits on the way); host tensors go through pinned memory, ``non_blocking``."""
     for (*_, d), (*_, t) in zip(_leaves(dst), _leaves(src)):
-        if d.is_cuda and t.device.type == "cpu" and not t.is_pinned():
-            t = t.pin_memory()
+        if t.device.type == "cpu":
+            t = t.to(d.dtype)  # on the host; a device source is cast by the copy itself
+            if d.is_cuda and not t.is_pinned():
+                t = t.pin_memory()
         d.copy_(t, non_blocking=d.is_cuda)
 
 
@@ -140,7 +142,9 @@ def make_train_step(
     def step(batch: EventStreamBatch, seed: int):
         signature = _signature(batch)
         if signature not in programs:
-            programs[signature] = [batch.map(lambda t: torch.empty(t.shape, dtype=t.dtype, device=device)), None]
+            programs[signature] = [
+                batch.map(lambda t: torch.empty(t.shape, dtype=X32.get(t.dtype, t.dtype), device=device)), None
+            ]
         static, program = programs[signature]
         _copy_batch(static, batch)
         # A replay draws from the generator's state at replay time, whatever it was at capture.

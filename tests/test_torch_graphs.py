@@ -7,7 +7,8 @@ graph can be captured here, so these tests hold the conditions capture
 relies on:
 
 * the engine's state tensors keep their addresses across chunks,
-  admission and harvests (float and int8 caches);
+  admission of padded groups, harvests with their extraction, and
+  ``reset()`` (float and int8 caches);
 * the chunk function gives bit for bit what a loop of steps that rebind
   the engine's state gives (greedy and sampled);
 * the salts kernel A bakes into a captured chunk are the same at every step;
@@ -85,6 +86,9 @@ def addresses(eng) -> dict:
 @pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
 def test_engine_state_keeps_its_addresses(served, kv_cache_dtype):
     eng = engine(served, kv_cache_dtype=kv_cache_dtype)
+    eng.scheduler.group_sizes = (2,)  # a lone request's group is padded to 2 rows
+    widths, dispatch = [], eng._dispatch_group
+    eng._dispatch_group = lambda g: (widths.append((len(g.requests), g.group_size)), dispatch(g))
     want = addresses(eng)
     assert ("key_scale" in want) == (kv_cache_dtype == "int8")
     for r in requests(served[2]):
@@ -99,14 +103,22 @@ def test_engine_state_keeps_its_addresses(served, kv_cache_dtype):
     results = eng.run()  # the rest: harvests, refills, more chunks
     assert addresses(eng) == want
     assert all(r.error is None for r in results)
+    assert (1, 2) in widths
+    eng.reset()
+    assert addresses(eng) == want
+    assert all(r.error is None for r in eng.run(requests(served[2])))
+    assert addresses(eng) == want
     s = eng.stats()
     assert (s["cuda_graph"], s["graph_captures"], s["graph_replays"]) == (False, 0, 0)
+    assert (s["prefill_graph_captures"], s["extract_graph_captures"]) == (0, 0)
 
 
 def per_step_chunk(eng) -> None:
     """The decode chunk as a loop of steps that each bind the engine's state
-    names to new tensors, and its boundary stacked afresh."""
+    names to new tensors, and its boundary stacked afresh (the stream words in
+    int64 through the chunk, as the hash takes them)."""
     cfg, m = eng.config, eng._model
+    seeds, eng.counters = eng.seeds.long(), eng.counters.long()
     for _ in range(eng.decode_chunk):
         active = eng.live & ~eng.done
         view = _trim_to_event(eng.big, eng.cursor - 1)
@@ -119,7 +131,7 @@ def per_step_chunk(eng) -> None:
         out = m.output_layer(view, m.encoder.ln_f(h[:, None, :]), is_generation=True)
         preds_last = _slice_preds_at(out.preds, 0)
         em_last = take_event(eng.big.event_mask, eng.cursor - 1)
-        sample = eng._sample_rows(preds_last, em_last, eng.seeds, eng.counters, active=active)
+        sample = eng._sample_rows(preds_last, em_last, seeds, eng.counters, active=active)
         append_new_event(eng.big, sample, eng.cursor, active)
         update_last_event_data(eng.big, sample, cfg, eng.cursor + 1, eng._to_fill, active)
         eng.cursor = torch.where(active, eng.cursor + 1, eng.cursor)
@@ -129,6 +141,7 @@ def per_step_chunk(eng) -> None:
         hit = active & eng._rows_nonfinite(preds_last, sample)
         eng.done, eng.health = done | hit, eng.health | hit
         eng.active_steps = eng.active_steps + active.sum()
+    eng.counters, eng.active_steps = eng.counters.int(), eng.active_steps.int()
     eng._boundary = torch.stack(
         [eng.done.to(torch.int32), eng.cursor, eng.base_len, eng.n_generated, eng.health.to(torch.int32)]
     )

@@ -858,9 +858,14 @@ def same_results(a, b) -> None:
 @pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
 @pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
 def test_captured_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
-    """The decode chunk captured once and replayed gives what the same chunk
-    run eagerly gives, bit for bit; kernel B's launches are counted through
-    the replays (warm-up included)."""
+    """Every program captured once and replayed (the decode chunk, each
+    prefill (bucket, group width) and each extraction width) gives what the
+    same programs run eagerly give, bit for bit, on groups the scheduler pads
+    (group sizes 2 and 4 at 4 slots); after ``reset()`` a second pass
+    captures nothing and gives the first pass's results. Kernel B's launches
+    count through the replays (warm-up included) and kernel A's through the
+    prefill replays: in the second pass, which runs no warm-up, the captured
+    engine launches each as often as the eager one."""
     from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
     from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
 
@@ -870,20 +875,49 @@ def test_captured_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
     kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, greedy=greedy,
               kv_cache_dtype=kv_cache_dtype, device=cuda)  # fmt: skip
     counter = "launches" if kv_cache_dtype is None else "launches_int8"
-    runs = {}
-    for graph in (True, False):
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    def zero():
         setattr(decode_stack_step, counter, 0)
+        fused_categorical_stream.launches = 0
+
+    runs, widths = {}, []
+    for graph in (True, False):
+        zero()
         eng = GenerationEngine(model, config, template=prompts[0][0], cuda_graph=graph, **kw)
-        runs[graph] = eng.run([Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)])
+        eng.scheduler.group_sizes = (2, 4)
+        dispatch = eng._dispatch_group
+        eng._dispatch_group = lambda g: (widths.append((len(g.requests), g.group_size)), dispatch(g))
+        first = eng.run(requests())
         s = eng.stats()
         chunks = s["graph_warmup_chunks"] + s["dispatched_chunks"]
         assert getattr(decode_stack_step, counter) == chunks * kw["decode_chunk"]
+        eng.reset()
+        zero()
+        second = eng.run(requests())
+        s2 = eng.stats()
+        assert getattr(decode_stack_step, counter) == s2["dispatched_chunks"] * kw["decode_chunk"]
+        same_results(first, second)
         if graph:
             assert (s["cuda_graph"], s["graph_captures"], s["graph_warmup_chunks"]) == (True, 1, 1)
             assert s["graph_replays"] == s["dispatched_chunks"] > 0
+            assert s["prefill_graph_captures"] == s["prefill_graph_warmups"] == s["prefill_graph_keys"] > 0
+            assert s["prefill_graph_replays"] == s["prefill_dispatches"]
+            assert s["extract_graph_captures"] == s["extract_graph_keys"] > 0
+            for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures"):
+                assert s2[k] == s[k], k  # reset() kept every program
+            assert s2["prefill_graph_replays"] == s["prefill_graph_replays"] + s2["prefill_dispatches"]
+            assert s2["graph_replays"] == s["graph_replays"] + s2["dispatched_chunks"]
         else:
-            assert (s["cuda_graph"], s["graph_captures"], s["graph_replays"]) == (False, 0, 0)
-    same_results(runs[True], runs[False])
+            assert (s2["cuda_graph"], s2["graph_captures"], s2["prefill_graph_captures"],
+                    s2["extract_graph_captures"]) == (False, 0, 0, 0)  # fmt: skip
+        runs[graph] = first, fused_categorical_stream.launches
+    assert any(g > n for n, g in widths), widths
+    same_results(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+    assert (runs[True][1] == 0) == greedy
 
 
 @pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
