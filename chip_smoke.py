@@ -157,7 +157,30 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    and with one segment a row (every causal tile), their share of the causal
    (and window) tiles (``visited_share``), and each kernel's time on the same
    q, k, v with one segment a row, where no tile is skipped.
-10. One ``{"kernels": [...]}`` line, then the device line as the last line.
+10. The device-resident chunked train step (``bench.py``'s training
+   program): `data.synthetic.synthetic_csr` of 512 subjects (numpy seed 0,
+   ``bench.py``'s cohort) in `data.device_dataset.DeviceDataset`s on the
+   card (``max_seq_len`` 256 and 1,024), and `make_chunked_train_step`
+   (captured) for phase 4's CI model and phase 6's NA model on padded
+   plans of 32 x 256 in chunks of 16 (one epoch a chunk), and phase 8's
+   packed model on packed plans of 8 x 1,024 in fixed-size chunks of 4,
+   at local windows 32 and 256: one warm chunk (plan seed 0, the key's
+   eager warm-up), then 2 epochs (plan seeds 1, 2), the first capturing
+   each key, the second only replaying. The same plans,
+   collated by `DeviceDataset.batches` / ``packed_batches``, run from the
+   same initial weights as single captured steps of `make_train_step`.
+   Every loss and ``[loss, grad norm]``, every parameter and every AdamW
+   state tensor must be equal bit for bit; the losses finite and falling;
+   one warm-up and one capture a key, none in the second epoch; kernels C,
+   D, E and F launched, counted through the replays (counts set to 0 just
+   before the chunked run and read just after), as often as the single
+   steps launch them, which is the steps times one step's launches (C 1,
+   D 2 (NA), E 1 (packed), F 1 (window 256)). Printed beside the card's
+   name and power limit: trained events/s of each epoch, chunked and
+   single-step (an epoch from its first call to a synchronise after its
+   last, the events from the plans); the plan bytes a step; each key's
+   capture and instantiation seconds; the peak memory of each run.
+11. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -187,6 +210,7 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 out
 N_REQUESTS, SEED = 64, 0
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, EQUAL_STEPS = 32, 256, 20, 5
 PACKED_BATCH, PACKED_SEQ, WIDE_WINDOW, WIDE_STEPS = 8, 1024, 256, 10
+COHORT, CHUNK, CHUNK_PACKED, CHUNK_EPOCHS = 512, 16, 4, 2  # bench.py's cohort and chunks (tools/profile_train.py's)
 
 
 def fail(msg: str) -> None:
@@ -1757,6 +1781,151 @@ def kernel_ef_phase(args):
     return result
 
 
+# ---------------------------------------------------------------- phase 10
+def chunked_run(label, smi, config, dd, packed, n_epochs, counters):
+    """Phase 10 for one model: the chunked run, then the same plans as single
+    captured steps; the comparisons and checks of the module docstring."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.tools.profile_train import epoch_batches, epoch_chunks, fresh_optimized
+    from eventstreamgpt_tpu_torch.training import make_chunked_train_step, make_train_step
+    from eventstreamgpt_tpu_torch.training.pretrain import _plan_event_count
+
+    # bench.py's plan stream: the warm chunk (the first of plan seed 0), then
+    # the epochs (plan seeds 1, 2, ...).
+    epochs = [epoch_chunks(dd, packed, seed)[: 1 if seed == 0 else None] for seed in range(n_epochs + 1)]
+    steps = [sum(len(next(iter(p.values()))) for p, _ in e) for e in epochs]
+    k = CHUNK_PACKED if packed else CHUNK
+    check(all(len(next(iter(p.values()))) == k for e in epochs for p, _ in e), f"{label}: a chunk is not {k} steps")
+    # The single steps' batches: the same plan streams, collated on the card.
+    batches = []
+    for seed, (chunks, n) in enumerate(zip(epochs, steps)):
+        batches.append(epoch_batches(dd, packed, seed, n))
+        rows = [{f: v[i : i + 1] for f, v in p.items()} for p, _ in chunks for i in range(k)]
+        check([int(b.event_mask.sum()) for b in batches[-1]] == [_plan_event_count(r, dd.dataset) for r in rows],
+              f"{label}: the collated batches are not the chunks' plans")  # fmt: skip
+
+    def run(call, epoch_items, reset):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step = reset()
+        for fn in counters:  # just before the run
+            fn.launches = 0
+        healths, walls, captures = [], [], []
+        for items in epoch_items:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for item in items:
+                healths.append(call(step, item))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            captures.append(step.stats()["graph_captures"])
+        launches = {fn.__name__: fn.launches for fn in counters}
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        return step, torch.cat([h.reshape(-1, 2) for h in healths]).cpu(), walls, captures, launches, peak
+
+    chunked = {}
+    c_step, c_h, c_walls, c_caps, c_launches, c_peak = run(
+        lambda st, item: st(item[0], SEED)[1], epochs,
+        lambda: make_chunked_train_step(*chunked.setdefault("opt", fresh_optimized(config)), dd, packed=packed,
+                                        with_health=True))  # fmt: skip
+    single = {}
+    s_step, s_h, s_walls, _, s_launches, s_peak = run(
+        lambda st, b: st(b, SEED)[1], batches,
+        lambda: make_train_step(*single.setdefault("opt", fresh_optimized(config)), with_health=True))  # fmt: skip
+
+    n_steps = sum(steps)
+    check(torch.equal(c_h, s_h), f"{label}: the chunked steps' [loss, grad norm] differ from the single steps': "
+          f"{c_h[:4].tolist()} vs {s_h[:4].tolist()}")  # fmt: skip
+    (cm, co, cs), (sm, so, ss) = chunked["opt"], single["opt"]
+    for (name, a), b in zip(cm.named_parameters(), sm.parameters()):
+        check(torch.equal(a, b), f"{label}: parameter {name} differs from the single steps'")
+    for a, b in zip(co.state.values(), so.state.values()):
+        check(all(torch.equal(a[f], b[f]) for f in a), f"{label}: an AdamW state tensor differs from the single steps'")
+    check(c_step.state.step == s_step.state.step == n_steps and cs.last_epoch == ss.last_epoch == n_steps,
+          f"{label}: the step counts differ: {c_step.state.step}, {s_step.state.step}, {cs.last_epoch}")  # fmt: skip
+    losses, norms = c_h[:, 0].tolist(), c_h[:, 1].tolist()
+    check(all(math.isfinite(x) for x in losses + norms), f"{label}: a loss or gradient norm is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall over {n_steps} steps: {losses}")
+    st = c_step.stats()
+    n_chunks = sum(len(e) for e in epochs)
+    check((st["chunk_keys"], st["graph_warmup_chunks"], st["graph_captures"], st["graph_replays"])
+          == (1, 1, 1, n_chunks - 1), f"{label}: not one warm-up and one capture of one key: {st}")  # fmt: skip
+    check(c_caps[1] == c_caps[-1] == 1, f"{label}: captures after each epoch {c_caps}, not one in the first")
+    check(c_launches == s_launches, f"{label}: chunked launches {c_launches}, single steps {s_launches}")
+    per_step = {name: n // n_steps for name, n in s_launches.items()}
+    check(all(n == per_step[name] * n_steps for name, n in c_launches.items()),
+          f"{label}: launches {c_launches} are not {n_steps} times one step's")  # fmt: skip
+    events = [sum(n for _, n in e) for e in epochs]
+    key = next(iter(st["keys"].values()))
+    plan_bytes = sum(v.nbytes for v in epochs[1][0][0].values()) / k
+    c_rate, s_rate = events[-1] / c_walls[-1], events[-1] / s_walls[-1]
+    print(f"{label}: {n_chunks} chunks of {k} steps ({n_steps} steps; warm chunk + {n_epochs} epoch(s) of "
+          f"{len(epochs[1])} chunk(s), {events[1:]} real events), equal to {n_steps} single captured steps bit for bit "
+          f"(losses, [loss, grad norm], parameters, AdamW state); loss {losses[0]:.4f} -> {losses[-1]:.4f}; trained "
+          f"events/s by epoch chunked {[round(e / w, 1) for e, w in zip(events, c_walls)]}, single "
+          f"{[round(e / w, 1) for e, w in zip(events, s_walls)]} (last epoch: {c_rate:.1f} vs {s_rate:.1f}, step "
+          f"{c_walls[-1] / steps[-1] * 1e3:.3f} vs {s_walls[-1] / steps[-1] * 1e3:.3f} ms); plan bytes a step "
+          f"{plan_bytes:.1f} (with the rates, in one copy a chunk: {key['plan_bytes'] / k:.1f}); capture and "
+          f"instantiation of the {k}-step chunk {key['capture_s']:.2f} s (a single step's "
+          f"{s_step.stats()['capture_s']:.2f} s); peak memory chunked {c_peak:.3f} GB, "
+          f"single {s_peak:.3f} GB; captures after each epoch {c_caps}; launches {c_launches} "
+          f"({per_step} a step) ({smi})", flush=True)  # fmt: skip
+    return dict(launches=c_launches, per_step=per_step)
+
+
+def chunked_training_phase(smi):
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.data.device_dataset import DeviceDataset
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        packed_training_config,
+        serving_config,
+        synthetic_csr,
+        training_config,
+    )
+    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset, CSRDatasetConfig
+    from eventstreamgpt_tpu_torch.ops import flash_attention as fa
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_bwd, dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+
+    t0 = time.perf_counter()
+    csr = synthetic_csr(np.random.default_rng(SEED), serving_config(), COHORT, mean_seq_len=200)
+    padded = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=TRAIN_SEQ)))
+    packed = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=PACKED_SEQ)))
+    for dd in (padded, packed):
+        check(dd.nbytes == DeviceDataset.estimate_nbytes(dd.dataset) and dd.arrays["dynamic_indices"].is_cuda,
+              "phase 10: the resident tables are not what estimate_nbytes predicts, or not on the card")  # fmt: skip
+    print(f"phase 10: cohort of {COHORT} subjects, {len(csr.time_delta)} events, up to {padded.dataset.max_n_dynamic} "
+          f"elements an event; resident tables {padded.nbytes / 1e6:.2f} MB (L={TRAIN_SEQ}) and "
+          f"{packed.nbytes / 1e6:.2f} MB (L={PACKED_SEQ}) on the card, built in {time.perf_counter() - t0:.1f} s", flush=True)  # fmt: skip
+    counters = (vocab_gather_fwd, vocab_gather_bwd, dep_graph_fwd, dep_graph_bwd, fa.flash_attention_fwd,
+                fa.flash_attention_bwd, fa.flash_attention_window_fwd, fa.flash_attention_window_bwd)  # fmt: skip
+    first = next(padded.batches(TRAIN_BATCH, seed=0)).map(lambda t: t.cpu())
+    first_packed = next(packed.packed_batches(PACKED_BATCH, seq_len=PACKED_SEQ, seed=0)).map(lambda t: t.cpu())
+    cases = (
+        ("CI", training_config([first]), padded, False, CHUNK_EPOCHS, dict(vocab_gather_fwd=1, vocab_gather_bwd=1)),
+        ("NA", na_training_config([first]), padded, False, CHUNK_EPOCHS,
+         dict(vocab_gather_fwd=1, vocab_gather_bwd=1, dep_graph_fwd=2, dep_graph_bwd=2)),
+        ("packed, local window 32", packed_training_config([first_packed]), packed, True, CHUNK_EPOCHS,
+         dict(vocab_gather_fwd=1, vocab_gather_bwd=1, flash_attention_fwd=1, flash_attention_bwd=1)),
+        ("packed, local window 256", packed_training_config([first_packed], seq_window_size=WIDE_WINDOW), packed, True,
+         CHUNK_EPOCHS, dict(vocab_gather_fwd=1, vocab_gather_bwd=1, flash_attention_fwd=1, flash_attention_bwd=1,
+                 flash_attention_window_fwd=1, flash_attention_window_bwd=1)),
+    )  # fmt: skip
+    runs = {}
+    for label, config, dd, is_packed, n_epochs, want in cases:
+        check(config.precision == "bf16" and config.resid_dropout == 0.1 and config.hidden_size == 256,
+              f"phase 10 [{label}]: not the benchmark's training config")  # fmt: skip
+        run = chunked_run(f"phase 10 [{label}]", smi, config, dd, is_packed, n_epochs, counters)
+        want = {fn.__name__: want.get(fn.__name__, 0) for fn in counters}
+        check(run["per_step"] == want, f"phase 10 [{label}]: launches a step {run['per_step']}, expected {want}")
+        runs[label] = run
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -1783,6 +1952,11 @@ def main() -> int:
     d_times = kernel_d_phase(dep_capture)
     packed, flash_args = packed_training_phase(smi)
     ef = kernel_ef_phase(flash_args)
+    chunked = chunked_training_phase(smi)
+
+    def chunk_launches(name):
+        return sum(run["launches"][name] for run in chunked.values())
+
     kernels = [
         dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
@@ -1800,18 +1974,19 @@ def main() -> int:
         for kv in QUANT_DTYPES
     ] + [
         dict(name=f"vocab_gather_{d}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/vocab_gather.cu",
-             replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182", launches=train["launches"][f"vocab_gather_{d}"],
-             **c[d])
+             replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182",
+             launches=train["launches"][f"vocab_gather_{d}"] + chunk_launches(f"vocab_gather_{d}"), **c[d])
         for d in ("fwd", "bwd")
     ] + [
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
-             replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397", launches=na_train["launches"][f"dep_graph_{k}"],
-             **d_times[k])
+             replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397",
+             launches=na_train["launches"][f"dep_graph_{k}"] + chunk_launches(f"dep_graph_{k}"), **d_times[k])
         for k in ("fwd", "bwd")
     ] + [
         dict(name=f"{n}_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",
              replaces=f"eventstreamgpt_tpu/models/transformer.py:{line}",
-             launches=sum(run["launches"][f"{n}_{k}"] for run in packed.values()), **ef[f"{n}_{k}"])
+             launches=sum(run["launches"][f"{n}_{k}"] for run in packed.values()) + chunk_launches(f"{n}_{k}"),
+             **ef[f"{n}_{k}"])
         for n, line in (("flash_attention", 864), ("flash_attention_window", 900))
         for k in ("fwd", "bwd")
     ]  # fmt: skip

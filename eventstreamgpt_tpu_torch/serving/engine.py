@@ -151,6 +151,31 @@ _NOT_PORTED = {
     "spec": None,
     "paged_kv": False,
     "prefill_stream": None,
+    "base_key": None,  # the port's engine takes an integer ``seed``
+}
+# The JAX engine's implementation knobs: name -> (the values whose function the
+# port computes, what any other value asks for that the port lacks).
+_IMPL_KNOBS = {
+    "sampling_impl": (
+        (None, "auto", "pallas"),
+        "the categorical heads sample through kernel A (the fused filter and draw) only; the per-op tail "
+        "('multi_op'), the fused XLA tail and interpret mode are not part of the PyTorch port",
+    ),
+    "decode_step_impl": (
+        (None, "auto", "pallas"),
+        "the decode step runs the layer stack through kernel B (the decode megakernel) only; the unfused "
+        "XLA step and interpret mode are not part of the PyTorch port",
+    ),
+    "block_size": (
+        (16,),
+        "block_size sizes the paged KV cache's blocks, and the paged cache is not part of the PyTorch port "
+        "yet (ROADMAP Queue 1 item 2)",
+    ),
+    "num_blocks": (
+        (None,),
+        "num_blocks sizes the paged KV cache's block pool, and the paged cache is not part of the PyTorch "
+        "port yet (ROADMAP Queue 1 item 2)",
+    ),
 }
 
 
@@ -198,6 +223,15 @@ class GenerationEngine:
             compute dtype), its own name, or ``"int8"`` / ``"fp8"`` (codes
             with fp32 scale tables, `ops.kv_quant`). Kernel B reads float
             caches in the compute dtype only.
+        sampling_impl, decode_step_impl, block_size, num_blocks: the JAX
+            engine's implementation knobs, taken where the port computes
+            what they ask for anyway: ``sampling_impl`` None, "auto" or
+            "pallas" (the categorical heads through kernel A);
+            ``decode_step_impl`` None, "auto" or "pallas" (the layer stack
+            through kernel B, the port's only decode step); ``block_size``
+            16 and ``num_blocks`` None (both size the paged cache, which the
+            port does not have). Any other value raises ``ValueError``
+            naming what the port lacks.
         device: ``None`` (the CUDA device, raising without one) or an
             explicit device such as ``"cpu"``.
         cuda_graph: on a CUDA device, capture each program once and replay
@@ -232,10 +266,21 @@ class GenerationEngine:
         health_retries: int = 0,
         validate_prompts: bool = True,
         kv_cache_dtype: str | None = None,
+        sampling_impl: str | None = None,
+        decode_step_impl: str | None = None,
+        block_size: int = 16,
+        num_blocks: int | None = None,
         device=None,
         cuda_graph: bool = True,
         **not_ported,
     ):
+        knobs = dict(
+            sampling_impl=sampling_impl, decode_step_impl=decode_step_impl, block_size=block_size, num_blocks=num_blocks
+        )
+        for name, value in knobs.items():
+            accepted, missing = _IMPL_KNOBS[name]
+            if value not in accepted:
+                raise ValueError(f"{name}={value!r}: {missing}")
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"GenerationEngine got an unexpected keyword argument {name!r}")

@@ -31,6 +31,14 @@ class StrEnum(str, enum.Enum):
         return [c.value for c in cls]
 
 
+class SeqPaddingSide(StrEnum):
+    """Which side of the sequence gets padding in collated batches
+    (counterpart: ``eventstreamgpt_tpu/data/config.py``)."""
+
+    RIGHT = enum.auto()
+    LEFT = enum.auto()
+
+
 class SubsequenceSamplingStrategy(StrEnum):
     """How to sample a subsequence when a subject has more events than fit
     (counterpart: ``eventstreamgpt_tpu/data/config.py``)."""

@@ -35,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import math
+import time
 from typing import Callable
 
 import torch
@@ -107,6 +108,7 @@ class CapturedProgram:
         self.output = None
         self.delta: list = []
         self.warmups = self.captures = self.replays = 0
+        self.capture_s = 0.0  # seconds of the capture and the graph's instantiation
 
     @contextlib.contextmanager
     def _side_stream(self):
@@ -130,6 +132,7 @@ class CapturedProgram:
         """Records the program into a new graph (nothing runs); raises if capture fails."""
         if self.graph is not None:
             raise RuntimeError(f"{self.name} is captured already")
+        t0 = time.perf_counter()
         counters = counted_wrappers() if self.counters is None else self.counters
         before = [getattr(fn, attr) for fn, attr in counters]
         graph = self._new_graph()
@@ -147,6 +150,7 @@ class CapturedProgram:
         self.delta = [(fn, attr, b - a) for (fn, attr), a, b in zip(counters, before, after) if b != a]
         self.graph, self.output = graph, output
         self.captures += 1
+        self.capture_s = time.perf_counter() - t0
 
     def replay(self):
         """Launches the captured program; returns its (static) output."""

@@ -11,6 +11,7 @@
 """
 
 import dataclasses
+import inspect
 
 import jax
 import numpy as np
@@ -181,6 +182,37 @@ def test_invalid_engine_options_raise_as_in_jax(kw, match):
         JaxEngine(jmodel, params, JaxConfig.from_dict(tcfg.to_dict()), template=prompt, **dict(ENGINE, **kw))
     with pytest.raises(ValueError, match=match):
         GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+
+
+JAX_KNOB_REFUSALS = [
+    (dict(sampling_impl="multi_op"), "sampling_impl='multi_op': .*kernel A"),
+    (dict(sampling_impl="xla"), "sampling_impl='xla': .*kernel A"),
+    (dict(sampling_impl="pallas_interpret"), "sampling_impl='pallas_interpret': .*interpret mode"),
+    (dict(decode_step_impl="xla"), "decode_step_impl='xla': .*kernel B"),
+    (dict(decode_step_impl="pallas_interpret"), "decode_step_impl='pallas_interpret': .*interpret mode"),
+    (dict(block_size=32), "block_size=32: .*paged KV cache"),
+    (dict(num_blocks=65), "num_blocks=65: .*paged KV cache"),
+    (dict(base_key=object()), "base_key=.*not part of the PyTorch port"),
+]
+
+
+@pytest.mark.parametrize("kw,match", JAX_KNOB_REFUSALS, ids=[m.split(":")[0] for _, m in JAX_KNOB_REFUSALS])
+def test_jax_engine_knobs_are_refused_with_value_error(kw, match):
+    """Each is a keyword of the JAX engine; a value the port does not compute
+    raises ``ValueError`` naming what is missing (never ``TypeError``)."""
+    assert set(kw) <= set(inspect.signature(JaxEngine.__init__).parameters)
+    _, _, _, tcfg, tmodel, prompt = build()
+    with pytest.raises(ValueError, match=match):
+        GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+
+
+def test_jax_engine_knobs_are_taken_at_what_the_port_computes():
+    _, _, _, tcfg, tmodel, prompt = build()
+    for kw in (dict(sampling_impl=None, decode_step_impl=None, block_size=16, num_blocks=None),
+               dict(sampling_impl="auto", decode_step_impl="auto"),
+               dict(sampling_impl="pallas", decode_step_impl="pallas")):  # fmt: skip
+        eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+        assert eng.stats()["decode_step_impl"] == "decode_stack_step"
 
 
 def test_results_are_bitwise_invariant_to_dispatch_depth():

@@ -285,7 +285,7 @@ def test_train_step_keeps_its_state_at_fixed_addresses(trained):
     assert snapshot() == first
     assert all(np.isfinite(losses)) and step.state.step == 3
     assert step.stats() == {"cuda_graph": False, "batch_signatures": 1, "graph_warmup_steps": 0,
-                            "graph_captures": 0, "graph_replays": 0}  # fmt: skip
+                            "graph_captures": 0, "graph_replays": 0, "capture_s": 0}  # fmt: skip
 
 
 def test_train_step_is_the_same_whatever_the_grads_held(trained):

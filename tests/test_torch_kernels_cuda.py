@@ -957,3 +957,69 @@ def test_captured_train_step_equals_eager_step(cuda, na):
     assert len(set(out[True][0][:, 0].tolist())) == 3
     for a, b in zip(out[True][1], out[False][1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["ci", "na", "packed"])
+def test_captured_chunk_equals_single_captured_steps(cuda, name):
+    """bf16 chunks with dropout 0.1 over resident tables: a warm-up chunk,
+    then the key captured on its second chunk and replayed, give the single
+    captured steps' health vectors, weights and AdamW state bit for bit on
+    the same plans, and kernels C, D and E launch as often as in the single
+    steps, counted through the replays."""
+    from eventstreamgpt_tpu_torch.data.device_dataset import DeviceDataset
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        packed_training_config,
+        serving_config,
+        synthetic_csr,
+        training_config,
+    )
+    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset, CSRDatasetConfig
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_chunked_train_step, make_train_step
+
+    packed = name == "packed"
+    csr = synthetic_csr(np.random.default_rng(0), serving_config(**GRAPH_WIDTHS), 64 if packed else 24, mean_seq_len=20)
+    L, B, k = (128, 2, 2) if packed else (32, 4, 3)
+    dd = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=L)), device=cuda)
+    if packed:
+        chunks = [c for s in (1, 2) for c in list(dd.packed_plan_chunks(B, k, seq_len=L, seed=s))[:2]]
+        batches = [b for s in (1, 2) for b in list(dd.packed_batches(B, seq_len=L, seed=s))[: 2 * k]]
+        assert all(len(plans["event_ids"]) == k for plans, _ in chunks)
+        first = batches[0].map(lambda t: t.cpu())
+        config = packed_training_config([first], **dict(GRAPH_WIDTHS, max_seq_len=L))
+    else:
+        chunks = [c for s in (1, 2) for c in dd.plan_chunks(B, k, seed=s)]
+        batches = [b for s in (1, 2) for b in dd.batches(B, seed=s)]
+        config = (na_training_config if name == "na" else training_config)([batches[0].map(lambda t: t.cpu())],
+                                                                           **GRAPH_WIDTHS)  # fmt: skip
+    assert len(chunks) == 4 and len(batches) == 4 * k
+    base = init_params_from_seed(build_model(config), seed=0)
+    oc = dict(init_lr=1e-3, lr_num_warmup_steps=2, lr_frac_warmup_steps=None, max_training_steps=20)
+    counters = (vocab_gather_fwd, vocab_gather_bwd, dep_graph_fwd, dep_graph_bwd, flash_attention_fwd,
+                flash_attention_bwd)  # fmt: skip
+    out = {}
+    for chunked in (True, False):
+        model = copy.deepcopy(base)
+        optimizer, scheduler = build_optimizer(model, OptimizationConfig(**oc))
+        for fn in counters:
+            fn.launches = 0
+        if chunked:
+            step = make_chunked_train_step(model, optimizer, scheduler, dd, packed=packed, device=cuda,
+                                           with_health=True)  # fmt: skip
+            healths = torch.cat([step(plans, 7)[1] for plans, _ in chunks])
+            s = step.stats()
+            assert (s["chunk_keys"], s["graph_warmup_chunks"], s["graph_captures"], s["graph_replays"]) == (1, 1, 1, 3)
+        else:
+            step = make_train_step(model, optimizer, scheduler, device=cuda, with_health=True)
+            healths = torch.stack([step(b, 7)[1] for b in batches])
+        launches = [fn.launches for fn in counters]
+        state = [t.cpu() for st in optimizer.state.values() for _, t in sorted(st.items())]
+        out[chunked] = healths.cpu(), [p.detach().cpu() for p in model.parameters()], state, launches
+    (h, p, st, n), (h1, p1, st1, n1) = out[True], out[False]
+    assert torch.isfinite(h).all() and torch.equal(h, h1), (h, h1)
+    assert all(torch.equal(a, b) for a, b in zip(p, p1)) and all(torch.equal(a, b) for a, b in zip(st, st1))
+    steps = 4 * k
+    layers = config.num_hidden_layers
+    want = [steps, steps] + [layers * steps if name == "na" else 0] * 2 + [steps if packed else 0] * 2
+    assert n == n1 == want, (n, n1, want)
