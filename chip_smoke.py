@@ -180,7 +180,33 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    single-step (an epoch from its first call to a synchronise after its
    last, the events from the plans); the plan bytes a step; each key's
    capture and instantiation seconds; the peak memory of each run.
-11. One ``{"kernels": [...]}`` line, then the device line as the last line.
+11. The paged copy-on-write cache and ``fork()`` at phase 2's width, on
+   phase 2's model and 64 requests with ``paged_kv=True`` and blocks of 16
+   (the default pool, 32 x 16 + 1 = 513 blocks): bf16 greedy at
+   ``dispatch_depth`` 2, bf16 sampled at depth 1 and int8 sampled at depth 2,
+   each in phase 2's three passes, captured. Every pass equal to the warm
+   pass; the warm pass equal bit for bit to the same engine run eagerly and
+   to the monolithic engine's unfused step (``decode_step_impl="xla"``);
+   kernel B's counters 0 in every pass (a paged engine decodes through the
+   model's cached forward, as JAX's does), kernel A's moving on sampled runs
+   through the replays; block 0 of every pool plane zero after each pass;
+   after ``reset()`` no block in use and the high-water mark kept. Then 16
+   of the prompts forked 4 ways (sampled, session seeds 1000 + i), twice
+   (warm, after ``reset()``): blocks shared after the first admission, one
+   prefill replay a fork group (the group staged as its branches'
+   independent submissions), every branch equal bit for bit to an
+   independent request with ``derive_request_seed(session, j)`` on an engine
+   whose groups are 4 wide (the fork's width), and the second pass equal to
+   the first. Measured and printed, not checked: whether a batch-1 forward of
+   each fork prompt (JAX's fork forward) gives row 0 of the 4-row group's
+   forward bit for bit (predictions at the last prompt event, every layer's
+   keys and values). Printed with
+   the card's name and power limit: events/s of the paged, monolithic
+   unfused and monolithic kernel-B engines on the same requests (captured,
+   depth 1, accounting pass), the fork run's, ``slots_report()["paged"]``
+   at the card's memory and branch factor 4, and one profiled 16-step chunk
+   of each decode step at 32 admitted slots (device ms and kernels a step).
+12. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -313,18 +339,19 @@ class Capture:
 PASSES = ("warm", "fetching", "accounting")
 
 
-def engine_run(model, config, prompts, counters, **engine_kw):
+def engine_run(model, config, prompts, counters, passes=PASSES, after_pass=None, **engine_kw):
     """One engine built and run three times on ``prompts`` (64 requests), as
     a benchmark warms, resets and times an engine: pass 1 (``warm``) captures
     every program key the schedule touches; ``reset()``; pass 2
     (``fetching``) fetches every finished row; ``reset()``; pass 3
-    (``accounting``) runs with ``fetch_results=False``. Every counter in
-    ``counters`` (``name -> (wrapper, attribute)``) is set to 0 just before
-    the engine is built (its warm-up and capture included) and before each
-    later pass, and read just after each pass. Returns the engine and, per
-    pass, its results, wall time, launches and the engine's stats;
-    ``results``, ``wall_s`` and ``stats`` of pass 1 at the top, ``launches``
-    summed over the passes."""
+    (``accounting``) runs with ``fetch_results=False`` (``passes`` may stop
+    after the first). Every counter in ``counters`` (``name -> (wrapper,
+    attribute)``) is set to 0 just before the engine is built (its warm-up
+    and capture included) and before each later pass, and read just after
+    each pass; ``after_pass(engine, name)`` then looks at the engine. Returns
+    the engine and, per pass, its results, wall time, launches and the
+    engine's stats; ``results``, ``wall_s`` and ``stats`` of pass 1 at the
+    top, ``launches`` summed over the passes."""
     import torch
 
     from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
@@ -335,8 +362,8 @@ def engine_run(model, config, prompts, counters, **engine_kw):
 
     zero()
     engine = GenerationEngine(model, config, template=prompts[0][0], **engine_kw)
-    passes = {}
-    for name in PASSES:
+    runs = {}
+    for name in passes:
         if name != "warm":
             engine.reset()
             zero()
@@ -347,19 +374,22 @@ def engine_run(model, config, prompts, counters, **engine_kw):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
-        passes[name] = dict(results=results, requests=reqs, wall_s=wall, launches=launches, stats=engine.stats())
-    warm = passes["warm"]
-    total = {k: sum(p["launches"][k] for p in passes.values()) for k in counters}
-    return dict(warm, launches=total, passes=passes, engine=engine)
+        runs[name] = dict(results=results, requests=reqs, wall_s=wall, launches=launches, stats=engine.stats())
+        if after_pass is not None:
+            after_pass(engine, name)
+    warm = runs["warm"]
+    total = {k: sum(p["launches"][k] for p in runs.values()) for k in counters}
+    return dict(warm, launches=total, passes=runs, engine=engine)
 
 
 def check_graph_counts(run, label, counter):
     """The captured engine's programs: the decode chunk captured once with
     one warm-up chunk and replayed once a dispatched chunk, kernel B's
     ``counter`` counting every decode step run through the replays (warm-up
-    included); one prefill capture (after one warm-up) a (bucket, group)
-    key and one extraction capture a group width, all in the warm pass, one
-    prefill replay a prefill dispatch; nothing captured after ``reset()``."""
+    included; ``None`` for an engine whose decode step does not run B); one
+    prefill capture (after one warm-up) a (bucket, group) key and one
+    extraction capture a group width, all in the warm pass, one prefill
+    replay a prefill dispatch; nothing captured after ``reset()``."""
     warm = run["passes"]["warm"]["stats"]
     check(warm["cuda_graph"] and warm["graph_captures"] == 1 and warm["graph_warmup_chunks"] == 1,
           f"{label}: the decode chunk was not captured once: {warm}")  # fmt: skip
@@ -380,8 +410,9 @@ def check_graph_counts(run, label, counter):
               "prefill dispatches")  # fmt: skip
         before = {k: s[k] for k in before}
         steps = (s["dispatched_chunks"] + (s["graph_warmup_chunks"] if name == "warm" else 0)) * s["decode_chunk"]
-        check(p["launches"][counter] == steps,
-              f"{label} [{name} pass]: kernel B launched {p['launches'][counter]} times for {steps} decode steps run")
+        if counter is not None:
+            got = p["launches"][counter]
+            check(got == steps, f"{label} [{name} pass]: kernel B launched {got} times for {steps} decode steps run")
     acct, fetching = (run["passes"][k]["stats"]["extract_graph_replays"] for k in ("accounting", "fetching"))
     check(acct == fetching, f"{label}: the accounting pass extracted rows")
 
@@ -1925,6 +1956,247 @@ def chunked_training_phase(smi):
         runs[label] = run
     return runs
 
+# ---------------------------------------------------------------- phase 11
+PAGED_BLOCK, FORK_PROMPTS, FORK_BRANCHES, FORK_SEED = 16, 16, 4, 1000
+KERNEL_B_ENTRIES = ("launches", "launches_int8", "launches_fp8")
+
+
+def zero_block_intact(engine) -> bool:
+    """Block 0 of every pool plane all zero (and its scales, quantized, all one)."""
+    import torch
+
+    planes = (engine.key_cache[:, 0], engine.value_cache[:, 0])
+    scales = [s[:, 0] for s in (engine.key_scale, engine.value_scale) if s is not None]
+    return not any(bool(p.view(torch.uint8).any()) for p in planes) and all(bool((s == 1).all()) for s in scales)
+
+
+def paged_runs(smi, model, config, prompts, counters, base_kw):
+    """The paged engine on phase 2's requests (bf16 greedy at depth 2, bf16
+    sampled at depth 1, int8 sampled at depth 2), each in phase 2's three
+    passes, against the same engine run eagerly and the monolithic engine's
+    unfused step (first pass, bit for bit), and, bf16 sampled, the three
+    passes of the monolithic unfused and kernel-B engines for their events/s."""
+    paged_kw = dict(paged_kv=True, block_size=PAGED_BLOCK)
+
+    def kernel_b(launches):
+        return sum(launches[f"decode_stack_step.{c}"] for c in KERNEL_B_ENTRIES)
+
+    launches_a, rates = 0, {}
+    for name, kv, mode, depth in (("bf16", None, "greedy", 2), ("bf16", None, "sampled", 1),
+                                  ("int8", "int8", "sampled", 2)):  # fmt: skip
+        label = f"phase 11 [paged {name} {mode}, depth {depth}]"
+        kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv, dispatch_depth=depth)
+        zero_ok = {}
+        run = engine_run(model, config, prompts, counters, **kw, **paged_kw,
+                         after_pass=lambda e, name: zero_ok.update({name: zero_block_intact(e)}))  # fmt: skip
+        engine, stats = run["engine"], run["stats"]
+        check_results(run["results"], run["requests"], label)
+        pool = base_kw["n_slots"] * base_kw["max_len"] // PAGED_BLOCK + 1  # the default: every slot's full table
+        check(stats["decode_step_impl"] == "unfused" and stats["block_pool_num_blocks"] == pool,
+              f"{label}: not the paged unfused engine: {stats}")  # fmt: skip
+        for p in run["passes"].values():
+            check(kernel_b(p["launches"]) == 0, f"{label}: kernel B launched on a paged engine: {p['launches']}")
+            a = p["launches"]["fused_categorical_stream"]
+            check(a > 0 if mode == "sampled" else a == 0, f"{label}: kernel A launched {a} times ({mode})")
+            check(p["launches"]["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
+        check_graph_counts(run, label, None)
+        check_passes(run, label)
+        check(zero_ok == dict.fromkeys(PASSES, True), f"{label}: block 0 was written: {zero_ok}")
+        high = run["passes"]["accounting"]["stats"]["block_pool_high_water"]
+        engine.reset()
+        rep = engine.scheduler.padding_report()
+        check(rep["block_pool_in_use"] == 0 and rep["block_pool_high_water"] == high > 0,
+              f"{label}: reset() left {rep['block_pool_in_use']} blocks in use, high water "
+              f"{rep['block_pool_high_water']}")  # fmt: skip
+        eager = engine_run(model, config, prompts, counters, passes=("warm",), cuda_graph=False, **kw, **paged_kw)
+        same_results(run["results"], eager["results"], label)
+        timed = mode == "sampled" and depth == 1
+        mono = engine_run(model, config, prompts, counters, passes=PASSES if timed else ("warm",),
+                          decode_step_impl="xla", **kw)  # fmt: skip
+        check(kernel_b(mono["launches"]) == 0 and mono["stats"]["decode_step_impl"] == "unfused",
+              f"{label}: the monolithic unfused engine ran kernel B")  # fmt: skip
+        same_results(run["results"], mono["results"], label, "paged vs the monolithic unfused step")
+        generated = sum(r.n_generated for r in run["results"])
+        launches_a += run["launches"]["fused_categorical_stream"]
+        acct = run["passes"]["accounting"]
+        line = (f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and "
+                f"float equal captured and eager, paged and monolithic unfused, and in each pass after reset(); "
+                f"{generated / acct['wall_s']:.1f} events/s in {acct['wall_s']:.4f} s (fetch_results=False), warm pass "
+                f"{run['passes']['warm']['wall_s']:.3f} s; {programs_line(run)}; launches over three passes "
+                f"{run['launches']}; block 0 zero after each pass; pool {stats['block_pool_num_blocks']} blocks of "
+                f"{PAGED_BLOCK}, high water {high}, kv_cache_bytes {stats['kv_cache_bytes']}")  # fmt: skip
+        if timed:
+            fused = engine_run(model, config, prompts, counters, **kw)
+            check(kernel_b(fused["launches"]) > 0, f"{label}: the kernel-B engine never ran kernel B")
+            for which, r in (("paged", run), ("monolithic unfused", mono), ("monolithic kernel B", fused)):
+                a = r["passes"]["accounting"]
+                rates[which] = dict(events_per_s=generated / a["wall_s"], wall_s=a["wall_s"],
+                                    chunks=a["stats"]["dispatched_chunks"])  # fmt: skip
+            line += f"; captured, depth 1, accounting pass, same requests: {json.dumps(rates)}"
+        print(f"{line} ({smi})", flush=True)
+    return launches_a, rates
+
+
+def batch1_fork_forward(engine, forks) -> dict:
+    """Each fork prompt's forward at its bucket on the engine's model, once
+    at batch 1 (JAX's fork forward) and once as the 4 rows of its branches'
+    group (what the port's fork runs): how many prompts give row 0 the same
+    bits both ways in every prediction at the last prompt event and every
+    layer's keys and values, and the largest difference of each."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.generation.generation_utils import _slice_preds_at
+    from eventstreamgpt_tpu_torch.models.transformer import init_kv_caches
+
+    out = dict(prompts=len(forks), bit_identical=0, max_abs_diff_preds=0.0, max_abs_diff_kv=0.0)
+    with torch.inference_mode():
+        for p, _ in forks:
+            n = p.sequence_length
+            bucket = engine.scheduler.bucket_for(n)
+            rows = {}
+            for g in (1, FORK_BRANCHES):
+                x = {f: torch.zeros(shape, dtype=dtype, device=engine.device)
+                     for f, (shape, dtype) in engine._row_fields(g).items()}  # fmt: skip
+                for i in range(g):
+                    engine._stage_prompt(x, i, p)
+                view = engine._staged_rows(x).slice((slice(None), slice(0, bucket)))
+                res = engine._model(view, past=init_kv_caches(engine.config, g, engine.max_len, engine.device),
+                                    use_cache=True)  # fmt: skip
+                preds = []
+                _slice_preds_at(res.preds, torch.full((g,), n - 1, device=engine.device)).map(
+                    lambda t: preds.append(t[:1].contiguous()) or t
+                )
+                kv = [getattr(c, w)[:1].contiguous() for c in res.past_key_values for w in ("key", "value")]
+                rows[g] = preds, kv
+            same = True
+            for i, key in enumerate(("max_abs_diff_preds", "max_abs_diff_kv")):
+                for a, b in zip(rows[1][i], rows[FORK_BRANCHES][i]):
+                    same &= torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                    d = (a.float() - b.float()).abs().nan_to_num(0.0)
+                    out[key] = max(out[key], float(d.max()) if d.numel() else 0.0)
+            out["bit_identical"] += int(same)
+    return out
+
+
+def fork_runs(smi, model, config, prompts, counters, base_kw):
+    """16 shared prompts forked 4 ways (sampled, session seeds 1000 + i) on the
+    paged engine, two passes (warm, then after ``reset()``), against 64
+    independent requests with ``derive_request_seed(session, j)`` on a paged
+    engine whose groups are 4 wide (the fork group's width); then
+    `batch1_fork_forward` on the fork prompts, measured."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    kw = dict(base_kw, paged_kv=True, block_size=PAGED_BLOCK)
+    forks = prompts[:FORK_PROMPTS]
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    engine = GenerationEngine(model, config, template=prompts[0][0], **kw)
+    out, before = [], 0
+    for name in ("warm", "after reset()"):
+        if name != "warm":
+            engine.reset()
+        for i, (p, b) in enumerate(forks):
+            engine.fork(p, FORK_BRANCHES, b, key=FORK_SEED + i, request_id=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.plan_and_dispatch()
+        shared = engine.scheduler.padding_report()["block_pool_shared_blocks"]
+        results = engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = engine.stats()
+        label = f"phase 11 [fork, {name}]"
+        check(shared > 0, f"{label}: no block was shared while the first groups were resident")
+        check(s["fork_groups_admitted"] == FORK_PROMPTS and s["fork_branches_admitted"] == FORK_PROMPTS * FORK_BRANCHES
+              and s["prefill_rows_computed"] == s["prefill_dispatches"] == FORK_PROMPTS,
+              f"{label}: fork accounting {s}")  # fmt: skip
+        replays = s["prefill_graph_replays"] - before
+        check(replays == FORK_PROMPTS, f"{label}: {replays} prefill replays for {FORK_PROMPTS} fork groups")
+        check(s["prefill_graph_captures"] == s["prefill_graph_keys"] and not any(
+            k.startswith("fork_") and "_graph_" in k for k in s), f"{label}: programs not captured once a key: {s}")
+        check(zero_block_intact(engine), f"{label}: block 0 was written")
+        before = s["prefill_graph_replays"]
+        out.append((results, wall, shared, s))
+        check_results(results, range(FORK_PROMPTS * FORK_BRANCHES), label)
+    same_results(out[0][0], out[1][0], "phase 11 [fork]", "warm pass vs the pass after reset()")
+    ref = GenerationEngine(model, config, template=prompts[0][0], **kw)
+    ref.scheduler.group_sizes = (FORK_BRANCHES,)
+    reqs = [Request(prompt=p, max_new_events=b, request_id=(i, j), key=derive_request_seed(FORK_SEED + i, j))
+            for i, (p, b) in enumerate(forks) for j in range(FORK_BRANCHES)]  # fmt: skip
+    same_results(out[0][0], ref.run(reqs), "phase 11 [fork]", "fork vs independent submissions")
+    results, wall, shared, s = out[1]
+    generated = sum(r.n_generated for r in results)
+    paged = engine.slots_report(branch_factor=FORK_BRANCHES)["paged"]
+    print(f"phase 11 [fork] {FORK_PROMPTS} prompts x {FORK_BRANCHES} branches, {generated} generated events: every "
+          f"branch equal bit for bit to an independent request with derive_request_seed(session, j) (groups "
+          f"{FORK_BRANCHES} wide) and the pass after reset() to the warm pass; {generated / wall:.1f} events/s "
+          f"({wall:.4f} s, fetching); {FORK_PROMPTS} prefill replays a pass ({s['prefill_graph_keys']} keys); "
+          f"{shared} shared blocks after the first "
+          f"admission; pool {json.dumps({k: v for k, v in s.items() if k.startswith('block_pool_')})}; "
+          f"slots_report()['paged'] at the card's memory, branch factor {FORK_BRANCHES}: {json.dumps(paged)} ({smi})",
+          flush=True)  # fmt: skip
+    b1 = batch1_fork_forward(engine, forks)
+    print(f"phase 11 [fork] measured, not checked: a batch-1 forward of each fork prompt (JAX's fork forward) against "
+          f"row 0 of its {FORK_BRANCHES}-row group's forward (the port's fork), bf16, at the prompt's bucket: "
+          f"{json.dumps(b1)} ({smi})", flush=True)  # fmt: skip
+    return b1
+
+
+def decode_profiles(smi, model, config, prompts, base_kw):
+    """One profiled 16-step chunk of each decode step on 32 admitted slots
+    (budgets of 64; `tools.profile_decode`'s filled engine): the paged
+    engine, the monolithic unfused one and the kernel-B one, sampled, bf16,
+    depth 1. Every engine is built (and captured) before the first profile."""
+    from eventstreamgpt_tpu_torch.tools.profile_decode import chunk_ms, filled_engine, profile_summary, profiled_chunk
+
+    kw = dict(base_kw, greedy=False, dispatch_depth=1)
+    engines = {
+        "paged": filled_engine(model, config, prompts, **kw, paged_kv=True, block_size=PAGED_BLOCK),
+        "monolithic unfused": filled_engine(model, config, prompts, **kw, decode_step_impl="xla"),
+        "monolithic kernel B": filled_engine(model, config, prompts, **kw),
+    }
+    out = {}
+    for name, engine in engines.items():
+        chunk_ms(engine)
+        wall = min(chunk_ms(engine), chunk_ms(engine)) / engine.decode_chunk
+        prof, profiled_wall, active = profiled_chunk(engine)
+        summary = profile_summary(prof, engine.decode_chunk, wall, profiled_wall)
+        out[name] = dict(step_wall_ms=wall, active_slots=active, **{k: summary[k] for k in (
+            "device_busy_ms_per_step", "device_kernels_per_step", "host_launches_per_step",
+            "device_idle_share_unprofiled")})  # fmt: skip
+        check(summary["device_kernels_per_step"] > 0, f"phase 11: no device kernel in the {name} profile")
+    print(f"phase 11: decode step, one profiled captured chunk of 16 steps at 32 slots (sampled, bf16): "
+          f"{json.dumps(out)} ({smi})", flush=True)  # fmt: skip
+    return out
+
+
+def paged_phase(smi, model, config):
+    """Phase 11: the paged copy-on-write cache and ``fork()`` at phase 2's width."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
+
+    t0 = time.perf_counter()
+    prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, serving_config(), (128, 192), (16, 64))
+    base_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+    counters = {f"decode_stack_step.{c}": (decode_stack_step, c) for c in KERNEL_B_ENTRIES}
+    counters.update(fused_categorical_stream=(fused_categorical_stream, "launches"),
+                    fused_categorical=(fused_categorical, "launches"))  # fmt: skip
+    launches_a, rates = paged_runs(smi, model, config, prompts, counters, base_kw)
+    t1 = time.perf_counter()
+    batch1 = fork_runs(smi, model, config, prompts, counters, base_kw)
+    t2 = time.perf_counter()
+    profiles = decode_profiles(smi, model, config, prompts, base_kw)
+    t3 = time.perf_counter()
+    print(f"phase 11: passed in {t3 - t0:.1f} s (paged runs {t1 - t0:.1f}, fork {t2 - t1:.1f}, profiles "
+          f"{t3 - t2:.1f})", flush=True)  # fmt: skip
+    return dict(launches_a=launches_a, rates=rates, profiles=profiles, batch1=batch1)
+
 
 def main() -> int:
     try:
@@ -1953,6 +2225,7 @@ def main() -> int:
     packed, flash_args = packed_training_phase(smi)
     ef = kernel_ef_phase(flash_args)
     chunked = chunked_training_phase(smi)
+    paged = paged_phase(smi, model, config)
 
     def chunk_launches(name):
         return sum(run["launches"][name] for run in chunked.values())
@@ -1960,7 +2233,7 @@ def main() -> int:
     kernels = [
         dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
-             launches=runs["sampled"]["launches"]["fused_categorical_stream"], **a),
+             launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]

@@ -1,7 +1,8 @@
 """The point-process transformer encoders, conditionally independent and nested.
 
 Counterpart: ``eventstreamgpt_tpu/models/transformer.py``: `KVCache`,
-`time_from_deltas`, `TemporalPositionEncoding`, `make_causal_mask`,
+`PagedKVCache` (the serving engine's block pool), `time_from_deltas`,
+`TemporalPositionEncoding`, `make_causal_mask`,
 `InnerSelfAttention` (the einsum path and its cache branches, the fused
 dep-graph route to kernel D, and the ``pallas_flash`` routes: kernel E for
 global layers, the band for narrow local windows, kernel F for wide ones),
@@ -98,12 +99,156 @@ class KVCache:
             value_scale=scale(),
         )
 
+    @property
+    def max_len(self) -> int:
+        return self.key.shape[2]
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return self.key.dtype
+
+    @property
+    def quantized(self) -> bool:
+        return self.key_scale is not None
+
+    def write_at(self, start, chunks, scales, mask) -> "KVCache":
+        """The cache with each row's one new key and value (``chunks``, ``(B,
+        H, 1, D)`` in the storage type, with their scales when quantized)
+        selected in at position ``start[b]`` of row ``b``, the mask ``mask``
+        and every row's length one past ``start``; new planes."""
+        write = torch.arange(self.max_len, device=start.device)[None, :] == start[:, None]  # (B, max_len)
+        new_key, new_value = (
+            _where_rows(write[:, None, :, None], new, old) for new, old in zip(chunks, (self.key, self.value))
+        )
+        if scales is not None:  # quantize on write: the scales ride the same select
+            scales = tuple(
+                torch.where(write[:, None, :], new, old) for new, old in zip(scales, (self.key_scale, self.value_scale))
+            )
+        return KVCache(new_key, new_value, mask, start + 1, *(scales or (None, None)))
+
     def read(self, dtype: torch.dtype) -> tuple:
         """The keys and values attention reads: the planes, dequantized to
         ``dtype`` when the cache is quantized."""
         if self.key_scale is None:
             return self.key, self.value
         return dequantize_kv(self.key, self.key_scale, dtype), dequantize_kv(self.value, self.value_scale, dtype)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """A block-pool (paged) per-layer key/value cache with per-row block tables.
+
+    The serving engine's copy-on-write decode cache (JAX's `PagedKVCache`):
+    keys and values live in a pool of fixed-size blocks (``pool_key`` /
+    ``pool_value``, ``(num_blocks, H, block_size, head_dim)``) and row ``b``
+    holds ``block_table[b]``, the ``max_len // block_size`` physical blocks
+    of its positions; rows whose tables share block ids share those bytes
+    (``fork()``'s prefix). ``mask`` ``(B, max_len)`` and ``length`` ``(B,)``
+    stay dense per row, as in `KVCache`'s per-row-cursor form; quantized
+    pools carry ``pool_key_scale`` / ``pool_value_scale`` ``(num_blocks, H,
+    block_size)`` fp32.
+
+    Block 0 is the zero block: it backs every unallocated table entry and is
+    never written (`write_at` drops a write aimed at it or past ``max_len``),
+    so an unallocated position reads the zeros a monolithic cache holds
+    there. The pool is written in place (JAX's functional scatter returns
+    new planes; here the planes are the engine's buffers, written at one
+    position a row a step), and `read` gathers each row's dense ``(H,
+    max_len, D)`` view through its table.
+    """
+
+    pool_key: torch.Tensor
+    pool_value: torch.Tensor
+    block_table: torch.Tensor  # (B, max_len // block_size) int32; 0 = the zero block
+    mask: torch.Tensor
+    length: torch.Tensor
+    pool_key_scale: Optional[torch.Tensor] = None
+    pool_value_scale: Optional[torch.Tensor] = None
+
+    @property
+    def block_size(self) -> int:
+        return self.pool_key.shape[2]
+
+    @property
+    def num_blocks(self) -> int:
+        return self.pool_key.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.block_table.shape[1] * self.pool_key.shape[2]
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        return self.pool_key.dtype
+
+    @property
+    def quantized(self) -> bool:
+        return self.pool_key_scale is not None
+
+    @classmethod
+    def init(cls, batch_size, num_heads, num_blocks, block_size, max_len, head_dim, dtype=torch.float32, *, device):
+        if max_len % block_size != 0:
+            raise ValueError(f"paged cache needs block_size ({block_size}) to divide max_len ({max_len})")
+
+        def scale():  # ones: the zero block dequantizes to zeros, as a fresh monolithic cache does
+            return torch.ones(num_blocks, num_heads, block_size, device=device) if is_quantized_dtype(dtype) else None
+
+        def z():
+            return torch.zeros(num_blocks, num_heads, block_size, head_dim, dtype=dtype, device=device)
+
+        return cls(
+            pool_key=z(),
+            pool_value=z(),
+            block_table=torch.zeros(batch_size, max_len // block_size, dtype=torch.int32, device=device),
+            mask=torch.zeros(batch_size, max_len, dtype=torch.bool, device=device),
+            length=torch.zeros(batch_size, dtype=torch.int32, device=device),
+            pool_key_scale=scale(),
+            pool_value_scale=scale(),
+        )
+
+    def write_at(self, start, chunks, scales, mask) -> "PagedKVCache":
+        """`KVCache.write_at` on the pool, which it writes in place (the
+        cache it returns shares the pool): row ``b``'s key and value at
+        offset ``start[b] % block_size`` of the block its table maps position
+        ``start[b]`` to. The drop rule of JAX's scatter: a row whose target is
+        the zero block (a row never admitted, a position past its
+        allocation) or lies past ``max_len`` writes back what block 0 holds
+        at that offset instead, so the zero block stays zero and every index
+        written to twice gets one value."""
+        bs, T = self.block_size, self.block_table.shape[1]
+        B, H = start.shape[0], self.pool_key.shape[1]
+        phys = self.block_table.gather(1, torch.clamp(start // bs, 0, T - 1).long()[:, None])[:, 0]
+        keep = (phys != 0) & (start < self.max_len)
+        phys = torch.where(keep, phys, 0).long()
+        # One index a (row, head) into the pool seen as (num_blocks * H * block_size) rows.
+        heads = torch.arange(H, device=start.device)
+        idx = ((phys[:, None] * H + heads) * bs + (start % bs).long()[:, None]).reshape(-1)
+        keep_rows = keep[:, None].expand(B, H).reshape(-1)
+        pairs = [(self.pool_key, chunks[0]), (self.pool_value, chunks[1])]
+        if scales is not None:
+            pairs += [(self.pool_key_scale, scales[0]), (self.pool_value_scale, scales[1])]
+        for pool, chunk in pairs:
+            flat = storage(pool).view(self.num_blocks * H * bs, -1)
+            new = storage(chunk).reshape(B * H, -1)
+            flat.index_copy_(0, idx, torch.where(keep_rows[:, None], new, flat.index_select(0, idx)))
+        return dataclasses.replace(self, mask=mask, length=start + 1)
+
+    def gather(self, pool: torch.Tensor) -> torch.Tensor:
+        """``pool`` ``(num_blocks, H, block_size, ...)`` read through the
+        tables: each row's dense ``(B, H, max_len, ...)`` view."""
+        B, T = self.block_table.shape
+        g = storage(pool).index_select(0, self.block_table.reshape(-1).long())
+        g = g.view(B, T, *g.shape[1:]).transpose(1, 2)
+        return g.reshape(B, g.shape[1], T * g.shape[3], *g.shape[4:]).view(pool.dtype)
+
+    def read(self, dtype: torch.dtype) -> tuple:
+        """The dense keys and values attention reads (`KVCache.read` of the
+        gathered view)."""
+        key, value = self.gather(self.pool_key), self.gather(self.pool_value)
+        if self.pool_key_scale is None:
+            return key, value
+        return (dequantize_kv(key, self.gather(self.pool_key_scale), dtype),
+                dequantize_kv(value, self.gather(self.pool_value_scale), dtype))  # fmt: skip
 
 
 def init_kv_caches(
@@ -114,6 +259,42 @@ def init_kv_caches(
     dtype, _ = resolve_cache_dtype(cache_dtype, config.compute_dtype)
     return tuple(
         KVCache.init(batch_size, config.num_attention_heads, max_len, config.head_dim, dtype=dtype, device=device)
+        for _ in range(config.num_hidden_layers)
+    )
+
+
+def paged_kv_bytes_per_block(
+    num_layers: int, num_heads: int, block_size: int, head_dim: int, cache_dtype, compute_dtype
+) -> int:
+    """Device bytes one block pins across all layers (two planes and, quantized, their scale rows).
+
+    Examples:
+        >>> paged_kv_bytes_per_block(2, 4, 16, 64, "bf16", torch.bfloat16)
+        32768
+        >>> paged_kv_bytes_per_block(2, 4, 16, 64, "int8", torch.bfloat16)
+        17408
+    """
+    dtype, quantized = resolve_cache_dtype(cache_dtype, compute_dtype)
+    plane = num_heads * block_size * head_dim * dtype.itemsize
+    scale = num_heads * block_size * 4 if quantized else 0
+    return num_layers * 2 * (plane + scale)
+
+
+def init_paged_kv_caches(
+    config: StructuredTransformerConfig,
+    batch_size: int,
+    num_blocks: int,
+    block_size: int,
+    device,
+    max_len: int | None = None,
+    cache_dtype: str | None = None,
+) -> tuple:
+    """One `PagedKVCache` per hidden layer, in the compute dtype or the storage type ``cache_dtype`` names."""
+    dtype, _ = resolve_cache_dtype(cache_dtype, config.compute_dtype)
+    max_len = config.max_seq_len if max_len is None else max_len
+    return tuple(
+        PagedKVCache.init(batch_size, config.num_attention_heads, num_blocks, block_size, max_len, config.head_dim,
+                          dtype=dtype, device=device)  # fmt: skip
         for _ in range(config.num_hidden_layers)
     )
 
@@ -280,30 +461,24 @@ class InnerSelfAttention(nn.Module):
         present = None
         if layer_past is not None and torch.is_tensor(layer_past.length):
             # Per-row cursors (the serving engine's decode slots): row b writes
-            # its one new key/value at position length[b].
+            # its one new key/value at position length[b], into new planes or,
+            # paged, in place into the block its table maps there (a paged past
+            # is mutated: its pool is the engine's); the position and mask
+            # math after the write is the same for both.
             if S != 1:
                 raise ValueError(
                     "per-row-cursor caches take one event per step in the port (the multi-event "
                     "verify window belongs to speculative decoding, not ported yet)"
                 )
-            max_len = layer_past.key.shape[2]
+            max_len = layer_past.max_len
             start = layer_past.length
             pos = torch.arange(max_len, device=hidden_states.device)
             write = pos[None, :] == start[:, None]  # (B, max_len)
-            (new_key, new_value), scales = self._cache_chunks(layer_past, key, value)
-            new_key, new_value = (
-                _where_rows(write[:, None, :, None], new, old)
-                for new, old in ((new_key, layer_past.key), (new_value, layer_past.value))
-            )
-            if scales is not None:  # quantize on write: the scales ride the same select
-                scales = tuple(
-                    torch.where(write[:, None, :], new, old)
-                    for new, old in zip(scales, (layer_past.key_scale, layer_past.value_scale))
-                )
+            chunks, scales = self._cache_chunks(layer_past, key, value)
             new_mask = torch.where(write, chunk_mask, layer_past.mask)
             q_positions = start[:, None]  # (B, 1)
             valid_k = pos[None, :] < (start[:, None] + 1)
-            present = KVCache(new_key, new_value, new_mask, start + 1, *(scales or (None, None)))
+            present = layer_past.write_at(start, chunks, scales, new_mask)
             key, value = present.read(self.dtype)
             attention_mask = new_mask
             k_positions = pos
@@ -359,12 +534,13 @@ class InnerSelfAttention(nn.Module):
         return out, (present if use_cache else None)
 
     @staticmethod
-    def _cache_chunks(layer_past: KVCache, key, value):
+    def _cache_chunks(layer_past, key, value):
         """The new keys and values in the cache's storage type, and their
         ``(key_scale, value_scale)`` when the cache is quantized (else ``None``)."""
-        if layer_past.key_scale is None:
-            return (key.to(layer_past.key.dtype), value.to(layer_past.value.dtype)), None
-        (k_q, k_s), (v_q, v_s) = quantize_kv(key, layer_past.key.dtype), quantize_kv(value, layer_past.value.dtype)
+        dtype = layer_past.storage_dtype
+        if not layer_past.quantized:
+            return (key.to(dtype), value.to(dtype)), None
+        (k_q, k_s), (v_q, v_s) = quantize_kv(key, dtype), quantize_kv(value, dtype)
         return (k_q, v_q), (k_s, v_s)
 
     def _dep_graph(self, hidden_states, static_kv_first, dropout_rng):

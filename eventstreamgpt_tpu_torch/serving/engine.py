@@ -14,15 +14,35 @@ stack through kernel B (`ops.decode_step.decode_stack_step`, CUDA), ``ln_f``
 and the output heads (PyTorch), the categorical heads through kernel A
 (`ops.fused_sampling.fused_categorical_stream`, CUDA), which draws the
 Gumbel noise of each row's stream inside the kernel, and the in-place
-buffer updates. On CPU tensors both kernels
-take their plain PyTorch versions. Prefill runs the model forward on a
-fresh float cache at the bucket width for a group of requests padded, as
-the JAX engine pads it, to the scheduler's group width with inert rows, and
-admits the real rows into their slots. With ``kv_cache_dtype`` "int8" or
-"fp8" the slot caches hold codes and per-head-per-position fp32 scales
-(`ops.kv_quant`): the prefill's cache is quantized whole at admission,
-kernel B quantizes each new key and value at the cursor and dequantizes
-what it reads.
+buffer updates. ``decode_step_impl="xla"`` (and every paged engine) runs
+the JAX engine's unfused step instead: the model's cached one-event
+forward (`models.transformer`'s per-row-cursor branch), whose new cache
+rows are merged where a slot is active, with kernel A still sampling. On
+CPU tensors both kernels take their plain PyTorch versions. Prefill runs
+the model forward on a fresh float cache at the bucket width for a group of
+requests padded, as the JAX engine pads it, to the scheduler's group width
+with inert rows, and admits the real rows into their slots. With
+``kv_cache_dtype`` "int8" or "fp8" the slot caches hold codes and
+per-head-per-position fp32 scales (`ops.kv_quant`): the prefill's cache is
+quantized whole at admission, each new key and value at the cursor, and
+what is read is dequantized.
+
+Paged cache (``paged_kv=True``, JAX's copy-on-write block pool): the
+keys and values live in one pool of ``num_blocks`` blocks of
+``block_size`` positions a layer (`models.transformer.PagedKVCache`; block
+0 is the zero block every unallocated table entry reads), each slot holds
+a block table on the device, and the host's `BlockAllocator` owns which
+blocks are free, shared or held, with the tables mirrored in numpy. An
+admission plans its rows' blocks on the host (a slot's previous blocks are
+freed only then, since a finished row keeps writing at its frozen cursor)
+and its program scatters the prefill's cache into them and writes the
+tables in place. `GenerationEngine.fork` admits one prompt as
+``n_branches`` branches that share its whole blocks: the group runs the
+prefill program as a group of ``n_branches`` independent submissions of the
+prompt would (so each branch equals one bit for bit), each branch samples
+its first event on its own seed, and the scatter table lands the prompt's
+whole blocks once, from branch 0. Kernel B does not read the pool (as in
+JAX): a paged engine decodes through the unfused step.
 
 Index planes are held in int32 and floats in fp32, whatever the template
 and prompts hold, as the JAX package (x64 off) holds them; request seeds
@@ -71,9 +91,9 @@ left, goes back to the front of the queue with its seed fixed, so the retry
 reproduces a clean run bit for bit).
 
 Not ported yet, each a ``ValueError`` at construction: speculative
-decoding, the paged cache and ``fork()``, meshes and tensor parallelism,
-hot swap, the dedicated prefill stream, nested-attention models, and
-functional-time-dependent measurements.
+decoding, meshes and tensor parallelism, hot swap, the dedicated prefill
+stream, nested-attention models, and functional-time-dependent
+measurements.
 """
 
 from __future__ import annotations
@@ -102,7 +122,7 @@ from ..generation.sampling import (
 )
 from ..generation.stopping_criteria import DeadRowCriteria, DeviceCriterion
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
-from ..models.transformer import init_kv_caches
+from ..models.transformer import KVCache, PagedKVCache, init_kv_caches, paged_kv_bytes_per_block
 from ..ops.decode_step import decode_stack_step, stack_layer_weights
 from ..ops.fused_sampling import fused_categorical_stream, topk_topp_mask
 from ..ops.kv_quant import (
@@ -116,8 +136,16 @@ from ..ops.kv_quant import (
 from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
 from ..utils.graphs import ByteLayout, CapturedProgram, ProgramFamily
-from .errors import MalformedPromptRejected, SlotHealthError
-from .scheduler import EngineResult, Request, Scheduler, check_prompt_finite, make_buckets
+from .errors import BlockLedgerError, MalformedPromptRejected, SlotHealthError
+from .scheduler import (
+    AdmissionRejected,
+    EngineResult,
+    ForkSpec,
+    Request,
+    Scheduler,
+    check_prompt_finite,
+    make_buckets,
+)
 
 # EventStreamBatch fields a slot row carries.
 _CORE_FIELDS = (
@@ -134,6 +162,8 @@ _CORE_FIELDS = (
 # The per-slot state a decode step rebinds: the chunk threads it through its
 # steps and copies the result back into the engine's buffers of these names.
 _CHUNK_STATE = ("cursor", "n_generated", "counters", "done", "health", "active_steps", "cache_mask", "cache_len")
+# The engine's program kinds besides the decode chunk, each a family keyed by shape.
+_PROGRAM_KINDS = ("prefill", "extract")
 # The memory budget `stats` reports slots against off the card (the JAX engine's default).
 _REPORT_HBM_GB = 16.0
 _SEQ_FIELDS = (
@@ -149,7 +179,6 @@ _NOT_PORTED = {
     "mesh": None,
     "hot_swap": False,
     "spec": None,
-    "paged_kv": False,
     "prefill_stream": None,
     "base_key": None,  # the port's engine takes an integer ``seed``
 }
@@ -162,27 +191,108 @@ _IMPL_KNOBS = {
         "('multi_op'), the fused XLA tail and interpret mode are not part of the PyTorch port",
     ),
     "decode_step_impl": (
-        (None, "auto", "pallas"),
-        "the decode step runs the layer stack through kernel B (the decode megakernel) only; the unfused "
-        "XLA step and interpret mode are not part of the PyTorch port",
-    ),
-    "block_size": (
-        (16,),
-        "block_size sizes the paged KV cache's blocks, and the paged cache is not part of the PyTorch port "
-        "yet (ROADMAP Queue 1 item 2)",
-    ),
-    "num_blocks": (
-        (None,),
-        "num_blocks sizes the paged KV cache's block pool, and the paged cache is not part of the PyTorch "
-        "port yet (ROADMAP Queue 1 item 2)",
+        (None, "auto", "pallas", "xla"),
+        "the decode step runs the layer stack through kernel B (the decode megakernel) or the unfused model "
+        "step ('xla'); interpret mode is not part of the PyTorch port",
     ),
 }
+# JAX's refusal of the megakernel on a paged engine (its words, without its tracking note).
+_PAGED_MEGAKERNEL = (
+    "the decode megakernel reads the monolithic (B, H, M, D) cache planes; the paged pool's block-table "
+    "indirection is not fused yet. Nearest supported configurations: monolithic caches "
+    "(kv_cache_dtype='int8' composes), or paged_kv with decode_step_impl='xla'"
+)
 
 
 def _int32_word(v: int) -> int:
     """The low 32 bits of ``v`` as a signed int32 value (the word the counter hash reads)."""
     v &= M32
     return v - (1 << 32) if v >= 1 << 31 else v
+
+
+class BlockAllocator:
+    """Host-side reference-counted free list over the device block pool
+    (JAX's `BlockAllocator`, plain Python, never on the device).
+
+    Block 0 is the zero block: never allocated, every unused table entry
+    points at it. Freeing is deferred: a slot's blocks are released when the
+    slot is re-admitted (or at `GenerationEngine.reset`), never at harvest,
+    because a finished row keeps writing at its frozen cursor until then.
+    The default pool (``n_slots * max_len // block_size + 1``) lets every
+    slot hold a full table at once. The guards against a double free and
+    a free of the zero block are always on (`BlockLedgerError`); the
+    lifetime counters survive `reset_occupancy`.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # Popped from the tail: blocks allocate in ascending order.
+        self._free: list[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._rc = np.zeros(self.num_blocks, np.int32)
+        self.high_water = 0
+        self.frag_events = 0
+        self.cover_events = 0
+        self.allocs_total = 0
+        self.frees_total = 0
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.num_blocks - 1 - len(self._free)
+
+    def shared_blocks(self) -> int:
+        """Blocks held by more than one block table (a fork's prefix)."""
+        return int((self._rc >= 2).sum())
+
+    def alloc(self, n: int) -> list[int]:
+        if n > len(self._free):
+            raise RuntimeError(
+                f"block pool exhausted: need {n} blocks, {len(self._free)} free of {self.num_blocks - 1} usable "
+                "(size the pool with num_blocks >= n_slots * (max_len // block_size) + 1 for worst-case occupancy)"
+            )
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._rc[b] = 1
+        self.allocs_total += n
+        self.high_water = max(self.high_water, self.in_use)
+        return out
+
+    def incref(self, blocks, n: int = 1) -> None:
+        for b in blocks:
+            self._rc[b] += n
+
+    def decref(self, blocks) -> int:
+        freed = 0
+        for b in blocks:
+            if b == 0:
+                raise BlockLedgerError(
+                    "decref of the reserved zero block (block 0 backs every unwritten table entry and must never "
+                    "be freed)"
+                )
+            if self._rc[b] <= 0:
+                raise BlockLedgerError(
+                    f"double-free of block {int(b)}: refcount is {int(self._rc[b])} before this decref"
+                )
+            self._rc[b] -= 1
+            if self._rc[b] == 0:
+                self._free.append(b)
+                freed += 1
+        self.frees_total += freed
+        return freed
+
+    def note_cover(self, cover_events: int, allocated_blocks: int) -> None:
+        """Internal-fragmentation accounting for one admitted row."""
+        self.cover_events += int(cover_events)
+        self.frag_events += int(allocated_blocks * self.block_size - cover_events)
+
+    def reset_occupancy(self) -> None:
+        """Every block back to the free list, the lifetime counters kept."""
+        self._free = list(range(self.num_blocks - 1, 0, -1))
+        self._rc[:] = 0
 
 
 def _admit_rows(dst: torch.Tensor, src, slots: torch.Tensor, valid: torch.Tensor, dim: int = 0) -> None:
@@ -221,17 +331,23 @@ class GenerationEngine:
             same seed) before it fails with `SlotHealthError`.
         kv_cache_dtype: the slot caches' storage type: ``None`` (the
             compute dtype), its own name, or ``"int8"`` / ``"fp8"`` (codes
-            with fp32 scale tables, `ops.kv_quant`). Kernel B reads float
-            caches in the compute dtype only.
-        sampling_impl, decode_step_impl, block_size, num_blocks: the JAX
-            engine's implementation knobs, taken where the port computes
-            what they ask for anyway: ``sampling_impl`` None, "auto" or
-            "pallas" (the categorical heads through kernel A);
-            ``decode_step_impl`` None, "auto" or "pallas" (the layer stack
-            through kernel B, the port's only decode step); ``block_size``
-            16 and ``num_blocks`` None (both size the paged cache, which the
-            port does not have). Any other value raises ``ValueError``
-            naming what the port lacks.
+            with fp32 scale tables, `ops.kv_quant`). Float caches are held
+            in the compute dtype only (kernel B reads no other).
+        paged_kv, block_size, num_blocks: the paged copy-on-write cache, as
+            in the JAX engine: a pool of ``num_blocks`` blocks of
+            ``block_size`` positions (``block_size`` must divide
+            ``max_len``; the default pool, ``n_slots * max_len // block_size
+            + 1`` blocks, holds every slot's full table and the zero
+            block), which `fork` needs. ``num_blocks`` without
+            ``paged_kv`` raises, as in JAX.
+        sampling_impl, decode_step_impl: the JAX engine's implementation
+            knobs, taken where the port computes what they ask for:
+            ``sampling_impl`` None, "auto" or "pallas" (the categorical
+            heads through kernel A); ``decode_step_impl`` "xla" (the unfused
+            model step), "pallas" (the layer stack through kernel B), or
+            None / "auto": kernel B on a monolithic cache and the unfused
+            step on a paged one, where "pallas" raises as in JAX. Any other
+            value raises ``ValueError`` naming what the port lacks.
         device: ``None`` (the CUDA device, raising without one) or an
             explicit device such as ``"cpu"``.
         cuda_graph: on a CUDA device, capture each program once and replay
@@ -266,18 +382,16 @@ class GenerationEngine:
         health_retries: int = 0,
         validate_prompts: bool = True,
         kv_cache_dtype: str | None = None,
-        sampling_impl: str | None = None,
-        decode_step_impl: str | None = None,
+        paged_kv: bool = False,
         block_size: int = 16,
         num_blocks: int | None = None,
+        sampling_impl: str | None = None,
+        decode_step_impl: str | None = None,
         device=None,
         cuda_graph: bool = True,
         **not_ported,
     ):
-        knobs = dict(
-            sampling_impl=sampling_impl, decode_step_impl=decode_step_impl, block_size=block_size, num_blocks=num_blocks
-        )
-        for name, value in knobs.items():
+        for name, value in dict(sampling_impl=sampling_impl, decode_step_impl=decode_step_impl).items():
             accepted, missing = _IMPL_KNOBS[name]
             if value not in accepted:
                 raise ValueError(f"{name}={value!r}: {missing}")
@@ -292,6 +406,15 @@ class GenerationEngine:
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
             raise ValueError("nested-attention serving (the NA engine) is not part of the PyTorch port yet")
         check_generation_config(config)
+        self.n_slots = int(n_slots)
+        self.max_len = int(max_len)
+        self._init_paging(paged_kv, block_size, num_blocks)
+        # The decode step: kernel B, or the unfused model step (JAX's
+        # "auto" on a paged engine, where kernel B does not read the pool).
+        if self.paged_kv and decode_step_impl == "pallas":
+            raise ValueError(_PAGED_MEGAKERNEL)
+        self._unfused = decode_step_impl == "xla" or self.paged_kv
+        self.decode_step_impl = "unfused" if self._unfused else "decode_stack_step"
         self.device = resolve_device(device, "GenerationEngine")
         self.config = config
         self.cdt = config.compute_dtype
@@ -307,8 +430,6 @@ class GenerationEngine:
                 f"kv_cache_dtype={kv_cache_dtype!r} under compute dtype {self.cdt}: kernel B reads float caches "
                 "in the compute dtype only (or use 'int8' / 'fp8')"
             )
-        self.n_slots = int(n_slots)
-        self.max_len = int(max_len)
         self.decode_chunk = int(decode_chunk)
         self.max_prompt_len = int(max_prompt_len or (max_len - 1))
         if self.max_prompt_len >= self.max_len:
@@ -317,26 +438,29 @@ class GenerationEngine:
         self.stop_dead_rows = bool(stop_dead_rows)
         self.seed = int(seed)
         self.scheduler = Scheduler(self.n_slots, make_buckets(min_bucket, self.max_prompt_len), max_pending=max_queue)
+        if self.paged_kv:
+            self.scheduler.block_pool_stats = self._block_pool_stats
         self._to_fill = measurements_to_fill(config)
 
         # Weights in the compute dtype, once: the model keeps fp32 for callers.
         self._model = copy.deepcopy(model).to(self.device).eval().cast_to_compute_dtype()
-        self._stacked = stack_layer_weights(self._model.encoder.blocks(), self.cdt)
+        # Kernel B's layer weights, stacked (the unfused step reads the model's own).
+        self._stacked = {} if self._unfused else stack_layer_weights(self._model.encoder.blocks(), self.cdt)
         self._windows = tuple(
             config.seq_window_size if t == "local" else 0 for t in config.seq_attention_layers
         )
 
         self._template = self._normalize_prompt(template)
         self._init_state()
-        # Static inputs and outputs of the prefill and extraction programs,
-        # by (kind, key); on the card, their captured programs by kind.
+        # Static inputs and outputs of the programs other than the decode
+        # chunk, by (kind, key); on the card, their captured programs by kind.
         self._statics: dict = {}
         self._program = None
         self._families: dict = {}
         if self.device.type == "cuda" and cuda_graph:
             pool = torch.cuda.graph_pool_handle()
             self._families = {kind: ProgramFamily(f"the {kind} program", device=self.device, pool=pool)
-                              for kind in ("prefill", "extract")}  # fmt: skip
+                              for kind in _PROGRAM_KINDS}  # fmt: skip
             # The chunk's program: captured now, while every slot is inactive,
             # so the warm-up writes nothing a request can see (every write of a
             # step is masked by ``active``, and admission replaces a slot's
@@ -356,6 +480,41 @@ class GenerationEngine:
         self._health_quarantined = 0
         self._health_failed = 0
         self._health_retried = 0
+
+    def _init_paging(self, paged_kv: bool, block_size: int, num_blocks: int | None) -> None:
+        """The paged cache's options, checked as the JAX engine checks them,
+        its allocator and the host mirror of the block tables."""
+        self.paged_kv = bool(paged_kv)
+        self.block_size = int(block_size)
+        self._block_alloc: Optional[BlockAllocator] = None
+        self._tables: Optional[np.ndarray] = None
+        self._paged_num_blocks = 0
+        self._next_fork_group = 0
+        if not self.paged_kv:
+            if num_blocks is not None:
+                raise ValueError("num_blocks requires paged_kv=True")
+            return
+        if self.block_size < 1 or self.max_len % self.block_size != 0:
+            raise ValueError(
+                f"block_size ({self.block_size}) must divide max_len ({self.max_len}) — block tables cover the "
+                "slot width exactly"
+            )
+        blocks_per_slot = self.max_len // self.block_size
+        if num_blocks is None:  # every slot holding a full table, and the zero block
+            num_blocks = self.n_slots * blocks_per_slot + 1
+        num_blocks = int(num_blocks)
+        if num_blocks < blocks_per_slot + 1:
+            raise ValueError(
+                f"num_blocks ({num_blocks}) must fit at least one full slot table ({blocks_per_slot}) plus the "
+                "zero block"
+            )
+        if num_blocks == self.n_slots:
+            # JAX adds a block here (a pool as long as the slot axis would be
+            # sharded over it); kept, so the two engines' pools and counters agree.
+            num_blocks += 1
+        self._paged_num_blocks = num_blocks
+        self._block_alloc = BlockAllocator(num_blocks, self.block_size)
+        self._tables = np.zeros((self.n_slots, blocks_per_slot), np.int32)
 
     # ------------------------------------------------------------ state init
     def _normalize_prompt(self, batch: EventStreamBatch) -> EventStreamBatch:
@@ -389,7 +548,15 @@ class GenerationEngine:
             start_time=rows(t.start_time, False),
         )
         cfg = self.config
+        # The slot planes (layers, slots, heads, max_len, head_dim) or, paged,
+        # the block pool (layers, num_blocks, heads, block_size, head_dim) and
+        # each slot's block table; the scale tables drop the last axis.
         shape = (cfg.num_hidden_layers, S, cfg.num_attention_heads, L, cfg.head_dim)
+        self.block_table = None
+        if self.paged_kv:
+            shape = (cfg.num_hidden_layers, self._paged_num_blocks, cfg.num_attention_heads, self.block_size,
+                     cfg.head_dim)  # fmt: skip
+            self.block_table = torch.empty(S, L // self.block_size, dtype=torch.int32, device=dev)
         self.key_cache = torch.empty(shape, dtype=self._kv_buf_dtype, device=dev)
         self.value_cache = torch.empty(shape, dtype=self._kv_buf_dtype, device=dev)
         self.key_scale = self.value_scale = None
@@ -412,7 +579,8 @@ class GenerationEngine:
     def _write_initial_state(self) -> None:
         """Every state buffer to its initial value, in place (each keeps its
         address): empty rows, zero caches with unit scales (zero codes
-        dequantize to zeros), every slot done and not live."""
+        dequantize to zeros; a pool's zero block among them), block tables
+        on the zero block, every slot done and not live."""
         for x in vars(self.big).values():
             if torch.is_tensor(x):
                 x.zero_()
@@ -422,8 +590,9 @@ class GenerationEngine:
             if x is not None:
                 x.fill_(1.0)
         for x in (self.cache_mask, self.cache_len, self.budget, self.n_generated, self.live, self.health,
-                  self.seeds, self.counters, self.active_steps, self._boundary):  # fmt: skip
-            x.zero_()
+                  self.seeds, self.counters, self.active_steps, self._boundary, self.block_table):  # fmt: skip
+            if x is not None:
+                x.zero_()
         self.cursor.fill_(1)
         self.base_len.fill_(1)
         self.done.fill_(True)
@@ -472,22 +641,64 @@ class GenerationEngine:
                 bad = bad | ~torch.isfinite(x.reshape(self.n_slots, -1)).all(dim=1)
         return bad
 
+    def _layer_caches(self, cache_mask: torch.Tensor, cache_len: torch.Tensor) -> tuple:
+        """The engine's cache as the model's per-layer past: one `KVCache`
+        (views of the slot planes) or, paged, one `PagedKVCache` (views of
+        the pool, the block tables) a layer, with per-row ``cache_len``."""
+        scales = [(None, None)] * self.config.num_hidden_layers
+        if self.key_scale is not None:
+            scales = list(zip(self.key_scale, self.value_scale))
+        if self.paged_kv:
+            return tuple(PagedKVCache(k, v, self.block_table, cache_mask, cache_len, *sc)
+                         for k, v, sc in zip(self.key_cache, self.value_cache, scales))  # fmt: skip
+        return tuple(KVCache(k, v, cache_mask, cache_len, *sc)
+                     for k, v, sc in zip(self.key_cache, self.value_cache, scales))  # fmt: skip
+
+    def _unfused_forward(self, view: EventStreamBatch, st: dict, active: torch.Tensor) -> tuple:
+        """The JAX engine's unfused decode step (``_decode_step_ci`` with
+        ``self.model.apply(params, view, past=caches, use_cache=True)`` and
+        ``_merge_caches``): the model's cached one-event forward. A
+        monolithic cache takes each layer's new planes where a slot is
+        active; a pool was written in place by the forward, every row at its
+        own block (a finished row writes into blocks it still holds, which
+        no live row reads). Returns the output and the merged mask and
+        lengths."""
+        out = self._model(view, past=self._layer_caches(st["cache_mask"], st["cache_len"]), use_cache=True)
+        new = out.past_key_values
+        if not self.paged_kv:
+            for i, c in enumerate(new):
+                pairs = [(self.key_cache[i], c.key), (self.value_cache[i], c.value)]
+                if self.key_scale is not None:
+                    pairs += [(self.key_scale[i], c.key_scale), (self.value_scale[i], c.value_scale)]
+                for dst, src in pairs:
+                    dst = storage(dst)
+                    dst.copy_(torch.where(active.view(-1, *[1] * (dst.ndim - 1)), storage(src), dst))
+        return (
+            out,
+            torch.where(active[:, None], new[0].mask, st["cache_mask"]),
+            torch.where(active, new[0].length, st["cache_len"]),
+        )
+
     def _decode_step(self, st: dict, seeds: torch.Tensor) -> dict:
         """One event for every active slot of state ``st`` (`_CHUNK_STATE`,
         the counters in int64) with the slots' seeds in int64; returns the
-        next state. Inactive slots keep theirs."""
+        next state. Inactive slots keep theirs. The layer stack runs through
+        kernel B or, unfused, as the model's cached forward."""
         cfg, m = self.config, self._model
         active = self.live & ~st["done"]
         view = _trim_to_event(self.big, st["cursor"] - 1)
-        h0 = m.encoder.input_layer(view)[:, 0]
-        h, _, _, _, _, cache_mask, cache_len = decode_stack_step(
-            self._stacked, self.key_cache, self.value_cache, h0, st["cache_len"],
-            view.event_mask[:, 0], st["cache_mask"], windows=self._windows,
-            activation=cfg.activation_function, layer_norm_eps=float(cfg.layer_norm_epsilon), active=active,
-            key_scale=self.key_scale, value_scale=self.value_scale,
-        )  # fmt: skip
-        encoded = m.encoder.ln_f(h[:, None, :])
-        out = m.output_layer(view, encoded, is_generation=True)
+        if self._unfused:
+            out, cache_mask, cache_len = self._unfused_forward(view, st, active)
+        else:
+            h0 = m.encoder.input_layer(view)[:, 0]
+            h, _, _, _, _, cache_mask, cache_len = decode_stack_step(
+                self._stacked, self.key_cache, self.value_cache, h0, st["cache_len"],
+                view.event_mask[:, 0], st["cache_mask"], windows=self._windows,
+                activation=cfg.activation_function, layer_norm_eps=float(cfg.layer_norm_epsilon), active=active,
+                key_scale=self.key_scale, value_scale=self.value_scale,
+            )  # fmt: skip
+            encoded = m.encoder.ln_f(h[:, None, :])
+            out = m.output_layer(view, encoded, is_generation=True)
         preds_last = _slice_preds_at(out.preds, 0)
         em_last = take_event(self.big.event_mask, st["cursor"] - 1)
         sample = self._sample_rows(preds_last, em_last, seeds, st["counters"], active=active)
@@ -571,7 +782,19 @@ class GenerationEngine:
         return out_layout, out_buf
 
     def _request_seed(self, req: Request) -> int:
-        return int(req.key) if req.key is not None else derive_request_seed(self.seed, req.admission_index)
+        """A request's seed (JAX's ``_request_key``): its own ``key``; for a
+        fork branch ``derive_request_seed(session, branch_index)``, the
+        session being the fork's ``key`` or ``derive_request_seed(engine
+        seed, branch 0's admission index)``; else ``derive_request_seed(engine
+        seed, admission index)``."""
+        if req.key is not None:
+            return int(req.key)
+        if req.fork is not None:
+            session = req.fork.session_key
+            if session is None:
+                session = derive_request_seed(self.seed, req.fork.session_admission_index)
+            return derive_request_seed(session, req.branch_index)
+        return derive_request_seed(self.seed, req.admission_index)
 
     def _stage_prompt(self, x: dict, i: int, prompt: EventStreamBatch) -> None:
         """Request row ``i`` of a staged group: its prompt, zeros after it."""
@@ -593,20 +816,35 @@ class GenerationEngine:
                 else:
                     x[f][i] = src[0]
 
+    def _row_fields(self, g: int) -> dict:
+        """The staged content rows of a ``g``-row program."""
+        return {f: ((g,) + tuple(getattr(self.big, f).shape[1:]), getattr(self.big, f).dtype)
+                for f in _CORE_FIELDS if getattr(self.big, f) is not None}  # fmt: skip
+
     def _dispatch_group(self, group) -> None:
         """Bucketed prefill forward + first-event sample + admission into the
-        slots: one prefill program of key (bucket, group width), its group
+        slots: one prefill program of key (bucket, group width); the group
         padded to the width as JAX's ``_group_arrays`` pads it, with inert
         rows (no content, ``plen`` 1, budget 1, seed 0). The pad rows are
         aimed at distinct slots outside the group, whose contents the
-        admission writes back unchanged (`_admit_rows`)."""
+        admission writes back unchanged (`_admit_rows`). A paged engine plans
+        the group's blocks on the host first (`_plan_admission_tables`) and
+        stages its read and scatter tables. A fork group is staged as its
+        branches' independent submissions would be, one copy of the prompt
+        a branch (JAX runs the prompt's forward once, at batch 1, which need
+        not give a row the bits a group's forward gives it); its scatter
+        table lets only branch 0 write the shared blocks."""
         reqs, n, g = group.requests, len(group.requests), group.group_size
         taken = set(group.slots)
         slots = list(group.slots) + [s for s in range(self.n_slots) if s not in taken][: g - n]
-        fields = {f: ((g,) + tuple(getattr(self.big, f).shape[1:]), getattr(self.big, f).dtype)
-                  for f in _CORE_FIELDS if getattr(self.big, f) is not None}  # fmt: skip
+        fields = self._row_fields(g)
         fields.update({k: ((g,), torch.int32) for k in ("plen", "budget", "seed", "slot")})
         fields["valid"] = ((g,), torch.bool)
+        tables = None
+        if self.paged_kv:
+            tables = self._plan_admission_tables(group)
+            fields.update({k: ((g, self.max_len // self.block_size), torch.int32)
+                           for k in ("read_table", "scatter_table")})  # fmt: skip
 
         def inert(x):
             x["plen"].fill_(1)
@@ -622,6 +860,9 @@ class GenerationEngine:
             x["seed"][:n] = torch.tensor([_int32_word(self._request_seed(r)) for r in reqs])
             x["slot"].copy_(torch.tensor(slots))
             x["valid"][:n] = True
+            if tables is not None:
+                x["read_table"].copy_(torch.from_numpy(tables[0]))
+                x["scatter_table"].copy_(torch.from_numpy(tables[1]))
 
         body = lambda x: self._prefill_admit(group.bucket_len, x)  # noqa: E731
         self._run_program("prefill", (group.bucket_len, g), fields, {}, body, fill, inert)
@@ -629,22 +870,35 @@ class GenerationEngine:
             self._table[s] = r
             self._slot_epoch[s] = self._dispatched_chunks
 
+    def _staged_rows(self, x: dict) -> EventStreamBatch:
+        return EventStreamBatch(**{f: x.get(f) for f in _CORE_FIELDS})
+
     def _prefill_admit(self, bucket_len: int, x: dict) -> None:
         """The prefill program (JAX's ``_prefill_ci``: ``_prefill_forward_ci``
-        then ``_admit``) on the staged group ``x``: the model forward of the
-        rows' first ``bucket_len`` events on a fresh float cache, the first
-        event sampled (counter 0 of each row's stream) and written after each
-        prompt, and the rows admitted into slots ``x["slot"]``: whole rows,
-        KV planes (quantized for an int8 or fp8 cache), mask, cursors,
-        budget, seed and counter, flags. Rows not ``x["valid"]`` write back
-        what their slots hold. The staged rows are written in place."""
+        then ``_admit``; paged, ``_prefill_paged``) on the staged group
+        ``x``: the model forward of the rows' first ``bucket_len`` events on
+        a fresh float cache, then `_admit`."""
         cfg, g = self.config, x["plen"].shape[0]
-        pbig = EventStreamBatch(**{f: x.get(f) for f in _CORE_FIELDS})
-        plen, budget = x["plen"], x["budget"]
-        plen64, seeds = plen.long(), x["seed"].long()
+        pbig = self._staged_rows(x)
         view = pbig.slice((slice(None), slice(0, bucket_len)))
         out = self._model(view, past=init_kv_caches(cfg, g, self.max_len, self.device), use_cache=True)
-        preds_last = _slice_preds_at(out.preds, plen64 - 1)
+        kv = [torch.stack([getattr(c, w) for c in out.past_key_values]) for w in ("key", "value")]
+        self._admit(x, pbig, _slice_preds_at(out.preds, x["plen"].long() - 1), kv, out.past_key_values[0].mask)
+
+    def _admit(self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor) -> None:
+        """The first event of each staged row sampled (counter 0 of each
+        row's stream) from ``preds_last`` and written after its prompt, and
+        the rows admitted into slots ``x["slot"]``: whole rows, the prefill's
+        keys and values ``kv`` (``(layers, rows, H, max_len, D)`` each, in
+        the compute dtype) and
+        ``mask`` into the slot planes or, paged, into the blocks of
+        ``x["scatter_table"]`` with ``x["read_table"]`` as the slots' block
+        tables (quantized for an int8 or fp8 cache), then cursors, budget,
+        seed and counter, flags. Rows not ``x["valid"]`` write back what
+        their slots hold. The staged rows are written in place."""
+        cfg = self.config
+        plen, budget = x["plen"], x["budget"]
+        plen64, seeds = plen.long(), x["seed"].long()
         em_last = take_event(pbig.event_mask, plen64 - 1)
         sample = self._sample_rows(preds_last, em_last, seeds, torch.zeros_like(seeds))
         append_new_event(pbig, sample, plen64)
@@ -655,16 +909,24 @@ class GenerationEngine:
         for f in _CORE_FIELDS:
             if f in x:
                 _admit_rows(getattr(self.big, f), x[f], slots, valid)
-        for plane, scale, which in ((self.key_cache, self.key_scale, "key"), (self.value_cache, self.value_scale, "value")):
-            rows_kv = torch.stack([getattr(c, which) for c in out.past_key_values])
+        for plane, scale, rows_kv in zip((self.key_cache, self.value_cache), (self.key_scale, self.value_scale), kv):
+            rows_scale = None
             if scale is not None:  # quantize on admission: the prefill ran on float caches
                 rows_kv, rows_scale = quantize_kv(rows_kv, plane.dtype)
+            if self.paged_kv:
+                self._scatter_blocks(plane, rows_kv, x["scatter_table"])
+                if scale is not None:
+                    self._scatter_blocks(scale, rows_scale, x["scatter_table"])
+                continue
+            if scale is not None:
                 _admit_rows(scale, rows_scale, slots, valid, dim=1)
             _admit_rows(storage(plane), storage(rows_kv), slots, valid, dim=1)
+        if self.paged_kv:
+            _admit_rows(self.block_table, x["read_table"], slots, valid)
         cursor1 = plen + 1
         n_gen1 = sample.event_mask.to(torch.int32)
         admitted = (
-            (self.cache_mask, out.past_key_values[0].mask),
+            (self.cache_mask, mask),
             (self.cache_len, plen),
             (self.cursor, cursor1),
             (self.base_len, plen),
@@ -678,6 +940,23 @@ class GenerationEngine:
         )
         for dst, src in admitted:
             _admit_rows(dst, src, slots, valid)
+
+    def _scatter_blocks(self, pool: torch.Tensor, rows: torch.Tensor, table: torch.Tensor) -> None:
+        """JAX's ``_scatter_kv_paged`` on one pool: block ``j`` of staged row
+        ``i`` (positions ``j * block_size`` on of ``rows[:, i]``, ``(layers,
+        rows, H, max_len, ...)``) written to physical block ``table[i, j]`` of ``pool``
+        ``(layers, num_blocks, H, block_size, ...)``, all layers at once. An
+        entry 0 is dropped: it writes back what the zero block holds (a pad
+        row, an unallocated entry, a shared block a fork's branch 0 lands)."""
+        g, T = table.shape
+        L, _, H = rows.shape[:3]
+        rows = storage(rows)
+        blocks = rows.reshape(L, g, H, T, self.block_size, *rows.shape[4:]).transpose(2, 3)
+        blocks = blocks.reshape(L, g * T, H, self.block_size, *rows.shape[4:])
+        phys = table.reshape(-1).long()
+        keep = (phys != 0).view(1, -1, *[1] * (blocks.ndim - 2))
+        dst = storage(pool)
+        dst.index_copy_(1, phys, torch.where(keep, blocks, dst.index_select(1, phys)))
 
     def _extract(self, x: dict) -> None:
         """The extraction program (JAX's ``_extract_jit``): the rows of slots
@@ -696,12 +975,12 @@ class GenerationEngine:
 
     def _fetch_rows(self, fetch_slots: list[int]) -> tuple[dict, dict]:
         """The finished rows of ``fetch_slots`` through the extraction program
-        of their group width (padded with slot 0), copied to the host once:
-        ``({slot: one-row CPU batch trimmed to its events}, {slot: (cursor,
-        base_len, n_generated)})``."""
-        g = self.scheduler.group_size_for(len(fetch_slots))
-        fields = {f: ((g,) + tuple(getattr(self.big, f).shape[1:]), getattr(self.big, f).dtype)
-                  for f in _CORE_FIELDS if getattr(self.big, f) is not None}  # fmt: skip
+        of their group width (padded with slot 0; as wide as the rows when the
+        scheduler's largest group is narrower, as in JAX), copied to the host
+        once: ``({slot: one-row CPU batch trimmed to its events}, {slot:
+        (cursor, base_len, n_generated)})``."""
+        g = max(self.scheduler.group_size_for(len(fetch_slots)), len(fetch_slots))
+        fields = self._row_fields(g)
         fields.update({k: ((g,), torch.int32) for k in ("cursor", "base_len", "n_generated")})
 
         def fill(x):
@@ -720,6 +999,58 @@ class GenerationEngine:
             acct[s] = (int(h["cursor"][i]), int(h["base_len"][i]), int(h["n_generated"][i]))
             fetched[s] = rows.slice((slice(i, i + 1), slice(0, acct[s][0]))).map(torch.clone)
         return fetched, acct
+
+    # ------------------------------------------------------ block planning
+    def _free_slot_blocks(self, slot: int) -> None:
+        """Releases the blocks the slot's previous tenant held (the deferred
+        free, `BlockAllocator`); at re-admission."""
+        row = self._tables[slot]
+        held = [int(b) for b in row if b != 0]
+        if held:
+            self._block_alloc.decref(held)
+        row[:] = 0
+
+    def _plan_admission_tables(self, group) -> tuple[np.ndarray, np.ndarray]:
+        """Host block planning for one admission group (JAX's
+        ``_plan_admission_tables``): frees the target slots' previous
+        blocks, allocates each row's ``prompt + budget`` events, and returns
+        the ``(read, scatter)`` tables, ``(group width, max_len //
+        block_size)`` int32. A fork group allocates the prompt's whole
+        blocks once (refcount ``n_branches``) and each branch its partial
+        prompt block and generation tail: decode's first write lands at
+        ``plen >= n_full * block_size``, so shared blocks stay frozen."""
+        g, bs = group.group_size, self.block_size
+        T = self.max_len // bs
+        alloc = self._block_alloc
+        read = np.zeros((g, T), np.int32)
+        scat = np.zeros((g, T), np.int32)
+        covers = [min(r.prompt_len + r.max_new_events, self.max_len) for r in group.requests]
+        blocks_per_row = [-(-c // bs) for c in covers]
+        for s in group.slots:
+            self._free_slot_blocks(s)
+        n_full = group.requests[0].prompt_len // bs if group.fork is not None else 0
+        need = sum(blocks_per_row) - n_full * max(len(group.requests) - 1, 0)
+        if need > alloc.free_blocks:
+            raise RuntimeError(
+                f"block pool exhausted planning an admission: need {need} blocks, {alloc.free_blocks} free of "
+                f"{alloc.num_blocks - 1} usable (size the pool with num_blocks >= n_slots * (max_len // block_size) "
+                "+ 1 for worst-case occupancy)"
+            )
+        shared = []
+        if group.fork is not None:
+            shared = alloc.alloc(n_full)
+            if len(group.requests) > 1:
+                alloc.incref(shared, len(group.requests) - 1)
+        for i, (s, cover, n) in enumerate(zip(group.slots, covers, blocks_per_row)):
+            read[i, :n_full] = shared
+            read[i, n_full:n] = alloc.alloc(n - n_full)
+            # Branches after the first never write the shared prefix: each
+            # shared block is admitted once, by branch 0.
+            lo = 0 if i == 0 else n_full
+            scat[i, lo:n] = read[i, lo:n]
+            self._tables[s, :] = read[i]
+            alloc.note_cover(cover, n)
+        return read, scat
 
     # ---------------------------------------------------------- host pieces
     def _harvest(
@@ -798,8 +1129,63 @@ class GenerationEngine:
                 raise MalformedPromptRejected(f"request {request.request_id!r}: {reason} — rejected at the door")
         return self.scheduler.submit(request)
 
-    def fork(self, *args, **kwargs):
-        raise ValueError("fork() needs the paged KV cache, which is not part of the PyTorch port yet")
+    def fork(
+        self,
+        prompt: EventStreamBatch,
+        n_branches: int,
+        max_new_events: int,
+        *,
+        key: Optional[int] = None,
+        request_id=None,
+        request_ids=None,
+        arrival_time: float = 0.0,
+    ) -> list[Request]:
+        """Submits one prompt as ``n_branches`` copy-on-write branches (JAX's
+        ``fork``): one prefill lands the prompt in refcounted blocks, each
+        branch holds only its partial prompt block and generation tail, and
+        branch ``j`` draws from ``derive_request_seed(session, j)``, so each
+        result equals an independent submission of the prompt with that
+        ``key`` bit for bit. ``key`` is the session seed; without it the
+        session is ``derive_request_seed(engine seed, branch 0's admission
+        index)``, what an independent submission of branch 0 would bind.
+        Results carry ``(request_id, j)``, or ``request_ids[j]``. The group
+        is queued whole or not at all (`AdmissionRejected`) and admitted in
+        one dispatch, strict FIFO."""
+        if not self.paged_kv:
+            raise ValueError(
+                "fork() needs the paged KV cache (paged_kv=True): branched rollouts share prefix blocks "
+                "copy-on-write, which the monolithic per-slot cache cannot express"
+            )
+        n_branches = int(n_branches)
+        if n_branches < 1:
+            raise ValueError("n_branches must be >= 1")
+        if request_ids is not None:
+            if request_id is not None:
+                raise ValueError("pass request_id or request_ids, not both")
+            if len(request_ids) != n_branches:
+                raise ValueError(f"request_ids has {len(request_ids)} entries for {n_branches} branches")
+        if n_branches > self.n_slots:
+            raise ValueError(
+                f"a fork group admits atomically: n_branches ({n_branches}) cannot exceed n_slots ({self.n_slots})"
+            )
+        sched = self.scheduler
+        if sched.max_pending is not None and len(sched.queue) + n_branches > sched.max_pending:
+            sched._rejected += 1
+            raise AdmissionRejected(
+                f"admission queue cannot hold a {n_branches}-branch fork group ({len(sched.queue)}/"
+                f"{sched.max_pending}); rejecting the whole group (branches admit atomically)"
+            )
+        spec = ForkSpec(group_id=self._next_fork_group, n_branches=n_branches, session_key=key)
+        self._next_fork_group += 1
+        out = []
+        for j in range(n_branches):
+            rid = request_ids[j] if request_ids is not None else (None if request_id is None else (request_id, j))
+            r = Request(prompt=prompt, max_new_events=max_new_events, request_id=rid, arrival_time=arrival_time,
+                        fork=spec, branch_index=j)  # fmt: skip
+            # Branch 0's check at the door covers the shared prompt.
+            r.prompt_validated = bool(out)
+            out.append(self.submit(r))
+        return out
 
     @property
     def occupied(self) -> int:
@@ -900,16 +1286,84 @@ class GenerationEngine:
             self.n_slots, self.scheduler.buckets, group_sizes=self.scheduler.group_sizes,
             max_pending=self.scheduler.max_pending,
         )  # fmt: skip
+        if self.paged_kv:
+            # Every block back to the pool (the device tables were zeroed
+            # above); the high-water and fragmentation counters and the
+            # fork-group ids carry on, as in JAX.
+            self._block_alloc.reset_occupancy()
+            self._tables[:] = 0
+            self.scheduler.block_pool_stats = self._block_pool_stats
 
-    def slots_report(self, hbm_gb: float | None = None) -> dict:
+    # ---------------------------------------------------------- accounting
+    def _block_pool_stats(self) -> dict:
+        """The block-pool counters `Scheduler.padding_report` merges in (JAX's
+        ``_block_pool_stats``); they live on the allocator, so the lifetime
+        ones survive `reset`."""
+        a = self._block_alloc
+        return {
+            "block_pool_num_blocks": a.num_blocks,
+            "block_pool_block_size": a.block_size,
+            "block_pool_in_use": a.in_use,
+            "block_pool_free": a.free_blocks,
+            "block_pool_high_water": a.high_water,
+            "block_pool_utilization": round(a.in_use / max(a.num_blocks - 1, 1), 4),
+            "block_pool_shared_blocks": a.shared_blocks(),
+            "block_pool_frag_events": a.frag_events,
+            "block_pool_frag_frac": round(a.frag_events / max(a.frag_events + a.cover_events, 1), 4),
+            "block_pool_allocs_total": a.allocs_total,
+            "block_pool_frees_total": a.frees_total,
+        }
+
+    def _paged_report(self, branch_factor: int = 1, pool_budget_bytes: int | None = None) -> dict:
+        """Block-granular capacity of the paged engine (JAX's
+        ``_paged_report``): ``effective_slots`` measured from the resident
+        tables (usable blocks over the mean unique blocks a resident row
+        holds; branches sharing a prefix shrink that mean), and
+        ``effective_slots_at_branch_factor`` for a full-table tenant whose
+        prompt (all but one block) is shared ``branch_factor`` ways."""
+        cfg, a = self.config, self._block_alloc
+        T = self.max_len // self.block_size
+        usable = a.num_blocks - 1
+        bpb = paged_kv_bytes_per_block(cfg.num_hidden_layers, cfg.num_attention_heads, self.block_size, cfg.head_dim,
+                                       cache_dtype_name(self._kv_buf_dtype), cfg.compute_dtype)  # fmt: skip
+        resident_rows = int((self._tables != 0).any(axis=1).sum())
+        logical_blocks = int((self._tables != 0).sum())
+        unique_blocks = a.in_use
+        if resident_rows:
+            effective = usable / max(unique_blocks / resident_rows, 1e-9)
+        else:
+            effective = float(usable) / max(T, 1)
+        B = max(int(branch_factor), 1)
+        per_branch = (T - 1) / B + 1
+        return {
+            "pool_budget_bytes": pool_budget_bytes,
+            "max_pool_blocks_in_budget": None if pool_budget_bytes is None else int(pool_budget_bytes // bpb),
+            "block_size": self.block_size,
+            "num_blocks": a.num_blocks,
+            "blocks_per_slot": T,
+            "bytes_per_block": bpb,
+            "pool_bytes": usable * bpb,
+            "blocks_in_use": unique_blocks,
+            "pool_utilization": round(unique_blocks / max(usable, 1), 4),
+            "high_water": a.high_water,
+            "resident_rows": resident_rows,
+            "sharing_ratio": round(logical_blocks / max(unique_blocks, 1), 3),
+            "effective_slots": round(effective, 2),
+            "effective_slots_at_branch_factor": round(usable / per_branch, 2),
+            "branch_factor": B,
+        }
+
+    def slots_report(self, hbm_gb: float | None = None, branch_factor: int = 1) -> dict:
         """Device-memory capacity of each cache dtype (`ops.kv_quant.CACHE_DTYPES`),
         allocating nothing: the sequence-cache bytes a slot pins at ``max_len``
         (planes, scale tables, mask) and the most slots that fit a budget of
         ``hbm_gb`` GB net of the engine's resident weights (the model in the
         compute dtype and the stacked layer weights kernel B reads) and each
         slot's other state (content rows, cursors, streams), as the JAX
-        engine's `slots_report` counts them. ``hbm_gb`` defaults to the engine
-        device's own memory; on the CPU it must be given."""
+        engine's `slots_report` counts them; a paged engine adds ``paged``
+        (`_paged_report` at ``branch_factor``, the pool against the same
+        budget). ``hbm_gb`` defaults to the engine device's own memory; on
+        the CPU it must be given."""
         if hbm_gb is None:
             if self.device.type != "cuda":
                 raise ValueError("slots_report: pass hbm_gb for an engine that is not on a CUDA device")
@@ -929,6 +1383,8 @@ class GenerationEngine:
             per_dtype[name] = {"kv_bytes_per_slot": kv, "max_slots": int(budget // (kv + row_bytes))}
         active = cache_dtype_name(self._kv_buf_dtype)
         return {
+            "paged_kv": self.paged_kv,
+            "paged": self._paged_report(branch_factor, budget) if self.paged_kv else None,
             "kv_cache_dtype": active,
             "hbm_budget_gb": hbm_gb,
             "params_bytes": params_bytes,
@@ -941,7 +1397,7 @@ class GenerationEngine:
 
     def program_stats(self) -> dict:
         """Captures and replays of the engine's programs: ``graph_*`` the
-        decode chunk's, ``prefill_*`` and ``extract_*`` those of the prefill
+        decode chunk's; ``prefill_*`` and ``extract_*`` those of the prefill
         (bucket, group width) and extraction (group width) keys, with the
         keys' count (zeros when nothing is captured)."""
         out = {
@@ -950,7 +1406,7 @@ class GenerationEngine:
             "graph_captures": 0 if self._program is None else self._program.captures,
             "graph_replays": 0 if self._program is None else self._program.replays,
         }
-        for kind in ("prefill", "extract"):
+        for kind in _PROGRAM_KINDS:
             family = self._families.get(kind)
             counts = family.counts() if family else dict.fromkeys(("keys", "warmups", "captures", "replays"), 0)
             out.update({f"{kind}_graph_{k}": v for k, v in counts.items()})
@@ -971,7 +1427,7 @@ class GenerationEngine:
                 "active_slot_steps": active,
                 "wasted_decode_frac": round(1.0 - active / max(total, 1), 4),
                 "sampling_impl": "greedy" if self.greedy else "fused_categorical",
-                "decode_step_impl": "decode_stack_step",
+                "decode_step_impl": self.decode_step_impl,
                 **self.program_stats(),
                 "device": str(self.device),
                 "greedy": self.greedy,

@@ -1,4 +1,5 @@
-"""Typed serving errors (counterpart: ``eventstreamgpt_tpu/serving/errors.py``).
+"""Typed serving errors (counterpart: ``eventstreamgpt_tpu/serving/errors.py``,
+and `BlockLedgerError` of ``eventstreamgpt_tpu/serving/sanitizer.py``).
 
 An accepted request either completes or fails with a typed error on its
 result; a malformed prompt is rejected at the door before it is admitted.
@@ -8,7 +9,7 @@ from __future__ import annotations
 
 from .scheduler import AdmissionRejected
 
-__all__ = ["MalformedPromptRejected", "ServingError", "SlotHealthError"]
+__all__ = ["BlockLedgerError", "MalformedPromptRejected", "ServingError", "SlotHealthError"]
 
 
 class ServingError(RuntimeError):
@@ -33,3 +34,9 @@ class SlotHealthError(ServingError):
 class MalformedPromptRejected(AdmissionRejected):
     """The prompt carried non-finite observed values or times and was
     rejected at submission, before any admission index was bound."""
+
+
+class BlockLedgerError(RuntimeError):
+    """A block-pool ledger violation (a double free, a free of the zero
+    block), raised by the paged engine's block allocator itself, so that a
+    corrupted free list never serves another admission."""

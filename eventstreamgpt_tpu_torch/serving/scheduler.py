@@ -3,9 +3,11 @@
 Counterpart: ``eventstreamgpt_tpu/serving/scheduler.py``: a bounded FIFO
 queue with monotonically assigned admission indices (the engine derives
 each request's random stream from its index), power-of-two prompt buckets,
-admission groups of power-of-two sizes, and the padding/backpressure
-accounting of ``padding_report``. Fork groups (paged-cache branched
-rollouts) and speculative-decoding accounting are not ported yet.
+admission groups of power-of-two sizes, fork groups (a paged engine's
+branched rollouts, `ForkSpec`) taken as atomic units, and the
+padding/backpressure/fork accounting of ``padding_report`` (with a paged
+engine's block-pool counters merged in). Speculative-decoding accounting is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -46,12 +48,32 @@ class AdmissionRejected(RuntimeError):
 
 
 @dataclasses.dataclass
+class ForkSpec:
+    """What every request of one `fork()` group shares (JAX's `ForkSpec`).
+
+    A fork group is ``n_branches`` requests over ONE prompt: the paged
+    engine prefills the prompt once, lands it in refcounted blocks and
+    admits every branch copy-on-write, all at one chunk boundary in one
+    admission group. Branch ``j`` draws from ``derive_request_seed(session,
+    j)``; the session seed is ``session_key`` (an int) or, when that is
+    ``None``, ``derive_request_seed(engine seed, session_admission_index)``.
+    """
+
+    group_id: int
+    n_branches: int
+    session_key: Optional[int] = None
+    # Branch 0's admission index, bound at submit.
+    session_admission_index: int = -1
+
+
+@dataclasses.dataclass
 class Request:
     """One generation request.
 
     ``prompt`` is a one-row `EventStreamBatch` ``(1, Lp, M)``. ``key``
     (an int) overrides the request's seed, which otherwise derives from the
-    engine seed and the admission index.
+    engine seed and the admission index (or, for a fork branch, from its
+    group's session and its ``branch_index``).
     """
 
     prompt: EventStreamBatch
@@ -59,6 +81,9 @@ class Request:
     key: Optional[int] = None
     request_id: Any = None
     arrival_time: float = 0.0
+    # A fork branch's group and index in it (None / -1 for other requests).
+    fork: Optional[ForkSpec] = None
+    branch_index: int = -1
     admission_index: int = -1
     # Times this request was requeued after a slot quarantine (the engine's
     # ``health_retries`` budget); the retry keeps its seed.
@@ -113,12 +138,14 @@ def make_buckets(min_bucket: int, max_prompt_len: int) -> tuple[int, ...]:
 
 @dataclasses.dataclass
 class AdmissionGroup:
-    """One prefill dispatch: same-bucket requests onto specific slots."""
+    """One prefill dispatch: same-bucket requests onto specific slots;
+    ``fork`` marks one fork group's branches (one shared prefill)."""
 
     bucket_len: int
     group_size: int  # the prefill program's row count (>= len(requests))
     requests: list
     slots: list
+    fork: Optional[ForkSpec] = None
 
 
 class Scheduler:
@@ -153,6 +180,12 @@ class Scheduler:
         self._prefill_dispatches = 0
         self._prefill_rows = 0
         self._health_requeued = 0
+        self._fork_groups = 0
+        self._fork_branches = 0
+        self._fork_deferrals = 0
+        # A paged engine installs its block-pool counters here (a callable
+        # returning a dict), merged into `padding_report`.
+        self.block_pool_stats = None
 
     def submit(self, request: Request) -> Request:
         if request.prompt_len > max(self.buckets):
@@ -167,6 +200,8 @@ class Scheduler:
             )
         request.admission_index = self._next_admission
         self._next_admission += 1
+        if request.fork is not None and request.branch_index == 0:
+            request.fork.session_admission_index = request.admission_index
         self.queue.append(request)
         self._max_depth = max(self._max_depth, len(self.queue))
         return request
@@ -210,34 +245,73 @@ class Scheduler:
     ) -> list[AdmissionGroup]:
         """Plans this boundary's prefill groups and dequeues them (strict FIFO;
         ``max_padded_events`` caps the bucket-padded prefill work, always
-        taking at least one eligible request)."""
+        taking at least one eligible unit). The queue is walked in units: one
+        request, or one fork group's consecutive branches, which are taken
+        whole or, when they do not fit the free slots, deferred whole with
+        everything behind them; a fork group costs its bucket once and is an
+        admission group of its own."""
         n_take = len(free_slots)
         if n_take == 0:
             return []
+        units: list[list[Request]] = []
+        i = 0
+        while i < len(self.queue):
+            run = [self.queue[i]]
+            if run[0].fork is not None:
+                while i + len(run) < len(self.queue) and self.queue[i + len(run)].fork is run[0].fork:
+                    run.append(self.queue[i + len(run)])
+            units.append(run)
+            i += len(run)
         eligible, rest = [], []
+        taken = 0
         budget_left = max_padded_events
         exhausted = False
-        for r in self.queue:
-            arrived = now is None or r.arrival_time <= now
-            if len(eligible) < n_take and arrived and not exhausted:
+        for unit in units:
+            arrived = now is None or all(r.arrival_time <= now for r in unit)
+            fits = taken + len(unit) <= n_take
+            if not fits and len(unit) > 1 and arrived and not exhausted:
+                exhausted = True
+                self._fork_deferrals += 1
+                rest.extend(unit)
+                continue
+            if fits and arrived and not exhausted:
                 if budget_left is not None:
-                    cost = self.bucket_for(r.prompt_len)
+                    cost = self.bucket_for(unit[0].prompt_len)
                     if eligible and cost > budget_left:
                         exhausted = True
                         self._prefill_deferrals += 1
-                        rest.append(r)
+                        rest.extend(unit)
                         continue
                     budget_left -= cost
-                eligible.append(r)
+                eligible.append(unit)
+                taken += len(unit)
             else:
-                rest.append(r)
+                rest.extend(unit)
         if not eligible:
             return []
         self.queue = rest
-        by_bucket: dict[int, list[Request]] = {}
-        for r in eligible:
-            by_bucket.setdefault(self.bucket_for(r.prompt_len), []).append(r)
         groups, slot_iter = [], iter(free_slots)
+        by_bucket: dict[int, list[Request]] = {}
+        for unit in eligible:
+            bucket_len = self.bucket_for(unit[0].prompt_len)
+            if unit[0].fork is None:
+                by_bucket.setdefault(bucket_len, []).append(unit[0])
+                continue
+            groups.append(
+                AdmissionGroup(
+                    bucket_len=bucket_len,
+                    group_size=self.group_size_for(len(unit)),
+                    requests=unit,
+                    slots=[next(slot_iter) for _ in unit],
+                    fork=unit[0].fork,
+                )
+            )
+            self._fork_groups += 1
+            self._fork_branches += len(unit)
+            self._prefill_dispatches += 1
+            self._prefill_rows += 1  # one shared prompt
+            self._prompt_events += unit[0].prompt_len
+            self._padded_events += bucket_len
         for bucket_len in sorted(by_bucket):
             reqs = by_bucket[bucket_len]
             while reqs:
@@ -259,7 +333,7 @@ class Scheduler:
 
     def padding_report(self) -> dict:
         padded = max(self._padded_events, 1)
-        return {
+        report = {
             "prompt_events": self._prompt_events,
             "padded_events": self._padded_events,
             "padding_waste_frac": round(1.0 - self._prompt_events / padded, 4),
@@ -272,4 +346,10 @@ class Scheduler:
             "prefill_deferrals": self._prefill_deferrals,
             "prefill_dispatches": self._prefill_dispatches,
             "prefill_rows_computed": self._prefill_rows,
+            "fork_groups_admitted": self._fork_groups,
+            "fork_branches_admitted": self._fork_branches,
+            "fork_deferrals": self._fork_deferrals,
         }
+        if self.block_pool_stats is not None:
+            report.update(self.block_pool_stats())
+        return report

@@ -8,6 +8,9 @@
   the request order changes (a request's stream depends only on its seed);
   a one-slot engine's floats may differ in the last bits (one-row products).
 * Device: with no ``device`` argument and no CUDA device, construction raises.
+* Refusals: options the JAX engine refuses (the paged cache's sizes, the
+  megakernel on a paged cache, ``fork()``'s checks) raise in the port with
+  the JAX engine's messages, checked against both engines.
 """
 
 import dataclasses
@@ -22,6 +25,7 @@ from eventstreamgpt_tpu.models.ci_model import CIPPTForGenerativeSequenceModelin
 from eventstreamgpt_tpu.models.config import StructuredTransformerConfig as JaxConfig
 from eventstreamgpt_tpu.serving import GenerationEngine as JaxEngine
 from eventstreamgpt_tpu.serving import Request as JaxRequest
+from eventstreamgpt_tpu.serving.engine import derive_request_key
 from eventstreamgpt_tpu_torch.convert import load_jax_params
 from eventstreamgpt_tpu_torch.data.types import EventStreamBatch
 from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
@@ -117,7 +121,7 @@ def test_greedy_engine_matches_jax_engine(name):
 
 def assert_same_results(a, b, float_tol=0.0):
     a, b = by_id(a), by_id(b)
-    assert sorted(a) == sorted(b)
+    assert sorted(a, key=repr) == sorted(b, key=repr)
     for i in a:
         assert (a[i].n_events, a[i].n_generated, a[i].prompt_len) == (b[i].n_events, b[i].n_generated, b[i].prompt_len)
         for f in EXACT:
@@ -160,8 +164,7 @@ def test_default_device_needs_cuda():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(prefill_stream=object()), dict(spec=object()), dict(paged_kv=True), dict(mesh=object()),
-     dict(hot_swap=True)],
+    [dict(prefill_stream=object()), dict(spec=object()), dict(mesh=object()), dict(hot_swap=True)],
     ids=lambda kw: next(iter(kw)),
 )  # fmt: skip
 def test_features_outside_the_slice_raise(kw):
@@ -172,7 +175,12 @@ def test_features_outside_the_slice_raise(kw):
 
 @pytest.mark.parametrize(
     "kw,match",
-    [(dict(kv_cache_dtype="int4"), "unknown kv_cache_dtype"), (dict(dispatch_depth=0), "dispatch_depth must be >= 1")],
+    [(dict(kv_cache_dtype="int4"), "unknown kv_cache_dtype"), (dict(dispatch_depth=0), "dispatch_depth must be >= 1"),
+     (dict(num_blocks=65), "num_blocks requires paged_kv=True"),
+     (dict(paged_kv=True, block_size=3), r"block_size \(3\) must divide max_len \(8\)"),
+     (dict(paged_kv=True, block_size=0), r"block_size \(0\) must divide max_len \(8\)"),
+     (dict(paged_kv=True, block_size=4, num_blocks=2), r"num_blocks \(2\) must fit at least one full slot table \(2\)"),
+     (dict(paged_kv=True, block_size=4, decode_step_impl="pallas"), "block-table indirection is not fused yet")],
     ids=lambda x: next(iter(x)) if isinstance(x, dict) else None,
 )  # fmt: skip
 def test_invalid_engine_options_raise_as_in_jax(kw, match):
@@ -188,10 +196,7 @@ JAX_KNOB_REFUSALS = [
     (dict(sampling_impl="multi_op"), "sampling_impl='multi_op': .*kernel A"),
     (dict(sampling_impl="xla"), "sampling_impl='xla': .*kernel A"),
     (dict(sampling_impl="pallas_interpret"), "sampling_impl='pallas_interpret': .*interpret mode"),
-    (dict(decode_step_impl="xla"), "decode_step_impl='xla': .*kernel B"),
     (dict(decode_step_impl="pallas_interpret"), "decode_step_impl='pallas_interpret': .*interpret mode"),
-    (dict(block_size=32), "block_size=32: .*paged KV cache"),
-    (dict(num_blocks=65), "num_blocks=65: .*paged KV cache"),
     (dict(base_key=object()), "base_key=.*not part of the PyTorch port"),
 ]
 
@@ -213,6 +218,42 @@ def test_jax_engine_knobs_are_taken_at_what_the_port_computes():
                dict(sampling_impl="pallas", decode_step_impl="pallas")):  # fmt: skip
         eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
         assert eng.stats()["decode_step_impl"] == "decode_stack_step"
+    for kw in (dict(decode_step_impl="xla"), dict(paged_kv=True, block_size=4),
+               dict(paged_kv=True, block_size=4, decode_step_impl="auto")):  # fmt: skip
+        eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+        assert eng.stats()["decode_step_impl"] == "unfused"
+
+
+FORK_REFUSALS = {
+    "monolithic": (dict(paged=False), dict(n_branches=2), ValueError, r"fork\(\) needs the paged KV cache"),
+    "no_branches": ({}, dict(n_branches=0), ValueError, "n_branches must be >= 1"),
+    "more_branches_than_slots": ({}, dict(n_branches=3), ValueError,
+                                 r"n_branches \(3\) cannot exceed n_slots \(2\)"),
+    "both_ids": ({}, dict(n_branches=2, request_id="f", request_ids=["a", "b"]), ValueError,
+                 "pass request_id or request_ids, not both"),
+    "short_ids": ({}, dict(n_branches=2, request_ids=["a"]), ValueError, "request_ids has 1 entries for 2 branches"),
+    "queue_full": (dict(max_queue=1), dict(n_branches=2), RuntimeError,
+                   "admission queue cannot hold a 2-branch fork group"),
+}  # fmt: skip
+
+
+@pytest.mark.parametrize("case", sorted(FORK_REFUSALS))
+def test_fork_refusals_as_in_jax(case):
+    """``fork()`` refuses what the JAX engine's refuses, with its messages;
+    a refused group leaves the queue empty (the fork is atomic)."""
+    engine_kw, fork_kw, error, match = FORK_REFUSALS[case]
+    engine_kw = dict(engine_kw)
+    paged = dict(paged_kv=True, block_size=4) if engine_kw.pop("paged", True) else {}
+    jcfg, jmodel, params, tcfg, tmodel, prompt = build()
+    row = prompt.slice((slice(0, 1), slice(0, 3)))
+    jeng = JaxEngine(jmodel, params, jcfg, template=prompt, **dict(ENGINE, **paged, **engine_kw))
+    teng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **paged, **engine_kw))
+    with pytest.raises(error, match=match):
+        jeng.fork(row, max_new_events=2, key=derive_request_key(jax.random.PRNGKey(0), 0), **fork_kw)
+    with pytest.raises(error, match=match):
+        teng.fork(to_torch(row), max_new_events=2, key=0, **fork_kw)
+    assert teng.scheduler.pending == jeng.scheduler.pending == 0
+    assert teng.scheduler.padding_report()["rejected_total"] == jeng.scheduler.padding_report()["rejected_total"]
 
 
 def test_results_are_bitwise_invariant_to_dispatch_depth():

@@ -920,6 +920,104 @@ def test_captured_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
     assert (runs[True][1] == 0) == greedy
 
 
+def graph_engine_setup():
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+
+    config = serving_config(mean_log=1.0, std_log=0.1, **GRAPH_WIDTHS)
+    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=0)
+    prompts = synthetic_prompts(np.random.default_rng(0), 6, config, (6, 12), (4, 8))
+    return config, model, prompts
+
+
+def zero_block_intact(eng) -> bool:
+    planes = (eng.key_cache[:, 0], eng.value_cache[:, 0])
+    scales = [x[:, 0] for x in (eng.key_scale, eng.value_scale) if x is not None]
+    return not any(bool(p.view(torch.uint8).any()) for p in planes) and all(bool((x == 1).all()) for x in scales)
+
+
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_captured_paged_engine_equals_eager_and_monolithic(cuda, greedy, kv_cache_dtype):
+    """The paged engine (blocks of 4) on the card: captured equals eager and
+    the monolithic engine's unfused step (captured) bit for bit, on groups
+    the scheduler pads; kernel B never launches, kernel A launches as often
+    captured as eager (sampled only, counted through the replays), block 0
+    stays zero, and after ``reset()`` a second pass captures nothing and
+    gives the first pass's results."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config, model, prompts = graph_engine_setup()
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, greedy=greedy,
+              kv_cache_dtype=kv_cache_dtype, device=cuda)  # fmt: skip
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    runs = {}
+    for label, extra in (("paged", dict(paged_kv=True, block_size=4)),
+                         ("eager", dict(paged_kv=True, block_size=4, cuda_graph=False)),
+                         ("mono", dict(decode_step_impl="xla"))):  # fmt: skip
+        for c in ("launches", "launches_int8", "launches_fp8"):
+            setattr(decode_stack_step, c, 0)
+        fused_categorical_stream.launches = 0
+        eng = GenerationEngine(model, config, template=prompts[0][0], **kw, **extra)
+        eng.scheduler.group_sizes = (2, 4)
+        first = eng.run(requests())
+        s = eng.stats()
+        assert s["decode_step_impl"] == "unfused"
+        assert decode_stack_step.launches + decode_stack_step.launches_int8 + decode_stack_step.launches_fp8 == 0
+        if label != "mono":
+            assert zero_block_intact(eng)
+        eng.reset()
+        fused_categorical_stream.launches = 0
+        second = eng.run(requests())
+        s2 = eng.stats()
+        same_results(first, second)
+        runs[label] = first, fused_categorical_stream.launches
+        if label != "eager":
+            assert (s["graph_captures"], s["graph_warmup_chunks"]) == (1, 1)
+            assert s["prefill_graph_captures"] == s["prefill_graph_keys"] > 0
+            for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures"):
+                assert s2[k] == s[k], k
+            assert s2["graph_replays"] == s["graph_replays"] + s2["dispatched_chunks"]
+    same_results(runs["paged"][0], runs["eager"][0])
+    same_results(runs["paged"][0], runs["mono"][0])
+    assert runs["paged"][1] == runs["eager"][1] == runs["mono"][1]
+    assert (runs["paged"][1] == 0) == greedy
+
+
+def test_captured_fork_runs_each_program_once_a_group(cuda):
+    """Two fork groups (4 and 2 branches) among ordinary requests on the
+    card: each group one replay of the prefill program (one replay a
+    dispatch, each key captured once); every branch equal bit for bit to an
+    independent request with ``derive_request_seed(session, j)`` on an
+    engine whose groups are as wide as the fork's, and block 0 zero."""
+    from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config, model, prompts = graph_engine_setup()
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, paged_kv=True, block_size=4,
+              device=cuda)  # fmt: skip
+    eng = GenerationEngine(model, config, template=prompts[0][0], **kw)
+    (p0, b0), (p1, b1) = prompts[:2]
+    eng.fork(p0, 4, b0, key=7, request_id="a")
+    for i, (p, b) in enumerate(prompts[2:4]):
+        eng.submit(Request(prompt=p, max_new_events=b, request_id=i))
+    eng.fork(p1, 2, b1, key=8, request_id="b")
+    got = {r.request_id: r for r in eng.run()}
+    s = eng.stats()
+    assert s["fork_groups_admitted"] == 2 and s["prefill_graph_replays"] == s["prefill_dispatches"] >= 3
+    assert s["prefill_graph_captures"] == s["prefill_graph_keys"]
+    assert not any(k.startswith("fork_") and "_graph_" in k for k in s)
+    assert zero_block_intact(eng)
+    for rid, prompt, budget, n, session, width in (("a", p0, b0, 4, 7, (4,)), ("b", p1, b1, 2, 8, (2,))):
+        ref = GenerationEngine(model, config, template=prompts[0][0], **kw)
+        ref.scheduler.group_sizes = width
+        want = ref.run([Request(prompt=prompt, max_new_events=budget, request_id=(rid, j),
+                                key=derive_request_seed(session, j)) for j in range(n)])  # fmt: skip
+        same_results([got[(rid, j)] for j in range(n)], want)
+
+
 @pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
 def test_captured_train_step_equals_eager_step(cuda, na):
     """Three bf16 steps with dropout 0.1: the step captured on its second call
