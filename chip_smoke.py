@@ -203,10 +203,36 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    keys and values). Printed with
    the card's name and power limit: events/s of the paged, monolithic
    unfused and monolithic kernel-B engines on the same requests (captured,
-   depth 1, accounting pass), the fork run's, ``slots_report()["paged"]``
-   at the card's memory and branch factor 4, and one profiled 16-step chunk
-   of each decode step at 32 admitted slots (device ms and kernels a step).
-12. One ``{"kernels": [...]}`` line, then the device line as the last line.
+   depth 1, accounting pass), the fork run's and ``slots_report()["paged"]``
+   at the card's memory and branch factor 4 (the decode steps' profiles are
+   phase 12's, after its captures: no capture follows a profile).
+12. Speculative decoding at phase 2's width: phase 2's model as the target,
+   ``bench.py``'s draft (`serving.spec.truncated_draft`, the first
+   ``num_hidden_layers // 2`` = 1 layer) and ``k`` 4, on phase 2's 64
+   requests: bf16 greedy at zero tolerances (depth 2), bf16 sampled at the
+   default tolerances (depths 1 and 2) and int8 sampled (depth 2), each in
+   phase 2's three passes, captured: every request finishes with
+   ``n_events == prompt_len + n_generated`` and finite outputs, each pass
+   after ``reset()`` equals the warm pass bit for bit (with the same
+   per-request proposals and acceptances), one capture a key and none after
+   ``reset()``, one spec-chunk replay a dispatched chunk (16 rounds each),
+   kernel A's counter moving on sampled runs and kernel B's counters (every
+   entry) 0; the sampled bf16 (depth 1) and int8 runs equal their
+   ``cuda_graph=False`` twins bit for bit, kernel A launched as often. A
+   perfect draft (the target itself, tolerant greedy) must accept more than
+   0.9 in fp32 (the same weights; in bf16 it is printed); a small fp32 greedy spec engine (zero tolerances) on the card must
+   match the same engine on the CPU (phase 2's small-engine tolerances).
+   Printed, not checked, beside the card's name and power limit: each run's
+   events/s (accounting pass), acceptance rate and committed events a slot
+   and round; the spec engine's events/s beside the monolithic unfused and
+   kernel-B engines' (sampled, depth 1, same requests); the share of strict
+   greedy requests whose events equal the non-spec greedy engine's;
+   ``slots_report()`` with the draft charged; one profiled 16-step chunk of
+   each decode step at 32 admitted slots (paged, monolithic unfused, kernel
+   B, and the spec round; device ms and kernels a step) and the spec round's
+   parts (the draft steps, the verify with the accept walk and the commit;
+   device ms by CUDA events, kernels a replay).
+13. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -586,19 +612,20 @@ def engine_phase(smi):
     return model, config, capture, out
 
 
-def small_engine_matches_cpu(**engine_kw):
+def small_engine_matches_cpu(spec_k=None, phase="phase 2", **engine_kw):
     """The whole path on the card against the same engine on the CPU (plain
     versions of both kernels), fp32 greedy at a small size: a small
     vocabulary (few Bernoulli draws that float noise could tip over 0.5) and
     a narrow log-time scale (moderate times for the sinusoidal encoding).
-    ``engine_kw`` go to both engines (``kv_cache_dtype``)."""
+    ``engine_kw`` go to both engines (``kv_cache_dtype``); ``spec_k``: both
+    speculative, the draft the model's first layer, zero tolerances."""
     import numpy as np
     import torch
 
     from eventstreamgpt_tpu_torch.convert import init_params_from_seed
     from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
     from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
-    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
 
     config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
                             head_dim=8, intermediate_size=64, seq_window_size=4)  # fmt: skip
@@ -608,6 +635,10 @@ def small_engine_matches_cpu(**engine_kw):
         model.output_layer.TTE_layer.proj.weight.mul_(0.02)
     prompts = synthetic_prompts(np.random.default_rng(1), 6, config, (6, 12), (4, 8))
     kw = dict(n_slots=8, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True, **engine_kw)
+    if spec_k is not None:
+        dcfg, draft = truncated_draft(config, model, 1)
+        kw["spec"] = SpecConfig(model=draft, config=dcfg, k=spec_k, value_rtol=0.0, value_atol=0.0)
+        engine_kw = dict(engine_kw, spec=f"k={spec_k}, strict")
     # A quantized cache: a key one rounding apart can move a code by a step,
     # and floats then agree to the JAX package's quantized-cache tolerance
     # (tests/test_kv_quant.py, 2e-2); float caches to 1e-4.
@@ -625,7 +656,8 @@ def small_engine_matches_cpu(**engine_kw):
     check(padded and padded == [(n, g) for dev, n, g in widths if dev == "cpu" and g > n],
           f"small engine: no padded group or not the same on both devices: {widths}")  # fmt: skip
     for g, c in zip(res["cuda"], res["cpu"]):
-        check((g.n_events, g.n_generated) == (c.n_events, c.n_generated), f"small engine: request {g.request_id}")
+        check((g.n_events, g.n_generated, g.spec_proposed, g.spec_accepted)
+              == (c.n_events, c.n_generated, c.spec_proposed, c.spec_accepted), f"small engine: request {g.request_id}")
         for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
             a, b = getattr(g.batch, f), getattr(c.batch, f)
             if not torch.equal(a, b):
@@ -638,7 +670,7 @@ def small_engine_matches_cpu(**engine_kw):
             a, b = getattr(g.batch, f), getattr(c.batch, f)
             float_diff = max(float_diff, (a - b).abs().max().item())
             torch.testing.assert_close(a, b, rtol=float_tol, atol=float_tol)
-    print(f"phase 2: small fp32 greedy engine {engine_kw or ''} on the card matches the CPU engine, groups padded "
+    print(f"{phase}: small fp32 greedy engine {engine_kw or ''} on the card matches the CPU engine, groups padded "
           f"(requests, rows) {padded}: events and integers exact, floats within {float_tol} (max |diff| "
           f"{float_diff:.3g})", flush=True)  # fmt: skip
 
@@ -2145,32 +2177,41 @@ def fork_runs(smi, model, config, prompts, counters, base_kw):
     return b1
 
 
-def decode_profiles(smi, model, config, prompts, base_kw):
+def decode_profiles(smi, model, config, prompts, base_kw, spec):
     """One profiled 16-step chunk of each decode step on 32 admitted slots
     (budgets of 64; `tools.profile_decode`'s filled engine): the paged
-    engine, the monolithic unfused one and the kernel-B one, sampled, bf16,
-    depth 1. Every engine is built (and captured) before the first profile."""
-    from eventstreamgpt_tpu_torch.tools.profile_decode import chunk_ms, filled_engine, profile_summary, profiled_chunk
+    engine, the monolithic unfused one, the kernel-B one and the spec engine
+    (``spec``; 16 rounds), sampled, bf16, depth 1; and the spec round's parts
+    (`tools.profile_decode.spec_parts`: the draft steps, the verify with the
+    accept walk and the commit) on the spec engine's admitted state. Every
+    engine and part is built (and captured) before the first profile."""
+    from eventstreamgpt_tpu_torch.tools.profile_decode import (
+        capture_spec_parts,
+        filled_engine,
+        profiled_engine_chunk,
+        spec_parts,
+    )
 
     kw = dict(base_kw, greedy=False, dispatch_depth=1)
     engines = {
         "paged": filled_engine(model, config, prompts, **kw, paged_kv=True, block_size=PAGED_BLOCK),
         "monolithic unfused": filled_engine(model, config, prompts, **kw, decode_step_impl="xla"),
         "monolithic kernel B": filled_engine(model, config, prompts, **kw),
+        "spec": filled_engine(model, config, prompts, **kw, spec=spec),
     }
+    parts = spec_parts(capture_spec_parts(engines["spec"]))
     out = {}
     for name, engine in engines.items():
-        chunk_ms(engine)
-        wall = min(chunk_ms(engine), chunk_ms(engine)) / engine.decode_chunk
-        prof, profiled_wall, active = profiled_chunk(engine)
-        summary = profile_summary(prof, engine.decode_chunk, wall, profiled_wall)
-        out[name] = dict(step_wall_ms=wall, active_slots=active, **{k: summary[k] for k in (
-            "device_busy_ms_per_step", "device_kernels_per_step", "host_launches_per_step",
-            "device_idle_share_unprofiled")})  # fmt: skip
-        check(summary["device_kernels_per_step"] > 0, f"phase 11: no device kernel in the {name} profile")
-    print(f"phase 11: decode step, one profiled captured chunk of 16 steps at 32 slots (sampled, bf16): "
-          f"{json.dumps(out)} ({smi})", flush=True)  # fmt: skip
-    return out
+        summary = profiled_engine_chunk(engine)
+        out[name] = {k: summary[k] for k in ("step_wall_ms", "active_slots", "device_busy_ms_per_step",
+                                             "device_kernels_per_step", "host_launches_per_step",
+                                             "device_idle_share_unprofiled", "committed_events_per_round_and_slot")
+                     if k in summary}  # fmt: skip
+        check(summary["device_kernels_per_step"] > 0, f"phase 12: no device kernel in the {name} profile")
+    print(f"phase 12: decode step (spec: round), one profiled captured chunk of 16 at 32 admitted slots (sampled, "
+          f"bf16): {json.dumps(out)}; the spec round's parts, device ms (CUDA events) and kernels a replay: "
+          f"{json.dumps(parts)} ({smi})", flush=True)  # fmt: skip
+    return dict(out, spec_round_parts=parts)
 
 
 def paged_phase(smi, model, config):
@@ -2191,11 +2232,141 @@ def paged_phase(smi, model, config):
     t1 = time.perf_counter()
     batch1 = fork_runs(smi, model, config, prompts, counters, base_kw)
     t2 = time.perf_counter()
-    profiles = decode_profiles(smi, model, config, prompts, base_kw)
+    print(f"phase 11: passed in {t2 - t0:.1f} s (paged runs {t1 - t0:.1f}, fork {t2 - t1:.1f}; its profiles are "
+          "phase 12's)", flush=True)  # fmt: skip
+    return dict(launches_a=launches_a, rates=rates, batch1=batch1)
+
+
+# ---------------------------------------------------------------- phase 12
+SPEC_K = 4  # bench.py's spec arm (its SPEC_K)
+SPEC_STRICT = dict(value_rtol=0.0, value_atol=0.0)
+
+
+def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
+    """The spec engine on phase 2's requests (bf16 greedy at zero tolerances,
+    depth 2; bf16 sampled at depths 1 and 2; int8 sampled at depth 2), each
+    in phase 2's three passes, captured; the sampled bf16 (depth 1) and int8
+    runs against the same engine run eagerly (warm pass, bit for bit)."""
+
+    def kernel_b(launches):
+        return sum(launches[f"decode_stack_step.{c}"] for c in KERNEL_B_ENTRIES)
+
+    out, launches_a = {}, 0
+    for name, kv, mode, depth in (("bf16", None, "greedy", 2), ("bf16", None, "sampled", 1),
+                                  ("bf16", None, "sampled", 2), ("int8", "int8", "sampled", 2)):  # fmt: skip
+        label = f"phase 12 [spec {name} {mode}, depth {depth}]"
+        sc = spec(**(SPEC_STRICT if mode == "greedy" else {}))
+        kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv, dispatch_depth=depth, spec=sc)
+        run = engine_run(model, config, prompts, counters, **kw)
+        stats = run["stats"]
+        check_results(run["results"], run["requests"], label)
+        check(stats["decode_step_impl"] == "spec_draft_verify", f"{label}: not the spec engine: {stats}")
+        for pname, p in run["passes"].items():
+            check(kernel_b(p["launches"]) == 0, f"{label}: kernel B launched on a spec engine: {p['launches']}")
+            a = p["launches"]["fused_categorical_stream"]
+            check(a > 0 if mode == "sampled" else a == 0, f"{label}: kernel A launched {a} times ({mode})")
+            check(p["launches"]["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
+            ps = p["stats"]
+            check(ps["spec_rounds"] == ps["dispatched_chunks"] * ps["decode_chunk"] > 0,
+                  f"{label} [{pname} pass]: {ps['spec_rounds']} rounds for {ps['dispatched_chunks']} chunks")  # fmt: skip
+        check_graph_counts(run, label, None)
+        check_passes(run, label)
+        spec_counts = [(r.spec_proposed, r.spec_accepted) for r in run["results"]]
+        for pname in ("fetching", "accounting"):
+            check([(r.spec_proposed, r.spec_accepted) for r in run["passes"][pname]["results"]] == spec_counts,
+                  f"{label} [{pname} pass]: per-request proposals or acceptances differ from the warm pass")  # fmt: skip
+        if mode == "sampled" and (depth == 1 or kv is not None):
+            eager = engine_run(model, config, prompts, counters, passes=("warm",), cuda_graph=False, **kw)
+            same_results(run["results"], eager["results"], label)
+            check([(r.spec_proposed, r.spec_accepted) for r in eager["results"]] == spec_counts,
+                  f"{label}: per-request proposals or acceptances differ captured and eager")  # fmt: skip
+            # Kernel A through the replays: a pass after reset() (no warm-up) launches it as the eager run does.
+            a, b = (r["fused_categorical_stream"] for r in (eager["launches"], run["passes"]["fetching"]["launches"]))
+            check(a == b, f"{label}: kernel A launched {b} times captured after reset(), {a} eager")
+        launches_a += run["launches"]["fused_categorical_stream"]
+        acct = run["passes"]["accounting"]
+        s = acct["stats"]
+        generated = sum(r.n_generated for r in run["results"])
+        rates = dict(events_per_s=generated / acct["wall_s"], wall_s=acct["wall_s"], chunks=s["dispatched_chunks"],
+                     rounds=s["spec_rounds"], acceptance_rate=s["spec_acceptance_rate"],
+                     committed_per_active_slot_round=s["spec_committed_events"] / max(s["active_slot_steps"], 1),
+                     proposed=s["spec_proposed_events"], accepted=s["spec_accepted_events"],
+                     committed=s["spec_committed_events"])  # fmt: skip
+        out[(name, mode, depth)] = dict(run, rates=rates, generated=generated)
+        print(f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and float "
+              f"equal in each pass after reset(){' and captured vs eager' if mode == 'sampled' and (depth == 1 or kv) else ''}; "
+              f"accounting pass {json.dumps(rates)}; {programs_line(run)}; launches over three passes "
+              f"{run['launches']}; warm pass {run['passes']['warm']['wall_s']:.3f} s ({smi})", flush=True)  # fmt: skip
+    return out, launches_a
+
+
+def spec_phase(smi, model, config):
+    """Phase 12: speculative decoding at phase 2's width (module docstring)."""
+    import numpy as np
+
+    import torch
+
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
+    from eventstreamgpt_tpu_torch.serving import SpecConfig, truncated_draft
+
+    t0 = time.perf_counter()
+    prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, serving_config(), (128, 192), (16, 64))
+    base_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+    counters = {f"decode_stack_step.{c}": (decode_stack_step, c) for c in KERNEL_B_ENTRIES}
+    counters.update(fused_categorical_stream=(fused_categorical_stream, "launches"),
+                    fused_categorical=(fused_categorical, "launches"))  # fmt: skip
+    dcfg, draft = truncated_draft(config, model, config.num_hidden_layers // 2)
+
+    def spec(**tol):
+        return SpecConfig(model=draft, config=dcfg, k=SPEC_K, **tol)
+
+    runs, launches_a = spec_runs(smi, model, config, prompts, counters, base_kw, spec)
+    t1 = time.perf_counter()
+    # A perfect draft (the target itself), tolerant greedy: in fp32 (the same
+    # weights) nearly every proposal is accepted; in bf16 the window forward
+    # and the one-event forward round differently (printed, not checked).
+    config32 = copy.deepcopy(config)
+    config32.precision = "fp32"
+    model32 = type(model)(config32)
+    model32.load_state_dict(model.state_dict())
+    perfect = {}
+    for name, (m, c) in (("fp32", (model32, config32)), ("bf16", (model, config))):
+        run = engine_run(m, c, prompts, counters, passes=("warm",), greedy=True,
+                         **dict(base_kw, spec=SpecConfig(model=m, config=c, k=SPEC_K)))  # fmt: skip
+        check_results(run["results"], run["requests"], f"phase 12 [perfect draft, {name}]")
+        st = run["stats"]
+        perfect[name] = dict(acceptance_rate=st["spec_acceptance_rate"],
+                             committed_per_active_slot_round=st["spec_committed_events"] / max(st["active_slot_steps"], 1))
+    rate = perfect["fp32"]["acceptance_rate"]
+    check(config32.compute_dtype == torch.float32 and rate > 0.9, f"phase 12 [perfect draft, fp32]: acceptance {rate}")
+    # Measured, not checked: the strict greedy spec engine's events against the non-spec greedy engine's.
+    greedy = engine_run(model, config, prompts, counters, passes=("warm",), greedy=True, decode_step_impl="xla",
+                        **base_kw)  # fmt: skip
+    strict = runs[("bf16", "greedy", 2)]["results"]
+    equal = sum(same_generated_events(a, b) == a.n_generated == b.n_generated for a, b in zip(strict, greedy["results"]))
+    # Events/s beside the monolithic unfused and kernel-B engines, sampled, depth 1, accounting pass.
+    rates = {"spec": runs[("bf16", "sampled", 1)]["rates"]}
+    for name, extra in (("monolithic unfused", dict(decode_step_impl="xla")), ("monolithic kernel B", {})):
+        r = engine_run(model, config, prompts, counters, greedy=False, dispatch_depth=1, **base_kw, **extra)
+        a = r["passes"]["accounting"]
+        rates[name] = dict(events_per_s=sum(x.n_generated for x in r["results"]) / a["wall_s"], wall_s=a["wall_s"],
+                           chunks=a["stats"]["dispatched_chunks"])  # fmt: skip
+    report = runs[("bf16", "sampled", 1)]["engine"].slots_report()
+    print(f"phase 12: perfect draft (the target, tolerant greedy; bf16 measured, not checked): {json.dumps(perfect)}; "
+          f"measured, not checked: {equal} of {len(strict)} strict greedy spec requests equal the "
+          f"non-spec unfused greedy engine's in every generated event; events/s, sampled, depth 1, accounting pass, "
+          f"same requests: {json.dumps(rates)}; slots_report() with the draft at the card's memory: "
+          f"{json.dumps({k: report[k] for k in ('spec', 'params_bytes', 'draft_params_bytes', 'draft_kv_bytes_per_slot', 'row_bytes_per_slot', 'per_dtype')})} "
+          f"({smi})", flush=True)  # fmt: skip
+    small_engine_matches_cpu(spec_k=SPEC_K, phase="phase 12")
+    t2 = time.perf_counter()
+    profiles = decode_profiles(smi, model, config, prompts, base_kw, spec())
     t3 = time.perf_counter()
-    print(f"phase 11: passed in {t3 - t0:.1f} s (paged runs {t1 - t0:.1f}, fork {t2 - t1:.1f}, profiles "
-          f"{t3 - t2:.1f})", flush=True)  # fmt: skip
-    return dict(launches_a=launches_a, rates=rates, profiles=profiles, batch1=batch1)
+    print(f"phase 12: passed in {t3 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft, baselines and small engine "
+          f"{t2 - t1:.1f}, profiles {t3 - t2:.1f})", flush=True)  # fmt: skip
+    return dict(launches_a=launches_a, rates=rates, profiles=profiles, greedy_equal=equal, perfect=perfect)
 
 
 def main() -> int:
@@ -2226,6 +2397,7 @@ def main() -> int:
     ef = kernel_ef_phase(flash_args)
     chunked = chunked_training_phase(smi)
     paged = paged_phase(smi, model, config)
+    spec = spec_phase(smi, model, config)
 
     def chunk_launches(name):
         return sum(run["launches"][name] for run in chunked.values())
@@ -2233,7 +2405,8 @@ def main() -> int:
     kernels = [
         dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
-             launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"], **a),
+             launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
+             + spec["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]

@@ -224,7 +224,7 @@ def check_generation_config(config: StructuredTransformerConfig) -> None:
             )
 
 
-def _masked_row_write(buf: torch.Tensor, rows, cols, values, active) -> None:
+def _masked_row_write(buf: torch.Tensor, rows, cols, values, active, drop_oob: bool = False) -> None:
     """``buf[rows, cols] = values`` for active rows; inactive rows keep theirs.
 
     ``values`` is a tensor or a python scalar (selected into the rows
@@ -232,7 +232,12 @@ def _masked_row_write(buf: torch.Tensor, rows, cols, values, active) -> None:
     device constant otherwise: a CUDA graph may copy no host value).
     Columns are clamped into the buffer: an inactive row's cursor may sit at
     its end, and the clamped write puts back the value already there.
+    ``drop_oob``: a row whose column lies past the buffer writes nothing
+    either (JAX's scatter drops it; the speculative draft writes there).
     """
+    if drop_oob:
+        in_range = cols < buf.shape[1]
+        active = in_range if active is None else active & in_range
     cols = cols.long().clamp(max=buf.shape[1] - 1)
     if torch.is_tensor(values):
         values = values.to(buf.dtype)
@@ -245,22 +250,23 @@ def _masked_row_write(buf: torch.Tensor, rows, cols, values, active) -> None:
     buf[rows, cols] = values
 
 
-def append_new_event(batch: EventStreamBatch, sample, cursor: torch.Tensor, active=None) -> None:
+def append_new_event(batch: EventStreamBatch, sample, cursor: torch.Tensor, active=None, drop_oob: bool = False) -> None:
     """Writes the sampled TTE as ``time_delta[cursor - 1]`` and opens event
-    ``cursor`` (filler delta 1, the sampled event mask, no content yet), in place."""
+    ``cursor`` (filler delta 1, the sampled event mask, no content yet), in
+    place; ``drop_oob`` as in `_masked_row_write`."""
     B = batch.event_mask.shape[0]
     rows = torch.arange(B, device=cursor.device)
     cursor = cursor.long()
     prev = cursor - 1
     td_prev = batch.time_delta[rows, prev.clamp(max=batch.time_delta.shape[1] - 1)]
     _masked_row_write(
-        batch.time_delta, rows, prev, torch.where(sample.event_mask, sample.time_to_event, td_prev), active
+        batch.time_delta, rows, prev, torch.where(sample.event_mask, sample.time_to_event, td_prev), active, drop_oob
     )
-    _masked_row_write(batch.time_delta, rows, cursor, 1.0, active)
-    _masked_row_write(batch.event_mask, rows, cursor, sample.event_mask, active)
+    _masked_row_write(batch.time_delta, rows, cursor, 1.0, active, drop_oob)
+    _masked_row_write(batch.event_mask, rows, cursor, sample.event_mask, active, drop_oob)
     for name in ("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask"):
         buf = getattr(batch, name)
-        _masked_row_write(buf, rows, cursor, False if buf.dtype == torch.bool else 0, active)
+        _masked_row_write(buf, rows, cursor, False if buf.dtype == torch.bool else 0, active, drop_oob)
 
 
 def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: set, dtype: torch.dtype):
@@ -327,10 +333,12 @@ def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: s
 
 
 def update_last_event_data(
-    batch: EventStreamBatch, sample, config: StructuredTransformerConfig, cursor, to_fill: set, active=None
+    batch: EventStreamBatch, sample, config: StructuredTransformerConfig, cursor, to_fill: set, active=None,
+    drop_oob: bool = False,
 ) -> None:
     """Merges sampled content into event ``cursor - 1``, in place: existing
-    elements kept, new ones appended, all compacted to the data-element width."""
+    elements kept, new ones appended, all compacted to the data-element width
+    (``drop_oob`` as in `_masked_row_write`)."""
     B, _, M = batch.dynamic_indices.shape
     rows = torch.arange(B, device=cursor.device)
     col = (cursor.long() - 1).clamp(max=batch.dynamic_indices.shape[1] - 1)
@@ -351,4 +359,4 @@ def update_last_event_data(
     )
     for name, v in zip(("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask"),
                        (di, dmi, dv, dvm)):  # fmt: skip
-        _masked_row_write(getattr(batch, name), rows, col, v, active)
+        _masked_row_write(getattr(batch, name), rows, cursor.long() - 1 if drop_oob else col, v, active, drop_oob)

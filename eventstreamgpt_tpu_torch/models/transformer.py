@@ -112,19 +112,27 @@ class KVCache:
         return self.key_scale is not None
 
     def write_at(self, start, chunks, scales, mask) -> "KVCache":
-        """The cache with each row's one new key and value (``chunks``, ``(B,
-        H, 1, D)`` in the storage type, with their scales when quantized)
-        selected in at position ``start[b]`` of row ``b``, the mask ``mask``
-        and every row's length one past ``start``; new planes."""
-        write = torch.arange(self.max_len, device=start.device)[None, :] == start[:, None]  # (B, max_len)
+        """The cache with each row's ``S`` new keys and values (``chunks``,
+        ``(B, H, S, D)`` in the storage type, with their ``(B, H, S)`` scales
+        when quantized) selected in at positions ``start[b] .. start[b] + S -
+        1`` of row ``b`` (positions past ``max_len`` are not written), the
+        mask ``mask`` and every row's length ``start + S``; new planes.
+        ``S == 1`` is a one-hot select; a wider chunk (the speculative verify
+        window) is gathered to the buffer's positions first, buffer position
+        ``p`` taking chunk element ``clip(p - start[b], 0, S - 1)``: a
+        selection, so the values land bit for bit as ``S`` one-event writes."""
+        S = chunks[0].shape[2]
+        write, src = _write_range(start, S, torch.arange(self.max_len, device=start.device))
         new_key, new_value = (
-            _where_rows(write[:, None, :, None], new, old) for new, old in zip(chunks, (self.key, self.value))
+            _where_rows(write[:, None, :, None], _gather_positions(new, src), old)
+            for new, old in zip(chunks, (self.key, self.value))
         )
         if scales is not None:  # quantize on write: the scales ride the same select
             scales = tuple(
-                torch.where(write[:, None, :], new, old) for new, old in zip(scales, (self.key_scale, self.value_scale))
+                torch.where(write[:, None, :], _gather_positions(new, src), old)
+                for new, old in zip(scales, (self.key_scale, self.value_scale))
             )
-        return KVCache(new_key, new_value, mask, start + 1, *(scales or (None, None)))
+        return KVCache(new_key, new_value, mask, start + S, *(scales or (None, None)))
 
     def read(self, dtype: torch.dtype) -> tuple:
         """The keys and values attention reads: the planes, dequantized to
@@ -304,6 +312,31 @@ def _where_rows(cond, new, old):
     return torch.where(cond, storage(new), storage(old)).view(old.dtype)
 
 
+def _write_range(start: torch.Tensor, S: int, pos: torch.Tensor) -> tuple:
+    """The per-row write of ``S`` positions from ``start`` into a buffer of
+    positions ``pos`` (``arange(max_len)``): the ``(B, max_len)`` mask of the
+    positions written and, for ``S > 1``, each buffer position's chunk element
+    ``clip(p - start, 0, S - 1)`` (``None`` for one position, which broadcasts)."""
+    if S == 1:
+        return pos[None, :] == start[:, None], None
+    offset = pos[None, :] - start[:, None]
+    return (offset >= 0) & (offset < S), offset.clamp(0, S - 1)
+
+
+def _gather_positions(chunk: torch.Tensor, src) -> torch.Tensor:
+    """A ``(B, H, S, ...)`` chunk (or ``(B, S)`` mask) laid out on the
+    buffer's positions by `_write_range`'s ``src`` (as it is when ``src`` is
+    ``None``); any storage type, gathered as bytes."""
+    if src is None:
+        return chunk
+    if chunk.ndim == 2:  # a mask (B, S)
+        return chunk.gather(1, src)
+    idx = src[:, None, :].expand(chunk.shape[0], chunk.shape[1], src.shape[1])
+    if chunk.ndim == 4:
+        idx = idx[..., None].expand(*idx.shape, chunk.shape[3])
+    return storage(chunk).gather(2, idx).view(chunk.dtype)
+
+
 def time_from_deltas(batch: EventStreamBatch) -> torch.Tensor:
     """Cumulative time-since-start from per-event deltas.
 
@@ -461,23 +494,25 @@ class InnerSelfAttention(nn.Module):
         present = None
         if layer_past is not None and torch.is_tensor(layer_past.length):
             # Per-row cursors (the serving engine's decode slots): row b writes
-            # its one new key/value at position length[b], into new planes or,
-            # paged, in place into the block its table maps there (a paged past
-            # is mutated: its pool is the engine's); the position and mask
-            # math after the write is the same for both.
-            if S != 1:
+            # its S new keys/values from position length[b] (one event a
+            # decode step; the K + 1 events of the speculative verify window),
+            # into new planes or, paged, in place into the block its table
+            # maps there (a paged past is mutated: its pool is the engine's;
+            # one event a step only, as in JAX); the position and mask math
+            # after the write is the same for both.
+            if S != 1 and isinstance(layer_past, PagedKVCache):
                 raise ValueError(
-                    "per-row-cursor caches take one event per step in the port (the multi-event "
-                    "verify window belongs to speculative decoding, not ported yet)"
+                    "paged caches take one event per step: the multi-event verify window of speculative "
+                    "decoding runs on monolithic per-row caches only (JAX refuses paged x spec)"
                 )
             max_len = layer_past.max_len
             start = layer_past.length
             pos = torch.arange(max_len, device=hidden_states.device)
-            write = pos[None, :] == start[:, None]  # (B, max_len)
+            write, src = _write_range(start, S, pos)
             chunks, scales = self._cache_chunks(layer_past, key, value)
-            new_mask = torch.where(write, chunk_mask, layer_past.mask)
-            q_positions = start[:, None]  # (B, 1)
-            valid_k = pos[None, :] < (start[:, None] + 1)
+            new_mask = torch.where(write, _gather_positions(chunk_mask, src), layer_past.mask)
+            q_positions = start[:, None] if S == 1 else start[:, None] + torch.arange(S, device=start.device)
+            valid_k = pos[None, :] < (start[:, None] + S)
             present = layer_past.write_at(start, chunks, scales, new_mask)
             key, value = present.read(self.dtype)
             attention_mask = new_mask

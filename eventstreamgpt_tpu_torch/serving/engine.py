@@ -90,9 +90,26 @@ with `serving.errors.SlotHealthError`, or, with ``health_retries`` budget
 left, goes back to the front of the queue with its seed fixed, so the retry
 reproduces a clean run bit for bit).
 
-Not ported yet, each a ``ValueError`` at construction: speculative
-decoding, meshes and tensor parallelism, hot swap, the dedicated prefill
-stream, nested-attention models, and functional-time-dependent
+Speculative decoding (``spec=SpecConfig(...)``, `serving.spec`, JAX's spec
+mode for CI models): a draft model (`serving.spec.truncated_draft` cuts one
+from the target) holds its own per-slot cache beside the target's. Each
+round runs ``spec.k`` draft steps (the draft's cached one-event forward, its
+proposals written into the slot rows beyond the cursor), then ONE target
+forward over the ``k + 1``-event window from the last committed event (the
+per-row-cursor cache's range write) scores every proposal, the accept walk
+(`serving.spec.spec_accept_level`) commits the accepted prefix plus one
+correction or bonus event, and both caches' lengths roll back to the new
+cursor, without copies. A spec chunk is ``decode_chunk`` rounds in one
+program; its boundary ``(7, n_slots)`` adds each slot's proposed and
+accepted counts. Each event ``j`` draws from the addressed stream
+``RowStreams(seed, j)``; kernel A samples every categorical head of the
+draft, the target, the bonus event and the residuals. As in JAX the spec
+engine runs both forwards unfused (kernel B never launches) and refuses the
+paged cache, the megakernel and custom device criteria.
+
+Not ported yet, each a ``ValueError`` at construction: meshes and tensor
+parallelism, hot swap, the dedicated prefill stream, nested-attention
+models (their speculative decoding too), and functional-time-dependent
 measurements.
 """
 
@@ -122,7 +139,7 @@ from ..generation.sampling import (
 )
 from ..generation.stopping_criteria import DeadRowCriteria, DeviceCriterion
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
-from ..models.transformer import KVCache, PagedKVCache, init_kv_caches, paged_kv_bytes_per_block
+from ..models.transformer import KVCache, PagedKVCache, init_kv_caches, paged_kv_bytes_per_block, time_from_deltas
 from ..ops.decode_step import decode_stack_step, stack_layer_weights
 from ..ops.fused_sampling import fused_categorical_stream, topk_topp_mask
 from ..ops.kv_quant import (
@@ -137,6 +154,7 @@ from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
 from ..utils.graphs import ByteLayout, CapturedProgram, ProgramFamily
 from .errors import BlockLedgerError, MalformedPromptRejected, SlotHealthError
+from .spec import SpecConfig, event_streams, select_candidate, spec_accept_level
 from .scheduler import (
     AdmissionRejected,
     EngineResult,
@@ -162,6 +180,9 @@ _CORE_FIELDS = (
 # The per-slot state a decode step rebinds: the chunk threads it through its
 # steps and copies the result back into the engine's buffers of these names.
 _CHUNK_STATE = ("cursor", "n_generated", "counters", "done", "health", "active_steps", "cache_mask", "cache_len")
+# A spec chunk's (its rounds address their streams by event index: no counters).
+_SPEC_STATE = ("cursor", "n_generated", "done", "health", "active_steps", "cache_mask", "cache_len",
+               "draft_cache_mask", "draft_cache_len", "spec_proposed", "spec_accepted", "spec_rounds")  # fmt: skip
 # The engine's program kinds besides the decode chunk, each a family keyed by shape.
 _PROGRAM_KINDS = ("prefill", "extract")
 # The memory budget `stats` reports slots against off the card (the JAX engine's default).
@@ -178,7 +199,6 @@ _SEQ_FIELDS = (
 _NOT_PORTED = {
     "mesh": None,
     "hot_swap": False,
-    "spec": None,
     "prefill_stream": None,
     "base_key": None,  # the port's engine takes an integer ``seed``
 }
@@ -196,11 +216,28 @@ _IMPL_KNOBS = {
         "step ('xla'); interpret mode is not part of the PyTorch port",
     ),
 }
-# JAX's refusal of the megakernel on a paged engine (its words, without its tracking note).
+# JAX's refusals (its words, without its tracking notes): the megakernel on a
+# paged engine, and speculative decoding with custom criteria, a paged cache
+# or the megakernel.
 _PAGED_MEGAKERNEL = (
     "the decode megakernel reads the monolithic (B, H, M, D) cache planes; the paged pool's block-table "
     "indirection is not fused yet. Nearest supported configurations: monolithic caches "
     "(kv_cache_dtype='int8' composes), or paged_kv with decode_step_impl='xla'"
+)
+_SPEC_CRITERIA = (
+    "speculative decoding supports the built-in per-row stops (budget, dead rows, max length via budget) only; "
+    "custom device_criteria cannot be re-evaluated per committed prefix inside the verify program"
+)
+_PAGED_SPEC = (
+    "paged KV cache does not compose with speculative decoding yet: the verify window re-reads freshly written "
+    "positions through the draft/target cache pair, which still admits monolithically. Nearest supported "
+    "configurations: spec with monolithic caches (kv_cache_dtype='int8' composes), or paged_kv without spec "
+    "(fork() branched rollouts)"
+)
+_SPEC_MEGAKERNEL = (
+    "speculative decoding replaces the decode step with the draft-chunk/verify program pair, which the megakernel "
+    "does not fuse yet. Nearest supported configurations: spec with decode_step_impl='xla' (the fused sampling "
+    "tail still applies), or the megakernel without spec"
 )
 
 
@@ -340,6 +377,12 @@ class GenerationEngine:
             + 1`` blocks, holds every slot's full table and the zero
             block), which `fork` needs. ``num_blocks`` without
             ``paged_kv`` raises, as in JAX.
+        spec: a `serving.spec.SpecConfig`: speculative decoding with its
+            draft model (JAX's spec mode; CI models, monolithic caches).
+            ``decode_step_impl`` None, "auto" or "xla" then name the spec
+            round (the draft's and the target's cached forwards); "pallas"
+            raises, as do ``device_criteria`` and ``paged_kv``, with JAX's
+            messages.
         sampling_impl, decode_step_impl: the JAX engine's implementation
             knobs, taken where the port computes what they ask for:
             ``sampling_impl`` None, "auto" or "pallas" (the categorical
@@ -352,7 +395,7 @@ class GenerationEngine:
             explicit device such as ``"cpu"``.
         cuda_graph: on a CUDA device, capture each program once and replay
             it for every call (the default, the counterpart of the JAX
-            engine's jitted programs): the decode chunk at construction, each
+            engine's jitted programs): the decode (or spec) chunk at construction, each
             prefill (bucket, group width) and extraction width at its first
             use. ``False`` runs them eagerly, one host launch per operation
             (the counterpart of ``jax.disable_jit()``, for comparisons). The
@@ -385,6 +428,7 @@ class GenerationEngine:
         paged_kv: bool = False,
         block_size: int = 16,
         num_blocks: int | None = None,
+        spec: SpecConfig | None = None,
         sampling_impl: str | None = None,
         decode_step_impl: str | None = None,
         device=None,
@@ -404,17 +448,33 @@ class GenerationEngine:
         if self.dispatch_depth < 1:
             raise ValueError("dispatch_depth must be >= 1")
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
-            raise ValueError("nested-attention serving (the NA engine) is not part of the PyTorch port yet")
+            raise ValueError(
+                "nested-attention serving (the NA engine, its speculative decoding too) is not part of the PyTorch "
+                "port yet (ROADMAP Queue 1 item 4: the NA caches and cached walk)"
+            )
         check_generation_config(config)
+        self.spec = spec
+        if spec is not None:
+            spec.validate_against(config)
+            if tuple(device_criteria):
+                raise ValueError(_SPEC_CRITERIA)
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self._init_paging(paged_kv, block_size, num_blocks)
+        if spec is not None and self.paged_kv:
+            raise ValueError(_PAGED_SPEC)
+        if spec is not None and decode_step_impl == "pallas":
+            raise ValueError(_SPEC_MEGAKERNEL)
         # The decode step: kernel B, or the unfused model step (JAX's
-        # "auto" on a paged engine, where kernel B does not read the pool).
+        # "auto" on a paged engine, where kernel B does not read the pool);
+        # a spec engine runs its round of draft and target forwards instead.
         if self.paged_kv and decode_step_impl == "pallas":
             raise ValueError(_PAGED_MEGAKERNEL)
-        self._unfused = decode_step_impl == "xla" or self.paged_kv
+        self._unfused = decode_step_impl == "xla" or self.paged_kv or spec is not None
         self.decode_step_impl = "unfused" if self._unfused else "decode_stack_step"
+        self._chunk, chunk_name = self._decode_chunk, "the decode chunk"
+        if spec is not None:
+            self.decode_step_impl, self._chunk, chunk_name = "spec_draft_verify", self._spec_chunk, "the spec chunk"
         self.device = resolve_device(device, "GenerationEngine")
         self.config = config
         self.cdt = config.compute_dtype
@@ -443,7 +503,12 @@ class GenerationEngine:
         self._to_fill = measurements_to_fill(config)
 
         # Weights in the compute dtype, once: the model keeps fp32 for callers.
-        self._model = copy.deepcopy(model).to(self.device).eval().cast_to_compute_dtype()
+        # A draft is copied with the target in one go, so modules a truncated
+        # draft shares with it stay shared.
+        self._model, self._draft = copy.deepcopy((model, None if spec is None else spec.model))
+        self._model = self._model.to(self.device).eval().cast_to_compute_dtype()
+        if spec is not None:
+            self._draft = self._draft.to(self.device).eval().cast_to_compute_dtype()
         # Kernel B's layer weights, stacked (the unfused step reads the model's own).
         self._stacked = {} if self._unfused else stack_layer_weights(self._model.encoder.blocks(), self.cdt)
         self._windows = tuple(
@@ -461,14 +526,7 @@ class GenerationEngine:
             pool = torch.cuda.graph_pool_handle()
             self._families = {kind: ProgramFamily(f"the {kind} program", device=self.device, pool=pool)
                               for kind in _PROGRAM_KINDS}  # fmt: skip
-            # The chunk's program: captured now, while every slot is inactive,
-            # so the warm-up writes nothing a request can see (every write of a
-            # step is masked by ``active``, and admission replaces a slot's
-            # cache rows whole).
-            self._program = CapturedProgram(self._decode_chunk, "the decode chunk", device=self.device, pool=pool)
-            with torch.inference_mode():
-                self._program.warmup()
-                self._program.capture()
+            self._capture_chunk(CapturedProgram(self._chunk, chunk_name, device=self.device, pool=pool))
         # Host slot table (slot -> Request) and each slot's admission epoch:
         # the dispatched-chunk count when its request was admitted. A boundary
         # issued at chunk c reflects that admission iff epoch < c.
@@ -480,6 +538,18 @@ class GenerationEngine:
         self._health_quarantined = 0
         self._health_failed = 0
         self._health_retried = 0
+
+    def _capture_chunk(self, program: CapturedProgram) -> None:
+        """The chunk's program (decode or spec) warmed up and captured now,
+        while every slot is inactive, so the warm-up writes nothing a request
+        can see (every write of a step or round is masked by ``active``, and
+        admission replaces a slot's rows whole); the initial state is then
+        written back, so the warm-up's rounds are not counted."""
+        self._program = program
+        with torch.inference_mode():
+            program.warmup()
+            program.capture()
+        self._write_initial_state()
 
     def _init_paging(self, paged_kv: bool, block_size: int, num_blocks: int | None) -> None:
         """The paged cache's options, checked as the JAX engine checks them,
@@ -573,24 +643,56 @@ class GenerationEngine:
         self.seeds = torch.empty(S, dtype=torch.int32, device=dev)
         self.counters = torch.empty(S, dtype=torch.int32, device=dev)
         self.active_steps = torch.empty((), dtype=torch.int32, device=dev)
-        self._boundary = torch.empty((5, S), dtype=torch.int32, device=dev)
+        if self.spec is not None:
+            self._init_spec_state()
+        self._boundary = torch.empty((5 if self.spec is None else 7, S), dtype=torch.int32, device=dev)
         self._write_initial_state()
+
+    def _init_spec_state(self) -> None:
+        """The draft's per-slot cache (JAX's ``_init_spec_state``): planes at
+        the target's ``max_len`` and cache dtype, at the draft's own depth,
+        heads and head width, with their mask and lengths; each slot's
+        proposed and accepted counts and the rounds run."""
+        S, L, dev, dcfg = self.n_slots, self.max_len, self.device, self.spec.config
+        # Quantized as the target's; a float cache in the draft's compute dtype.
+        kv = cache_dtype_name(self._kv_buf_dtype) if self._kv_quantized else None
+        dtype, quantized = resolve_cache_dtype(kv, dcfg.compute_dtype)
+        shape = (dcfg.num_hidden_layers, S, dcfg.num_attention_heads, L, dcfg.head_dim)
+        self.draft_key_cache = torch.empty(shape, dtype=dtype, device=dev)
+        self.draft_value_cache = torch.empty(shape, dtype=dtype, device=dev)
+        self.draft_key_scale = self.draft_value_scale = None
+        if quantized:
+            self.draft_key_scale = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+            self.draft_value_scale = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+        self.draft_cache_mask = torch.empty(S, L, dtype=torch.bool, device=dev)
+        self.draft_cache_len, self.spec_proposed, self.spec_accepted = (
+            torch.empty(S, dtype=torch.int32, device=dev) for _ in range(3)
+        )
+        self.spec_rounds = torch.empty((), dtype=torch.int32, device=dev)
 
     def _write_initial_state(self) -> None:
         """Every state buffer to its initial value, in place (each keeps its
-        address): empty rows, zero caches with unit scales (zero codes
-        dequantize to zeros; a pool's zero block among them), block tables
-        on the zero block, every slot done and not live."""
+        address): empty rows, zero caches (the draft's too) with unit scales
+        (zero codes dequantize to zeros; a pool's zero block among them),
+        block tables on the zero block, zero spec counts, every slot done and
+        not live."""
         for x in vars(self.big).values():
             if torch.is_tensor(x):
                 x.zero_()
-        for x in (self.key_cache, self.value_cache):
-            storage(x).zero_()
-        for x in (self.key_scale, self.value_scale):
-            if x is not None:
-                x.fill_(1.0)
-        for x in (self.cache_mask, self.cache_len, self.budget, self.n_generated, self.live, self.health,
-                  self.seeds, self.counters, self.active_steps, self._boundary, self.block_table):  # fmt: skip
+        zeros = [self.cache_mask, self.cache_len, self.budget, self.n_generated, self.live, self.health, self.seeds,
+                 self.counters, self.active_steps, self._boundary, self.block_table]  # fmt: skip
+        planes = [self._planes()]
+        if self.spec is not None:
+            planes.append(self._planes(draft=True))
+            zeros += [self.draft_cache_mask, self.draft_cache_len, self.spec_proposed, self.spec_accepted,
+                      self.spec_rounds]  # fmt: skip
+        for keys, values, key_scale, value_scale in planes:
+            storage(keys).zero_()
+            storage(values).zero_()
+            for x in (key_scale, value_scale):
+                if x is not None:
+                    x.fill_(1.0)
+        for x in zeros:
             if x is not None:
                 x.zero_()
         self.cursor.fill_(1)
@@ -624,59 +726,70 @@ class GenerationEngine:
             done = done | crit.row_done(**kw)
         return done
 
-    def _rows_nonfinite(self, preds_last, sample) -> torch.Tensor:
-        """Per-slot any-non-finite over the float tensors of the step (the
-        health sentinel's detector; row-local, no cross-slot op)."""
+    def _rows_nonfinite(self, preds_last, sample=None) -> torch.Tensor:
+        """Per-slot any-non-finite over the float tensors of the step's
+        predictions (a spec round: of its whole verify window) and sample
+        (the health sentinel's detector; row-local, no cross-slot op)."""
         leaves = []
         for group in (preds_last.classification, preds_last.regression):
             for pair in (group or {}).values():
                 leaves += [t for d in pair if d is not None for t in dist_tensors(d)]
         if preds_last.time_to_event is not None:
             leaves += dist_tensors(preds_last.time_to_event)
-        leaves += [sample.time_to_event] + list((sample.classification or {}).values())
-        leaves += list((sample.regression or {}).values())
+        if sample is not None:
+            leaves += [sample.time_to_event] + list((sample.classification or {}).values())
+            leaves += list((sample.regression or {}).values())
         bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
         for x in leaves:
             if x is not None and x.is_floating_point() and x.ndim >= 1 and x.shape[0] == self.n_slots:
                 bad = bad | ~torch.isfinite(x.reshape(self.n_slots, -1)).all(dim=1)
         return bad
 
-    def _layer_caches(self, cache_mask: torch.Tensor, cache_len: torch.Tensor) -> tuple:
-        """The engine's cache as the model's per-layer past: one `KVCache`
-        (views of the slot planes) or, paged, one `PagedKVCache` (views of
-        the pool, the block tables) a layer, with per-row ``cache_len``."""
-        scales = [(None, None)] * self.config.num_hidden_layers
-        if self.key_scale is not None:
-            scales = list(zip(self.key_scale, self.value_scale))
+    def _planes(self, draft: bool = False) -> tuple:
+        """The target's (or the draft's) cache planes and scale tables."""
+        if draft:
+            return self.draft_key_cache, self.draft_value_cache, self.draft_key_scale, self.draft_value_scale
+        return self.key_cache, self.value_cache, self.key_scale, self.value_scale
+
+    def _layer_caches(self, cache_mask: torch.Tensor, cache_len: torch.Tensor, draft: bool = False) -> tuple:
+        """The engine's cache (or the draft's) as the model's per-layer past:
+        one `KVCache` (views of the slot planes) or, paged, one `PagedKVCache`
+        (views of the pool, the block tables) a layer, with per-row ``cache_len``."""
+        keys, values, key_scale, value_scale = self._planes(draft)
+        scales = [(None, None)] * keys.shape[0]
+        if key_scale is not None:
+            scales = list(zip(key_scale, value_scale))
         if self.paged_kv:
             return tuple(PagedKVCache(k, v, self.block_table, cache_mask, cache_len, *sc)
-                         for k, v, sc in zip(self.key_cache, self.value_cache, scales))  # fmt: skip
-        return tuple(KVCache(k, v, cache_mask, cache_len, *sc)
-                     for k, v, sc in zip(self.key_cache, self.value_cache, scales))  # fmt: skip
+                         for k, v, sc in zip(keys, values, scales))  # fmt: skip
+        return tuple(KVCache(k, v, cache_mask, cache_len, *sc) for k, v, sc in zip(keys, values, scales))
 
-    def _unfused_forward(self, view: EventStreamBatch, st: dict, active: torch.Tensor) -> tuple:
+    def _unfused_forward(self, view: EventStreamBatch, cache_mask, cache_len, active, draft: bool = False) -> tuple:
         """The JAX engine's unfused decode step (``_decode_step_ci`` with
         ``self.model.apply(params, view, past=caches, use_cache=True)`` and
-        ``_merge_caches``): the model's cached one-event forward. A
+        ``_merge_caches``): the model's (or the draft's) cached forward of the
+        view's events, one a step or a spec round's verify window. A
         monolithic cache takes each layer's new planes where a slot is
         active; a pool was written in place by the forward, every row at its
         own block (a finished row writes into blocks it still holds, which
         no live row reads). Returns the output and the merged mask and
         lengths."""
-        out = self._model(view, past=self._layer_caches(st["cache_mask"], st["cache_len"]), use_cache=True)
+        model = self._draft if draft else self._model
+        out = model(view, past=self._layer_caches(cache_mask, cache_len, draft), use_cache=True)
         new = out.past_key_values
         if not self.paged_kv:
+            keys, values, key_scale, value_scale = self._planes(draft)
             for i, c in enumerate(new):
-                pairs = [(self.key_cache[i], c.key), (self.value_cache[i], c.value)]
-                if self.key_scale is not None:
-                    pairs += [(self.key_scale[i], c.key_scale), (self.value_scale[i], c.value_scale)]
+                pairs = [(keys[i], c.key), (values[i], c.value)]
+                if key_scale is not None:
+                    pairs += [(key_scale[i], c.key_scale), (value_scale[i], c.value_scale)]
                 for dst, src in pairs:
                     dst = storage(dst)
                     dst.copy_(torch.where(active.view(-1, *[1] * (dst.ndim - 1)), storage(src), dst))
         return (
             out,
-            torch.where(active[:, None], new[0].mask, st["cache_mask"]),
-            torch.where(active, new[0].length, st["cache_len"]),
+            torch.where(active[:, None], new[0].mask, cache_mask),
+            torch.where(active, new[0].length, cache_len),
         )
 
     def _decode_step(self, st: dict, seeds: torch.Tensor) -> dict:
@@ -688,7 +801,7 @@ class GenerationEngine:
         active = self.live & ~st["done"]
         view = _trim_to_event(self.big, st["cursor"] - 1)
         if self._unfused:
-            out, cache_mask, cache_len = self._unfused_forward(view, st, active)
+            out, cache_mask, cache_len = self._unfused_forward(view, st["cache_mask"], st["cache_len"], active)
         else:
             h0 = m.encoder.input_layer(view)[:, 0]
             h, _, _, _, _, cache_mask, cache_len = decode_stack_step(
@@ -743,6 +856,172 @@ class GenerationEngine:
             [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)],
             out=self._boundary,
         )
+
+    # ------------------------------------------------- speculative decoding
+    def _take(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """``take_event`` with each row's index clamped into the buffer (JAX's
+        gathers clamp; a spec round reads up to ``k`` events past a cursor)."""
+        return take_event(x, idx.clamp(max=x.shape[1] - 1))
+
+    def _window_view(self, start: torch.Tensor, W: int) -> EventStreamBatch:
+        """A ``W``-event view of the slot rows from each row's position
+        ``start`` (JAX's ``_window_view``), with absolute time from the whole
+        row, so each window position is bit for bit the one-event view
+        `_trim_to_event` builds there; positions past the buffer read its
+        last event, as JAX's clamped gathers do."""
+        big = self.big
+        idx = (start.long()[:, None] + torch.arange(W, device=start.device)).clamp(max=self.max_len - 1)
+
+        def take(x):
+            if x.ndim == 2:
+                return x.gather(1, idx)
+            return x.gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+        fields = ("event_mask", "time_delta", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values",
+                  "dynamic_values_mask")  # fmt: skip
+        return big.replace(time=take(time_from_deltas(big)), **{f: take(getattr(big, f)) for f in fields})
+
+    def _draw_rows(self, preds, streams) -> dict:
+        """Per-row raw named-head draws (`sample_head_draws`) from an event's
+        streams: the spec round's sampling, kernel A drawing every categorical
+        head (greedy: the greedy statistics)."""
+        if self.greedy:
+            return sample_head_draws(preds, None, greedy=True)
+        return sample_head_draws(preds, streams, categorical_sampler=self._categorical_sampler(None))
+
+    def _spec_draft(self, st: dict, seeds: torch.Tensor, active: torch.Tensor) -> tuple:
+        """The draft chunk (JAX's ``_spec_draft_chunk_ci``): ``k`` proposals a
+        slot from the draft's cached forwards, each written into the slot row
+        after the last (event ``cursor + t``; past the buffer dropped), the
+        draft cache advancing with them. Returns each proposal's
+        ``(predictions, draws)`` and the draft cache's mask.
+
+        The first step reads the last TWO committed events (a two-event
+        window from ``cursor - 2``), where JAX's reads the last one: after a
+        round that accepted all ``k`` proposals and committed the bonus, the
+        last proposal is committed but no draft step took it as input, so
+        JAX's draft cache keeps a stale entry there for the rest of the
+        request (ROADMAP Queue 3). Re-reading it costs one more event in one
+        forward a round; the committed law does not depend on the draft."""
+        cfg, big = self.config, self.big
+        mask = st["draft_cache_mask"]
+        proposals = []
+        for t in range(self.spec.k):
+            pos = st["cursor"] + t
+            if t == 0:  # an empty slot's cursor is 1: its start clamped to 0
+                length = (pos - 2).clamp(min=0)
+                view = self._window_view(length, 2)
+            else:
+                view = self._window_view(pos - 1, 1)
+            out, mask, length = self._unfused_forward(view, mask, length, active, draft=True)
+            preds = _slice_preds_at(out.preds, 1 if t == 0 else 0)
+            draws = self._draw_rows(preds, event_streams(seeds, pos - self.base_len))
+            sample = assemble_event_sample(preds, draws, self._take(big.event_mask, pos - 1))
+            append_new_event(big, sample, pos, active, drop_oob=True)
+            update_last_event_data(big, sample, cfg, pos + 1, self._to_fill, active, drop_oob=True)
+            proposals.append((preds, draws))
+        return proposals, mask
+
+    def _spec_round_caps(self, c: torch.Tensor, a: torch.Tensor, prop_em: torch.Tensor) -> tuple:
+        """Events a round commits (JAX's ``_spec_round_caps``): the accepted
+        prefix plus the correction or bonus event (``a + 1``), capped by the
+        budget and, with dead-row stops, at the first committed dead event;
+        and whether the last of them is the correction (``m == a + 1``)."""
+        budget_left = self.budget - (c - self.base_len)
+        m = torch.minimum(a + 1, budget_left)
+        if self.stop_dead_rows:
+            f = torch.cumprod(prop_em.to(torch.int32), dim=0).sum(0, dtype=torch.int32)
+            m = torch.minimum(m, torch.where(f < a, f + 1, self.spec.k + 2))
+        m = m.clamp(min=1)
+        return m, m == a + 1
+
+    def _spec_round(self, st: dict, seeds: torch.Tensor) -> dict:
+        """One speculative round for every active slot of state ``st``
+        (`_SPEC_STATE`): the draft chunk, then ONE target forward over the
+        ``k + 1``-event window from the last committed event (JAX's
+        ``_spec_verify_ci``): the accept walk of each proposal, the bonus
+        event off the window's last position, the commit of the accepted
+        prefix plus one event (selected, not recomputed), the cursor and
+        both caches' lengths rolled to the new cursor, the counters and the
+        health sentinel over the whole window. Returns the next state;
+        inactive slots keep theirs."""
+        cfg, big, K = self.config, self.big, self.spec.k
+        active = self.live & ~st["done"]
+        c, base = st["cursor"], self.base_len
+        proposals, dmask = self._spec_draft(st, seeds, active)
+
+        out, cache_mask, cache_len = self._unfused_forward(
+            self._window_view(c - 1, K + 1), st["cache_mask"], st["cache_len"], active
+        )
+        accepts, cands = [], []
+        for t in range(1, K + 1):
+            tgt_preds = _slice_preds_at(out.preds, t - 1)
+            dft_preds, dft_draws = proposals[t - 1]
+            streams = event_streams(seeds, c + t - 1 - base)
+            acc, cand = spec_accept_level(
+                tgt_preds, dft_preds, dft_draws, self._draw_rows(tgt_preds, streams), streams,
+                self._take(big.event_mask, c + t - 2), greedy=self.greedy, rtol=self.spec.value_rtol,
+                atol=self.spec.value_atol, top_k=self.top_k, top_p=self.top_p,
+            )  # fmt: skip
+            accepts.append(acc)
+            cands.append(cand)
+        # The bonus: a target sample off the window's last position, which a
+        # fully accepted round commits for free.
+        bonus = _slice_preds_at(out.preds, K)
+        draws = self._draw_rows(bonus, event_streams(seeds, c + K - base))
+        cands.append(assemble_event_sample(bonus, draws, self._take(big.event_mask, c + K - 1)))
+
+        a = torch.cumprod(torch.stack(accepts).to(torch.int32), dim=0).sum(0, dtype=torch.int32)
+        prop_em = torch.stack([self._take(big.event_mask, c + t - 1) for t in range(1, K + 1)])
+        m, needs_corr = self._spec_round_caps(c, a, prop_em)
+        corr = select_candidate(cands, a)
+        commit = active & needs_corr
+        append_new_event(big, corr, c + m - 1, commit)
+        update_last_event_data(big, corr, cfg, c + m, self._to_fill, commit)
+
+        # JAX's ``_spec_advance``.
+        cursor = c + torch.where(active, m, 0)
+        pos = torch.arange(self.max_len, device=c.device)[None, :]
+        new_real = (big.event_mask & (pos >= c[:, None]) & (pos < cursor[:, None])).sum(1, dtype=torch.int32)
+        n_generated = st["n_generated"] + torch.where(active, new_real, 0)
+        done = st["done"] | (active & self._row_done(big, cursor, base, n_generated, self.budget))
+        # Proposals past a row's budget can never commit: only the committable count.
+        proposable = (self.budget - (c - base)).clamp(0, K)
+        health = st["health"]
+        if self.health_sentinel:
+            hit = active & self._rows_nonfinite(out.preds)
+            done, health = done | hit, health | hit
+        rolled = torch.where(active, cursor - 1, cache_len)
+        return dict(
+            cursor=cursor,
+            n_generated=n_generated,
+            done=done,
+            health=health,
+            active_steps=st["active_steps"] + active.sum(dtype=torch.int32),
+            cache_mask=cache_mask,
+            cache_len=rolled,
+            draft_cache_mask=dmask,
+            draft_cache_len=torch.where(active, cursor - 1, st["draft_cache_len"]),
+            spec_proposed=st["spec_proposed"] + torch.where(active, proposable, 0),
+            spec_accepted=st["spec_accepted"] + torch.where(active, m - needs_corr.to(torch.int32), 0),
+            spec_rounds=st["spec_rounds"] + 1,
+        )
+
+    def _spec_chunk(self) -> None:
+        """The spec chunk: ``decode_chunk`` rounds (JAX dispatches a draft
+        and a verify program a round) from the engine's state buffers, the
+        final state copied back into them and the packed ``(7, n_slots)``
+        boundary (done, cursor, base_len, n_generated, health, proposed,
+        accepted) written into its buffer; on the card one captured program
+        an engine, as `_decode_chunk` is."""
+        st = {k: getattr(self, k) for k in _SPEC_STATE}
+        seeds = self.seeds.long()
+        for _ in range(self.decode_chunk):
+            st = self._spec_round(st, seeds)
+        for k in _SPEC_STATE:
+            getattr(self, k).copy_(st[k])
+        rows = [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)]
+        torch.stack(rows + [self.spec_proposed, self.spec_accepted], out=self._boundary)
 
     # ------------------------------------------------ prefill and extraction
     def _run_program(self, kind: str, key, inputs: dict, outputs: dict, body, fill, inert) -> tuple:
@@ -875,27 +1154,36 @@ class GenerationEngine:
 
     def _prefill_admit(self, bucket_len: int, x: dict) -> None:
         """The prefill program (JAX's ``_prefill_ci``: ``_prefill_forward_ci``
-        then ``_admit``; paged, ``_prefill_paged``) on the staged group
-        ``x``: the model forward of the rows' first ``bucket_len`` events on
-        a fresh float cache, then `_admit`."""
-        cfg, g = self.config, x["plen"].shape[0]
+        then ``_admit``; paged, ``_prefill_paged``; spec, ``_prefill_spec_ci``)
+        on the staged group ``x``: the model forward of the rows' first
+        ``bucket_len`` events on a fresh float cache (a spec engine's draft
+        too, on the same prompt rows), then `_admit`."""
+        g = x["plen"].shape[0]
         pbig = self._staged_rows(x)
         view = pbig.slice((slice(None), slice(0, bucket_len)))
-        out = self._model(view, past=init_kv_caches(cfg, g, self.max_len, self.device), use_cache=True)
-        kv = [torch.stack([getattr(c, w) for c in out.past_key_values]) for w in ("key", "value")]
-        self._admit(x, pbig, _slice_preds_at(out.preds, x["plen"].long() - 1), kv, out.past_key_values[0].mask)
 
-    def _admit(self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor) -> None:
+        def forward(model, cfg):
+            out = model(view, past=init_kv_caches(cfg, g, self.max_len, self.device), use_cache=True)
+            kv = [torch.stack([getattr(c, w) for c in out.past_key_values]) for w in ("key", "value")]
+            return out, kv, out.past_key_values[0].mask
+
+        out, kv, mask = forward(self._model, self.config)
+        draft = None if self.spec is None else forward(self._draft, self.spec.config)[1:]
+        self._admit(x, pbig, _slice_preds_at(out.preds, x["plen"].long() - 1), kv, mask, draft)
+
+    def _admit(self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor, draft=None) -> None:
         """The first event of each staged row sampled (counter 0 of each
-        row's stream) from ``preds_last`` and written after its prompt, and
-        the rows admitted into slots ``x["slot"]``: whole rows, the prefill's
-        keys and values ``kv`` (``(layers, rows, H, max_len, D)`` each, in
-        the compute dtype) and
+        row's stream: a spec engine's event 0) from ``preds_last`` and
+        written after its prompt, and the rows admitted into slots
+        ``x["slot"]``: whole rows, the prefill's keys and values ``kv``
+        (``(layers, rows, H, max_len, D)`` each, in the compute dtype) and
         ``mask`` into the slot planes or, paged, into the blocks of
         ``x["scatter_table"]`` with ``x["read_table"]`` as the slots' block
         tables (quantized for an int8 or fp8 cache), then cursors, budget,
-        seed and counter, flags. Rows not ``x["valid"]`` write back what
-        their slots hold. The staged rows are written in place."""
+        seed and counter, flags; a spec engine's ``draft`` ``(kv, mask)`` into
+        the draft's planes, its counts zeroed (JAX's ``_admit_draft``). Rows
+        not ``x["valid"]`` write back what their slots hold. The staged rows
+        are written in place."""
         cfg = self.config
         plen, budget = x["plen"], x["budget"]
         plen64, seeds = plen.long(), x["seed"].long()
@@ -909,18 +1197,7 @@ class GenerationEngine:
         for f in _CORE_FIELDS:
             if f in x:
                 _admit_rows(getattr(self.big, f), x[f], slots, valid)
-        for plane, scale, rows_kv in zip((self.key_cache, self.value_cache), (self.key_scale, self.value_scale), kv):
-            rows_scale = None
-            if scale is not None:  # quantize on admission: the prefill ran on float caches
-                rows_kv, rows_scale = quantize_kv(rows_kv, plane.dtype)
-            if self.paged_kv:
-                self._scatter_blocks(plane, rows_kv, x["scatter_table"])
-                if scale is not None:
-                    self._scatter_blocks(scale, rows_scale, x["scatter_table"])
-                continue
-            if scale is not None:
-                _admit_rows(scale, rows_scale, slots, valid, dim=1)
-            _admit_rows(storage(plane), storage(rows_kv), slots, valid, dim=1)
+        self._admit_planes(self._planes(), kv, x, slots, valid)
         if self.paged_kv:
             _admit_rows(self.block_table, x["read_table"], slots, valid)
         cursor1 = plen + 1
@@ -938,8 +1215,30 @@ class GenerationEngine:
             (self.counters, 1),
             (self.health, False),
         )
+        if draft is not None:
+            self._admit_planes(self._planes(draft=True), draft[0], x, slots, valid)
+            admitted += ((self.draft_cache_mask, draft[1]), (self.draft_cache_len, plen), (self.spec_proposed, 0),
+                         (self.spec_accepted, 0))  # fmt: skip
         for dst, src in admitted:
             _admit_rows(dst, src, slots, valid)
+
+    def _admit_planes(self, planes: tuple, kv: list, x: dict, slots, valid) -> None:
+        """A group's prefill keys and values into cache ``planes`` (`_planes`):
+        the slot rows or, paged, the blocks of ``x["scatter_table"]``,
+        quantized on admission for an int8 or fp8 cache."""
+        keys, values, key_scale, value_scale = planes
+        for plane, scale, rows_kv in zip((keys, values), (key_scale, value_scale), kv):
+            rows_scale = None
+            if scale is not None:  # quantize on admission: the prefill ran on float caches
+                rows_kv, rows_scale = quantize_kv(rows_kv, plane.dtype)
+            if self.paged_kv:
+                self._scatter_blocks(plane, rows_kv, x["scatter_table"])
+                if scale is not None:
+                    self._scatter_blocks(scale, rows_scale, x["scatter_table"])
+                continue
+            if scale is not None:
+                _admit_rows(scale, rows_scale, slots, valid, dim=1)
+            _admit_rows(storage(plane), storage(rows_kv), slots, valid, dim=1)
 
     def _scatter_blocks(self, pool: torch.Tensor, rows: torch.Tensor, table: torch.Tensor) -> None:
         """JAX's ``_scatter_kv_paged`` on one pool: block ``j`` of staged row
@@ -1057,7 +1356,7 @@ class GenerationEngine:
         self, boundary: np.ndarray, chunk_index: int, now: float, fetch_results: bool = True
     ) -> list[EngineResult]:
         """Harvests slots whose request finished (rows: done, cursor, base_len,
-        n_generated, health), admitted before chunk ``chunk_index`` was
+        n_generated, health; spec: proposed, accepted), admitted before chunk ``chunk_index`` was
         issued. A quarantined slot's request is requeued at the front with
         its seed fixed while its retry budget lasts, else fails typed. The
         finished rows come through the extraction program (`_fetch_rows`);
@@ -1091,6 +1390,13 @@ class GenerationEngine:
             self._table[s] = None
             n_events, prompt_len, n_gen = acct.get(s, (int(boundary[1][s]), int(boundary[2][s]), int(boundary[3][s])))
             row, error = fetched.get(s), None
+            spec_proposed = spec_accepted = 0
+            if self.spec is not None:
+                # This tenant's proposals and accepted events (zeroed at its
+                # admission); the scheduler keeps the engine-wide totals.
+                spec_proposed, spec_accepted = int(boundary[5][s]), int(boundary[6][s])
+                self.scheduler.note_spec_harvest(proposed=spec_proposed, accepted=spec_accepted,
+                                                 committed=int(boundary[1][s]) - int(boundary[2][s]))  # fmt: skip
             if s not in ok_slots:
                 self._health_quarantined += 1
                 self._health_failed += 1
@@ -1110,6 +1416,8 @@ class GenerationEngine:
                     n_events=n_events,
                     n_generated=n_gen,
                     completion_time=now,
+                    spec_proposed=spec_proposed,
+                    spec_accepted=spec_accepted,
                     error=error,
                 )
             )
@@ -1218,7 +1526,7 @@ class GenerationEngine:
         if self._program is not None:
             self._program.replay()
         else:
-            self._decode_chunk()
+            self._chunk()
         self._dispatched_chunks += 1
         event = None
         if self._boundary.is_cuda:
@@ -1362,8 +1670,11 @@ class GenerationEngine:
         slot's other state (content rows, cursors, streams), as the JAX
         engine's `slots_report` counts them; a paged engine adds ``paged``
         (`_paged_report` at ``branch_factor``, the pool against the same
-        budget). ``hbm_gb`` defaults to the engine device's own memory; on
-        the CPU it must be given."""
+        budget). A spec engine charges the draft as JAX does: its weights
+        (``draft_params_bytes``, every parameter of the draft, shared ones
+        too) against the budget and its cache row at the active cache dtype
+        (``draft_kv_bytes_per_slot``) against every slot. ``hbm_gb`` defaults
+        to the engine device's own memory; on the CPU it must be given."""
         if hbm_gb is None:
             if self.device.type != "cuda":
                 raise ValueError("slots_report: pass hbm_gb for an engine that is not on a CUDA device")
@@ -1375,19 +1686,29 @@ class GenerationEngine:
         row_bytes = max(sum(t.numel() * t.element_size() for t in rest if t is not None) // self.n_slots, 1)
         resident = list(self._model.parameters()) + list(self._model.buffers()) + list(self._stacked.values())
         params_bytes = sum(t.numel() * t.element_size() for t in resident)
-        budget = max(int(hbm_gb * 1e9) - params_bytes, 0)
+        active = cache_dtype_name(self._kv_buf_dtype)
+        draft_params_bytes = draft_kv = 0
+        if self.spec is not None:
+            draft_params_bytes = sum(t.numel() * t.element_size()
+                                     for t in list(self._draft.parameters()) + list(self._draft.buffers()))  # fmt: skip
+            d = self.spec.config
+            draft_kv = kv_cache_bytes_per_slot(d.num_hidden_layers, d.num_attention_heads, self.max_len, d.head_dim,
+                                               active, d.compute_dtype)  # fmt: skip
+        budget = max(int(hbm_gb * 1e9) - params_bytes - draft_params_bytes, 0)
         per_dtype = {}
         for name in CACHE_DTYPES:
             kv = kv_cache_bytes_per_slot(cfg.num_hidden_layers, cfg.num_attention_heads, self.max_len, cfg.head_dim,
                                          name, cfg.compute_dtype)  # fmt: skip
-            per_dtype[name] = {"kv_bytes_per_slot": kv, "max_slots": int(budget // (kv + row_bytes))}
-        active = cache_dtype_name(self._kv_buf_dtype)
+            per_dtype[name] = {"kv_bytes_per_slot": kv, "max_slots": int(budget // (kv + row_bytes + draft_kv))}
         return {
             "paged_kv": self.paged_kv,
             "paged": self._paged_report(branch_factor, budget) if self.paged_kv else None,
             "kv_cache_dtype": active,
             "hbm_budget_gb": hbm_gb,
             "params_bytes": params_bytes,
+            "spec": self.spec is not None,
+            "draft_params_bytes": draft_params_bytes,
+            "draft_kv_bytes_per_slot": draft_kv,
             "row_bytes_per_slot": row_bytes,
             "per_dtype": per_dtype,
             "slots_per_chip_ratio_vs_bf16": round(
@@ -1397,7 +1718,7 @@ class GenerationEngine:
 
     def program_stats(self) -> dict:
         """Captures and replays of the engine's programs: ``graph_*`` the
-        decode chunk's; ``prefill_*`` and ``extract_*`` those of the prefill
+        decode (or spec) chunk's; ``prefill_*`` and ``extract_*`` those of the prefill
         (bucket, group width) and extraction (group width) keys, with the
         keys' count (zeros when nothing is captured)."""
         out = {
@@ -1445,4 +1766,15 @@ class GenerationEngine:
                 "slots_report": self.slots_report(None if self.device.type == "cuda" else _REPORT_HBM_GB),
             }
         )
+        if self.spec is not None:
+            report.update(
+                {
+                    "spec_k": self.spec.k,
+                    "spec_rounds": int(self.spec_rounds.item()),
+                    "spec_value_rtol": self.spec.value_rtol,
+                    "spec_value_atol": self.spec.value_atol,
+                    "spec_draft_hidden_size": self.spec.config.hidden_size,
+                    "spec_draft_num_layers": self.spec.config.num_hidden_layers,
+                }
+            )
         return report

@@ -6,8 +6,8 @@ each request's random stream from its index), power-of-two prompt buckets,
 admission groups of power-of-two sizes, fork groups (a paged engine's
 branched rollouts, `ForkSpec`) taken as atomic units, and the
 padding/backpressure/fork accounting of ``padding_report`` (with a paged
-engine's block-pool counters merged in). Speculative-decoding accounting is
-not ported yet.
+engine's block-pool counters merged in) and the speculative-decoding totals
+(`Scheduler.note_spec_harvest`).
 """
 
 from __future__ import annotations
@@ -106,6 +106,10 @@ class EngineResult:
     n_events: int  # prompt + written events (the row's final cursor)
     n_generated: int  # REAL generated events
     completion_time: float = 0.0
+    # Speculative decoding: this request's draft proposals and how many of its
+    # committed events came from them (zero on other engines).
+    spec_proposed: int = 0
+    spec_accepted: int = 0
     error: Any = None
 
     @property
@@ -183,6 +187,9 @@ class Scheduler:
         self._fork_groups = 0
         self._fork_branches = 0
         self._fork_deferrals = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_committed = 0
         # A paged engine installs its block-pool counters here (a callable
         # returning a dict), merged into `padding_report`.
         self.block_pool_stats = None
@@ -331,6 +338,13 @@ class Scheduler:
                     self._padded_events += bucket_len
         return groups
 
+    def note_spec_harvest(self, *, proposed: int, accepted: int, committed: int) -> None:
+        """Accumulates one finished request's speculative-decoding totals (the
+        engine calls this at harvest; the counters ride the boundary copy)."""
+        self._spec_proposed += int(proposed)
+        self._spec_accepted += int(accepted)
+        self._spec_committed += int(committed)
+
     def padding_report(self) -> dict:
         padded = max(self._padded_events, 1)
         report = {
@@ -344,6 +358,10 @@ class Scheduler:
             "malformed_rejected_total": self._malformed_rejected,
             "health_requeued_total": self._health_requeued,
             "prefill_deferrals": self._prefill_deferrals,
+            "spec_proposed_events": self._spec_proposed,
+            "spec_accepted_events": self._spec_accepted,
+            "spec_committed_events": self._spec_committed,
+            "spec_acceptance_rate": round(self._spec_accepted / max(self._spec_proposed, 1), 4),
             "prefill_dispatches": self._prefill_dispatches,
             "prefill_rows_computed": self._prefill_rows,
             "fork_groups_admitted": self._fork_groups,

@@ -49,11 +49,26 @@ read (above what the process held before the engine was built). After every run 
 (bucket, group width) key and each extraction width of a depth-1 captured
 engine runs under ``torch.profiler``: its device time and kernels.
 
+``--spec`` profiles speculative decoding instead (``bench.py``'s spec arm:
+the draft the target's first ``num_hidden_layers // 2`` layers,
+`serving.spec.truncated_draft`, ``k`` 4, sampled at the default
+tolerances): three filled 32-slot engines, captured, depth 1, built before
+the first profile: the spec engine, the unfused (``decode_step_impl="xla"``)
+one and the kernel-B one. Each one's chunk of 16 steps (16 rounds for spec)
+under ``torch.profiler`` (device ms, kernels and host launches a step or
+round; spec: the events each round committed a slot), and the spec round's
+parts as programs of their own on the filled engine's admitted state,
+measured before its chunks run (`spec_parts`: the ``k`` draft steps, and the
+whole round; the verify forward with the accept walk and the commit is their
+difference): device ms a replay (CUDA events, `utils.timing.time_ms`) and
+kernels a replay (one profiled replay).
+
 Run from the root of a checkout:
 
     python -m eventstreamgpt_tpu_torch.tools.profile_decode --out build/profile_decode.json
     python -m eventstreamgpt_tpu_torch.tools.profile_decode --kv-cache-dtype int8 --dispatch-depths 1,2
     python -m eventstreamgpt_tpu_torch.tools.profile_decode --run-split --out build/run_split.json
+    python -m eventstreamgpt_tpu_torch.tools.profile_decode --spec --out build/spec.json
 
 It prints one JSON object (also written to ``--out``) and exits non-zero
 without a CUDA device.
@@ -78,10 +93,13 @@ from ..convert import init_params_from_seed
 from ..generation import sampling
 from ..data.synthetic import log_time_stats, serving_config, synthetic_prompts
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
-from ..serving import GenerationEngine, Request
+from ..serving import GenerationEngine, Request, SpecConfig, truncated_draft
 from ..serving import engine as engine_module
+from ..utils.graphs import CapturedProgram
+from ..utils.timing import time_ms
 
 N_SLOTS, TIMED_CHUNKS, LOOP_CHUNKS = 32, 2, 3
+SPEC_K = 4  # bench.py's spec arm
 PROGRAMS = {"captured": True, "eager": False}
 ORDER = ("captured", "eager", "eager", "captured")
 # Host-side calls that put work on the device's queue, as the profiler names them.
@@ -423,12 +441,85 @@ def run_split(model, config, depths) -> dict:
     return {"runs": out, "program_device_time": programs}
 
 
+def spec_config(model, config, k: int = SPEC_K) -> SpecConfig:
+    """``bench.py``'s draft: the target's first ``num_hidden_layers // 2`` layers."""
+    dcfg, draft = truncated_draft(config, model, config.num_hidden_layers // 2)
+    return SpecConfig(model=draft, config=dcfg, k=k)
+
+
+def capture_spec_parts(engine) -> dict:
+    """The filled spec engine's round split into programs of their own, on
+    its state as it stands (nothing copied back, so each replay starts from
+    the same cursors): ``draft``, the ``k`` draft steps (`_spec_draft`), and
+    ``round``, the whole round (`_spec_round`), each warmed up and captured.
+    Call before any ``torch.profiler`` session."""
+    st = {k: getattr(engine, k) for k in engine_module._SPEC_STATE}
+    seeds, active = engine.seeds.long(), engine.live & ~engine.done
+    fns = {"draft": lambda: engine._spec_draft(st, seeds, active), "round": lambda: engine._spec_round(st, seeds)}
+    programs = {}
+    with torch.inference_mode():
+        for name, fn in fns.items():
+            programs[name] = CapturedProgram(fn, f"the spec {name}", device=engine.device)
+            programs[name].warmup()
+            programs[name].capture()
+    return programs
+
+
+def spec_parts(programs: dict) -> dict:
+    """Device ms a replay (CUDA events) and kernels a replay (one profiled
+    replay) of each `capture_spec_parts` program; ``verify``: the round less
+    the draft steps (the window forward, accept walk, commit and advance)."""
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for name, program in programs.items():
+        ms = time_ms(program.graph.replay, n=4)["ms"]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            program.graph.replay()
+            torch.cuda.synchronize()
+        kernels = [(evt.count, _kernel_time_us(evt)) for evt in prof.key_averages()]
+        out[name] = {"device_ms": ms, "kernels": sum(c for c, us in kernels if us > 0),
+                     "profiled_device_ms": sum(us for _, us in kernels) / 1e3}  # fmt: skip
+    out["verify"] = {k: out["round"][k] - out["draft"][k] for k in out["round"]}
+    return out
+
+
+def profiled_engine_chunk(engine) -> dict:
+    """The step (or round) wall of two chunks (the faster), then one profiled
+    chunk (`profile_summary`); spec engines also give the events each round
+    committed a slot, over the profiled chunk's active slots."""
+    chunk_ms(engine)
+    wall = min(chunk_ms(engine), chunk_ms(engine)) / engine.decode_chunk
+    cursor = engine.cursor.clone()
+    prof, profiled_wall, active = profiled_chunk(engine)
+    out = dict(step_wall_ms=wall, active_slots=active, **profile_summary(prof, engine.decode_chunk, wall, profiled_wall))
+    if engine.spec is not None:
+        committed = int((engine.cursor - cursor).sum())
+        out["committed_events_per_round_and_slot"] = committed / (engine.decode_chunk * max(active, 1))
+    return out
+
+
+def spec_profiles(model, config, prompts) -> dict:
+    """The ``--spec`` measurements (module docstring)."""
+    kw = engine_kw(False, "bf16", 1, True)
+    engines = {
+        "spec": filled_engine(model, config, prompts, spec=spec_config(model, config), **kw),
+        "unfused": filled_engine(model, config, prompts, decode_step_impl="xla", **kw),
+        "kernel B": filled_engine(model, config, prompts, **kw),
+    }
+    parts = spec_parts(capture_spec_parts(engines["spec"]))  # on the admitted state, after every capture
+    out = {name: profiled_engine_chunk(engine) for name, engine in engines.items()}
+    out["spec_round_parts"] = parts
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--kv-cache-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
     ap.add_argument("--dispatch-depths", default="1,2", help="comma-separated dispatch depths of the chunk loop and run")
     ap.add_argument("--run-split", action="store_true", help="time whole runs split into their parts instead")
+    ap.add_argument("--spec", action="store_true", help="profile the speculative round beside the decode steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
@@ -452,6 +543,8 @@ def main(argv=None) -> int:
         rconfig = serving_config(mean_log=mean_log, std_log=std_log)
         rmodel = init_params_from_seed(CIPPTForGenerativeSequenceModeling(rconfig), seed=0)
         out = {"card": smi, "run_split": run_split(rmodel, rconfig, depths)}
+    elif args.spec:
+        out = {"card": smi, "spec": spec_profiles(model, config, prompts)}
     else:
         timed = [timed_mode(model, config, prompts, greedy, args.kv_cache_dtype, depths) for greedy in (True, False)]
         out = {"card": smi, "modes": [profiled_mode(result, runs) for result, runs in timed]}

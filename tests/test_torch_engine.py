@@ -9,8 +9,9 @@
   a one-slot engine's floats may differ in the last bits (one-row products).
 * Device: with no ``device`` argument and no CUDA device, construction raises.
 * Refusals: options the JAX engine refuses (the paged cache's sizes, the
-  megakernel on a paged cache, ``fork()``'s checks) raise in the port with
-  the JAX engine's messages, checked against both engines.
+  megakernel on a paged cache, speculative decoding on a paged cache,
+  ``fork()``'s checks) raise in the port with the JAX engine's messages,
+  checked against both engines.
 """
 
 import dataclasses
@@ -164,13 +165,31 @@ def test_default_device_needs_cuda():
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(prefill_stream=object()), dict(spec=object()), dict(mesh=object()), dict(hot_swap=True)],
+    [dict(prefill_stream=object()), dict(mesh=object()), dict(hot_swap=True)],
     ids=lambda kw: next(iter(kw)),
 )  # fmt: skip
 def test_features_outside_the_slice_raise(kw):
     _, _, _, tcfg, tmodel, prompt = build()
     with pytest.raises(ValueError, match="not part of the PyTorch port"):
         GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+
+
+def test_paged_spec_raises_as_in_jax():
+    """Speculative decoding is ported; with the paged cache it raises JAX's message in both engines."""
+    from eventstreamgpt_tpu.serving import SpecConfig as JaxSpecConfig
+    from eventstreamgpt_tpu.serving import truncated_draft as jax_truncated_draft
+    from eventstreamgpt_tpu_torch.serving import SpecConfig, truncated_draft
+
+    jcfg, jmodel, params, tcfg, tmodel, prompt = build()
+    jdcfg, jdparams = jax_truncated_draft(jcfg, params, 1)
+    tdcfg, tdraft = truncated_draft(tcfg, tmodel, 1)
+    match = "paged KV cache does not compose with speculative decoding yet"
+    with pytest.raises(ValueError, match=match):
+        JaxEngine(jmodel, params, jcfg, template=prompt, paged_kv=True, block_size=4,
+                  spec=JaxSpecConfig(model=JaxModel(jdcfg), params=jdparams, config=jdcfg), **ENGINE)  # fmt: skip
+    with pytest.raises(ValueError, match=match):
+        GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", paged_kv=True, block_size=4,
+                         spec=SpecConfig(model=tdraft, config=tdcfg), **ENGINE)  # fmt: skip
 
 
 @pytest.mark.parametrize(

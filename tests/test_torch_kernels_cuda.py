@@ -1018,6 +1018,60 @@ def test_captured_fork_runs_each_program_once_a_group(cuda):
         same_results([got[(rid, j)] for j in range(n)], want)
 
 
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_captured_spec_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
+    """Speculative decoding on the card (a one-layer truncated draft, ``k``
+    3, default tolerances): the spec chunk captured once (its warm-up's
+    rounds not counted) and replayed once a dispatched chunk, each prefill
+    key captured once; results, per-request proposals and acceptances and
+    the rounds equal the eager engine's bit for bit, and again after
+    ``reset()``; kernel B never launches; kernel A (sampled only) launches as
+    often captured as eager, counted through the replays."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
+
+    config, model, prompts = graph_engine_setup()
+    dcfg, draft = truncated_draft(config, model, 1)
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, greedy=greedy,
+              kv_cache_dtype=kv_cache_dtype, device=cuda, spec=SpecConfig(model=draft, config=dcfg, k=3))  # fmt: skip
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    runs = {}
+    for graph in (True, False):
+        for c in ("launches", "launches_int8", "launches_fp8"):
+            setattr(decode_stack_step, c, 0)
+        fused_categorical_stream.launches = 0
+        eng = GenerationEngine(model, config, template=prompts[0][0], cuda_graph=graph, **kw)
+        eng.scheduler.group_sizes = (2, 4)
+        first = eng.run(requests())
+        s = eng.stats()
+        eng.reset()
+        fused_categorical_stream.launches = 0
+        second = eng.run(requests())
+        s2 = eng.stats()
+        same_results(first, second)
+        assert [(r.spec_proposed, r.spec_accepted) for r in first] == [(r.spec_proposed, r.spec_accepted)
+                                                                      for r in second]  # fmt: skip
+        assert decode_stack_step.launches + decode_stack_step.launches_int8 + decode_stack_step.launches_fp8 == 0
+        assert s["decode_step_impl"] == "spec_draft_verify" and s["spec_rounds"] == s["dispatched_chunks"] * 3 > 0
+        if graph:
+            assert (s["graph_captures"], s["graph_warmup_chunks"]) == (1, 1)
+            assert s["graph_replays"] == s["dispatched_chunks"]
+            assert s["prefill_graph_captures"] == s["prefill_graph_keys"] > 0
+            assert s["prefill_graph_replays"] == s["prefill_dispatches"]
+            for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures"):
+                assert s2[k] == s[k], k
+            assert s2["graph_replays"] == s["graph_replays"] + s2["dispatched_chunks"]
+        runs[graph] = first, fused_categorical_stream.launches, s
+    same_results(runs[True][0], runs[False][0])
+    assert [(r.spec_proposed, r.spec_accepted) for r in runs[True][0]] == [
+        (r.spec_proposed, r.spec_accepted) for r in runs[False][0]]
+    assert runs[True][2]["spec_rounds"] == runs[False][2]["spec_rounds"]
+    assert runs[True][1] == runs[False][1] and (runs[True][1] == 0) == greedy
+
+
 @pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
 def test_captured_train_step_equals_eager_step(cuda, na):
     """Three bf16 steps with dropout 0.1: the step captured on its second call

@@ -54,10 +54,10 @@ def test_every_module_imports_with_jax_blocked():
     "module",
     ["eventstreamgpt_tpu_torch.data.device_dataset", "eventstreamgpt_tpu_torch.data.torch_dataset",
      "eventstreamgpt_tpu_torch.training.pretrain", "eventstreamgpt_tpu_torch.tools.profile_train",
-     "eventstreamgpt_tpu_torch.utils.enums"],
+     "eventstreamgpt_tpu_torch.utils.enums", "eventstreamgpt_tpu_torch.serving.spec"],
 )  # fmt: skip
 def test_sweep_covers_the_resident_feed(module):
-    """The resident feed and the chunked step are in the JAX-blocked import sweep above."""
+    """The resident feed, the chunked step and speculative decoding are in the JAX-blocked import sweep above."""
     assert module in MODULES
 
 
