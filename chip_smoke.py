@@ -231,8 +231,32 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    each decode step at 32 admitted slots (paged, monolithic unfused, kernel
    B, and the spec round; device ms and kernels a step) and the spec round's
    parts (the draft steps, the verify with the accept walk and the commit;
-   device ms by CUDA events, kernels a replay).
-13. One ``{"kernels": [...]}`` line, then the device line as the last line.
+   device ms by CUDA events, kernels a replay), taken after phase 13's
+   captures (no capture follows a profile).
+13. Cohort ``generate()`` (`generation.generate`, ``bench.py``'s generation
+   arm): phase 4's CI model and phase 6's NA model (bf16, numpy-seeded
+   weights) on one batch of 32 prompts of 192 real events
+   (`data.synthetic.synthetic_prompt_batch`, numpy seed 0), 64 new events
+   (NA: 16), cached, sampled, seed 2. The first call warms up and captures
+   the key's prefix and decode-step programs; a second call must capture
+   nothing, replay the prefix once and the step ``max_new_events - 1``
+   times, equal the first bit for bit, give every row its budget with finite
+   values and launch kernel A once a categorical head a level (NA: also once
+   a head at the prefix's full forward); the ``cuda_graph=False`` call must
+   equal it bit for bit with kernel A launched as often; a run stopped by a
+   custom criterion at 8 events must be a prefix of the full run. Small fp32
+   CI and NA models (one head of 32): greedy on the card equals the CPU,
+   cached and uncached (events and integers exact, floats within 1e-4);
+   sampled cached equals uncached on the card (CI: indices exact, floats
+   within 1e-3; NA: times within the JAX package's rtol 0.1 and atol 1e-3,
+   the first new event's type exact, the share of equal events printed:
+   later draws may differ by design, the cached walk having embedded each
+   graph element before the event's later levels were written); the uncached NA run launches kernel D
+   once a layer a level an event. Printed, not checked, beside the card's
+   name and power limit: generated events/s of the second call, phase 2's
+   sampled engine events/s, and one profiled replay of each model's prefix
+   and decode-step programs (device ms and kernels), taken after every capture.
+14. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -2362,11 +2386,243 @@ def spec_phase(smi, model, config):
           f"({smi})", flush=True)  # fmt: skip
     small_engine_matches_cpu(spec_k=SPEC_K, phase="phase 12")
     t2 = time.perf_counter()
-    profiles = decode_profiles(smi, model, config, prompts, base_kw, spec())
-    t3 = time.perf_counter()
-    print(f"phase 12: passed in {t3 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft, baselines and small engine "
-          f"{t2 - t1:.1f}, profiles {t3 - t2:.1f})", flush=True)  # fmt: skip
-    return dict(launches_a=launches_a, rates=rates, profiles=profiles, greedy_equal=equal, perfect=perfect)
+    print(f"phase 12: passed in {t2 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft, baselines and small engine "
+          f"{t2 - t1:.1f}; its profiles come after phase 13's captures)", flush=True)  # fmt: skip
+    return dict(launches_a=launches_a, rates=rates, greedy_equal=equal, perfect=perfect,
+                profile=lambda: decode_profiles(smi, model, config, prompts, base_kw, spec()))  # fmt: skip
+
+
+# ---------------------------------------------------------------- phase 13
+# bench.py's generation arm: 32 prompts of 192 events, 64 new events (NA: 16), cached.
+GEN_ROWS, GEN_PROMPT, GEN_NEW, GEN_NEW_NA, GEN_SEED, GEN_STOP = 32, 192, 64, 16, 2, 8
+GEN_SMALL_NEW = 5
+
+
+def batches_equal(a, b) -> bool:
+    """Every event, integer and float of two generated batches equal (NaN where NaN)."""
+    import torch
+
+    return all(torch.equal(getattr(a, f).nan_to_num(-7.0), getattr(b, f).nan_to_num(-7.0))
+               for f in ("event_mask", "time_delta", "dynamic_indices", "dynamic_measurement_indices",
+                         "dynamic_values", "dynamic_values_mask"))  # fmt: skip
+
+
+def categorical_heads(model) -> int:
+    modes = model.output_layer.classification_mode_per_measurement.values()
+    return sum(m == "single_label_classification" for m in modes)
+
+
+def stop_at(n_events: int):
+    """A `StoppingCriteriaList` whose one (custom) criterion fires once a row holds ``n_events`` events."""
+    from eventstreamgpt_tpu_torch.generation import StoppingCriteria, StoppingCriteriaList
+
+    class StopAt(StoppingCriteria):
+        def __init__(self, limit):
+            self.limit = limit
+
+        def __call__(self, batch, n_events=None, **kwargs) -> bool:
+            return n_events >= self.limit
+
+    return StoppingCriteriaList([StopAt(n_events)])
+
+
+def generate_runs(smi, name, model, config, prompt, new) -> dict:
+    """Phase 13's full-width runs of one model (module docstring)."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.generation import generate
+    from eventstreamgpt_tpu_torch.generation.generation_utils import program_stats
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical_stream
+
+    label = f"phase 13 [{name}]"
+    na = name == "NA"
+    want_a = categorical_heads(model) * (new + (1 if na else 0))
+
+    def timed(**extra):
+        fused_categorical_stream.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, prompt, config, seed=GEN_SEED, max_new_events=new, **extra)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, fused_categorical_stream.launches
+
+    first, first_s, a1 = timed()
+    s1 = program_stats(model)
+    check((s1["keys"], s1["warmups"], s1["captures"], s1["replays"]) == (1, 2, 2, new),
+          f"{label}: the first call's programs {s1}")  # fmt: skip
+    second, second_s, a2 = timed()
+    s2 = program_stats(model)
+    check(s2["captures"] == 2 and s2["replays"] - s1["replays"] == new,
+          f"{label}: the second call captured or replayed otherwise: {s1} -> {s2}")  # fmt: skip
+    check(a2 == want_a > 0, f"{label}: kernel A launched {a2} times, not {want_a} (one a categorical head a level)")
+    check(second.sequence_length == GEN_PROMPT + new and bool(second.event_mask.all()),
+          f"{label}: a row did not generate its budget")  # fmt: skip
+    check(all(bool(torch.isfinite(getattr(second, f)).all()) for f in ("time_delta", "dynamic_values")),
+          f"{label}: non-finite generated values")  # fmt: skip
+    check(batches_equal(first, second), f"{label}: the second call differs from the first")
+    eager, eager_s, a3 = timed(cuda_graph=False)
+    check(batches_equal(second, eager), f"{label}: captured and eager generate() differ")
+    check(a3 == a2, f"{label}: kernel A launched {a3} times eager, {a2} captured")
+    stopped, stopped_s, a4 = timed(stopping_criteria=stop_at(GEN_PROMPT + GEN_STOP))
+    cut = GEN_PROMPT + GEN_STOP
+    check(not bool(stopped.event_mask[:, cut:].any()) and bool(stopped.event_mask[:, :cut].all()),
+          f"{label}: the stopped run is not cut at {GEN_STOP} events")  # fmt: skip
+    for f in ("event_mask", "time_delta", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values",
+              "dynamic_values_mask"):  # fmt: skip
+        n = cut - 1 if f == "time_delta" else cut  # the last event's delta is drawn with the next event
+        check(torch.equal(getattr(stopped, f)[:, :n], getattr(second, f)[:, :n]),
+              f"{label}: the stopped run's {f} is not a prefix of the full run's")  # fmt: skip
+    rate = GEN_ROWS * new / second_s
+    print(f"{label} {GEN_ROWS} prompts of {GEN_PROMPT} events, {new} new events each, sampled, cached: every row "
+          f"its budget, finite; second call equal to the first and to the eager call bit for bit, no capture, "
+          f"{s2['replays'] - s1['replays']} replays; kernel A {a2} launches a call (eager {a3}); stopped at "
+          f"{GEN_STOP} events a prefix of the full run; generated events/s {rate:.1f} (second call "
+          f"{second_s * 1e3:.2f} ms; first call with warm-ups and captures {first_s * 1e3:.1f} ms, eager "
+          f"{eager_s * 1e3:.1f} ms, stopped {stopped_s * 1e3:.1f} ms) ({smi})", flush=True)  # fmt: skip
+    return dict(events_per_s=rate, wall_ms=second_s * 1e3, eager_wall_ms=eager_s * 1e3, first_wall_ms=first_s * 1e3,
+                launches_a=a1 + a2 + a3 + a4)  # fmt: skip
+
+
+def small_generate_setup(na: bool):
+    """A small fp32 model (one head of 32: kernel D's head widths) at a narrow
+    log-time scale with a near-constant TTE head, and a 4 x 8 prompt."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, synthetic_prompt_batch
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
+                            num_attention_heads=1, head_dim=32, intermediate_size=64, seq_window_size=4,
+                            **(NA_OVERRIDES if na else {}))  # fmt: skip
+    model = init_params_from_seed(build_model(config), seed=1, std=0.15)
+    with torch.no_grad():
+        model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    return config, model, synthetic_prompt_batch(np.random.default_rng(1), 4, config, 8)
+
+
+def small_generate_checks() -> dict:
+    """Small fp32 models: greedy on the card against the CPU (cached and
+    uncached; events and integers exact, floats within phase 2's small-engine
+    tolerance), sampled cached against uncached on the card (CI: indices
+    exact, floats 1e-3 / 1e-4; NA: times within the JAX package's rtol 0.1,
+    atol 1e-3, index agreement printed), and the uncached NA run's kernel D
+    launches (a full forward a level an event, each layer once)."""
+    import functools
+
+    import torch
+
+    import eventstreamgpt_tpu_torch.generation.generation_utils as gu
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_fwd
+
+    out = {"launches_d": 0, "na_index_agreement": None}
+    exact = ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask")
+    for na in (False, True):
+        name = "NA" if na else "CI"
+        config, model, prompt = small_generate_setup(na)
+        greedy, gu.sample_predictions = gu.sample_predictions, functools.partial(gu.sample_predictions, greedy=True)
+        try:
+            for cached in (True, False):
+                runs = {dev: gu.generate(copy.deepcopy(model).to(dev), prompt, config, seed=3, use_cache=cached,
+                                         max_new_events=GEN_SMALL_NEW, device=dev) for dev in ("cuda", "cpu")}  # fmt: skip
+                a, b = runs["cuda"], runs["cpu"]
+                for f in exact:
+                    check(torch.equal(getattr(a, f).cpu(), getattr(b, f)), f"phase 13 [small {name}, cached={cached}]: "
+                                                                          f"{f} differs card and CPU")  # fmt: skip
+                for f in ("time_delta", "dynamic_values"):
+                    torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), rtol=1e-4, atol=1e-4)
+        finally:
+            gu.sample_predictions = greedy
+        model = model.cuda()
+        dep_graph_fwd.launches = 0
+        uncached = gu.generate(model, prompt, config, seed=3, max_new_events=GEN_SMALL_NEW, use_cache=False)
+        d = dep_graph_fwd.launches
+        cached = gu.generate(model, prompt, config, seed=3, max_new_events=GEN_SMALL_NEW)
+        if na:
+            want = GEN_SMALL_NEW * len(config.measurements_per_dep_graph_level) * config.num_hidden_layers
+            check(d == want, f"phase 13 [small NA]: kernel D launched {d} times uncached, not {want}")
+            out["launches_d"] = d
+            torch.testing.assert_close(cached.time_delta, uncached.time_delta, rtol=0.1, atol=1e-3)
+            same = (cached.dynamic_indices == uncached.dynamic_indices).flatten(2).all(-1)[:, prompt.sequence_length:]
+            n = prompt.sequence_length
+            check(torch.equal(cached.dynamic_indices[:, n, 0], uncached.dynamic_indices[:, n, 0]),
+                  "phase 13 [small NA]: the first new event's type differs cached and uncached")  # fmt: skip
+            out["na_index_agreement"] = float(same.float().mean())
+        else:
+            check(d == 0, f"phase 13 [small CI]: kernel D launched {d} times")
+            for f in exact:
+                check(torch.equal(getattr(cached, f), getattr(uncached, f)), f"phase 13 [small CI]: {f} differs "
+                                                                            "cached and uncached")  # fmt: skip
+            for f in ("time_delta", "dynamic_values"):
+                torch.testing.assert_close(getattr(cached, f), getattr(uncached, f), rtol=1e-3, atol=1e-4)
+    print(f"phase 13: small fp32 CI and NA generate() on the card match the CPU (greedy, cached and uncached: events "
+          f"and integers exact, floats within 1e-4); sampled cached vs uncached on the card: CI indices exact, floats "
+          f"within 1e-3, NA times within rtol 0.1, the first new event's type exact and {out['na_index_agreement']:.3f} "
+          f"of all new events' indices equal (measured, not checked: the cached walk embeds each graph element before "
+          f"the event's later levels are written, the full forward the finished event, as in the JAX package); the "
+          f"uncached NA run launched "
+          f"kernel D {out['launches_d']} times", flush=True)  # fmt: skip
+    return out
+
+
+def generate_phase(smi, engine_rate) -> dict:
+    """Phase 13: cohort ``generate()`` for phase 4's CI model and phase 6's NA model (module docstring)."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        serving_config,
+        synthetic_prompt_batch,
+        training_config,
+    )
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    t0 = time.perf_counter()
+    batch = training_batch()
+    prompt = synthetic_prompt_batch(np.random.default_rng(SEED), GEN_ROWS, serving_config(), GEN_PROMPT)
+    out = {"models": {}}
+    for name, make_config, new in (("CI", training_config, GEN_NEW), ("NA", na_training_config, GEN_NEW_NA)):
+        config = make_config([batch])
+        check(config.precision == "bf16" and config.hidden_size == 256, f"phase 13: not phase {4 if name == 'CI' else 6}'s model")
+        model = init_params_from_seed(build_model(config), seed=SEED).cuda()
+        out[name] = generate_runs(smi, name, model, config, prompt, new)
+        out["models"][name] = model
+    t1 = time.perf_counter()
+    out.update(small_generate_checks())
+    print(f"phase 13: generated events/s (second call): CI {out['CI']['events_per_s']:.1f}, NA "
+          f"{out['NA']['events_per_s']:.1f}; phase 2's sampled engine {engine_rate:.1f} (accounting pass); passed in "
+          f"{time.perf_counter() - t0:.1f} s (full width {t1 - t0:.1f}) ({smi})", flush=True)  # fmt: skip
+    return out
+
+
+def generate_step_profiles(smi, gen) -> dict:
+    """One profiled replay of each full-width prefix program and then of its
+    decode-step program (after every capture of the run): device ms and kernels."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.generation.generation_utils import _PROGRAMS
+    from eventstreamgpt_tpu_torch.tools.profile_decode import _kernel_time_us
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, model in gen["models"].items():
+        entry = next(g for g in _PROGRAMS.values() if g.model_ref() is model and g.step is not None)
+        for part in ("prefix", "step"):  # the step from the state the prefix leaves
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                getattr(entry, part).replay()
+                torch.cuda.synchronize()
+            kernels = [(evt.count, _kernel_time_us(evt)) for evt in prof.key_averages()]
+            kernels = [(c, us) for c, us in kernels if us > 0]
+            out[f"{name} {part}"] = {"device_ms": sum(us for _, us in kernels) / 1e3,
+                                     "kernels": sum(c for c, _ in kernels)}  # fmt: skip
+            check(out[f"{name} {part}"]["kernels"] > 0, f"phase 13: no device kernel in the {name} {part} profile")
+    print(f"phase 13: one profiled replay of each program at {GEN_ROWS} rows (sampled, bf16): {json.dumps(out)}; "
+          f"generated events/s CI {gen['CI']['events_per_s']:.1f}, NA {gen['NA']['events_per_s']:.1f} ({smi})",
+          flush=True)  # fmt: skip
+    return out
 
 
 def main() -> int:
@@ -2398,6 +2654,11 @@ def main() -> int:
     chunked = chunked_training_phase(smi)
     paged = paged_phase(smi, model, config)
     spec = spec_phase(smi, model, config)
+    acct = runs["sampled"]["passes"]["accounting"]
+    gen = generate_phase(smi, runs["sampled"]["generated"] / acct["wall_s"])
+    # Profiles last: no capture follows a torch.profiler session.
+    spec["profiles"] = spec.pop("profile")()
+    gen["profiles"] = generate_step_profiles(smi, gen)
 
     def chunk_launches(name):
         return sum(run["launches"][name] for run in chunked.values())
@@ -2406,7 +2667,7 @@ def main() -> int:
         dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
-             + spec["launches_a"], **a),
+             + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
@@ -2426,7 +2687,8 @@ def main() -> int:
     ] + [
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397",
-             launches=na_train["launches"][f"dep_graph_{k}"] + chunk_launches(f"dep_graph_{k}"), **d_times[k])
+             launches=na_train["launches"][f"dep_graph_{k}"] + chunk_launches(f"dep_graph_{k}")
+             + (gen["launches_d"] if k == "fwd" else 0), **d_times[k])
         for k in ("fwd", "bwd")
     ] + [
         dict(name=f"{n}_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",

@@ -119,6 +119,14 @@ def synthetic_prompts(rng: np.random.Generator, n: int, config, len_range, budge
     return out
 
 
+def synthetic_prompt_batch(rng: np.random.Generator, n: int, config, length: int, max_obs: int = 24) -> EventStreamBatch:
+    """One ``(n, length)`` batch of real events (`synthetic_prompts`' rows,
+    stacked): a cohort ``generate()`` prompt."""
+    rows = [p for p, _ in synthetic_prompts(rng, n, config, (length, length), (1, 1), max_obs)]
+    return EventStreamBatch(**{f: torch.cat([getattr(p, f) for p in rows]) for f, x in vars(rows[0]).items()
+                               if x is not None})  # fmt: skip
+
+
 def log_time_stats(prompts) -> tuple[float, float]:
     """Mean and std of log inter-event times over prompts (the statistics
     ``set_to_dataset`` gives a lognormal TTE head)."""

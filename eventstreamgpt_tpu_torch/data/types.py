@@ -105,6 +105,26 @@ class EventStreamBatch:
                 out[f.name] = fn(v)
         return EventStreamBatch(**out)
 
+    def repeat_batch_elements(self, expand_size: int) -> "EventStreamBatch":
+        """Repeats each batch element ``expand_size`` times, in order (rows ``b``
+        of the result are ``b // expand_size`` of this batch).
+
+        Examples:
+            >>> b = EventStreamBatch(event_mask=torch.tensor([[True], [False]]))
+            >>> b.repeat_batch_elements(2).event_mask[:, 0].tolist()
+            [True, True, False, False]
+        """
+        return self.map(lambda x: x.repeat_interleave(expand_size, dim=0))
+
+    def split_repeated_batch(self, n_splits: int) -> list["EventStreamBatch"]:
+        """Inverse of `repeat_batch_elements`: ``n_splits`` batches, the ``i``-th
+        holding the ``i``-th repeated sample of each original element."""
+
+        def sel(x, i):
+            return x.reshape((x.shape[0] // n_splits, n_splits) + tuple(x.shape[1:]))[:, i]
+
+        return [self.map(lambda x, i=i: sel(x, i)) for i in range(n_splits)]
+
     def slice(self, index) -> "EventStreamBatch":
         """Slices batch (dim 0), sequence (dim 1), and data-element (dim 2) axes."""
         if not isinstance(index, tuple):

@@ -23,6 +23,7 @@ buffers and merges them with ``where(active)``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import zlib
 from typing import Optional
 
@@ -189,6 +190,19 @@ def assemble_event_sample(preds, draws: dict, event_mask: torch.Tensor) -> Gener
     )
 
 
+def sample_predictions(
+    preds: GenerativeSequenceModelPredictions,
+    event_mask: torch.Tensor,
+    streams: Optional[RowStreams],
+    categorical_sampler=None,
+    greedy: bool = False,
+) -> GenerativeSequenceModelSamples:
+    """One event a row from per-head predictions sliced to the source event
+    (``(B, ...)`` parameters); ``event_mask`` ``(B,)`` is the sampled event's
+    mask. `sample_head_draws` then `assemble_event_sample`."""
+    return assemble_event_sample(preds, sample_head_draws(preds, streams, categorical_sampler, greedy), event_mask)
+
+
 def compact_data_elements(dynamic_indices, dynamic_measurement_indices, dynamic_values, dynamic_values_mask, out_width):
     """Moves nonzero-index elements to the front (stable), truncates/pads to ``out_width``."""
     order = torch.argsort((dynamic_indices == 0).to(torch.int8), dim=-1, stable=True)
@@ -219,8 +233,8 @@ def check_generation_config(config: StructuredTransformerConfig) -> None:
     for m, cfg in config.measurement_configs.items():
         if cfg.temporality == TemporalityType.FUNCTIONAL_TIME_DEPENDENT and not cfg.is_dropped:
             raise ValueError(
-                f"measurement {m!r} is functional-time-dependent; generating functor "
-                "measurements is not part of the PyTorch port yet"
+                f"measurement {m!r} is functional-time-dependent; generating functor measurements is not part of "
+                "the PyTorch port yet (ROADMAP Queue 1 item 2: functional-time-dependent measurements in generation)"
             )
 
 
@@ -269,9 +283,13 @@ def append_new_event(batch: EventStreamBatch, sample, cursor: torch.Tensor, acti
         _masked_row_write(buf, rows, cursor, False if buf.dtype == torch.bool else 0, active, drop_oob)
 
 
-def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: set, dtype: torch.dtype):
+def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: set, dtype: torch.dtype, current=None):
     """Fixed-layout content arrays for the sampled measurements (zeros where
-    unsampled); indices in ``dtype``, the index planes' own."""
+    unsampled); indices in ``dtype``, the index planes' own. ``to_fill`` holds
+    measurement names or, from split dep-graph levels, ``(name, mode)``
+    pairs; a NUMERICAL_ONLY pair regresses the values of the categories
+    ``current`` (the event's ``(indices, measurement indices)`` before the
+    fill) holds for it."""
     idx_parts, meas_parts, val_parts, vmask_parts = [], [], [], []
 
     def add_single_label(m):
@@ -291,9 +309,12 @@ def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: s
         meas_parts.append(torch.where(indices != 0, config.measurements_idxmap[m], indices))
         return indices
 
-    def add_multivariate_regression(m, indices):
+    def add_multivariate_regression(m, indices, aligned_to_vocab=True):
         regressed = sample.regression[m]
-        mask = indices >= config.vocab_offsets_by_measurement[m]
+        offset = config.vocab_offsets_by_measurement[m]
+        mask = indices >= offset
+        if not aligned_to_vocab:  # the regression plane at each element's category
+            regressed = gather_last(regressed, torch.where(mask, indices - offset, 0).long())
         val_parts.append(torch.where(mask, torch.nan_to_num(regressed, nan=0.0), 0.0))
         vmask_parts.append(mask & ~torch.isnan(regressed))
 
@@ -308,22 +329,35 @@ def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: s
 
     if "event_type" in to_fill:
         add_single_label("event_type")
+    def add_zero_values(indices):
+        val_parts.append(torch.zeros(indices.shape, dtype=torch.float32, device=indices.device))
+        vmask_parts.append(torch.zeros(indices.shape, dtype=torch.bool, device=indices.device))
+
     for m in to_fill:  # set order, as in the JAX code (same process, same order)
+        mode = None
+        if isinstance(m, (tuple, list)):
+            m, mode = m
         if m == "event_type":
             continue
         modality = config.measurement_configs[m].modality
-        if modality == DataModality.SINGLE_LABEL_CLASSIFICATION:
+        if modality == DataModality.SINGLE_LABEL_CLASSIFICATION and mode is None:
             add_single_label(m)
-        elif modality == DataModality.MULTI_LABEL_CLASSIFICATION:
-            indices = add_multi_label(m)
-            val_parts.append(torch.zeros(indices.shape, dtype=torch.float32, device=indices.device))
-            vmask_parts.append(torch.zeros(indices.shape, dtype=torch.bool, device=indices.device))
-        elif modality == DataModality.UNIVARIATE_REGRESSION:
+        elif modality == DataModality.MULTI_LABEL_CLASSIFICATION and mode is None:
+            add_zero_values(add_multi_label(m))
+        elif modality == DataModality.UNIVARIATE_REGRESSION and mode is None:
             add_univariate_regression(m)
-        elif modality == DataModality.MULTIVARIATE_REGRESSION:
+        elif modality == DataModality.MULTIVARIATE_REGRESSION and mode in (None, "categorical_and_numerical"):
             add_multivariate_regression(m, add_multi_label(m))
+        elif modality == DataModality.MULTIVARIATE_REGRESSION and mode == "categorical_only":
+            add_zero_values(add_multi_label(m))
+        elif modality == DataModality.MULTIVARIATE_REGRESSION and mode == "numerical_only":
+            cur_idx, cur_meas = current
+            indices = torch.where(cur_meas == config.measurements_idxmap[m], cur_idx, 0).to(dtype)
+            idx_parts.append(indices)
+            meas_parts.append(torch.where(indices != 0, config.measurements_idxmap[m], indices))
+            add_multivariate_regression(m, indices, aligned_to_vocab=False)
         else:
-            raise ValueError(f"{modality} invalid!")
+            raise ValueError(f"{modality}, {mode} invalid!")
     return (
         torch.cat(idx_parts, dim=1),
         torch.cat(meas_parts, dim=1),
@@ -344,7 +378,13 @@ def update_last_event_data(
     col = (cursor.long() - 1).clamp(max=batch.dynamic_indices.shape[1] - 1)
     prev = [getattr(batch, n)[rows, col] for n in ("dynamic_indices", "dynamic_measurement_indices",
                                                      "dynamic_values", "dynamic_values_mask")]  # fmt: skip
-    new_idx, new_meas, new_val, new_vmask = _format_new_elements(sample, config, to_fill, prev[0].dtype)
+    new_idx, new_meas, new_val, new_vmask = _format_new_elements(sample, config, to_fill, prev[0].dtype, prev[:2])
+    # A NUMERICAL_ONLY fill replaces the elements of its measurement the event holds.
+    numerical_only = [config.measurements_idxmap[m[0]] for m in to_fill
+                      if isinstance(m, (tuple, list)) and m[1] == "numerical_only"]  # fmt: skip
+    if numerical_only:
+        drop = functools.reduce(torch.logical_or, [prev[1] == i for i in numerical_only])
+        prev = [torch.where(drop, False if x.dtype == torch.bool else 0, x) for x in prev]
     em = sample.event_mask[:, None]
     new_idx = torch.where(em, new_idx, 0)
     new_meas = torch.where(em, new_meas, 0)

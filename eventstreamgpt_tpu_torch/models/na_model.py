@@ -5,9 +5,11 @@ Counterpart: ``eventstreamgpt_tpu/models/na_model.py``
 The encoding of dep-graph level ``i - 1`` predicts the measurements of level
 ``i``, and the time to the next event comes from the whole-event (last)
 element. The structured attention already keeps level ``i - 1`` from seeing
-levels ``>= i``, so nothing is shifted. Only the uncached forward is
-ported: training, evaluation and the full-graph generation outputs
-(``dep_graph_el_generation_target=None``).
+levels ``>= i``, so nothing is shifted. Generation takes a
+``dep_graph_el_generation_target``: ``None`` gives every level's heads and
+the time to event from the full graph, ``0`` the time to event only (the
+just-completed event contextualized), and ``t > 0`` level ``t``'s heads only
+(read from element 0 of the one-element graph the cached walk decodes).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from .model_output import (
     GenerativeSequenceModelPredictions,
     cast_to_compute_dtype,
 )
-from .transformer import NA_WAITS, NestedAttentionPointProcessTransformer
+from .transformer import NestedAttentionPointProcessTransformer
 
 
 def level_measurements(level: list) -> tuple[set, set]:
@@ -58,8 +60,17 @@ class NestedAttentionGenerativeOutputLayer(GenerativeOutputLayerBase):
         cfg = self.config
         if cfg.structured_event_processing_mode != StructuredEventProcessingMode.NESTED_ATTENTION:
             raise ValueError(f"{cfg.structured_event_processing_mode} invalid for this model!")
-        if dep_graph_el_generation_target is not None:
-            raise ValueError(f"dep_graph_el_generation_target (the cached per-level walk) {NA_WAITS}")
+        target = dep_graph_el_generation_target
+        if target is not None and not is_generation:
+            raise ValueError(
+                f"If dep_graph_el_generation_target ({target}) is not None, is_generation ({is_generation}) must be True!"
+            )
+        G = encoded.shape[2]
+        levels, do_TTE = range(1, G), True
+        if target == 0:
+            levels = range(0)
+        elif target is not None:
+            levels, do_TTE = (range(1, 2) if G == 1 else range(target, target + 1)), False
         classification_measurements = set(self.classification_mode_per_measurement)
         regression_measurements = set(
             cfg.measurements_for(DataModality.MULTIVARIATE_REGRESSION)
@@ -67,9 +78,10 @@ class NestedAttentionGenerativeOutputLayer(GenerativeOutputLayerBase):
         )
         classification = ({}, {}, {})  # losses, dists, labels
         regression = ({}, {}, {}, {})  # losses, dists, labels, indices
-        for i in range(1, encoded.shape[2]):
+        for i in levels:
             level_encoded = encoded[:, :, i - 1]
-            categorical, numerical = level_measurements(cfg.measurements_per_dep_graph_level[i])
+            level = cfg.measurements_per_dep_graph_level[target if target is not None else i]
+            categorical, numerical = level_measurements(level)
             out = self.get_classification_outputs(
                 batch, level_encoded, categorical & classification_measurements, is_generation
             )
@@ -78,7 +90,9 @@ class NestedAttentionGenerativeOutputLayer(GenerativeOutputLayerBase):
             out = self.get_regression_outputs(batch, level_encoded, numerical & regression_measurements, is_generation)
             for acc, part in zip(regression, out):
                 acc.update(part)
-        TTE_LL, TTE_dist, TTE_true = self.get_TTE_outputs(batch, encoded[:, :, -1], is_generation)
+        TTE_LL, TTE_dist, TTE_true = None, None, None
+        if do_TTE:
+            TTE_LL, TTE_dist, TTE_true = self.get_TTE_outputs(batch, encoded[:, :, -1], is_generation)
         out = GenerativeSequenceModelOutput(
             preds=GenerativeSequenceModelPredictions(
                 classification=classification[1],
@@ -116,13 +130,28 @@ class NAPPTForGenerativeSequenceModeling(nn.Module):
         self.output_layer = NestedAttentionGenerativeOutputLayer(config)
 
     def forward(
-        self, batch: EventStreamBatch, past=None, use_cache: bool = False, is_generation: bool = True, dropout=None
+        self,
+        batch: EventStreamBatch,
+        past=None,
+        use_cache: bool = False,
+        is_generation: bool = True,
+        dropout=None,
+        dep_graph_el_generation_target: int | None = None,
     ):
         """``is_generation=False`` computes the losses; ``dropout`` (a
         ``torch.Generator`` on the batch's device) turns dropout on. ``past``
-        and ``use_cache`` raise: the NA caches are not ported yet."""
-        encoded = self.encoder(batch, past=past, use_cache=use_cache, dropout=dropout)
-        return self.output_layer(batch, encoded.last_hidden_state, is_generation=is_generation)
+        (`transformer.NAPast`), ``use_cache`` and
+        ``dep_graph_el_generation_target`` drive the cached walk; the output's
+        ``past_key_values`` is the encoder's next `NAPast`."""
+        encoded = self.encoder(
+            batch, past=past, use_cache=use_cache, dropout=dropout, dep_graph_el_generation_target=dep_graph_el_generation_target
+        )
+        out = self.output_layer(
+            batch, encoded.last_hidden_state, is_generation=is_generation,
+            dep_graph_el_generation_target=dep_graph_el_generation_target,
+        )  # fmt: skip
+        out.past_key_values = encoded.past_key_values
+        return out
 
     def cast_to_compute_dtype(self) -> "NAPPTForGenerativeSequenceModeling":
         """Casts, once, the weights flax casts on every call (`model_output.cast_to_compute_dtype`)."""

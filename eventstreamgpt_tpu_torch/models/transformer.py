@@ -7,8 +7,9 @@ Counterpart: ``eventstreamgpt_tpu/models/transformer.py``: `KVCache`,
 dep-graph route to kernel D, and the ``pallas_flash`` routes: kernel E for
 global layers, the band for narrow local windows, kernel F for wide ones),
 `InnerMLP`, `InnerBlock`, the CI input layer
-and transformer, and the uncached nested-attention (NA) input layer and
-transformer with `StructuredTransformerBlock`. Module attribute names
+and transformer, and the nested-attention (NA) input layer and transformer
+with `StructuredTransformerBlock`, `NAPast` and the cached per-level walk
+(the NA engine's prefill, scan-over-layers and remat are not ported). Module attribute names
 follow the flax parameter paths (``encoder.h0.attn.attention.q_proj``,
 ``encoder.h0.block.dep_graph_block.mlp.c_fc``...), so
 `convert.load_jax_params` maps one tree onto the other by name.
@@ -402,10 +403,13 @@ class LayerNorm(nn.Module):
 class InnerSelfAttention(nn.Module):
     """Multi-head causal self-attention with optional local windowing.
 
-    ``is_dep_graph`` marks the nested-attention dep-graph attention, which
-    runs `ops.dep_graph.dep_graph_attention` (kernel D on the card) on the
-    ``(N, S, H, D)`` projections as they are. It takes no cache, padding
-    mask or packing; the cached NA walk is not ported.
+    ``is_dep_graph`` marks the nested-attention dep-graph attention. Its
+    uncached forward runs `ops.dep_graph.dep_graph_attention` (kernel D on
+    the card) on the ``(N, S, H, D)`` projections as they are and takes no
+    padding mask or packing; with a cache or ``use_cache`` (the NA cached
+    walk) it runs the einsum path below, as the JAX model routes it, where
+    ``static_kv_first`` drops graph position 0 from the queries and puts
+    query ``i`` at position ``start + i + 1``.
 
     Under ``attention_implementation="pallas_flash"`` an uncached sequence
     layer follows the JAX model's gates: a global layer runs
@@ -447,20 +451,19 @@ class InnerSelfAttention(nn.Module):
         history; the query (and the output) drop it, and query ``i`` sits at position ``i + 1``."""
         B, S, E = hidden_states.shape
         H, D = self.num_heads, self.head_dim
-        if self.is_dep_graph:
-            if layer_past is not None or use_cache or attention_mask is not None or segment_ids is not None:
-                raise ValueError(
-                    "dep-graph attention takes no cache, padding mask or segment_ids in the port "
-                    "(ROADMAP Queue 1 item 4: the NA caches and cached walk)"
-                )
+        if self.is_dep_graph and layer_past is None and not use_cache:
+            if attention_mask is not None or segment_ids is not None:
+                raise ValueError("dep-graph attention takes no padding mask or segment_ids")
             return self._dep_graph(hidden_states, static_kv_first, dropout_rng), None
-        if static_kv_first:
+        if static_kv_first and not self.is_dep_graph:
             raise ValueError("static_kv_first belongs to dep-graph attention")
+        q_off = 1 if static_kv_first else 0
+        q_len = S - q_off
 
         def heads(x):  # (B, S, E) -> (B, H, S, D)
             return x.reshape(B, S, H, D).transpose(1, 2)
 
-        query = heads(dense(hidden_states, self.q_proj, self.dtype))
+        query = heads(dense(hidden_states, self.q_proj, self.dtype))[:, :, q_off:]
         key = heads(dense(hidden_states, self.k_proj, self.dtype))
         value = heads(dense(hidden_states, self.v_proj, self.dtype))
         chunk_mask = (
@@ -511,7 +514,11 @@ class InnerSelfAttention(nn.Module):
             write, src = _write_range(start, S, pos)
             chunks, scales = self._cache_chunks(layer_past, key, value)
             new_mask = torch.where(write, _gather_positions(chunk_mask, src), layer_past.mask)
-            q_positions = start[:, None] if S == 1 else start[:, None] + torch.arange(S, device=start.device)
+            q_positions = (
+                start[:, None]
+                if q_len == 1 and not q_off
+                else start[:, None] + torch.arange(q_off, S, device=start.device)
+            )
             valid_k = pos[None, :] < (start[:, None] + S)
             present = layer_past.write_at(start, chunks, scales, new_mask)
             key, value = present.read(self.dtype)
@@ -534,14 +541,14 @@ class InnerSelfAttention(nn.Module):
                 for dst, src in zip(new_scales, scales):
                     dst[:, :, start : start + S] = src
             k_positions = torch.arange(max_len, device=hidden_states.device)
-            q_positions = start + torch.arange(S, device=hidden_states.device)
+            q_positions = start + torch.arange(q_off, S, device=hidden_states.device)
             valid_k = k_positions < (start + S)
             present = KVCache(new_key, new_value, new_mask, start + S, *new_scales)
             key, value = present.read(self.dtype)
             attention_mask = new_mask
         else:
             k_positions = torch.arange(S, device=hidden_states.device)
-            q_positions = k_positions
+            q_positions = k_positions[q_off:]
             valid_k = None
             if use_cache:
                 present = KVCache(key, value, chunk_mask, S)
@@ -563,8 +570,8 @@ class InnerSelfAttention(nn.Module):
         attn = torch.clamp(attn, min=F32_MIN)
         attn = torch.softmax(attn, dim=-1).to(value.dtype)
         attn = dropout(attn, self.attention_dropout, dropout_rng)
-        out = torch.matmul(attn, value)  # (B, H, S, D)
-        out = out.transpose(1, 2).reshape(B, S, E)
+        out = torch.matmul(attn, value)  # (B, H, q_len, D)
+        out = out.transpose(1, 2).reshape(B, q_len, E)
         out = dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
         return out, (present if use_cache else None)
 
@@ -751,7 +758,16 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
         )
 
 
-NA_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: the NA caches and cached walk)"
+NA_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: NA scan-over-layers and remat)"
+NA_ENGINE_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: the NA engine's level walk)"
+
+
+@dataclasses.dataclass
+class NAPast:
+    """The two-level NA cache: per-layer sequence caches and per-layer dep-graph caches."""
+
+    seq_past: Optional[tuple] = None
+    dep_graph_past: Optional[tuple] = None
 
 
 class StructuredTransformerBlock(nn.Module):
@@ -820,20 +836,37 @@ class NestedAttentionPointProcessInputLayer(nn.Module):
             compute_dtype=config.compute_dtype,
         )
 
-    def forward(self, batch: EventStreamBatch, dropout_rng=None) -> torch.Tensor:
+    def forward(self, batch: EventStreamBatch, dropout_rng=None, dep_graph_el_generation_target=None) -> torch.Tensor:
+        """``dep_graph_el_generation_target`` (the cached walk) keeps only graph
+        element ``target - 1``: the last, whole-event element at target 0."""
         t = batch.time if batch.time is not None else time_from_deltas(batch)
         time_embed = temporal_position_encoding(t, self.hidden_size)
         e = self.data_embedding_layer(batch).float()
         e = torch.cat([(e[:, :, 0] + time_embed)[:, :, None], e[:, :, 1:]], dim=2)
         embed = torch.cumsum(e, dim=2).to(self.compute_dtype)
+        if dep_graph_el_generation_target is not None:
+            embed = embed[:, :, dep_graph_el_generation_target - 1][:, :, None]
         embed = torch.where(batch.event_mask[:, :, None, None], embed, 0.0)
         return dropout(embed, self.input_dropout, dropout_rng)
 
 
 class NestedAttentionPointProcessTransformer(nn.Module):
     """NA encoder: `StructuredTransformerBlock`s ``h{i}`` over the graph
-    embeddings, then ``ln_f``. Only the uncached forward (training and
-    evaluation) is ported."""
+    embeddings, then ``ln_f``, with the JAX encoder's three-way cache state
+    machine. ``dep_graph_el_generation_target`` picks the mode: ``None`` is
+    the full forward (with ``use_cache``, the prefix: both cache levels
+    written, the dep-graph caches then reset); ``0`` contextualizes the
+    just-completed event through the sequence caches and resets the
+    dep-graph caches; ``> 0`` decodes one graph element against the
+    dep-graph caches, the sequence module skipped.
+
+    The reset leaves each layer a dep-graph cache of
+    ``len(measurements_per_dep_graph_level) + 1`` positions (the history
+    slot and every element decoded before the next reset) holding, at
+    position 0, the key and value of the last written position of each
+    row's last event, with length 1 (a python int, as the cursor of a cache
+    whose writes are known when the walk is built).
+    """
 
     def __init__(self, config: StructuredTransformerConfig):
         super().__init__()
@@ -848,17 +881,91 @@ class NestedAttentionPointProcessTransformer(nn.Module):
             setattr(self, name, StructuredTransformerBlock(config, i))
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon, config.compute_dtype)
 
-    def forward(self, batch: EventStreamBatch, past=None, use_cache=False, dropout=None) -> TransformerOutputWithPast:
-        """``dropout``: a ``torch.Generator`` on the batch's device turns dropout on."""
-        if use_cache or past is not None:
-            raise ValueError(f"use_cache/past for nested-attention models {NA_WAITS}")
-        hidden_states = self.input_layer(batch, dropout)
-        for name in self.layer_names:
-            hidden_states = getattr(self, name)(
+    def forward(
+        self,
+        batch: EventStreamBatch,
+        past: Optional[NAPast] = None,
+        use_cache=False,
+        dropout=None,
+        dep_graph_el_generation_target: int | None = None,
+        last_event_index=None,
+    ) -> TransformerOutputWithPast:
+        """``dropout``: a ``torch.Generator`` on the batch's device turns dropout
+        on. ``past`` is an `NAPast`; with ``use_cache`` the output's
+        ``past_key_values`` is the next one."""
+        if last_event_index is not None:
+            raise ValueError(f"last_event_index (the NA engine's bucket-padded prefill) {NA_ENGINE_WAITS}")
+        if batch.segment_ids is not None and (use_cache or past is not None):
+            raise NotImplementedError(
+                "Packed (segment_ids) batches do not support KV-cached NA decoding; train/eval forwards handle "
+                "packing (segment-aware seq attention + history), generation requires padded batches."
+            )
+        target = dep_graph_el_generation_target
+        update_seq = update_dep = reset_dep = False
+        prepend, update_last = True, True
+        if use_cache:
+            if target is None:
+                if past is not None and past.dep_graph_past is not None:
+                    raise ValueError(f"dep_graph_past should be None if gen target is None; got {past.dep_graph_past}")
+                update_seq = update_dep = reset_dep = True
+            elif target == 0:
+                update_seq = update_dep = reset_dep = True
+                prepend = False
+            elif target > 0:
+                if past is None or past.dep_graph_past is None:
+                    raise ValueError(f"dep_graph_past should not be None if dep_graph_el_generation_target is {target}.")
+                update_dep = True
+                prepend = update_last = False
+            else:
+                raise ValueError(
+                    f"While use_cache=True, dep_graph generation target must be a non-negative int; got {target}."
+                )
+        seq_past = past.seq_past if past is not None else None
+        dep_past = past.dep_graph_past if past is not None else None
+
+        hidden_states = self.input_layer(batch, dropout, dep_graph_el_generation_target=target)
+        B, L = hidden_states.shape[:2]
+        presents_seq, presents_dep = [], []
+        for i, name in enumerate(self.layer_names):
+            hidden_states, seq_present, dep_present = getattr(self, name)(
                 hidden_states,
                 seq_attention_mask=batch.event_mask,
                 event_mask=batch.event_mask,
                 segment_ids=batch.segment_ids,
                 dropout_rng=dropout,
+                prepend_graph_with_history_embeddings=prepend,
+                update_last_graph_el_to_history_embedding=update_last,
+                seq_module_kwargs=dict(layer_past=None if seq_past is None else seq_past[i], use_cache=update_seq),
+                dep_graph_module_kwargs=dict(layer_past=None if dep_past is None else dep_past[i], use_cache=update_dep),
             )
-        return TransformerOutputWithPast(last_hidden_state=self.ln_f(hidden_states))
+            presents_seq.append(seq_present)
+            presents_dep.append(dep_present)
+        hidden_states = self.ln_f(hidden_states)
+        if not use_cache:
+            return TransformerOutputWithPast(last_hidden_state=hidden_states)
+        if not update_seq:
+            presents_seq = list(seq_past) if seq_past is not None else None
+        if reset_dep:
+            G = len(self.config.measurements_per_dep_graph_level) + 1
+            presents_dep = [_reset_dep_graph_cache(kv, B, L, G) for kv in presents_dep]
+        return TransformerOutputWithPast(
+            last_hidden_state=hidden_states,
+            past_key_values=NAPast(
+                seq_past=tuple(presents_seq) if presents_seq is not None else None, dep_graph_past=tuple(presents_dep)
+            ),
+        )
+
+
+def _reset_dep_graph_cache(kv: KVCache, B: int, L: int, max_dep_len: int) -> KVCache:
+    """A fresh ``max_dep_len``-position dep-graph cache holding, at position 0,
+    ``kv``'s last written position (``length - 1``) of each row's last event
+    (JAX's reset, ``transformer.py:1882-1936``)."""
+    last = int(kv.length) - 1
+
+    def last_el(x):  # (B * L, H, S, D) -> (B, H, max_dep_len, D)
+        x_last = x[:, :, last].reshape(B, L, x.shape[1], x.shape[3])[:, -1]
+        pad = x_last.new_zeros(B, x_last.shape[1], max_dep_len - 1, x_last.shape[2])
+        return torch.cat([x_last[:, :, None], pad], dim=2)
+
+    mask = (torch.arange(max_dep_len, device=kv.mask.device) == 0).expand(B, max_dep_len).contiguous()
+    return KVCache(key=last_el(kv.key), value=last_el(kv.value), mask=mask, length=1)

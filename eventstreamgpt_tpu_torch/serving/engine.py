@@ -450,7 +450,7 @@ class GenerationEngine:
         if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
             raise ValueError(
                 "nested-attention serving (the NA engine, its speculative decoding too) is not part of the PyTorch "
-                "port yet (ROADMAP Queue 1 item 4: the NA caches and cached walk)"
+                "port yet (ROADMAP Queue 1 item 4: the NA engine's level walk)"
             )
         check_generation_config(config)
         self.spec = spec

@@ -1175,3 +1175,102 @@ def test_captured_chunk_equals_single_captured_steps(cuda, name):
     layers = config.num_hidden_layers
     want = [steps, steps] + [layers * steps if name == "na" else 0] * 2 + [steps if packed else 0] * 2
     assert n == n1 == want, (n, n1, want)
+
+
+# ------------------------------------------------------------- cohort generate()
+GEN_NEW = 5
+
+
+def small_generate_setup(na: bool):
+    """A small fp32 CI or NA model (one head of 32: kernel D's head widths) at
+    a narrow log-time scale with a near-constant TTE head, and a 4 x 8 prompt."""
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, synthetic_prompt_batch
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
+                            num_attention_heads=1, head_dim=32, intermediate_size=64, seq_window_size=4,
+                            **(NA_OVERRIDES if na else {}))  # fmt: skip
+    model = init_params_from_seed(build_model(config), seed=1, std=0.15)
+    with torch.no_grad():
+        model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    return config, model, synthetic_prompt_batch(np.random.default_rng(1), 4, config, 8)
+
+
+def categorical_draws(model, na: bool, new: int) -> int:
+    """Kernel A's launches in one cached generate() of ``new`` events: one a
+    categorical head an event (NA: each level's heads, plus every head once at
+    the prefix's full forward)."""
+    n = sum(m == "single_label_classification" for m in model.output_layer.classification_mode_per_measurement.values())
+    return n * (new + (1 if na else 0))
+
+
+def same_batches(a, b) -> None:
+    for f in ("event_mask", "time_delta", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values",
+              "dynamic_values_mask"):  # fmt: skip
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
+def test_captured_generate_equals_eager_and_replays(cuda, na):
+    """The prefix and decode-step programs are captured at a key's first call;
+    a second call captures nothing, replays the prefix once and the step
+    ``max_new_events - 1`` times, draws every categorical head through kernel
+    A, and equals the first and the ``cuda_graph=False`` call bit for bit."""
+    from eventstreamgpt_tpu_torch.generation import generate
+    from eventstreamgpt_tpu_torch.generation.generation_utils import program_stats
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_fwd
+
+    config, model, prompt = small_generate_setup(na)
+    model = model.to(cuda)
+    kw = dict(seed=3, max_new_events=GEN_NEW, num_return_sequences=2, device=cuda)
+    first = generate(model, prompt, config, **kw)
+    s1 = program_stats(model)
+    assert (s1["keys"], s1["warmups"], s1["captures"], s1["replays"]) == (1, 2, 2, GEN_NEW)
+    fused_categorical_stream.launches = dep_graph_fwd.launches = 0
+    second = generate(model, prompt, config, **kw)
+    s2 = program_stats(model)
+    assert s2["captures"] == s1["captures"] and s2["replays"] - s1["replays"] == GEN_NEW
+    assert fused_categorical_stream.launches == categorical_draws(model, na, GEN_NEW) > 0
+    assert dep_graph_fwd.launches == 0  # the cached walk is on the einsum path
+    fused_categorical_stream.launches = 0
+    eager = generate(model, prompt, config, cuda_graph=False, **kw)
+    assert fused_categorical_stream.launches == categorical_draws(model, na, GEN_NEW)
+    assert program_stats(model)["replays"] == s2["replays"]
+    same_batches(first, second)
+    same_batches(first, eager)
+    assert first.batch_size == 8 and bool(first.event_mask.all())
+    assert bool(torch.isfinite(first.time_delta).all() and torch.isfinite(first.dynamic_values).all())
+
+
+def test_uncached_na_generate_launches_kernel_d(cuda):
+    from eventstreamgpt_tpu_torch.generation import generate
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_fwd
+
+    config, model, prompt = small_generate_setup(True)
+    dep_graph_fwd.launches = 0
+    out = generate(model.to(cuda), prompt, config, seed=3, max_new_events=3, use_cache=False, device=cuda)
+    G = len(config.measurements_per_dep_graph_level)
+    assert dep_graph_fwd.launches == 3 * G * config.num_hidden_layers  # a full forward a level an event
+    assert bool(out.event_mask.all())
+
+
+@pytest.mark.parametrize("cached", [True, False], ids=["cached", "uncached"])
+@pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
+def test_generate_on_card_matches_cpu(cuda, na, cached, monkeypatch):
+    """Greedy (through the module's ``sample_predictions``), fp32: events and
+    integers exact, floats within phase 2's small-engine tolerance (1e-4)."""
+    import functools
+
+    import eventstreamgpt_tpu_torch.generation.generation_utils as gu
+
+    config, model, prompt = small_generate_setup(na)
+    monkeypatch.setattr(gu, "sample_predictions", functools.partial(gu.sample_predictions, greedy=True))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        out[dev.type] = gu.generate(copy.deepcopy(model).to(dev), prompt, config, seed=3, max_new_events=GEN_NEW,
+                                    use_cache=cached, device=dev)  # fmt: skip
+    a, b = out["cuda"], out["cpu"]
+    for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    for f in ("time_delta", "dynamic_values"):
+        torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), rtol=1e-4, atol=1e-4)

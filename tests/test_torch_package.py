@@ -61,6 +61,22 @@ def test_sweep_covers_the_resident_feed(module):
     assert module in MODULES
 
 
+def test_generation_names_import_with_jax_blocked():
+    """The cohort ``generate()`` API and the NA cache types import without JAX."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'eventstreamgpt_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from eventstreamgpt_tpu_torch.generation import (GenerationOutput, MaxLengthCriteria, StoppingCriteria,\n"
+        "    StoppingCriteriaList, generate, sample_predictions)\n"
+        "from eventstreamgpt_tpu_torch.generation.generation_utils import program_stats\n"
+        "from eventstreamgpt_tpu_torch.models.transformer import NAPast\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):

@@ -322,18 +322,18 @@ def test_make_train_step_defaults_to_cuda(cases):
 
 def test_build_model_refuses_nested_attention():
     """`build_model` builds the NA model; what the port still refuses of it
-    is the cached NA paths (the NA caches, the per-level walk, scan, remat)."""
+    is the NA engine's bucket-padded prefill (``last_event_index``), scan
+    and remat (the NA caches and the per-level walk are ported:
+    ``tests/test_torch_generate.py``)."""
     na = dict(SMALL, structured_event_processing_mode="nested_attention", measurements_per_dep_graph_level=[[], ["a"]])
     config = StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na)
     model = build_model(config)
     assert isinstance(model, NAPPTForGenerativeSequenceModeling)
     batch = EventStreamBatch(event_mask=torch.ones(1, 2, dtype=torch.bool), time_delta=torch.ones(1, 2))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        model(batch, use_cache=True)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        model(batch, past=())
-    with pytest.raises(ValueError, match="ROADMAP"):
-        model.output_layer(batch, torch.zeros(1, 2, 2, 32), is_generation=True, dep_graph_el_generation_target=1)
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4: the NA engine"):
+        model.encoder(batch, use_cache=True, last_event_index=torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="is_generation"):
+        model.output_layer(batch, torch.zeros(1, 2, 2, 32), is_generation=False, dep_graph_el_generation_target=1)
     for knob in (dict(scan_layers=True), dict(gradient_checkpointing="block")):
         with pytest.raises(ValueError, match="ROADMAP"):
             build_model(StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na, **knob))
