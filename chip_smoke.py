@@ -256,7 +256,28 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    name and power limit: generated events/s of the second call, phase 2's
    sampled engine events/s, and one profiled replay of each model's prefix
    and decode-step programs (device ms and kernels), taken after every capture.
-14. One ``{"kernels": [...]}`` line, then the device line as the last line.
+14. The nested-attention serving engine at phase 2's settings: phase 6's NA
+   model (bf16, numpy-seeded weights, ``bench.py``'s three dep-graph levels)
+   behind `GenerationEngine` (32 slots, ``max_len`` 256, prompts up to 192,
+   buckets from 32, chunks of 16), serving 64 requests with prompts made for
+   its config as phase 2 makes its own: bf16 greedy, bf16 sampled and int8
+   sampled, each in phase 2's three passes, captured (one capture a key, none
+   after ``reset()``), and each against the same engine with
+   ``cuda_graph=False`` (warm pass, bit for bit). Every request finishes
+   with ``n_events == prompt_len + n_generated`` and finite outputs; each
+   pass after ``reset()`` equals the warm pass bit for bit; kernel A
+   launches (sampled only) as often as the eager engine after ``reset()``
+   and that count plus the warm-ups in the warm pass; kernels B and D never
+   launch (the NA step is the unfused level walk, the cached dep-graph
+   attention the einsum path, as in JAX). A small fp32 greedy NA engine on
+   the card must match the same engine on the CPU (groups padded; phase 2's
+   tolerances). Printed, not checked, beside the card's name and power
+   limit: each run's events/s (accounting pass), ``slots_report()`` at the
+   card's memory, and one profiled 16-step chunk of the sampled engine at 32
+   admitted slots (device ms and kernels a step), taken after every capture,
+   beside phase 12's profile of phase 2's unfused CI step and phase 13's NA
+   ``generate()`` step.
+15. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -636,25 +657,26 @@ def engine_phase(smi):
     return model, config, capture, out
 
 
-def small_engine_matches_cpu(spec_k=None, phase="phase 2", **engine_kw):
+def small_engine_matches_cpu(spec_k=None, phase="phase 2", na=False, **engine_kw):
     """The whole path on the card against the same engine on the CPU (plain
     versions of both kernels), fp32 greedy at a small size: a small
     vocabulary (few Bernoulli draws that float noise could tip over 0.5) and
     a narrow log-time scale (moderate times for the sinusoidal encoding).
     ``engine_kw`` go to both engines (``kv_cache_dtype``); ``spec_k``: both
-    speculative, the draft the model's first layer, zero tolerances."""
+    speculative, the draft the model's first layer, zero tolerances; ``na``:
+    the NA model of ``bench.py``'s three dep-graph levels."""
     import numpy as np
     import torch
 
     from eventstreamgpt_tpu_torch.convert import init_params_from_seed
-    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
-    from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, synthetic_prompts
     from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
+    from eventstreamgpt_tpu_torch.training import build_model
 
     config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
-                            head_dim=8, intermediate_size=64, seq_window_size=4)  # fmt: skip
+                            head_dim=8, intermediate_size=64, seq_window_size=4, **(NA_OVERRIDES if na else {}))  # fmt: skip
     # Weights of std ~ 1/sqrt(hidden): unit gain, so float noise is not amplified from event to event.
-    model = init_params_from_seed(CIPPTForGenerativeSequenceModeling(config), seed=1, std=0.15)
+    model = init_params_from_seed(build_model(config), seed=1, std=0.15)
     with torch.no_grad():  # a near-constant TTE head: inter-event times of about e^1 minutes
         model.output_layer.TTE_layer.proj.weight.mul_(0.02)
     prompts = synthetic_prompts(np.random.default_rng(1), 6, config, (6, 12), (4, 8))
@@ -694,9 +716,9 @@ def small_engine_matches_cpu(spec_k=None, phase="phase 2", **engine_kw):
             a, b = getattr(g.batch, f), getattr(c.batch, f)
             float_diff = max(float_diff, (a - b).abs().max().item())
             torch.testing.assert_close(a, b, rtol=float_tol, atol=float_tol)
-    print(f"{phase}: small fp32 greedy engine {engine_kw or ''} on the card matches the CPU engine, groups padded "
-          f"(requests, rows) {padded}: events and integers exact, floats within {float_tol} (max |diff| "
-          f"{float_diff:.3g})", flush=True)  # fmt: skip
+    print(f"{phase}: small fp32 greedy {'NA ' if na else ''}engine {engine_kw or ''} on the card matches the CPU "
+          f"engine, groups padded (requests, rows) {padded}: events and integers exact, floats within {float_tol} "
+          f"(max |diff| {float_diff:.3g})", flush=True)  # fmt: skip
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2625,6 +2647,98 @@ def generate_step_profiles(smi, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 14
+def na_engine_phase(smi) -> dict:
+    """Phase 14: the NA engine at phase 2's settings (module docstring)."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import na_training_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
+    from eventstreamgpt_tpu_torch.tools.profile_decode import filled_engine
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    t0 = time.perf_counter()
+    config = na_training_config([training_batch()])
+    check(config.precision == "bf16" and config.hidden_size == 256 and len(config.measurements_per_dep_graph_level) == 3,
+          "phase 14: not phase 6's NA model")  # fmt: skip
+    model = init_params_from_seed(build_model(config), seed=SEED)
+    prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, config, (128, 192), (16, 64))
+    base_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+    counters = {f"decode_stack_step.{c}": (decode_stack_step, c) for c in KERNEL_B_ENTRIES}
+    counters.update(fused_categorical_stream=(fused_categorical_stream, "launches"),
+                    fused_categorical=(fused_categorical, "launches"), dep_graph_fwd=(dep_graph_fwd, "launches"))  # fmt: skip
+    out, launches_a, rates = {}, 0, {}
+    for name, kv, mode in (("bf16", None, "greedy"), ("bf16", None, "sampled"), ("int8", "int8", "sampled")):
+        label = f"phase 14 [NA {name} {mode}]"
+        kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv)
+        run = engine_run(model, config, prompts, counters, **kw)
+        eager = engine_run(model, config, prompts, counters, passes=("warm",), cuda_graph=False, **kw)
+        check_results(run["results"], run["requests"], label)
+        check(run["stats"]["decode_step_impl"] == "unfused", f"{label}: not the unfused step: {run['stats']}")
+        for pname, p in list(run["passes"].items()) + [("eager", eager)]:
+            kernels_bd = {k: v for k, v in p["launches"].items() if k.startswith("decode_stack_step") or k == "dep_graph_fwd"}
+            check(not any(kernels_bd.values()), f"{label} [{pname}]: kernel B or D launched: {kernels_bd}")
+            a = p["launches"]["fused_categorical_stream"]
+            check(a > 0 if mode == "sampled" else a == 0, f"{label} [{pname}]: kernel A launched {a} times ({mode})")
+            check(p["launches"]["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
+        check_graph_counts(run, label, None)
+        check_passes(run, label)
+        same_results(run["results"], eager["results"], label)
+        # Kernel A through the replays: the pass after reset() (no warm-up)
+        # launches it as often as the eager engine's one pass, and the warm
+        # pass that count plus the warm-up chunk's and each prefill key's.
+        s, e = run["passes"]["warm"]["stats"], eager["stats"]
+        a_eager = eager["launches"]["fused_categorical_stream"]
+        calls = e["prefill_dispatches"] + e["dispatched_chunks"] * e["decode_chunk"]
+        check(a_eager % calls == 0, f"{label}: kernel A launched {a_eager} times eager for {calls} calls")
+        want = a_eager // calls * (s["prefill_dispatches"] + s["prefill_graph_warmups"]
+                                   + (s["dispatched_chunks"] + s["graph_warmup_chunks"]) * s["decode_chunk"])  # fmt: skip
+        got = (run["passes"]["fetching"]["launches"]["fused_categorical_stream"],
+               run["passes"]["warm"]["launches"]["fused_categorical_stream"])  # fmt: skip
+        check(got == (a_eager, want), f"{label}: kernel A launched {got} times (after reset(), warm), "
+                                      f"{(a_eager, want)} expected")  # fmt: skip
+        launches_a += run["launches"]["fused_categorical_stream"]
+        acct = run["passes"]["accounting"]
+        generated = sum(r.n_generated for r in run["results"])
+        rates[f"{name} {mode}"] = dict(events_per_s=generated / acct["wall_s"], wall_s=acct["wall_s"],
+                                       chunks=acct["stats"]["dispatched_chunks"],
+                                       wasted_decode_frac=acct["stats"]["wasted_decode_frac"])  # fmt: skip
+        out[(name, mode)] = run
+        print(f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and float "
+              f"equal captured and eager and in each pass after reset(); accounting pass "
+              f"{json.dumps(rates[f'{name} {mode}'])}; {programs_line(run)}; launches over three passes "
+              f"{run['launches']}, kernel A {a_eager // calls} a prefill group or step; eager warm pass "
+              f"{eager['wall_s']:.3f} s, captured warm pass {run['passes']['warm']['wall_s']:.3f} s ({smi})",
+              flush=True)  # fmt: skip
+    report = out[("bf16", "sampled")]["engine"].slots_report()
+    print(f"phase 14: slots_report() of the NA engine at the card's memory (bf16 cache, the dep-graph caches in the "
+          f"row): {json.dumps({k: report[k] for k in ('params_bytes', 'row_bytes_per_slot', 'per_dtype')})} ({smi})",
+          flush=True)  # fmt: skip
+    t1 = time.perf_counter()
+    small_engine_matches_cpu(phase="phase 14", na=True)
+    # The profiled engine is built (its programs captured) now; it is profiled after every capture of the run.
+    profiled = filled_engine(model, config, prompts, **base_kw, greedy=False, dispatch_depth=1)
+    t2 = time.perf_counter()
+    print(f"phase 14: passed in {t2 - t0:.1f} s (full width {t1 - t0:.1f}; its profile comes last)", flush=True)
+    return dict(launches_a=launches_a, rates=rates, profile=lambda: na_engine_profile(smi, profiled))
+
+
+def na_engine_profile(smi, engine) -> dict:
+    """One profiled 16-step chunk of the sampled bf16 NA engine on 32 admitted
+    slots (`tools.profile_decode.profiled_engine_chunk`): device ms and
+    kernels a step."""
+    from eventstreamgpt_tpu_torch.tools.profile_decode import profiled_engine_chunk
+
+    summary = profiled_engine_chunk(engine)
+    out = {k: summary[k] for k in ("step_wall_ms", "active_slots", "device_busy_ms_per_step", "device_kernels_per_step",
+                                   "host_launches_per_step", "device_idle_share_unprofiled") if k in summary}  # fmt: skip
+    check(summary["device_kernels_per_step"] > 0, "phase 14: no device kernel in the NA engine's profile")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2656,9 +2770,16 @@ def main() -> int:
     spec = spec_phase(smi, model, config)
     acct = runs["sampled"]["passes"]["accounting"]
     gen = generate_phase(smi, runs["sampled"]["generated"] / acct["wall_s"])
+    na_engine = na_engine_phase(smi)
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
+    na_engine["profiles"] = na_engine.pop("profile")()
+    print(f"phase 14: one profiled captured chunk of 16 at 32 admitted slots (sampled, bf16), a step: NA engine "
+          f"{json.dumps(na_engine['profiles'])}; phase 2's CI engine, unfused step "
+          f"{json.dumps(spec['profiles']['monolithic unfused'])}; phase 13's NA generate() step "
+          f"{json.dumps(gen['profiles']['NA step'])}; events/s (accounting pass) {json.dumps(na_engine['rates'])} "
+          f"({smi})", flush=True)  # fmt: skip
 
     def chunk_launches(name):
         return sum(run["launches"][name] for run in chunked.values())
@@ -2667,7 +2788,7 @@ def main() -> int:
         dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
-             + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"], **a),
+             + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]

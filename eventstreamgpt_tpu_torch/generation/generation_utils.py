@@ -25,9 +25,10 @@ Every tensor the programs read or write outside their temporaries (the
 staged prompt, the preallocated batch, the caches, the cursor, the row
 seeds) keeps its address for the life of the key's entry in the program
 cache (an LRU of 32 keys, as JAX's ``_STEP_CACHE``, keyed on the model
-object, held weakly, the mode, ``B``, ``input_len``, ``max_new_events``
-and the prompt's layout). On the card each program is captured into a CUDA
-graph at the key's first call (`utils.graphs.CapturedProgram`: both run
+object, held weakly, the config's JSON as JAX keys it, ``B``,
+``input_len``, ``max_new_events`` and the prompt's layout). On the card
+each program is captured into a CUDA graph at the key's first call
+(`utils.graphs.CapturedProgram`: both run
 eagerly once as the warm-up, then both are captured, then replayed) and
 every call replays them: one host launch for the prefix and one an event.
 A stopping criterion (other than `MaxLengthCriteria`, folded into the
@@ -54,6 +55,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import json
 import weakref
 
 import torch
@@ -283,12 +285,29 @@ def _layout(batch: EventStreamBatch) -> tuple:
     return tuple(out)
 
 
+# The last config signature of each live model (JAX's ``_SIG_CACHE``): a hit
+# on the same model and config object does not serialize the config again.
+_SIGNATURES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _config_signature(model, config) -> str:
+    """The JSON of ``config.to_dict()`` (JAX's ``_model_config_signature``),
+    memoized weakly on the model together with the config object it was made
+    from, so that another config on the same model gets its own signature."""
+    hit = _SIGNATURES.get(model)
+    if hit is not None and hit[0]() is config:
+        return hit[1]
+    sig = json.dumps(config.to_dict(), sort_keys=True, default=str)
+    _SIGNATURES[model] = (weakref.ref(config), sig)
+    return sig
+
+
 def _programs(model, batch, config, input_len, max_new_events, use_cache, device, cuda_graph) -> "_Generation":
     """The key's entry of the program cache (LRU, entries of dead models dropped first)."""
     for k in [k for k, v in _PROGRAMS.items() if v.model_ref() is None]:
         del _PROGRAMS[k]
     graphed = device.type == "cuda" and bool(cuda_graph) and use_cache
-    key = (id(model), config.structured_event_processing_mode, batch.batch_size, input_len, max_new_events,
+    key = (id(model), _config_signature(model, config), batch.batch_size, input_len, max_new_events,
            bool(use_cache), _layout(batch), str(device), graphed,
            tuple(p.data_ptr() for p in model.parameters()))  # fmt: skip
     hit = _PROGRAMS.get(key)

@@ -137,15 +137,18 @@ class NAPPTForGenerativeSequenceModeling(nn.Module):
         is_generation: bool = True,
         dropout=None,
         dep_graph_el_generation_target: int | None = None,
+        last_event_index=None,
     ):
         """``is_generation=False`` computes the losses; ``dropout`` (a
         ``torch.Generator`` on the batch's device) turns dropout on. ``past``
         (`transformer.NAPast`), ``use_cache`` and
-        ``dep_graph_el_generation_target`` drive the cached walk; the output's
-        ``past_key_values`` is the encoder's next `NAPast`."""
+        ``dep_graph_el_generation_target`` drive the cached walk, and
+        ``last_event_index`` the bucket-padded prefill's dep-graph reset; the
+        output's ``past_key_values`` is the encoder's next `NAPast`."""
         encoded = self.encoder(
-            batch, past=past, use_cache=use_cache, dropout=dropout, dep_graph_el_generation_target=dep_graph_el_generation_target
-        )
+            batch, past=past, use_cache=use_cache, dropout=dropout,
+            dep_graph_el_generation_target=dep_graph_el_generation_target, last_event_index=last_event_index,
+        )  # fmt: skip
         out = self.output_layer(
             batch, encoded.last_hidden_state, is_generation=is_generation,
             dep_graph_el_generation_target=dep_graph_el_generation_target,

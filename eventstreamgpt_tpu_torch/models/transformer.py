@@ -9,7 +9,7 @@ global layers, the band for narrow local windows, kernel F for wide ones),
 `InnerMLP`, `InnerBlock`, the CI input layer
 and transformer, and the nested-attention (NA) input layer and transformer
 with `StructuredTransformerBlock`, `NAPast` and the cached per-level walk
-(the NA engine's prefill, scan-over-layers and remat are not ported). Module attribute names
+(scan-over-layers and remat are not ported). Module attribute names
 follow the flax parameter paths (``encoder.h0.attn.attention.q_proj``,
 ``encoder.h0.block.dep_graph_block.mlp.c_fc``...), so
 `convert.load_jax_params` maps one tree onto the other by name.
@@ -42,7 +42,7 @@ from ..ops.band_attention import band_local_attention
 from ..ops.dep_graph import dep_graph_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.kv_quant import dequantize_kv, is_quantized_dtype, quantize_kv, resolve_cache_dtype, storage
-from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts
+from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts, take_event
 from .config import StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
 from .structured_attention import StructuredAttention
@@ -714,6 +714,9 @@ class TransformerOutputWithPast:
     past_key_values: Optional[tuple] = None
 
 
+CI_REMAT_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 8: CI remat and scan-over-layers)"
+
+
 class ConditionallyIndependentPointProcessTransformer(nn.Module):
     """Stack of `InnerBlock`s over whole-event embeddings (flax names ``h{i}``)."""
 
@@ -724,6 +727,8 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
                 "scan_layers checkpoints store the stacked h_scan layout; migrate with "
                 "eventstreamgpt_tpu's unstack_layer_params before loading into the port"
             )
+        if config.gradient_checkpointing != "none":
+            raise ValueError(f"gradient_checkpointing={config.gradient_checkpointing!r} (remat) {CI_REMAT_WAITS}")
         self.config = config
         self.input_layer = ConditionallyIndependentPointProcessInputLayer(config)
         self.layer_names = [f"h{i}" for i in range(config.num_hidden_layers)]
@@ -759,7 +764,6 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
 
 
 NA_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: NA scan-over-layers and remat)"
-NA_ENGINE_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: the NA engine's level walk)"
 
 
 @dataclasses.dataclass
@@ -892,9 +896,10 @@ class NestedAttentionPointProcessTransformer(nn.Module):
     ) -> TransformerOutputWithPast:
         """``dropout``: a ``torch.Generator`` on the batch's device turns dropout
         on. ``past`` is an `NAPast`; with ``use_cache`` the output's
-        ``past_key_values`` is the next one."""
-        if last_event_index is not None:
-            raise ValueError(f"last_event_index (the NA engine's bucket-padded prefill) {NA_ENGINE_WAITS}")
+        ``past_key_values`` is the next one. ``last_event_index`` (``(B,)``,
+        the serving engine's bucket-padded prefill) seeds each row's reset
+        dep-graph history from its event at that index, not from the last
+        position of the (padded) input."""
         if batch.segment_ids is not None and (use_cache or past is not None):
             raise NotImplementedError(
                 "Packed (segment_ids) batches do not support KV-cached NA decoding; train/eval forwards handle "
@@ -947,7 +952,7 @@ class NestedAttentionPointProcessTransformer(nn.Module):
             presents_seq = list(seq_past) if seq_past is not None else None
         if reset_dep:
             G = len(self.config.measurements_per_dep_graph_level) + 1
-            presents_dep = [_reset_dep_graph_cache(kv, B, L, G) for kv in presents_dep]
+            presents_dep = [_reset_dep_graph_cache(kv, B, L, G, last_event_index) for kv in presents_dep]
         return TransformerOutputWithPast(
             last_hidden_state=hidden_states,
             past_key_values=NAPast(
@@ -956,14 +961,16 @@ class NestedAttentionPointProcessTransformer(nn.Module):
         )
 
 
-def _reset_dep_graph_cache(kv: KVCache, B: int, L: int, max_dep_len: int) -> KVCache:
+def _reset_dep_graph_cache(kv: KVCache, B: int, L: int, max_dep_len: int, last_event_index=None) -> KVCache:
     """A fresh ``max_dep_len``-position dep-graph cache holding, at position 0,
-    ``kv``'s last written position (``length - 1``) of each row's last event
-    (JAX's reset, ``transformer.py:1882-1936``)."""
+    ``kv``'s last written position (``length - 1``) of each row's last event,
+    or of its event ``last_event_index[b]`` when given (JAX's reset,
+    ``transformer.py:1882-1936``)."""
     last = int(kv.length) - 1
 
     def last_el(x):  # (B * L, H, S, D) -> (B, H, max_dep_len, D)
-        x_last = x[:, :, last].reshape(B, L, x.shape[1], x.shape[3])[:, -1]
+        x_last = x[:, :, last].reshape(B, L, x.shape[1], x.shape[3])
+        x_last = x_last[:, -1] if last_event_index is None else take_event(x_last, last_event_index)
         pad = x_last.new_zeros(B, x_last.shape[1], max_dep_len - 1, x_last.shape[2])
         return torch.cat([x_last[:, :, None], pad], dim=2)
 

@@ -1,4 +1,4 @@
-"""Continuous-batching generation engine for CI models: slot-based decode.
+"""Continuous-batching generation engine for CI and NA models: slot-based decode.
 
 Counterpart: the core of ``eventstreamgpt_tpu/serving/engine.py``
 (`GenerationEngine`), single device. A fixed set of decode **slots** holds
@@ -90,6 +90,25 @@ with `serving.errors.SlotHealthError`, or, with ``health_retries`` budget
 left, goes back to the front of the queue with its seed fixed, so the retry
 reproduces a clean run bit for bit).
 
+Nested-attention (NA) models (JAX's default NA path): every decode step is
+the unfused one, an event's whole dep-graph level walk (JAX's
+``_decode_step_na``): the target-0 forward of the last event through the
+sequence caches (merged where a slot is active, as for CI) and the
+dep-graph caches, level 0 (the time) drawn and the event appended, then
+levels 1 .. G-1 (``G = len(measurements_per_dep_graph_level)``), each a
+one-element forward against the dep-graph caches alone that draws its
+level's heads and fills its measurements in. The dep-graph caches are one
+``(layers, slots, heads, G + 1, head_dim)`` plane pair in the compute dtype
+under every ``kv_cache_dtype`` with a ``(slots, G + 1)`` mask; their length
+is G at every step boundary, a Python int in the programs, and they are
+taken whole after each step (a finished slot's rows hold inert values that
+its next admission overwrites). The prefill runs the bucket's forward with
+``last_event_index = plen - 1``, so a bucket-padded prompt seeds each row's
+dep-graph history from its last real event, then draws level 0 and walks
+the levels before admission. Event ``j`` of a request draws level ``l`` from
+stream counter ``j * G + l``. Kernel B, the paged cache and speculative
+decoding are refused for NA models, as JAX refuses the first two.
+
 Speculative decoding (``spec=SpecConfig(...)``, `serving.spec`, JAX's spec
 mode for CI models): a draft model (`serving.spec.truncated_draft` cuts one
 from the target) holds its own per-slot cache beside the target's. Each
@@ -108,9 +127,8 @@ engine runs both forwards unfused (kernel B never launches) and refuses the
 paged cache, the megakernel and custom device criteria.
 
 Not ported yet, each a ``ValueError`` at construction: meshes and tensor
-parallelism, hot swap, the dedicated prefill stream, nested-attention
-models (their speculative decoding too), and functional-time-dependent
-measurements.
+parallelism, hot swap, the dedicated prefill stream, speculative decoding
+on NA models, and functional-time-dependent measurements.
 """
 
 from __future__ import annotations
@@ -139,7 +157,15 @@ from ..generation.sampling import (
 )
 from ..generation.stopping_criteria import DeadRowCriteria, DeviceCriterion
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
-from ..models.transformer import KVCache, PagedKVCache, init_kv_caches, paged_kv_bytes_per_block, time_from_deltas
+from ..models.model_output import GenerativeSequenceModelPredictions
+from ..models.transformer import (
+    KVCache,
+    NAPast,
+    PagedKVCache,
+    init_kv_caches,
+    paged_kv_bytes_per_block,
+    time_from_deltas,
+)
 from ..ops.decode_step import decode_stack_step, stack_layer_weights
 from ..ops.fused_sampling import fused_categorical_stream, topk_topp_mask
 from ..ops.kv_quant import (
@@ -233,6 +259,21 @@ _PAGED_SPEC = (
     "positions through the draft/target cache pair, which still admits monolithically. Nearest supported "
     "configurations: spec with monolithic caches (kv_cache_dtype='int8' composes), or paged_kv without spec "
     "(fork() branched rollouts)"
+)
+# JAX's refusals of a nested-attention engine (its words, without its
+# tracking notes): the megakernel and the paged cache.
+_NA_MEGAKERNEL = (
+    "the decode megakernel fuses the CI one-event step only; nested-attention decode walks the per-event dep-graph "
+    "levels through their own fused kernels (ops/pallas_dep_graph.py) and does not route through it. Nearest "
+    "supported configuration: CI engines with decode_step_impl set, or NA engines with decode_step_impl='xla'"
+)
+_NA_PAGED = (
+    "paged KV cache does not support nested-attention models yet: the dep-graph caches reset per event and do not "
+    "page; run NA engines with paged_kv=False"
+)
+_NA_SPEC = (
+    "speculative decoding on nested-attention models is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: "
+    "NA speculative decoding)"
 )
 _SPEC_MEGAKERNEL = (
     "speculative decoding replaces the decode step with the draft-chunk/verify program pair, which the megakernel "
@@ -347,10 +388,11 @@ def _admit_rows(dst: torch.Tensor, src, slots: torch.Tensor, valid: torch.Tensor
 
 
 class GenerationEngine:
-    """Continuous-batching engine over one CI model.
+    """Continuous-batching engine over one CI or NA model.
 
     Args:
-        model: a `models.ci_model.CIPPTForGenerativeSequenceModeling` with
+        model: a `models.ci_model.CIPPTForGenerativeSequenceModeling` or
+            `models.na_model.NAPPTForGenerativeSequenceModeling` with
             its weights loaded (fp32 parameters; the engine casts a copy of
             the Dense weights to the compute dtype once).
         config: the model configuration.
@@ -388,9 +430,10 @@ class GenerationEngine:
             ``sampling_impl`` None, "auto" or "pallas" (the categorical
             heads through kernel A); ``decode_step_impl`` "xla" (the unfused
             model step), "pallas" (the layer stack through kernel B), or
-            None / "auto": kernel B on a monolithic cache and the unfused
-            step on a paged one, where "pallas" raises as in JAX. Any other
-            value raises ``ValueError`` naming what the port lacks.
+            None / "auto": kernel B on a monolithic CI cache and the unfused
+            step on a paged one or an NA model, where "pallas" raises as in
+            JAX. Any other value raises ``ValueError`` naming what the port
+            lacks.
         device: ``None`` (the CUDA device, raising without one) or an
             explicit device such as ``"cpu"``.
         cuda_graph: on a CUDA device, capture each program once and replay
@@ -447,11 +490,14 @@ class GenerationEngine:
         self.dispatch_depth = int(dispatch_depth)
         if self.dispatch_depth < 1:
             raise ValueError("dispatch_depth must be >= 1")
-        if config.structured_event_processing_mode != StructuredEventProcessingMode.CONDITIONALLY_INDEPENDENT:
-            raise ValueError(
-                "nested-attention serving (the NA engine, its speculative decoding too) is not part of the PyTorch "
-                "port yet (ROADMAP Queue 1 item 4: the NA engine's level walk)"
-            )
+        self._na = config.structured_event_processing_mode == StructuredEventProcessingMode.NESTED_ATTENTION
+        if self._na:
+            if paged_kv:
+                raise ValueError(_NA_PAGED)
+            if decode_step_impl == "pallas":
+                raise ValueError(_NA_MEGAKERNEL)
+            if spec is not None:
+                raise ValueError(_NA_SPEC)
         check_generation_config(config)
         self.spec = spec
         if spec is not None:
@@ -466,11 +512,12 @@ class GenerationEngine:
         if spec is not None and decode_step_impl == "pallas":
             raise ValueError(_SPEC_MEGAKERNEL)
         # The decode step: kernel B, or the unfused model step (JAX's
-        # "auto" on a paged engine, where kernel B does not read the pool);
-        # a spec engine runs its round of draft and target forwards instead.
+        # "auto" on a paged or NA engine, where kernel B does not read the
+        # pool or walk the levels); a spec engine runs its round of draft and
+        # target forwards instead.
         if self.paged_kv and decode_step_impl == "pallas":
             raise ValueError(_PAGED_MEGAKERNEL)
-        self._unfused = decode_step_impl == "xla" or self.paged_kv or spec is not None
+        self._unfused = decode_step_impl == "xla" or self.paged_kv or spec is not None or self._na
         self.decode_step_impl = "unfused" if self._unfused else "decode_stack_step"
         self._chunk, chunk_name = self._decode_chunk, "the decode chunk"
         if spec is not None:
@@ -500,7 +547,15 @@ class GenerationEngine:
         self.scheduler = Scheduler(self.n_slots, make_buckets(min_bucket, self.max_prompt_len), max_pending=max_queue)
         if self.paged_kv:
             self.scheduler.block_pool_stats = self._block_pool_stats
+        # What an event's draw fills: CI, every dynamic measurement at once;
+        # NA, level l's measurements at level l (JAX's fill list; level 0,
+        # the time, is the event's append).
         self._to_fill = measurements_to_fill(config)
+        self._n_levels = 1
+        if self._na:
+            levels = config.measurements_per_dep_graph_level
+            self._to_fill = [{"time"}] + [set(sorted(level, key=str)) for level in levels[1:]]
+            self._n_levels = len(self._to_fill)
 
         # Weights in the compute dtype, once: the model keeps fp32 for callers.
         # A draft is copied with the target in one go, so modules a truncated
@@ -643,6 +698,17 @@ class GenerationEngine:
         self.seeds = torch.empty(S, dtype=torch.int32, device=dev)
         self.counters = torch.empty(S, dtype=torch.int32, device=dev)
         self.active_steps = torch.empty((), dtype=torch.int32, device=dev)
+        self.dep_key = self.dep_value = self.dep_mask = None
+        if self._na:
+            # The dep-graph caches (JAX's ``_init_state``): one plane pair a
+            # layer of G + 1 positions, in the compute dtype under every
+            # cache dtype, and their mask. Their shared length is a phase,
+            # not state: G at every step boundary (a walk resets it to 1 and
+            # writes G more), a Python int in each program.
+            dep = (cfg.num_hidden_layers, S, cfg.num_attention_heads, self._n_levels + 1, cfg.head_dim)
+            self.dep_key = torch.empty(dep, dtype=self.cdt, device=dev)
+            self.dep_value = torch.empty(dep, dtype=self.cdt, device=dev)
+            self.dep_mask = torch.empty(S, self._n_levels + 1, dtype=torch.bool, device=dev)
         if self.spec is not None:
             self._init_spec_state()
         self._boundary = torch.empty((5 if self.spec is None else 7, S), dtype=torch.int32, device=dev)
@@ -672,15 +738,17 @@ class GenerationEngine:
 
     def _write_initial_state(self) -> None:
         """Every state buffer to its initial value, in place (each keeps its
-        address): empty rows, zero caches (the draft's too) with unit scales
-        (zero codes dequantize to zeros; a pool's zero block among them),
+        address): empty rows, zero caches (the draft's and the dep-graph
+        caches too) with unit scales (zero codes dequantize to zeros; a
+        pool's zero block among them),
         block tables on the zero block, zero spec counts, every slot done and
         not live."""
         for x in vars(self.big).values():
             if torch.is_tensor(x):
                 x.zero_()
         zeros = [self.cache_mask, self.cache_len, self.budget, self.n_generated, self.live, self.health, self.seeds,
-                 self.counters, self.active_steps, self._boundary, self.block_table]  # fmt: skip
+                 self.counters, self.active_steps, self._boundary, self.block_table, self.dep_key, self.dep_value,
+                 self.dep_mask]  # fmt: skip
         planes = [self._planes()]
         if self.spec is not None:
             planes.append(self._planes(draft=True))
@@ -764,19 +832,42 @@ class GenerationEngine:
                          for k, v, sc in zip(keys, values, scales))  # fmt: skip
         return tuple(KVCache(k, v, cache_mask, cache_len, *sc) for k, v, sc in zip(keys, values, scales))
 
+    def _dep_caches(self) -> tuple:
+        """The dep-graph caches as the model's per-layer dep-graph past: views
+        of the planes at the step boundary's length G (a Python int)."""
+        return tuple(KVCache(k, v, self.dep_mask, self._n_levels) for k, v in zip(self.dep_key, self.dep_value))
+
+    def _store_dep(self, dep: tuple) -> None:
+        """A walk's dep-graph caches into the planes, whole rows of every slot
+        (JAX's ``_merge_caches`` takes them without a merge: they advance in
+        lockstep, and a finished slot's rows hold inert values its next
+        admission overwrites)."""
+        for i, c in enumerate(dep):
+            self.dep_key[i].copy_(c.key)
+            self.dep_value[i].copy_(c.value)
+        self.dep_mask.copy_(dep[0].mask)
+
     def _unfused_forward(self, view: EventStreamBatch, cache_mask, cache_len, active, draft: bool = False) -> tuple:
         """The JAX engine's unfused decode step (``_decode_step_ci`` with
         ``self.model.apply(params, view, past=caches, use_cache=True)`` and
         ``_merge_caches``): the model's (or the draft's) cached forward of the
-        view's events, one a step or a spec round's verify window. A
-        monolithic cache takes each layer's new planes where a slot is
+        view's events, one a step or a spec round's verify window; an NA
+        model's is the step's target-0 forward (``NAPast`` of the sequence
+        caches and `_dep_caches`), whose dep-graph caches the caller walks
+        on. A monolithic cache takes each layer's new planes where a slot is
         active; a pool was written in place by the forward, every row at its
         own block (a finished row writes into blocks it still holds, which
         no live row reads). Returns the output and the merged mask and
         lengths."""
         model = self._draft if draft else self._model
-        out = model(view, past=self._layer_caches(cache_mask, cache_len, draft), use_cache=True)
-        new = out.past_key_values
+        past = self._layer_caches(cache_mask, cache_len, draft)
+        if self._na:
+            out = model(view, past=NAPast(seq_past=past, dep_graph_past=self._dep_caches()), use_cache=True,
+                        dep_graph_el_generation_target=0)  # fmt: skip
+            new = out.past_key_values.seq_past
+        else:
+            out = model(view, past=past, use_cache=True)
+            new = out.past_key_values
         if not self.paged_kv:
             keys, values, key_scale, value_scale = self._planes(draft)
             for i, c in enumerate(new):
@@ -792,14 +883,41 @@ class GenerationEngine:
             torch.where(active, new[0].length, cache_len),
         )
 
+    def _level_walk(self, big: EventStreamBatch, cursor, dep: tuple, seeds, counter, active=None, bad=None) -> tuple:
+        """Levels 1 .. G-1 of each row's event at ``cursor`` (JAX's NA level
+        loop): each level's one-element forward against the dep-graph caches
+        ``dep`` (no sequence cache is read), its heads drawn from stream
+        counter ``counter + level`` and its measurements filled in, in place
+        (rows not ``active`` keep theirs). ``bad``, the health sentinel's
+        rows, takes each level's non-finite rows. Returns the dep-graph
+        caches and ``bad``."""
+        at = cursor.clamp(max=big.event_mask.shape[1] - 1)  # a finished row's cursor may sit at the buffer's end
+        for level in range(1, self._n_levels):
+            out = self._model(_trim_to_event(big, at), past=NAPast(dep_graph_past=dep), use_cache=True,
+                              dep_graph_el_generation_target=level)  # fmt: skip
+            dep = out.past_key_values.dep_graph_past
+            preds = _slice_preds_at(out.preds, 0)
+            sample = self._sample_rows(preds, take_event(big.event_mask, at), seeds, counter + level, active)
+            if bad is not None:
+                bad = bad | self._rows_nonfinite(preds, sample)
+            update_last_event_data(big, sample, self.config, cursor + 1, self._to_fill[level], active)
+        if dep[0].length != self._n_levels:  # the boundary's phase every program assumes
+            raise RuntimeError(f"a level walk left its dep-graph caches at {dep[0].length}, not {self._n_levels}")
+        return dep, bad
+
     def _decode_step(self, st: dict, seeds: torch.Tensor) -> dict:
         """One event for every active slot of state ``st`` (`_CHUNK_STATE`,
         the counters in int64) with the slots' seeds in int64; returns the
         next state. Inactive slots keep theirs. The layer stack runs through
-        kernel B or, unfused, as the model's cached forward."""
+        kernel B or, unfused, as the model's cached forward. An NA event
+        (JAX's ``_decode_step_na``) is the target-0 forward of the last
+        event, level 0 (its time) drawn and the event appended, then the
+        level walk; event ``j`` of a request draws level ``l`` from stream
+        counter ``j * G + l``."""
         cfg, m = self.config, self._model
         active = self.live & ~st["done"]
         view = _trim_to_event(self.big, st["cursor"] - 1)
+        counter = st["counters"] * self._n_levels if self._na else st["counters"]
         if self._unfused:
             out, cache_mask, cache_len = self._unfused_forward(view, st["cache_mask"], st["cache_len"], active)
         else:
@@ -814,16 +932,22 @@ class GenerationEngine:
             out = m.output_layer(view, encoded, is_generation=True)
         preds_last = _slice_preds_at(out.preds, 0)
         em_last = take_event(self.big.event_mask, st["cursor"] - 1)
-        sample = self._sample_rows(preds_last, em_last, seeds, st["counters"], active=active)
+        sample = self._sample_rows(preds_last, em_last, seeds, counter, active=active)
         append_new_event(self.big, sample, st["cursor"], active)
-        update_last_event_data(self.big, sample, cfg, st["cursor"] + 1, self._to_fill, active)
+        bad = self._rows_nonfinite(preds_last, sample) if self.health_sentinel else None
+        if self._na:
+            dep, bad = self._level_walk(self.big, st["cursor"], out.past_key_values.dep_graph_past, seeds, counter,
+                                        active, bad)  # fmt: skip
+            self._store_dep(dep)
+        else:
+            update_last_event_data(self.big, sample, cfg, st["cursor"] + 1, self._to_fill, active)
 
         cursor = torch.where(active, st["cursor"] + 1, st["cursor"])
         n_generated = st["n_generated"] + (active & sample.event_mask).to(torch.int32)
         done = st["done"] | (active & self._row_done(self.big, cursor, self.base_len, n_generated, self.budget))
         health = st["health"]
-        if self.health_sentinel:
-            hit = active & self._rows_nonfinite(preds_last, sample)
+        if bad is not None:
+            hit = active & bad
             done, health = done | hit, health | hit
         return dict(
             cursor=cursor,
@@ -1154,43 +1278,64 @@ class GenerationEngine:
 
     def _prefill_admit(self, bucket_len: int, x: dict) -> None:
         """The prefill program (JAX's ``_prefill_ci``: ``_prefill_forward_ci``
-        then ``_admit``; paged, ``_prefill_paged``; spec, ``_prefill_spec_ci``)
-        on the staged group ``x``: the model forward of the rows' first
-        ``bucket_len`` events on a fresh float cache (a spec engine's draft
-        too, on the same prompt rows), then `_admit`."""
+        then ``_admit``; paged, ``_prefill_paged``; spec, ``_prefill_spec_ci``;
+        NA, ``_prefill_na``) on the staged group ``x``: the model forward of
+        the rows' first ``bucket_len`` events on a fresh float cache (a spec
+        engine's draft too, on the same prompt rows; an NA model's with its
+        dep-graph history seeded from each row's last prompt event,
+        ``last_event_index``), then `_admit`."""
         g = x["plen"].shape[0]
         pbig = self._staged_rows(x)
         view = pbig.slice((slice(None), slice(0, bucket_len)))
+        last = x["plen"].long() - 1
 
         def forward(model, cfg):
-            out = model(view, past=init_kv_caches(cfg, g, self.max_len, self.device), use_cache=True)
-            kv = [torch.stack([getattr(c, w) for c in out.past_key_values]) for w in ("key", "value")]
-            return out, kv, out.past_key_values[0].mask
+            past = init_kv_caches(cfg, g, self.max_len, self.device)
+            if self._na:
+                out = model(view, past=NAPast(seq_past=past), use_cache=True, last_event_index=last)
+                seq, dep = out.past_key_values.seq_past, out.past_key_values.dep_graph_past
+            else:
+                out = model(view, past=past, use_cache=True)
+                seq, dep = out.past_key_values, None
+            kv = [torch.stack([getattr(c, w) for c in seq]) for w in ("key", "value")]
+            return out, kv, seq[0].mask, dep
 
-        out, kv, mask = forward(self._model, self.config)
-        draft = None if self.spec is None else forward(self._draft, self.spec.config)[1:]
-        self._admit(x, pbig, _slice_preds_at(out.preds, x["plen"].long() - 1), kv, mask, draft)
+        out, kv, mask, dep = forward(self._model, self.config)
+        draft = None if self.spec is None else forward(self._draft, self.spec.config)[1:3]
+        preds = out.preds
+        if self._na:  # level 0: the time to the event
+            preds = GenerativeSequenceModelPredictions(time_to_event=preds.time_to_event)
+        self._admit(x, pbig, _slice_preds_at(preds, last), kv, mask, draft, dep)
 
-    def _admit(self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor, draft=None) -> None:
+    def _admit(
+        self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor, draft=None, dep=None
+    ) -> None:
         """The first event of each staged row sampled (counter 0 of each
         row's stream: a spec engine's event 0) from ``preds_last`` and
-        written after its prompt, and the rows admitted into slots
-        ``x["slot"]``: whole rows, the prefill's keys and values ``kv``
-        (``(layers, rows, H, max_len, D)`` each, in the compute dtype) and
-        ``mask`` into the slot planes or, paged, into the blocks of
-        ``x["scatter_table"]`` with ``x["read_table"]`` as the slots' block
-        tables (quantized for an int8 or fp8 cache), then cursors, budget,
-        seed and counter, flags; a spec engine's ``draft`` ``(kv, mask)`` into
-        the draft's planes, its counts zeroed (JAX's ``_admit_draft``). Rows
-        not ``x["valid"]`` write back what their slots hold. The staged rows
-        are written in place."""
+        written after its prompt (NA: its time, then the level walk over the
+        prefill's dep-graph caches ``dep``, JAX's ``_prefill_forward_na``),
+        and the rows admitted into slots ``x["slot"]``: whole rows, the
+        prefill's keys and values ``kv`` (``(layers, rows, H, max_len, D)``
+        each, in the compute dtype) and ``mask`` into the slot planes or,
+        paged, into the blocks of ``x["scatter_table"]`` with
+        ``x["read_table"]`` as the slots' block tables (quantized for an int8
+        or fp8 cache), an NA model's dep-graph caches as whole rows (JAX's
+        ``_scatter_caches``, no length a row), then cursors, budget, seed and
+        counter, flags; a spec engine's ``draft`` ``(kv, mask)`` into the
+        draft's planes, its counts zeroed (JAX's ``_admit_draft``). Rows not
+        ``x["valid"]`` write back what their slots hold. The staged rows are
+        written in place."""
         cfg = self.config
         plen, budget = x["plen"], x["budget"]
         plen64, seeds = plen.long(), x["seed"].long()
         em_last = take_event(pbig.event_mask, plen64 - 1)
-        sample = self._sample_rows(preds_last, em_last, seeds, torch.zeros_like(seeds))
+        counter = torch.zeros_like(seeds)
+        sample = self._sample_rows(preds_last, em_last, seeds, counter)
         append_new_event(pbig, sample, plen64)
-        update_last_event_data(pbig, sample, cfg, plen64 + 1, self._to_fill)
+        if self._na:
+            dep, _ = self._level_walk(pbig, plen64, dep, seeds, counter)
+        else:
+            update_last_event_data(pbig, sample, cfg, plen64 + 1, self._to_fill)
 
         # Admission: whole rows into the slots (cache rows past the bucket are zeros).
         slots, valid = x["slot"].long(), x["valid"]
@@ -1200,6 +1345,10 @@ class GenerationEngine:
         self._admit_planes(self._planes(), kv, x, slots, valid)
         if self.paged_kv:
             _admit_rows(self.block_table, x["read_table"], slots, valid)
+        if self._na:
+            for plane, w in ((self.dep_key, "key"), (self.dep_value, "value")):
+                _admit_rows(plane, torch.stack([getattr(c, w) for c in dep]), slots, valid, dim=1)
+            _admit_rows(self.dep_mask, dep[0].mask, slots, valid)
         cursor1 = plen + 1
         n_gen1 = sample.event_mask.to(torch.int32)
         admitted = (
@@ -1661,43 +1810,64 @@ class GenerationEngine:
             "branch_factor": B,
         }
 
-    def slots_report(self, hbm_gb: float | None = None, branch_factor: int = 1) -> dict:
+    def slots_report(
+        self, hbm_gb: float | None = None, config: StructuredTransformerConfig | None = None,
+        max_len: int | None = None, params_bytes: int | None = None, branch_factor: int = 1,
+    ) -> dict:  # fmt: skip
         """Device-memory capacity of each cache dtype (`ops.kv_quant.CACHE_DTYPES`),
         allocating nothing: the sequence-cache bytes a slot pins at ``max_len``
         (planes, scale tables, mask) and the most slots that fit a budget of
         ``hbm_gb`` GB net of the engine's resident weights (the model in the
         compute dtype and the stacked layer weights kernel B reads) and each
-        slot's other state (content rows, cursors, streams), as the JAX
-        engine's `slots_report` counts them; a paged engine adds ``paged``
+        slot's other state (content rows, cursors, streams; an NA engine's
+        dep-graph caches, float under every cache dtype, as JAX's state
+        holds them: a mask and an int32 length a layer), as the JAX engine's
+        `slots_report` counts them; a paged engine adds ``paged``
         (`_paged_report` at ``branch_factor``, the pool against the same
         budget). A spec engine charges the draft as JAX does: its weights
         (``draft_params_bytes``, every parameter of the draft, shared ones
         too) against the budget and its cache row at the active cache dtype
         (``draft_kv_bytes_per_slot``) against every slot. ``hbm_gb`` defaults
-        to the engine device's own memory; on the CPU it must be given."""
+        to the engine device's own memory; on the CPU it must be given.
+
+        ``config``, ``max_len`` and ``params_bytes`` override the engine's
+        own geometry, as in JAX (its width ladder reads capacity through
+        them): the cache bytes follow ``config`` and ``max_len``, the row
+        bytes measured on this engine are scaled by the ``max_len`` ratio,
+        and ``params_bytes`` replaces the resident weights."""
         if hbm_gb is None:
             if self.device.type != "cuda":
                 raise ValueError("slots_report: pass hbm_gb for an engine that is not on a CUDA device")
             hbm_gb = torch.cuda.get_device_properties(self.device).total_memory / 1e9
-        cfg = self.config
+        cfg = self.config if config is None else config
+        max_len = self.max_len if max_len is None else int(max_len)
+
+        def nbytes(tensors):
+            return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
         rest = [getattr(self.big, f) for f in _CORE_FIELDS]
         rest += [self.cursor, self.base_len, self.budget, self.n_generated, self.done, self.live, self.health,
-                 self.seeds, self.counters, self.active_steps]  # fmt: skip
-        row_bytes = max(sum(t.numel() * t.element_size() for t in rest if t is not None) // self.n_slots, 1)
-        resident = list(self._model.parameters()) + list(self._model.buffers()) + list(self._stacked.values())
-        params_bytes = sum(t.numel() * t.element_size() for t in resident)
+                 self.seeds, self.counters, self.active_steps, self.dep_key, self.dep_value]  # fmt: skip
+        state = nbytes(rest)
+        if self._na:  # JAX's dep-graph caches hold a mask and a length a layer
+            state += self.dep_key.shape[0] * (nbytes([self.dep_mask]) + 4)
+        row_bytes = max(state // self.n_slots, 1)
+        if max_len != self.max_len:
+            row_bytes = max(int(row_bytes * max_len / self.max_len), 1)
+        if params_bytes is None:
+            params_bytes = nbytes(list(self._model.parameters()) + list(self._model.buffers())
+                                  + list(self._stacked.values()))  # fmt: skip
         active = cache_dtype_name(self._kv_buf_dtype)
         draft_params_bytes = draft_kv = 0
         if self.spec is not None:
-            draft_params_bytes = sum(t.numel() * t.element_size()
-                                     for t in list(self._draft.parameters()) + list(self._draft.buffers()))  # fmt: skip
+            draft_params_bytes = nbytes(list(self._draft.parameters()) + list(self._draft.buffers()))
             d = self.spec.config
-            draft_kv = kv_cache_bytes_per_slot(d.num_hidden_layers, d.num_attention_heads, self.max_len, d.head_dim,
+            draft_kv = kv_cache_bytes_per_slot(d.num_hidden_layers, d.num_attention_heads, max_len, d.head_dim,
                                                active, d.compute_dtype)  # fmt: skip
         budget = max(int(hbm_gb * 1e9) - params_bytes - draft_params_bytes, 0)
         per_dtype = {}
         for name in CACHE_DTYPES:
-            kv = kv_cache_bytes_per_slot(cfg.num_hidden_layers, cfg.num_attention_heads, self.max_len, cfg.head_dim,
+            kv = kv_cache_bytes_per_slot(cfg.num_hidden_layers, cfg.num_attention_heads, max_len, cfg.head_dim,
                                          name, cfg.compute_dtype)  # fmt: skip
             per_dtype[name] = {"kv_bytes_per_slot": kv, "max_slots": int(budget // (kv + row_bytes + draft_kv))}
         return {

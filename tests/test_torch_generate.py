@@ -31,9 +31,13 @@ Checked, each with its tolerance:
   ``split_repeated_batch``, ``max_length``, `MaxLengthCriteria` folding, a
   criterion met by the prompt, a custom criterion (its events a bit-for-bit
   prefix of the unstopped run), ``return_output``, the non-finite guard,
-  ``mesh=`` and packed prompts.
+  ``mesh=`` and packed prompts;
+* the program cache keyed on the config, as JAX keys it: a second config on
+  one model builds its own programs and equals JAX's greedy ``generate()``
+  with that config.
 """
 
+import copy
 import dataclasses
 import functools
 
@@ -394,6 +398,35 @@ def test_program_cache_reuses_a_key_and_holds_the_model_weakly(models):
     del throwaway
     run(models, "ci", max_new_events=4)
     assert tgu.program_stats()["keys"] == n - 1
+
+
+def test_a_second_config_on_one_model_builds_its_own_programs(models, monkeypatch):
+    """The program cache keys on the config, as JAX's does: a copy of the
+    config whose ``multi_lab`` is dropped, on the same model, gets its own
+    programs (two keys), equals a call on an emptied cache, and equals JAX's
+    greedy ``generate()`` with that config."""
+    jcfg, jmodel, params, tcfg, _ = models["ci"]
+    d = copy.deepcopy(jcfg.to_dict())
+    d["measurement_configs"]["multi_lab"]["modality"] = "dropped"
+    jcfg2, tcfg2 = JaxConfig.from_dict(copy.deepcopy(d)), StructuredTransformerConfig.from_dict(copy.deepcopy(d))
+    model = load_jax_params(CIPPTForGenerativeSequenceModeling(tcfg), jax.tree_util.tree_map(np.asarray, params))
+    monkeypatch.setattr(tgu, "sample_predictions", functools.partial(tgu.sample_predictions, greedy=True))
+    prompt = to_torch(make_prompt())
+
+    def call(config):
+        return generate(model, prompt, config, seed=1, max_new_events=3, **CPU)
+
+    first, second = call(tcfg), call(tcfg2)
+    assert tgu.program_stats(model)["keys"] == 2
+    assert not torch.equal(first.dynamic_indices, second.dynamic_indices)
+    monkeypatch.setattr(tgu, "_PROGRAMS", type(tgu._PROGRAMS)())
+    assert_same_events(call(tcfg2), second, floats=dict(rtol=0, atol=0))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jgu, "sample_predictions", functools.partial(jgu.sample_predictions, greedy=True))
+        mp.setattr(jgu, "_STEP_CACHE", {})
+        mp.setattr(jgu, "_SIG_CACHE", {})
+        want = jgu.generate(jmodel, params, make_prompt(), jcfg2, jax.random.PRNGKey(1), max_new_events=3)
+    assert_same_events(second, want)
 
 
 @pytest.mark.parametrize("mode", ["categorical_only", "numerical_only", "categorical_and_numerical"])

@@ -1274,3 +1274,102 @@ def test_generate_on_card_matches_cpu(cuda, na, cached, monkeypatch):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     for f in ("time_delta", "dynamic_values"):
         torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------- the NA engine
+def na_engine_setup(hidden_size=128, **widths):
+    """A small fp32 NA model (the serving vocabulary, bench.py's three
+    dep-graph levels) at a narrow log-time scale with a near-constant TTE
+    head, and 6 prompts of 6-12 events with budgets of 4-8."""
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.models.na_model import NAPPTForGenerativeSequenceModeling
+
+    sizes = dict(GRAPH_WIDTHS, hidden_size=hidden_size, **widths)
+    config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, **sizes, **NA_OVERRIDES)
+    model = init_params_from_seed(NAPPTForGenerativeSequenceModeling(config), seed=1, std=0.15)
+    with torch.no_grad():
+        model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    return config, model, synthetic_prompts(np.random.default_rng(1), 6, config, (6, 12), (4, 8))
+
+
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_captured_na_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
+    """The NA engine on the card, groups padded (sizes 2 and 4 at 4 slots):
+    the captured engine (decode chunk, prefill keys, extraction widths) equals
+    the ``cuda_graph=False`` engine bit for bit, and its second pass after
+    ``reset()`` captures nothing and repeats the first; kernel A (sampled
+    only) launches as often as the eager engine plus the warm-up chunk's and
+    each prefill key's warm-up; kernels B and D never launch."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config, model, prompts = na_engine_setup()
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, greedy=greedy,
+              kv_cache_dtype=kv_cache_dtype, device=cuda)  # fmt: skip
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    def zero():
+        for c in ("launches", "launches_int8", "launches_fp8"):
+            setattr(decode_stack_step, c, 0)
+        fused_categorical_stream.launches = dep_graph_fwd.launches = 0
+
+    runs, widths = {}, []
+    for graph in (True, False):
+        zero()
+        eng = GenerationEngine(model, config, template=prompts[0][0], cuda_graph=graph, **kw)
+        eng.scheduler.group_sizes = (2, 4)
+        dispatch = eng._dispatch_group
+        eng._dispatch_group = lambda g, d=dispatch: (widths.append((len(g.requests), g.group_size)), d(g))
+        first = eng.run(requests())
+        s, a_first = eng.stats(), fused_categorical_stream.launches
+        eng.reset()
+        fused_categorical_stream.launches = 0
+        second = eng.run(requests())
+        s2 = eng.stats()
+        same_results(first, second)
+        assert decode_stack_step.launches + decode_stack_step.launches_int8 + decode_stack_step.launches_fp8 == 0
+        assert dep_graph_fwd.launches == 0  # the cached walk is on the einsum path, as JAX routes it
+        assert s["decode_step_impl"] == "unfused" and eng.dep_key.dtype == torch.float32
+        if graph:
+            assert (s["graph_captures"], s["graph_warmup_chunks"]) == (1, 1)
+            assert s["graph_replays"] == s["dispatched_chunks"] > 0
+            assert s["prefill_graph_captures"] == s["prefill_graph_warmups"] == s["prefill_graph_keys"] > 0
+            assert s["prefill_graph_replays"] == s["prefill_dispatches"]
+            for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures"):
+                assert s2[k] == s[k], k
+            assert s2["graph_replays"] == s["graph_replays"] + s2["dispatched_chunks"]
+        runs[graph] = first, a_first, fused_categorical_stream.launches, s
+    assert any(g > n for n, g in widths), widths
+    same_results(runs[True][0], runs[False][0])
+    (_, a_cap, a_cap2, s), (_, a_eager, a_eager2, e) = runs[True], runs[False]
+    assert a_cap2 == a_eager2 and (a_eager == 0) == greedy
+    if not greedy:  # one call a prefill group or a step: the eager count a call, times the calls and warm-ups
+        per_call = a_eager // (e["prefill_dispatches"] + e["dispatched_chunks"] * e["decode_chunk"])
+        want = per_call * (s["prefill_dispatches"] + s["prefill_graph_warmups"]
+                           + (s["dispatched_chunks"] + s["graph_warmup_chunks"]) * s["decode_chunk"])  # fmt: skip
+        assert per_call > 0 and a_cap == want
+
+
+def test_na_engine_on_card_matches_cpu(cuda):
+    """The small fp32 greedy NA engine on the card against the same engine on
+    the CPU, groups padded: events and integers exact, floats within phase 2's
+    small-engine tolerance (1e-4)."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config, model, prompts = na_engine_setup(hidden_size=32, num_attention_heads=4, head_dim=8,
+                                             intermediate_size=64)  # fmt: skip
+    kw = dict(n_slots=8, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw)
+        eng.scheduler.group_sizes = (4, 8)
+        res[dev.type] = eng.run([Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)])
+    for g, c in zip(res["cuda"], res["cpu"]):
+        assert (g.error, c.error) == (None, None)
+        assert (g.n_events, g.n_generated) == (c.n_events, c.n_generated), g.request_id
+        for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
+            assert torch.equal(getattr(g.batch, f), getattr(c.batch, f)), (g.request_id, f)
+        for f in ("time_delta", "dynamic_values"):
+            torch.testing.assert_close(getattr(g.batch, f), getattr(c.batch, f), rtol=1e-4, atol=1e-4)

@@ -536,7 +536,8 @@ def test_grammar_k_and_na_refusals():
         port_engine(m, spec=port_spec(m, k=0))
     na = copy.deepcopy(m["tcfg"])
     na.structured_event_processing_mode = StructuredEventProcessingMode.NESTED_ATTENTION
-    with pytest.raises(ValueError, match=r"nested-attention serving .*speculative decoding.*Queue 1 item 4"):
+    with pytest.raises(ValueError, match=r"speculative decoding on nested-attention models .*Queue 1 item 4: NA "
+                                         r"speculative decoding"):  # fmt: skip
         GenerationEngine(m["tmodel"], na, template=to_torch(m["prompt"]), device="cpu", spec=port_spec(m), **ENGINE)
 
 

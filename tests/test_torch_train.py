@@ -321,19 +321,40 @@ def test_make_train_step_defaults_to_cuda(cases):
 
 
 def test_build_model_refuses_nested_attention():
-    """`build_model` builds the NA model; what the port still refuses of it
-    is the NA engine's bucket-padded prefill (``last_event_index``), scan
-    and remat (the NA caches and the per-level walk are ported:
-    ``tests/test_torch_generate.py``)."""
+    """`build_model` builds the NA model, whose encoder takes the engine's
+    bucket-padded prefill (``last_event_index``: each row's dep-graph
+    history seeded from that event, ``tests/test_torch_na_engine.py``); what
+    the port still refuses of it is scan and remat (the NA caches and the
+    per-level walk are ported: ``tests/test_torch_generate.py``)."""
     na = dict(SMALL, structured_event_processing_mode="nested_attention", measurements_per_dep_graph_level=[[], ["a"]])
     config = StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na)
     model = build_model(config)
     assert isinstance(model, NAPPTForGenerativeSequenceModeling)
     batch = EventStreamBatch(event_mask=torch.ones(1, 2, dtype=torch.bool), time_delta=torch.ones(1, 2))
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4: the NA engine"):
-        model.encoder(batch, use_cache=True, last_event_index=torch.ones(1, dtype=torch.int32))
+    full = batch.replace(dynamic_indices=torch.zeros(1, 2, 1, dtype=torch.int32),
+                         dynamic_measurement_indices=torch.zeros(1, 2, 1, dtype=torch.int32),
+                         dynamic_values=torch.zeros(1, 2, 1), dynamic_values_mask=torch.zeros(1, 2, 1, dtype=torch.bool))  # fmt: skip
+    with torch.no_grad():
+        first, last = (model.encoder(full, use_cache=True, last_event_index=torch.tensor([i])).past_key_values
+                       for i in (0, 1))  # fmt: skip
+        default = model.encoder(full, use_cache=True).past_key_values
+    for a, b, c in zip(first.dep_graph_past, last.dep_graph_past, default.dep_graph_past):
+        assert torch.equal(b.key, c.key) and torch.equal(b.value, c.value) and a.length == b.length == 1
+        assert not torch.equal(a.key, b.key)  # event 0's history, not event 1's
     with pytest.raises(ValueError, match="is_generation"):
         model.output_layer(batch, torch.zeros(1, 2, 2, 32), is_generation=False, dep_graph_el_generation_target=1)
     for knob in (dict(scan_layers=True), dict(gradient_checkpointing="block")):
         with pytest.raises(ValueError, match="ROADMAP"):
             build_model(StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na, **knob))
+
+
+@pytest.mark.parametrize("policy", ["block", "dots", "dots_no_batch", "save_attention"])
+def test_ci_model_refuses_remat(policy):
+    """A CI model with any of JAX's remat policies raises, naming Queue 1
+    item 8 (the policy names still load, so one ``config.json`` serves both
+    packages); ``"none"`` builds."""
+    config = StructuredTransformerConfig(**SMALL, gradient_checkpointing=policy)
+    assert config.gradient_checkpointing == policy
+    with pytest.raises(ValueError, match="remat.*ROADMAP Queue 1 item 8"):
+        build_model(config)
+    assert build_model(StructuredTransformerConfig(**SMALL)) is not None
