@@ -277,7 +277,33 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    admitted slots (device ms and kernels a step), taken after every capture,
    beside phase 12's profile of phase 2's unfused CI step and phase 13's NA
    ``generate()`` step.
-15. One ``{"kernels": [...]}`` line, then the device line as the last line.
+15. Speculative decoding on the NA engine at phase 14's settings: phase 14's
+   NA model as the target, ``bench.py``'s draft (`serving.spec.truncated_draft`,
+   the first ``num_hidden_layers // 2`` = 1 layer) and ``k`` 4, on phase 14's
+   64 requests: bf16 sampled at the default tolerances, int8 sampled and bf16
+   greedy at zero tolerances (depth 2), each in phase 2's three passes,
+   captured: every request finishes with ``n_events == prompt_len +
+   n_generated`` and finite outputs, each pass after ``reset()`` equals the
+   warm pass bit for bit (with the same per-request proposals and
+   acceptances), one capture a key and none after ``reset()``, one replay a
+   dispatched chunk (16 rounds each) and a prefill dispatch, kernel A's
+   counter moving on the sampled runs, kernels B and D at 0; the bf16 sampled
+   run equals its ``cuda_graph=False`` twin bit for bit (warm pass), kernel A
+   counted through the replays (the pass after ``reset()`` as often as the
+   twin, the warm pass that plus the warm-up chunk's rounds and each prefill
+   key's warm-up). A perfect draft (the target itself, tolerant greedy) must
+   accept more than 0.9 in fp32; a small fp32 greedy NA spec engine (zero
+   tolerances) on the card must match the same engine on the CPU (phase 2's
+   small-engine tolerances). Printed, not checked, beside the card's name and
+   power limit: each run's events/s (accounting pass), acceptance rate and
+   committed events a slot and round; the bf16 sampled run's capture seconds
+   and peak memory captured and eager; the share of strict greedy requests
+   whose events equal phase 14's greedy NA engine's; ``slots_report()`` with
+   the draft charged; one profiled 16-round chunk at 32 admitted slots (device
+   ms and kernels a round) and the round's parts (the draft steps, the verify
+   with the accept walk, the correction walk and commit; device ms by CUDA
+   events, kernels a replay), taken after every capture.
+16. One ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -2723,7 +2749,8 @@ def na_engine_phase(smi) -> dict:
     profiled = filled_engine(model, config, prompts, **base_kw, greedy=False, dispatch_depth=1)
     t2 = time.perf_counter()
     print(f"phase 14: passed in {t2 - t0:.1f} s (full width {t1 - t0:.1f}; its profile comes last)", flush=True)
-    return dict(launches_a=launches_a, rates=rates, profile=lambda: na_engine_profile(smi, profiled))
+    return dict(launches_a=launches_a, rates=rates, profile=lambda: na_engine_profile(smi, profiled), model=model,
+                config=config, prompts=prompts, greedy_results=out[("bf16", "greedy")]["results"])
 
 
 def na_engine_profile(smi, engine) -> dict:
@@ -2737,6 +2764,163 @@ def na_engine_profile(smi, engine) -> dict:
                                    "host_launches_per_step", "device_idle_share_unprofiled") if k in summary}  # fmt: skip
     check(summary["device_kernels_per_step"] > 0, "phase 14: no device kernel in the NA engine's profile")
     return out
+
+
+# ---------------------------------------------------------------- phase 15
+def na_spec_runs(smi, model, config, prompts, counters, base_kw, spec) -> tuple:
+    """The NA spec engine on phase 14's requests: bf16 sampled at the default
+    tolerances, int8 sampled and bf16 greedy at zero tolerances, each in phase
+    2's three passes, captured; the bf16 sampled run against its
+    ``cuda_graph=False`` twin (warm pass, bit for bit, kernel A counted
+    through the replays: the pass after ``reset()`` launches it as often as
+    the twin, the warm pass that count plus the warm-up chunk's rounds and
+    each prefill key's warm-up). The bf16 sampled run's capture seconds and
+    the peak memory of it and its twin (above what was allocated before each
+    engine was built) are kept."""
+    import torch
+
+    def measured(**kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = engine_run(model, config, prompts, counters, **kw)
+        torch.cuda.synchronize()
+        return run, (torch.cuda.max_memory_allocated() - before) / 1e9
+
+    heads = categorical_heads(model)
+    out, launches_a = {}, 0
+    for name, kv, mode in (("bf16", None, "sampled"), ("int8", "int8", "sampled"), ("bf16", None, "greedy")):
+        label = f"phase 15 [NA spec {name} {mode}]"
+        kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv,
+                  spec=spec(**(SPEC_STRICT if mode == "greedy" else {})))  # fmt: skip
+        run, peak = measured(**kw)
+        stats = run["stats"]
+        check_results(run["results"], run["requests"], label)
+        check(stats["decode_step_impl"] == "spec_draft_verify", f"{label}: not the spec engine: {stats}")
+        check(run["engine"].draft_dep_key is not None, f"{label}: not an NA spec engine")
+        for pname, p in run["passes"].items():
+            kernels_bd = {k: v for k, v in p["launches"].items() if k.startswith("decode_stack_step") or k == "dep_graph_fwd"}
+            check(not any(kernels_bd.values()), f"{label} [{pname}]: kernel B or D launched: {kernels_bd}")
+            a = p["launches"]["fused_categorical_stream"]
+            check(a > 0 if mode == "sampled" else a == 0, f"{label} [{pname}]: kernel A launched {a} times ({mode})")
+            check(p["launches"]["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
+            ps = p["stats"]
+            check(ps["spec_rounds"] == ps["dispatched_chunks"] * ps["decode_chunk"] > 0,
+                  f"{label} [{pname} pass]: {ps['spec_rounds']} rounds for {ps['dispatched_chunks']} chunks")  # fmt: skip
+        check_graph_counts(run, label, None)
+        check_passes(run, label)
+        spec_counts = [(r.spec_proposed, r.spec_accepted) for r in run["results"]]
+        for pname in ("fetching", "accounting"):
+            check([(r.spec_proposed, r.spec_accepted) for r in run["passes"][pname]["results"]] == spec_counts,
+                  f"{label} [{pname} pass]: per-request proposals or acceptances differ from the warm pass")  # fmt: skip
+        extra = {}
+        if (name, mode) == ("bf16", "sampled"):
+            eager, eager_peak = measured(passes=("warm",), cuda_graph=False, **kw)
+            same_results(run["results"], eager["results"], label)
+            check([(r.spec_proposed, r.spec_accepted) for r in eager["results"]] == spec_counts,
+                  f"{label}: per-request proposals or acceptances differ captured and eager")  # fmt: skip
+            s, e = run["passes"]["warm"]["stats"], eager["stats"]
+            a_eager = eager["launches"]["fused_categorical_stream"]
+            per_round, rem = divmod(a_eager - heads * e["prefill_dispatches"], e["spec_rounds"])
+            check(per_round > 0 and rem == 0, f"{label}: kernel A launched {a_eager} times eager for "
+                                              f"{e['prefill_dispatches']} prefills and {e['spec_rounds']} rounds")  # fmt: skip
+            want = heads * (s["prefill_dispatches"] + s["prefill_graph_warmups"]) + per_round * (
+                s["spec_rounds"] + s["graph_warmup_chunks"] * s["decode_chunk"])  # fmt: skip
+            got = (run["passes"]["fetching"]["launches"]["fused_categorical_stream"],
+                   run["passes"]["warm"]["launches"]["fused_categorical_stream"])  # fmt: skip
+            check(got == (a_eager, want), f"{label}: kernel A launched {got} times (after reset(), warm), "
+                                          f"{(a_eager, want)} expected")  # fmt: skip
+            extra = dict(kernel_a_per_round=per_round, capture_s=run["engine"]._program.capture_s,
+                         peak_gb_captured=peak, peak_gb_eager=eager_peak, eager_warm_wall_s=eager["wall_s"])  # fmt: skip
+        launches_a += run["launches"]["fused_categorical_stream"]
+        acct = run["passes"]["accounting"]
+        s = acct["stats"]
+        generated = sum(r.n_generated for r in run["results"])
+        rates = dict(events_per_s=generated / acct["wall_s"], wall_s=acct["wall_s"], chunks=s["dispatched_chunks"],
+                     rounds=s["spec_rounds"], acceptance_rate=s["spec_acceptance_rate"],
+                     committed_per_active_slot_round=s["spec_committed_events"] / max(s["active_slot_steps"], 1),
+                     **extra)  # fmt: skip
+        out[(name, mode)] = dict(run, rates=rates, generated=generated)
+        print(f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and float "
+              f"equal in each pass after reset(){' and captured vs eager' if extra else ''}; accounting pass "
+              f"{json.dumps(rates)}; {programs_line(run)}; launches over three passes {run['launches']}; warm pass "
+              f"{run['passes']['warm']['wall_s']:.3f} s ({smi})", flush=True)  # fmt: skip
+    return out, launches_a
+
+
+def na_spec_phase(smi, na_engine) -> dict:
+    """Phase 15: speculative decoding on the NA engine (module docstring)."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
+    from eventstreamgpt_tpu_torch.serving import SpecConfig, truncated_draft
+    from eventstreamgpt_tpu_torch.tools.profile_decode import capture_spec_parts, filled_engine
+
+    t0 = time.perf_counter()
+    model, config, prompts = (na_engine[k] for k in ("model", "config", "prompts"))
+    base_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+    counters = {f"decode_stack_step.{c}": (decode_stack_step, c) for c in KERNEL_B_ENTRIES}
+    counters.update(fused_categorical_stream=(fused_categorical_stream, "launches"),
+                    fused_categorical=(fused_categorical, "launches"), dep_graph_fwd=(dep_graph_fwd, "launches"))  # fmt: skip
+    dcfg, draft = truncated_draft(config, model, config.num_hidden_layers // 2)
+
+    def spec(**tol):
+        return SpecConfig(model=draft, config=dcfg, k=SPEC_K, **tol)
+
+    runs, launches_a = na_spec_runs(smi, model, config, prompts, counters, base_kw, spec)
+    t1 = time.perf_counter()
+    # A perfect draft (the target itself, tolerant greedy) in fp32, the same weights.
+    config32 = copy.deepcopy(config)
+    config32.precision = "fp32"
+    model32 = type(model)(config32)
+    model32.load_state_dict(model.state_dict())
+    run = engine_run(model32, config32, prompts, counters, passes=("warm",), greedy=True,
+                     **dict(base_kw, spec=SpecConfig(model=model32, config=config32, k=SPEC_K)))  # fmt: skip
+    check_results(run["results"], run["requests"], "phase 15 [perfect NA draft, fp32]")
+    st = run["stats"]
+    perfect = dict(acceptance_rate=st["spec_acceptance_rate"],
+                   committed_per_active_slot_round=st["spec_committed_events"] / max(st["active_slot_steps"], 1))
+    check(config32.compute_dtype == torch.float32 and perfect["acceptance_rate"] > 0.9,
+          f"phase 15 [perfect NA draft, fp32]: acceptance {perfect}")  # fmt: skip
+    # Measured, not checked: the strict greedy spec engine's events against phase 14's greedy NA engine's.
+    strict = runs[("bf16", "greedy")]["results"]
+    equal = sum(same_generated_events(a, b) == a.n_generated == b.n_generated
+                for a, b in zip(strict, na_engine["greedy_results"]))  # fmt: skip
+    report = runs[("bf16", "sampled")]["engine"].slots_report()
+    print(f"phase 15: perfect NA draft (the target, tolerant greedy, fp32): {json.dumps(perfect)}; measured, not "
+          f"checked: {equal} of {len(strict)} strict greedy NA spec requests equal phase 14's greedy NA engine's in "
+          f"every generated event; slots_report() with the draft at the card's memory: "
+          f"{json.dumps({k: report[k] for k in ('spec', 'params_bytes', 'draft_params_bytes', 'draft_kv_bytes_per_slot', 'row_bytes_per_slot', 'per_dtype')})} "
+          f"({smi})", flush=True)  # fmt: skip
+    small_engine_matches_cpu(spec_k=SPEC_K, phase="phase 15", na=True)
+    # The profiled engine and its round's parts are built (captured) now; they are profiled after every capture.
+    profiled = filled_engine(model, config, prompts, **base_kw, greedy=False, dispatch_depth=1, spec=spec())
+    parts = capture_spec_parts(profiled)
+    t2 = time.perf_counter()
+    print(f"phase 15: passed in {t2 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft, small engine and the "
+          f"profiled engine {t2 - t1:.1f}; its profile comes last)", flush=True)  # fmt: skip
+    rates = {f"{k[0]} {k[1]}": v["rates"] for k, v in runs.items()}
+    return dict(launches_a=launches_a, rates=rates, perfect=perfect, greedy_equal=equal,
+                profile=lambda: na_spec_profile(profiled, parts))  # fmt: skip
+
+
+def na_spec_profile(engine, parts) -> dict:
+    """One profiled 16-round chunk of the sampled bf16 NA spec engine on 32
+    admitted slots (device ms, kernels and committed events a round) and the
+    round's parts (draft steps; verify with the accept walk; correction walk
+    and commit), each a captured program: device ms by CUDA events, kernels
+    from one profiled replay."""
+    from eventstreamgpt_tpu_torch.tools.profile_decode import profiled_engine_chunk, spec_parts
+
+    split = spec_parts(parts)
+    summary = profiled_engine_chunk(engine)
+    out = {k: summary[k] for k in ("step_wall_ms", "active_slots", "device_busy_ms_per_step", "device_kernels_per_step",
+                                   "host_launches_per_step", "device_idle_share_unprofiled",
+                                   "committed_events_per_round_and_slot") if k in summary}  # fmt: skip
+    check(summary["device_kernels_per_step"] > 0, "phase 15: no device kernel in the NA spec engine's profile")
+    return dict(out, round_parts=split)
 
 
 def main() -> int:
@@ -2771,6 +2955,7 @@ def main() -> int:
     acct = runs["sampled"]["passes"]["accounting"]
     gen = generate_phase(smi, runs["sampled"]["generated"] / acct["wall_s"])
     na_engine = na_engine_phase(smi)
+    na_spec = na_spec_phase(smi, na_engine)
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
@@ -2780,6 +2965,11 @@ def main() -> int:
           f"{json.dumps(spec['profiles']['monolithic unfused'])}; phase 13's NA generate() step "
           f"{json.dumps(gen['profiles']['NA step'])}; events/s (accounting pass) {json.dumps(na_engine['rates'])} "
           f"({smi})", flush=True)  # fmt: skip
+    na_spec["profiles"] = na_spec.pop("profile")()
+    print(f"phase 15: one profiled captured chunk of 16 rounds at 32 admitted slots (sampled, bf16), a round: NA spec "
+          f"engine {json.dumps(na_spec['profiles'])}; beside phase 14's NA engine step and phase 12's CI spec round "
+          f"{json.dumps(spec['profiles']['spec'])}; events/s (accounting pass) {json.dumps(na_spec['rates'])} ({smi})",
+          flush=True)  # fmt: skip
 
     def chunk_launches(name):
         return sum(run["launches"][name] for run in chunked.values())
@@ -2788,7 +2978,8 @@ def main() -> int:
         dict(name="fused_categorical", route="cuda", source="eventstreamgpt_tpu_torch/csrc/fused_sampling.cu",
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
-             + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"], **a),
+             + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"]
+             + na_spec["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]

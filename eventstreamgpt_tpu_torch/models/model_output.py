@@ -85,6 +85,7 @@ class GenerativeSequenceModelOutput:
     event_mask: Optional[torch.Tensor] = None
     dynamic_values_mask: Optional[torch.Tensor] = None
     past_key_values: Optional[tuple] = None
+    contextualized: Optional[tuple] = None  # an NA forward's, with ``return_contextualized``
 
 
 def get_measurement_vocab_slice(config: StructuredTransformerConfig, measurement: str) -> tuple[int, int]:

@@ -138,22 +138,31 @@ class NAPPTForGenerativeSequenceModeling(nn.Module):
         dropout=None,
         dep_graph_el_generation_target: int | None = None,
         last_event_index=None,
+        partial_content_levels: bool = False,
+        history_head: tuple | None = None,
+        return_contextualized: bool = False,
     ):
         """``is_generation=False`` computes the losses; ``dropout`` (a
         ``torch.Generator`` on the batch's device) turns dropout on. ``past``
         (`transformer.NAPast`), ``use_cache`` and
         ``dep_graph_el_generation_target`` drive the cached walk, and
         ``last_event_index`` the bucket-padded prefill's dep-graph reset; the
-        output's ``past_key_values`` is the encoder's next `NAPast`."""
+        output's ``past_key_values`` is the encoder's next `NAPast`.
+        ``partial_content_levels``, ``history_head`` and
+        ``return_contextualized`` are the speculative verify's (the
+        encoder's); the contextualized events come back on the output."""
         encoded = self.encoder(
             batch, past=past, use_cache=use_cache, dropout=dropout,
             dep_graph_el_generation_target=dep_graph_el_generation_target, last_event_index=last_event_index,
+            partial_content_levels=partial_content_levels, history_head=history_head,
+            return_contextualized=return_contextualized,
         )  # fmt: skip
         out = self.output_layer(
             batch, encoded.last_hidden_state, is_generation=is_generation,
             dep_graph_el_generation_target=dep_graph_el_generation_target,
         )  # fmt: skip
         out.past_key_values = encoded.past_key_values
+        out.contextualized = encoded.contextualized
         return out
 
     def cast_to_compute_dtype(self) -> "NAPPTForGenerativeSequenceModeling":

@@ -13,6 +13,12 @@ do: without ``prepend_graph_with_history_embeddings`` the graph has no
 history position (the dep-graph cache holds it); without
 ``update_last_graph_el_to_history_embedding`` as well, the sequence module
 is skipped and the graph is the input as it is.
+
+Speculative decoding's verify window (JAX's ``history_head`` and
+``return_contextualized``): ``history_head`` ``(B, E)`` replaces the zeros
+of position 0's history, so a window that starts mid-subject sees the
+history the sequential walk saw; the contextualized events come back
+beside the output.
 """
 
 from __future__ import annotations
@@ -44,13 +50,16 @@ class StructuredAttention(nn.Module):
         dep_graph_module_kwargs: dict | None = None,
         prepend_graph_with_history_embeddings: bool = True,
         update_last_graph_el_to_history_embedding: bool = True,
+        history_head=None,
     ):
         """``hidden_states`` ``(B, L, G, E)`` -> ``((B, L, G', E), seq present,
-        dep-graph present)``; the module kwargs (``layer_past``, ``use_cache``)
-        go to the sequence and the dep-graph module, whose caches come back
-        (``None`` where a module kept none or did not run)."""
+        dep-graph present, contextualized)``; the module kwargs
+        (``layer_past``, ``use_cache``) go to the sequence and the dep-graph
+        module, whose caches come back (``None`` where a module kept none or
+        did not run), and ``contextualized`` ``(B, L, E)`` is the sequence
+        module's output (``None`` where it did not run)."""
         B, L, _, E = hidden_states.shape
-        seq_present = None
+        seq_present = contextualized = None
         static_kv_first = False
         graph = hidden_states
         if prepend_graph_with_history_embeddings or update_last_graph_el_to_history_embedding:
@@ -67,9 +76,10 @@ class StructuredAttention(nn.Module):
             if not update_last_graph_el_to_history_embedding:
                 parts = [hidden_states]
             if prepend_graph_with_history_embeddings:
-                # History before event i: contextualized event i - 1 (zeros for i = 0
-                # and, in packed rows, at each segment's first event).
-                history = torch.cat([torch.zeros_like(contextualized[:, :1]), contextualized[:, :-1]], dim=1)
+                # History before event i: contextualized event i - 1 (for i = 0
+                # ``history_head`` or zeros; zeros at a packed segment's first event).
+                head = torch.zeros_like(contextualized[:, :1]) if history_head is None else history_head[:, None]
+                history = torch.cat([head.to(contextualized.dtype), contextualized[:, :-1]], dim=1)
                 if segment_ids is not None:
                     history = torch.where(segment_starts(segment_ids)[..., None], 0.0, history)
                 parts.insert(0, history[:, :, None])
@@ -82,4 +92,4 @@ class StructuredAttention(nn.Module):
         out = out.reshape(B, L, -1, E)
         if event_mask is not None:
             out = torch.where(event_mask[:, :, None, None], out, 0.0)
-        return out, seq_present, dep_present
+        return out, seq_present, dep_present, contextualized

@@ -712,6 +712,9 @@ class ConditionallyIndependentPointProcessInputLayer(nn.Module):
 class TransformerOutputWithPast:
     last_hidden_state: torch.Tensor
     past_key_values: Optional[tuple] = None
+    # An NA forward's per-layer contextualized events ``(B, L, hidden)``
+    # (``return_contextualized``: the speculative verify's history heads).
+    contextualized: Optional[tuple] = None
 
 
 CI_REMAT_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 8: CI remat and scan-over-layers)"
@@ -812,12 +815,54 @@ def dep_graph_split(config: StructuredTransformerConfig) -> tuple:
     return tuple(levels)
 
 
+def na_level_of_measurement(config: StructuredTransformerConfig) -> torch.Tensor:
+    """The measurement-index -> dep-graph-level table, ``int32`` (JAX's
+    `na_level_of_measurement`): unlisted measurements (functors, the padding
+    index 0) map to level 0. The one level map of every partial-content
+    consumer: the input layer's ``partial_content_levels``, the speculative
+    engine's strip of a correction event's rejected levels and its draft's
+    teacher-forced walk replays. Split-mode entries raise JAX's error."""
+    lvl = torch.zeros(max(config.measurements_idxmap.values()) + 1, dtype=torch.int32)
+    for level, meas_list in enumerate(config.measurements_per_dep_graph_level):
+        for m in meas_list:
+            if isinstance(m, (tuple, list)):
+                raise ValueError(
+                    "split-mode (CATEGORICAL_ONLY/NUMERICAL_ONLY) dep-graph levels are not supported by per-level "
+                    f"content masking (speculative decoding) yet; got {m!r}"
+                )
+            lvl[config.measurements_idxmap[m]] = level
+    return lvl
+
+
+def mask_batch_to_levels(batch: EventStreamBatch, level_of_meas: torch.Tensor, level) -> EventStreamBatch:
+    """The batch with the dynamic tokens of dep-graph levels above ``level``
+    masked away (index, measurement and value 0, value mask off): the zero
+    padding an event carries before its walk writes those levels (JAX's
+    `mask_batch_to_levels`). ``level`` is an int or a per-row ``(B,)`` tensor."""
+    lvl = level_of_meas[batch.dynamic_measurement_indices.long()]
+    if torch.is_tensor(level):
+        level = level.reshape(level.shape + (1,) * (lvl.ndim - level.ndim))
+    keep = lvl <= level
+    return batch.replace(
+        dynamic_indices=torch.where(keep, batch.dynamic_indices, 0),
+        dynamic_measurement_indices=torch.where(keep, batch.dynamic_measurement_indices, 0),
+        dynamic_values=torch.where(keep, batch.dynamic_values, 0.0),
+        dynamic_values_mask=batch.dynamic_values_mask & keep,
+    )
+
+
 class NestedAttentionPointProcessInputLayer(nn.Module):
     """Dep-graph-split input embeddings ``(B, L, G, hidden)`` for NA models.
 
     The time embedding joins graph slot 0 and a cumsum over the graph axis
     makes the last slot a whole-event summary, both in fp32, then the cast
     to the compute dtype, the event-mask zeroing and the input dropout.
+
+    ``partial_content_levels`` (the speculative verify window, JAX's flag)
+    builds slot ``l`` from the event with the tokens of levels above ``l``
+    masked away, one embedding pass a level: in joint embedding mode every
+    slot sums all the event's tokens, and the cached walk wrote slot ``l``'s
+    key and value when the event held levels ``<= l`` only.
     """
 
     def __init__(self, config: StructuredTransformerConfig):
@@ -839,15 +884,38 @@ class NestedAttentionPointProcessInputLayer(nn.Module):
             numerical_weight=config.numerical_embedding_weight,
             compute_dtype=config.compute_dtype,
         )
+        self.config = config
+        self._level_maps: dict = {}  # device -> `na_level_of_measurement` there, built at first use
 
-    def forward(self, batch: EventStreamBatch, dropout_rng=None, dep_graph_el_generation_target=None) -> torch.Tensor:
+    def level_of_measurement(self, device) -> torch.Tensor:
+        """`na_level_of_measurement` on ``device``, built once (a captured
+        program reads the copy its eager warm-up built)."""
+        device = torch.device(device)
+        if device not in self._level_maps:
+            self._level_maps[device] = na_level_of_measurement(self.config).to(device)
+        return self._level_maps[device]
+
+    def forward(
+        self, batch: EventStreamBatch, dropout_rng=None, dep_graph_el_generation_target=None,
+        partial_content_levels: bool = False,
+    ) -> torch.Tensor:  # fmt: skip
         """``dep_graph_el_generation_target`` (the cached walk) keeps only graph
         element ``target - 1``: the last, whole-event element at target 0."""
         t = batch.time if batch.time is not None else time_from_deltas(batch)
         time_embed = temporal_position_encoding(t, self.hidden_size)
-        e = self.data_embedding_layer(batch).float()
-        e = torch.cat([(e[:, :, 0] + time_embed)[:, :, None], e[:, :, 1:]], dim=2)
-        embed = torch.cumsum(e, dim=2).to(self.compute_dtype)
+
+        def slots_from(b: EventStreamBatch) -> torch.Tensor:
+            e = self.data_embedding_layer(b).float()
+            e = torch.cat([(e[:, :, 0] + time_embed)[:, :, None], e[:, :, 1:]], dim=2)
+            return torch.cumsum(e, dim=2).to(self.compute_dtype)
+
+        if partial_content_levels:
+            lvl = self.level_of_measurement(batch.event_mask.device)
+            G = len(self.config.measurements_per_dep_graph_level)
+            embed = torch.stack([slots_from(mask_batch_to_levels(batch, lvl, level))[:, :, level]
+                                 for level in range(G)], dim=2)  # fmt: skip
+        else:
+            embed = slots_from(batch)
         if dep_graph_el_generation_target is not None:
             embed = embed[:, :, dep_graph_el_generation_target - 1][:, :, None]
         embed = torch.where(batch.event_mask[:, :, None, None], embed, 0.0)
@@ -893,13 +961,20 @@ class NestedAttentionPointProcessTransformer(nn.Module):
         dropout=None,
         dep_graph_el_generation_target: int | None = None,
         last_event_index=None,
+        partial_content_levels: bool = False,
+        history_head: tuple | None = None,
+        return_contextualized: bool = False,
     ) -> TransformerOutputWithPast:
         """``dropout``: a ``torch.Generator`` on the batch's device turns dropout
         on. ``past`` is an `NAPast`; with ``use_cache`` the output's
         ``past_key_values`` is the next one. ``last_event_index`` (``(B,)``,
         the serving engine's bucket-padded prefill) seeds each row's reset
         dep-graph history from its event at that index, not from the last
-        position of the (padded) input."""
+        position of the (padded) input. The speculative verify's plumbing, as
+        in JAX: ``partial_content_levels`` (the input layer's),
+        ``history_head`` (one ``(B, hidden)`` history a layer for the first
+        event) and ``return_contextualized`` (each layer's contextualized
+        events on the output)."""
         if batch.segment_ids is not None and (use_cache or past is not None):
             raise NotImplementedError(
                 "Packed (segment_ids) batches do not support KV-cached NA decoding; train/eval forwards handle "
@@ -928,12 +1003,14 @@ class NestedAttentionPointProcessTransformer(nn.Module):
         seq_past = past.seq_past if past is not None else None
         dep_past = past.dep_graph_past if past is not None else None
 
-        hidden_states = self.input_layer(batch, dropout, dep_graph_el_generation_target=target)
+        hidden_states = self.input_layer(batch, dropout, dep_graph_el_generation_target=target,
+                                         partial_content_levels=partial_content_levels)  # fmt: skip
         B, L = hidden_states.shape[:2]
-        presents_seq, presents_dep = [], []
+        presents_seq, presents_dep, contextualized = [], [], []
         for i, name in enumerate(self.layer_names):
-            hidden_states, seq_present, dep_present = getattr(self, name)(
+            hidden_states, seq_present, dep_present, ctx = getattr(self, name)(
                 hidden_states,
+                history_head=None if history_head is None else history_head[i],
                 seq_attention_mask=batch.event_mask,
                 event_mask=batch.event_mask,
                 segment_ids=batch.segment_ids,
@@ -945,9 +1022,11 @@ class NestedAttentionPointProcessTransformer(nn.Module):
             )
             presents_seq.append(seq_present)
             presents_dep.append(dep_present)
+            contextualized.append(ctx)
         hidden_states = self.ln_f(hidden_states)
+        contextualized = tuple(contextualized) if return_contextualized else None
         if not use_cache:
-            return TransformerOutputWithPast(last_hidden_state=hidden_states)
+            return TransformerOutputWithPast(last_hidden_state=hidden_states, contextualized=contextualized)
         if not update_seq:
             presents_seq = list(seq_past) if seq_past is not None else None
         if reset_dep:
@@ -958,6 +1037,7 @@ class NestedAttentionPointProcessTransformer(nn.Module):
             past_key_values=NAPast(
                 seq_past=tuple(presents_seq) if presents_seq is not None else None, dep_graph_past=tuple(presents_dep)
             ),
+            contextualized=contextualized,
         )
 
 

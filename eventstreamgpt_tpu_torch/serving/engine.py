@@ -106,8 +106,8 @@ its next admission overwrites). The prefill runs the bucket's forward with
 ``last_event_index = plen - 1``, so a bucket-padded prompt seeds each row's
 dep-graph history from its last real event, then draws level 0 and walks
 the levels before admission. Event ``j`` of a request draws level ``l`` from
-stream counter ``j * G + l``. Kernel B, the paged cache and speculative
-decoding are refused for NA models, as JAX refuses the first two.
+stream counter ``j * G + l``. Kernel B and the paged cache are refused for
+NA models, as JAX refuses them.
 
 Speculative decoding (``spec=SpecConfig(...)``, `serving.spec`, JAX's spec
 mode for CI models): a draft model (`serving.spec.truncated_draft` cuts one
@@ -126,9 +126,29 @@ draft, the target, the bonus event and the residuals. As in JAX the spec
 engine runs both forwards unfused (kernel B never launches) and refuses the
 paged cache, the megakernel and custom device criteria.
 
+On an NA model (JAX's ``_spec_draft_chunk_na`` and ``_spec_verify_na``)
+each draft step is a whole event, the draft's target-0 forward and level
+walk, every level's draws recorded; the one target forward over the window
+is teacher-forced (``partial_content_levels``: slot ``l`` embedded from the
+event's levels ``<= l``, as the walk wrote it) and starts from the carried
+history heads (each layer's contextualized embedding of the event before
+the window), so it scores every level of every proposal as the sequential
+walk would. The accept walk runs level by level; the first rejected event's
+first rejected level is the break: the levels below it commit the draft's
+content, the breaking level its residual, and a correction walk (a
+one-event re-contextualize forward, then the levels above the break) the
+rest. Level ``l`` of event ``j`` draws from stream counter ``j * G + l``
+(`serving.spec.level_streams`), the non-speculative NA engine's address.
+Two repairs of JAX's NA spec state (ROADMAP Queue 3): the draft writes its
+last proposal's sequence-cache entry and its dep-graph caches are rebuilt
+for the last committed event each round (JAX's keep the walk of its last
+proposal), so a perfect draft stays accepted; and the correction walk masks
+each level's input to the levels below it, as the sequential walk saw the
+event, so the levels above a break are drawn from the sequential law.
+
 Not ported yet, each a ``ValueError`` at construction: meshes and tensor
-parallelism, hot swap, the dedicated prefill stream, speculative decoding
-on NA models, and functional-time-dependent measurements.
+parallelism, hot swap, the dedicated prefill stream, and
+functional-time-dependent measurements.
 """
 
 from __future__ import annotations
@@ -158,11 +178,14 @@ from ..generation.sampling import (
 from ..generation.stopping_criteria import DeadRowCriteria, DeviceCriterion
 from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
 from ..models.model_output import GenerativeSequenceModelPredictions
+from ..models.na_model import level_measurements
 from ..models.transformer import (
     KVCache,
     NAPast,
     PagedKVCache,
     init_kv_caches,
+    mask_batch_to_levels,
+    na_level_of_measurement,
     paged_kv_bytes_per_block,
     time_from_deltas,
 )
@@ -180,7 +203,7 @@ from ..ops.tensor_ops import take_event
 from ..utils.device import resolve_device
 from ..utils.graphs import ByteLayout, CapturedProgram, ProgramFamily
 from .errors import BlockLedgerError, MalformedPromptRejected, SlotHealthError
-from .spec import SpecConfig, event_streams, select_candidate, spec_accept_level
+from .spec import SpecConfig, event_streams, level_streams, select_candidate, spec_accept_level
 from .scheduler import (
     AdmissionRejected,
     EngineResult,
@@ -270,10 +293,6 @@ _NA_MEGAKERNEL = (
 _NA_PAGED = (
     "paged KV cache does not support nested-attention models yet: the dep-graph caches reset per event and do not "
     "page; run NA engines with paged_kv=False"
-)
-_NA_SPEC = (
-    "speculative decoding on nested-attention models is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: "
-    "NA speculative decoding)"
 )
 _SPEC_MEGAKERNEL = (
     "speculative decoding replaces the decode step with the draft-chunk/verify program pair, which the megakernel "
@@ -420,7 +439,7 @@ class GenerationEngine:
             block), which `fork` needs. ``num_blocks`` without
             ``paged_kv`` raises, as in JAX.
         spec: a `serving.spec.SpecConfig`: speculative decoding with its
-            draft model (JAX's spec mode; CI models, monolithic caches).
+            draft model (JAX's spec mode; CI and NA models, monolithic caches).
             ``decode_step_impl`` None, "auto" or "xla" then name the spec
             round (the draft's and the target's cached forwards); "pallas"
             raises, as do ``device_criteria`` and ``paged_kv``, with JAX's
@@ -496,8 +515,6 @@ class GenerationEngine:
                 raise ValueError(_NA_PAGED)
             if decode_step_impl == "pallas":
                 raise ValueError(_NA_MEGAKERNEL)
-            if spec is not None:
-                raise ValueError(_NA_SPEC)
         check_generation_config(config)
         self.spec = spec
         if spec is not None:
@@ -523,6 +540,11 @@ class GenerationEngine:
         if spec is not None:
             self.decode_step_impl, self._chunk, chunk_name = "spec_draft_verify", self._spec_chunk, "the spec chunk"
         self.device = resolve_device(device, "GenerationEngine")
+        # An NA spec engine's level map (the strip of a correction event's
+        # rejected levels, the draft's walk replays); split-mode levels raise JAX's error.
+        self._level_of_meas = None
+        if self._na and spec is not None:
+            self._level_of_meas = na_level_of_measurement(config).to(self.device)
         self.config = config
         self.cdt = config.compute_dtype
         self.greedy = bool(greedy)
@@ -735,6 +757,19 @@ class GenerationEngine:
             torch.empty(S, dtype=torch.int32, device=dev) for _ in range(3)
         )
         self.spec_rounds = torch.empty((), dtype=torch.int32, device=dev)
+        self.draft_dep_key = self.draft_dep_value = self.draft_dep_mask = self.spec_history = None
+        if self._na:
+            # The draft's dep-graph planes, as the target's (the compute
+            # dtype under every cache dtype, length G at a round's end), and
+            # the history heads: each target layer's contextualized embedding
+            # of each slot's next-to-last committed event, the verify
+            # window's position-0 history (JAX's ``SpecState.history``).
+            dep = (dcfg.num_hidden_layers, S, dcfg.num_attention_heads, self._n_levels + 1, dcfg.head_dim)
+            self.draft_dep_key = torch.empty(dep, dtype=dcfg.compute_dtype, device=dev)
+            self.draft_dep_value = torch.empty(dep, dtype=dcfg.compute_dtype, device=dev)
+            self.draft_dep_mask = torch.empty(S, self._n_levels + 1, dtype=torch.bool, device=dev)
+            cfg = self.config
+            self.spec_history = torch.empty(cfg.num_hidden_layers, S, cfg.hidden_size, dtype=self.cdt, device=dev)
 
     def _write_initial_state(self) -> None:
         """Every state buffer to its initial value, in place (each keeps its
@@ -753,7 +788,8 @@ class GenerationEngine:
         if self.spec is not None:
             planes.append(self._planes(draft=True))
             zeros += [self.draft_cache_mask, self.draft_cache_len, self.spec_proposed, self.spec_accepted,
-                      self.spec_rounds]  # fmt: skip
+                      self.spec_rounds, self.draft_dep_key, self.draft_dep_value, self.draft_dep_mask,
+                      self.spec_history]  # fmt: skip
         for keys, values, key_scale, value_scale in planes:
             storage(keys).zero_()
             storage(values).zero_()
@@ -777,13 +813,8 @@ class GenerationEngine:
 
     def _sample_rows(self, preds_last, em_last, seeds, counters, active=None):
         """Per-row draws (named heads, per-row streams) assembled into events."""
-        if self.greedy:
-            draws = sample_head_draws(preds_last, None, greedy=True)
-        else:
-            draws = sample_head_draws(
-                preds_last, RowStreams(seeds, counters), categorical_sampler=self._categorical_sampler(active)
-            )
-        return assemble_event_sample(preds_last, draws, em_last)
+        return assemble_event_sample(preds_last, self._draw_rows(preds_last, RowStreams(seeds, counters), active),
+                                     em_last)  # fmt: skip
 
     def _row_done(self, big, cursor, base_len, n_generated, budget):
         done = (cursor - base_len) >= budget
@@ -832,37 +863,56 @@ class GenerationEngine:
                          for k, v, sc in zip(keys, values, scales))  # fmt: skip
         return tuple(KVCache(k, v, cache_mask, cache_len, *sc) for k, v, sc in zip(keys, values, scales))
 
-    def _dep_caches(self) -> tuple:
-        """The dep-graph caches as the model's per-layer dep-graph past: views
-        of the planes at the step boundary's length G (a Python int)."""
-        return tuple(KVCache(k, v, self.dep_mask, self._n_levels) for k, v in zip(self.dep_key, self.dep_value))
+    def _dep_planes(self, draft: bool = False) -> tuple:
+        """The target's (or the draft's) dep-graph planes and their mask."""
+        if draft:
+            return self.draft_dep_key, self.draft_dep_value, self.draft_dep_mask
+        return self.dep_key, self.dep_value, self.dep_mask
 
-    def _store_dep(self, dep: tuple) -> None:
-        """A walk's dep-graph caches into the planes, whole rows of every slot
-        (JAX's ``_merge_caches`` takes them without a merge: they advance in
-        lockstep, and a finished slot's rows hold inert values its next
-        admission overwrites)."""
+    def _dep_caches(self, draft: bool = False) -> tuple:
+        """The dep-graph caches (or the draft's) as the model's per-layer
+        dep-graph past: views of the planes at the step boundary's length G
+        (a Python int)."""
+        keys, values, mask = self._dep_planes(draft)
+        return tuple(KVCache(k, v, mask, self._n_levels) for k, v in zip(keys, values))
+
+    def _store_dep(self, dep: tuple, draft: bool = False) -> None:
+        """A walk's dep-graph caches into the planes (or the draft's), whole
+        rows of every slot (JAX's ``_merge_caches`` takes them without a
+        merge: they advance in lockstep, and a finished slot's rows hold
+        inert values its next admission overwrites)."""
+        keys, values, mask = self._dep_planes(draft)
         for i, c in enumerate(dep):
-            self.dep_key[i].copy_(c.key)
-            self.dep_value[i].copy_(c.value)
-        self.dep_mask.copy_(dep[0].mask)
+            keys[i].copy_(c.key)
+            values[i].copy_(c.value)
+        mask.copy_(dep[0].mask)
 
-    def _unfused_forward(self, view: EventStreamBatch, cache_mask, cache_len, active, draft: bool = False) -> tuple:
+    def _unfused_forward(
+        self, view: EventStreamBatch, cache_mask, cache_len, active, draft: bool = False, dep=None, **window
+    ) -> tuple:
         """The JAX engine's unfused decode step (``_decode_step_ci`` with
         ``self.model.apply(params, view, past=caches, use_cache=True)`` and
         ``_merge_caches``): the model's (or the draft's) cached forward of the
         view's events, one a step or a spec round's verify window; an NA
         model's is the step's target-0 forward (``NAPast`` of the sequence
-        caches and `_dep_caches`), whose dep-graph caches the caller walks
-        on. A monolithic cache takes each layer's new planes where a slot is
+        caches and the dep-graph caches ``dep``, by default `_dep_caches`),
+        whose dep-graph caches the caller walks on, or, given ``window``
+        (the NA verify's ``partial_content_levels``, ``history_head``,
+        ``return_contextualized``), the full forward of the view with no
+        dep-graph past (its reset seeds the walk of the view's last event).
+        A monolithic cache takes each layer's new planes where a slot is
         active; a pool was written in place by the forward, every row at its
         own block (a finished row writes into blocks it still holds, which
         no live row reads). Returns the output and the merged mask and
         lengths."""
         model = self._draft if draft else self._model
         past = self._layer_caches(cache_mask, cache_len, draft)
-        if self._na:
-            out = model(view, past=NAPast(seq_past=past, dep_graph_past=self._dep_caches()), use_cache=True,
+        if window:
+            out = model(view, past=NAPast(seq_past=past), use_cache=True, **window)
+            new = out.past_key_values.seq_past
+        elif self._na:
+            dep = self._dep_caches(draft) if dep is None else dep
+            out = model(view, past=NAPast(seq_past=past, dep_graph_past=dep), use_cache=True,
                         dep_graph_el_generation_target=0)  # fmt: skip
             new = out.past_key_values.seq_past
         else:
@@ -885,25 +935,53 @@ class GenerationEngine:
 
     def _level_walk(self, big: EventStreamBatch, cursor, dep: tuple, seeds, counter, active=None, bad=None) -> tuple:
         """Levels 1 .. G-1 of each row's event at ``cursor`` (JAX's NA level
-        loop): each level's one-element forward against the dep-graph caches
-        ``dep`` (no sequence cache is read), its heads drawn from stream
-        counter ``counter + level`` and its measurements filled in, in place
-        (rows not ``active`` keep theirs). ``bad``, the health sentinel's
-        rows, takes each level's non-finite rows. Returns the dep-graph
-        caches and ``bad``."""
+        loop, `_walk` on the target): level ``l``'s heads drawn from stream
+        counter ``counter + l`` and its measurements filled in where
+        ``active``. ``bad``, the health sentinel's rows, takes each level's
+        non-finite rows. Returns the dep-graph caches and ``bad``."""
+        dep, _, bad = self._walk(self._model, big, cursor, dep, lambda level: RowStreams(seeds, counter + level),
+                                 lambda level: active, sample_active=active, bad=bad)  # fmt: skip
+        return dep, bad
+
+    def _walk(
+        self, model, big: EventStreamBatch, cursor, dep: tuple, streams=None, write=None, *, sample_active=None,
+        drop_oob: bool = False, mask_levels: bool = False, bad=None,
+    ) -> tuple:  # fmt: skip
+        """Levels 1 .. G-1 of each row's event at ``cursor`` through ``model``
+        (the target or the draft): each level's one-element forward against
+        the dep-graph caches ``dep`` (no sequence cache is read); with
+        ``streams(level)`` its heads drawn (kernel A on each categorical
+        head) and its measurements filled in, in place, where
+        ``write(level)`` (None: every row; ``drop_oob`` drops rows past the
+        buffer). ``mask_levels`` masks the event's levels ``>= level`` out of
+        each level's input (`mask_batch_to_levels`): a walk over an event
+        whose later levels are written already (a teacher-forced replay, a
+        correction walk frozen below its break) then writes the keys and
+        values the sequential walk wrote. ``streams=None`` draws nothing (a
+        replay). ``bad`` takes each level's non-finite rows. Returns the
+        dep-graph caches, each level's ``(predictions, draws)`` and ``bad``."""
         at = cursor.clamp(max=big.event_mask.shape[1] - 1)  # a finished row's cursor may sit at the buffer's end
+        em = take_event(big.event_mask, at)
+        drawn = []
         for level in range(1, self._n_levels):
-            out = self._model(_trim_to_event(big, at), past=NAPast(dep_graph_past=dep), use_cache=True,
-                              dep_graph_el_generation_target=level)  # fmt: skip
+            view = _trim_to_event(big, at)
+            if mask_levels:
+                view = mask_batch_to_levels(view, self._level_of_meas, level - 1)
+            out = model(view, past=NAPast(dep_graph_past=dep), use_cache=True, dep_graph_el_generation_target=level)
             dep = out.past_key_values.dep_graph_past
+            if streams is None:
+                continue
             preds = _slice_preds_at(out.preds, 0)
-            sample = self._sample_rows(preds, take_event(big.event_mask, at), seeds, counter + level, active)
+            draws = self._draw_rows(preds, streams(level), sample_active)
+            sample = assemble_event_sample(preds, draws, em)
             if bad is not None:
                 bad = bad | self._rows_nonfinite(preds, sample)
-            update_last_event_data(big, sample, self.config, cursor + 1, self._to_fill[level], active)
+            update_last_event_data(big, sample, self.config, cursor + 1, self._to_fill[level],
+                                   None if write is None else write(level), drop_oob=drop_oob)  # fmt: skip
+            drawn.append((preds, draws))
         if dep[0].length != self._n_levels:  # the boundary's phase every program assumes
             raise RuntimeError(f"a level walk left its dep-graph caches at {dep[0].length}, not {self._n_levels}")
-        return dep, bad
+        return dep, drawn, bad
 
     def _decode_step(self, st: dict, seeds: torch.Tensor) -> dict:
         """One event for every active slot of state ``st`` (`_CHUNK_STATE`,
@@ -1005,13 +1083,13 @@ class GenerationEngine:
                   "dynamic_values_mask")  # fmt: skip
         return big.replace(time=take(time_from_deltas(big)), **{f: take(getattr(big, f)) for f in fields})
 
-    def _draw_rows(self, preds, streams) -> dict:
+    def _draw_rows(self, preds, streams, active=None) -> dict:
         """Per-row raw named-head draws (`sample_head_draws`) from an event's
-        streams: the spec round's sampling, kernel A drawing every categorical
-        head (greedy: the greedy statistics)."""
+        streams, kernel A drawing every categorical head (``active``: its
+        rows; greedy: the greedy statistics)."""
         if self.greedy:
             return sample_head_draws(preds, None, greedy=True)
-        return sample_head_draws(preds, streams, categorical_sampler=self._categorical_sampler(None))
+        return sample_head_draws(preds, streams, categorical_sampler=self._categorical_sampler(active))
 
     def _spec_draft(self, st: dict, seeds: torch.Tensor, active: torch.Tensor) -> tuple:
         """The draft chunk (JAX's ``_spec_draft_chunk_ci``): ``k`` proposals a
@@ -1102,20 +1180,25 @@ class GenerationEngine:
         commit = active & needs_corr
         append_new_event(big, corr, c + m - 1, commit)
         update_last_event_data(big, corr, cfg, c + m, self._to_fill, commit)
+        return self._spec_advance(st, active, m, needs_corr, out.preds, cache_mask, cache_len, dmask)
 
-        # JAX's ``_spec_advance``.
+    def _spec_advance(self, st: dict, active, m, needs_corr, window_preds, cache_mask, cache_len, dmask) -> dict:
+        """The state after a round that committed ``m`` events a row (JAX's
+        ``_spec_advance``): cursors, generated counts, stops, the health
+        sentinel over the verify window's predictions, both caches' lengths
+        rolled to the new cursor, the proposed and accepted counts."""
+        c, base = st["cursor"], self.base_len
         cursor = c + torch.where(active, m, 0)
         pos = torch.arange(self.max_len, device=c.device)[None, :]
-        new_real = (big.event_mask & (pos >= c[:, None]) & (pos < cursor[:, None])).sum(1, dtype=torch.int32)
+        new_real = (self.big.event_mask & (pos >= c[:, None]) & (pos < cursor[:, None])).sum(1, dtype=torch.int32)
         n_generated = st["n_generated"] + torch.where(active, new_real, 0)
-        done = st["done"] | (active & self._row_done(big, cursor, base, n_generated, self.budget))
+        done = st["done"] | (active & self._row_done(self.big, cursor, base, n_generated, self.budget))
         # Proposals past a row's budget can never commit: only the committable count.
-        proposable = (self.budget - (c - base)).clamp(0, K)
+        proposable = (self.budget - (c - base)).clamp(0, self.spec.k)
         health = st["health"]
         if self.health_sentinel:
-            hit = active & self._rows_nonfinite(out.preds)
+            hit = active & self._rows_nonfinite(window_preds)
             done, health = done | hit, health | hit
-        rolled = torch.where(active, cursor - 1, cache_len)
         return dict(
             cursor=cursor,
             n_generated=n_generated,
@@ -1123,13 +1206,208 @@ class GenerationEngine:
             health=health,
             active_steps=st["active_steps"] + active.sum(dtype=torch.int32),
             cache_mask=cache_mask,
-            cache_len=rolled,
+            cache_len=torch.where(active, cursor - 1, cache_len),
             draft_cache_mask=dmask,
             draft_cache_len=torch.where(active, cursor - 1, st["draft_cache_len"]),
             spec_proposed=st["spec_proposed"] + torch.where(active, proposable, 0),
             spec_accepted=st["spec_accepted"] + torch.where(active, m - needs_corr.to(torch.int32), 0),
             spec_rounds=st["spec_rounds"] + 1,
         )
+
+    # ------------------------------------------ speculative decoding, NA
+    def _level_preds(self, preds, level: int) -> GenerativeSequenceModelPredictions:
+        """Dep-graph level ``level``'s heads of a full NA forward's
+        predictions (JAX's ``_level_preds``): the heads the cached walk's
+        level-``level`` forward gives; level 0, the time to event."""
+        if level == 0:
+            return GenerativeSequenceModelPredictions(time_to_event=preds.time_to_event)
+        cat, num = level_measurements(self.config.measurements_per_dep_graph_level[level])
+        cls = {m: d for m, d in (preds.classification or {}).items() if m in cat}
+        reg = {m: d for m, d in (preds.regression or {}).items() if m in num}
+        return GenerativeSequenceModelPredictions(classification=cls or None, regression=reg or None)
+
+    def _spec_draft_na(self, st: dict, seeds: torch.Tensor, active: torch.Tensor) -> tuple:
+        """The NA draft chunk (JAX's ``_spec_draft_chunk_na``): ``k`` whole
+        events a slot, each the draft's target-0 forward of the event before
+        it (level 0, its time, drawn and the event opened at ``cursor + t``)
+        and the draft's level walk (`_walk`), every level's predictions and
+        draws recorded; past the buffer dropped. Level ``l`` of event ``j``
+        draws from `level_streams` ``(j, l)``.
+
+        Then one more target-0 forward, of the last proposal: it writes that
+        proposal's draft sequence-cache entry, which JAX's draft never
+        writes (after a round that commits every proposal and the bonus, the
+        entry stays stale for the rest of the request; ROADMAP Queue 3).
+        Each target-0 forward's reset, the seed of the next event's walk,
+        is kept: `_spec_round_na` rebuilds the draft's dep-graph caches for
+        the last committed event from the seed of its position (JAX's draft
+        keeps the walk of its last proposal, whichever event the round
+        commits last). Returns the proposals (``[(predictions, draws)]`` a
+        level, a proposal), the draft cache's mask and the ``k + 1`` seeds."""
+        big, K, G = self.big, self.spec.k, self._n_levels
+        c, base = st["cursor"], self.base_len
+        mask, length = st["draft_cache_mask"], st["draft_cache_len"]
+        dep = self._dep_caches(draft=True)
+        proposals, seeds_out = [], []
+        for t in range(K + 1):
+            pos = c + t
+            out, mask, length = self._unfused_forward(self._window_view(pos - 1, 1), mask, length, active, draft=True,
+                                                      dep=dep)  # fmt: skip
+            dep = out.past_key_values.dep_graph_past
+            seeds_out.append(dep)
+            if t == K:
+                break
+            j = pos - base
+            preds = _slice_preds_at(out.preds, 0)
+            draws = self._draw_rows(preds, level_streams(seeds, j, G, 0))
+            append_new_event(big, assemble_event_sample(preds, draws, self._take(big.event_mask, pos - 1)), pos, active,
+                             drop_oob=True)  # fmt: skip
+            dep, drawn, _ = self._walk(self._draft, big, pos, dep, lambda level, j=j: level_streams(seeds, j, G, level),
+                                       lambda level: active, drop_oob=True)  # fmt: skip
+            proposals.append([(preds, draws)] + drawn)
+        return proposals, mask, seeds_out
+
+    def _spec_round_na(self, st: dict, seeds: torch.Tensor) -> dict:
+        """One speculative round on an NA model (JAX's ``_spec_verify_na``
+        after `_spec_draft_na`): ONE teacher-forced target forward over the
+        ``k + 1``-event window from the last committed event, with
+        ``partial_content_levels`` and the carried history heads, scores
+        every level of every proposal, so its level-``l`` predictions are
+        what the sequential cached walk computes (level 0 from the preceding
+        position, levels >= 1 from the event's own). The accept walk runs
+        level by level (`spec_accept_level`); an event is accepted when every
+        level is, and the first rejected level of the first rejected event
+        is its break level ``l_sel`` (0 for the bonus event, a target draw
+        off the window's last position). The commit: level 0 appended where
+        the break is at 0; else the event's levels from the break up
+        stripped and the breaking level's residual filled in; then the
+        correction walk: a one-event re-contextualize forward of the event
+        before the correction (the history head of its predecessor) seeds
+        the walk of the levels above the break, each row frozen below it.
+        The sequence caches roll to the new cursor, the dep-graph caches are
+        the walk's (lockstep scratch, as in JAX), the history heads take the
+        window's contextualized embeddings at the new next-to-last event, and
+        the draft's dep-graph caches are rebuilt for the last committed event
+        (its seed from the draft chunk, then a teacher-forced replay of its
+        levels). Returns the next state; inactive slots keep theirs."""
+        active = self.live & ~st["done"]
+        proposals, dmask, draft_seeds = self._spec_draft_na(st, seeds, active)
+        verdict = self._spec_verify_na(st, seeds, active, proposals)
+        return self._spec_commit_na(st, seeds, active, verdict, dmask, draft_seeds)
+
+    def _spec_verify_na(self, st: dict, seeds: torch.Tensor, active: torch.Tensor, proposals: list) -> dict:
+        """The window forward and the per-level accept walk of `_spec_round_na`:
+        the window's output, the target cache's merged mask and lengths, the
+        accepted count ``a``, the committed count ``m``, ``needs_corr``, the
+        break level ``l_sel`` and each level's candidates."""
+        big, K, G = self.big, self.spec.k, self._n_levels
+        c, base = st["cursor"], self.base_len
+        out, cache_mask, cache_len = self._unfused_forward(
+            self._window_view(c - 1, K + 1), st["cache_mask"], st["cache_len"], active, partial_content_levels=True,
+            history_head=tuple(self.spec_history), return_contextualized=True,
+        )  # fmt: skip
+        acc_events, lrejs = [], []
+        level_cands = [[] for _ in range(G)]
+        for t in range(1, K + 1):
+            accs = []
+            for level in range(G):
+                # Window index v holds position c - 1 + v: level 0 is the
+                # preceding position's whole-event prediction, levels >= 1 the
+                # event's own graph encodings.
+                src = t - 1 if level == 0 else t
+                tgt = self._level_preds(_slice_preds_at(out.preds, src), level)
+                dft_preds, dft_draws = proposals[t - 1][level]
+                streams = level_streams(seeds, c + t - 1 - base, G, level)
+                acc, cand = spec_accept_level(
+                    tgt, dft_preds, dft_draws, self._draw_rows(tgt, streams), streams,
+                    self._take(big.event_mask, c + t - 2 if level == 0 else c + t - 1), greedy=self.greedy,
+                    rtol=self.spec.value_rtol, atol=self.spec.value_atol, top_k=self.top_k, top_p=self.top_p,
+                )  # fmt: skip
+                accs.append(acc)
+                level_cands[level].append(cand)
+            acc_stack = torch.stack(accs).to(torch.int32)
+            lrejs.append(torch.cumprod(acc_stack, dim=0).sum(0, dtype=torch.int32))  # the first rejected level
+            acc_events.append(acc_stack.prod(0).bool())
+        # The bonus event's level 0; its levels come from the correction walk,
+        # so levels >= 1 repeat the last candidate (never selected).
+        bonus = self._level_preds(_slice_preds_at(out.preds, K), 0)
+        draws = self._draw_rows(bonus, level_streams(seeds, c + K - base, G, 0))
+        level_cands[0].append(assemble_event_sample(bonus, draws, self._take(big.event_mask, c + K - 1)))
+        for level in range(1, G):
+            level_cands[level].append(level_cands[level][-1])
+
+        a = torch.cumprod(torch.stack(acc_events).to(torch.int32), dim=0).sum(0, dtype=torch.int32)
+        prop_em = torch.stack([self._take(big.event_mask, c + t - 1) for t in range(1, K + 1)])
+        m, needs_corr = self._spec_round_caps(c, a, prop_em)
+        l_sel = torch.where(a < K, torch.stack(lrejs).gather(0, a.clamp(max=K - 1).long()[None])[0], 0)
+        return dict(out=out, cache_mask=cache_mask, cache_len=cache_len, a=a, m=m, needs_corr=needs_corr, l_sel=l_sel,
+                    level_cands=level_cands)  # fmt: skip
+
+    def _spec_commit_na(self, st: dict, seeds, active, verdict: dict, dmask, draft_seeds: list) -> dict:
+        """The commit of `_spec_round_na` after `_spec_verify_na`: the
+        correction event's verify-side levels, the correction walk, the
+        history heads, the state advance and the draft's dep-graph caches."""
+        cfg, big, K, G = self.config, self.big, self.spec.k, self._n_levels
+        W = K + 1
+        c, base = st["cursor"], self.base_len
+        rows = torch.arange(self.n_slots, device=c.device)
+        out, a, m, l_sel, level_cands = (verdict[k] for k in ("out", "a", "m", "l_sel", "level_cands"))
+        needs_corr, cache_mask, cache_len = verdict["needs_corr"], verdict["cache_mask"], verdict["cache_len"]
+        corr_cursor = c + m - 1
+        commit = active & needs_corr
+        history = tuple(self.spec_history)
+
+        # The correction event's verify-side levels: level 0 appended where
+        # the break is at 0; else the levels from the break up stripped (the
+        # draft's elements there; the accepted levels' stay in their build
+        # order) and the breaking level's residual filled in.
+        append_new_event(big, select_candidate(level_cands[0], a), corr_cursor, commit & (l_sel == 0))
+        at = corr_cursor.long().clamp(0, self.max_len - 1)
+        meas = big.dynamic_measurement_indices[rows, at]
+        strip = (commit & (l_sel >= 1))[:, None] & (meas != 0) & (self._level_of_meas[meas.long()] >= l_sel[:, None])
+        for name in ("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask"):
+            buf = getattr(big, name)
+            buf[rows, at] = torch.where(strip, False if buf.dtype == torch.bool else 0, buf[rows, at])
+        for level in range(1, G):
+            update_last_event_data(big, select_candidate(level_cands[level], a.clamp(max=K - 1)), cfg, corr_cursor + 1,
+                                   self._to_fill[level], commit & (l_sel == level))  # fmt: skip
+
+        # The correction walk: the re-contextualize forward of the event
+        # before the correction (its history: the round's input head where the
+        # first proposal broke, else the window's embedding of the last
+        # accepted proposal) writes its sequence-cache entry and seeds the
+        # walk of the correction event's levels above the break.
+        hist_r = tuple(
+            torch.where((a == 0)[:, None], h, ctx[rows, (a - 1).clamp(0, W - 1).long()])
+            for h, ctx in zip(history, out.contextualized)
+        )
+        out_r, cache_mask, cache_len = self._unfused_forward(
+            self._window_view(corr_cursor - 1, 1), cache_mask, torch.where(commit, corr_cursor - 1, cache_len), commit,
+            partial_content_levels=True, history_head=hist_r,
+        )  # fmt: skip
+        j = corr_cursor - base
+        dep, _, _ = self._walk(self._model, big, corr_cursor, out_r.past_key_values.dep_graph_past,
+                               lambda level: level_streams(seeds, j, G, level),
+                               lambda level: commit & (l_sel < level), mask_levels=True)  # fmt: skip
+        self._store_dep(dep)
+        # The next round's window starts at the new last committed event; its
+        # predecessor (window index m - 1) gives the history heads.
+        last = (m - 1).clamp(0, W - 1).long()
+        for h, ctx in zip(self.spec_history, out.contextualized):
+            h.copy_(torch.where(active[:, None], ctx[rows, last], h))
+        nxt = self._spec_advance(st, active, m, needs_corr, out.preds, cache_mask, cache_len, dmask)
+
+        # The draft's dep-graph caches for the new last committed event: the
+        # seed its position's target-0 forward left, then its levels replayed.
+        pick = torch.where(active, m - 1, 0).clamp(0, K).long()
+        seed = tuple(
+            KVCache(torch.stack([d[i].key for d in draft_seeds])[pick, rows],
+                    torch.stack([d[i].value for d in draft_seeds])[pick, rows], draft_seeds[0][i].mask, 1)
+            for i in range(len(draft_seeds[0]))
+        )  # fmt: skip
+        ddep, _, _ = self._walk(self._draft, big, nxt["cursor"] - 1, seed, mask_levels=True)
+        self._store_dep(ddep, draft=True)
+        return nxt
 
     def _spec_chunk(self) -> None:
         """The spec chunk: ``decode_chunk`` rounds (JAX dispatches a draft
@@ -1140,8 +1418,9 @@ class GenerationEngine:
         an engine, as `_decode_chunk` is."""
         st = {k: getattr(self, k) for k in _SPEC_STATE}
         seeds = self.seeds.long()
+        spec_round = self._spec_round_na if self._na else self._spec_round
         for _ in range(self.decode_chunk):
-            st = self._spec_round(st, seeds)
+            st = spec_round(st, seeds)
         for k in _SPEC_STATE:
             getattr(self, k).copy_(st[k])
         rows = [self.done.to(torch.int32), self.cursor, self.base_len, self.n_generated, self.health.to(torch.int32)]
@@ -1279,20 +1558,22 @@ class GenerationEngine:
     def _prefill_admit(self, bucket_len: int, x: dict) -> None:
         """The prefill program (JAX's ``_prefill_ci``: ``_prefill_forward_ci``
         then ``_admit``; paged, ``_prefill_paged``; spec, ``_prefill_spec_ci``;
-        NA, ``_prefill_na``) on the staged group ``x``: the model forward of
-        the rows' first ``bucket_len`` events on a fresh float cache (a spec
-        engine's draft too, on the same prompt rows; an NA model's with its
-        dep-graph history seeded from each row's last prompt event,
-        ``last_event_index``), then `_admit`."""
+        NA, ``_prefill_na``; NA spec, ``_prefill_spec_na``) on the staged
+        group ``x``: the model forward of the rows' first ``bucket_len``
+        events on a fresh float cache (a spec engine's draft too, on the same
+        prompt rows; an NA model's with its dep-graph history seeded from
+        each row's last prompt event, ``last_event_index``, and, for an NA
+        spec engine, the target's contextualized embeddings of that event,
+        the first history heads), then `_admit`."""
         g = x["plen"].shape[0]
         pbig = self._staged_rows(x)
         view = pbig.slice((slice(None), slice(0, bucket_len)))
         last = x["plen"].long() - 1
 
-        def forward(model, cfg):
+        def forward(model, cfg, **kw):
             past = init_kv_caches(cfg, g, self.max_len, self.device)
             if self._na:
-                out = model(view, past=NAPast(seq_past=past), use_cache=True, last_event_index=last)
+                out = model(view, past=NAPast(seq_past=past), use_cache=True, last_event_index=last, **kw)
                 seq, dep = out.past_key_values.seq_past, out.past_key_values.dep_graph_past
             else:
                 out = model(view, past=past, use_cache=True)
@@ -1300,15 +1581,20 @@ class GenerationEngine:
             kv = [torch.stack([getattr(c, w) for c in seq]) for w in ("key", "value")]
             return out, kv, seq[0].mask, dep
 
-        out, kv, mask, dep = forward(self._model, self.config)
-        draft = None if self.spec is None else forward(self._draft, self.spec.config)[1:3]
+        na_spec = self._na and self.spec is not None
+        out, kv, mask, dep = forward(self._model, self.config, **({"return_contextualized": True} if na_spec else {}))
+        draft = None if self.spec is None else forward(self._draft, self.spec.config)[1:]
+        history = None
+        if na_spec:
+            history = torch.stack([take_event(ctx, last) for ctx in out.contextualized])
         preds = out.preds
         if self._na:  # level 0: the time to the event
             preds = GenerativeSequenceModelPredictions(time_to_event=preds.time_to_event)
-        self._admit(x, pbig, _slice_preds_at(preds, last), kv, mask, draft, dep)
+        self._admit(x, pbig, _slice_preds_at(preds, last), kv, mask, draft, dep, history)
 
     def _admit(
-        self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor, draft=None, dep=None
+        self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor, draft=None, dep=None,
+        history=None,
     ) -> None:
         """The first event of each staged row sampled (counter 0 of each
         row's stream: a spec engine's event 0) from ``preds_last`` and
@@ -1321,8 +1607,12 @@ class GenerationEngine:
         ``x["read_table"]`` as the slots' block tables (quantized for an int8
         or fp8 cache), an NA model's dep-graph caches as whole rows (JAX's
         ``_scatter_caches``, no length a row), then cursors, budget, seed and
-        counter, flags; a spec engine's ``draft`` ``(kv, mask)`` into the
-        draft's planes, its counts zeroed (JAX's ``_admit_draft``). Rows not
+        counter, flags; a spec engine's ``draft`` ``(kv, mask, dep)`` into the
+        draft's planes, its counts zeroed (JAX's ``_admit_draft``); an NA
+        draft's dep-graph caches ``dep`` (its prefill's reset) first walk the
+        first event's levels teacher-forced (JAX's
+        ``_prefill_draft_forward``), and the target's ``history`` heads
+        ``(layers, rows, hidden)`` are admitted beside them. Rows not
         ``x["valid"]`` write back what their slots hold. The staged rows are
         written in place."""
         cfg = self.config
@@ -1368,6 +1658,12 @@ class GenerationEngine:
             self._admit_planes(self._planes(draft=True), draft[0], x, slots, valid)
             admitted += ((self.draft_cache_mask, draft[1]), (self.draft_cache_len, plen), (self.spec_proposed, 0),
                          (self.spec_accepted, 0))  # fmt: skip
+            if self._na:
+                ddep, _, _ = self._walk(self._draft, pbig, plen64, draft[2], mask_levels=True)
+                for plane, w in ((self.draft_dep_key, "key"), (self.draft_dep_value, "value")):
+                    _admit_rows(plane, torch.stack([getattr(c, w) for c in ddep]), slots, valid, dim=1)
+                _admit_rows(self.draft_dep_mask, ddep[0].mask, slots, valid)
+                _admit_rows(self.spec_history, history, slots, valid, dim=1)
         for dst, src in admitted:
             _admit_rows(dst, src, slots, valid)
 

@@ -11,7 +11,9 @@ per-event-index streams and the per-head accept walk.
 
 **Streams.** Event ``j`` of a request (``j = position - prompt_len``, the
 prefill's first event being ``j = 0``) draws every head from
-``RowStreams(seed, j)`` (`generation.sampling`), addressed, never advanced:
+``RowStreams(seed, j)`` (`generation.sampling`; on a nested-attention
+model level ``l`` of event ``j`` from ``RowStreams(seed, j * G + l)``,
+`level_streams`), addressed, never advanced:
 draft proposals, target draws, acceptance uniforms (``spec_acc:<m>``) and
 residual draws (``spec_res:<m>``) of event ``j`` all come from that stream,
 so results do not depend on slot placement, chunking or refill order. The
@@ -59,7 +61,8 @@ class SpecConfig:
 
     Args:
         model: the draft model (a `models.ci_model.CIPPTForGenerativeSequenceModeling`
-            with its weights; `truncated_draft` cuts one from the target).
+            or `models.na_model.NAPPTForGenerativeSequenceModeling`, as the
+            target, with its weights; `truncated_draft` cuts one from the target).
         config: the draft's configuration. Its measurement grammar must equal
             the target's (`validate_against`); width and depth are free.
         k: events proposed a slot a round; a round commits 1 to ``k + 1``.
@@ -125,6 +128,17 @@ def event_streams(seeds: torch.Tensor, gen_index: torch.Tensor) -> RowStreams:
     """The streams of each row's event ``gen_index`` (``position - prompt_len``):
     every draw of that event comes from them (JAX's ``fold_in_event``)."""
     return RowStreams(seeds, gen_index.long())
+
+
+def level_streams(seeds: torch.Tensor, gen_index: torch.Tensor, n_levels: int, level: int) -> RowStreams:
+    """The streams of dep-graph level ``level`` of each row's event
+    ``gen_index`` in a nested-attention engine of ``n_levels`` levels:
+    counter ``gen_index * n_levels + level``, the address the
+    non-speculative NA engine draws from (JAX's ``_level_keys`` of
+    ``fold_in_event``). Every draw of that level comes from them: the
+    draft's proposal, the target's draw, the acceptance uniforms and
+    residuals, the bonus event and the correction walk's draws."""
+    return RowStreams(seeds, gen_index.long() * n_levels + level)
 
 
 def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -451,11 +451,20 @@ def capture_spec_parts(engine) -> dict:
     """The filled spec engine's round split into programs of their own, on
     its state as it stands (nothing copied back, so each replay starts from
     the same cursors): ``draft``, the ``k`` draft steps (`_spec_draft`), and
-    ``round``, the whole round (`_spec_round`), each warmed up and captured.
-    Call before any ``torch.profiler`` session."""
+    ``round``, the whole round (`_spec_round`), each warmed up and captured;
+    an NA engine's also ``draft_verify``, the draft chunk, the window forward
+    and the per-level accept walk (`_spec_draft_na`, `_spec_verify_na`), so
+    the round's correction walk and commit are a part of their own. Call
+    before any ``torch.profiler`` session."""
     st = {k: getattr(engine, k) for k in engine_module._SPEC_STATE}
     seeds, active = engine.seeds.long(), engine.live & ~engine.done
-    fns = {"draft": lambda: engine._spec_draft(st, seeds, active), "round": lambda: engine._spec_round(st, seeds)}
+    if engine._na:
+        fns = {"draft": lambda: engine._spec_draft_na(st, seeds, active),
+               "draft_verify": lambda: engine._spec_verify_na(st, seeds, active,
+                                                              engine._spec_draft_na(st, seeds, active)[0]),
+               "round": lambda: engine._spec_round_na(st, seeds)}  # fmt: skip
+    else:
+        fns = {"draft": lambda: engine._spec_draft(st, seeds, active), "round": lambda: engine._spec_round(st, seeds)}
     programs = {}
     with torch.inference_mode():
         for name, fn in fns.items():
@@ -468,7 +477,10 @@ def capture_spec_parts(engine) -> dict:
 def spec_parts(programs: dict) -> dict:
     """Device ms a replay (CUDA events) and kernels a replay (one profiled
     replay) of each `capture_spec_parts` program; ``verify``: the round less
-    the draft steps (the window forward, accept walk, commit and advance)."""
+    the draft steps (the window forward, accept walk, commit and advance);
+    an NA engine's ``verify`` is the window forward and the accept walk
+    alone and ``commit`` the round less the draft and the verify (the
+    correction walk, the commit and the advance)."""
     out = {}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for name, program in programs.items():
@@ -480,7 +492,12 @@ def spec_parts(programs: dict) -> dict:
         kernels = [(evt.count, _kernel_time_us(evt)) for evt in prof.key_averages()]
         out[name] = {"device_ms": ms, "kernels": sum(c for c, us in kernels if us > 0),
                      "profiled_device_ms": sum(us for _, us in kernels) / 1e3}  # fmt: skip
-    out["verify"] = {k: out["round"][k] - out["draft"][k] for k in out["round"]}
+    if "draft_verify" in out:
+        draft_verify = out.pop("draft_verify")
+        out["verify"] = {k: draft_verify[k] - out["draft"][k] for k in out["round"]}
+        out["commit"] = {k: out["round"][k] - draft_verify[k] for k in out["round"]}
+    else:
+        out["verify"] = {k: out["round"][k] - out["draft"][k] for k in out["round"]}
     return out
 
 

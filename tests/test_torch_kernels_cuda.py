@@ -1373,3 +1373,87 @@ def test_na_engine_on_card_matches_cpu(cuda):
             assert torch.equal(getattr(g.batch, f), getattr(c.batch, f)), (g.request_id, f)
         for f in ("time_delta", "dynamic_values"):
             torch.testing.assert_close(getattr(g.batch, f), getattr(c.batch, f), rtol=1e-4, atol=1e-4)
+
+
+# -------------------------------------------------- the NA speculative engine
+@pytest.mark.parametrize("kv_cache_dtype", [None, "int8"])
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+def test_captured_na_spec_engine_equals_eager_engine(cuda, greedy, kv_cache_dtype):
+    """NA speculative decoding on the card (the one-layer truncated draft,
+    ``k`` 3, default tolerances), groups padded: the spec chunk captured once
+    and replayed once a dispatched chunk, each prefill key captured once;
+    results, per-request proposals and acceptances and the rounds equal the
+    ``cuda_graph=False`` engine's bit for bit, and again after ``reset()``
+    with nothing captured anew; kernels B and D never launch; kernel A
+    (sampled only) launches as often captured as eager after ``reset()``,
+    counted through the replays."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
+
+    config, model, prompts = na_engine_setup()
+    dcfg, draft = truncated_draft(config, model, 1)
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, greedy=greedy,
+              kv_cache_dtype=kv_cache_dtype, device=cuda, spec=SpecConfig(model=draft, config=dcfg, k=3))  # fmt: skip
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    runs = {}
+    for graph in (True, False):
+        for c in ("launches", "launches_int8", "launches_fp8"):
+            setattr(decode_stack_step, c, 0)
+        fused_categorical_stream.launches = dep_graph_fwd.launches = 0
+        eng = GenerationEngine(model, config, template=prompts[0][0], cuda_graph=graph, **kw)
+        eng.scheduler.group_sizes = (2, 4)
+        first = eng.run(requests())
+        s = eng.stats()
+        eng.reset()
+        fused_categorical_stream.launches = 0
+        second = eng.run(requests())
+        s2 = eng.stats()
+        same_results(first, second)
+        counts = [(r.spec_proposed, r.spec_accepted) for r in first]
+        assert counts == [(r.spec_proposed, r.spec_accepted) for r in second]
+        assert decode_stack_step.launches + decode_stack_step.launches_int8 + decode_stack_step.launches_fp8 == 0
+        assert dep_graph_fwd.launches == 0
+        assert s["decode_step_impl"] == "spec_draft_verify" and s["spec_rounds"] == s["dispatched_chunks"] * 3 > 0
+        assert eng.draft_dep_key.dtype == eng.dep_key.dtype == torch.float32
+        if graph:
+            assert (s["graph_captures"], s["graph_warmup_chunks"]) == (1, 1)
+            assert s["graph_replays"] == s["dispatched_chunks"]
+            assert s["prefill_graph_captures"] == s["prefill_graph_keys"] > 0
+            assert s["prefill_graph_replays"] == s["prefill_dispatches"]
+            for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures"):
+                assert s2[k] == s[k], k
+            assert s2["graph_replays"] == s["graph_replays"] + s2["dispatched_chunks"]
+        runs[graph] = first, counts, fused_categorical_stream.launches, s
+    same_results(runs[True][0], runs[False][0])
+    assert runs[True][1] == runs[False][1]
+    assert runs[True][3]["spec_rounds"] == runs[False][3]["spec_rounds"]
+    assert runs[True][2] == runs[False][2] and (runs[True][2] == 0) == greedy
+
+
+def test_na_spec_engine_on_card_matches_cpu(cuda):
+    """The small fp32 strict-greedy NA spec engine (the one-layer truncated
+    draft, ``k`` 3, zero tolerances) on the card against the same engine on
+    the CPU, groups padded: events, integers, proposals and acceptances
+    exact, floats within phase 2's small-engine tolerance (1e-4)."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
+
+    config, model, prompts = na_engine_setup(hidden_size=32, num_attention_heads=4, head_dim=8,
+                                             intermediate_size=64)  # fmt: skip
+    dcfg, draft = truncated_draft(config, model, 1)
+    kw = dict(n_slots=8, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True,
+              spec=SpecConfig(model=draft, config=dcfg, k=3, value_rtol=0.0, value_atol=0.0))  # fmt: skip
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        eng = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw)
+        eng.scheduler.group_sizes = (4, 8)
+        res[dev.type] = eng.run([Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)])
+    for g, c in zip(res["cuda"], res["cpu"]):
+        assert (g.error, c.error) == (None, None)
+        assert (g.n_events, g.n_generated, g.spec_proposed, g.spec_accepted) == (
+            c.n_events, c.n_generated, c.spec_proposed, c.spec_accepted), g.request_id
+        for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
+            assert torch.equal(getattr(g.batch, f), getattr(c.batch, f)), (g.request_id, f)
+        for f in ("time_delta", "dynamic_values"):
+            torch.testing.assert_close(getattr(g.batch, f), getattr(c.batch, f), rtol=1e-4, atol=1e-4)

@@ -40,8 +40,9 @@ Checked, each with its tolerance:
    float dep-graph caches counted) and takes JAX's ``config``, ``max_len``
    and ``params_bytes`` overrides;
 7. the refusals: NA with ``paged_kv`` and with the megakernel raise JAX's
-   messages in both engines; NA with ``spec=`` names Queue 1 item 4's NA
-   speculative decoding.
+   messages in both engines, as do NA ``spec=`` with ``paged_kv`` and with
+   split-mode dep-graph levels; NA with ``spec=`` builds and serves
+   (``tests/test_torch_na_spec.py`` holds it against JAX's NA spec engine).
 """
 
 import contextlib
@@ -59,6 +60,7 @@ from eventstreamgpt_tpu.models.transformer import NestedAttentionPointProcessTra
 from eventstreamgpt_tpu.models.transformer import init_kv_caches as jax_init_kv_caches
 from eventstreamgpt_tpu.serving import GenerationEngine as JaxEngine
 from eventstreamgpt_tpu.serving import Request as JaxRequest
+from eventstreamgpt_tpu.serving import SpecConfig as JaxSpecConfig
 from eventstreamgpt_tpu_torch.convert import load_jax_params
 from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
 from eventstreamgpt_tpu_torch.models.na_model import NAPPTForGenerativeSequenceModeling
@@ -367,7 +369,26 @@ def test_na_refusals_match_jax(na):
         # The port's message is JAX's without its tracking note.
         assert str(terr.value) == re.sub(r" \(tracked as [^)]*\)", "", str(jerr.value))
     tmodel, tcfg = na[4], na[3]
-    with pytest.raises(ValueError, match="nested-attention models .*Queue 1 item 4: NA speculative decoding"):
-        port_engine(na, spec=SpecConfig(model=tmodel, config=tcfg, k=2))
+    spec = SpecConfig(model=tmodel, config=tcfg, k=2)
+    eng = port_engine(na, spec=spec, greedy=True)
+    res = eng.run(port_requests(prompt)[:2])
+    assert [r.error for r in res] == [None, None] and all(r.n_generated > 0 for r in res)
+    assert eng.stats()["decode_step_impl"] == "spec_draft_verify"
+    jspec = JaxSpecConfig(model=jmodel, params=params, config=jcfg, k=2)
+    with pytest.raises(ValueError) as jerr:
+        JaxEngine(jmodel, params, jcfg, template=prompt, spec=jspec, paged_kv=True, **ENGINE)
+    with pytest.raises(ValueError) as terr:
+        port_engine(na, spec=spec, paged_kv=True)
+    assert str(terr.value) == re.sub(r" \(tracked as [^)]*\)", "", str(jerr.value))
+    levels = [[], ["event_type", ["lab_vals", "categorical_only"]], ["multi_lab", ["lab_vals", "numerical_only"]]]
+    jsplit = JaxConfig.from_dict(dict(jcfg.to_dict(), measurements_per_dep_graph_level=levels))
+    tsplit = StructuredTransformerConfig.from_dict(jsplit.to_dict())
+    with pytest.raises(ValueError) as jerr:
+        JaxEngine(jmodel, params, jsplit, template=prompt, spec=JaxSpecConfig(model=jmodel, params=params,
+                                                                             config=jsplit, k=2), **ENGINE)  # fmt: skip
+    with pytest.raises(ValueError) as terr:
+        GenerationEngine(tmodel, tsplit, template=to_torch(prompt), device="cpu",
+                         spec=SpecConfig(model=tmodel, config=tsplit, k=2), **ENGINE)  # fmt: skip
+    assert "split-mode" in str(jerr.value) and str(terr.value) == str(jerr.value)
     for impl in (None, "auto", "xla"):
         assert port_engine(na, decode_step_impl=impl).decode_step_impl == "unfused"

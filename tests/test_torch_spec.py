@@ -34,6 +34,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ import eventstreamgpt_tpu_torch.serving.spec as tspec
 from eventstreamgpt_tpu.generation.sampling import sample_head_draws as jax_draws
 from eventstreamgpt_tpu.models.ci_model import CIPPTForGenerativeSequenceModeling as JaxModel
 from eventstreamgpt_tpu.models.config import StructuredTransformerConfig as JaxConfig
+from eventstreamgpt_tpu.models.na_model import NAPPTForGenerativeSequenceModeling as JaxNA
 from eventstreamgpt_tpu.serving import GenerationEngine as JaxEngine
 from eventstreamgpt_tpu.serving import Request as JaxRequest
 from eventstreamgpt_tpu.serving import SpecConfig as JaxSpecConfig
@@ -56,6 +58,7 @@ from eventstreamgpt_tpu_torch.generation.stopping_criteria import MaxLengthCrite
 from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
 from eventstreamgpt_tpu_torch.models.config import StructuredEventProcessingMode
 from eventstreamgpt_tpu_torch.models.model_output import GenerativeSequenceModelPredictions
+from eventstreamgpt_tpu_torch.models.na_model import NAPPTForGenerativeSequenceModeling
 from eventstreamgpt_tpu_torch.models.transformer import KVCache
 from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
 from eventstreamgpt_tpu_torch.serving.engine import _CHUNK_STATE
@@ -76,6 +79,7 @@ from .test_torch_engine import (
 )
 from .test_torch_kv_quant import codes
 from .test_torch_model import assert_preds_close
+from .test_torch_na_engine import build as build_na
 from .test_torch_prefill import RerunGraph
 
 STRICT = dict(k=3, value_rtol=0.0, value_atol=0.0)
@@ -225,15 +229,26 @@ def test_paged_cache_refuses_a_window():
 
 
 # ---------------------------------------------------------------- the draft
-def test_truncated_draft_equals_jax_truncated_tree():
-    m = models()
-    want = load_jax_params(CIPPTForGenerativeSequenceModeling(m["tdcfg"]),
-                           jax.tree_util.tree_map(np.asarray, m["jdparams"])).state_dict()  # fmt: skip
+@pytest.mark.parametrize("kind", ["ci", "na"])
+def test_truncated_draft_equals_jax_truncated_tree(kind):
+    if kind == "ci":
+        m = models()
+        cls, first_layer = CIPPTForGenerativeSequenceModeling, "encoder.h1.attn.layer_norm.weight"
+    else:
+        jcfg, _, params, tcfg, tmodel, _ = build_na()
+        jdcfg, jdparams = jspec.truncated_draft(jcfg, params, 1)
+        tdcfg, tdraft = truncated_draft(tcfg, tmodel, 1)
+        m = dict(tcfg=tcfg, tmodel=tmodel, jdcfg=jdcfg, jdparams=jdparams, tdcfg=tdcfg, tdraft=tdraft)
+        cls, first_layer = NAPPTForGenerativeSequenceModeling, "encoder.h1.block.seq_attn.layer_norm.weight"
+    want = load_jax_params(cls(m["tdcfg"]), jax.tree_util.tree_map(np.asarray, m["jdparams"])).state_dict()
     got = m["tdraft"].state_dict()
-    assert sorted(got) == sorted(want) and "encoder.h1.attn.layer_norm.weight" not in got
+    assert first_layer in m["tmodel"].state_dict()
+    assert sorted(got) == sorted(want) and first_layer not in got
     for k in want:
         assert torch.equal(got[k], want[k]), k
     assert m["tdcfg"].num_hidden_layers == 1 and m["tdcfg"].seq_attention_layers == m["jdcfg"].seq_attention_layers
+    if kind == "na":
+        assert m["tdcfg"].dep_graph_attention_layers == m["jdcfg"].dep_graph_attention_layers
     # Shared with the target, not copied (JAX's tree shares its leaves).
     assert m["tdraft"].output_layer is m["tmodel"].output_layer and m["tdraft"].encoder.h0 is m["tmodel"].encoder.h0
     for n in (0, 2):
@@ -534,11 +549,26 @@ def test_grammar_k_and_na_refusals():
         port_engine(m, spec=SpecConfig(model=m["tdraft"], config=bad))
     with pytest.raises(ValueError, match="SpecConfig.k must be >= 1, got 0"):
         port_engine(m, spec=port_spec(m, k=0))
-    na = copy.deepcopy(m["tcfg"])
-    na.structured_event_processing_mode = StructuredEventProcessingMode.NESTED_ATTENTION
-    with pytest.raises(ValueError, match=r"speculative decoding on nested-attention models .*Queue 1 item 4: NA "
-                                         r"speculative decoding"):  # fmt: skip
-        GenerationEngine(m["tmodel"], na, template=to_torch(m["prompt"]), device="cpu", spec=port_spec(m), **ENGINE)
+    # NA models: spec engines build and serve; split-mode levels and the paged cache raise JAX's words.
+    jcfg, jmodel, params, tcfg, tmodel, prompt = build_na()
+    tdcfg, tdraft = truncated_draft(tcfg, tmodel, 1)
+    eng = GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", greedy=True,
+                           spec=SpecConfig(model=tdraft, config=tdcfg, k=2), **ENGINE)  # fmt: skip
+    assert all(r.error is None and r.n_generated > 0 for r in eng.run(port_requests(prompt)[:2]))
+    assert tcfg.structured_event_processing_mode == StructuredEventProcessingMode.NESTED_ATTENTION
+    jdcfg, jdparams = jspec.truncated_draft(jcfg, params, 1)
+    levels = [[], ["event_type", ["lab_vals", "categorical_only"]], ["multi_lab", ["lab_vals", "numerical_only"]]]
+    jsplit = JaxConfig.from_dict(dict(jcfg.to_dict(), measurements_per_dep_graph_level=levels))
+    tsplit = type(tcfg).from_dict(jsplit.to_dict())
+    for (jc, tc, kw), match in (((jcfg, tcfg, dict(paged_kv=True)), "paged KV cache does not support nested-attention"),
+                                ((jsplit, tsplit, {}), "split-mode .* dep-graph levels are not supported")):  # fmt: skip
+        with pytest.raises(ValueError, match=match) as jerr:
+            JaxEngine(jmodel, params, jc, template=prompt, **ENGINE, **kw,
+                      spec=JaxSpecConfig(model=JaxNA(jdcfg), params=jdparams, config=jc, k=2))  # fmt: skip
+        with pytest.raises(ValueError, match=match) as terr:
+            GenerationEngine(tmodel, tc, template=to_torch(prompt), device="cpu", **ENGINE, **kw,
+                             spec=SpecConfig(model=tdraft, config=tc, k=2))  # fmt: skip
+        assert str(terr.value) == re.sub(r" \(tracked as [^)]*\)", "", str(jerr.value))
 
 
 # ------------------------------------------------------- captured control flow
