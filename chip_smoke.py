@@ -303,7 +303,40 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    ms and kernels a round) and the round's parts (the draft steps, the verify
    with the accept walk, the correction walk and commit; device ms by CUDA
    events, kernels a replay), taken after every capture.
-16. One ``{"kernels": [...]}`` line, then the device line as the last line.
+16. The serving service at phase 2's settings: phase 2's model written with
+   `training.save_pretrained` as checkpoint 1 and the same architecture
+   from seed ``SEED + 1`` as checkpoint 2, both read back with
+   `load_pretrained` (checkpoint 1 equal to phase 2's model bit for bit);
+   phase 2's 64 requests, half in the ``interactive`` lane and half in
+   ``batch``; sampled at the default settings, captured, depth 2, chunks of
+   16, ``max_len`` 256. (a) `ServingService` over two 16-slot engines with a
+   `PrefillStream` over a third, all on checkpoint 1, run twice (a new
+   service over the same engines after ``reset()`` of each): every request
+   finishes with ``n_events == prompt_len + n_generated`` and finite
+   outputs, the second run equals the first bit for bit, the decode engines
+   run no prefill program (one admission replay a handoff), the prefill
+   engine one ``prefill_compute`` replay a dispatched group, kernels A and B
+   count through the replays (B once a decode step of each replica); the
+   same service greedy with and without the stream gives the same events
+   and integers. (b) Hot swap under traffic: a 32-slot ``hot_swap`` engine
+   on checkpoint 1 serves the second 32 requests (warming their program
+   keys), then the first 32, with ``load_shadow(checkpoint 2)`` and
+   ``probe_shadow()`` (``None``) while they decode; drained, ``flip()``,
+   and the second 32 equal a fresh engine on checkpoint 2 bit for bit; a
+   second ``flip()`` and they equal a fresh engine on checkpoint 1; no
+   capture at or after either flip, every weight's address unchanged,
+   kernel B launching after the flip; a shadow with one NaN fails the probe
+   and leaves the live weights as they were; ``slots_report()`` doubles the
+   weights once. (c) A small fp32 greedy service (hidden 32, two replicas
+   and a stream) on the card matches the same service on the CPU (phase 2's
+   small-engine tolerances). Printed, not checked, beside the card's name
+   and power limit: the service's events/s and latency quantiles (p50 and
+   p95 a lane and overall), the same service's events/s without the stream
+   and a single 32-slot engine's; ``load_shadow``, ``probe_shadow`` and
+   ``flip`` times (host wall, device ms by CUDA events); capture seconds;
+   the service's and the stream's ``stats()``.
+17. The wall seconds of each phase function (`tools/phase_times.py`), one
+   ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
 are timed by CUDA events around N back-to-back launches queued behind a
@@ -2923,6 +2956,289 @@ def na_spec_profile(engine, parts) -> dict:
     return dict(out, round_parts=split)
 
 
+# ---------------------------------------------------------------- phase 16
+SERVICE_LANES = ("interactive", "batch")
+
+
+def capture_seconds(engine) -> float:
+    """Seconds an engine spent capturing its programs (the decode chunk's and every keyed program's)."""
+    programs = [engine._program] + [p for f in engine._families.values() for p in f.programs.values()]
+    return sum(p.capture_s for p in programs if p is not None)
+
+
+def device_timed(fn):
+    """``(result, host wall s, device ms)`` of one call of ``fn``, the device time by CUDA events around it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def service_pass(replicas, pf, prompts, counters, label) -> dict:
+    """One run of `ServingService` over ``replicas`` (a new service, and a new
+    `PrefillStream` over ``pf`` unless None), the launch counters zeroed just
+    before and read just after; the results checked finished and finite."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.serving import PrefillStream, Request, ServingService, latency_quantiles
+
+    svc = ServingService(replicas, prefill_stream=None if pf is None else PrefillStream(pf), seed=SEED)
+    reqs = [(Request(prompt=p, max_new_events=b, request_id=i), SERVICE_LANES[i % 2]) for i, (p, b) in enumerate(prompts)]
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = svc.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    check_results(results, [r for r, _ in reqs], label)
+    generated = sum(r.n_generated for r in results)
+    return dict(results=results, wall_s=wall, launches=launches, stats=svc.stats(), generated=generated,
+                rate=generated / wall, latency=latency_quantiles(results))  # fmt: skip
+
+
+def check_service_programs(replicas, pf, passes, label) -> None:
+    """The decode engines ran no prefill program, one admission replay a
+    handoff; the prefill engine one ``prefill_compute`` replay a dispatched
+    group; kernel B once a decode step of each replica in each pass."""
+    for i, e in enumerate(replicas):
+        s = e.stats()
+        check(s["prefill_graph_keys"] == s["prefill_dispatches"] == 0, f"{label}: decode replica {i} prefilled: {s}")
+        check(s["admit_graph_replays"] == s["handoffs_admitted"] > 0,
+              f"{label}: decode replica {i}: {s['admit_graph_replays']} admission replays for {s['handoffs_admitted']} "
+              "handoffs")  # fmt: skip
+    p = pf.stats()
+    groups = sum(run["stats"]["prefill_stream"]["dispatches"] for run in passes)
+    check(p["prefill_compute_graph_replays"] == p["prefill_computes"] == groups > 0,
+          f"{label}: {p['prefill_compute_graph_replays']} prefill_compute replays, {p['prefill_computes']} computes, "
+          f"{groups} dispatched groups")  # fmt: skip
+    for n, run in enumerate(passes):
+        steps = sum(r["dispatched_chunks"] for r in run["stats"]["replicas"]) * replicas[0].decode_chunk
+        got = run["launches"]["decode_stack_step"]
+        check(got == steps, f"{label} [pass {n + 1}]: kernel B launched {got} times for {steps} decode steps")
+        check(run["launches"]["fused_categorical_stream"] > 0, f"{label} [pass {n + 1}]: kernel A never launched")
+
+
+def same_events(a_results, b_results, label) -> None:
+    """Two runs' events and integers equal (floats not compared)."""
+    import torch
+
+    check(len(a_results) == len(b_results), f"{label}: {len(a_results)} results against {len(b_results)}")
+    for a, b in zip(a_results, b_results):
+        check((a.request_id, a.n_events, a.n_generated) == (b.request_id, b.n_events, b.n_generated),
+              f"{label}: request {a.request_id} differs in its accounting")  # fmt: skip
+        for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
+            check(torch.equal(getattr(a.batch, f), getattr(b.batch, f)), f"{label}: request {a.request_id}'s {f}")
+
+
+def weights_of(engine) -> list:
+    return list(engine._model.parameters()) + list(engine._stacked.values())
+
+
+def hot_swap_runs(smi, m1, m2, config, prompts, counters, kw) -> dict:
+    """Phase 16 (b): hot swap under traffic on a 32-slot engine (module docstring)."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    def reqs(lo, hi):
+        return [Request(prompt=p, max_new_events=b, request_id=i, key=derive_request_seed(SEED, i))
+                for i, (p, b) in enumerate(prompts) if lo <= i < hi]  # fmt: skip
+
+    def fresh(model):
+        return GenerationEngine(model, config, template=prompts[0][0], n_slots=32, **kw).run(reqs(32, 64))
+
+    eng = GenerationEngine(m1, config, template=prompts[0][0], n_slots=32, hot_swap=True, **kw)
+    eng.run(reqs(32, 64))  # the second half's program keys, captured before any flip
+    for r in reqs(0, 32):
+        eng.submit(r)
+    eng.plan_and_dispatch()
+    eng.issue_chunk()
+    eng.issue_chunk()  # decoding while the shadow is staged and probed
+    times = {}
+    _, times["load_shadow_s"], times["load_shadow_device_ms"] = device_timed(lambda: eng.load_shadow(m2.state_dict()))
+    reason, times["probe_s"], times["probe_device_ms"] = device_timed(eng.probe_shadow)
+    check(reason is None, f"phase 16 [hot swap]: the probe refused checkpoint 2: {reason}")
+    check(eng.occupied > 0, "phase 16 [hot swap]: the shadow was not staged under traffic")
+    first = eng.run()
+    check(len(first) == 32 and all(r.error is None for r in first), "phase 16 [hot swap]: the first 32 failed")
+    captures = eng.program_stats()
+    ptrs = [t.data_ptr() for t in weights_of(eng)]
+    _, times["flip_s"], times["flip_device_ms"] = device_timed(eng.flip)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    flipped = eng.run(reqs(32, 64))
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    steps = (eng.stats()["dispatched_chunks"] - captures["graph_replays"]) * eng.decode_chunk
+    check(launches["decode_stack_step"] == steps > 0,
+          f"phase 16 [hot swap]: kernel B launched {launches['decode_stack_step']} times after the flip, {steps} steps")  # fmt: skip
+    check_results(flipped, reqs(32, 64), "phase 16 [hot swap, flipped]")
+    same_results(fresh(m2), flipped, "phase 16 [hot swap]", "flipped vs a fresh engine on checkpoint 2")
+    _, times["rollback_s"], times["rollback_device_ms"] = device_timed(eng.flip)
+    rolled = eng.run(reqs(32, 64))
+    same_results(fresh(m1), rolled, "phase 16 [hot swap]", "rolled back vs a fresh engine on checkpoint 1")
+    after = eng.program_stats()
+    for k in ("graph_captures", "prefill_graph_captures", "prefill_graph_keys", "extract_graph_captures"):
+        check(after[k] == captures[k], f"phase 16 [hot swap]: {k} {captures[k]} before the flips, {after[k]} after")
+    check([t.data_ptr() for t in weights_of(eng)] == ptrs, "phase 16 [hot swap]: a flip moved a weight")
+    live = [t.clone() for t in weights_of(eng)]
+    bad = {k: v.clone() for k, v in m2.state_dict().items()}
+    bad["encoder.h0.attn.attention.q_proj.weight"][0, 0] = float("nan")
+    eng.load_shadow(bad)
+    reason = eng.probe_shadow()
+    check(reason is not None and "non-finite" in reason, f"phase 16 [hot swap]: the NaN shadow passed the probe: {reason}")
+    check(all(torch.equal(a, b) for a, b in zip(live, weights_of(eng))), "phase 16 [hot swap]: the probe touched live weights")
+    eng.drop_shadow()
+    plain = GenerationEngine(m1, config, template=prompts[0][0], n_slots=32, **kw).slots_report()
+    report = eng.slots_report()
+    check(report["params_bytes"] == 2 * plain["params_bytes"] and report["swap_scratch_bytes"] > 0,
+          f"phase 16 [hot swap]: slots_report {report['params_bytes']} params bytes against {plain['params_bytes']}")  # fmt: skip
+    print(f"phase 16 [hot swap]: the 32 requests after the flip equal a fresh engine on checkpoint 2 bit for bit, after "
+          f"the rollback one on checkpoint 1; no capture at or after either flip ({after['prefill_graph_captures']} "
+          f"prefill captures), every weight at its address; the NaN shadow refused ({reason}); times "
+          f"{json.dumps({k: round(v, 4) for k, v in times.items()})}; kernel B {launches['decode_stack_step']} "
+          f"launches after the flip; params bytes {plain['params_bytes']} -> {report['params_bytes']} with hot swap, "
+          f"scratch {report['swap_scratch_bytes']} ({smi})", flush=True)  # fmt: skip
+    return dict(launches=launches, times=times, capture_s=capture_seconds(eng))
+
+
+def small_service_matches_cpu() -> None:
+    """Phase 16 (c): a small fp32 greedy service (two replicas and a prefill
+    stream) on the card against the same service on the CPU."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, PrefillStream, Request, ServingService
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
+                            head_dim=8, intermediate_size=64, seq_window_size=4)  # fmt: skip
+    model = init_params_from_seed(build_model(config), seed=1, std=0.15)
+    with torch.no_grad():
+        model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    prompts = synthetic_prompts(np.random.default_rng(1), 8, config, (6, 12), (4, 8))
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        engines = [GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw) for _ in range(3)]
+        svc = ServingService(engines[:2], prefill_stream=PrefillStream(engines[2]))
+        res[dev] = svc.run([(Request(prompt=p, max_new_events=b, request_id=i), SERVICE_LANES[i % 2])
+                            for i, (p, b) in enumerate(prompts)])  # fmt: skip
+    diff = 0.0
+    same_events(res["cuda"], res["cpu"], "phase 16 [small service, card vs CPU]")
+    for g, c in zip(res["cuda"], res["cpu"]):
+        check(g.replica == c.replica, f"phase 16 [small service]: request {g.request_id} on another replica")
+        for f in ("time_delta", "dynamic_values"):
+            a, b = getattr(g.batch, f), getattr(c.batch, f)
+            diff = max(diff, (a - b).abs().max().item())
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    print(f"phase 16: small fp32 greedy service (two replicas and a prefill stream) on the card matches the CPU "
+          f"service: events and integers exact, floats within 1e-4 (max |diff| {diff:.3g})", flush=True)  # fmt: skip
+
+
+def service_phase(smi, model, config) -> dict:
+    """Phase 16: checkpoints, the service with its prefill stream, and hot swap (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical_stream
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine
+    from eventstreamgpt_tpu_torch.training import load_pretrained, save_pretrained
+
+    t0 = time.perf_counter()
+    prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, serving_config(), (128, 192), (16, 64))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pretrained(f"{tmp}/checkpoint-1", model, config)
+        save_pretrained(f"{tmp}/checkpoint-2", init_params_from_seed(CIPPTForGenerativeSequenceModeling(config),
+                                                                     seed=SEED + 1), config)  # fmt: skip
+        m1, c1 = load_pretrained(f"{tmp}/checkpoint-1")
+        m2, _ = load_pretrained(f"{tmp}/checkpoint-2")
+    want = model.state_dict()
+    check(c1.to_dict() == config.to_dict() and list(m1.state_dict()) == list(want)
+          and all(torch.equal(v.cpu(), want[k].cpu()) for k, v in m1.state_dict().items()),
+          "phase 16: checkpoint 1 read back is not phase 2's model bit for bit")  # fmt: skip
+    counters = {"decode_stack_step": (decode_stack_step, "launches"),
+                "fused_categorical_stream": (fused_categorical_stream, "launches")}  # fmt: skip
+    kw = dict(max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+
+    def engines(n, greedy=False):
+        return [GenerationEngine(m1, config, template=prompts[0][0], n_slots=16, greedy=greedy, **kw)
+                for _ in range(n)]  # fmt: skip
+
+    # (a) two decode replicas and a prefill stream, run twice (the second after reset()).
+    *replicas, pf = engines(3)
+    passes = [service_pass(replicas, pf, prompts, counters, "phase 16 [service, stream]")]
+    for e in replicas + [pf]:
+        e.reset()
+    passes.append(service_pass(replicas, pf, prompts, counters, "phase 16 [service, stream, after reset()]"))
+    same_results(passes[0]["results"], passes[1]["results"], "phase 16 [service]", "second run vs first")
+    check_service_programs(replicas, pf, passes, "phase 16 [service]")
+    capture_s = sum(capture_seconds(e) for e in replicas + [pf])
+    t1 = time.perf_counter()
+    # Greedy, the same service with and without the stream: the same events and integers.
+    *g_replicas, g_pf = engines(3, greedy=True)
+    g_stream = service_pass(g_replicas, g_pf, prompts, counters, "phase 16 [greedy service, stream]")
+    g_local = service_pass(engines(2, greedy=True), None, prompts, counters, "phase 16 [greedy service, local]")
+    same_events(g_stream["results"], g_local["results"], "phase 16 [greedy service, stream vs local prefill]")
+    t2 = time.perf_counter()
+    # Measured, not checked: the sampled service without the stream (warmed), then two more timed runs each,
+    # alternating with the stream (every engine reset before a run), and one 32-slot engine (its second run).
+    local = engines(2)
+    service_pass(local, None, prompts, counters, "phase 16 [service, local]")
+    timed = {"stream": [passes[1]], "local": []}
+    for _ in range(2):
+        for name, (reps, prefill) in (("local", (local, None)), ("stream", (replicas, pf))):
+            for e in reps + ([prefill] if prefill is not None else []):
+                e.reset()
+            timed[name].append(service_pass(reps, prefill, prompts, counters, f"phase 16 [service, {name}, timed]"))
+    no_stream = timed["local"][-1]
+    single = engine_run(m1, config, prompts, counters, passes=("warm", "fetching"), n_slots=32, **kw)
+    single_rate = sum(r.n_generated for r in single["passes"]["fetching"]["results"]) / single["passes"]["fetching"]["wall_s"]
+    t3 = time.perf_counter()
+    swap = hot_swap_runs(smi, m1, m2, config, prompts, counters, kw)
+    t4 = time.perf_counter()
+    small_service_matches_cpu()
+    run = timed["stream"][-1]
+    rates = {k: [round(r["rate"], 1) for r in v] for k, v in timed.items()}
+    stats = {k: v for k, v in run["stats"].items() if k != "replicas"}
+    stats["replicas"] = [{k: r[k] for k in ("dispatched_chunks", "wasted_decode_frac", "handoffs_admitted",
+                                             "admit_graph_keys", "admit_graph_replays", "prefill_dispatches")}
+                         for r in run["stats"]["replicas"]]  # fmt: skip
+    p = pf.stats()
+    stream_engine = {k: p[k] for k in ("prefill_computes", "prefill_compute_graph_keys", "prefill_compute_graph_replays")}
+    print(f"phase 16 [service]: 64 requests through two 16-slot replicas and a prefill stream, {run['generated']} "
+          f"generated events; the run after reset() equals the first bit for bit; {run['rate']:.1f} events/s "
+          f"({run['wall_s']:.4f} s; first run {passes[0]['rate']:.1f}); latency {json.dumps(run['latency'])}; "
+          f"without the stream {no_stream['rate']:.1f} events/s (latency {json.dumps(no_stream['latency'])}); timed "
+          f"runs after reset() in turns, events/s {json.dumps(rates)}; one "
+          f"32-slot engine {single_rate:.1f} events/s; greedy with and without the stream: the same events and "
+          f"integers ({g_stream['rate']:.1f} / {g_local['rate']:.1f} events/s); launches {run['launches']}; capture "
+          f"{capture_s:.2f} s over the three engines, hot-swap engine {swap['capture_s']:.2f} s ({smi})", flush=True)  # fmt: skip
+    print(f"phase 16 [service]: stats() {json.dumps(stats)}; the prefill engine {json.dumps(stream_engine)}", flush=True)
+    t5 = time.perf_counter()
+    print(f"phase 16: passed in {t5 - t0:.1f} s (service with the stream {t1 - t0:.1f}, greedy pair {t2 - t1:.1f}, "
+          f"without the stream and one engine {t3 - t2:.1f}, hot swap {t4 - t3:.1f}, small service {t5 - t4:.1f})",
+          flush=True)  # fmt: skip
+    launches = {k: sum(r["launches"][k] for r in passes) + swap["launches"][k] for k in counters}
+    return dict(launches_a=launches["fused_categorical_stream"], launches_b=launches["decode_stack_step"])
+
+
 def main() -> int:
     try:
         import torch
@@ -2936,6 +3252,10 @@ def main() -> int:
         print(f"chip_smoke: the eventstreamgpt_tpu_torch package is not beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from eventstreamgpt_tpu_torch.tools.phase_times import time_phases
+
+    phase_s: dict = {}
+    time_phases(globals(), phase_s)
     t0 = time.perf_counter()
     smi = device_phase()
     model, config, capture, runs = engine_phase(smi)
@@ -2956,6 +3276,7 @@ def main() -> int:
     gen = generate_phase(smi, runs["sampled"]["generated"] / acct["wall_s"])
     na_engine = na_engine_phase(smi)
     na_spec = na_spec_phase(smi, na_engine)
+    service = service_phase(smi, model, config)
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
@@ -2979,11 +3300,11 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
              + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"]
-             + na_spec["launches_a"], **a),
+             + na_spec["launches_a"] + service["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
-             + runs["sampled"]["launches"]["decode_stack_step"], **b),
+             + runs["sampled"]["launches"]["decode_stack_step"] + service["launches_b"], **b),
     ] + [
         dict(name=f"decode_stack_step_{kv}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297", entry="esgpt_decode_stack_step_quant",
@@ -3016,7 +3337,10 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']}: never launched on the main path")
     single = {k["name"]: {f: k.pop(f"single_{f}") for f in ("ms", "plain_ms", "library_ms")} for k in kernels}
     print(f"chip_smoke: one synchronised call each, host work included: {json.dumps(single)}", flush=True)
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    total = time.perf_counter() - t0
+    phase_s["other"] = total - sum(phase_s.values())
+    print(f"chip_smoke: seconds a phase {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}", flush=True)
+    print(f"chip_smoke: all phases passed in {total:.1f} s ({smi})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}), flush=True)  # fmt: skip

@@ -14,7 +14,8 @@ the port model's parameters in place:
 Every flax leaf must land on exactly one port parameter of the same shape,
 and every port parameter must be filled; anything else raises.
 `export_params` is the inverse: the port model's parameters as a flax-shaped
-tree of fp32 numpy arrays.
+tree of fp32 numpy arrays. `checkpoint_from_jax` writes JAX parameters as a
+port checkpoint directory (`training.checkpoint.save_pretrained`).
 """
 
 from __future__ import annotations
@@ -96,6 +97,23 @@ def export_params(model: nn.Module) -> dict:
                 node = node.setdefault(key, {})
             node[name] = arr
     return {"params": tree}
+
+
+def checkpoint_from_jax(params: dict, config, save_dir):
+    """Writes JAX parameters (the flax tree as numpy arrays) as the port's
+    checkpoint under ``save_dir``: the model of ``config`` (the port's
+    configuration, or any object whose ``to_dict()`` gives its fields, such
+    as JAX's) built by `training.pretrain.build_model`, filled by
+    `load_jax_params`, then `training.checkpoint.save_pretrained` with the
+    config. Returns the weights directory."""
+    from .models.config import StructuredTransformerConfig
+    from .training.checkpoint import save_pretrained
+    from .training.pretrain import build_model
+
+    if not isinstance(config, StructuredTransformerConfig):
+        config = StructuredTransformerConfig.from_dict(config.to_dict())
+    model = load_jax_params(build_model(config), params)
+    return save_pretrained(save_dir, model, config)
 
 
 def init_params_from_seed(model: nn.Module, seed: int, std: float = 0.02) -> nn.Module:

@@ -54,7 +54,11 @@ JAX program: the decode chunk (JAX's ``_decode_chunk_ci`` behind
 ``_decode_jit``), the prefill-and-admit program of a (bucket, group width)
 key (``_prefill_jit``: `GenerationEngine._prefill_admit`) and the
 harvest's extraction at a group width (``_extract_jit``:
-`GenerationEngine._extract`). Each reads its static inputs from one buffer
+`GenerationEngine._extract`); behind a prefill stream, that program's two
+halves instead (``_prefill_compute_jit`` and ``_admit_jit``: the
+``prefill_compute`` program of a (bucket, group width) key on the prefill
+engine, the ``admit`` program of a group width on the decode engine, which
+reads its handoff from a device buffer). Each reads its static inputs from one buffer
 that the host fills with one staging copy (`utils.graphs.ByteLayout`) and
 writes only the engine's state buffers and its static outputs, which keep
 their addresses for the engine's life (`GenerationEngine.reset` writes the
@@ -146,14 +150,35 @@ proposal), so a perfect draft stays accepted; and the correction walk masks
 each level's input to the levels below it, as the sequential walk saw the
 event, so the levels above a break are drawn from the sequential law.
 
+Hot swap (``hot_swap=True``, JAX's double-buffered weights): `load_shadow`
+stages a checkpoint's ``state_dict`` (and a spec engine's draft's) in a
+shadow copy of the model in the compute dtype, with its own stacked layer
+weights for kernel B; `probe_shadow` runs the prefill forward on the shadow
+eagerly and reports the first non-finite output; `flip`, on a drained
+engine, exchanges the contents of every live tensor with its shadow's in
+place, one tensor at a time through one scratch buffer on the engine's
+stream. No live tensor moves, so every captured program keeps its
+addresses and replays on the new weights with no capture; a second `flip`
+is the rollback. A hot-swap spec engine gives its draft its own storage, so
+a target-only flip leaves the live draft as it was.
+
+The dedicated prefill stream's two halves (JAX's ``prefill_compute`` and
+``admit_prefilled``): `prefill_compute` runs a group's bucketed prefill
+forward and first-event draw on this engine with no slot scatter (a spec
+engine's draft prompt forward, an NA engine's level walks and history heads
+too) and returns a `PrefillHandoff` that owns a device copy of the outputs;
+a decode engine's `admit_prefilled` runs the scatter alone. Together they
+give the slot state of a local prefill. On the card each half is a captured
+program keyed as the local prefill is.
+
 Not ported yet, each a ``ValueError`` at construction: meshes and tensor
-parallelism, hot swap, the dedicated prefill stream, and
-functional-time-dependent measurements.
+parallelism and functional-time-dependent measurements.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import time
 from collections import deque
 from typing import Optional, Sequence
@@ -233,7 +258,7 @@ _CHUNK_STATE = ("cursor", "n_generated", "counters", "done", "health", "active_s
 _SPEC_STATE = ("cursor", "n_generated", "done", "health", "active_steps", "cache_mask", "cache_len",
                "draft_cache_mask", "draft_cache_len", "spec_proposed", "spec_accepted", "spec_rounds")  # fmt: skip
 # The engine's program kinds besides the decode chunk, each a family keyed by shape.
-_PROGRAM_KINDS = ("prefill", "extract")
+_PROGRAM_KINDS = ("prefill", "extract", "prefill_compute", "admit")
 # The memory budget `stats` reports slots against off the card (the JAX engine's default).
 _REPORT_HBM_GB = 16.0
 _SEQ_FIELDS = (
@@ -247,8 +272,6 @@ _SEQ_FIELDS = (
 # The JAX engine's options this slice does not port: name -> its off value.
 _NOT_PORTED = {
     "mesh": None,
-    "hot_swap": False,
-    "prefill_stream": None,
     "base_key": None,  # the port's engine takes an integer ``seed``
 }
 # The JAX engine's implementation knobs: name -> (the values whose function the
@@ -294,6 +317,12 @@ _NA_PAGED = (
     "paged KV cache does not support nested-attention models yet: the dep-graph caches reset per event and do not "
     "page; run NA engines with paged_kv=False"
 )
+# JAX's refusals of the prefill stream on a paged engine (its words).
+_PAGED_STREAM = (
+    "paged engines do not serve behind a dedicated prefill stream yet: the handoff admit would need the decode "
+    "replica's block tables planned at compute time; prefill locally (the paged admit is a block scatter either way)"
+)
+_PAGED_HANDOFF = "paged engines do not take prefill-stream handoffs (see prefill_compute)"
 _SPEC_MEGAKERNEL = (
     "speculative decoding replaces the decode step with the draft-chunk/verify program pair, which the megakernel "
     "does not fuse yet. Nearest supported configurations: spec with decode_step_impl='xla' (the fused sampling "
@@ -406,6 +435,43 @@ def _admit_rows(dst: torch.Tensor, src, slots: torch.Tensor, valid: torch.Tensor
     dst.index_copy_(dim, slots, new)
 
 
+def _named_floats(out) -> list:
+    """``(name, tensor)`` for every float tensor of a predictions or samples
+    output (its distributions' parameters included)."""
+    named = []
+    for group in ("classification", "regression"):
+        for k, v in (getattr(out, group, None) or {}).items():
+            leaves = [v] if torch.is_tensor(v) else [t for d in v if d is not None for t in dist_tensors(d)]
+            named += [(f"{group}[{k!r}]", t) for t in leaves]
+    tte = getattr(out, "time_to_event", None)
+    if tte is not None:
+        named += [("time_to_event", t) for t in ([tte] if torch.is_tensor(tte) else dist_tensors(tte))]
+    return [(k, t) for k, t in named if t is not None and t.is_floating_point()]
+
+
+def _weights(model) -> list:
+    """A model's parameters and buffers (each shared tensor once), in
+    module order: two copies of one model list their tensors alike."""
+    return [] if model is None else list(model.parameters()) + list(model.buffers())
+
+
+@dataclasses.dataclass
+class PrefillHandoff:
+    """A prefill-stream admission in flight between engines (JAX's
+    ``PrefillHandoff``): what `GenerationEngine.prefill_compute` computed for
+    a group, in one device buffer of its own laid out by ``layout`` (the
+    group's rows with their first event, prompt lengths, budgets, seeds,
+    the float prefill caches; an NA engine's dep-graph caches; a spec
+    engine's draft cache seed and, NA, history heads). The buffer is a
+    copy, so a later call of the same program does not overwrite it."""
+
+    requests: list
+    group: int  # the program's group width
+    layout: ByteLayout
+    buffer: torch.Tensor
+    has_draft: bool = False  # the draft cache seed rides along (spec engines)
+
+
 class GenerationEngine:
     """Continuous-batching engine over one CI or NA model.
 
@@ -444,6 +510,12 @@ class GenerationEngine:
             round (the draft's and the target's cached forwards); "pallas"
             raises, as do ``device_criteria`` and ``paged_kv``, with JAX's
             messages.
+        hot_swap: reserve a shadow copy of the weights for `load_shadow`,
+            `probe_shadow` and `flip` (JAX's double buffering; ``slots_report``
+            charges the second copy from construction on, and the flip's
+            scratch buffer beside it). A spec engine's draft then holds its
+            own storage even where a truncated draft shares the target's
+            modules.
         sampling_impl, decode_step_impl: the JAX engine's implementation
             knobs, taken where the port computes what they ask for:
             ``sampling_impl`` None, "auto" or "pallas" (the categorical
@@ -491,6 +563,7 @@ class GenerationEngine:
         block_size: int = 16,
         num_blocks: int | None = None,
         spec: SpecConfig | None = None,
+        hot_swap: bool = False,
         sampling_impl: str | None = None,
         decode_step_impl: str | None = None,
         device=None,
@@ -581,8 +654,13 @@ class GenerationEngine:
 
         # Weights in the compute dtype, once: the model keeps fp32 for callers.
         # A draft is copied with the target in one go, so modules a truncated
-        # draft shares with it stay shared.
-        self._model, self._draft = copy.deepcopy((model, None if spec is None else spec.model))
+        # draft shares with it stay shared; under hot swap it is copied on its
+        # own, so that a flip of the target's tensors leaves the draft's alone.
+        self.hot_swap = bool(hot_swap)
+        if self.hot_swap:
+            self._model, self._draft = copy.deepcopy(model), copy.deepcopy(None if spec is None else spec.model)
+        else:
+            self._model, self._draft = copy.deepcopy((model, None if spec is None else spec.model))
         self._model = self._model.to(self.device).eval().cast_to_compute_dtype()
         if spec is not None:
             self._draft = self._draft.to(self.device).eval().cast_to_compute_dtype()
@@ -591,6 +669,18 @@ class GenerationEngine:
         self._windows = tuple(
             config.seq_window_size if t == "local" else 0 for t in config.seq_attention_layers
         )
+        # Hot swap: the shadow model (and draft) a checkpoint is staged in,
+        # its stacked layer weights, and the flip's scratch buffer, as large
+        # as the largest live tensor.
+        self._shadow = self._shadow_draft = None
+        self._shadow_stacked: dict = {}
+        self.weights_version = 0
+        self._swap_scratch = None
+        if self.hot_swap:
+            live = _weights(self._model) + list(self._stacked.values()) + _weights(self._draft)
+            largest = max(t.numel() * t.element_size() for t in live)
+            self._swap_scratch = torch.empty(largest, dtype=torch.uint8, device=self.device)
+        self._prefill_computes = self._handoffs_admitted = 0
 
         self._template = self._normalize_prompt(template)
         self._init_state()
@@ -1427,13 +1517,16 @@ class GenerationEngine:
         torch.stack(rows + [self.spec_proposed, self.spec_accepted], out=self._boundary)
 
     # ------------------------------------------------ prefill and extraction
-    def _run_program(self, kind: str, key, inputs: dict, outputs: dict, body, fill, inert) -> tuple:
+    def _run_program(self, kind: str, key, inputs: dict, outputs: dict, body, fill, inert, device_in=None) -> tuple:
         """Runs the ``kind`` program of ``key``: ``body(x)``, where ``x`` holds
         its static inputs and outputs, views of two device buffers laid out
         by ``inputs`` and ``outputs`` (`ByteLayout`s made at the key's first
         use). ``fill(views)`` first writes this call's inputs into a staging
         buffer (pinned on the card, zeroed) that one copy moves to the
-        device. Eager on the CPU or with ``cuda_graph=False``; else one
+        device. ``device_in``, a device buffer of the ``outputs`` layout, is
+        copied into the second buffer first, which then holds inputs that
+        are already on the device (an admitted handoff; zeros for the
+        warm-up). Eager on the CPU or with ``cuda_graph=False``; else one
         replay of the key's captured program, which its first use warms up
         on inputs that ``inert`` wrote (every row inert) and captures.
         Returns the outputs' ``(layout, buffer)``."""
@@ -1444,14 +1537,18 @@ class GenerationEngine:
             self._statics[(kind, key)] = layout, buf, out_layout, out_buf, x
         layout, buf, out_layout, out_buf, x = self._statics[(kind, key)]
 
-        def upload(write):
+        def upload(write, device_src=None):
             host = layout.empty("cpu", pin_memory=buf.is_cuda).zero_()
             write(layout.views(host))
             buf.copy_(host, non_blocking=buf.is_cuda)
+            if device_src is not None:
+                out_buf.copy_(device_src)
+            elif device_in is not None:
+                out_buf.zero_()
 
         family = self._families.get(kind)
         if family is None:
-            upload(fill)
+            upload(fill, device_in)
             body(x)
             return out_layout, out_buf
         program, new = family.get(key, lambda: body(x))
@@ -1459,7 +1556,7 @@ class GenerationEngine:
             upload(inert)
             program.warmup()
             program.capture()
-        upload(fill)
+        upload(fill, device_in)
         program.replay()
         return out_layout, out_buf
 
@@ -1519,9 +1616,8 @@ class GenerationEngine:
         reqs, n, g = group.requests, len(group.requests), group.group_size
         taken = set(group.slots)
         slots = list(group.slots) + [s for s in range(self.n_slots) if s not in taken][: g - n]
-        fields = self._row_fields(g)
-        fields.update({k: ((g,), torch.int32) for k in ("plen", "budget", "seed", "slot")})
-        fields["valid"] = ((g,), torch.bool)
+        fields, stage = self._stage_group(reqs, g)
+        fields["slot"] = ((g,), torch.int32)
         tables = None
         if self.paged_kv:
             tables = self._plan_admission_tables(group)
@@ -1529,19 +1625,12 @@ class GenerationEngine:
                            for k in ("read_table", "scatter_table")})  # fmt: skip
 
         def inert(x):
-            x["plen"].fill_(1)
-            x["budget"].fill_(1)
+            stage(x, inert=True)
             x["slot"].copy_(torch.arange(g))
 
         def fill(x):
-            inert(x)
-            for i, r in enumerate(reqs):
-                self._stage_prompt(x, i, r.prompt)
-            x["plen"][:n] = torch.tensor([r.prompt_len for r in reqs])
-            x["budget"][:n] = torch.tensor([r.max_new_events for r in reqs])
-            x["seed"][:n] = torch.tensor([_int32_word(self._request_seed(r)) for r in reqs])
+            stage(x)
             x["slot"].copy_(torch.tensor(slots))
-            x["valid"][:n] = True
             if tables is not None:
                 x["read_table"].copy_(torch.from_numpy(tables[0]))
                 x["scatter_table"].copy_(torch.from_numpy(tables[1]))
@@ -1552,6 +1641,31 @@ class GenerationEngine:
             self._table[s] = r
             self._slot_epoch[s] = self._dispatched_chunks
 
+    def _stage_group(self, reqs: list, g: int) -> tuple:
+        """A prefill group's staged inputs: ``(fields, stage)``, the layout of
+        its ``g`` content rows, ``plen``, ``budget``, ``seed`` and ``valid``,
+        and ``stage(views, inert=False)``, which writes the requests' rows
+        after inert ones (no content, ``plen`` 1, budget 1, seed 0, not
+        valid: JAX's ``_group_arrays`` padding); ``inert`` writes only those."""
+        n = len(reqs)
+        fields = self._row_fields(g)
+        fields.update({k: ((g,), torch.int32) for k in ("plen", "budget", "seed")})
+        fields["valid"] = ((g,), torch.bool)
+
+        def stage(x, inert=False):
+            x["plen"].fill_(1)
+            x["budget"].fill_(1)
+            if inert:
+                return
+            for i, r in enumerate(reqs):
+                self._stage_prompt(x, i, r.prompt)
+            x["plen"][:n] = torch.tensor([r.prompt_len for r in reqs])
+            x["budget"][:n] = torch.tensor([r.max_new_events for r in reqs])
+            x["seed"][:n] = torch.tensor([_int32_word(self._request_seed(r)) for r in reqs])
+            x["valid"][:n] = True
+
+        return fields, stage
+
     def _staged_rows(self, x: dict) -> EventStreamBatch:
         return EventStreamBatch(**{f: x.get(f) for f in _CORE_FIELDS})
 
@@ -1559,90 +1673,104 @@ class GenerationEngine:
         """The prefill program (JAX's ``_prefill_ci``: ``_prefill_forward_ci``
         then ``_admit``; paged, ``_prefill_paged``; spec, ``_prefill_spec_ci``;
         NA, ``_prefill_na``; NA spec, ``_prefill_spec_na``) on the staged
-        group ``x``: the model forward of the rows' first ``bucket_len``
-        events on a fresh float cache (a spec engine's draft too, on the same
-        prompt rows; an NA model's with its dep-graph history seeded from
-        each row's last prompt event, ``last_event_index``, and, for an NA
-        spec engine, the target's contextualized embeddings of that event,
-        the first history heads), then `_admit`."""
-        g = x["plen"].shape[0]
+        group ``x``: `_prefill_compute`, then `_admit`."""
+        self._admit({**x, **self._prefill_compute(bucket_len, x)})
+
+    def _prompt_forward(self, model, cfg, view: EventStreamBatch, last: torch.Tensor, **kw) -> tuple:
+        """``model``'s forward of the prompt rows ``view`` on a fresh float
+        cache of ``max_len`` positions (an NA model's with its dep-graph
+        history seeded from each row's event ``last``): the output, the
+        stacked keys and values ``(layers, rows, H, max_len, D)``, the cache
+        mask and an NA model's dep-graph caches."""
+        past = init_kv_caches(cfg, view.batch_size, self.max_len, self.device)
+        if self._na:
+            out = model(view, past=NAPast(seq_past=past), use_cache=True, last_event_index=last, **kw)
+            seq, dep = out.past_key_values.seq_past, out.past_key_values.dep_graph_past
+        else:
+            out = model(view, past=past, use_cache=True)
+            seq, dep = out.past_key_values, None
+        kv = [torch.stack([getattr(c, w) for c in seq]) for w in ("key", "value")]
+        return out, kv, seq[0].mask, dep
+
+    def _prefill_compute(self, bucket_len: int, x: dict) -> dict:
+        """The compute half of the prefill (JAX's ``_prefill_forward_ci`` /
+        ``_prefill_forward_na``, and for spec engines
+        ``_prefill_forward_*_spec`` and ``_prefill_draft_forward``) on the
+        staged group ``x``: the model forward of the rows' first
+        ``bucket_len`` events on a fresh float cache (an NA model's with its
+        dep-graph history seeded from each row's last prompt event,
+        ``last_event_index``), the first event of each row sampled (counter
+        0 of its stream: a spec engine's event 0) and written after its
+        prompt into the staged rows, in place (NA: its time, then the level
+        walk over the prefill's dep-graph caches); a spec engine's draft
+        forward of the same prompt rows (an NA draft's dep-graph caches then
+        walk the first event's levels teacher-forced, and the target's
+        contextualized embeddings of the last prompt event are the first
+        history heads). Returns the tensors `_admit` takes beside ``x``:
+        ``first`` (each first event's mask), ``key`` / ``value`` / ``mask``
+        and, as they apply, ``dep_*``, ``draft_*`` and ``history``."""
         pbig = self._staged_rows(x)
         view = pbig.slice((slice(None), slice(0, bucket_len)))
-        last = x["plen"].long() - 1
-
-        def forward(model, cfg, **kw):
-            past = init_kv_caches(cfg, g, self.max_len, self.device)
-            if self._na:
-                out = model(view, past=NAPast(seq_past=past), use_cache=True, last_event_index=last, **kw)
-                seq, dep = out.past_key_values.seq_past, out.past_key_values.dep_graph_past
-            else:
-                out = model(view, past=past, use_cache=True)
-                seq, dep = out.past_key_values, None
-            kv = [torch.stack([getattr(c, w) for c in seq]) for w in ("key", "value")]
-            return out, kv, seq[0].mask, dep
-
+        plen64, seeds = x["plen"].long(), x["seed"].long()
+        last = plen64 - 1
         na_spec = self._na and self.spec is not None
-        out, kv, mask, dep = forward(self._model, self.config, **({"return_contextualized": True} if na_spec else {}))
-        draft = None if self.spec is None else forward(self._draft, self.spec.config)[1:]
-        history = None
-        if na_spec:
-            history = torch.stack([take_event(ctx, last) for ctx in out.contextualized])
+        kw = {"return_contextualized": True} if na_spec else {}
+        out, (key, value), mask, dep = self._prompt_forward(self._model, self.config, view, last, **kw)
+        h = dict(key=key, value=value, mask=mask)
         preds = out.preds
         if self._na:  # level 0: the time to the event
             preds = GenerativeSequenceModelPredictions(time_to_event=preds.time_to_event)
-        self._admit(x, pbig, _slice_preds_at(preds, last), kv, mask, draft, dep, history)
-
-    def _admit(
-        self, x: dict, pbig: EventStreamBatch, preds_last, kv: list, mask: torch.Tensor, draft=None, dep=None,
-        history=None,
-    ) -> None:
-        """The first event of each staged row sampled (counter 0 of each
-        row's stream: a spec engine's event 0) from ``preds_last`` and
-        written after its prompt (NA: its time, then the level walk over the
-        prefill's dep-graph caches ``dep``, JAX's ``_prefill_forward_na``),
-        and the rows admitted into slots ``x["slot"]``: whole rows, the
-        prefill's keys and values ``kv`` (``(layers, rows, H, max_len, D)``
-        each, in the compute dtype) and ``mask`` into the slot planes or,
-        paged, into the blocks of ``x["scatter_table"]`` with
-        ``x["read_table"]`` as the slots' block tables (quantized for an int8
-        or fp8 cache), an NA model's dep-graph caches as whole rows (JAX's
-        ``_scatter_caches``, no length a row), then cursors, budget, seed and
-        counter, flags; a spec engine's ``draft`` ``(kv, mask, dep)`` into the
-        draft's planes, its counts zeroed (JAX's ``_admit_draft``); an NA
-        draft's dep-graph caches ``dep`` (its prefill's reset) first walk the
-        first event's levels teacher-forced (JAX's
-        ``_prefill_draft_forward``), and the target's ``history`` heads
-        ``(layers, rows, hidden)`` are admitted beside them. Rows not
-        ``x["valid"]`` write back what their slots hold. The staged rows are
-        written in place."""
-        cfg = self.config
-        plen, budget = x["plen"], x["budget"]
-        plen64, seeds = plen.long(), x["seed"].long()
-        em_last = take_event(pbig.event_mask, plen64 - 1)
         counter = torch.zeros_like(seeds)
-        sample = self._sample_rows(preds_last, em_last, seeds, counter)
+        sample = self._sample_rows(_slice_preds_at(preds, last), take_event(pbig.event_mask, last), seeds, counter)
         append_new_event(pbig, sample, plen64)
         if self._na:
             dep, _ = self._level_walk(pbig, plen64, dep, seeds, counter)
+            h.update(dep_key=torch.stack([c.key for c in dep]), dep_value=torch.stack([c.value for c in dep]),
+                     dep_mask=dep[0].mask)  # fmt: skip
         else:
-            update_last_event_data(pbig, sample, cfg, plen64 + 1, self._to_fill)
+            update_last_event_data(pbig, sample, self.config, plen64 + 1, self._to_fill)
+        h["first"] = sample.event_mask
+        if self.spec is not None:
+            _, (dkey, dvalue), dmask, ddep = self._prompt_forward(self._draft, self.spec.config, view, last)
+            h.update(draft_key=dkey, draft_value=dvalue, draft_mask=dmask)
+            if self._na:
+                ddep, _, _ = self._walk(self._draft, pbig, plen64, ddep, mask_levels=True)
+                h.update(draft_dep_key=torch.stack([c.key for c in ddep]),
+                         draft_dep_value=torch.stack([c.value for c in ddep]), draft_dep_mask=ddep[0].mask,
+                         history=torch.stack([take_event(ctx, last) for ctx in out.contextualized]))  # fmt: skip
+        return h
 
-        # Admission: whole rows into the slots (cache rows past the bucket are zeros).
+    def _admit(self, x: dict) -> None:
+        """The admission scatter (JAX's ``_admit``, and ``_admit_draft`` for
+        a spec engine): the staged rows of ``x`` (their first event written)
+        into slots ``x["slot"]``, whole rows; the prefill's keys and values
+        ``x["key"]`` / ``x["value"]`` (``(layers, rows, H, max_len, D)``, in
+        the compute dtype) and ``x["mask"]`` into the slot planes or, paged,
+        into the blocks of ``x["scatter_table"]`` with ``x["read_table"]`` as
+        the slots' block tables (quantized for an int8 or fp8 cache); an NA
+        model's dep-graph caches as whole rows (JAX's ``_scatter_caches``, no
+        length a row); then cursors, budget, seed and counter, flags; a spec
+        engine's draft cache seed into the draft's planes, its counts zeroed,
+        and an NA spec engine's draft dep-graph caches and history heads
+        ``(layers, rows, hidden)``. Rows not ``x["valid"]`` write back what
+        their slots hold."""
+        pbig = self._staged_rows(x)
+        plen, budget = x["plen"], x["budget"]
         slots, valid = x["slot"].long(), x["valid"]
         for f in _CORE_FIELDS:
             if f in x:
                 _admit_rows(getattr(self.big, f), x[f], slots, valid)
-        self._admit_planes(self._planes(), kv, x, slots, valid)
+        self._admit_planes(self._planes(), (x["key"], x["value"]), x, slots, valid)
         if self.paged_kv:
             _admit_rows(self.block_table, x["read_table"], slots, valid)
         if self._na:
-            for plane, w in ((self.dep_key, "key"), (self.dep_value, "value")):
-                _admit_rows(plane, torch.stack([getattr(c, w) for c in dep]), slots, valid, dim=1)
-            _admit_rows(self.dep_mask, dep[0].mask, slots, valid)
+            _admit_rows(self.dep_key, x["dep_key"], slots, valid, dim=1)
+            _admit_rows(self.dep_value, x["dep_value"], slots, valid, dim=1)
+            _admit_rows(self.dep_mask, x["dep_mask"], slots, valid)
         cursor1 = plen + 1
-        n_gen1 = sample.event_mask.to(torch.int32)
+        n_gen1 = x["first"].to(torch.int32)
         admitted = (
-            (self.cache_mask, mask),
+            (self.cache_mask, x["mask"]),
             (self.cache_len, plen),
             (self.cursor, cursor1),
             (self.base_len, plen),
@@ -1654,16 +1782,15 @@ class GenerationEngine:
             (self.counters, 1),
             (self.health, False),
         )
-        if draft is not None:
-            self._admit_planes(self._planes(draft=True), draft[0], x, slots, valid)
-            admitted += ((self.draft_cache_mask, draft[1]), (self.draft_cache_len, plen), (self.spec_proposed, 0),
-                         (self.spec_accepted, 0))  # fmt: skip
+        if self.spec is not None:
+            self._admit_planes(self._planes(draft=True), (x["draft_key"], x["draft_value"]), x, slots, valid)
+            admitted += ((self.draft_cache_mask, x["draft_mask"]), (self.draft_cache_len, plen),
+                         (self.spec_proposed, 0), (self.spec_accepted, 0))  # fmt: skip
             if self._na:
-                ddep, _, _ = self._walk(self._draft, pbig, plen64, draft[2], mask_levels=True)
-                for plane, w in ((self.draft_dep_key, "key"), (self.draft_dep_value, "value")):
-                    _admit_rows(plane, torch.stack([getattr(c, w) for c in ddep]), slots, valid, dim=1)
-                _admit_rows(self.draft_dep_mask, ddep[0].mask, slots, valid)
-                _admit_rows(self.spec_history, history, slots, valid, dim=1)
+                _admit_rows(self.draft_dep_key, x["draft_dep_key"], slots, valid, dim=1)
+                _admit_rows(self.draft_dep_value, x["draft_dep_value"], slots, valid, dim=1)
+                _admit_rows(self.draft_dep_mask, x["draft_dep_mask"], slots, valid)
+                _admit_rows(self.spec_history, x["history"], slots, valid, dim=1)
         for dst, src in admitted:
             _admit_rows(dst, src, slots, valid)
 
@@ -1701,6 +1828,108 @@ class GenerationEngine:
         keep = (phys != 0).view(1, -1, *[1] * (blocks.ndim - 2))
         dst = storage(pool)
         dst.index_copy_(1, phys, torch.where(keep, blocks, dst.index_select(1, phys)))
+
+    # ------------------------------------------------ prefill-stream handoff
+    def _handoff_fields(self, g: int) -> dict:
+        """The layout of a ``g``-row `PrefillHandoff` (each name prefixed
+        ``h_``): the content rows, ``plen``, ``budget``, ``seed``, ``valid``,
+        ``first`` and what `_prefill_compute` returns, at this engine's
+        shapes; two engines with the same model, template and ``max_len``
+        give the same layout."""
+        cfg, G = self.config, self._n_levels + 1
+        planes = (cfg.num_hidden_layers, g, cfg.num_attention_heads, self.max_len, cfg.head_dim)
+        fields = self._row_fields(g)
+        fields.update({k: ((g,), torch.int32) for k in ("plen", "budget", "seed")})
+        fields.update({k: ((g,), torch.bool) for k in ("valid", "first")})
+        fields.update(key=(planes, self.cdt), value=(planes, self.cdt), mask=((g, self.max_len), torch.bool))
+        if self._na:
+            dep = planes[:3] + (G, cfg.head_dim)
+            fields.update(dep_key=(dep, self.cdt), dep_value=(dep, self.cdt), dep_mask=((g, G), torch.bool))
+        if self.spec is not None:
+            d = self.spec.config
+            dplanes = (d.num_hidden_layers, g, d.num_attention_heads, self.max_len, d.head_dim)
+            fields.update(draft_key=(dplanes, d.compute_dtype), draft_value=(dplanes, d.compute_dtype),
+                          draft_mask=((g, self.max_len), torch.bool))  # fmt: skip
+            if self._na:
+                ddep = dplanes[:3] + (G, d.head_dim)
+                fields.update(draft_dep_key=(ddep, d.compute_dtype), draft_dep_value=(ddep, d.compute_dtype),
+                              draft_dep_mask=((g, G), torch.bool),
+                              history=((cfg.num_hidden_layers, g, cfg.hidden_size), self.cdt))  # fmt: skip
+        return {f"h_{k}": v for k, v in fields.items()}
+
+    def _prefill_compute_into(self, bucket_len: int, x: dict) -> None:
+        """The ``prefill_compute`` program: `_prefill_compute` on the staged
+        group, everything `_admit` reads written into the handoff outputs."""
+        h = self._prefill_compute(bucket_len, x)
+        for k in [f for f in _CORE_FIELDS if f in x] + ["plen", "budget", "seed", "valid"]:
+            x[f"h_{k}"].copy_(x[k])
+        for k, v in h.items():
+            x[f"h_{k}"].copy_(v)
+
+    @torch.inference_mode()
+    def prefill_compute(self, requests: list, bucket_len: int, group: int) -> PrefillHandoff:
+        """Runs the bucketed prefill forward and the first event's draw for
+        ``requests`` on THIS engine without touching its slot state (JAX's
+        ``prefill_compute``, the dedicated prefill stream's compute half):
+        one call of the ``prefill_compute`` program of key (``bucket_len``,
+        ``group``), padded to ``group`` rows as a local prefill is. Returns a
+        `PrefillHandoff` holding a device copy of the outputs; a decode
+        engine's `admit_prefilled` turns it into the slot state a local
+        prefill gives. Every request must carry its ``key`` (the service
+        binds them at accept time)."""
+        if self.paged_kv:
+            raise NotImplementedError(_PAGED_STREAM)
+        for r in requests:
+            if r.key is None:
+                raise ValueError(
+                    "prefill_compute requires explicit request keys (the service/fleet assign them at accept "
+                    "time); a key derived from the prefill replica's base key would not survive the cross-engine "
+                    "handoff"
+                )
+        g = int(group)
+        if not 1 <= len(requests) <= g:
+            raise ValueError(f"{len(requests)} requests for a prefill group of width {g}")
+        fields, stage = self._stage_group(list(requests), g)
+        body = lambda x: self._prefill_compute_into(bucket_len, x)  # noqa: E731
+        layout, out = self._run_program("prefill_compute", (bucket_len, g), fields, self._handoff_fields(g), body,
+                                        stage, lambda x: stage(x, inert=True))  # fmt: skip
+        self._prefill_computes += 1
+        return PrefillHandoff(list(requests), g, layout, out.clone(), has_draft=self.spec is not None)
+
+    @torch.inference_mode()
+    def admit_prefilled(self, handoff: PrefillHandoff, slots: list) -> None:
+        """Scatters a `PrefillHandoff` into this engine's ``slots`` (JAX's
+        ``admit_prefilled``): one call of the ``admit`` program of the
+        handoff's group width, which reads the handoff's buffer and runs the
+        admission alone, the draft's and quantize-on-admit included. The pad
+        rows aim at slots outside ``slots`` and write back what they hold."""
+        if self.paged_kv:
+            raise NotImplementedError(_PAGED_HANDOFF)
+        n, g = len(handoff.requests), handoff.group
+        if len(slots) != n:
+            raise ValueError(f"{n} handoff rows need {n} slots, got {len(slots)}")
+        if handoff.has_draft != (self.spec is not None):
+            raise ValueError(
+                "prefill-stream handoff/engine spec-mode mismatch: a speculative decode replica needs the draft "
+                "cache seed in the handoff (and a non-spec replica cannot admit one) — pair spec targets with a "
+                "spec-configured prefill stream"
+            )
+        fields = self._handoff_fields(g)
+        if handoff.layout.fields != fields:
+            raise ValueError("the handoff's layout is not this engine's: build both engines alike")
+        taken = set(slots)
+        padded = list(slots) + [s for s in range(self.n_slots) if s not in taken][: g - n]
+
+        def fill(x):
+            x["slot"].copy_(torch.tensor(padded))
+
+        body = lambda x: self._admit({**{k[2:]: v for k, v in x.items() if k.startswith("h_")}, "slot": x["slot"]})  # noqa: E731
+        self._run_program("admit", g, {"slot": ((g,), torch.int32)}, fields, body, fill,
+                          lambda x: x["slot"].copy_(torch.arange(g)), device_in=handoff.buffer)  # fmt: skip
+        self._handoffs_admitted += 1
+        for r, s in zip(handoff.requests, slots):
+            self._table[s] = r
+            self._slot_epoch[s] = self._dispatched_chunks
 
     def _extract(self, x: dict) -> None:
         """The extraction program (JAX's ``_extract_jit``): the rows of slots
@@ -2047,6 +2276,152 @@ class GenerationEngine:
             self._tables[:] = 0
             self.scheduler.block_pool_stats = self._block_pool_stats
 
+    # ---------------------------------------------------- hot weight swap
+    @property
+    def params(self) -> dict:
+        """The live weights as a ``state_dict`` (in the compute dtype; views
+        of the tensors the programs read)."""
+        return self._model.state_dict()
+
+    @property
+    def draft_params(self) -> Optional[dict]:
+        """A spec engine's live draft weights as a ``state_dict``, else None."""
+        return None if self._draft is None else self._draft.state_dict()
+
+    @staticmethod
+    def _check_tree(live: dict, new: dict, what: str, live_name: str) -> None:
+        """JAX's tree check on a staged checkpoint: the live names, each at its live shape."""
+        missing, extra = sorted(set(live) - set(new)), sorted(set(new) - set(live))
+        shapes = [f"{k}: {tuple(new[k].shape)} vs {tuple(v.shape)}" for k, v in live.items()
+                  if k in new and tuple(new[k].shape) != tuple(v.shape)]  # fmt: skip
+        if missing or extra or shapes:
+            raise ValueError(
+                f"shadow {what}checkpoint's parameter tree does not match the live {live_name}: missing {missing}, "
+                f"unexpected {extra}, shapes {shapes}"
+            )
+
+    def _stage(self, live, shadow, state: dict):
+        """``state`` copied into ``shadow`` (made once as a copy of the live
+        model ``live``), each tensor cast to the live tensor's dtype."""
+        if shadow is None:
+            shadow = copy.deepcopy(live)
+        with torch.no_grad():
+            for name, t in shadow.state_dict().items():
+                t.copy_(state[name])
+        return shadow
+
+    def load_shadow(self, new_params, new_draft_params=None) -> None:
+        """Stages ``new_params`` (a ``state_dict``, such as `load_pretrained`'s
+        model's) in the shadow weights beside the live ones
+        (JAX's ``load_shadow``): cast to the compute dtype where the live
+        weights are, with kernel B's stacked layer weights built from them.
+        Serving continues on the live weights; `flip` promotes them at a
+        drained boundary. A spec engine stages ``new_draft_params`` (the
+        draft's ``state_dict``) beside them and `flip` then swaps both at
+        once; ``None`` keeps the live draft (a target-only promotion) and
+        drops a draft staged for rollback by an earlier promotion."""
+        if not self.hot_swap:
+            raise RuntimeError(
+                "hot_swap is disabled for this engine; construct with hot_swap=True to reserve the shadow weight "
+                "buffer"
+            )
+        self._check_tree(self._model.state_dict(), new_params, "", "weights")
+        if new_draft_params is None:
+            self._shadow_draft = None
+        else:
+            if self.spec is None:
+                raise ValueError(
+                    "new_draft_params on a non-speculative engine; construct with spec=SpecConfig(...) to serve a "
+                    "draft model"
+                )
+            self._check_tree(self._draft.state_dict(), new_draft_params, "draft ", "draft")
+            self._shadow_draft = self._stage(self._draft, self._shadow_draft, new_draft_params)
+        self._shadow = self._stage(self._model, self._shadow, new_params)
+        self._shadow_stacked = {} if self._unfused else stack_layer_weights(self._shadow.encoder.blocks(), self.cdt)
+
+    @property
+    def shadow_loaded(self) -> bool:
+        return self._shadow is not None
+
+    @torch.inference_mode()
+    def probe_shadow(self) -> Optional[str]:
+        """The promotion gate (JAX's ``probe_shadow``): the prefill forward of
+        the template's first row (as long as a prompt may be) on the SHADOW
+        weights, eagerly, its first event drawn, and every float output
+        checked finite; a staged draft's prompt forward too. Returns ``None``
+        when healthy, else a reason; runs no captured program and touches no
+        live state."""
+        if self._shadow is None:
+            raise RuntimeError("no shadow checkpoint loaded (call load_shadow first)")
+        t = self._template
+        Lb = min(t.sequence_length, self.max_prompt_len)
+        view = t.slice((slice(0, 1), slice(0, Lb))).map(lambda x: x.to(self.device))
+        last = torch.full((1,), Lb - 1, dtype=torch.int64, device=self.device)
+        out, kv, _, dep = self._prompt_forward(self._shadow, self.config, view, last)
+        preds = out.preds
+        if self._na:
+            preds = GenerativeSequenceModelPredictions(time_to_event=preds.time_to_event)
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+        sample = self._sample_rows(_slice_preds_at(preds, last), take_event(view.event_mask, last), zero, zero)
+        outputs = [(f"preds.{k}", x) for k, x in _named_floats(preds)] + [(f"sample.{k}", x) for k, x in
+                                                                          _named_floats(sample)]  # fmt: skip
+        caches = [("key", kv[0]), ("value", kv[1])] + [(f"dep[{i}].{w}", getattr(c, w)) for i, c in
+                                                       enumerate(dep or ()) for w in ("key", "value")]  # fmt: skip
+        checks = [(outputs, "prompt-forward outputs"), (caches, "prefill cache values")]
+        if self._shadow_draft is not None:
+            _, dkv, _, _ = self._prompt_forward(self._shadow_draft, self.spec.config, view, last)
+            checks.append(([("key", dkv[0]), ("value", dkv[1])], "draft prefill cache values"))
+        for named, what in checks:
+            for path, x in named:
+                if not bool(torch.isfinite(x).all()):
+                    return f"staged shadow checkpoint produced non-finite {what} at {path}"
+        return None
+
+    def flip(self) -> None:
+        """Promotes the shadow weights (JAX's ``flip``) on a drained engine (no
+        resident slots, no boundary in flight; queued requests are fine: they
+        prefill after the flip, on the new weights). The contents of every
+        live tensor (the model's, kernel B's stacked weights and, when a
+        draft was staged, the draft's) are exchanged with the shadow's in
+        place, through the scratch buffer on the current stream, so every
+        captured program keeps its addresses and replays on the new weights
+        with no capture. The old weights stay in the shadow: a second flip
+        rolls back."""
+        if self._shadow is None:
+            raise RuntimeError("no shadow checkpoint loaded (call load_shadow first)")
+        if self.occupied or self._inflight:
+            raise RuntimeError(
+                f"flip requires a drained engine: {self.occupied} resident slots, {len(self._inflight)} in-flight "
+                "boundaries — drain (stop admitting, resolve every boundary) before flipping"
+            )
+        pairs = list(zip(_weights(self._model), _weights(self._shadow)))
+        pairs += [(v, self._shadow_stacked[k]) for k, v in self._stacked.items()]
+        if self._shadow_draft is not None:
+            pairs += list(zip(_weights(self._draft), _weights(self._shadow_draft)))
+        with torch.no_grad():
+            for live, shadow in pairs:
+                tmp = self._swap_scratch[: live.numel() * live.element_size()].view(live.dtype).view(live.shape)
+                tmp.copy_(live)
+                live.copy_(shadow)
+                shadow.copy_(tmp)
+        self.weights_version += 1
+
+    def drop_shadow(self) -> None:
+        """Releases the shadow weights (the rollback checkpoint)."""
+        self._shadow = self._shadow_draft = None
+        self._shadow_stacked = {}
+
+    def spec_signature(self) -> tuple:
+        """The spec-mode identity replicas must share (JAX's
+        ``spec_signature``): ``(greedy, None)`` for a non-spec engine, else
+        ``(greedy, (k, value_rtol, value_atol, draft hidden size, draft
+        layers))``. Draft weights are compared apart (`serving.fleet._params_mismatch`)."""
+        if self.spec is None:
+            return (self.greedy, None)
+        d = self.spec.config
+        return (self.greedy, (self.spec.k, self.spec.value_rtol, self.spec.value_atol, d.hidden_size,
+                              d.num_hidden_layers))  # fmt: skip
+
     # ---------------------------------------------------------- accounting
     def _block_pool_stats(self) -> dict:
         """The block-pool counters `Scheduler.padding_report` merges in (JAX's
@@ -2125,6 +2500,11 @@ class GenerationEngine:
         too) against the budget and its cache row at the active cache dtype
         (``draft_kv_bytes_per_slot``) against every slot. ``hbm_gb`` defaults
         to the engine device's own memory; on the CPU it must be given.
+        Under ``hot_swap`` the shadow weights are charged from construction
+        on, as in JAX: ``params_bytes`` and ``draft_params_bytes`` double
+        (once; the paged report's budget takes them as they are), and the
+        flip's scratch buffer (``swap_scratch_bytes``, the largest live
+        tensor) comes off the budget beside them.
 
         ``config``, ``max_len`` and ``params_bytes`` override the engine's
         own geometry, as in JAX (its width ladder reads capacity through
@@ -2160,7 +2540,11 @@ class GenerationEngine:
             d = self.spec.config
             draft_kv = kv_cache_bytes_per_slot(d.num_hidden_layers, d.num_attention_heads, max_len, d.head_dim,
                                                active, d.compute_dtype)  # fmt: skip
-        budget = max(int(hbm_gb * 1e9) - params_bytes - draft_params_bytes, 0)
+        scratch = 0
+        if self.hot_swap:
+            params_bytes, draft_params_bytes = 2 * params_bytes, 2 * draft_params_bytes
+            scratch = nbytes([self._swap_scratch])
+        budget = max(int(hbm_gb * 1e9) - params_bytes - draft_params_bytes - scratch, 0)
         per_dtype = {}
         for name in CACHE_DTYPES:
             kv = kv_cache_bytes_per_slot(cfg.num_hidden_layers, cfg.num_attention_heads, max_len, cfg.head_dim,
@@ -2171,7 +2555,9 @@ class GenerationEngine:
             "paged": self._paged_report(branch_factor, budget) if self.paged_kv else None,
             "kv_cache_dtype": active,
             "hbm_budget_gb": hbm_gb,
+            "hot_swap": self.hot_swap,
             "params_bytes": params_bytes,
+            "swap_scratch_bytes": scratch,
             "spec": self.spec is not None,
             "draft_params_bytes": draft_params_bytes,
             "draft_kv_bytes_per_slot": draft_kv,
@@ -2184,9 +2570,11 @@ class GenerationEngine:
 
     def program_stats(self) -> dict:
         """Captures and replays of the engine's programs: ``graph_*`` the
-        decode (or spec) chunk's; ``prefill_*`` and ``extract_*`` those of the prefill
-        (bucket, group width) and extraction (group width) keys, with the
-        keys' count (zeros when nothing is captured)."""
+        decode (or spec) chunk's; ``prefill_*``, ``extract_*``,
+        ``prefill_compute_*`` and ``admit_*`` those of the prefill (bucket,
+        group width), extraction (group width), prefill-stream compute
+        (bucket, group width) and handoff admission (group width) keys, with
+        the keys' count (zeros when nothing is captured)."""
         out = {
             "cuda_graph": self._program is not None,
             "graph_warmup_chunks": 0 if self._program is None else self._program.warmups,
@@ -2216,6 +2604,10 @@ class GenerationEngine:
                 "sampling_impl": "greedy" if self.greedy else "fused_categorical",
                 "decode_step_impl": self.decode_step_impl,
                 **self.program_stats(),
+                "prefill_computes": self._prefill_computes,
+                "handoffs_admitted": self._handoffs_admitted,
+                "hot_swap": self.hot_swap,
+                "weights_version": self.weights_version,
                 "device": str(self.device),
                 "greedy": self.greedy,
                 "health_sentinel": self.health_sentinel,

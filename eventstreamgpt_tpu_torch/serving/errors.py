@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from .scheduler import AdmissionRejected
 
-__all__ = ["BlockLedgerError", "MalformedPromptRejected", "ServingError", "SlotHealthError"]
+__all__ = ["BlockLedgerError", "DeadlineExceeded", "MalformedPromptRejected", "ServingError", "SlotHealthError"]
 
 
 class ServingError(RuntimeError):
@@ -29,6 +29,21 @@ class SlotHealthError(ServingError):
         self.admission_index = admission_index
         self.slot = slot
         self.chunk_index = chunk_index
+
+
+class DeadlineExceeded(ServingError):
+    """A queued request's per-lane deadline expired before placement.
+
+    Deadlines cancel queued requests only: a placed request runs to
+    completion. The expired request's admission index is never reused, so
+    the other requests' seeds do not move.
+    """
+
+    def __init__(self, message: str, *, lane=None, deadline_s=None, waited_s=None):
+        super().__init__(message)
+        self.lane = lane
+        self.deadline_s = deadline_s
+        self.waited_s = waited_s
 
 
 class MalformedPromptRejected(AdmissionRejected):

@@ -13,8 +13,8 @@ a function of no arguments that reads and writes tensors at fixed addresses
 * `CapturedProgram.capture` records it into a ``torch.cuda.CUDAGraph`` with
   a memory pool of its own (or one it shares), on the same stream, each given
   ``torch.Generator`` registered with the graph so that a replay draws from
-  the generator's state at replay time; a failed capture raises, and
-  nothing falls back to eager;
+  the generator's state at replay time, with Python's garbage collector
+  paused; a failed capture raises, and nothing falls back to eager;
 * `CapturedProgram.replay` launches the graph: one host launch for the
   whole program, its outputs rewritten in place.
 
@@ -33,6 +33,7 @@ adds the delta again, so each counter keeps counting the kernels that ran.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import math
 import time
@@ -138,12 +139,20 @@ class CapturedProgram:
         graph = self._new_graph()
         for gen in self.generators:
             graph.register_generator_state(gen)
+        # No garbage collection inside the capture: a collection that frees another
+        # program's graph (engines hold their programs in reference cycles) runs its
+        # destructor, which the card refuses while a stream captures, and that
+        # invalidates this capture.
+        gc_enabled = gc.isenabled()
+        gc.disable()
         try:
             with self._graph_context(graph, self.stream):
                 output = self.fn()
         except Exception as e:
             raise RuntimeError(f"capturing {self.name} into a CUDA graph failed: {e}") from e
         finally:
+            if gc_enabled:
+                gc.enable()
             after = [getattr(fn, attr) for fn, attr in counters]
             for (fn, attr), n in zip(counters, before):
                 setattr(fn, attr, n)

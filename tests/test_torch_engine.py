@@ -8,7 +8,9 @@
   the request order changes (a request's stream depends only on its seed);
   a one-slot engine's floats may differ in the last bits (one-row products).
 * Device: with no ``device`` argument and no CUDA device, construction raises.
-* Refusals: options the JAX engine refuses (the paged cache's sizes, the
+* Refusals: meshes (not ported yet); a hot-swap engine's flip with nothing
+  staged; ``prefill_stream``, no keyword of either engine. Options the JAX
+  engine refuses (the paged cache's sizes, the
   megakernel on a paged cache, speculative decoding on a paged cache,
   ``fork()``'s checks) raise in the port with the JAX engine's messages,
   checked against both engines.
@@ -169,9 +171,22 @@ def test_default_device_needs_cuda():
     ids=lambda kw: next(iter(kw)),
 )  # fmt: skip
 def test_features_outside_the_slice_raise(kw):
+    """Meshes are not ported. Hot swap is: the engine builds and refuses a
+    flip with nothing staged, in JAX's words. ``prefill_stream`` is no
+    keyword of JAX's engine (the stream is the service's), so it is an
+    unknown argument, as there."""
     _, _, _, tcfg, tmodel, prompt = build()
-    with pytest.raises(ValueError, match="not part of the PyTorch port"):
-        GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))
+    make = lambda: GenerationEngine(tmodel, tcfg, template=to_torch(prompt), device="cpu", **dict(ENGINE, **kw))  # noqa: E731
+    if "hot_swap" in kw:
+        with pytest.raises(RuntimeError, match=r"no shadow checkpoint loaded \(call load_shadow first\)"):
+            make().flip()
+    elif "prefill_stream" in kw:
+        assert "prefill_stream" not in inspect.signature(JaxEngine.__init__).parameters
+        with pytest.raises(TypeError, match="unexpected keyword argument 'prefill_stream'"):
+            make()
+    else:
+        with pytest.raises(ValueError, match="not part of the PyTorch port"):
+            make()
 
 
 def test_paged_spec_raises_as_in_jax():

@@ -246,6 +246,31 @@ def test_a_failed_capture_raises_and_leaves_the_counters():
     assert kernel.launches == 0 and prog.graph is None and prog.captures == 0
 
 
+def test_capture_pauses_garbage_collection():
+    """A collection inside a capture could free another program's graph,
+    whose destructor the card refuses while a stream captures: the
+    collector is paused for the capture and restored after it, also after
+    a failed capture."""
+    import gc
+
+    seen = []
+
+    def program():
+        seen.append(gc.isenabled())
+        return torch.zeros(())
+
+    assert gc.isenabled()
+    stub_program(program, []).capture()
+    assert seen == [False] and gc.isenabled()
+
+    def failing():
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    with pytest.raises(RuntimeError, match="capturing the stub program"):
+        stub_program(failing, []).capture()
+    assert gc.isenabled()
+
+
 def test_counted_wrappers_are_every_kernel_wrapper():
     """Every function of the ops modules with a launch counter is listed, and
     every listed counter exists (the default of `CapturedProgram`)."""

@@ -1457,3 +1457,84 @@ def test_na_spec_engine_on_card_matches_cpu(cuda):
             assert torch.equal(getattr(g.batch, f), getattr(c.batch, f)), (g.request_id, f)
         for f in ("time_delta", "dynamic_values"):
             torch.testing.assert_close(getattr(g.batch, f), getattr(c.batch, f), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- hot swap and the prefill stream
+def program_addresses(eng) -> list:
+    """The data pointers of every tensor the engine's programs read as weights."""
+    return [t.data_ptr() for t in list(eng._model.parameters()) + list(eng._stacked.values())]
+
+
+def test_captured_hot_swap_flip_equals_a_fresh_engine(cuda):
+    """A captured hot-swap engine flips to a second set of weights with no
+    capture: every weight keeps its address, kernel B keeps launching
+    through the replays, and the run after the flip equals a fresh captured
+    engine built on the second weights bit for bit (the same programs at the
+    same shapes); a second flip rolls back to the first run's results."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+
+    config, model, prompts = graph_engine_setup()
+    model2 = init_params_from_seed(copy.deepcopy(model), seed=1)
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, device=cuda)
+
+    def requests():
+        return [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+
+    eng = GenerationEngine(model, config, template=prompts[0][0], hot_swap=True, **kw)
+    first = eng.run(requests())
+    ptrs, before = program_addresses(eng), eng.program_stats()
+    eng.load_shadow(model2.state_dict())
+    assert eng.probe_shadow() is None
+    eng.reset()
+    eng.flip()
+    decode_stack_step.launches = 0
+    flipped = eng.run(requests())
+    assert decode_stack_step.launches == eng.stats()["dispatched_chunks"] * kw["decode_chunk"] > 0
+    after = eng.program_stats()
+    for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures"):
+        assert after[k] == before[k], k
+    assert program_addresses(eng) == ptrs
+    same_results(GenerationEngine(model2, config, template=prompts[0][0], **kw).run(requests()), flipped)
+    eng.reset()
+    eng.flip()
+    same_results(first, eng.run(requests()))
+    assert eng.program_stats()["prefill_graph_captures"] == before["prefill_graph_captures"]
+
+
+def test_captured_service_with_a_prefill_stream(cuda):
+    """Two captured decode replicas behind a captured prefill engine: every
+    request finishes, a second pass after ``reset()`` of every engine gives
+    the first pass's results bit for bit, the decode
+    replicas run no prefill program (one admission replay a handoff), the
+    prefill engine one ``prefill_compute`` replay a group, and greedy events
+    and integers equal the same service's with local prefill."""
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, PrefillStream, Request, ServingService
+
+    config, model, prompts = graph_engine_setup()
+    kw = dict(n_slots=4, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=3, device=cuda, greedy=True)
+
+    def engine():
+        return GenerationEngine(model, config, template=prompts[0][0], **kw)
+
+    def requests():
+        return [(Request(prompt=p, max_new_events=b, request_id=i), "batch" if i % 2 else "interactive")
+                for i, (p, b) in enumerate(prompts)]  # fmt: skip
+
+    replicas, pf = [engine(), engine()], engine()
+    svc = ServingService(replicas, prefill_stream=PrefillStream(pf))
+    first = svc.run(requests())
+    for e in replicas + [pf]:
+        e.reset()
+    second = svc.run(requests())
+    same_results(first, second)
+    for e in replicas:
+        s = e.stats()
+        assert s["prefill_graph_keys"] == s["prefill_dispatches"] == 0
+        assert s["admit_graph_replays"] == s["handoffs_admitted"] > 0
+    p = pf.stats()
+    assert p["prefill_compute_graph_replays"] == p["prefill_computes"] == svc.stats()["prefill_stream"]["dispatches"]
+    local = ServingService([engine(), engine()]).run(requests())
+    assert [(r.n_events, r.n_generated) for r in local] == [(r.n_events, r.n_generated) for r in first]
+    for a, b in zip(local, first):
+        for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices"):
+            assert torch.equal(getattr(a.batch, f), getattr(b.batch, f)), f
