@@ -279,8 +279,8 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    ``generate()`` step.
 15. Speculative decoding on the NA engine at phase 14's settings: phase 14's
    NA model as the target, ``bench.py``'s draft (`serving.spec.truncated_draft`,
-   the first ``num_hidden_layers // 2`` = 1 layer) and ``k`` 4, on phase 14's
-   64 requests: bf16 sampled at the default tolerances, int8 sampled and bf16
+   the first ``num_hidden_layers // 2`` = 1 layer) and ``k`` 4, on the first
+   32 of phase 14's 64 requests (one wave of the 32 slots): bf16 sampled at the default tolerances, int8 sampled and bf16
    greedy at zero tolerances (depth 2), each in phase 2's three passes,
    captured: every request finishes with ``n_events == prompt_len +
    n_generated`` and finite outputs, each pass after ``reset()`` equals the
@@ -335,7 +335,59 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    and a single 32-slot engine's; ``load_shadow``, ``probe_shadow`` and
    ``flip`` times (host wall, device ms by CUDA events); capture seconds;
    the service's and the stream's ``stats()``.
-17. The wall seconds of each phase function (`tools/phase_times.py`), one
+17. The serving fleet over phase 16's checkpoints 1 and 2: phase 2's 64
+   requests under the subjects ``subject-000`` .. ``subject-031`` (two
+   requests a subject), lanes alternating ``interactive`` and ``batch``,
+   depth 2, chunks of 16, ``max_len`` 256, ``hot_swap=True`` on every
+   engine; ``svc0`` two 16-slot replicas behind a `PrefillStream` over a third
+   16-slot engine, ``svc1`` two 16-slot replicas with local prefill, one card.
+   A request's results do not depend on the programs' shapes (its prefill
+   group, the engine's slot count): the time cumsum accumulates in fp64 and
+   the fp32 time-to-event product runs in fp64 on the card
+   (`tools/row_invariance.py`), so runs of other shapes are held bit for bit.
+   (a) Sampled, run twice (a new fleet over the same engines after
+   ``reset()``): every request finished and finite, its ``service`` the
+   ring's route, the second run equal to the first bit for bit, each
+   service's requests equal to that service alone serving them with the
+   fleet's seeds, kernels A and B counted through the replays (B once a
+   decode step of each replica); greedy, run twice, bit for bit, and equal
+   to one 32-slot engine serving the accepted set in order with the same
+   seed. (b) On the greedy engines a ``death`` of ``svc1`` at its third
+   chunk under `FleetHealthConfig()`: every request completes, ``svc1``
+   evicted, sessions replayed, nothing dropped, every request (the replayed
+   included) equal to (a)'s greedy run bit for bit. (c) On the greedy
+   engines ``promote(checkpoint 2, at_time=0)`` armed for a run whose second
+   32 requests arrive while ``svc0`` drains (first, an idle promotion to
+   checkpoint 2, whose flipped weights equal a fresh engine's there, a run
+   of those 32 there that captures the keys they need, and back to
+   checkpoint 1, bit for bit): nothing dropped, both services and the
+   prefill engine flip, every result on checkpoint 2 equal to a fresh
+   32-slot engine there serving those requests with their bound seeds, the
+   rest equal to (a)'s; no capture at or after a flip, every weight at its
+   address, ``svc0`` decoding (kernel B) after its flip. (d) A
+   ``corrupt_shadow`` on ``svc1`` makes an idle `promote` raise
+   `PromotionError` with every live weight unchanged in contents and
+   address; a ``flip_failure`` on ``svc1`` rolls ``svc0`` back onto
+   checkpoint 1 bit for bit. (e) A ``nan_slot`` in slot 0 of ``svc0``'s
+   first replica at its chunk 2 fails that request alone with
+   `SlotHealthError`, the others equal to (a)'s bit for bit; the same fault
+   on the 32-slot engine with ``health_retries=1`` retries from the bound
+   seed, equal to (a)'s run; a 0.5 s ``hang`` of ``svc1`` under a 0.25 s
+   watchdog evicts it as hung, every request equal to (a)'s; a sampled run
+   under Poisson arrivals (40 requests/s, numpy-seeded gaps) on fresh
+   engines, the watchdog at 10x the median round of (a)'s second run,
+   records no fault while it captures program keys. (f) A small fp32 greedy
+   fleet (hidden 32, two services, one behind a stream) on the card equals
+   the same fleet on the CPU, one 12-slot engine serving the accepted set,
+   its own run after a death's replays, and after an idle promotion one
+   engine on the new weights; an engine's health retry equals its clean run
+   (phase 2's small-engine tolerances). Printed, not checked, beside the
+   card's name and power limit: the sampled fleet's events/s and latency
+   (p50 and p95 a lane and overall) all at once and under the Poisson
+   arrivals (a second run on the same engines); the promotion's staging,
+   each service's drain wall and flip device ms, ``held_peak``; the
+   eviction's replay count and wall; ``stats()``.
+18. The wall seconds of each phase function (`tools/phase_times.py`), one
    ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -351,6 +403,7 @@ when the repository is not beside it.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import functools
 import json
 import math
@@ -2800,6 +2853,9 @@ def na_engine_profile(smi, engine) -> dict:
 
 
 # ---------------------------------------------------------------- phase 15
+NA_SPEC_REQUESTS = 32  # the first 32 of phase 14's requests: one wave of the 32 slots
+
+
 def na_spec_runs(smi, model, config, prompts, counters, base_kw, spec) -> tuple:
     """The NA spec engine on phase 14's requests: bf16 sampled at the default
     tolerances, int8 sampled and bf16 greedy at zero tolerances, each in phase
@@ -2893,6 +2949,7 @@ def na_spec_phase(smi, na_engine) -> dict:
 
     t0 = time.perf_counter()
     model, config, prompts = (na_engine[k] for k in ("model", "config", "prompts"))
+    prompts = prompts[:NA_SPEC_REQUESTS]
     base_kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
     counters = {f"decode_stack_step.{c}": (decode_stack_step, c) for c in KERNEL_B_ENTRIES}
     counters.update(fused_categorical_stream=(fused_categorical_stream, "launches"),
@@ -3236,6 +3293,469 @@ def service_phase(smi, model, config) -> dict:
           f"without the stream and one engine {t3 - t2:.1f}, hot swap {t4 - t3:.1f}, small service {t5 - t4:.1f})",
           flush=True)  # fmt: skip
     launches = {k: sum(r["launches"][k] for r in passes) + swap["launches"][k] for k in counters}
+    return dict(launches_a=launches["fused_categorical_stream"], launches_b=launches["decode_stack_step"], m1=m1, m2=m2)
+
+
+# ---------------------------------------------------------------- phase 17
+FLEET_SUBJECTS, ARRIVALS_PER_S = 32, 40.0  # two requests a subject; Poisson arrivals at 40 requests/s
+
+
+def fleet_items(prompts, lo=0, hi=None, arrivals=None) -> list:
+    """Phase 2's requests ``lo <= i < hi`` as fleet items: subject
+    ``subject-{i % 32:03d}`` (two requests a subject), lanes alternating, at
+    ``arrivals[i]`` seconds (default 0)."""
+    from eventstreamgpt_tpu_torch.serving import Request
+
+    hi = len(prompts) if hi is None else hi
+    return [(f"subject-{i % FLEET_SUBJECTS:03d}", Request(prompt=p, max_new_events=b, request_id=i,
+             arrival_time=0.0 if arrivals is None else float(arrivals[i])), SERVICE_LANES[i % 2])
+            for i, (p, b) in enumerate(prompts) if lo <= i < hi]  # fmt: skip
+
+
+def new_fleet(engines, **kw):
+    """``svc0``: ``engines[0:2]`` behind a `PrefillStream` over ``engines[2]``;
+    ``svc1``: ``engines[3:5]`` with local prefill; every engine ``reset()``."""
+    from eventstreamgpt_tpu_torch.serving import PrefillStream, ServingFleet, ServingService
+
+    for e in engines:
+        e.reset()
+    return ServingFleet({"svc0": ServingService(engines[:2], prefill_stream=PrefillStream(engines[2])),
+                         "svc1": ServingService(engines[3:5])}, seed=SEED, **kw)  # fmt: skip
+
+
+def timed_rounds(fleet) -> list:
+    """Wraps each service's ``step`` to append its wall seconds (the round
+    the fleet's watchdog reads) to the returned list."""
+    walls = []
+    for svc in fleet.services.values():
+        def step(*args, _step=svc.step, **kw):
+            t0 = time.perf_counter()
+            out = _step(*args, **kw)
+            walls.append(time.perf_counter() - t0)
+            return out
+
+        svc.step = step
+    return walls
+
+
+def fleet_pass(fleet, items, counters, label, ok=True, **run_kw) -> dict:
+    """One `ServingFleet.run`, the launch counters zeroed just before and read
+    just after; with ``ok`` every request checked finished and finite."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.serving import latency_quantiles
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = fleet.run(items, **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    if ok:
+        check_results(results, items, label)
+    generated = sum(r.n_generated for r in results)
+    return dict(results=results, wall_s=wall, launches=launches, stats=fleet.stats(), generated=generated,
+                rate=generated / wall, latency=latency_quantiles(results))  # fmt: skip
+
+
+def check_fleet_kernels(run, label, sampled=True) -> None:
+    """Kernel B once a decode step of each replica, through the replays; kernel A launched when sampled."""
+    steps = sum(r["dispatched_chunks"] * r["decode_chunk"] for s in run["stats"]["services"].values()
+                for r in s["replicas"])  # fmt: skip
+    check(run["launches"]["decode_stack_step"] == steps > 0,
+          f"{label}: kernel B launched {run['launches']['decode_stack_step']} times for {steps} decode steps")  # fmt: skip
+    check(not sampled or run["launches"]["fused_categorical_stream"] > 0, f"{label}: kernel A never launched")
+
+
+def fleet_captures(engines) -> int:
+    from eventstreamgpt_tpu_torch.serving.fleet import _captures
+
+    return _captures(engines)
+
+
+def same_weights(engines, want, label) -> None:
+    """Each engine's weights (the model's and kernel B's stacked copy) equal ``want[i]`` in contents and address."""
+    import torch
+
+    for i, e in enumerate(engines):
+        ws = weights_of(e)
+        check([t.data_ptr() for t in ws] == [p for p, _ in want[i]], f"{label}: engine {i} moved a weight")
+        check(all(torch.equal(t, c) for t, (_, c) in zip(ws, want[i])), f"{label}: engine {i}'s weights changed")
+
+
+def snapshot(engines) -> list:
+    return [[(t.data_ptr(), t.clone()) for t in weights_of(e)] for e in engines]
+
+
+def as_undisturbed(run, clean, label) -> dict:
+    """Every request of a run a fault disturbed equals the undisturbed run's
+    bit for bit, those replayed onto a survivor (re-prefilled in other
+    groups, decoded in other slots) included."""
+    same_results(clean, run["results"], label, "vs the undisturbed run")
+    return dict(replayed=sum(r.replays > 0 for r in run["results"]))
+
+
+def fleet_faults(smi, g, single, prompts, counters, greedy) -> dict:
+    """Phase 17 (b), (d), (e) on the greedy engines ``g`` (``single``: the
+    32-slot engine with one health retry): eviction, rollbacks and health
+    (module docstring)."""
+    from eventstreamgpt_tpu_torch.reliability import ServingFault, ServingFaultPlan, serving_fault_plan
+    from eventstreamgpt_tpu_torch.serving import FleetHealthConfig, PromotionError, SlotHealthError
+
+    items, out, clean = fleet_items(prompts), {}, greedy["results"]
+    # (b) a death of svc1 at its third chunk: evicted, its sessions replayed on svc0.
+    fleet = new_fleet(g, health=FleetHealthConfig())
+    evict, evict_s = fleet.evict_service, []
+    fleet.evict_service = lambda *a, **k: (evict_s.append(time.perf_counter()), evict(*a, **k),
+                                           evict_s.append(time.perf_counter()))[1]  # fmt: skip
+    with serving_fault_plan(ServingFaultPlan([ServingFault("death", service="svc1", chunk_index=2)])):
+        dead = fleet_pass(fleet, items, counters, "phase 17 [death]")
+    st = fleet.stats()
+    check([e["service"] for e in st["evictions"]] == ["svc1"] and st["sessions_replayed_total"] > 0,
+          f"phase 17 [death]: evictions {st['evictions']}")  # fmt: skip
+    check(st["swap"]["swap_dropped_requests"] == 0, "phase 17 [death]: a request was dropped")
+    check(all(r.service == "svc0" for r in dead["results"]), "phase 17 [death]: a result outside the survivor")
+    out["eviction"] = dict(as_undisturbed(dead, clean, "phase 17 [death]"), evict_ms=1e3 * (evict_s[1] - evict_s[0]),
+                           wall_s=dead["wall_s"], undisturbed_wall_s=greedy["wall_s"])  # fmt: skip
+    # (e) a nan_slot in slot 0 of svc0's first replica at its chunk 2 (the second replica answers to its own scope).
+    fleet = new_fleet(g, health=FleetHealthConfig())
+    g[1].fault_scope = "svc0/replica1"
+    with serving_fault_plan(ServingFaultPlan([ServingFault("nan_slot", service="svc0", slot=0, chunk_index=2)])) as plan:
+        nan = fleet_pass(fleet, items, counters, "phase 17 [nan_slot]", ok=False)
+    g[1].fault_scope = "svc0"
+    bad = [r for r in nan["results"] if r.error is not None]
+    check(len(plan.fired) == 1 and len(bad) == 1 and isinstance(bad[0].error, SlotHealthError)
+          and (bad[0].service, bad[0].replica) == ("svc0", 0), f"phase 17 [nan_slot]: failed {[(r.request_id, r.error) for r in bad]}")  # fmt: skip
+    healthy = [r for r in nan["results"] if r.error is None]
+    check_results(healthy, healthy, "phase 17 [nan_slot, co-residents]")
+    same_results([r for r in clean if r.request_id != bad[0].request_id], healthy, "phase 17 [nan_slot]",
+                 "co-residents vs the clean run")  # fmt: skip
+    # (e) the same fault on the 32-slot engine with one health retry: the retry from the bound seed equals the
+    # fleet's clean run.
+    single.reset()
+    single.fault_scope = "svc0"
+    retried = single.stats()["health_retried_total"]
+    with serving_fault_plan(ServingFaultPlan([ServingFault("nan_slot", service="svc0", slot=0, chunk_index=2)])) as plan:
+        retry = single.run([r for _, r, _ in items])
+    check(len(plan.fired) == 1 and single.stats()["health_retried_total"] - retried == 1,
+          f"phase 17 [retry]: {len(plan.fired)} faults fired, {single.stats()['health_retried_total'] - retried} retries")  # fmt: skip
+    same_results(clean, retry, "phase 17 [retry]", "a retry on one 32-slot engine vs the fleet's clean run")
+    # (e) a hang of 0.5 s under a 0.25 s watchdog: svc1 evicted as hung, every request served.
+    fleet = new_fleet(g, health=FleetHealthConfig(boundary_timeout_s=0.25))
+    with serving_fault_plan(ServingFaultPlan([ServingFault("hang", service="svc1", chunk_index=3, seconds=0.5)])) as plan:
+        hung = fleet_pass(fleet, items, counters, "phase 17 [hang]")
+    st = fleet.stats()
+    check(plan.fired and [(f["service"], f["kind"]) for f in st["replica_faults"]] == [("svc1", "hung")]
+          and st["evictions"][0]["reason"].startswith("hung: scheduling round took"), f"phase 17 [hang]: {st['replica_faults']}")  # fmt: skip
+    out["hang"] = as_undisturbed(hung, clean, "phase 17 [hang]")
+    # (d) rollbacks: a corrupt staged checkpoint refused before any flip; a flip failure flipped back.
+    m2_state = greedy["m2"].state_dict()
+    before = snapshot(g)
+    fleet = new_fleet(g)
+    try:
+        with serving_fault_plan(ServingFaultPlan([ServingFault("corrupt_shadow", service="svc1")])):
+            fleet.promote(m2_state)
+        fail("phase 17 [corrupt_shadow]: the promotion was not refused")
+    except PromotionError as e:
+        check(str(e).startswith("shadow verification failed on service 'svc1'"), f"phase 17 [corrupt_shadow]: {e}")
+        out["corrupt_reason"] = str(e)
+    same_weights(g, before, "phase 17 [corrupt_shadow]")
+    fleet = new_fleet(g)
+    versions = [e.weights_version for e in g]
+    try:
+        with serving_fault_plan(ServingFaultPlan([ServingFault("flip_failure", service="svc1")])):
+            fleet.promote(m2_state)
+        fail("phase 17 [flip_failure]: the promotion was not refused")
+    except PromotionError:
+        pass
+    check(fleet.swap_report()["swap_history"][-1]["status"] == "rolled_back", "phase 17 [flip_failure]: no rollback")
+    check([e.weights_version - v for e, v in zip(g, versions)] == [2, 2, 2, 0, 0],
+          f"phase 17 [flip_failure]: versions {versions} -> {[e.weights_version for e in g]}")  # fmt: skip
+    same_weights(g, before, "phase 17 [flip_failure, svc0 back on checkpoint 1]")
+    return out
+
+
+def fleet_promotion(smi, g, prompts, counters, greedy) -> dict:
+    """Phase 17 (c): ``promote(checkpoint 2, at_time=0)`` armed for a greedy
+    run on ``g`` whose second half arrives while ``svc0`` drains; the
+    results on checkpoint 2 against a fresh 32-slot engine there (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine
+
+    m1, m2 = greedy["m1"], greedy["m2"]
+    before = snapshot(g)
+    # An idle promotion to checkpoint 2, whose weights equal a fresh engine's
+    # there; the second half served from empty engines there (what a flipped
+    # service serves, so every program key it needs is captured now, before
+    # any flip); back to checkpoint 1.
+    fleet = new_fleet(g)
+    fleet.promote(m2.state_dict())
+    check(fleet.swap_report()["swap_history"][-1]["status"] == "promoted", "phase 17 [idle promotion]: not promoted")
+    fresh = GenerationEngine(m2, greedy["config"], template=prompts[0][0], n_slots=16, **greedy["kw"])
+    for e in g:
+        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(weights_of(e), weights_of(fresh))),
+              "phase 17 [idle promotion]: the flipped weights are not a fresh engine's on checkpoint 2")  # fmt: skip
+    new_fleet(g).run(fleet_items(prompts, 32))
+    new_fleet(g).promote(m1.state_dict())
+    same_weights(g, before, "phase 17 [idle promotion to checkpoint 2 and back]")
+    # Armed from the start: the first round submits the first 32 requests, then
+    # stages and probes checkpoint 2 in every engine (~0.2 s) and starts
+    # svc0's drain; the second 32 arrive at 0.05 s, so in the second round,
+    # while svc0's first requests still decode: svc0's share is held and
+    # released onto checkpoint 2 at its flip, svc1's is served on checkpoint 1
+    # before svc1 drains and flips.
+    start_version = [e.weights_version for e in g]
+    arrivals = np.where(np.arange(len(prompts)) < 32, 0.0, 0.05)
+    fleet = new_fleet(g)
+    flips, drain = {}, {}
+    ptrs = {id(e): [t.data_ptr() for t in weights_of(e)] for e in g}
+
+    def timed_flip(e, sid):
+        flip = e.flip
+
+        def run():
+            _, _, ms = device_timed(flip)
+            flips.setdefault(sid, []).append(ms)
+            e.captures_at_flip, e.chunks_at_flip = fleet_captures([e]), e._dispatched_chunks
+
+        return run
+
+    for sid, svc in fleet.services.items():
+        for e in fleet._service_engines(svc):
+            e.flip = timed_flip(e, sid)
+    advance = fleet._advance_promotion
+
+    def traced_advance():
+        p = fleet._promotion
+        draining, flipped, loaded = p["draining"], set(p["flipped"]), p["loaded"]
+        t = time.perf_counter()
+        advance()
+        now = time.perf_counter()
+        if not loaded:
+            drain["stage and probe"] = [t, now]
+        p = fleet._promotion
+        if p is None:
+            return
+        if draining is None and p["draining"] is not None:
+            drain[p["draining"]] = [now]
+        for sid in set(p["flipped"]) - flipped:  # a service idle at its turn drains and flips in one call
+            drain.setdefault(sid, [t]).append(now)
+
+    fleet._advance_promotion = traced_advance
+    fleet.promote(m2.state_dict(), at_time=0.0)
+    items = fleet_items(prompts, arrivals=arrivals)
+    run = fleet_pass(fleet, items, counters, "phase 17 [promotion]", use_arrival_times=True)
+    for e in g:
+        del e.flip
+    report = fleet.swap_report()
+    check(report["swap_dropped_requests"] == 0 and report["swap_history"][-1]["status"] == "promoted"
+          and sorted(report["swap_history"][-1]["services"]) == ["svc0", "svc1"], f"phase 17 [promotion]: {report}")  # fmt: skip
+    check([e.weights_version - v for e, v in zip(g, start_version)] == [1] * 5,
+          "phase 17 [promotion]: not every engine flipped (the prefill engine included)")
+    for e in g:
+        check(fleet_captures([e]) == e.captures_at_flip, "phase 17 [promotion]: a capture at or after a flip")
+        check([t.data_ptr() for t in weights_of(e)] == ptrs[id(e)], "phase 17 [promotion]: a flip moved a weight")
+    after = sum(e._dispatched_chunks - e.chunks_at_flip for e in g[:2])
+    check(after > 0 and run["launches"]["decode_stack_step"] > 0, "phase 17 [promotion]: svc0 decoded nothing after its "
+          "flip")  # fmt: skip
+    engine_of = {("svc0", 0): 0, ("svc0", 1): 1, ("svc1", 0): 3, ("svc1", 1): 4}
+    new = [r for r in run["results"] if r.weights_version == start_version[engine_of[(r.service, r.replica)]] + 1]
+    old = [r for r in run["results"] if r.weights_version == start_version[engine_of[(r.service, r.replica)]]]
+    check(len(new) + len(old) == len(run["results"]), "phase 17 [promotion]: a result on neither checkpoint")
+    check(0 < len(new) and report["held_peak"] > 0 and all(r.service == "svc0" and r.request_id >= 32 for r in new),
+          f"phase 17 [promotion]: {len(new)} results on checkpoint 2, {report['held_peak']} held")  # fmt: skip
+    by_id = {r.request_id: r for _, r, _ in fleet_items(prompts)}
+    ref = GenerationEngine(m2, greedy["config"], template=prompts[0][0], n_slots=32, **greedy["kw"]).run(
+        [dataclasses.replace(by_id[r.request_id], key=derive_request_seed(SEED, r.fleet_index)) for r in new])  # fmt: skip
+    same_results(ref, new, "phase 17 [promotion]", "on checkpoint 2 vs a fresh 32-slot engine there with their seeds")
+    clean = {r.request_id: r for r in greedy["results"]}
+    same_results([clean[r.request_id] for r in old], old, "phase 17 [promotion]", "on checkpoint 1 vs the clean run")
+    return dict(run=run, new=len(new), held_peak=report["held_peak"], chunks_after_flip=after, old=len(old),
+                drain_ms={sid: round(1e3 * (t[1] - t[0]), 2) for sid, t in drain.items()},
+                flip_device_ms={sid: round(sum(v), 4) for sid, v in flips.items()})  # fmt: skip
+
+
+def small_fleet_checks() -> None:
+    """Phase 17 (f): a small fp32 greedy fleet (two services, one behind a
+    prefill stream) on the card: equal to the same fleet on the CPU and to one
+    engine serving the accepted set; a death's replays, an idle promotion and
+    a health retry against their undisturbed runs (floats within 1e-4)."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.reliability import ServingFault, ServingFaultPlan, serving_fault_plan
+    from eventstreamgpt_tpu_torch.serving import (FleetHealthConfig, GenerationEngine, PrefillStream, ServingFleet,
+                                                  ServingService)  # fmt: skip
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    config = serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3), hidden_size=32,
+                            head_dim=8, intermediate_size=64, seq_window_size=4)  # fmt: skip
+    models = [init_params_from_seed(build_model(config), seed=s, std=0.15) for s in (1, 2)]
+    with torch.no_grad():
+        for m in models:
+            m.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    prompts = synthetic_prompts(np.random.default_rng(2), 12, config, (6, 12), (4, 8))
+    items = fleet_items(prompts)
+    kw = dict(template=prompts[0][0], max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+
+    def fleet(dev="cuda", **fkw):
+        e = [GenerationEngine(models[0], config, device=dev, n_slots=4, hot_swap=True, **kw) for _ in range(3)]
+        return ServingFleet([ServingService(e[:1], prefill_stream=PrefillStream(e[1])), ServingService(e[2:])], **fkw)
+
+    def one(model, **ekw):
+        return GenerationEngine(model, config, device="cuda", n_slots=12, **kw, **ekw)
+
+    diff = [0.0]
+
+    def close(a_results, b_results, label):
+        same_events(a_results, b_results, label)
+        for a, b in zip(a_results, b_results):
+            for f in ("time_delta", "dynamic_values"):
+                x, y = getattr(a.batch, f), getattr(b.batch, f)
+                diff[0] = max(diff[0], (x - y).abs().max().item())
+                torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+
+    res = {dev: fleet(dev).run(items) for dev in ("cuda", "cpu")}
+    check({r.service for r in res["cuda"]} == {"svc0", "svc1"}, "phase 17 [small fleet]: one service took every request")
+    check([(r.service, r.replica) for r in res["cuda"]] == [(r.service, r.replica) for r in res["cpu"]],
+          "phase 17 [small fleet]: the card and the CPU placed a request differently")  # fmt: skip
+    close(res["cuda"], res["cpu"], "phase 17 [small fleet, card vs CPU]")
+    reqs = [r for _, r, _ in items]
+    close(one(models[0]).run(reqs), res["cuda"], "phase 17 [small fleet vs one 12-slot engine]")
+    f = fleet(health=FleetHealthConfig())
+    with serving_fault_plan(ServingFaultPlan([ServingFault("death", service="svc1", chunk_index=1)])):
+        dead = f.run(items)
+    check(f.stats()["sessions_replayed_total"] > 0, "phase 17 [small fleet]: the death replayed nothing")
+    close(res["cuda"], dead, "phase 17 [small fleet, replayed vs undisturbed]")
+    f = fleet()
+    f.promote(models[1].state_dict())
+    close(one(models[1]).run(reqs), f.run(items), "phase 17 [small fleet after a promotion vs one engine there]")
+    eng = one(models[0], health_retries=1)
+    eng.fault_scope = "svc0"
+    with serving_fault_plan(ServingFaultPlan([ServingFault("nan_slot", service="svc0", slot=0, chunk_index=1)])):
+        retried = eng.run(reqs)
+    check(eng.stats()["health_retried_total"] == 1, "phase 17 [small fleet]: no retry")
+    close(res["cuda"], retried, "phase 17 [small fleet, a retry vs the clean run]")
+    print(f"phase 17: small fp32 greedy fleet (two services, one behind a prefill stream) on the card: equal to the CPU "
+          f"fleet, to one 12-slot engine, after a death's replays, after a promotion (to one engine there) and after a "
+          f"retry (to the clean run): events and integers exact, floats within 1e-4 (max |diff| {diff[0]:.3g})",
+          flush=True)  # fmt: skip
+
+
+def fleet_phase(smi, config, m1, m2) -> dict:
+    """Phase 17: the serving fleet over phase 16's checkpoints (module docstring)."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical_stream
+    from eventstreamgpt_tpu_torch.serving import FleetHealthConfig, GenerationEngine, PrefillStream, ServingService
+
+    t0 = time.perf_counter()
+    prompts = synthetic_prompts(np.random.default_rng(SEED), N_REQUESTS, serving_config(), (128, 192), (16, 64))
+    counters = {"decode_stack_step": (decode_stack_step, "launches"),
+                "fused_categorical_stream": (fused_categorical_stream, "launches")}  # fmt: skip
+    kw = dict(max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED)
+
+    def engines(**extra):
+        return [GenerationEngine(m1, config, template=prompts[0][0], n_slots=16, hot_swap=True, **kw, **extra)
+                for _ in range(5)]  # fmt: skip
+
+    items, passes = fleet_items(prompts), []
+    # (a) sampled, run twice over the same engines (the second after reset()); routes; kernels; each service
+    # alone on the requests routed to it, with the fleet's seeds.
+    s = engines()
+    fleet = new_fleet(s)
+    passes.append(fleet_pass(fleet, items, counters, "phase 17 [sampled fleet]"))
+    fleet = new_fleet(s)
+    walls = timed_rounds(fleet)
+    passes.append(fleet_pass(fleet, items, counters, "phase 17 [sampled fleet, after reset()]"))
+    same_results(passes[0]["results"], passes[1]["results"], "phase 17 [sampled fleet]", "second run vs first")
+    check(all(r.service == fleet.route(r.subject) for r in passes[1]["results"])
+          and {r.service for r in passes[1]["results"]} == {"svc0", "svc1"}, "phase 17 [sampled fleet]: routing")  # fmt: skip
+    for n, run in enumerate(passes):
+        check_fleet_kernels(run, f"phase 17 [sampled fleet, run {n + 1}]")
+    round_ms = 1e3 * float(np.median(walls))
+    by_index = {r.request_id: r for _, r, _ in items}
+    for sid, reps, pf in (("svc0", s[:2], s[2]), ("svc1", s[3:5], None)):
+        for e in s:
+            e.reset()
+        mine = [r for r in passes[1]["results"] if r.service == sid]
+        alone = ServingService(reps, prefill_stream=None if pf is None else PrefillStream(pf), seed=SEED).run(
+            [(dataclasses.replace(by_index[r.request_id], key=derive_request_seed(SEED, r.fleet_index)), r.lane)
+             for r in mine])  # fmt: skip
+        same_results(mine, alone, "phase 17 [sampled fleet]", f"{sid}'s requests vs {sid} alone with the fleet's seeds")
+    t1 = time.perf_counter()
+    # (e) the watchdog at 10x the round wall over a sampled run under Poisson arrivals on fresh engines
+    # (program keys captured during it); then the same arrivals again, timed.
+    gaps = np.random.default_rng(SEED + 17).exponential(1.0 / ARRIVALS_PER_S, N_REQUESTS)
+    arrivals = np.cumsum(gaps) - gaps[0]
+    w = engines()
+    fleet = new_fleet(w, health=FleetHealthConfig(boundary_timeout_s=10 * round_ms / 1e3, watchdog_warmup_chunks=0))
+    captured = fleet_captures(w)
+    watched = fleet_pass(fleet, fleet_items(prompts, arrivals=arrivals), counters, "phase 17 [watchdog]",
+                         use_arrival_times=True)  # fmt: skip
+    captured = fleet_captures(w) - captured
+    check(watched["stats"]["replica_faults"] == [] and captured > 0,
+          f"phase 17 [watchdog]: faults {watched['stats']['replica_faults']}, {captured} captures during the run")  # fmt: skip
+    passes.append(watched)
+    poisson = fleet_pass(new_fleet(w), fleet_items(prompts, arrivals=arrivals), counters, "phase 17 [Poisson]",
+                         use_arrival_times=True)  # fmt: skip
+    passes.append(poisson)
+    t2 = time.perf_counter()
+    # (a) greedy: run twice; equal to one 32-slot engine serving the accepted set in order with the same seed.
+    g = engines(greedy=True)
+    single = GenerationEngine(m1, config, template=prompts[0][0], n_slots=32, greedy=True, health_retries=1, **kw)
+    greedy = fleet_pass(new_fleet(g), items, counters, "phase 17 [greedy fleet]")
+    check_fleet_kernels(greedy, "phase 17 [greedy fleet]", sampled=False)
+    passes.append(greedy)
+    again = fleet_pass(new_fleet(g), items, counters, "phase 17 [greedy fleet, after reset()]")
+    same_results(greedy["results"], again["results"], "phase 17 [greedy fleet]", "second run vs first")
+    same_results(single.run([r for _, r, _ in items]), greedy["results"], "phase 17 [greedy fleet]",
+                 "one 32-slot engine vs the fleet")  # fmt: skip
+    greedy.update(m1=m1, m2=m2, config=config, kw=dict(kw, greedy=True))
+    faults = fleet_faults(smi, g, single, prompts, counters, greedy)
+    t3 = time.perf_counter()
+    promo = fleet_promotion(smi, g, prompts, counters, greedy)
+    passes.append(promo["run"])
+    t4 = time.perf_counter()
+    small_fleet_checks()
+    t5 = time.perf_counter()
+    run = passes[1]
+    stats = {k: v for k, v in run["stats"].items() if k != "services"}
+    stats["services"] = {sid: {k: v for k, v in st.items() if k in ("accepted_total", "rejected_total", "expired_total",
+                                                                    "outstanding_budget", "prefill_stream")}
+                         for sid, st in run["stats"]["services"].items()}  # fmt: skip
+    print(f"phase 17 [fleet]: 64 requests over svc0 (two 16-slot replicas, a prefill stream) and svc1 (two 16-slot "
+          f"replicas), {run['generated']} generated events; the run after reset() equals the first bit for bit, each "
+          f"service's requests equal that service alone with the fleet's seeds; routes are the ring's; all at once "
+          f"{run['rate']:.1f} events/s ({run['wall_s']:.4f} s; first run {passes[0]['rate']:.1f}), latency "
+          f"{json.dumps(run['latency'])}; Poisson arrivals at {ARRIVALS_PER_S:.0f}/s (last at {arrivals[-1]:.3f} s) "
+          f"{poisson['rate']:.1f} events/s ({poisson['wall_s']:.4f} s), latency {json.dumps(poisson['latency'])}; the "
+          f"watchdog at 10x the median round ({round_ms:.2f} ms) saw no fault over {captured} captures; greedy "
+          f"{greedy['rate']:.1f} events/s, equal to one 32-slot engine bit for bit; launches {run['launches']} "
+          f"({smi})", flush=True)  # fmt: skip
+    print(f"phase 17 [fleet]: promotion under traffic: {promo['new']} of 64 requests on checkpoint 2 (equal to a fresh "
+          f"32-slot engine there), held_peak {promo['held_peak']}, {promo['old']} on checkpoint 1 (equal to the "
+          f"undisturbed run), drain ms {json.dumps(promo['drain_ms'])}, "
+          f"flip device ms a service {json.dumps(promo['flip_device_ms'])}, svc0 {promo['chunks_after_flip']} chunks "
+          f"after its flip; eviction (every request equal to the undisturbed run, the replayed included) "
+          f"{json.dumps({k: round(v, 4) for k, v in faults['eviction'].items()})}; hang (the same) "
+          f"{json.dumps(faults['hang'])}; the corrupt checkpoint refused ({faults['corrupt_reason']}); stats() "
+          f"{json.dumps(stats)} ({smi})", flush=True)  # fmt: skip
+    launches = {k: sum(r["launches"][k] for r in passes) for k in counters}
+    print(f"phase 17: passed in {t5 - t0:.1f} s (sampled fleet {t1 - t0:.1f}, watchdog and arrivals {t2 - t1:.1f}, "
+          f"greedy, eviction, health and rollbacks {t3 - t2:.1f}, promotion {t4 - t3:.1f}, small fleet {t5 - t4:.1f}); "
+          f"launches over the counted runs {launches}", flush=True)  # fmt: skip
     return dict(launches_a=launches["fused_categorical_stream"], launches_b=launches["decode_stack_step"])
 
 
@@ -3277,6 +3797,7 @@ def main() -> int:
     na_engine = na_engine_phase(smi)
     na_spec = na_spec_phase(smi, na_engine)
     service = service_phase(smi, model, config)
+    fleet = fleet_phase(smi, config, service.pop("m1"), service.pop("m2"))
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
@@ -3300,11 +3821,11 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
              + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"]
-             + na_spec["launches_a"] + service["launches_a"], **a),
+             + na_spec["launches_a"] + service["launches_a"] + fleet["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
-             + runs["sampled"]["launches"]["decode_stack_step"] + service["launches_b"], **b),
+             + runs["sampled"]["launches"]["decode_stack_step"] + service["launches_b"] + fleet["launches_b"], **b),
     ] + [
         dict(name=f"decode_stack_step_{kv}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297", entry="esgpt_decode_stack_step_quant",

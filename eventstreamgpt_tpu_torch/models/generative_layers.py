@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributions import Exponential, LogNormalMixture, Normal
-from ..ops.tensor_ops import dense
+from ..ops.tensor_ops import dense, exact_dense
 from ..ops.vocab_gather import vocab_gather
 
 
@@ -29,6 +29,8 @@ class LogNormalMixtureTTELayer(nn.Module):
 
     The flax layer has no ``dtype``, so its product runs in fp32 even under
     bf16 precision; ``proj`` is marked to stay fp32 when the model casts.
+    ``exact`` (generation) takes the product through
+    `ops.tensor_ops.exact_dense`.
     """
 
     def __init__(self, in_dim, num_components, mean_log_inter_time=0.0, std_log_inter_time=1.0):
@@ -38,8 +40,8 @@ class LogNormalMixtureTTELayer(nn.Module):
         self.mean_log_inter_time = mean_log_inter_time
         self.std_log_inter_time = std_log_inter_time
 
-    def forward(self, T):
-        p = dense(T, self.proj, torch.float32)
+    def forward(self, T, exact: bool = False):
+        p = (exact_dense if exact else dense)(T, self.proj, torch.float32)
         return LogNormalMixture(
             locs=p[..., 0::3],
             log_scales=p[..., 1::3],
@@ -57,14 +59,15 @@ class ExponentialTTELayer(nn.Module):
         self.proj = nn.Linear(in_dim, 1)
         self.proj.keep_fp32 = True
 
-    def forward(self, T):
-        return Exponential(rate=elu_plus_one(dense(T, self.proj, torch.float32))[..., 0])
+    def forward(self, T, exact: bool = False):
+        return Exponential(rate=elu_plus_one((exact_dense if exact else dense)(T, self.proj, torch.float32))[..., 0])
 
 
 class GaussianIndexedRegressionLayer(nn.Module):
     """Multivariate regression head over an interleaved (mean, std) plane.
 
-    Without ``idx`` (generation) it returns every target's Normal. With
+    Without ``idx`` (generation) it returns every target's Normal (its
+    product through `ops.tensor_ops.exact_dense`). With
     ``idx`` ``(..., M)`` (training) it gathers the observed targets'
     parameters straight from the compute-dtype plane (mean at ``2 * idx``,
     std at ``2 * idx + 1``) and only then upcasts and activates, so the
@@ -78,10 +81,10 @@ class GaussianIndexedRegressionLayer(nn.Module):
         self.dtype = dtype
 
     def forward(self, X, idx=None):
-        Z = dense(X, self.proj, self.dtype)
         if idx is None:
-            Z = Z.float()
+            Z = exact_dense(X, self.proj, self.dtype).float()
             return Normal(loc=Z[..., 0::2], scale=elu_plus_one(Z[..., 1::2]))
+        Z = dense(X, self.proj, self.dtype)
         m = idx.shape[-1]
         both = vocab_gather(Z, torch.cat([2 * idx, 2 * idx + 1], dim=-1).to(torch.int32))
         return Normal(loc=both[..., :m], scale=elu_plus_one(both[..., m:]))

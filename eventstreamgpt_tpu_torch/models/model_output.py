@@ -19,7 +19,7 @@ from torch import nn
 
 from ..data.types import DataModality, EventStreamBatch
 from ..distributions import Bernoulli, Categorical, dist_map
-from ..ops.tensor_ops import dense, safe_weighted_avg, weighted_loss
+from ..ops.tensor_ops import dense, exact_dense, safe_weighted_avg, weighted_loss
 from .config import StructuredTransformerConfig, TimeToEventGenerationHeadType
 from .embedding import DataEmbeddingLayer
 from .generative_layers import (
@@ -152,7 +152,7 @@ class GenerativeOutputLayerBase(nn.Module):
         last observation covers the final event; the denominator is at least
         1, so an event-free subject gives 0, not NaN), then over subjects.
         """
-        TTE_dist = self.TTE_layer(encoded)
+        TTE_dist = self.TTE_layer(encoded, exact=is_generation)
         if is_generation:
             return None, TTE_dist, None
         TTE_obs_mask = batch.event_mask[:, 1:] & batch.event_mask[:, :-1]
@@ -171,10 +171,11 @@ class GenerativeOutputLayerBase(nn.Module):
         labels are empty in generation."""
         if not valid_measurements:
             return {}, {}, {}
-        is_observed_score = dense(encoded, self.IsObservedLayer, self.dtype).float()
+        product = exact_dense if is_generation else dense  # generation: a row's scores whatever its batch
+        is_observed_score = product(encoded, self.IsObservedLayer, self.dtype).float()
         # Full-plane projection then column slices: column-exact with the JAX
         # layer's narrow projections, which compute the same columns.
-        scores_all = dense(encoded, self.ClassificationLayer, self.dtype).float()
+        scores_all = product(encoded, self.ClassificationLayer, self.dtype).float()
         losses, dists, labels_out = {}, {}, {}
         indices64 = None  # the index plane as scatter's int64 index, cast once
         for m, mode in self.classification_mode_per_measurement.items():

@@ -351,7 +351,13 @@ def time_from_deltas(batch: EventStreamBatch) -> torch.Tensor:
     t_deltas = batch.time_delta
     if batch.event_mask is not None:
         t_deltas = torch.where(batch.event_mask, t_deltas, 0.0)
-    csum = torch.cumsum(t_deltas, dim=-1)
+    # Accumulated in fp64, as the CPU's fp32 cumsum accumulates (bit for bit
+    # the same there). CUDA's fp32 scan shapes its reduction tree by the
+    # number of rows, so a row's times would change in the last bit with the
+    # rows beside it (`tools/row_invariance.py`), and the sinusoids of times
+    # of ~1e4 carry that into every later float; in fp64 the order's error
+    # falls far below fp32's rounding.
+    csum = torch.cumsum(t_deltas, dim=-1, dtype=torch.float64).to(t_deltas.dtype)
     t = torch.cat([torch.zeros_like(csum[:, :1]), csum[:, :-1]], dim=1)
     if batch.segment_ids is not None:
         seg_start = segment_starts(batch.segment_ids)

@@ -164,6 +164,19 @@ def dense(x: torch.Tensor, layer, dtype: torch.dtype) -> torch.Tensor:
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
+def exact_dense(x: torch.Tensor, layer, dtype: torch.dtype) -> torch.Tensor:
+    """`dense` whose product, on the card, runs in fp64 and is rounded once to
+    ``dtype``; elsewhere `dense`. cuBLAS picks its algorithm (its reduction
+    order) by the number of rows, so a row's result would change in the last
+    bit with the rows beside it, and a request's greedy draws with its
+    prefill group or its engine's slot count (`tools/row_invariance.py`); in
+    fp64 the order's error falls far below ``dtype``'s rounding. The model's
+    heads use it in generation (training keeps `dense`)."""
+    if x.is_cuda:
+        return dense(x, layer, torch.float64).to(dtype)
+    return dense(x, layer, dtype)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: ``where(keep, x / keep_prob, 0)`` in x's dtype,
     with the keep mask drawn from ``generator``; the identity when

@@ -225,6 +225,7 @@ from ..ops.kv_quant import (
     storage,
 )
 from ..ops.tensor_ops import take_event
+from ..reliability import serving_faults as _sfaults
 from ..utils.device import resolve_device
 from ..utils.graphs import ByteLayout, CapturedProgram, ProgramFamily
 from .errors import BlockLedgerError, MalformedPromptRejected, SlotHealthError
@@ -626,6 +627,10 @@ class GenerationEngine:
         self.health_sentinel = bool(health_sentinel)
         self.health_retries = int(health_retries)
         self.validate_prompts = bool(validate_prompts)
+        # Fault-injection scope (`reliability.serving_faults`): the fleet
+        # stamps each service's engines with the service id; None: only
+        # scope-less faults match.
+        self.fault_scope: Optional[str] = None
         self._kv_buf_dtype, self._kv_quantized = resolve_cache_dtype(kv_cache_dtype, self.cdt)
         if not self._kv_quantized and self._kv_buf_dtype != self.cdt:
             raise ValueError(
@@ -2196,7 +2201,17 @@ class GenerationEngine:
         """Runs one decode chunk (a replay of its captured program on the
         card) and starts its packed boundary's copy to the host (pinned
         memory, ``non_blocking``, an event behind it on the card); nothing
-        waits for the device."""
+        waits for the device. An installed `reliability.serving_faults`
+        plan acts first, keyed on this engine's dispatched-chunk count
+        (JAX's order): death raises, a hang sleeps, and poisoned slots get
+        `_poison_slots`."""
+        if _sfaults.active_serving_fault_plan() is not None:
+            _sfaults.maybe_die(self.fault_scope, self._dispatched_chunks)
+            _sfaults.maybe_hang(self.fault_scope, self._dispatched_chunks)
+            poison = [s for s in _sfaults.poison_slots(self.fault_scope, self._dispatched_chunks)
+                      if 0 <= s < self.n_slots and self._table[s] is not None]  # fmt: skip
+            if poison:
+                self._poison_slots(poison)
         if self._program is not None:
             self._program.replay()
         else:
@@ -2211,6 +2226,22 @@ class GenerationEngine:
         else:  # the next chunk rewrites the buffer
             host = self._boundary.clone()
         self._inflight.append((self._dispatched_chunks, host, event))
+
+    def _poison_slots(self, slots: list[int]) -> None:
+        """The ``nan_slot`` fault (JAX's ``_poison_jit``): NaN into each
+        slot's ``big.time_delta`` at ``max(cursor - 2, 0)``, the delta behind
+        the last committed event. Every forward reads the slot's time as the
+        cumulative sum of its row's deltas (`time_from_deltas`, in
+        `_trim_to_event`, the spec and prefill windows), so the next one
+        embeds a NaN time and the health sentinel quarantines the slot (the
+        last event's own delta is overwritten by the next append before any
+        forward reads it). An eager indexed write between replays, in place
+        (the captured chunk reads ``big`` by address); the slot list is a
+        host-to-device copy, which no capture sees. Row-local: co-resident
+        slots are untouched."""
+        rows = torch.tensor(slots, dtype=torch.long, device=self.device)
+        cols = (self.cursor[rows].long() - 2).clamp(min=0)
+        self.big.time_delta[rows, cols] = float("nan")
 
     @torch.inference_mode()
     def resolve_chunk(self, now: float, fetch_results: bool = True) -> list[EngineResult]:
@@ -2336,6 +2367,8 @@ class GenerationEngine:
                 )
             self._check_tree(self._draft.state_dict(), new_draft_params, "draft ", "draft")
             self._shadow_draft = self._stage(self._draft, self._shadow_draft, new_draft_params)
+        # A fault plan may garble the staged target (JAX's order: after the draft).
+        new_params = _sfaults.maybe_corrupt_shadow(self.fault_scope, new_params)
         self._shadow = self._stage(self._model, self._shadow, new_params)
         self._shadow_stacked = {} if self._unfused else stack_layer_weights(self._shadow.encoder.blocks(), self.cdt)
 

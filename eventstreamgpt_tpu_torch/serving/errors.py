@@ -9,7 +9,16 @@ from __future__ import annotations
 
 from .scheduler import AdmissionRejected
 
-__all__ = ["BlockLedgerError", "DeadlineExceeded", "MalformedPromptRejected", "ServingError", "SlotHealthError"]
+__all__ = [
+    "BlockLedgerError",
+    "DeadlineExceeded",
+    "MalformedPromptRejected",
+    "PromotionError",
+    "ReplicaDeadError",
+    "ReplicaHungError",
+    "ServingError",
+    "SlotHealthError",
+]
 
 
 class ServingError(RuntimeError):
@@ -44,6 +53,32 @@ class DeadlineExceeded(ServingError):
         self.lane = lane
         self.deadline_s = deadline_s
         self.waited_s = waited_s
+
+
+class ReplicaDeadError(ServingError):
+    """A replica's dispatch path died (device lost, injected death fault).
+
+    Raised from the engine's dispatch hooks; the fleet's health monitor
+    converts it into an eviction (`ServingFleet`) and replays the dead
+    service's in-flight sessions on survivors from their bound seeds.
+    """
+
+
+class ReplicaHungError(ServingError):
+    """A replica exceeded the bounded boundary-readback timeout (hung
+    dispatch watchdog). Like `ReplicaDeadError`, handled by eviction."""
+
+
+class PromotionError(ServingError):
+    """A fleet checkpoint promotion failed and was rolled back.
+
+    Either the shadow verification gate (finite-output probe on the staged
+    weights) rejected the checkpoint before any flip, or a flip failed
+    mid-fleet — in both cases the fleet rolls back onto the live weights
+    via the hot-swap double buffer (`drop_shadow`, flipping back any
+    already-flipped services) and keeps serving; no accepted request is
+    dropped (`swap_report`).
+    """
 
 
 class MalformedPromptRejected(AdmissionRejected):

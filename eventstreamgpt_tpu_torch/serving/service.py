@@ -20,10 +20,11 @@ JAX takes a ``base_key``.
 
 Determinism: accepted request ``i`` runs with
 ``derive_request_seed(seed, i)``, bound into ``Request.key`` at accept time,
-as a single engine with that ``seed`` derives it, so a request's events do
-not depend on its replica, slot, lane or prefill path. Floats are bit for
-bit the same only where the programs' shapes are the same: a product's bits
-can change with the group width a prompt's prefill runs at.
+as a single engine with that ``seed`` derives it, so a request's seed does
+not depend on its replica, slot, lane or prefill path. Its floats are bit for
+bit the same only where the programs' shapes are the same (a product's bits
+can change with the engine's slot count and the group width a prompt's
+prefill runs at), and a bf16 model's events follow its floats.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Any, Optional, Sequence, Union
 
 from ..data.types import EventStreamBatch
 from ..generation.sampling import derive_request_seed
+from ..reliability.preemption import Preempted
 from .engine import GenerationEngine
 from .errors import DeadlineExceeded, MalformedPromptRejected
 from .fleet import _params_mismatch
@@ -163,10 +165,14 @@ class ServingService:
         self._last_step_progressed = False
 
     # ------------------------------------------------------------ admission
-    def submit(self, request: Request, lane: Optional[str] = None) -> bool:
+    def submit(self, request: Request, lane: Optional[str] = None, force: bool = False) -> bool:
         """Offers a request to a lane. True: accepted (an admission index and
         seed are bound); False: rejected by the lane's bound (counted; no
-        index bound, so the accepted set's results are unchanged)."""
+        index bound, so the accepted set's results are unchanged).
+        ``force=True`` bypasses the lane's bound: the fleet's eviction replay
+        and its release of held requests use it, since that work was
+        accepted once already and bouncing it would drop it (the overshoot is
+        bounded by the evicted service's in-flight count)."""
         lane = lane or self.default_lane
         if request.max_new_events < 1:
             raise ValueError("max_new_events must be >= 1")
@@ -185,7 +191,7 @@ class ServingService:
                     "bound)"
                 )
         cfg = self.lanes.configs[lane]
-        if cfg.max_pending is not None and self.lanes.depth(lane) >= cfg.max_pending:
+        if not force and cfg.max_pending is not None and self.lanes.depth(lane) >= cfg.max_pending:
             self.lanes.offer(request, lane)  # counts the reject, does not enqueue
             return False
         index = self._next_index
@@ -193,8 +199,8 @@ class ServingService:
         internal = dataclasses.replace(request, request_id=index, prompt_validated=True)
         if internal.key is None:
             internal.key = derive_request_seed(self.seed, index)
-        accepted = self.lanes.offer(internal, lane)
-        assert accepted  # the bound was checked above
+        accepted = self.lanes.offer(internal, lane, force=force)
+        assert accepted  # the bound was checked above (or force bypassed it)
         self._meta[index] = {"lane": lane, "request_id": request.request_id, "arrival": request.arrival_time,
                              "budget": request.max_new_events, "replica": None}  # fmt: skip
         return True
@@ -208,6 +214,7 @@ class ServingService:
         lane: Optional[str] = None,
         key: Optional[int] = None,
         request_id=None,
+        request_ids=None,
         arrival_time: float = 0.0,
     ) -> list[int]:
         """Accepts one prompt as ``n_branches`` copy-on-write branches (paged
@@ -216,7 +223,9 @@ class ServingService:
         ``derive_request_seed(seed, i)`` for one freshly consumed admission
         index ``i``; branch ``j`` draws from ``derive_request_seed(session,
         j)``, as ``n_branches`` submissions of the prompt with those keys
-        would. Returns the branches' admission indices."""
+        would. Results carry ``(request_id, j)``, or ``request_ids[j]`` (the
+        fleet passes its own indices). Returns the branches' admission
+        indices."""
         if not all(e.paged_kv for e in self.replicas):
             raise ValueError(
                 "fork() needs every replica on the paged KV cache (paged_kv=True): branches share prefix blocks "
@@ -233,6 +242,8 @@ class ServingService:
         n_branches = int(n_branches)
         if n_branches < 1:
             raise ValueError("n_branches must be >= 1")
+        if request_ids is not None and len(request_ids) != n_branches:
+            raise ValueError(f"request_ids has {len(request_ids)} entries for {n_branches} branches")
         if max_new_events < 1:
             raise ValueError("max_new_events must be >= 1")
         prompt_len = int(prompt.sequence_length)
@@ -253,7 +264,10 @@ class ServingService:
         for j in range(n_branches):
             index = self._next_index
             self._next_index += 1
-            rid = None if request_id is None else (request_id, j)
+            if request_ids is not None:
+                rid = request_ids[j]
+            else:
+                rid = None if request_id is None else (request_id, j)
             self._meta[index] = {"lane": lane, "request_id": rid, "arrival": arrival_time, "budget": max_new_events,
                                  "replica": ri}  # fmt: skip
             indices.append(index)
@@ -323,13 +337,22 @@ class ServingService:
         *,
         use_arrival_times: bool = False,
         fetch_results: bool = True,
+        shutdown: Optional[Any] = None,
     ) -> list[ServiceResult]:
         """Serves ``requests`` (each a `Request` or ``(Request, lane)``) to
         completion; results in admission order. Without
         ``use_arrival_times`` all are submitted first (lane bounds apply to
         the whole set); with it the sequence is a replay trace, each request
         offered to its lane when it arrives on the service's clock.
-        Rejected requests are absent from the results (counted in `stats`)."""
+        Rejected requests are absent from the results (counted in `stats`).
+
+        ``shutdown``, a `reliability.GracefulShutdown`: once it is requested
+        (SIGTERM, SIGINT or `request()`), the loop admits nothing more (the
+        trace's later arrivals are abandoned and lane backlogs stay
+        unplaced), drains every resident slot (placed and reserved-prefill
+        work completes), then raises `reliability.Preempted` with the
+        completed results on ``results``; an entry-point script turns it into
+        ``EXIT_PREEMPTED``."""
         trace = [r if isinstance(r, tuple) else (r, self.default_lane) for r in requests]
         if not use_arrival_times:
             for req, lane in trace:
@@ -341,18 +364,28 @@ class ServingService:
         results: list[ServiceResult] = []
         t0 = time.perf_counter()
         ptr = 0
-        while ptr < len(trace) or self.busy():
+        draining = False
+        while True:
+            draining = draining or (shutdown is not None and shutdown.requested)
+            if not (self.resident_busy() if draining else ptr < len(trace) or self.busy()):
+                break
             now = time.perf_counter() - t0
-            while ptr < len(trace) and trace[ptr][0].arrival_time <= now:
+            while not draining and ptr < len(trace) and trace[ptr][0].arrival_time <= now:
                 try:
                     self.submit(*trace[ptr])
                 except MalformedPromptRejected:
                     pass
                 ptr += 1
-            results.extend(self.step(lambda: time.perf_counter() - t0, fetch_results))
+            results.extend(self.step(lambda: time.perf_counter() - t0, fetch_results, place=not draining))
             if not self._last_step_progressed:
                 time.sleep(1e-3)  # waiting on arrivals
-        return sorted(results, key=lambda r: r.admission_index)
+        results = sorted(results, key=lambda r: r.admission_index)
+        if draining:
+            raise Preempted(
+                f"serving preempted: drained {len(results)} completed results; {self.lanes.pending} queued and "
+                f"{len(trace) - ptr} unarrived requests abandoned", results=results,
+            )  # fmt: skip
+        return results
 
     def resident_busy(self) -> bool:
         """Work placed on a replica or reserved on the prefill stream."""
@@ -368,16 +401,20 @@ class ServingService:
         """Work anywhere: lane backlogs, the prefill stream or any replica."""
         return self.lanes.pending > 0 or self.resident_busy()
 
-    def step(self, clock, fetch_results: bool = True) -> list[ServiceResult]:
+    def step(self, clock, fetch_results: bool = True, place: bool = True) -> list[ServiceResult]:
         """One scheduling round: expire stale queued requests, place lane
         picks, pump the prefill stream, and issue or resolve each replica's
         pipelined chunks. ``clock()`` gives the service time that stamps
         completions. Returns the requests finished this round;
         ``_last_step_progressed`` says whether anything moved. The stream is
         pumped in every round, one with an expiry too (JAX's ``step`` skips
-        the pump there, holding placed requests a round longer)."""
+        the pump there, holding placed requests a round longer).
+        ``place=False`` is the drain of a graceful preemption: no lane pick
+        is placed, and placed or resident work (reserved prefill-stream
+        entries too) runs on to completion."""
         results: list[ServiceResult] = list(self._expire(clock()))
-        self._place()
+        if place:
+            self._place()
         progressed = bool(results)
         if self.prefill_stream is not None:
             progressed = self.prefill_stream.pump() > 0 or progressed

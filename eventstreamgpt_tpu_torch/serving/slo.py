@@ -98,13 +98,15 @@ class LaneQueues:
         # (resets while the lane is empty — idle time banks nothing).
         self._share_credit = {l.name: 0.0 for l in lanes}
 
-    def offer(self, item: Any, lane: str) -> bool:
-        """Enqueues ``item`` on ``lane``; False ⇒ rejected (lane full)."""
+    def offer(self, item: Any, lane: str, force: bool = False) -> bool:
+        """Enqueues ``item`` on ``lane``; False ⇒ rejected (lane full).
+        ``force=True`` bypasses the bound (eviction replay of
+        already-accepted work — see `ServingService.submit`)."""
         if lane not in self._queues:
             raise KeyError(f"unknown lane {lane!r} (have {list(self.order)})")
         cfg = self.configs[lane]
         q = self._queues[lane]
-        if cfg.max_pending is not None and len(q) >= cfg.max_pending:
+        if not force and cfg.max_pending is not None and len(q) >= cfg.max_pending:
             self.rejected[lane] += 1
             return False
         q.append(item)

@@ -1538,3 +1538,22 @@ def test_captured_service_with_a_prefill_stream(cuda):
     for a, b in zip(local, first):
         for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices"):
             assert torch.equal(getattr(a.batch, f), getattr(b.batch, f)), f
+
+
+def test_a_row_does_not_depend_on_its_batch(cuda):
+    """`tools/row_invariance.py` at the serving model's width (bf16, 32 rows of
+    192 events): the prefill at every power-of-two group width from 2 to 32
+    gives each row what it gives the row alone, and a decode step at 32 slots
+    what it gives at 16, bit for bit in every prediction and greedy draw; no
+    operation's rows depend on the batch; kernel B's rows equal on the same
+    inputs."""
+    from eventstreamgpt_tpu_torch.tools.row_invariance import row_invariance
+
+    bf16 = row_invariance(cuda, rows=32, length=192)[0]
+    assert bf16["precision"] == "bf16"
+    for part in bf16["prefill"] + [bf16["decode"]]:
+        assert part["ops"]["ops_differing"] == [], part["rows"]
+        out = part["outputs"]
+        assert out["rows_with_other_decisions"] == 0 and out["float_draws_max_abs"] == 0.0, part["rows"]
+        assert set(out["pred_floats_max_abs"].values()) == {0.0}, part["rows"]
+    assert bf16["decode"]["kernel_b_same_input"] == dict(rows_equal=True, max_abs=0.0)

@@ -54,10 +54,15 @@ def test_every_module_imports_with_jax_blocked():
     "module",
     ["eventstreamgpt_tpu_torch.data.device_dataset", "eventstreamgpt_tpu_torch.data.torch_dataset",
      "eventstreamgpt_tpu_torch.training.pretrain", "eventstreamgpt_tpu_torch.tools.profile_train",
-     "eventstreamgpt_tpu_torch.utils.enums", "eventstreamgpt_tpu_torch.serving.spec"],
+     "eventstreamgpt_tpu_torch.utils.enums", "eventstreamgpt_tpu_torch.serving.spec",
+     "eventstreamgpt_tpu_torch.serving.router", "eventstreamgpt_tpu_torch.serving.fleet",
+     "eventstreamgpt_tpu_torch.reliability", "eventstreamgpt_tpu_torch.reliability.serving_faults",
+     "eventstreamgpt_tpu_torch.reliability.preemption", "eventstreamgpt_tpu_torch.tools.row_invariance"],
 )  # fmt: skip
 def test_sweep_covers_the_resident_feed(module):
-    """The resident feed, the chunked step and speculative decoding are in the JAX-blocked import sweep above."""
+    """The resident feed, the chunked step, speculative decoding, the fleet's
+    router, the serving fault plan and the row-invariance tool are in the
+    JAX-blocked import sweep above."""
     assert module in MODULES
 
 
