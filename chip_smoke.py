@@ -210,10 +210,12 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    ``bench.py``'s draft (`serving.spec.truncated_draft`, the first
    ``num_hidden_layers // 2`` = 1 layer) and ``k`` 4, on phase 2's 64
    requests: bf16 greedy at zero tolerances (depth 2), bf16 sampled at the
-   default tolerances (depths 1 and 2) and int8 sampled (depth 2), each in
-   phase 2's three passes, captured: every request finishes with
-   ``n_events == prompt_len + n_generated`` and finite outputs, each pass
-   after ``reset()`` equals the warm pass bit for bit (with the same
+   default tolerances (depths 1 and 2) and int8 sampled (depth 2), captured:
+   bf16 sampled at depth 1 in phase 2's three passes, the others in the warm
+   and accounting passes only (to keep the script's time): every request
+   finishes with ``n_events == prompt_len + n_generated`` and finite
+   outputs, the fetching pass after ``reset()`` equals the warm pass bit for
+   bit and every accounting pass has its accounting (each with the same
    per-request proposals and acceptances), one capture a key and none after
    ``reset()``, one spec-chunk replay a dispatched chunk (16 rounds each),
    kernel A's counter moving on sampled runs and kernel B's counters (every
@@ -387,7 +389,41 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    arrivals (a second run on the same engines); the promotion's staging,
    each service's drain wall and flip device ms, ``held_peak``; the
    eviction's replay count and wall; ``stats()``.
-18. The wall seconds of each phase function (`tools/phase_times.py`), one
+18. Pretraining from a DL cache: `data.synthetic.write_synthetic_cache`
+   writes bench.py's cohort (512 train, 64 tuning and 64 held-out subjects;
+   40 event types, 3,500 labs, 500 meds; mean length 200, at most 512; seed
+   0) in the converted format, and `training.pretrain.train(cfg)` trains
+   bench.py's CI model (phase 4's widths, bf16, dropout 0.1) on it from
+   `TorchDataset` (``max_seq_len`` 256, ``min_seq_len`` 4) with bench.py's
+   optimizer (rate 1e-3, batches of 32, 2 epochs of 16 steps, warmup 0.1),
+   a log window every 4 steps and a kept checkpoint every 8. (a) Resident
+   tables and the captured chunked step: tuning loss finite and lower after
+   epoch 1; every log window with its split, step and a finite loss; one
+   capture, in epoch 0 (the guard armed in epoch 1); kernel C forward 40
+   times (32 steps and 8 eval forwards) and backward 32, through the
+   replays; `load_pretrained` of the written weights onto the card equals
+   the live weights (the last checkpoint's); the final validation's
+   every metric finite. (b) Host collation with the prefetch thread feeding
+   the captured single step: every weight, AdamW tensor, logged loss and
+   final metric equal to (a)'s bit for bit (the later runs skip the final
+   validation and are held by their weights and logs). (c) A save_dir seeded with (a)'s
+   checkpoints 8, 16 and 24 resumes at epoch 1 past 8 batches and ends equal
+   to (a); with step 24 corrupted it walks back to 16 and ends equal to (a).
+   (d) A scripted SIGTERM at step 12 ends the run with `Preempted` after its
+   final checkpoint; the relaunch ends equal to (a). (e) On the host path a
+   NaN batch in epoch 1 rolls back to step 16 in place (every parameter and
+   AdamW tensor at its address), excises the window, and the run ends finite
+   without another capture. (f) Gradient accumulation 2 for an epoch: finite
+   losses, 8 updates in 16 loop steps; a small fp32 run (hidden 32, no
+   dropout, accumulation 2) on the card equals the same run on the CPU
+   within 1e-4 (losses and weights). (g) Phase 6's NA model through
+   `train()` for an epoch: kernel D twice a step each way plus twice in each
+   of the 2 tuning forwards, through the replays; finite losses. pandas and pyarrow are never
+   imported. Printed beside the card's name and power limit: trained
+   events/s of each log window and epoch, each epoch's wall split into
+   steps, tuning evaluation and checkpoint saves, the final validation's
+   seconds, one checkpoint save's and one resume's seconds, peak memory.
+19. The wall seconds of each phase function (`tools/phase_times.py`), one
    ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -581,8 +617,7 @@ def check_graph_counts(run, label, counter):
     check(warm["extract_graph_captures"] == warm["extract_graph_keys"] > 0,
           f"{label}: not one extraction capture a width: {warm}")  # fmt: skip
     before = dict.fromkeys(("graph_replays", "prefill_graph_replays"), 0)
-    for name in PASSES:
-        p = run["passes"][name]
+    for name, p in run["passes"].items():
         s = p["stats"]
         for k in ("graph_captures", "prefill_graph_captures", "extract_graph_captures", "prefill_graph_keys"):
             check(s[k] == warm[k], f"{label} [{name} pass]: {k} {s[k]} after the warm pass's {warm[k]}")
@@ -596,8 +631,8 @@ def check_graph_counts(run, label, counter):
         if counter is not None:
             got = p["launches"][counter]
             check(got == steps, f"{label} [{name} pass]: kernel B launched {got} times for {steps} decode steps run")
-    acct, fetching = (run["passes"][k]["stats"]["extract_graph_replays"] for k in ("accounting", "fetching"))
-    check(acct == fetching, f"{label}: the accounting pass extracted rows")
+    *_, before_acct, acct = (p["stats"]["extract_graph_replays"] for p in run["passes"].values())
+    check(acct == before_acct, f"{label}: the accounting pass extracted rows")
 
 
 def check_eager_counts(run, label, counter, sampled):
@@ -660,11 +695,14 @@ def same_results(a_results, b_results, label, what="captured vs eager"):
 
 
 def check_passes(run, label):
-    """The passes after ``reset()`` give the warm pass's results bit for bit;
-    the accounting pass's results carry no rows and the same accounting."""
+    """The passes after ``reset()`` give the warm pass's results: bit for bit
+    in the ``fetching`` pass (where the run makes one), and in the
+    ``accounting`` pass no rows and the same accounting."""
     passes = run["passes"]
-    same_results(passes["warm"]["results"], passes["fetching"]["results"], label, "warm pass vs the pass after reset()")
-    fetched, acct = passes["fetching"]["results"], passes["accounting"]["results"]
+    if "fetching" in passes:
+        same_results(passes["warm"]["results"], passes["fetching"]["results"], label,
+                     "warm pass vs the pass after reset()")  # fmt: skip
+    fetched, acct = passes["warm"]["results"], passes["accounting"]["results"]
     check(len(acct) == len(fetched) and all(r.batch is None and r.error is None for r in acct),
           f"{label}: the accounting pass fetched rows or failed")  # fmt: skip
     for a, b in zip(fetched, acct):
@@ -697,7 +735,7 @@ def walls_line(captured, eager, generated) -> str:
 def programs_line(run) -> str:
     s = run["passes"]["accounting"]["stats"]
     return (f"prefill programs {s['prefill_graph_keys']} keys ({s['prefill_graph_captures']} captures, "
-            f"{s['prefill_graph_replays']} replays over the three passes), extraction programs "
+            f"{s['prefill_graph_replays']} replays over the {len(run['passes'])} passes), extraction programs "
             f"{s['extract_graph_keys']} widths ({s['extract_graph_captures']} captures, {s['extract_graph_replays']} "
             f"replays), decode chunk {s['graph_captures']} capture, {s['graph_replays']} replays")  # fmt: skip
 
@@ -1294,7 +1332,7 @@ def training_run(label, smi, config, batch, counters, capture=None, steps=TRAIN_
     def fresh(**kw):
         model = init_params_from_seed(build_model(config), seed=SEED)
         oc = OptimizationConfig(init_lr=1e-3, batch_size=TRAIN_BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
-        oc.set_to_dataset(n_subjects=512)  # bench.py's 512 training subjects
+        oc.set_to_dataset(range(512))  # a stand-in for bench.py's 512 training subjects
         optimizer, scheduler = build_optimizer(model, oc)
         return make_train_step(model, optimizer, scheduler, with_health=True, **kw)
 
@@ -2107,15 +2145,16 @@ def chunked_training_phase(smi):
         synthetic_csr,
         training_config,
     )
-    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset, CSRDatasetConfig
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset
     from eventstreamgpt_tpu_torch.ops import flash_attention as fa
     from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_bwd, dep_graph_fwd
     from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
 
     t0 = time.perf_counter()
     csr = synthetic_csr(np.random.default_rng(SEED), serving_config(), COHORT, mean_seq_len=200)
-    padded = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=TRAIN_SEQ)))
-    packed = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=PACKED_SEQ)))
+    padded = DeviceDataset(CSRDataset(csr, PytorchDatasetConfig(max_seq_len=TRAIN_SEQ)))
+    packed = DeviceDataset(CSRDataset(csr, PytorchDatasetConfig(max_seq_len=PACKED_SEQ)))
     for dd in (padded, packed):
         check(dd.nbytes == DeviceDataset.estimate_nbytes(dd.dataset) and dd.arrays["dynamic_indices"].is_cuda,
               "phase 10: the resident tables are not what estimate_nbytes predicts, or not on the card")  # fmt: skip
@@ -2402,8 +2441,9 @@ SPEC_STRICT = dict(value_rtol=0.0, value_atol=0.0)
 
 def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
     """The spec engine on phase 2's requests (bf16 greedy at zero tolerances,
-    depth 2; bf16 sampled at depths 1 and 2; int8 sampled at depth 2), each
-    in phase 2's three passes, captured; the sampled bf16 (depth 1) and int8
+    depth 2; bf16 sampled at depths 1 and 2; int8 sampled at depth 2),
+    captured: bf16 sampled at depth 1 in phase 2's three passes, the others
+    in the warm and accounting passes; the sampled bf16 (depth 1) and int8
     runs against the same engine run eagerly (warm pass, bit for bit)."""
 
     def kernel_b(launches):
@@ -2413,9 +2453,11 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
     for name, kv, mode, depth in (("bf16", None, "greedy", 2), ("bf16", None, "sampled", 1),
                                   ("bf16", None, "sampled", 2), ("int8", "int8", "sampled", 2)):  # fmt: skip
         label = f"phase 12 [spec {name} {mode}, depth {depth}]"
+        t0 = time.perf_counter()
         sc = spec(**(SPEC_STRICT if mode == "greedy" else {}))
         kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv, dispatch_depth=depth, spec=sc)
-        run = engine_run(model, config, prompts, counters, **kw)
+        passes = PASSES if (name, mode, depth) == ("bf16", "sampled", 1) else ("warm", "accounting")
+        run = engine_run(model, config, prompts, counters, passes=passes, **kw)
         stats = run["stats"]
         check_results(run["results"], run["requests"], label)
         check(stats["decode_step_impl"] == "spec_draft_verify", f"{label}: not the spec engine: {stats}")
@@ -2430,7 +2472,7 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
         check_graph_counts(run, label, None)
         check_passes(run, label)
         spec_counts = [(r.spec_proposed, r.spec_accepted) for r in run["results"]]
-        for pname in ("fetching", "accounting"):
+        for pname in passes[1:]:
             check([(r.spec_proposed, r.spec_accepted) for r in run["passes"][pname]["results"]] == spec_counts,
                   f"{label} [{pname} pass]: per-request proposals or acceptances differ from the warm pass")  # fmt: skip
         if mode == "sampled" and (depth == 1 or kv is not None):
@@ -2439,7 +2481,7 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
             check([(r.spec_proposed, r.spec_accepted) for r in eager["results"]] == spec_counts,
                   f"{label}: per-request proposals or acceptances differ captured and eager")  # fmt: skip
             # Kernel A through the replays: a pass after reset() (no warm-up) launches it as the eager run does.
-            a, b = (r["fused_categorical_stream"] for r in (eager["launches"], run["passes"]["fetching"]["launches"]))
+            a, b = (r["fused_categorical_stream"] for r in (eager["launches"], run["passes"][passes[1]]["launches"]))
             check(a == b, f"{label}: kernel A launched {b} times captured after reset(), {a} eager")
         launches_a += run["launches"]["fused_categorical_stream"]
         acct = run["passes"]["accounting"]
@@ -2451,10 +2493,13 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
                      proposed=s["spec_proposed_events"], accepted=s["spec_accepted_events"],
                      committed=s["spec_committed_events"])  # fmt: skip
         out[(name, mode, depth)] = dict(run, rates=rates, generated=generated)
-        print(f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and float "
-              f"equal in each pass after reset(){' and captured vs eager' if mode == 'sampled' and (depth == 1 or kv) else ''}; "
-              f"accounting pass {json.dumps(rates)}; {programs_line(run)}; launches over three passes "
-              f"{run['launches']}; warm pass {run['passes']['warm']['wall_s']:.3f} s ({smi})", flush=True)  # fmt: skip
+        equal = "every event, integer and float equal in the pass after reset()" if "fetching" in passes else (
+            "the same accounting in the pass after reset()")  # fmt: skip
+        print(f"{label} {len(run['results'])} requests, {generated} generated events, {equal}"
+              f"{' and captured vs eager' if mode == 'sampled' and (depth == 1 or kv) else ''}; "
+              f"accounting pass {json.dumps(rates)}; {programs_line(run)}; launches over the {len(passes)} passes "
+              f"{run['launches']}; warm pass {run['passes']['warm']['wall_s']:.3f} s; the run, its checks and twin "
+              f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)  # fmt: skip
     return out, launches_a
 
 
@@ -2507,7 +2552,8 @@ def spec_phase(smi, model, config):
     # Events/s beside the monolithic unfused and kernel-B engines, sampled, depth 1, accounting pass.
     rates = {"spec": runs[("bf16", "sampled", 1)]["rates"]}
     for name, extra in (("monolithic unfused", dict(decode_step_impl="xla")), ("monolithic kernel B", {})):
-        r = engine_run(model, config, prompts, counters, greedy=False, dispatch_depth=1, **base_kw, **extra)
+        r = engine_run(model, config, prompts, counters, passes=("warm", "accounting"), greedy=False, dispatch_depth=1,
+                       **base_kw, **extra)  # fmt: skip
         a = r["passes"]["accounting"]
         rates[name] = dict(events_per_s=sum(x.n_generated for x in r["results"]) / a["wall_s"], wall_s=a["wall_s"],
                            chunks=a["stats"]["dispatched_chunks"])  # fmt: skip
@@ -3759,6 +3805,300 @@ def fleet_phase(smi, config, m1, m2) -> dict:
     return dict(launches_a=launches["fused_categorical_stream"], launches_b=launches["decode_stack_step"])
 
 
+# ---------------------------------------------------------------- phase 18
+PRETRAIN_COHORT = {"train": 512, "tuning": 64, "held_out": 64}  # bench.py's cohort
+PRETRAIN_SMALL = dict(sizes=(5, 40, 6, 16), hidden_size=32, head_dim=8, intermediate_size=64, seq_window_size=4)
+
+
+def pretrain_cfg(save_dir, data_dir, epochs=2, batch=None, seq=None, accumulation=None, final=False, **tc):
+    """bench.py's optimization settings (16 steps an epoch on its cohort;
+    batches of `TRAIN_BATCH`, rows of `TRAIN_SEQ`), a log record every 4
+    steps and a kept checkpoint every 8; the final validation with ``final``."""
+    batch, seq = batch or TRAIN_BATCH, seq or TRAIN_SEQ
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training.pretrain import PretrainConfig
+
+    return PretrainConfig(
+        seed=SEED, save_dir=str(save_dir),
+        optimization_config=OptimizationConfig(init_lr=1e-3, batch_size=batch, validation_batch_size=batch,
+                                               max_epochs=epochs, lr_frac_warmup_steps=0.1,
+                                               gradient_accumulation=accumulation),
+        data_config=PytorchDatasetConfig(save_dir=str(data_dir), max_seq_len=seq, min_seq_len=4),
+        trainer_config={"log_every_n_steps": 4, "checkpoint_every_n_steps": 8, "max_checkpoints_to_keep": 100, **tc},
+        do_final_validation_on_metrics=final,
+    )  # fmt: skip
+
+
+def read_train_log(save_dir) -> list:
+    return [json.loads(line) for line in (Path(save_dir) / "train_log.jsonl").open()]
+
+
+def pretrain_run(label, cfg, model_config, device="cuda", **kw) -> dict:
+    """One `train(cfg)`: its outputs, log, weights and wall seconds."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.training.pretrain import train
+
+    t0 = time.perf_counter()
+    out = train(cfg, model_config=model_config(), device=device, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    save = Path(cfg.save_dir)
+    log = read_train_log(save)
+    weights = torch.load(save / "pretrained_weights" / "model.pt", map_location="cpu", weights_only=True)
+    return dict(label=label, out=out, log=log, weights=weights, wall=wall, save=save)
+
+
+def train_losses(run, after=0) -> dict:
+    """``(epoch, step) -> train_loss`` of the log windows wholly after step ``after``."""
+    return {(r["epoch"], r["step"]): r["train_loss"] for r in run["log"] if r["split"] == "train"
+            and r["step"] - 4 >= after}  # fmt: skip
+
+
+def checkpoint_state(save_dir, step) -> dict:
+    import torch
+
+    return torch.load(Path(save_dir) / "model_checkpoints" / str(step) / "state.pt", map_location="cpu",
+                      weights_only=True)  # fmt: skip
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    import torch
+
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def same_as(run, ref, label, after=0, adam_step=None) -> None:
+    """``run`` ended as ``ref`` bit for bit: weights, final metrics, the log
+    windows wholly after ``after``, and (``adam_step``) the AdamW state of
+    the checkpoint there."""
+    check(same_tensors(run["weights"], ref["weights"]), f"{label}: the final weights differ from (a)'s")
+    check(run["out"][0] is None or run["out"] == ref["out"],
+          f"{label}: the final metrics differ from (a)'s: {run['out'][0]} vs {ref['out'][0]}")  # fmt: skip
+    mine, theirs = train_losses(run, after), train_losses(ref, after)
+    check(mine and all(mine[k] == theirs[k] for k in mine), f"{label}: logged losses {mine} differ from (a)'s {theirs}")
+    if adam_step is not None:
+        a, b = checkpoint_state(run["save"], adam_step)["adam"], checkpoint_state(ref["save"], adam_step)["adam"]
+        check(all(same_tensors(a[f], b[f]) for f in a), f"{label}: the AdamW state at step {adam_step} differs")
+
+
+def seed_save_dir(ref, dst, steps) -> Path:
+    """A save_dir holding ``ref``'s config files and its checkpoints at ``steps``."""
+    import shutil
+
+    dst = Path(dst)
+    (dst / "model_checkpoints").mkdir(parents=True)
+    for name in ("config.json", "data_config.json"):
+        shutil.copy(ref["save"] / name, dst / name)
+    for step in steps:
+        src = ref["save"] / "model_checkpoints"
+        shutil.copytree(src / str(step), dst / "model_checkpoints" / str(step))
+        for side in ("metadata", "manifest"):
+            shutil.copy(src / f"{side}_{step}.json", dst / "model_checkpoints")
+    return dst
+
+
+def epochs_line(run) -> str:
+    """Trained events/s of each window and epoch, each epoch's wall split, the final validation's seconds."""
+    windows = [r for r in run["log"] if r["split"] == "train"]
+    epochs = [r for r in run["log"] if r["split"] == "tuning"]
+    final = next((r for r in run["log"] if r["split"] == "final"), {})
+    parts = []
+    for e in epochs:
+        events = sum(w["events"] for w in windows if w["epoch"] == e["epoch"])
+        parts.append(f"epoch {e['epoch']}: {events / e['steps_s']:.1f} trained events/s, wall {e['epoch_time_s']:.3f} s "
+                     f"(steps {e['steps_s']:.3f}, tuning eval {e['eval_s']:.3f}, checkpoint saves "
+                     f"{e['checkpoint_s']:.3f})")  # fmt: skip
+    windows_s = [round(w["events_per_sec"], 1) for w in windows]
+    return (f"windows' trained events/s {windows_s}; {'; '.join(parts)}; final validation "
+            f"{final.get('validation_s', float('nan')):.3f} s; train() wall {run['wall']:.2f} s")
+
+
+def pretrain_phase(smi) -> dict:
+    """Phase 18: `training.pretrain.train(cfg)` from a converted DL cache on the card (module docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.training.pretrain as pretrain_module
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, write_synthetic_cache
+    from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_bwd, dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+    from eventstreamgpt_tpu_torch.reliability import Fault, FaultPlan, Preempted, corrupt_checkpoint_step, fault_plan
+    from eventstreamgpt_tpu_torch.reliability.integrity import ReliableCheckpointManager
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer
+    from eventstreamgpt_tpu_torch.training.checkpoint import load_pretrained
+    from eventstreamgpt_tpu_torch.training.optimizer import make_capturable
+
+    counters = (vocab_gather_fwd, vocab_gather_bwd, dep_graph_fwd, dep_graph_bwd)
+    ci = lambda: serving_config(precision="bf16")  # noqa: E731  (bench.py's CI training model, dropout 0.1)
+    na = lambda: serving_config(precision="bf16", **NA_OVERRIDES)  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        cache = write_synthetic_cache(tmp / "cache", PRETRAIN_COHORT, n_event_types=40, n_labs=3500, n_meds=500,
+                                      mean_seq_len=200, max_seq_len=512, seed=SEED)  # fmt: skip
+        cache_s = time.perf_counter() - t0
+
+        # (a) resident tables, the captured chunked step
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        a = pretrain_run("(a)", pretrain_cfg(tmp / "a", cache, final=True), ci)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = {fn.__name__: fn.launches for fn in counters}
+        tuning = [r for r in a["log"] if r["split"] == "tuning"]
+        windows = [r for r in a["log"] if r["split"] == "train"]
+        check([r["epoch"] for r in tuning] == [0, 1] and tuning[1]["tuning_loss"] < tuning[0]["tuning_loss"]
+              and all(math.isfinite(r["tuning_loss"]) for r in tuning),
+              f"phase 18 (a): tuning losses {[r['tuning_loss'] for r in tuning]} not finite and falling")  # fmt: skip
+        check([r["step"] for r in windows] == [4, 8, 12, 16, 20, 24, 28, 32]
+              and all(r["split"] == "train" and math.isfinite(r["train_loss"]) for r in windows),
+              f"phase 18 (a): the train log's windows {windows}")  # fmt: skip
+        check(tuning[0]["graph_captures"] == tuning[1]["graph_captures"] == 1,
+              f"phase 18 (a): captures after each epoch {[r['graph_captures'] for r in tuning]}, not 1 and 1")  # fmt: skip
+        steps, evals = 32, 2 * 2 + 2 + 2  # two tuning passes of 2 batches, then tuning and held_out
+        want = {"vocab_gather_fwd": steps + evals, "vocab_gather_bwd": steps, "dep_graph_fwd": 0, "dep_graph_bwd": 0}
+        check(launches == want, f"phase 18 (a): launches {launches}, expected {want}")
+        live = checkpoint_state(a["save"], 32)["params"]  # the live state at the end, as its last checkpoint holds it
+        loaded, _ = load_pretrained(a["save"], device="cuda")
+        check(same_tensors({k: t.cpu() for k, t in loaded.state_dict().items()}, live),
+              "phase 18 (a): load_pretrained's weights are not the live weights")  # fmt: skip
+        loss, tuning_m, held_out_m = a["out"]
+        metrics = {**tuning_m, **held_out_m}
+        check(all(math.isfinite(v) for v in metrics.values()) and len(tuning_m) == len(held_out_m) >= 10
+              and "tuning_TTE_MSE" in tuning_m and "held_out_lab_MSE" in held_out_m,
+              f"phase 18 (a): final metrics {metrics}")  # fmt: skip
+
+        # (b) host collation and the prefetch thread feeding the captured single step
+        b = pretrain_run("(b)", pretrain_cfg(tmp / "b", cache, final=True, device_resident_data=False), ci)
+        same_as(b, a, "phase 18 (b) [host path]", adam_step=32)
+        check(train_losses(b) == train_losses(a), "phase 18 (b): a logged loss differs from (a)'s")
+
+        # (c) resume at epoch 1 with 8 batches to skip, then a walk-back over a corrupt step 24
+        meta = json.loads((a["save"] / "model_checkpoints" / "metadata_24.json").read_text())
+        check(meta == {"epoch": 1, "epoch_complete": False, "step_in_epoch": 8}, f"phase 18 (c): step 24's metadata {meta}")
+        t0 = time.perf_counter()
+        c = pretrain_run("(c)", pretrain_cfg(seed_save_dir(a, tmp / "c", (8, 16, 24)), cache), ci)
+        same_as(c, a, "phase 18 (c) [resume at 24]", after=24)
+        walk = seed_save_dir(a, tmp / "c_walk", (8, 16, 24))
+        corrupt_checkpoint_step(walk / "model_checkpoints", 24)
+        c_walk = pretrain_run("(c walk-back)", pretrain_cfg(walk, cache), ci)
+        check(not (walk / "model_checkpoints" / "24").exists() or checkpoint_state(walk, 24)["step"] == 24,
+              "phase 18 (c): the corrupt step was neither removed nor rewritten")  # fmt: skip
+        same_as(c_walk, a, "phase 18 (c) [walk back to 16]", after=16)
+        resumes_s = time.perf_counter() - t0
+
+        # (d) a scripted SIGTERM at step 12, then the relaunch
+        plan = FaultPlan([Fault(kind="sigterm", step=12)])
+        try:
+            with fault_plan(plan):
+                pretrain_run("(d)", pretrain_cfg(tmp / "d", cache), ci)
+            fail("phase 18 (d): train() was not preempted")
+        except Preempted as e:
+            check(e.step == 12, f"phase 18 (d): preempted with its final checkpoint at {e.step}, not 12")
+        d = pretrain_run("(d relaunch)", pretrain_cfg(tmp / "d", cache), ci)
+        same_as(d, a, "phase 18 (d) [relaunch]", after=12)
+
+        # (e) host path, a poisoned batch in epoch 1: rollback in place
+        ptrs = {}
+        original = pretrain_module.load_train_state
+
+        def watched(sd, model, optimizer, scheduler, state):
+            before = [p.data_ptr() for p in model.parameters()] + [t.data_ptr() for st in optimizer.state.values()
+                                                                   for t in st.values()]  # fmt: skip
+            original(sd, model, optimizer, scheduler, state)
+            ptrs.setdefault("same", []).append(before == [p.data_ptr() for p in model.parameters()] + [
+                t.data_ptr() for st in optimizer.state.values() for t in st.values()])  # fmt: skip
+
+        pretrain_module.load_train_state = watched
+        plan = FaultPlan([Fault(kind="nan_batch", epoch=1, batch_index=2)])
+        try:
+            with fault_plan(plan):
+                e = pretrain_run("(e)", pretrain_cfg(tmp / "e", cache, device_resident_data=False), ci)
+        finally:
+            pretrain_module.load_train_state = original
+        events = [r for r in e["log"] if r["split"] == "reliability"]
+        e_tuning = [r for r in e["log"] if r["split"] == "tuning"]
+        check(plan.fired == [{"kind": "nan_batch", "epoch": 1, "batch_index": 2}] and len(events) == 1
+              and events[0]["restored_step"] == 16, f"phase 18 (e): rollback events {events}, faults {plan.fired}")  # fmt: skip
+        check(ptrs.get("same") == [True], f"phase 18 (e): a restore moved a parameter or AdamW tensor: {ptrs}")
+        check(all(math.isfinite(r["tuning_loss"]) for r in e_tuning)
+              and [r["graph_captures"] for r in e_tuning] == [1, 1],
+              f"phase 18 (e): the run after the rollback {e_tuning}")  # fmt: skip
+
+        # (f) gradient accumulation 2 for an epoch at full width; a small fp32 run, card against CPU
+        f = pretrain_run("(f)", pretrain_cfg(tmp / "f", cache, epochs=1, accumulation=2), ci)
+        f_state = checkpoint_state(f["save"], 16)
+        check(f_state["step"] == 16 and f_state["scheduler_step"] == 8
+              and all(math.isfinite(r["train_loss"]) for r in f["log"] if r["split"] == "train"),
+              f"phase 18 (f): loop steps {f_state['step']}, scheduler steps {f_state['scheduler_step']}")  # fmt: skip
+        small_cache = write_synthetic_cache(tmp / "small_cache", {"train": 32, "tuning": 8, "held_out": 8},
+                                            n_event_types=5, n_labs=40, n_meds=6, n_static=16, mean_seq_len=20,
+                                            max_seq_len=40, seed=SEED)  # fmt: skip
+        small = lambda: serving_config(precision="fp32", attention_dropout=0.0, input_dropout=0.0,  # noqa: E731
+                                       resid_dropout=0.0, **PRETRAIN_SMALL)  # fmt: skip
+        small_runs = {dev: pretrain_run(f"(f small {dev})", pretrain_cfg(tmp / f"f_{dev}", small_cache, epochs=2,
+                                                                          batch=4, seq=16, accumulation=2), small,
+                                        device=dev) for dev in ("cuda", "cpu")}  # fmt: skip
+        gpu_l, cpu_l = train_losses(small_runs["cuda"]), train_losses(small_runs["cpu"])
+        check(sorted(gpu_l) == sorted(cpu_l) and all(abs(gpu_l[k] - cpu_l[k]) <= 1e-4 * max(1, abs(cpu_l[k]))
+                                                      for k in cpu_l),
+              f"phase 18 (f): the small run's losses on the card {gpu_l} vs the CPU {cpu_l}")  # fmt: skip
+        w_gpu, w_cpu = small_runs["cuda"]["weights"], small_runs["cpu"]["weights"]
+        worst = max(float((w_gpu[k] - w_cpu[k]).abs().max()) for k in w_cpu)
+        check(worst <= 1e-4, f"phase 18 (f): the small run's weights differ by {worst} between the card and the CPU")
+
+        # (g) phase 6's NA model through train() for one epoch
+        for fn in counters:
+            fn.launches = 0
+        g = pretrain_run("(g)", pretrain_cfg(tmp / "g", cache, epochs=1), na)
+        g_launches = {fn.__name__: fn.launches for fn in counters}
+        layers = na().num_hidden_layers
+        g_evals = 2  # one tuning pass of 2 batches
+        want_g = {"vocab_gather_fwd": 16 + g_evals, "vocab_gather_bwd": 16, "dep_graph_fwd": layers * (16 + g_evals),
+                  "dep_graph_bwd": layers * 16}  # fmt: skip
+        check(g_launches == want_g, f"phase 18 (g): launches {g_launches}, expected {want_g}")
+        check(all(math.isfinite(r[k]) for r in g["log"] for k in ("train_loss", "tuning_loss") if k in r),
+              "phase 18 (g): a loss is not finite")  # fmt: skip
+
+        # One checkpoint save and one resume (a read, verified, written into a model on the card in place).
+        state = checkpoint_state(a["save"], 32)
+        mgr = ReliableCheckpointManager(tmp / "timing")
+        t0 = time.perf_counter()
+        mgr.save(32, state, metadata={"epoch": 1, "epoch_complete": True})
+        save_s = time.perf_counter() - t0
+        model = build_model(StructuredTransformerConfig.from_json_file(a["save"] / "config.json")).cuda()
+        oc = pretrain_cfg(tmp, cache).optimization_config
+        oc.set_to_dataset(range(PRETRAIN_COHORT["train"]))
+        opt, sched = build_optimizer(model, oc)
+        make_capturable(opt, "cuda")
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore_latest_verified(require_metadata=True)
+        original(restored, model, opt, sched, pretrain_module.TrainState())
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        ckpt_mb = sum(p.stat().st_size for p in (tmp / "timing" / "32").rglob("*")) / 1e6
+
+    check("pandas" not in sys.modules and "pyarrow" not in sys.modules, "phase 18: pandas or pyarrow was imported")
+    print(f"phase 18: train(cfg) from a converted DL cache ({PRETRAIN_COHORT} subjects written in {cache_s:.2f} s), "
+          f"bench.py's CI model (bf16, dropout 0.1), 2 epochs of 16 steps (B={TRAIN_BATCH}, L={TRAIN_SEQ}): tuning loss "
+          f"{tuning[0]['tuning_loss']:.4f} -> {tuning[1]['tuning_loss']:.4f}, final tuning loss {loss:.4f}; (a) resident: "
+          f"{epochs_line(a)}; (b) host path + prefetch: {epochs_line(b)}; (b) equals (a) bit for bit (weights, AdamW, "
+          f"log, metrics); (c) resume at 24 and walk-back to 16, (d) preemption at 12 and relaunch equal (a) "
+          f"({resumes_s:.1f} s for the two resumed runs); (e) rollback to step 16 in place; (f) accumulation 2: "
+          f"8 updates in 16 steps, small fp32 card vs CPU max weight diff {worst:.2e}; (g) NA: {epochs_line(g)}; "
+          f"launches (a) {launches}, (g) {g_launches}; one checkpoint save {save_s:.3f} s and one resume "
+          f"{resume_s:.3f} s ({ckpt_mb:.1f} MB); peak memory (a) {peak_gb:.3f} GB ({smi})", flush=True)  # fmt: skip
+    return dict(launches={k: launches[k] + g_launches[k] for k in launches})
+
+
 def main() -> int:
     try:
         import torch
@@ -3798,6 +4138,7 @@ def main() -> int:
     na_spec = na_spec_phase(smi, na_engine)
     service = service_phase(smi, model, config)
     fleet = fleet_phase(smi, config, service.pop("m1"), service.pop("m2"))
+    pretrain = pretrain_phase(smi)
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
@@ -3836,13 +4177,14 @@ def main() -> int:
     ] + [
         dict(name=f"vocab_gather_{d}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/vocab_gather.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182",
-             launches=train["launches"][f"vocab_gather_{d}"] + chunk_launches(f"vocab_gather_{d}"), **c[d])
+             launches=train["launches"][f"vocab_gather_{d}"] + chunk_launches(f"vocab_gather_{d}")
+             + pretrain["launches"][f"vocab_gather_{d}"], **c[d])
         for d in ("fwd", "bwd")
     ] + [
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397",
              launches=na_train["launches"][f"dep_graph_{k}"] + chunk_launches(f"dep_graph_{k}")
-             + (gen["launches_d"] if k == "fwd" else 0), **d_times[k])
+             + (gen["launches_d"] if k == "fwd" else 0) + pretrain["launches"][f"dep_graph_{k}"], **d_times[k])
         for k in ("fwd", "bwd")
     ] + [
         dict(name=f"{n}_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",

@@ -15,7 +15,9 @@ Every flax leaf must land on exactly one port parameter of the same shape,
 and every port parameter must be filled; anything else raises.
 `export_params` is the inverse: the port model's parameters as a flax-shaped
 tree of fp32 numpy arrays. `checkpoint_from_jax` writes JAX parameters as a
-port checkpoint directory (`training.checkpoint.save_pretrained`).
+port checkpoint directory (`training.checkpoint.save_pretrained`);
+`train_state_from_jax` turns a JAX resume step (parameters, AdamW moments,
+counts) into the port's resume state.
 """
 
 from __future__ import annotations
@@ -134,3 +136,43 @@ def init_params_from_seed(model: nn.Module, seed: int, std: float = 0.02) -> nn.
             else:
                 p.copy_(torch.from_numpy(rng.normal(0.0, std, size=tuple(p.shape)).astype(np.float32)))
     return model
+
+
+def train_state_from_jax(config, params: dict, mu: dict, nu: dict, count: int, step: int) -> dict:
+    """A JAX resume step as the port's resume state (`training.pretrain.train_state_dict`'s layout).
+
+    ``params``, ``mu`` and ``nu`` are the flax trees of the parameters and of
+    optax AdamW's first and second moments (``opt_state[0].mu`` / ``.nu``),
+    ``count`` its update count and ``step`` ``TrainState.step``, all as
+    numpy (the caller restores them; this module imports no JAX). The
+    moments cross over as the parameters do (`port_name`); AdamW's step and
+    the scheduler's position are ``count``. The result goes to
+    `training.checkpoint.TrainCheckpointManager.save`."""
+    from .models.config import StructuredTransformerConfig
+    from .training.pretrain import build_model
+
+    if not isinstance(config, StructuredTransformerConfig):
+        config = StructuredTransformerConfig.from_dict(config.to_dict())
+    names = set(dict(build_model(config).named_parameters()))
+
+    def port_tree(tree: dict) -> dict:
+        if set(tree) == {"params"}:
+            tree = tree["params"]
+        out = {}
+        for path, arr in _flatten(tree).items():
+            name, transpose = port_name(path)
+            out[name] = torch.tensor(np.ascontiguousarray(arr.T if transpose else arr), dtype=torch.float32)
+        if set(out) != names:
+            raise ValueError(f"the flax tree does not match the port model: {sorted(set(out) ^ names)}")
+        return out
+
+    return {
+        "step": int(step),
+        "scheduler_step": int(count),
+        "params": port_tree(params),
+        "adam": {
+            "step": {n: torch.tensor(float(count)) for n in sorted(names)},
+            "exp_avg": port_tree(mu),
+            "exp_avg_sq": port_tree(nu),
+        },
+    }

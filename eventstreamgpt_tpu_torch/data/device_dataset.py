@@ -184,6 +184,24 @@ class DeviceDataset:
         self.nbytes = sum(a.nbytes for a in host.values())
         self.arrays = {k: torch.from_numpy(host[k]).to(self.device) for k in _RESIDENT_FIELDS}
 
+    # The auto-residency budget of `try_create`: a tenth of an H100's 80 GB,
+    # leaving the rest to the parameters, the optimizer state and the
+    # activations. (JAX's 2 GiB is its figure for a 16 GB TPU chip.)
+    DEFAULT_BUDGET_BYTES = 8 * 1024**3
+
+    @classmethod
+    def try_create(cls, dataset: CSRDataset, device=None, max_bytes: int | None = None) -> "DeviceDataset | None":
+        """A `DeviceDataset` when residency is eligible, else None: the
+        estimated tables within ``max_bytes`` (default
+        `DEFAULT_BUDGET_BYTES`), the CSR arrays narrowed to int32, the values
+        finite. Callers fall back to host collation on None."""
+        if cls.estimate_nbytes(dataset) > (max_bytes or cls.DEFAULT_BUDGET_BYTES):
+            return None
+        try:
+            return cls(dataset, device=device)
+        except ValueError:
+            return None
+
     @staticmethod
     def estimate_nbytes(dataset: CSRDataset) -> int:
         """The tables' device footprint, without building anything."""

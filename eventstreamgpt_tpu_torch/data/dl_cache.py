@@ -1,0 +1,260 @@
+"""The converted DL cache: the parquet DL representation as numpy arrays.
+
+Counterpart: the parquet read of ``eventstreamgpt_tpu/data/jax_dataset.py``
+(``_read_dl_reps``). The JAX dataset reads ``DL_reps/{split}_{k}.parquet``
+with pandas; the card's machine has neither pandas nor pyarrow, so the port
+reads a converted copy of the cache that numpy alone can load.
+
+Layout of a converted cache (``convert_dl_cache`` writes it; so does
+`data.synthetic.write_synthetic_cache`)::
+
+    vocabulary_config.json              copied unchanged
+    inferred_measurement_configs.json   copied unchanged
+    inferred_measurement_metadata/      the metadata files the configs name
+    DL_reps/{split}_{k}.npz             one archive a parquet chunk
+
+Each archive holds every column of its chunk as flat values plus offsets:
+
+* a scalar column (``subject_id``) is one array, a row each;
+* ``start_time`` is int64 nanoseconds since the epoch;
+* a list column ``c`` (``time``, ``static_indices``, ...) is ``c`` (the
+  values, flat) and ``c__offsets`` (``n_rows + 1``);
+* a list-of-lists column (``dynamic_indices``, ...) adds ``c__offsets2``
+  (one entry an inner list, plus one) and, when any inner list was null,
+  ``c__nulls2`` (a bool an inner list).
+
+Values keep the parquet's types: ``dynamic_indices`` stay the floats the
+reference cache writes, null values inside a float list are NaN. Reading
+(`read_dl_cache`) concatenates a split's chunks in the numeric order of
+their suffix and needs numpy only; only `convert_dl_cache`'s body imports
+pyarrow.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+
+__all__ = ["DLReps", "RaggedColumn", "concat_ranges", "convert_dl_cache", "read_dl_cache", "write_dl_reps"]
+
+# Parquet's pandas index column, which the cache does not need.
+_SKIP = {"__index_level_0__"}
+
+
+@dataclasses.dataclass
+class RaggedColumn:
+    """A list (``offsets2`` None) or list-of-lists column of a split.
+
+    Row ``i`` holds ``values`` positions ``offsets[i]:offsets[i + 1]`` (a
+    list column) or inner lists ``offsets[i]:offsets[i + 1]``, inner list
+    ``j`` holding ``values[offsets2[j]:offsets2[j + 1]]``; ``nulls2[j]``
+    marks a null inner list (None: none was null)."""
+
+    values: np.ndarray
+    offsets: np.ndarray
+    offsets2: np.ndarray | None = None
+    nulls2: np.ndarray | None = None
+
+    def take(self, rows: np.ndarray) -> "RaggedColumn":
+        """The column of the given rows, in that order."""
+        rows = np.asarray(rows, np.int64)
+        off = self.offsets.astype(np.int64)
+        inner = concat_ranges(off[rows], off[rows + 1])
+        new_off = _offsets(off[rows + 1] - off[rows])
+        if self.offsets2 is None:
+            return RaggedColumn(self.values[inner], new_off)
+        off2 = self.offsets2.astype(np.int64)
+        return RaggedColumn(
+            self.values[concat_ranges(off2[inner], off2[inner + 1])],
+            new_off,
+            _offsets(off2[inner + 1] - off2[inner]),
+            None if self.nulls2 is None else self.nulls2[inner],
+        )
+
+
+@dataclasses.dataclass
+class DLReps:
+    """A split's DL representation: ``scalars`` (``subject_id``,
+    ``start_time`` in int64 ns, ...) and ``lists`` (`RaggedColumn`s), a row
+    a subject."""
+
+    scalars: dict
+    lists: dict
+
+    @property
+    def n_rows(self) -> int:
+        return len(next(iter(self.scalars.values()))) if self.scalars else len(next(iter(self.lists.values())).offsets) - 1
+
+    def take(self, rows: np.ndarray) -> "DLReps":
+        rows = np.asarray(rows, np.int64)
+        return DLReps({k: v[rows] for k, v in self.scalars.items()}, {k: c.take(rows) for k, c in self.lists.items()})
+
+
+def _offsets(lengths: np.ndarray) -> np.ndarray:
+    out = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=out[1:])
+    return out
+
+
+def concat_ranges(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """The concatenation of ``arange(lo[i], hi[i])`` for every ``i``."""
+    lengths = hi - lo
+    starts = np.repeat(lo - _offsets(lengths)[:-1], lengths)
+    return starts + np.arange(int(lengths.sum()), dtype=np.int64)
+
+
+def _chunk_key(fp: Path):
+    """Chunks sort by their numeric suffix (``x_10`` after ``x_2``), as the
+    JAX reader orders its parquet files."""
+    stem, _, suffix = fp.stem.rpartition("_")
+    return (stem, int(suffix)) if suffix.isdigit() else (fp.stem, -1)
+
+
+def write_dl_reps(fp: Path | str, reps: DLReps) -> None:
+    """Writes ``reps`` as one archive of the converted format."""
+    arrays = dict(reps.scalars)
+    for name, col in reps.lists.items():
+        arrays[name] = col.values
+        arrays[f"{name}__offsets"] = col.offsets
+        if col.offsets2 is not None:
+            arrays[f"{name}__offsets2"] = col.offsets2
+        if col.nulls2 is not None:
+            arrays[f"{name}__nulls2"] = col.nulls2
+    Path(fp).parent.mkdir(parents=True, exist_ok=True)
+    with open(fp, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def _load(fp: Path) -> DLReps:
+    with np.load(fp, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    names = [k for k in arrays if "__" not in k]
+    scalars, lists = {}, {}
+    for name in names:
+        if f"{name}__offsets" in arrays:
+            lists[name] = RaggedColumn(
+                arrays[name], arrays[f"{name}__offsets"], arrays.get(f"{name}__offsets2"), arrays.get(f"{name}__nulls2")
+            )
+        else:
+            scalars[name] = arrays[name]
+    return DLReps(scalars, lists)
+
+
+def _concat(parts: list[DLReps]) -> DLReps:
+    if len(parts) == 1:
+        return parts[0]
+    scalars = {k: np.concatenate([p.scalars[k] for p in parts]) for k in parts[0].scalars}
+    lists = {}
+    for k, first in parts[0].lists.items():
+        cols = [p.lists[k] for p in parts]
+        inner = first.offsets2 is not None
+        off, off2, shift, shift2 = [np.zeros(1, np.int64)], [np.zeros(1, np.int64)], 0, 0
+        for c in cols:
+            off.append(c.offsets[1:].astype(np.int64) + shift)
+            shift += int(c.offsets[-1])
+            if inner:
+                off2.append(c.offsets2[1:].astype(np.int64) + shift2)
+                shift2 += int(c.offsets2[-1])
+        nulls = None
+        if inner and any(c.nulls2 is not None for c in cols):
+            nulls = np.concatenate(
+                [c.nulls2 if c.nulls2 is not None else np.zeros(len(c.offsets2) - 1, bool) for c in cols]
+            )
+        lists[k] = RaggedColumn(
+            np.concatenate([c.values for c in cols]),
+            np.concatenate(off),
+            np.concatenate(off2) if inner else None,
+            nulls,
+        )
+    return DLReps(scalars, lists)
+
+
+def read_dl_cache(save_dir: Path | str, split: str) -> DLReps:
+    """The split's rows of a converted cache, its chunks in numeric order."""
+    dl_dir = Path(save_dir) / "DL_reps"
+    files = sorted(dl_dir.glob(f"{split}*.npz"), key=_chunk_key)
+    if not files:
+        raise FileNotFoundError(
+            f"No converted DL_reps chunks for split {split} in {dl_dir} (convert a parquet cache with "
+            "data.dl_cache.convert_dl_cache on a host with pandas)"
+        )
+    return _concat([_load(fp) for fp in files])
+
+
+def _metadata_files(src: Path) -> list[Path]:
+    """The metadata files ``inferred_measurement_configs.json`` names, as
+    the dataset resolves them."""
+    from .config import MeasurementConfig
+
+    fp = src / "inferred_measurement_configs.json"
+    if not fp.exists():
+        return []
+    out = []
+    for v in json.loads(fp.read_text()).values():
+        mm = MeasurementConfig.from_dict(v, base_dir=src)._measurement_metadata
+        if isinstance(mm, Path) and mm.is_file():
+            out.append(mm)
+    return out
+
+
+def _arrow_list(col):
+    """``(values, offsets, nulls)`` of an arrow list array, honouring slices and null lists."""
+    import pyarrow.compute as pc
+
+    lengths = pc.fill_null(pc.list_value_length(col), 0).to_numpy(zero_copy_only=False).astype(np.int64)
+    nulls = col.is_null().to_numpy(zero_copy_only=False).astype(bool)
+    return col.flatten(), _offsets(lengths), nulls
+
+
+def _encode_table(table) -> DLReps:
+    import pyarrow as pa
+
+    scalars, lists = {}, {}
+    for name in table.column_names:
+        if name in _SKIP:
+            continue
+        col = table.column(name).combine_chunks()
+        if pa.types.is_list(col.type) or pa.types.is_large_list(col.type):
+            values, offsets, _ = _arrow_list(col)
+            offsets2 = nulls2 = None
+            if pa.types.is_list(values.type) or pa.types.is_large_list(values.type):
+                values, offsets2, nulls = _arrow_list(values)
+                nulls2 = nulls if nulls.any() else None
+            lists[name] = RaggedColumn(values.to_numpy(zero_copy_only=False), offsets, offsets2, nulls2)
+        elif pa.types.is_timestamp(col.type):
+            scalars[name] = col.cast(pa.timestamp("ns")).cast(pa.int64()).to_numpy(zero_copy_only=False)
+        else:
+            values = col.to_numpy(zero_copy_only=False)
+            scalars[name] = values.astype(str) if values.dtype == object else values
+    return DLReps(scalars, lists)
+
+
+def convert_dl_cache(src: Path | str, dst: Path | str) -> Path:
+    """Converts the parquet DL cache under ``src`` into the numpy format
+    under ``dst`` (the module docstring); returns ``dst``.
+
+    Runs where pyarrow is installed (it is imported here, and nowhere else in
+    the port). Copies ``vocabulary_config.json``,
+    ``inferred_measurement_configs.json`` and the metadata files the latter
+    names (into ``dst/inferred_measurement_metadata``), and writes one
+    ``DL_reps/{stem}.npz`` for every ``DL_reps/{stem}.parquet``."""
+    import pyarrow.parquet as pq
+
+    src, dst = Path(src), Path(dst)
+    (dst / "DL_reps").mkdir(parents=True, exist_ok=True)
+    for name in ("vocabulary_config.json", "inferred_measurement_configs.json"):
+        if (src / name).exists():
+            shutil.copy2(src / name, dst / name)
+    for fp in _metadata_files(src):
+        (dst / "inferred_measurement_metadata").mkdir(exist_ok=True)
+        shutil.copy2(fp, dst / "inferred_measurement_metadata" / fp.name)
+    files = sorted((src / "DL_reps").glob("*.parquet"), key=_chunk_key)
+    if not files:
+        raise FileNotFoundError(f"No DL_reps parquet files in {src / 'DL_reps'}")
+    for fp in files:
+        write_dl_reps(dst / "DL_reps" / f"{fp.stem}.npz", _encode_table(pq.read_table(fp)))
+    return dst

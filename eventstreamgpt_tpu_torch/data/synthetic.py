@@ -5,18 +5,27 @@ layout (UNK at 0, then ``event_type``, ``lab``, ``med``, ``demo`` slices),
 per-subject recipe (lognormal lengths clipped to ``[4, 512]``, inter-event
 times uniform in 1-240 minutes) and per-event recipe (one event type, labs
 by default, meds at the end of 40% of events, at most 24 elements) these
-follow. Everything is built in memory from a numpy generator; nothing is
-written to disk. Index planes are int32, as the JAX package (x64 off)
+follow. Everything but `write_synthetic_cache` is built in memory from a
+numpy generator. Index planes are int32, as the JAX package (x64 off)
 holds them.
+
+`write_synthetic_cache` is ``write_synthetic_dataset``: the same arguments
+and the same draws from ``default_rng(seed)``, written straight into the
+converted DL-cache format (`data.dl_cache`) without pandas, so the card
+builds ``bench.py``'s training cohort itself.
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..models.config import StructuredTransformerConfig
 from .config import MeasurementConfig
+from .dl_cache import DLReps, RaggedColumn, write_dl_reps
 from .torch_dataset import CSRData, packed_batches
 from .types import EventStreamBatch
 
@@ -272,3 +281,132 @@ def na_training_config(batches, precision: str = "bf16", **overrides) -> Structu
     """`training_config` for ``bench.py``'s nested-attention (NA) model
     (``bench.py``'s NA section: the CI widths with `NA_OVERRIDES`)."""
     return training_config(batches, precision=precision, **{**NA_OVERRIDES, **overrides})
+
+
+# pd.Timestamp("2020-01-01") in nanoseconds since the epoch: the synthetic cohort's origin.
+_ORIGIN_NS = 1_577_836_800 * 1_000_000_000
+
+
+def _vocab_entry(name: str, size: int) -> dict:
+    """A measurement's serialized vocabulary with UNK at 0."""
+    freqs = np.linspace(2.0, 1.0, size - 1)
+    freqs = freqs / freqs.sum()
+    return {"vocabulary": ["UNK"] + [f"{name}_{i}" for i in range(1, size)], "obs_frequencies": [0.0] + freqs.tolist()}
+
+
+def _ragged(rows: list, dtype) -> RaggedColumn:
+    """A `RaggedColumn` of per-row lists."""
+    values = np.concatenate(rows).astype(dtype) if rows else np.zeros(0, dtype)
+    return RaggedColumn(values, np.concatenate([[0], np.cumsum([len(r) for r in rows])]).astype(np.int64))
+
+
+def write_synthetic_cache(
+    save_dir: Path | str,
+    n_subjects_per_split: dict[str, int] | None = None,
+    n_event_types: int = 40,
+    n_labs: int = 2000,
+    n_meds: int = 500,
+    n_static: int = 16,
+    mean_seq_len: int = 128,
+    max_seq_len: int = 512,
+    mean_obs_per_event: int = 14,
+    max_obs_per_event: int = 24,
+    seed: int = 0,
+) -> Path:
+    """Writes a synthetic converted DL cache; returns ``save_dir``.
+
+    JAX's ``write_synthetic_dataset`` draw for draw: measurements
+    ``event_type`` (single label), ``lab`` (multivariate regression and
+    multi-label), ``med`` (multi-label) and ``demo`` (static); lognormal
+    sequence lengths clipped to ``[4, max_seq_len]``; inter-event times
+    uniform in 1-240 minutes; each subject's start a uniform draw of up to
+    1e5 minutes after 2020-01-01, in nanoseconds as pandas' ``Timedelta``
+    truncates them. The result equals the conversion (`convert_dl_cache`)
+    of what JAX's writer writes with the same arguments, array for array."""
+    save_dir = Path(save_dir)
+    (save_dir / "DL_reps").mkdir(parents=True, exist_ok=True)
+    if n_subjects_per_split is None:
+        n_subjects_per_split = {"train": 256, "tuning": 64, "held_out": 64}
+    rng = np.random.default_rng(seed)
+
+    vocab_offsets = {"event_type": 1, "lab": 1 + n_event_types}
+    vocab_sizes = {"event_type": n_event_types, "lab": n_labs}
+    vocab_offsets["med"] = vocab_offsets["lab"] + n_labs
+    vocab_sizes["med"] = n_meds
+    vocab_offsets["demo"] = vocab_offsets["med"] + n_meds
+    vocab_sizes["demo"] = n_static
+    total_vocab = vocab_offsets["demo"] + n_static
+    vocabulary_config = {
+        "vocab_sizes_by_measurement": vocab_sizes,
+        "vocab_offsets_by_measurement": vocab_offsets,
+        "measurements_idxmap": {"event_type": 1, "lab": 2, "med": 3, "demo": 4},
+        "measurements_per_generative_mode": {
+            "single_label_classification": ["event_type"],
+            "multi_label_classification": ["lab", "med"],
+            "multivariate_regression": ["lab"],
+        },
+        "event_types_idxmap": {f"event_type_{i}": i for i in range(1, n_event_types)},
+    }
+    with open(save_dir / "vocabulary_config.json", "w") as f:
+        json.dump(vocabulary_config, f)
+
+    def measurement(name, temporality, modality, freq, size, values_column=None):
+        return {"name": name, "temporality": temporality, "modality": modality, "observation_frequency": freq,
+                "functor": None, "vocabulary": _vocab_entry(name, size), "values_column": values_column,
+                "_measurement_metadata": None}  # fmt: skip
+
+    measurement_configs = {
+        "lab": measurement("lab", "dynamic", "multivariate_regression", 0.95, n_labs, "lab_value"),
+        "med": measurement("med", "dynamic", "multi_label_classification", 0.4, n_meds),
+        "demo": measurement("demo", "static", "single_label_classification", 1.0, n_static),
+    }
+    with open(save_dir / "inferred_measurement_configs.json", "w") as f:
+        json.dump(measurement_configs, f)
+
+    subject_id = 0
+    for split, n_subjects in n_subjects_per_split.items():
+        ids, starts, st_idx, times, seq_lens = [], [], [], [], []
+        n_labs, n_meds, idx_draws, normal_draws = [], [], [], []
+        for _ in range(n_subjects):
+            L = int(np.clip(rng.lognormal(np.log(mean_seq_len), 0.6), 4, max_seq_len))
+            deltas = rng.uniform(1.0, 240.0, size=L - 1).astype(np.float64)
+            times.append(np.concatenate([[0.0], np.cumsum(deltas)]))
+            seq_lens.append(L)
+            # One event: an event type, then labs, the last 1-3 elements meds in
+            # 40% of events; the draws in JAX's order, counted rather than masked.
+            for _e in range(L):
+                n_obs = int(np.clip(rng.poisson(mean_obs_per_event), 1, max_obs_per_event))
+                n_med = 1 + int(rng.integers(0, min(3, n_obs - 2))) if n_obs > 2 and rng.random() < 0.4 else 0
+                n_lab = n_obs - 1 - n_med
+                for name, n in (("event_type", 1), ("lab", n_lab), ("med", n_med)):
+                    if n:
+                        off, size = vocab_offsets[name], vocab_sizes[name]
+                        idx_draws.append(rng.integers(off + 1, off + size, size=n))
+                normal_draws.append(rng.normal(size=n_obs))
+                n_labs.append(n_lab)
+                n_meds.append(n_med)
+            ids.append(subject_id)
+            st_idx.append(np.asarray([rng.integers(vocab_offsets["demo"] + 1, total_vocab)], dtype=np.int64))
+            # pd.Timedelta(minutes=m): int(m * 60 * 1e9), truncated.
+            starts.append(_ORIGIN_NS + int((float(rng.uniform(0, 1e5)) * 60) * 1_000_000_000))
+            subject_id += 1
+        n_labs, n_meds = np.asarray(n_labs, np.int64), np.asarray(n_meds, np.int64)
+        codes = np.stack([np.ones_like(n_labs), n_labs, n_meds], axis=1)
+        meas = np.repeat(np.tile(np.asarray([1, 2, 3], np.int64), len(n_labs)), codes.reshape(-1))
+        event_offsets = np.concatenate([[0], np.cumsum(1 + n_labs + n_meds)])
+        values = np.where(meas == 2, np.concatenate(normal_draws), np.nan).astype(np.float32)
+        subject_offsets = np.concatenate([[0], np.cumsum(seq_lens)]).astype(np.int64)
+        reps = DLReps(
+            {"subject_id": np.asarray(ids, np.int64), "start_time": np.asarray(starts, np.int64)},
+            {
+                "static_measurement_indices": _ragged([np.asarray([4], np.int64)] * len(ids), np.int64),
+                "static_indices": _ragged(st_idx, np.int64),
+                "time": _ragged(times, np.float64),
+                "dynamic_measurement_indices": RaggedColumn(meas, subject_offsets, event_offsets),
+                "dynamic_indices": RaggedColumn(np.concatenate(idx_draws).astype(np.int64), subject_offsets,
+                                                event_offsets),
+                "dynamic_values": RaggedColumn(values, subject_offsets, event_offsets),
+            },
+        )  # fmt: skip
+        write_dl_reps(save_dir / "DL_reps" / f"{split}_0.npz", reps)
+    return save_dir

@@ -1,7 +1,8 @@
 """Model and optimization configuration for structured event-stream transformers.
 
 Counterpart: ``eventstreamgpt_tpu/models/config.py``
-(`StructuredTransformerConfig`, `OptimizationConfig`). The constructors,
+(`StructuredTransformerConfig`, `OptimizationConfig`, `MetricsConfig` and
+its enums `Split`, `MetricCategories`, `Metrics`, `Averaging`). The constructors,
 their validation and ``to_dict``/``from_dict`` follow the JAX classes field
 for field, so one ``config.json`` loads in both packages and ``to_dict``
 gives the same dictionary. ``compute_dtype`` is a ``torch.dtype``.
@@ -12,7 +13,9 @@ tensors' device routes dep-graph attention (`ops.dep_graph`).
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+import itertools
 import math
 from typing import Any, Hashable, Union
 
@@ -22,6 +25,98 @@ from ..data.config import MeasurementConfig
 from ..data.types import DataModality
 from ..utils import JSONableMixin, StrEnum, config_dataclass
 from .embedding import MeasIndexGroupOptions, StaticEmbeddingMode
+
+
+class Split(StrEnum):
+    """What data split is being used."""
+
+    TRAIN = enum.auto()
+    TUNING = enum.auto()
+    HELD_OUT = enum.auto()
+
+
+class MetricCategories(StrEnum):
+    """Categories of metrics, for configuring what to track."""
+
+    LOSS_PARTS = enum.auto()
+    TTE = "TTE"
+    CLASSIFICATION = enum.auto()
+    REGRESSION = enum.auto()
+
+
+class Metrics(StrEnum):
+    """Supported metric functions."""
+
+    AUROC = "AUROC"
+    AUPRC = "AUPRC"
+    ACCURACY = enum.auto()
+    EXPLAINED_VARIANCE = enum.auto()
+    MSE = "MSE"
+    MSLE = "MSLE"
+
+
+class Averaging(StrEnum):
+    """Metric averaging modes in multi-class and multi-label settings."""
+
+    MACRO = enum.auto()
+    MICRO = enum.auto()
+    WEIGHTED = enum.auto()
+
+
+def _default_include_metrics() -> dict:
+    def eval_metrics() -> dict:
+        return {
+            MetricCategories.LOSS_PARTS: True,
+            MetricCategories.TTE: {Metrics.MSE: True, Metrics.MSLE: True},
+            MetricCategories.CLASSIFICATION: {Metrics.AUROC: [Averaging.WEIGHTED], Metrics.ACCURACY: True},
+            MetricCategories.REGRESSION: {Metrics.MSE: True},
+        }
+
+    return {Split.TUNING: eval_metrics(), Split.HELD_OUT: eval_metrics()}
+
+
+@config_dataclass
+class MetricsConfig(JSONableMixin):
+    """Which metrics are tracked, over which splits, with which averagings.
+
+    ``include_metrics`` is ``{split: {category: True | {metric: True |
+    [averagings]}}}``; ``do_skip_all_metrics`` clears it.
+    """
+
+    n_auc_thresholds: int | None = 50
+    do_skip_all_metrics: bool = False
+    do_validate_args: bool = False
+    include_metrics: dict[str, Any] = dataclasses.field(default_factory=_default_include_metrics)
+
+    def __post_init__(self):
+        if self.do_skip_all_metrics:
+            self.include_metrics = {}
+
+    def do_log_only_loss(self, split: str) -> bool:
+        """True if only the loss (no other metric) is logged for ``split``."""
+        inc = self.include_metrics.get(split) if not self.do_skip_all_metrics else None
+        return not inc or (len(inc) == 1 and MetricCategories.LOSS_PARTS in inc)
+
+    def do_log(self, split: str, cat: str, metric_name: str | None = None) -> bool:
+        """True if ``metric_name`` is tracked for ``split`` and ``cat``. A
+        name may carry an averaging prefix (``weighted_AUROC``);
+        ``explained_variance`` is the one unprefixed name with an underscore."""
+        if self.do_log_only_loss(split):
+            return False
+        inc_dict = self.include_metrics[split].get(cat, False)
+        if not inc_dict:
+            return False
+        if metric_name is None or inc_dict is True:
+            return True
+        if "_" not in metric_name.replace("explained_variance", ""):
+            return metric_name in inc_dict
+        averaging, _, metric = metric_name.partition("_")
+        permissible = inc_dict.get(metric, [])
+        return permissible is True or averaging in permissible
+
+    def do_log_any(self, cat: str, metric_name: str | None = None) -> bool:
+        """True if ``metric_name`` is tracked for ``cat`` on any split."""
+        return any(self.do_log(split, cat, metric_name) for split in Split.values())
 
 
 class StructuredEventProcessingMode(StrEnum):
@@ -322,6 +417,57 @@ class StructuredTransformerConfig(JSONableMixin):
             return out[: self.num_hidden_layers]
         raise TypeError(f"Config Invalid {attention_types} El 0 ({type(attention_types[0])}) is wrong type!")
 
+    def set_to_dataset(self, dataset) -> None:
+        """Copies the vocabulary, the measurement layout, ``max_seq_len`` and
+        (for a lognormal TTE head) the log inter-event-time statistics from a
+        dataset with `data.torch_dataset.TorchDataset`'s attributes (JAX's
+        ``set_to_dataset``; task fields only when ``dataset.has_task``)."""
+        vc = dataset.vocabulary_config
+        self.measurement_configs = dataset.measurement_configs
+        self.measurements_idxmap = vc.measurements_idxmap
+        self.measurements_per_generative_mode = dict(vc.measurements_per_generative_mode)
+        for k in DataModality.values():
+            self.measurements_per_generative_mode.setdefault(k, [])
+        if self.structured_event_processing_mode == StructuredEventProcessingMode.NESTED_ATTENTION:
+            in_dep = {
+                x[0] if isinstance(x, (list, tuple)) and len(x) == 2 else x
+                for x in itertools.chain.from_iterable(self.measurements_per_dep_graph_level)
+            }
+            in_generative_mode = set(itertools.chain.from_iterable(self.measurements_per_generative_mode.values()))
+            if not in_generative_mode.issubset(in_dep):
+                raise ValueError(
+                    "Config is attempting to generate something outside the dependency graph:\n"
+                    f"{in_generative_mode - in_dep}"
+                )
+        self.event_types_idxmap = vc.event_types_idxmap
+        self.vocab_offsets_by_measurement = vc.vocab_offsets_by_measurement
+        self.vocab_sizes_by_measurement = dict(vc.vocab_sizes_by_measurement)
+        for k in set(self.vocab_offsets_by_measurement) - set(self.vocab_sizes_by_measurement):
+            self.vocab_sizes_by_measurement[k] = 1
+        self.vocab_size = vc.total_vocab_size
+        self.max_seq_len = dataset.max_seq_len
+        if self.TTE_generation_layer_type == TimeToEventGenerationHeadType.LOG_NORMAL_MIXTURE:
+            self.mean_log_inter_event_time_min = dataset.mean_log_inter_event_time_min
+            self.std_log_inter_event_time_min = dataset.std_log_inter_event_time_min
+        if getattr(dataset, "has_task", False):
+            if len(dataset.tasks) == 1:
+                self.finetuning_task = dataset.tasks[0]
+                task_type = dataset.task_types[self.finetuning_task]
+                if task_type in ("binary_classification", "multi_class_classification"):
+                    self.id2label = dict(enumerate(dataset.task_vocabs[self.finetuning_task]))
+                    self.label2id = {v: i for i, v in self.id2label.items()}
+                    self.num_labels = len(self.id2label)
+                    self.problem_type = "single_label_classification"
+                elif task_type == "regression":
+                    self.num_labels = 1
+                    self.problem_type = "regression"
+            elif all(t == "binary_classification" for t in dataset.task_types.values()):
+                self.problem_type = "multi_label_classification"
+                self.num_labels = len(dataset.tasks)
+            elif all(t == "regression" for t in dataset.task_types.values()):
+                self.num_labels = len(dataset.tasks)
+                self.problem_type = "regression"
+
     def to_dict(self) -> dict[str, Any]:
         as_dict = {
             k: v
@@ -353,8 +499,8 @@ class StructuredTransformerConfig(JSONableMixin):
 class OptimizationConfig(JSONableMixin):
     """Optimization settings: AdamW + polynomial decay with linear warmup.
 
-    ``set_to_dataset`` derives the step counts from the number of training
-    subjects (the JAX class reads it off a dataset).
+    ``set_to_dataset`` derives the step counts from the training dataset's
+    length.
     """
 
     init_lr: float = 1e-2
@@ -389,14 +535,12 @@ class OptimizationConfig(JSONableMixin):
                 raise ValueError("Must set either end_lr or end_lr_frac_of_init_lr!")
             self.end_lr_frac_of_init_lr = self.end_lr / self.init_lr
 
-    def set_to_dataset(self, n_subjects: int | None = None, steps_per_epoch: int | None = None) -> None:
-        """Derives ``max_training_steps`` and the warmup steps from the number of
-        training subjects (``ceil(n_subjects / batch_size)`` steps an epoch) or
-        from ``steps_per_epoch`` directly."""
+    def set_to_dataset(self, dataset, steps_per_epoch: int | None = None) -> None:
+        """Derives ``max_training_steps`` and the warmup steps from the
+        training dataset (``ceil(len(dataset) / batch_size)`` steps an epoch)
+        or from ``steps_per_epoch`` (the packed stream's count)."""
         if steps_per_epoch is None:
-            if n_subjects is None:
-                raise ValueError("set_to_dataset needs n_subjects or steps_per_epoch")
-            steps_per_epoch = int(math.ceil(n_subjects / self.batch_size))
+            steps_per_epoch = int(math.ceil(len(dataset) / self.batch_size))
         if self.max_training_steps is None:
             self.max_training_steps = steps_per_epoch * self.max_epochs
         if self.lr_num_warmup_steps is None:

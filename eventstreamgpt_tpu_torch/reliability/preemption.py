@@ -5,7 +5,8 @@ Counterpart: ``eventstreamgpt_tpu/reliability/preemption.py`` (stdlib only).
 Cluster schedulers deliver ``SIGTERM`` with a grace window before the hard
 kill. `GracefulShutdown` turns the first signal into a flag that the serving
 loops (`serving.service.ServingService.run`, `serving.fleet.ServingFleet.run`)
-poll once a round (a Python bool read, no device sync); the loop then drains
+poll once a round and the training loop (`training.pretrain.train`) once a
+dispatch (a Python bool read, no device sync); the loop then drains
 its resident slots and raises `Preempted` with the completed results, which an
 entry-point script converts to `EXIT_PREEMPTED` so an orchestrator can tell
 "reschedule me" from a real failure. A second signal restores the previous
@@ -28,12 +29,15 @@ EXIT_PREEMPTED = 85
 
 class Preempted(RuntimeError):
     """Raised by a serving loop after a graceful drain, the completed results
-    on ``results``. Entry-point scripts catch it and ``sys.exit(EXIT_PREEMPTED)``.
+    on ``results``, or by the training loop after its final checkpoint, that
+    checkpoint's step on ``step``. Entry-point scripts catch it and
+    ``sys.exit(EXIT_PREEMPTED)``.
     """
 
-    def __init__(self, message: str, results: list | None = None):
+    def __init__(self, message: str, results: list | None = None, step: int | None = None):
         super().__init__(message)
         self.results = results
+        self.step = step
 
 
 class GracefulShutdown:

@@ -76,7 +76,8 @@ from ..data.synthetic import (
     synthetic_training_batches,
     training_config,
 )
-from ..data.torch_dataset import CSRDataset, CSRDatasetConfig
+from ..data.config import PytorchDatasetConfig
+from ..data.torch_dataset import CSRDataset
 from ..models.config import OptimizationConfig
 from ..training import build_model, build_optimizer, make_chunked_train_step, make_train_step
 from .profile_decode import ORDER, PROGRAMS, profile_summary
@@ -90,7 +91,7 @@ def fresh_optimized(config):
     """A fresh model (numpy seed 0) with ``bench.py``'s AdamW: ``(model, optimizer, scheduler)``."""
     model = init_params_from_seed(build_model(config), seed=0)
     oc = OptimizationConfig(init_lr=1e-3, batch_size=BATCH, max_epochs=MEASURED_EPOCHS, lr_frac_warmup_steps=0.1)
-    oc.set_to_dataset(n_subjects=512)
+    oc.set_to_dataset(range(512))  # a stand-in for bench.py's 512 training subjects
     return (model, *build_optimizer(model, oc))
 
 
@@ -167,7 +168,7 @@ def chunked_main(args, smi: str) -> dict:
     config0 = serving_config()
     csr = synthetic_csr(np.random.default_rng(0), config0, PACKED_SUBJECTS, mean_seq_len=200)
     L = PACKED_SEQ_LEN if packed else SEQ_LEN
-    dd = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=L)))
+    dd = DeviceDataset(CSRDataset(csr, PytorchDatasetConfig(max_seq_len=L)))
     epochs = {seed: epoch_chunks(dd, packed, seed) for seed in range(MEASURED_EPOCHS + 1)}
     k = len(epochs[0][0][0]["event_ids" if packed else "starts"])
     first = epoch_batches(dd, packed, 0, 1)[0].map(lambda t: t.cpu())

@@ -1,20 +1,37 @@
 """Training (counterpart: ``eventstreamgpt_tpu/training``): the optimizer and
 the single-device train steps (CI and nested-attention models), per batch
-and chunked over a device-resident dataset, and the checkpoint directory."""
+and chunked over a device-resident dataset, the checkpoint directory and the
+resume checkpoints, the metrics, `evaluate` and the pretraining loop
+(`train`)."""
 
-from .checkpoint import PRETRAINED_WEIGHTS_DIR, load_pretrained, save_pretrained
+from .checkpoint import PRETRAINED_WEIGHTS_DIR, TrainCheckpointManager, load_pretrained, save_pretrained
 from .optimizer import build_optimizer, polynomial_decay_with_warmup
-from .pretrain import TrainState, build_model, make_chunked_train_step, make_train_step, train_steps
+from .pretrain import (
+    PretrainConfig,
+    TrainState,
+    build_model,
+    evaluate,
+    make_chunked_train_step,
+    make_eval_step,
+    make_train_step,
+    train,
+    train_steps,
+)
 
 __all__ = [
     "PRETRAINED_WEIGHTS_DIR",
+    "PretrainConfig",
+    "TrainCheckpointManager",
     "TrainState",
     "build_model",
     "build_optimizer",
+    "evaluate",
     "make_chunked_train_step",
+    "make_eval_step",
     "load_pretrained",
     "make_train_step",
     "polynomial_decay_with_warmup",
     "save_pretrained",
+    "train",
     "train_steps",
 ]

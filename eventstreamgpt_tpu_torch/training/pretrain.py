@@ -1,8 +1,9 @@
-"""The single-device train steps, for CI and nested-attention models.
+"""Generative pretraining on one device: the train steps, evaluation and `train`.
 
 Counterpart: ``eventstreamgpt_tpu/training/pretrain.py`` (`TrainState`,
 `build_model`, `_train_step_body` behind `make_train_step` and
-`make_chunked_train_step`, `_plan_event_count`). One step runs the model
+`make_chunked_train_step`, `_plan_event_count`, `make_eval_step`,
+`evaluate`, `PretrainConfig`, `train`). One step runs the model
 forward with the losses (``is_generation=False``), backpropagates the
 summed loss and applies one AdamW update with the scheduled learning rate.
 Dropout draws its keep masks from a ``torch.Generator`` seeded from
@@ -15,32 +16,62 @@ in one captured program (`make_chunked_train_step`), both through the same
 step body.
 
 Parameters stay fp32 (the master weights); the model casts them to the
-compute dtype on every call. Metrics, the health sentinel's host side,
-checkpoints, meshes, remat and scan-over-layers are not part of the port
-yet.
+compute dtype on every call. With gradient accumulation
+(`training.optimizer.GradientAccumulator`) each batch signature has two
+programs, one that accumulates and one that accumulates and applies the
+update, and the host picks the one the loop step's phase needs; a chunk's
+phases follow the global step.
+
+`train` is JAX's training loop: datasets from a converted DL cache
+(`data.torch_dataset.TorchDataset`), ``set_to_dataset``, the five config
+files, resume through the checksummed checkpoint manager, the resident
+chunked step (or host collation with the prefetch thread feeding the
+single step), the divergence sentinel and its rollback, graceful
+preemption, the capture guard, the tuning evaluation each epoch, early
+stopping, ``save_pretrained`` and the final validation. A restore (resume
+or rollback) writes into the live parameters, AdamW state, rates,
+accumulation buffers and step counters in place, so captured programs keep
+reading them. Meshes (tensor, FSDP and context parallelism), task data and
+a profiler window inside `train` are refused (`refusals`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable
+import itertools
+import json
+import time
+from pathlib import Path
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 
+from ..data.config import PytorchDatasetConfig
 from ..data.device_dataset import DeviceDataset
+from ..data.prefetch import prefetch_to_device, to_device
+from ..data.torch_dataset import SHARDED_FEEDS, TASK_DATA, TorchDataset
 from ..data.types import X32, EventStreamBatch
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..models.na_model import NAPPTForGenerativeSequenceModeling
-from ..models.config import StructuredEventProcessingMode, StructuredTransformerConfig
+from ..models.config import (
+    MetricsConfig,
+    OptimizationConfig,
+    Split,
+    StructuredEventProcessingMode,
+    StructuredTransformerConfig,
+)
+from ..utils import config_dataclass
 from ..utils.device import resolve_device
 from ..utils.graphs import ByteLayout, CapturedProgram
-from .optimizer import make_capturable
+from .generative_metrics import GenerativeMetrics
+from .optimizer import build_optimizer, make_capturable, polynomial_decay_with_warmup
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The count of steps taken (the optimizer and model hold the rest)."""
+    """The count of loop steps taken (the optimizer and model hold the rest);
+    with gradient accumulation it counts micro-steps, as JAX's does."""
 
     step: int = 0
 
@@ -92,14 +123,20 @@ def _copy_batch(dst: EventStreamBatch, src: EventStreamBatch) -> None:
 
 
 def _step_body(model, optimizer: torch.optim.Optimizer, with_health: bool) -> Callable:
-    """``body(batch, rng) -> (loss,)`` or ``(loss, health)``: one train step
-    on ``batch`` with dropout drawn from ``rng`` (JAX's `_train_step_body`),
-    shared by `make_train_step` and `make_chunked_train_step`. The gradients
-    are zeroed in place, from the first step on, so a captured step keeps
-    their addresses; ``health`` is ``[loss, grad_global_norm]`` (fp32)."""
+    """``body(batch, rng, apply=True) -> (loss,)`` or ``(loss, health)``: one
+    train step on ``batch`` with dropout drawn from ``rng`` (JAX's
+    `_train_step_body`), shared by `make_train_step` and
+    `make_chunked_train_step`. The gradients are zeroed in place, from the
+    first step on, so a captured step keeps their addresses; ``health`` is
+    ``[loss, grad_global_norm]`` (fp32) of this step's gradients. With the
+    optimizer's `GradientAccumulator` the gradients are folded into its
+    running mean, and the update (with the mean) runs only when ``apply``."""
     params = [p for p in model.parameters() if p.requires_grad]
+    acc = getattr(optimizer, "accumulator", None)
+    if acc is not None:
+        acc.bind(params)
 
-    def body(batch: EventStreamBatch, rng: torch.Generator) -> tuple:
+    def body(batch: EventStreamBatch, rng: torch.Generator, apply: bool = True) -> tuple:
         optimizer.zero_grad(set_to_none=False)
         loss = model(batch, is_generation=False, dropout=rng).loss
         loss.backward()
@@ -107,11 +144,31 @@ def _step_body(model, optimizer: torch.optim.Optimizer, with_health: bool) -> Ca
             grad_norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(p.grad.float()) for p in params if p.grad is not None])
             )
-        optimizer.step()
+        if acc is None:
+            optimizer.step()
+        else:
+            acc.accumulate()
+            if apply:
+                acc.load()
+                optimizer.step()
+                acc.reset()
         loss = loss.detach()
         return (loss, torch.stack([loss, grad_norm]).float()) if with_health else (loss,)
 
     return body
+
+
+def _applies(optimizer, step: int) -> bool:
+    """Whether loop step ``step`` applies an optimizer update (every
+    ``k``-th with accumulation, JAX's ``MultiSteps`` emit)."""
+    acc = getattr(optimizer, "accumulator", None)
+    return acc is None or step % acc.k == acc.k - 1
+
+
+def _graph_context(graph, stream):
+    """Captures with ``thread_local`` errors: the prefetch thread may copy the
+    next batch to the card while the step is being captured."""
+    return torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local")
 
 
 def make_train_step(
@@ -121,6 +178,7 @@ def make_train_step(
     device=None,
     with_health: bool = False,
     cuda_graph: bool = True,
+    state: TrainState | None = None,
 ) -> Callable:
     """A ``step(batch, seed) -> loss`` function that trains ``model`` in place.
 
@@ -145,47 +203,58 @@ def make_train_step(
     eagerly (the counterpart of ``jax.disable_jit()``, for comparisons); the
     CPU always does, with the float-rate optimizer. ``stats()["capture_s"]``
     sums the captures' seconds (capture and instantiation together).
+
+    With gradient accumulation a signature has two programs (accumulate;
+    accumulate and apply), picked by ``state.step``'s phase, and the
+    scheduler steps only when an update is applied. ``state`` shares a
+    `TrainState` with the caller (`train`'s resume writes it).
     """
     device = resolve_device(device, "make_train_step")
     model.to(device).train()
     if device.type == "cuda":
         make_capturable(optimizer, device)
     body = _step_body(model, optimizer, with_health)
-    state = TrainState()
+    state = TrainState() if state is None else state
     rng = torch.Generator(device=device)
     capture = cuda_graph and device.type == "cuda"
-    programs: dict = {}  # batch signature -> [static batch, CapturedProgram or None]
+    statics: dict = {}  # batch signature -> static batch
+    programs: dict = {}  # (batch signature, apply) -> CapturedProgram
 
     def step(batch: EventStreamBatch, seed: int):
         signature = _signature(batch)
-        if signature not in programs:
-            programs[signature] = [
-                batch.map(lambda t: torch.empty(t.shape, dtype=X32.get(t.dtype, t.dtype), device=device)), None
-            ]
-        static, program = programs[signature]
+        if signature not in statics:
+            statics[signature] = batch.map(
+                lambda t: torch.empty(t.shape, dtype=X32.get(t.dtype, t.dtype), device=device)
+            )
+        static = statics[signature]
+        apply = _applies(optimizer, state.step)
         _copy_batch(static, batch)
         # A replay draws from the generator's state at replay time, whatever it was at capture.
         rng.manual_seed(dropout_seed(seed, state.step))
+        key = (signature, apply)
+        program = programs.get(key)
         if not capture:
-            out = body(static, rng)
-        elif program is None:  # this signature's warm-up
-            program = programs[signature][1] = CapturedProgram(
-                lambda: body(static, rng), "the train step", device=device, generators=(rng,)
-            )
+            out = body(static, rng, apply)
+        elif program is None:  # this program's warm-up
+            program = programs[key] = CapturedProgram(
+                lambda: body(static, rng, apply), "the train step", device=device, generators=(rng,),
+                graph_context=_graph_context,
+            )  # fmt: skip
             out = program.warmup()
         else:
             if program.graph is None:
                 program.capture()
             out = tuple(t.clone() for t in program.replay())  # the next replay rewrites its outputs
-        scheduler.step()
+        if apply:
+            scheduler.step()
         state.step += 1
         return out if with_health else out[0]
 
     def stats() -> dict:
-        progs = [p for _, p in programs.values() if p is not None]
+        progs = list(programs.values())
         return {
             "cuda_graph": capture,
-            "batch_signatures": len(programs),
+            "batch_signatures": len(statics),
             "graph_warmup_steps": sum(p.warmups for p in progs),
             "graph_captures": sum(p.captures for p in progs),
             "graph_replays": sum(p.replays for p in progs),
@@ -206,16 +275,18 @@ _PLAN_FIELDS = {
 _NUMPY = {torch.int32: np.int32, torch.bool: np.bool_}
 
 
-def _scheduled_rates(scheduler: torch.optim.lr_scheduler.LRScheduler, k: int) -> list[list[float]]:
-    """Each param group's rate for the scheduler's next ``k`` steps, from its
-    current one (as it would set them, stepping ``k`` times), without
-    stepping it or reading the device."""
+def _scheduled_rates(scheduler: torch.optim.lr_scheduler.LRScheduler, applies: list[bool]) -> list[list[float]]:
+    """Each param group's rate for each of the next loop steps: the rate the
+    scheduler would set for the update a step applies (its next updates in
+    order, as it would set them stepping once an update), without stepping
+    it or reading the device; a step that applies none gets the next one's."""
     if not isinstance(scheduler, torch.optim.lr_scheduler.LambdaLR):
         raise ValueError(
             f"make_chunked_train_step takes the LambdaLR of training.build_optimizer, not {type(scheduler).__name__}"
         )
     epoch = scheduler.last_epoch
-    return [[base * fn(epoch + i) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)] for i in range(k)]
+    updates = np.cumsum([False, *applies[:-1]])  # updates applied before each step
+    return [[base * fn(epoch + int(n)) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)] for n in updates]
 
 
 def make_chunked_train_step(
@@ -227,6 +298,7 @@ def make_chunked_train_step(
     with_health: bool = False,
     device=None,
     cuda_graph: bool = True,
+    state: TrainState | None = None,
 ) -> Callable:
     """A ``chunk_step(plans, seed)`` function that runs ``k`` collate and
     train steps of ``model`` in one program.
@@ -261,6 +333,11 @@ def make_chunked_train_step(
     does. ``chunk_step.stats()`` counts keys, warm-ups, captures and
     replays, with each key's plan bytes and capture seconds (capture and
     instantiation together).
+
+    With gradient accumulation step ``i`` applies the update when
+    ``state.step + i`` ends an accumulation window, the pattern of applying
+    steps is part of the key, and the scheduler steps once an update.
+    ``state`` shares a `TrainState` with the caller.
     """
     device = resolve_device(device, "make_chunked_train_step")
     if device_data.device != device:
@@ -272,7 +349,7 @@ def make_chunked_train_step(
     kernel = device_data.packed_kernel() if packed else device_data.padded_kernel()
     groups = optimizer.param_groups
     fields = _PLAN_FIELDS[bool(packed)]
-    state = TrainState()
+    state = TrainState() if state is None else state
     capture = cuda_graph and device.type == "cuda"
     chunks: dict = {}  # key -> the key's static buffers, generators and CapturedProgram
     host_rates: list = []  # the float rates of the CPU optimizer, for the chunk being run
@@ -287,20 +364,22 @@ def make_chunked_train_step(
         out = kernel(device_data.arrays, plan["subject_indices"][i], plan["starts"][i], plan["valid_mask"][i])
         return EventStreamBatch(valid_mask=plan["valid_mask"][i], **out)
 
-    def make_chunk(layout: ByteLayout, k: int) -> dict:
+    def make_chunk(layout: ByteLayout, applies: tuple) -> dict:
         buf = layout.empty(device)
         plan = layout.views(buf)
-        gens = [torch.Generator(device=device) for _ in range(k)]
+        gens = [torch.Generator(device=device) for _ in applies]
 
         def program() -> tuple:
             outs = []
-            for i in range(k):
+            for i, apply in enumerate(applies):
                 for g, group in enumerate(groups):
+                    if not apply:
+                        break
                     if torch.is_tensor(group["lr"]):
                         group["lr"].copy_(plan["rates"][i, g])
                     else:
                         group["lr"] = host_rates[i][g]
-                outs.append(body(collate(plan, i), gens[i]))
+                outs.append(body(collate(plan, i), gens[i], apply))
             return tuple(torch.stack(parts) for parts in zip(*outs))
 
         return dict(layout=layout, buf=buf, gens=gens, fn=program, program=None)
@@ -313,14 +392,17 @@ def make_chunked_train_step(
         first = arrays[next(iter(fields))]
         k, B = first.shape[:2]
         L = first.shape[2] if packed else device_data.dataset.max_seq_len
+        applies = tuple(_applies(optimizer, state.step + i) for i in range(k))
         key = (bool(packed), k, B, L, device_data.dataset.max_n_dynamic)
+        if not all(applies):
+            key += (applies,)
         if key not in chunks:
             layout = ByteLayout(
                 {**{n: (arrays[n].shape, dt) for n, dt in fields.items()}, "rates": ((k, len(groups)), torch.float32)}
             )
-            chunks[key] = make_chunk(layout, k)
+            chunks[key] = make_chunk(layout, applies)
         chunk = chunks[key]
-        rates = _scheduled_rates(scheduler, k)
+        rates = _scheduled_rates(scheduler, list(applies))
         host_rates[:] = rates
         staging = chunk["layout"].empty("cpu", pin_memory=device.type == "cuda")
         views = chunk["layout"].views(staging)
@@ -336,14 +418,15 @@ def make_chunked_train_step(
             out = chunk["fn"]()
         elif program is None:  # this key's warm-up
             program = chunk["program"] = CapturedProgram(
-                chunk["fn"], f"the chunked train step {key}", device=device, generators=chunk["gens"]
-            )
+                chunk["fn"], f"the chunked train step {key}", device=device, generators=chunk["gens"],
+                graph_context=_graph_context,
+            )  # fmt: skip
             out = program.warmup()
         else:
             if program.graph is None:
                 program.capture()
             out = tuple(t.clone() for t in program.replay())  # the next replay rewrites its outputs
-        for _ in range(k):
+        for _ in range(sum(applies)):
             scheduler.step()
         state.step += k
         return out if with_health else out[0]
@@ -383,3 +466,652 @@ def train_steps(step: Callable, batches: Iterable[EventStreamBatch], seed: int) 
     losses = [step(b, seed) for b in batches]
     losses = [x[0] if isinstance(x, tuple) else x for x in losses]
     return [float(x) for x in torch.stack(losses).cpu()] if losses else []
+
+
+# ------------------------------------------------------------------ evaluation
+def make_eval_step(model, device=None) -> Callable:
+    """``eval_step(batch) -> output``: the model's forward with its losses
+    (``is_generation=False``), no dropout, no gradients, eagerly on
+    ``device`` (None: the CUDA device); a host batch is copied there first."""
+    device = resolve_device(device, "make_eval_step")
+    model.to(device)
+
+    def eval_step(batch: EventStreamBatch):
+        batch = batch.map(lambda t: t.to(device, dtype=X32.get(t.dtype, t.dtype), non_blocking=True))
+        with torch.no_grad():
+            return model(batch, is_generation=False)
+
+    return eval_step
+
+
+def evaluate(
+    eval_step: Callable,
+    dataset,
+    batch_size: int,
+    config: StructuredTransformerConfig,
+    metrics_config: MetricsConfig,
+    split: str,
+    generator: torch.Generator | None = None,
+    device_data: DeviceDataset | None = None,
+) -> dict[str, float]:
+    """One pass over a split; returns its ``{split}_...`` metrics.
+
+    Crops are drawn with ``seed=0`` so every pass scores the same data; the
+    fill rows of the last short batch are blanked and flagged by
+    ``valid_mask`` and the loss parts re-weighted by its count. With
+    ``device_data`` (a `DeviceDataset` over the same split) the batches are
+    collated on the device, otherwise on the host with the prefetch thread.
+    ``generator`` draws the sampled TTE and regression metrics."""
+    metrics = GenerativeMetrics(config, metrics_config, split=split)
+    if device_data is not None:
+        for batch in device_data.batches(batch_size, shuffle=False, drop_last=False, seed=0):
+            metrics.update(eval_step(batch), generator=generator, n_valid=int(batch.valid_mask.sum()))
+        return metrics.compute()
+    batch_iter = prefetch_to_device(
+        dataset.batches(batch_size, shuffle=False, drop_last=False, seed=0),
+        lambda b: b,
+        host_stats_fn=lambda b: int(b.valid_mask.sum()),
+    )
+    try:
+        for batch, n_valid in batch_iter:
+            metrics.update(eval_step(batch), generator=generator, n_valid=n_valid)
+    finally:
+        batch_iter.close()
+    return metrics.compute()
+
+
+# ------------------------------------------------------------ resume state
+def train_state_dict(model, optimizer, scheduler, state: TrainState) -> dict:
+    """The training state as CPU tensors and integers (a resume checkpoint's
+    contents): the model's ``state_dict``, AdamW's ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` by parameter name, the scheduler's position,
+    ``TrainState.step`` and the accumulation buffers."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    adam: dict = {"step": {}, "exp_avg": {}, "exp_avg_sq": {}}
+    for p, st in optimizer.state.items():
+        for field in adam:
+            adam[field][names[id(p)]] = torch.as_tensor(st[field]).detach().to("cpu", copy=True)
+    out = {
+        "step": int(state.step),
+        "scheduler_step": int(scheduler.last_epoch),
+        "params": {n: t.detach().to("cpu", copy=True) for n, t in model.state_dict().items()},
+        "adam": adam,
+    }
+    acc = getattr(optimizer, "accumulator", None)
+    if acc is not None and acc.mini is not None:
+        out["accumulation"] = {
+            "mini_step": acc.mini.detach().to("cpu", copy=True),
+            "acc": {names[id(p)]: a.detach().to("cpu", copy=True) for p, a in zip(acc.params, acc.acc)},
+        }
+    return out
+
+
+@torch.no_grad()
+def load_train_state(sd: dict, model, optimizer, scheduler, state: TrainState) -> None:
+    """Writes a `train_state_dict` into the live training state in place.
+
+    Every parameter, AdamW state tensor, capturable rate and accumulation
+    buffer is written with ``copy_``, so its address (and every captured
+    program reading it) stays; AdamW state the optimizer has not made yet
+    (a restore before the first step) is made as its first step would make
+    it, in its capturable form where the optimizer is. The scheduler's
+    position and ``state.step`` are set."""
+    live = model.state_dict()
+    if set(live) != set(sd["params"]):
+        raise ValueError(
+            f"the checkpoint's parameters {sorted(set(sd['params']) ^ set(live))} do not match the model's"
+        )
+    for name, t in live.items():
+        t.copy_(sd["params"][name])
+    params = dict(model.named_parameters())
+    for name, step in sd["adam"]["step"].items():
+        p = params[name]
+        st = optimizer.state[p]
+        if not st:
+            group = next(g for g in optimizer.param_groups if any(q is p for q in g["params"]))
+            on = p.device if group.get("capturable") or group.get("fused") else "cpu"
+            st["step"] = torch.zeros((), dtype=torch.float32, device=on)
+            st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        st["step"].copy_(step)
+        st["exp_avg"].copy_(sd["adam"]["exp_avg"][name])
+        st["exp_avg_sq"].copy_(sd["adam"]["exp_avg_sq"][name])
+    scheduler.last_epoch = int(sd["scheduler_step"])
+    rates = [base * fn(scheduler.last_epoch) for base, fn in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, rate in zip(optimizer.param_groups, rates):
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(rate)
+        else:
+            group["lr"] = rate
+    scheduler._last_lr = rates
+    acc = getattr(optimizer, "accumulator", None)
+    if acc is not None:
+        acc.bind([p for p in model.parameters() if p.requires_grad])
+        saved = sd.get("accumulation")
+        if saved is None:
+            acc.reset()
+        else:
+            acc.mini.copy_(saved["mini_step"])
+            names = {id(p): n for n, p in model.named_parameters()}
+            for p, a in zip(acc.params, acc.acc):
+                a.copy_(saved["acc"][names[id(p)]])
+    state.step = int(sd["step"])
+
+
+# --------------------------------------------------------------------- config
+SKIP_CFG_PARAMS = {"seq_attention_layers", "dep_graph_attention_layers"}
+
+
+def _default_trainer_config() -> dict:
+    return {"log_every_n_steps": 10, "checkpoint_every_n_steps": 100, "max_checkpoints_to_keep": 2, "profile_dir": None}
+
+
+@config_dataclass
+class PretrainConfig:
+    """The configuration of a pretraining run (JAX's ``PretrainConfig``).
+
+    ``config`` holds `StructuredTransformerConfig` keyword arguments (a
+    ``_target_`` key is ignored); the three config fields take their class
+    or a dict of its fields. ``${experiment_dir}`` in ``save_dir`` is
+    replaced by ``experiment_dir``. ``do_detect_anomaly`` runs every step
+    eagerly under ``torch.autograd.detect_anomaly``.
+    """
+
+    do_overwrite: bool = False
+    seed: int = 1
+    do_detect_anomaly: bool = False
+
+    config: dict[str, Any] = dataclasses.field(default_factory=dict)
+    optimization_config: OptimizationConfig = dataclasses.field(default_factory=OptimizationConfig)
+    data_config: PytorchDatasetConfig = dataclasses.field(default_factory=PytorchDatasetConfig)
+    pretraining_metrics_config: MetricsConfig = dataclasses.field(
+        default_factory=lambda: MetricsConfig(do_skip_all_metrics=True)
+    )
+    final_validation_metrics_config: MetricsConfig = dataclasses.field(
+        default_factory=lambda: MetricsConfig(do_skip_all_metrics=False)
+    )
+    trainer_config: dict[str, Any] = dataclasses.field(default_factory=_default_trainer_config)
+
+    experiment_dir: str = "./experiments"
+    save_dir: str = "${experiment_dir}/pretrain"
+
+    do_final_validation_on_metrics: bool = True
+    do_resume_from_checkpoint: bool = True
+
+    def __post_init__(self):
+        if "max_epochs" in self.trainer_config:
+            raise ValueError("Max epochs is set in the optimization_config, not the trainer config!")
+        for name, cls in (("optimization_config", OptimizationConfig), ("data_config", PytorchDatasetConfig),
+                          ("pretraining_metrics_config", MetricsConfig),
+                          ("final_validation_metrics_config", MetricsConfig)):  # fmt: skip
+            if isinstance(getattr(self, name), dict):
+                setattr(self, name, cls.from_dict(getattr(self, name)))
+        self.save_dir = str(self.save_dir).replace("${experiment_dir}", str(self.experiment_dir))
+
+    def build_model_config(self) -> StructuredTransformerConfig:
+        kwargs = {k: v for k, v in self.config.items() if k not in SKIP_CFG_PARAMS and k != "_target_"}
+        return StructuredTransformerConfig(**kwargs)
+
+
+def refusals(cfg: PretrainConfig) -> None:
+    """Raises ``ValueError`` for what `train` does not run yet, naming where
+    it waits: meshes (tensor, FSDP and context parallelism; ROADMAP Queue 1
+    item 7), task data (item 9) and ``trainer_config["profile_dir"]`` (a
+    profiler window inside the loop would precede the captures that follow;
+    ``tools/profile_train.py`` profiles the step)."""
+    tc = dict(cfg.trainer_config or {})
+    for key in ("tensor_parallel_shards", "fsdp_shards", "context_parallel_shards"):
+        if int(tc.get(key) or 1) > 1:
+            raise ValueError(f"trainer_config.{key} > 1 is not part of the PyTorch port yet ({SHARDED_FEEDS})")
+    if cfg.data_config.task_df_name is not None:
+        raise ValueError(f"data_config.task_df_name (task data) is not part of the PyTorch port yet ({TASK_DATA})")
+    if tc.get("profile_dir"):
+        raise ValueError(
+            "trainer_config.profile_dir is refused by the PyTorch port's train(): no capture may follow a "
+            "torch.profiler session; profile the step with eventstreamgpt_tpu_torch.tools.profile_train"
+        )
+
+
+# ---------------------------------------------------------------------- train
+class _Clock:
+    """Marks on the device's timeline (CUDA events on the current stream), or
+    the host clock on the CPU; a span is read once the device has passed it."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def seconds(self, span) -> float:
+        start, end = span
+        return start.elapsed_time(end) / 1e3 if self.cuda else end - start
+
+
+def _eval_generator(device, seed: int, which: int) -> torch.Generator:
+    """The sampled metrics' generator of one evaluation (``which``: the epoch, or -1 / -2 for the final ones)."""
+    return torch.Generator(device=device).manual_seed(dropout_seed(seed, (1 << 40) + which))
+
+
+def train(
+    cfg: PretrainConfig, model_config: StructuredTransformerConfig | None = None, device=None
+) -> tuple[float | None, dict | None, dict | None]:
+    """End-to-end pretraining from a converted DL cache (JAX's ``train``).
+
+    Returns ``(tuning_loss, tuning_metrics, held_out_metrics)`` of the final
+    validation, or ``(None, None, None)`` without it. ``device=None`` means
+    the CUDA device (and raises without one); the tests pass ``"cpu"``.
+
+    In JAX's order: ``train`` and ``tuning`` `TorchDataset`s, the configs set
+    to the dataset, the five config files under ``cfg.save_dir``, the model
+    (numpy-seeded from ``cfg.seed``) and AdamW, resume from the newest
+    verified checkpoint in ``save_dir/model_checkpoints``, then the epochs:
+    with the tables resident (``trainer_config["device_resident_data"]``:
+    ``"auto"`` when they fit `DeviceDataset.DEFAULT_BUDGET_BYTES`, True, or
+    False) the captured chunked step over ``steps_per_execution`` plans a
+    dispatch (default ``min(log_every, checkpoint_every, 16)``), otherwise
+    host collation with the prefetch thread feeding the captured single
+    step. Each dispatch: the window record every ``log_every_n_steps``
+    (``train_log.jsonl``), a sentinel-vetted checkpoint every
+    ``checkpoint_every_n_steps``, the capture guard (armed from the second
+    in-process epoch), ``max_training_steps`` and preemption. Each epoch:
+    `reliability.sentinel.finish_epoch` (rollback, or the drain and
+    `reliability.Preempted`), the tuning evaluation, the epoch-end
+    checkpoint and early stopping on the tuning loss. Then
+    ``save_pretrained`` and the final validation on ``tuning`` and
+    ``held_out`` with the full metrics config (``tuning_metrics.json``,
+    ``held_out_metrics.json``). Beside JAX's fields, ``train_log.jsonl``'s
+    window records carry their ``events``, the epoch records the seconds of
+    the steps, the evaluation and the checkpoint saves and the step's
+    ``graph_captures`` so far, and a ``"final"`` record the seconds of
+    ``save_pretrained`` and the final validation. A window's
+    ``events_per_sec`` and ``step_time_ms`` and an epoch's ``steps_s`` are
+    read off the device's timeline (CUDA events around the window's steps,
+    read when the loop next waits for the device), so the loop never waits
+    to time them; on the CPU, off the host clock.
+
+    Raises `reliability.sentinel.DivergenceError` when rollbacks are spent,
+    and ``ValueError`` for what `refusals` names.
+    """
+    from ..analysis.compile_guard import CompileGuard
+    from ..reliability import faults
+    from ..reliability.integrity import ReliableCheckpointManager, resume_training_state
+    from ..reliability.preemption import GracefulShutdown
+    from ..reliability.sentinel import DivergenceSentinel, HealthMonitor, RollbackController, SentinelConfig, finish_epoch
+    from ..convert import init_params_from_seed
+    from .checkpoint import save_pretrained
+
+    device = resolve_device(device, "train")
+    refusals(cfg)
+    np.random.seed(cfg.seed)
+    anomaly = bool(cfg.do_detect_anomaly)
+
+    train_ds = TorchDataset(cfg.data_config, split="train")
+    tuning_ds = TorchDataset(cfg.data_config, split="tuning")
+    config = model_config if model_config is not None else cfg.build_model_config()
+    oc, data_config = cfg.optimization_config, cfg.data_config
+    configured_max_seq_len = config.max_seq_len
+    config.set_to_dataset(train_ds)
+
+    tc = dict(cfg.trainer_config or {})
+    use_packed = bool(tc.get("use_packed_batches"))
+    packed_L = int(tc.get("packed_seq_len") or max(configured_max_seq_len, train_ds.max_seq_len))
+    if use_packed:
+        config.max_seq_len = packed_L
+    steps_per_epoch = (
+        train_ds.packed_batch_count(oc.batch_size, seq_len=packed_L, seed=cfg.seed) if use_packed else None
+    )
+    oc.set_to_dataset(train_ds, steps_per_epoch=steps_per_epoch)
+    if steps_per_epoch is None:
+        steps_per_epoch = len(train_ds) // oc.batch_size
+
+    save_dir = Path(cfg.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    config_fp = save_dir / "config.json"
+    has_resume_target = cfg.do_resume_from_checkpoint and any(
+        p.name.isdigit() for p in (save_dir / "model_checkpoints").glob("*")
+    )
+    if config_fp.exists() and not cfg.do_overwrite and not has_resume_target:
+        raise FileExistsError(f"{config_fp} already exists!")
+    config.to_json_file(config_fp, do_overwrite=True)
+    data_config.to_json_file(save_dir / "data_config.json", do_overwrite=True)
+    oc.to_json_file(save_dir / "optimization_config.json", do_overwrite=True)
+    cfg.pretraining_metrics_config.to_json_file(save_dir / "pretraining_metrics_config.json", do_overwrite=True)
+    cfg.final_validation_metrics_config.to_json_file(
+        save_dir / "final_validation_metrics_config.json", do_overwrite=True
+    )
+
+    if len(train_ds) < oc.batch_size:
+        raise ValueError(
+            f"Train split has {len(train_ds)} subjects but batch_size is {oc.batch_size}; training batches drop the "
+            "last short batch, so no batch can be formed. Lower optimization_config.batch_size."
+        )
+    model = init_params_from_seed(build_model(config), seed=cfg.seed).to(device).train()
+    optimizer, scheduler = build_optimizer(model, oc)
+    if device.type == "cuda":
+        make_capturable(optimizer, device)
+    if optimizer.accumulator is not None:
+        optimizer.accumulator.bind([p for p in model.parameters() if p.requires_grad])
+    accum = oc.gradient_accumulation or 1
+    state = TrainState()
+    schedule = polynomial_decay_with_warmup(
+        oc.init_lr, oc.end_lr, oc.lr_num_warmup_steps, oc.max_training_steps, oc.lr_decay_power
+    )
+
+    def state_dict() -> dict:
+        return train_state_dict(model, optimizer, scheduler, state)
+
+    def load_state(sd: dict) -> None:
+        load_train_state(sd, model, optimizer, scheduler, state)
+
+    log_every = int(tc.get("log_every_n_steps") or 10)
+    ckpt_every = int(tc.get("checkpoint_every_n_steps") or 100)
+    keep = int(tc.get("max_checkpoints_to_keep") or 2)
+
+    sentinel_cfg = SentinelConfig.from_trainer_config(tc)
+    sentinel = DivergenceSentinel(sentinel_cfg) if sentinel_cfg is not None else None
+    rollback_ctl = (
+        RollbackController(sentinel_cfg.max_rollbacks, save_dir / "divergence_diagnostics.json")
+        if sentinel_cfg is not None
+        else None
+    )
+    with_health = sentinel is not None
+    ckpt_mgr = ReliableCheckpointManager(
+        save_dir / "model_checkpoints",
+        max_to_keep=keep,
+        retries=int(tc.get("ckpt_retries", 3)),
+        backoff_base=float(tc.get("ckpt_backoff_base", 0.5)),
+    )
+    start_epoch = skip_batches = 0
+    if cfg.do_resume_from_checkpoint and ckpt_mgr.latest_step() is not None:
+        _, start_epoch, skip_batches = resume_training_state(ckpt_mgr, load_state)
+
+    resident_mode = tc.get("device_resident_data", "auto")
+    budget = int(tc.get("device_resident_max_bytes") or DeviceDataset.DEFAULT_BUDGET_BYTES)
+    device_train = device_tuning = None
+    if resident_mode is True:
+        device_train = DeviceDataset(train_ds, device=device)
+        device_tuning = DeviceDataset(tuning_ds, device=device)
+    elif resident_mode == "auto":
+        device_train = DeviceDataset.try_create(train_ds, device=device, max_bytes=budget)
+        if device_train is not None:
+            device_tuning = DeviceDataset.try_create(tuning_ds, device=device, max_bytes=budget)
+    chunk_steps = tc.get("steps_per_execution") or "auto"
+    if chunk_steps == "auto":
+        chunk_steps = max(min(log_every, ckpt_every, 16), 1)
+    chunk_steps = int(chunk_steps)
+    step_kw = dict(with_health=with_health, device=device, cuda_graph=not anomaly, state=state)
+    if device_train is not None:
+        chunked_step = make_chunked_train_step(model, optimizer, scheduler, device_train, packed=use_packed, **step_kw)
+        train_step = None
+    else:
+        chunked_step = None
+        train_step = make_train_step(model, optimizer, scheduler, **step_kw)
+    eval_step = make_eval_step(model, device)
+    step_guard = None
+    if bool(tc.get("guard_recompiles", True)):
+        step_guard = CompileGuard(watch=[chunked_step or train_step], label="pretrain step (mid-epoch)")
+
+    def train_batches(epoch: int, skip: int):
+        if not use_packed:
+            return train_ds.batches(oc.batch_size, shuffle=True, seed=cfg.seed + epoch, skip_batches=skip)
+        packed = (
+            b for b in train_ds.packed_batches(oc.batch_size, seq_len=packed_L, seed=cfg.seed + epoch)
+            if b.event_mask.shape[0] == oc.batch_size
+        )  # fmt: skip
+        return itertools.islice(packed, skip, None)
+
+    def train_plan_chunks(epoch: int, skip: int):
+        if use_packed:
+            return device_train.packed_plan_chunks(
+                oc.batch_size, chunk_steps, seq_len=packed_L, seed=cfg.seed + epoch, skip_batches=skip
+            )
+        return device_train.plan_chunks(oc.batch_size, chunk_steps, shuffle=True, seed=cfg.seed + epoch,
+                                        skip_batches=skip)  # fmt: skip
+
+    log_fp = save_dir / "train_log.jsonl"
+
+    def log_record(rec: dict) -> None:
+        with open(log_fp, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    best_tuning_loss = float("inf")
+    epochs_since_best = 0
+    global_step = state.step
+    stop = False
+    full_epoch_completed_in_process = False
+    shutdown = GracefulShutdown()
+    resume_epoch, resume_skip = start_epoch, skip_batches
+    epoch = start_epoch
+    place = to_device(device)
+    clock = _Clock(device)
+    anomaly_prev = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(anomaly)
+    try:
+        with shutdown:
+            while epoch < oc.max_epochs:
+                if step_guard is not None:
+                    step_guard.arm() if full_epoch_completed_in_process else step_guard.disarm()
+                epoch_t0 = time.perf_counter()
+                window_mark, window_events, window_n = None, 0, 0
+                window_losses: list = []
+                spans: list = []  # the device spans of the epoch's steps, window by window
+                epoch_skip = resume_skip if epoch == resume_epoch else 0
+                if rollback_ctl is not None:
+                    epoch_skip = rollback_ctl.epoch_skip(epoch, epoch_skip)
+                epoch_progress = epoch_skip
+                preempt_requested = False
+                health_mon = HealthMonitor(sentinel)
+                timing = {"save_s": 0.0}
+
+                def flush_window() -> dict:
+                    nonlocal window_mark, window_events, window_n, window_losses
+                    span = (window_mark, clock.mark())
+                    spans.append(span)
+                    rec = {
+                        "split": str(Split.TRAIN),
+                        "epoch": epoch,
+                        "step": global_step,
+                        "_losses": [x.reshape(-1) for x in window_losses],
+                        "_span": span,
+                        "_n": window_n,
+                        "events": window_events,
+                    }
+                    window_mark, window_events, window_n = None, 0, 0
+                    window_losses = []
+                    return rec
+
+                def finalize_record(rec: dict) -> None:
+                    rec["train_loss"] = float(torch.cat(rec.pop("_losses")).float().mean())  # waits for the steps
+                    dt = clock.seconds(rec.pop("_span"))
+                    rec["events_per_sec"] = rec["events"] / dt if dt > 0 else None
+                    rec["step_time_ms"] = 1000.0 * dt / max(rec.pop("_n"), 1)
+                    rec["lr"] = float(schedule(rec["step"] // accum))
+                    log_record(rec)
+
+                def handle_window(step_in_epoch: int, stepped: int, pending: list) -> None:
+                    nonlocal stop, preempt_requested
+                    if global_step % log_every < stepped:
+                        pending.append(flush_window())
+                    if global_step % ckpt_every < stepped:
+                        t0 = time.perf_counter()
+                        if health_mon.vetted_save(
+                            ckpt_mgr,
+                            global_step,
+                            state_dict,
+                            {"epoch": epoch, "epoch_complete": False, "step_in_epoch": step_in_epoch},
+                            epoch=epoch,
+                            progress=step_in_epoch,
+                        ):
+                            for rec in pending:
+                                finalize_record(rec)
+                            pending.clear()
+                        timing["save_s"] += time.perf_counter() - t0
+                    if step_guard is not None and step_guard.armed:
+                        if chunked_step is None or stepped == chunk_steps:
+                            step_guard.check()
+                        elif step_guard.compiles > 0:
+                            step_guard.arm()  # a short tail chunk owns its key
+                    if oc.max_training_steps is not None and global_step // accum >= oc.max_training_steps:
+                        stop = True
+                    if shutdown.requested:
+                        preempt_requested = True
+
+                pending_logs: list[dict] = []
+                try:
+                    if chunked_step is not None:
+                        step_in_epoch = epoch_skip
+                        for plans, n_events in train_plan_chunks(epoch, epoch_skip):
+                            k = int(next(iter(plans.values())).shape[0])
+                            if oc.max_training_steps is not None:
+                                remaining = oc.max_training_steps * accum - global_step
+                                if remaining < k:
+                                    plans = {key: v[:remaining] for key, v in plans.items()}
+                                    k = remaining
+                                    n_events = _plan_event_count(plans, train_ds) if k > 0 else 0
+                            if k <= 0:
+                                break
+                            window_mark = window_mark or clock.mark()
+                            out = chunked_step(plans, cfg.seed)
+                            losses = out[0] if with_health else out
+                            if with_health:
+                                health_mon.record(out[1])
+                            global_step += k
+                            step_in_epoch += k
+                            epoch_progress = step_in_epoch
+                            faults.maybe_sigterm(global_step, shutdown)
+                            window_events += n_events
+                            window_losses.append(losses)
+                            window_n += k
+                            handle_window(step_in_epoch, k, pending_logs)
+                            if stop or health_mon.rollback_requested or preempt_requested:
+                                break
+                    else:
+                        batch_iter = prefetch_to_device(
+                            faults.wrap_batches(train_batches(epoch, epoch_skip), epoch=epoch, first_index=epoch_skip),
+                            place,
+                            host_stats_fn=lambda b: int(b.event_mask.sum()),
+                        )
+                        try:
+                            for step_in_epoch, (batch, n_events) in enumerate(batch_iter, start=epoch_skip):
+                                window_mark = window_mark or clock.mark()
+                                out = train_step(batch, cfg.seed)
+                                loss = out[0] if with_health else out
+                                if with_health:
+                                    health_mon.record(out[1])
+                                global_step += 1
+                                epoch_progress = step_in_epoch + 1
+                                faults.maybe_sigterm(global_step, shutdown)
+                                window_events += n_events
+                                window_losses.append(loss)
+                                window_n += 1
+                                handle_window(step_in_epoch + 1, 1, pending_logs)
+                                if stop or health_mon.rollback_requested or preempt_requested:
+                                    break
+                        finally:
+                            batch_iter.close()
+                finally:
+                    if window_mark is not None:  # a tail shorter than a window
+                        spans.append((window_mark, clock.mark()))
+                    for rec in pending_logs:
+                        finalize_record(rec)
+
+                outcome = finish_epoch(
+                    health_mon=health_mon,
+                    rollback_ctl=rollback_ctl,
+                    ckpt_mgr=ckpt_mgr,
+                    shutdown=shutdown,
+                    state_dict_fn=state_dict,
+                    load_state=load_state,
+                    log_record=log_record,
+                    epoch=epoch,
+                    epoch_progress=epoch_progress,
+                    global_step=global_step,
+                    accum=accum,
+                    max_training_steps=oc.max_training_steps,
+                    label="pretraining",
+                )
+                if outcome.action == "rollback":
+                    global_step = outcome.global_step
+                    resume_epoch, resume_skip = outcome.resume_epoch, outcome.resume_skip
+                    stop = outcome.stop
+                    epoch = resume_epoch
+                    continue
+                if epoch_skip == 0:
+                    full_epoch_completed_in_process = True
+
+                eval_t0 = time.perf_counter()
+                tuning_metrics = evaluate(
+                    eval_step, tuning_ds, oc.validation_batch_size, config, cfg.pretraining_metrics_config,
+                    Split.TUNING, generator=_eval_generator(device, cfg.seed, epoch), device_data=device_tuning,
+                )  # fmt: skip
+                eval_s = time.perf_counter() - eval_t0
+                tuning_loss = tuning_metrics.get("tuning_loss", float("nan"))
+                t0 = time.perf_counter()
+                if outcome.tail_healthy:
+                    ckpt_mgr.save(global_step, state_dict(), metadata={"epoch": epoch, "epoch_complete": True})
+                timing["save_s"] += time.perf_counter() - t0
+                log_record(
+                    {
+                        "split": str(Split.TUNING),
+                        "epoch": epoch,
+                        "step": global_step,
+                        **tuning_metrics,
+                        "epoch_time_s": time.perf_counter() - epoch_t0,
+                        "steps_s": sum(clock.seconds(span) for span in spans),
+                        "eval_s": eval_s,
+                        "checkpoint_s": timing["save_s"],
+                        "graph_captures": (chunked_step or train_step).stats()["graph_captures"],
+                    }
+                )
+                print(
+                    f"epoch {epoch}: opt step {global_step // accum}/"
+                    f"{oc.max_training_steps or steps_per_epoch * oc.max_epochs} tuning_loss={tuning_loss:.4f}"
+                )
+                if np.isfinite(tuning_loss) and tuning_loss < best_tuning_loss - 1e-12:
+                    best_tuning_loss = tuning_loss
+                    epochs_since_best = 0
+                else:
+                    epochs_since_best += 1
+                    if oc.patience is not None and epochs_since_best >= max(oc.patience, 1):
+                        print(f"Early stopping at epoch {epoch} (patience {oc.patience})")
+                        break
+                if stop:
+                    break
+                epoch += 1
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly_prev)
+
+    ckpt_mgr.wait_until_finished()
+    t0 = time.perf_counter()
+    save_pretrained(save_dir, model)
+    save_s = time.perf_counter() - t0
+    if not cfg.do_final_validation_on_metrics:
+        log_record({"split": "final", "save_pretrained_s": save_s})
+        ckpt_mgr.close()
+        return None, None, None
+
+    held_out_ds = TorchDataset(cfg.data_config, split="held_out")
+    device_held_out = (
+        DeviceDataset.try_create(held_out_ds, device=device, max_bytes=budget) if device_train is not None else None
+    )
+    final_tuning = evaluate(
+        eval_step, tuning_ds, oc.validation_batch_size, config, cfg.final_validation_metrics_config, Split.TUNING,
+        generator=_eval_generator(device, cfg.seed, -1), device_data=device_tuning,
+    )  # fmt: skip
+    final_held_out = evaluate(
+        eval_step, held_out_ds, oc.validation_batch_size, config, cfg.final_validation_metrics_config,
+        Split.HELD_OUT, generator=_eval_generator(device, cfg.seed, -2), device_data=device_held_out,
+    )  # fmt: skip
+    log_record({"split": "final", "save_pretrained_s": save_s, "validation_s": time.perf_counter() - t0 - save_s})
+    print("Saving final metrics...")
+    with open(save_dir / "tuning_metrics.json", "w") as f:
+        json.dump(final_tuning, f)
+    with open(save_dir / "held_out_metrics.json", "w") as f:
+        json.dump(final_held_out, f)
+    ckpt_mgr.close()
+    return final_tuning.get("tuning_loss"), final_tuning, final_held_out

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import json
+import os
 from pathlib import Path
 from typing import Any, TypeVar
 
@@ -64,3 +65,26 @@ class JSONableMixin:
     def from_json_file(cls: type[T], fp: Path | str) -> T:
         with open(fp) as f:
             return cls.from_dict(json.load(f))
+
+
+def atomic_write_json(fp: Path | str, obj: Any, **json_kwargs: Any) -> None:
+    """Publishes ``obj`` as JSON at ``fp`` atomically: a per-process temporary
+    file, fsynced, renamed over ``fp``, and the directory fsynced, so a crash
+    leaves either the old file or the whole new one."""
+    fp = Path(fp)
+    tmp = fp.with_name(f"{fp.name}.{os.getpid()}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(obj, f, **json_kwargs)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, fp)
+    try:
+        dirfd = os.open(fp.parent, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(dirfd)
+    except OSError:
+        pass
+    finally:
+        os.close(dirfd)

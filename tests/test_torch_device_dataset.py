@@ -32,7 +32,8 @@ from eventstreamgpt_tpu.data import DeviceDataset as JaxDeviceDataset
 from eventstreamgpt_tpu.data import JaxDataset, PytorchDatasetConfig
 from eventstreamgpt_tpu.data.synthetic import write_synthetic_dataset
 from eventstreamgpt_tpu_torch.data.device_dataset import DeviceDataset
-from eventstreamgpt_tpu_torch.data.torch_dataset import CSRData, CSRDataset, CSRDatasetConfig
+from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig as PortDatasetConfig
+from eventstreamgpt_tpu_torch.data.torch_dataset import CSRData, CSRDataset
 from eventstreamgpt_tpu_torch.utils.enums import SubsequenceSamplingStrategy
 
 PROCESSED = Path(__file__).resolve().parent.parent / "sample_data" / "processed" / "sample"
@@ -72,7 +73,7 @@ def datasets(dirs):
 def port_dataset(jds) -> CSRDataset:
     data = CSRData(**{f.name: np.asarray(getattr(jds.data, f.name)) for f in dataclasses.fields(CSRData)})
     c = jds.config
-    config = CSRDatasetConfig(**{f.name: getattr(c, f.name) for f in dataclasses.fields(CSRDatasetConfig)})
+    config = PortDatasetConfig.from_dict(c.to_dict())
     return CSRDataset(data, config, do_produce_static_data=jds.do_produce_static_data, subject_ids=jds.subject_ids)
 
 

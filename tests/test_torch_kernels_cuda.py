@@ -1126,14 +1126,15 @@ def test_captured_chunk_equals_single_captured_steps(cuda, name):
         synthetic_csr,
         training_config,
     )
-    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset, CSRDatasetConfig
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset
     from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
     from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_chunked_train_step, make_train_step
 
     packed = name == "packed"
     csr = synthetic_csr(np.random.default_rng(0), serving_config(**GRAPH_WIDTHS), 64 if packed else 24, mean_seq_len=20)
     L, B, k = (128, 2, 2) if packed else (32, 4, 3)
-    dd = DeviceDataset(CSRDataset(csr, CSRDatasetConfig(max_seq_len=L)), device=cuda)
+    dd = DeviceDataset(CSRDataset(csr, PytorchDatasetConfig(max_seq_len=L)), device=cuda)
     if packed:
         chunks = [c for s in (1, 2) for c in list(dd.packed_plan_chunks(B, k, seq_len=L, seed=s))[:2]]
         batches = [b for s in (1, 2) for b in list(dd.packed_batches(B, seq_len=L, seed=s))[: 2 * k]]
@@ -1557,3 +1558,50 @@ def test_a_row_does_not_depend_on_its_batch(cuda):
         assert out["rows_with_other_decisions"] == 0 and out["float_draws_max_abs"] == 0.0, part["rows"]
         assert set(out["pred_floats_max_abs"].values()) == {0.0}, part["rows"]
     assert bf16["decode"]["kernel_b_same_input"] == dict(rows_equal=True, max_abs=0.0)
+
+
+@pytest.mark.parametrize("kind", ["chunked", "single"])
+def test_restore_keeps_addresses_and_the_next_replay_trains_from_it(cuda, kind):
+    """A resume or rollback restore (`load_train_state`) after the step is
+    captured: every parameter and AdamW tensor keeps its address, nothing is
+    captured again, and the next replay from the restored state gives what
+    the same step gave from that state the first time, bit for bit (bf16,
+    dropout 0.1, accumulation k=2 in the chunked case)."""
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.data.device_dataset import DeviceDataset
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_csr, training_config
+    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_chunked_train_step, make_train_step
+    from eventstreamgpt_tpu_torch.training.pretrain import load_train_state, train_state_dict
+
+    csr = synthetic_csr(np.random.default_rng(0), serving_config(**GRAPH_WIDTHS), 24, mean_seq_len=20)
+    dd = DeviceDataset(CSRDataset(csr, PytorchDatasetConfig(max_seq_len=32)), device=cuda)
+    config = training_config([next(dd.batches(4, seed=0)).map(lambda t: t.cpu())], **GRAPH_WIDTHS)
+    model = init_params_from_seed(build_model(config), seed=0)
+    accumulation = 2 if kind == "chunked" else None
+    oc = OptimizationConfig(init_lr=1e-3, lr_num_warmup_steps=2, lr_frac_warmup_steps=None, max_training_steps=20,
+                            gradient_accumulation=accumulation)  # fmt: skip
+    optimizer, scheduler = build_optimizer(model, oc)
+    if kind == "chunked":
+        step = make_chunked_train_step(model, optimizer, scheduler, dd, device=cuda, with_health=True)
+        items = [plans for plans, _ in dd.plan_chunks(2, 2, seed=1)][:4]
+    else:
+        step = make_train_step(model, optimizer, scheduler, device=cuda, with_health=True)
+        items = list(dd.batches(4, seed=1))[:4]
+    for item in items[:3]:  # warm-up, capture, replay
+        step(item, 7)
+    assert step.stats()["graph_captures"] == 1
+    snapshot = train_state_dict(model, optimizer, scheduler, step.state)
+    first = step(items[3], 7)[1].cpu()
+    after = [p.detach().cpu() for p in model.parameters()]
+    ptrs = [p.data_ptr() for p in model.parameters()] + [t.data_ptr() for st in optimizer.state.values()
+                                                          for t in st.values() if t.dim()]  # fmt: skip
+    load_train_state(snapshot, model, optimizer, scheduler, step.state)
+    assert ptrs == [p.data_ptr() for p in model.parameters()] + [
+        t.data_ptr() for st in optimizer.state.values() for t in st.values() if t.dim()
+    ]
+    again = step(items[3], 7)[1].cpu()
+    assert step.stats()["graph_captures"] == 1
+    assert torch.equal(first, again), (first, again)
+    assert all(torch.equal(a, p.detach().cpu()) for a, p in zip(after, model.parameters()))

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no JAX in it, configs and weights cross over.
 
-* ``import eventstreamgpt_tpu_torch`` (every module) works with JAX blocked.
+* ``import eventstreamgpt_tpu_torch`` (every module) works with JAX, pandas
+  and pyarrow blocked; no module imports pandas or pyarrow at module level,
+  and only `data.dl_cache.convert_dl_cache`'s body imports pyarrow at all.
 * An AST scan finds no ``jax``, ``flax`` or ``eventstreamgpt_tpu`` import in
   the port or in ``chip_smoke.py``, and no ``triton`` import.
 * A JAX config's ``to_dict()`` round-trips through the port's config (and
@@ -40,7 +42,7 @@ MODULES = sorted(
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'eventstreamgpt_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'eventstreamgpt_tpu', 'pandas', 'pyarrow'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {['eventstreamgpt_tpu_torch'] + MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -57,12 +59,17 @@ def test_every_module_imports_with_jax_blocked():
      "eventstreamgpt_tpu_torch.utils.enums", "eventstreamgpt_tpu_torch.serving.spec",
      "eventstreamgpt_tpu_torch.serving.router", "eventstreamgpt_tpu_torch.serving.fleet",
      "eventstreamgpt_tpu_torch.reliability", "eventstreamgpt_tpu_torch.reliability.serving_faults",
-     "eventstreamgpt_tpu_torch.reliability.preemption", "eventstreamgpt_tpu_torch.tools.row_invariance"],
+     "eventstreamgpt_tpu_torch.reliability.preemption", "eventstreamgpt_tpu_torch.tools.row_invariance",
+     "eventstreamgpt_tpu_torch.data.dl_cache", "eventstreamgpt_tpu_torch.data.prefetch",
+     "eventstreamgpt_tpu_torch.training.metrics", "eventstreamgpt_tpu_torch.training.generative_metrics",
+     "eventstreamgpt_tpu_torch.reliability.faults", "eventstreamgpt_tpu_torch.reliability.integrity",
+     "eventstreamgpt_tpu_torch.reliability.sentinel", "eventstreamgpt_tpu_torch.analysis.compile_guard"],
 )  # fmt: skip
 def test_sweep_covers_the_resident_feed(module):
     """The resident feed, the chunked step, speculative decoding, the fleet's
-    router, the serving fault plan and the row-invariance tool are in the
-    JAX-blocked import sweep above."""
+    router, the serving fault plan, the row-invariance tool, the DL-cache
+    reader, the prefetch thread, the metrics, the training reliability
+    modules and the capture guard are in the blocked import sweep above."""
     assert module in MODULES
 
 
@@ -116,6 +123,30 @@ def test_no_triton_imports(path):
     assert "triton" not in imported_roots(path), path
 
 
+def module_level_roots(path: Path) -> set[str]:
+    """The roots imported outside any function or class body."""
+    roots = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_pandas_or_pyarrow_at_import(path):
+    """The card's machine has neither: nothing imports them at module level,
+    and only the converter (``data/dl_cache.py``) imports pyarrow at all."""
+    assert not (module_level_roots(path) & {"pandas", "pyarrow"}), path
+    if path.name != "dl_cache.py":
+        assert not (imported_roots(path) & {"pandas", "pyarrow"}), path
+
+
 def jax_config():
     return JaxConfig(
         measurement_configs=dict(MEASUREMENT_CONFIGS),
@@ -167,3 +198,15 @@ def test_load_raises_on_shape_mismatch(flax_params):
     params["params"]["encoder"]["ln_f"]["scale"] = np.ones(17, np.float32)
     with pytest.raises(ValueError, match="shape"):
         load_jax_params(port_model(), params)
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A later phase's helper must not shadow an earlier phase's of the same name."""
+    names = [
+        t.id if isinstance(node, ast.Assign) else node.name
+        for node in ast.parse((REPO / "chip_smoke.py").read_text()).body
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef, ast.Assign))
+        for t in (node.targets if isinstance(node, ast.Assign) else [node])
+        if not isinstance(node, ast.Assign) or isinstance(t, ast.Name)
+    ]
+    assert len(names) == len(set(names)), sorted({n for n in names if names.count(n) > 1})

@@ -267,7 +267,8 @@ def test_export_params_inverts_load(cases):
 def test_optimizer_refuses_accumulation_and_unset_steps():
     module = torch.nn.Linear(2, 2)
     with pytest.raises(ValueError, match="gradient_accumulation"):
-        build_optimizer(module, OptimizationConfig(**OPT, gradient_accumulation=2))
+        build_optimizer(module, OptimizationConfig(**OPT, gradient_accumulation=0))
+    assert build_optimizer(module, OptimizationConfig(**OPT, gradient_accumulation=2))[0].accumulator.k == 2
     with pytest.raises(ValueError, match="set_to_dataset"):
         build_optimizer(module, OptimizationConfig(init_lr=1e-3))
 
