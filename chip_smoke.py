@@ -219,22 +219,20 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    per-request proposals and acceptances), one capture a key and none after
    ``reset()``, one spec-chunk replay a dispatched chunk (16 rounds each),
    kernel A's counter moving on sampled runs and kernel B's counters (every
-   entry) 0; the sampled bf16 (depth 1) and int8 runs equal their
-   ``cuda_graph=False`` twins bit for bit, kernel A launched as often. A
+   entry) 0 (captured against eager is the small engine's check below and the
+   ``spec`` CUDA tests'; the full-width eager twins went to pay for phase 19). A
    perfect draft (the target itself, tolerant greedy) must accept more than
-   0.9 in fp32 (the same weights; in bf16 it is printed); a small fp32 greedy spec engine (zero tolerances) on the card must
-   match the same engine on the CPU (phase 2's small-engine tolerances).
-   Printed, not checked, beside the card's name and power limit: each run's
-   events/s (accounting pass), acceptance rate and committed events a slot
-   and round; the spec engine's events/s beside the monolithic unfused and
-   kernel-B engines' (sampled, depth 1, same requests); the share of strict
-   greedy requests whose events equal the non-spec greedy engine's;
-   ``slots_report()`` with the draft charged; one profiled 16-step chunk of
-   each decode step at 32 admitted slots (paged, monolithic unfused, kernel
-   B, and the spec round; device ms and kernels a step) and the spec round's
-   parts (the draft steps, the verify with the accept walk and the commit;
-   device ms by CUDA events, kernels a replay), taken after phase 13's
-   captures (no capture follows a profile).
+   0.9 in fp32 (the same weights); a small fp32 greedy spec engine (zero
+   tolerances) on the card must match the same engine on the CPU (phase 2's
+   small-engine tolerances). Printed, not checked, beside the card's name
+   and power limit: each run's events/s (accounting pass), acceptance rate
+   and committed events a slot and round; ``slots_report()`` with the draft
+   charged; one profiled 16-step chunk of each decode step at 32 admitted
+   slots (paged, monolithic unfused, kernel B; device ms and kernels a
+   step), taken after phase 13's captures (no capture follows a profile).
+   The bf16 perfect draft, the monolithic engines' events/s and the spec
+   round's profiles, all measured and not checked, went to pay for phase 19
+   (``tools/profile_decode.py --spec`` takes the round's).
 13. Cohort ``generate()`` (`generation.generate`, ``bench.py``'s generation
    arm): phase 4's CI model and phase 6's NA model (bf16, numpy-seeded
    weights) on one batch of 32 prompts of 192 real events
@@ -263,13 +261,15 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    behind `GenerationEngine` (32 slots, ``max_len`` 256, prompts up to 192,
    buckets from 32, chunks of 16), serving 64 requests with prompts made for
    its config as phase 2 makes its own: bf16 greedy, bf16 sampled and int8
-   sampled, each in phase 2's three passes, captured (one capture a key, none
-   after ``reset()``), and each against the same engine with
-   ``cuda_graph=False`` (warm pass, bit for bit). Every request finishes
-   with ``n_events == prompt_len + n_generated`` and finite outputs; each
-   pass after ``reset()`` equals the warm pass bit for bit; kernel A
-   launches (sampled only) as often as the eager engine after ``reset()``
-   and that count plus the warm-ups in the warm pass; kernels B and D never
+   sampled, captured (one capture a key, none after ``reset()``): bf16
+   sampled in phase 2's three passes and against the same engine with
+   ``cuda_graph=False`` (warm pass, bit for bit), the others in the warm and
+   accounting passes (to pay for phase 19). Every request finishes with
+   ``n_events == prompt_len + n_generated`` and finite outputs; each pass
+   after ``reset()`` equals the warm pass (bit for bit, or in its
+   accounting); kernel A launches (bf16 sampled) as often as the eager
+   engine after ``reset()`` and that count plus the warm-ups in the warm
+   pass; kernels B and D never
    launch (the NA step is the unfused level walk, the cached dep-graph
    attention the einsum path, as in JAX). A small fp32 greedy NA engine on
    the card must match the same engine on the CPU (groups padded; phase 2's
@@ -283,28 +283,23 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    NA model as the target, ``bench.py``'s draft (`serving.spec.truncated_draft`,
    the first ``num_hidden_layers // 2`` = 1 layer) and ``k`` 4, on the first
    32 of phase 14's 64 requests (one wave of the 32 slots): bf16 sampled at the default tolerances, int8 sampled and bf16
-   greedy at zero tolerances (depth 2), each in phase 2's three passes,
-   captured: every request finishes with ``n_events == prompt_len +
+   greedy at zero tolerances (depth 2), captured: bf16 sampled in phase 2's
+   three passes, the others in the warm and accounting passes: every request finishes with ``n_events == prompt_len +
    n_generated`` and finite outputs, each pass after ``reset()`` equals the
    warm pass bit for bit (with the same per-request proposals and
    acceptances), one capture a key and none after ``reset()``, one replay a
    dispatched chunk (16 rounds each) and a prefill dispatch, kernel A's
-   counter moving on the sampled runs, kernels B and D at 0; the bf16 sampled
-   run equals its ``cuda_graph=False`` twin bit for bit (warm pass), kernel A
-   counted through the replays (the pass after ``reset()`` as often as the
-   twin, the warm pass that plus the warm-up chunk's rounds and each prefill
-   key's warm-up). A perfect draft (the target itself, tolerant greedy) must
+   counter moving on the sampled runs, kernels B and D at 0 (captured against
+   eager is the small NA spec engine's check below and the ``na_spec`` CUDA
+   tests'; the full-width eager twin went to pay for phase 19). A perfect draft (the target itself, tolerant greedy) must
    accept more than 0.9 in fp32; a small fp32 greedy NA spec engine (zero
    tolerances) on the card must match the same engine on the CPU (phase 2's
    small-engine tolerances). Printed, not checked, beside the card's name and
    power limit: each run's events/s (accounting pass), acceptance rate and
    committed events a slot and round; the bf16 sampled run's capture seconds
-   and peak memory captured and eager; the share of strict greedy requests
-   whose events equal phase 14's greedy NA engine's; ``slots_report()`` with
-   the draft charged; one profiled 16-round chunk at 32 admitted slots (device
-   ms and kernels a round) and the round's parts (the draft steps, the verify
-   with the accept walk, the correction walk and commit; device ms by CUDA
-   events, kernels a replay), taken after every capture.
+   and peak memory; the share of strict greedy requests whose events equal
+   phase 14's greedy NA engine's; ``slots_report()`` with the draft charged.
+   (Its profiled round went to pay for phase 19.)
 16. The serving service at phase 2's settings: phase 2's model written with
    `training.save_pretrained` as checkpoint 1 and the same architecture
    from seed ``SEED + 1`` as checkpoint 2, both read back with
@@ -423,7 +418,37 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    events/s of each log window and epoch, each epoch's wall split into
    steps, tuning evaluation and checkpoint saves, the final validation's
    seconds, one checkpoint save's and one resume's seconds, peak memory.
-19. The wall seconds of each phase function (`tools/phase_times.py`), one
+19. Functor measurements in generation and zero-shot evaluation. (a) Phase
+   2's serving model (its widths, random weights from the seed) over phase 2's
+   vocabulary plus an ``age`` `AgeFunctor` (univariate regression, the fitted
+   ``age.csv`` of the committed converted sample cohort) and a four-value
+   ``tod`` `TimeOfDayFunctor` (4,063 entries), both built here, serving phase
+   2's 64 requests (128-192 events, each event carrying an age and a time of
+   day, start times in 2010) at 32 slots, depth 2, greedy (warm and
+   accounting passes, a ``cuda_graph=False`` twin and a 16-slot engine, each
+   equal bit for bit: a request's events do not depend on its batch) and
+   sampled: every request finished and finite; each generated real event
+   holds exactly one time-of-day element, its bucket that of the event's
+   time recomputed in fp64 from the returned row (unless within 4 minutes
+   of an edge), and one age element, the prior age plus the time to the
+   event over a 365.25-day year (within 1e-4 years), or value-masked past
+   ``age.csv``'s outlier thresholds; kernel B once a decode step and kernel
+   A (sampled) counted through the replays. (b) Small fp32 greedy runs with
+   both functors on the card equal the CPU's in every event and integer
+   (floats within 1e-4): `generate()`, a paged engine with a fork, the strict
+   CI spec engine and the NA engine. (c) `train(cfg)` trains phase 4's CI
+   model on the committed converted sample cohort (``max_seq_len`` 128,
+   batches of 32, 2 epochs; kernel C stays idle: it gathers a multivariate
+   regression plane, and the cohort's numeric measurements are univariate), then
+   `zero_shot_evaluation` on its ``high_utilization`` task (8 samples of 64
+   new events a subject, 12 subjects a batch: 96 engine slots, ``max_len``
+   192, left-padded prompts) through the paged engine (one fork a subject)
+   and through `generate()`: both splits' metrics written; one subject's
+   fork equals its 8 per-request runs with the fork's seeds bit for bit;
+   pandas and pyarrow never imported. Printed beside the card's name and
+   power limit: events/s, each generation call's wall, the unpredictable
+   fractions, the metrics and kernel A's launches of each zero-shot run.
+20. The wall seconds of each phase function (`tools/phase_times.py`), one
    ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -2374,29 +2399,21 @@ def fork_runs(smi, model, config, prompts, counters, base_kw):
     return b1
 
 
-def decode_profiles(smi, model, config, prompts, base_kw, spec):
+def decode_profiles(smi, model, config, prompts, base_kw):
     """One profiled 16-step chunk of each decode step on 32 admitted slots
     (budgets of 64; `tools.profile_decode`'s filled engine): the paged
-    engine, the monolithic unfused one, the kernel-B one and the spec engine
-    (``spec``; 16 rounds), sampled, bf16, depth 1; and the spec round's parts
-    (`tools.profile_decode.spec_parts`: the draft steps, the verify with the
-    accept walk and the commit) on the spec engine's admitted state. Every
-    engine and part is built (and captured) before the first profile."""
-    from eventstreamgpt_tpu_torch.tools.profile_decode import (
-        capture_spec_parts,
-        filled_engine,
-        profiled_engine_chunk,
-        spec_parts,
-    )
+    engine, the monolithic unfused one and the kernel-B one, sampled, bf16,
+    depth 1, each built (and captured) before the first profile. (The spec
+    engines' round profiles went to keep the script's time:
+    ``tools/profile_decode.py --spec`` takes them.)"""
+    from eventstreamgpt_tpu_torch.tools.profile_decode import filled_engine, profiled_engine_chunk
 
     kw = dict(base_kw, greedy=False, dispatch_depth=1)
     engines = {
         "paged": filled_engine(model, config, prompts, **kw, paged_kv=True, block_size=PAGED_BLOCK),
         "monolithic unfused": filled_engine(model, config, prompts, **kw, decode_step_impl="xla"),
         "monolithic kernel B": filled_engine(model, config, prompts, **kw),
-        "spec": filled_engine(model, config, prompts, **kw, spec=spec),
     }
-    parts = spec_parts(capture_spec_parts(engines["spec"]))
     out = {}
     for name, engine in engines.items():
         summary = profiled_engine_chunk(engine)
@@ -2405,10 +2422,9 @@ def decode_profiles(smi, model, config, prompts, base_kw, spec):
                                              "device_idle_share_unprofiled", "committed_events_per_round_and_slot")
                      if k in summary}  # fmt: skip
         check(summary["device_kernels_per_step"] > 0, f"phase 12: no device kernel in the {name} profile")
-    print(f"phase 12: decode step (spec: round), one profiled captured chunk of 16 at 32 admitted slots (sampled, "
-          f"bf16): {json.dumps(out)}; the spec round's parts, device ms (CUDA events) and kernels a replay: "
-          f"{json.dumps(parts)} ({smi})", flush=True)  # fmt: skip
-    return dict(out, spec_round_parts=parts)
+    print(f"phase 12: decode step, one profiled captured chunk of 16 at 32 admitted slots (sampled, bf16): "
+          f"{json.dumps(out)} ({smi})", flush=True)  # fmt: skip
+    return out
 
 
 def paged_phase(smi, model, config):
@@ -2443,8 +2459,9 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
     """The spec engine on phase 2's requests (bf16 greedy at zero tolerances,
     depth 2; bf16 sampled at depths 1 and 2; int8 sampled at depth 2),
     captured: bf16 sampled at depth 1 in phase 2's three passes, the others
-    in the warm and accounting passes; the sampled bf16 (depth 1) and int8
-    runs against the same engine run eagerly (warm pass, bit for bit)."""
+    in the warm and accounting passes. Captured against eager is the small
+    engine's check (`small_engine_matches_cpu`: the card's captured programs
+    against the CPU's eager ones) and the ``spec`` CUDA tests'."""
 
     def kernel_b(launches):
         return sum(launches[f"decode_stack_step.{c}"] for c in KERNEL_B_ENTRIES)
@@ -2475,14 +2492,6 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
         for pname in passes[1:]:
             check([(r.spec_proposed, r.spec_accepted) for r in run["passes"][pname]["results"]] == spec_counts,
                   f"{label} [{pname} pass]: per-request proposals or acceptances differ from the warm pass")  # fmt: skip
-        if mode == "sampled" and (depth == 1 or kv is not None):
-            eager = engine_run(model, config, prompts, counters, passes=("warm",), cuda_graph=False, **kw)
-            same_results(run["results"], eager["results"], label)
-            check([(r.spec_proposed, r.spec_accepted) for r in eager["results"]] == spec_counts,
-                  f"{label}: per-request proposals or acceptances differ captured and eager")  # fmt: skip
-            # Kernel A through the replays: a pass after reset() (no warm-up) launches it as the eager run does.
-            a, b = (r["fused_categorical_stream"] for r in (eager["launches"], run["passes"][passes[1]]["launches"]))
-            check(a == b, f"{label}: kernel A launched {b} times captured after reset(), {a} eager")
         launches_a += run["launches"]["fused_categorical_stream"]
         acct = run["passes"]["accounting"]
         s = acct["stats"]
@@ -2495,10 +2504,9 @@ def spec_runs(smi, model, config, prompts, counters, base_kw, spec):
         out[(name, mode, depth)] = dict(run, rates=rates, generated=generated)
         equal = "every event, integer and float equal in the pass after reset()" if "fetching" in passes else (
             "the same accounting in the pass after reset()")  # fmt: skip
-        print(f"{label} {len(run['results'])} requests, {generated} generated events, {equal}"
-              f"{' and captured vs eager' if mode == 'sampled' and (depth == 1 or kv) else ''}; "
+        print(f"{label} {len(run['results'])} requests, {generated} generated events, {equal}; "
               f"accounting pass {json.dumps(rates)}; {programs_line(run)}; launches over the {len(passes)} passes "
-              f"{run['launches']}; warm pass {run['passes']['warm']['wall_s']:.3f} s; the run, its checks and twin "
+              f"{run['launches']}; warm pass {run['passes']['warm']['wall_s']:.3f} s; the run and its checks "
               f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)  # fmt: skip
     return out, launches_a
 
@@ -2528,48 +2536,33 @@ def spec_phase(smi, model, config):
     runs, launches_a = spec_runs(smi, model, config, prompts, counters, base_kw, spec)
     t1 = time.perf_counter()
     # A perfect draft (the target itself), tolerant greedy: in fp32 (the same
-    # weights) nearly every proposal is accepted; in bf16 the window forward
-    # and the one-event forward round differently (printed, not checked).
+    # weights) nearly every proposal is accepted. (The bf16 perfect draft, the
+    # strict run's share equal to the non-spec engine's and the monolithic
+    # engines' events/s, measured and not checked, went to keep the script's time.)
     config32 = copy.deepcopy(config)
     config32.precision = "fp32"
     model32 = type(model)(config32)
     model32.load_state_dict(model.state_dict())
-    perfect = {}
-    for name, (m, c) in (("fp32", (model32, config32)), ("bf16", (model, config))):
-        run = engine_run(m, c, prompts, counters, passes=("warm",), greedy=True,
-                         **dict(base_kw, spec=SpecConfig(model=m, config=c, k=SPEC_K)))  # fmt: skip
-        check_results(run["results"], run["requests"], f"phase 12 [perfect draft, {name}]")
-        st = run["stats"]
-        perfect[name] = dict(acceptance_rate=st["spec_acceptance_rate"],
-                             committed_per_active_slot_round=st["spec_committed_events"] / max(st["active_slot_steps"], 1))
+    run = engine_run(model32, config32, prompts, counters, passes=("warm",), greedy=True,
+                     **dict(base_kw, spec=SpecConfig(model=model32, config=config32, k=SPEC_K)))  # fmt: skip
+    check_results(run["results"], run["requests"], "phase 12 [perfect draft, fp32]")
+    st = run["stats"]
+    perfect = {"fp32": dict(acceptance_rate=st["spec_acceptance_rate"],
+                            committed_per_active_slot_round=st["spec_committed_events"] / max(st["active_slot_steps"], 1))}
     rate = perfect["fp32"]["acceptance_rate"]
     check(config32.compute_dtype == torch.float32 and rate > 0.9, f"phase 12 [perfect draft, fp32]: acceptance {rate}")
-    # Measured, not checked: the strict greedy spec engine's events against the non-spec greedy engine's.
-    greedy = engine_run(model, config, prompts, counters, passes=("warm",), greedy=True, decode_step_impl="xla",
-                        **base_kw)  # fmt: skip
-    strict = runs[("bf16", "greedy", 2)]["results"]
-    equal = sum(same_generated_events(a, b) == a.n_generated == b.n_generated for a, b in zip(strict, greedy["results"]))
-    # Events/s beside the monolithic unfused and kernel-B engines, sampled, depth 1, accounting pass.
     rates = {"spec": runs[("bf16", "sampled", 1)]["rates"]}
-    for name, extra in (("monolithic unfused", dict(decode_step_impl="xla")), ("monolithic kernel B", {})):
-        r = engine_run(model, config, prompts, counters, passes=("warm", "accounting"), greedy=False, dispatch_depth=1,
-                       **base_kw, **extra)  # fmt: skip
-        a = r["passes"]["accounting"]
-        rates[name] = dict(events_per_s=sum(x.n_generated for x in r["results"]) / a["wall_s"], wall_s=a["wall_s"],
-                           chunks=a["stats"]["dispatched_chunks"])  # fmt: skip
     report = runs[("bf16", "sampled", 1)]["engine"].slots_report()
-    print(f"phase 12: perfect draft (the target, tolerant greedy; bf16 measured, not checked): {json.dumps(perfect)}; "
-          f"measured, not checked: {equal} of {len(strict)} strict greedy spec requests equal the "
-          f"non-spec unfused greedy engine's in every generated event; events/s, sampled, depth 1, accounting pass, "
-          f"same requests: {json.dumps(rates)}; slots_report() with the draft at the card's memory: "
+    print(f"phase 12: perfect draft (the target, tolerant greedy, fp32): {json.dumps(perfect)}; events/s, sampled, "
+          f"depth 1, accounting pass: {json.dumps(rates)}; slots_report() with the draft at the card's memory: "
           f"{json.dumps({k: report[k] for k in ('spec', 'params_bytes', 'draft_params_bytes', 'draft_kv_bytes_per_slot', 'row_bytes_per_slot', 'per_dtype')})} "
           f"({smi})", flush=True)  # fmt: skip
     small_engine_matches_cpu(spec_k=SPEC_K, phase="phase 12")
     t2 = time.perf_counter()
-    print(f"phase 12: passed in {t2 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft, baselines and small engine "
+    print(f"phase 12: passed in {t2 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft and small engine "
           f"{t2 - t1:.1f}; its profiles come after phase 13's captures)", flush=True)  # fmt: skip
-    return dict(launches_a=launches_a, rates=rates, greedy_equal=equal, perfect=perfect,
-                profile=lambda: decode_profiles(smi, model, config, prompts, base_kw, spec()))  # fmt: skip
+    return dict(launches_a=launches_a, rates=rates, perfect=perfect,
+                profile=lambda: decode_profiles(smi, model, config, prompts, base_kw))  # fmt: skip
 
 
 # ---------------------------------------------------------------- phase 13
@@ -2832,11 +2825,12 @@ def na_engine_phase(smi) -> dict:
     for name, kv, mode in (("bf16", None, "greedy"), ("bf16", None, "sampled"), ("int8", "int8", "sampled")):
         label = f"phase 14 [NA {name} {mode}]"
         kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv)
-        run = engine_run(model, config, prompts, counters, **kw)
-        eager = engine_run(model, config, prompts, counters, passes=("warm",), cuda_graph=False, **kw)
+        twin = (name, mode) == ("bf16", "sampled")  # one captured-vs-eager check for the path
+        run = engine_run(model, config, prompts, counters, passes=PASSES if twin else ("warm", "accounting"), **kw)
+        eager = engine_run(model, config, prompts, counters, passes=("warm",), cuda_graph=False, **kw) if twin else None
         check_results(run["results"], run["requests"], label)
         check(run["stats"]["decode_step_impl"] == "unfused", f"{label}: not the unfused step: {run['stats']}")
-        for pname, p in list(run["passes"].items()) + [("eager", eager)]:
+        for pname, p in list(run["passes"].items()) + ([("eager", eager)] if twin else []):
             kernels_bd = {k: v for k, v in p["launches"].items() if k.startswith("decode_stack_step") or k == "dep_graph_fwd"}
             check(not any(kernels_bd.values()), f"{label} [{pname}]: kernel B or D launched: {kernels_bd}")
             a = p["launches"]["fused_categorical_stream"]
@@ -2844,20 +2838,23 @@ def na_engine_phase(smi) -> dict:
             check(p["launches"]["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
         check_graph_counts(run, label, None)
         check_passes(run, label)
-        same_results(run["results"], eager["results"], label)
-        # Kernel A through the replays: the pass after reset() (no warm-up)
-        # launches it as often as the eager engine's one pass, and the warm
-        # pass that count plus the warm-up chunk's and each prefill key's.
-        s, e = run["passes"]["warm"]["stats"], eager["stats"]
-        a_eager = eager["launches"]["fused_categorical_stream"]
-        calls = e["prefill_dispatches"] + e["dispatched_chunks"] * e["decode_chunk"]
-        check(a_eager % calls == 0, f"{label}: kernel A launched {a_eager} times eager for {calls} calls")
-        want = a_eager // calls * (s["prefill_dispatches"] + s["prefill_graph_warmups"]
-                                   + (s["dispatched_chunks"] + s["graph_warmup_chunks"]) * s["decode_chunk"])  # fmt: skip
-        got = (run["passes"]["fetching"]["launches"]["fused_categorical_stream"],
-               run["passes"]["warm"]["launches"]["fused_categorical_stream"])  # fmt: skip
-        check(got == (a_eager, want), f"{label}: kernel A launched {got} times (after reset(), warm), "
-                                      f"{(a_eager, want)} expected")  # fmt: skip
+        per_call = None
+        if twin:
+            same_results(run["results"], eager["results"], label)
+            # Kernel A through the replays: the pass after reset() (no warm-up)
+            # launches it as often as the eager engine's one pass, and the warm
+            # pass that count plus the warm-up chunk's and each prefill key's.
+            s, e = run["passes"]["warm"]["stats"], eager["stats"]
+            a_eager = eager["launches"]["fused_categorical_stream"]
+            calls = e["prefill_dispatches"] + e["dispatched_chunks"] * e["decode_chunk"]
+            check(a_eager % calls == 0, f"{label}: kernel A launched {a_eager} times eager for {calls} calls")
+            per_call = a_eager // calls
+            want = per_call * (s["prefill_dispatches"] + s["prefill_graph_warmups"]
+                               + (s["dispatched_chunks"] + s["graph_warmup_chunks"]) * s["decode_chunk"])  # fmt: skip
+            got = (run["passes"]["fetching"]["launches"]["fused_categorical_stream"],
+                   run["passes"]["warm"]["launches"]["fused_categorical_stream"])  # fmt: skip
+            check(got == (a_eager, want), f"{label}: kernel A launched {got} times (after reset(), warm), "
+                                          f"{(a_eager, want)} expected")  # fmt: skip
         launches_a += run["launches"]["fused_categorical_stream"]
         acct = run["passes"]["accounting"]
         generated = sum(r.n_generated for r in run["results"])
@@ -2865,12 +2862,12 @@ def na_engine_phase(smi) -> dict:
                                        chunks=acct["stats"]["dispatched_chunks"],
                                        wasted_decode_frac=acct["stats"]["wasted_decode_frac"])  # fmt: skip
         out[(name, mode)] = run
+        equal = "captured and eager and in each pass after reset()" if twin else "in the accounting pass"
         print(f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and float "
-              f"equal captured and eager and in each pass after reset(); accounting pass "
-              f"{json.dumps(rates[f'{name} {mode}'])}; {programs_line(run)}; launches over three passes "
-              f"{run['launches']}, kernel A {a_eager // calls} a prefill group or step; eager warm pass "
-              f"{eager['wall_s']:.3f} s, captured warm pass {run['passes']['warm']['wall_s']:.3f} s ({smi})",
-              flush=True)  # fmt: skip
+              f"equal {equal}; accounting pass {json.dumps(rates[f'{name} {mode}'])}; {programs_line(run)}; launches "
+              f"over {len(run['passes'])} passes {run['launches']}, kernel A {per_call} a prefill group or step; eager "
+              f"warm pass {eager['wall_s'] if twin else float('nan'):.3f} s, captured warm pass "
+              f"{run['passes']['warm']['wall_s']:.3f} s ({smi})", flush=True)  # fmt: skip
     report = out[("bf16", "sampled")]["engine"].slots_report()
     print(f"phase 14: slots_report() of the NA engine at the card's memory (bf16 cache, the dep-graph caches in the "
           f"row): {json.dumps({k: report[k] for k in ('params_bytes', 'row_bytes_per_slot', 'per_dtype')})} ({smi})",
@@ -2905,13 +2902,10 @@ NA_SPEC_REQUESTS = 32  # the first 32 of phase 14's requests: one wave of the 32
 def na_spec_runs(smi, model, config, prompts, counters, base_kw, spec) -> tuple:
     """The NA spec engine on phase 14's requests: bf16 sampled at the default
     tolerances, int8 sampled and bf16 greedy at zero tolerances, each in phase
-    2's three passes, captured; the bf16 sampled run against its
-    ``cuda_graph=False`` twin (warm pass, bit for bit, kernel A counted
-    through the replays: the pass after ``reset()`` launches it as often as
-    the twin, the warm pass that count plus the warm-up chunk's rounds and
-    each prefill key's warm-up). The bf16 sampled run's capture seconds and
-    the peak memory of it and its twin (above what was allocated before each
-    engine was built) are kept."""
+    2's three passes, captured. The bf16 sampled run's capture seconds and
+    peak memory (above what was allocated before the engine was built) are
+    kept. Captured against eager is the small NA spec engine's check
+    (`small_engine_matches_cpu`) and the ``na_spec`` CUDA tests'."""
     import torch
 
     def measured(**kw):
@@ -2922,13 +2916,13 @@ def na_spec_runs(smi, model, config, prompts, counters, base_kw, spec) -> tuple:
         torch.cuda.synchronize()
         return run, (torch.cuda.max_memory_allocated() - before) / 1e9
 
-    heads = categorical_heads(model)
     out, launches_a = {}, 0
     for name, kv, mode in (("bf16", None, "sampled"), ("int8", "int8", "sampled"), ("bf16", None, "greedy")):
         label = f"phase 15 [NA spec {name} {mode}]"
         kw = dict(base_kw, greedy=mode == "greedy", kv_cache_dtype=kv,
                   spec=spec(**(SPEC_STRICT if mode == "greedy" else {})))  # fmt: skip
-        run, peak = measured(**kw)
+        passes = PASSES if (name, mode) == ("bf16", "sampled") else ("warm", "accounting")
+        run, peak = measured(passes=passes, **kw)
         stats = run["stats"]
         check_results(run["results"], run["requests"], label)
         check(stats["decode_step_impl"] == "spec_draft_verify", f"{label}: not the spec engine: {stats}")
@@ -2945,28 +2939,12 @@ def na_spec_runs(smi, model, config, prompts, counters, base_kw, spec) -> tuple:
         check_graph_counts(run, label, None)
         check_passes(run, label)
         spec_counts = [(r.spec_proposed, r.spec_accepted) for r in run["results"]]
-        for pname in ("fetching", "accounting"):
+        for pname in passes[1:]:
             check([(r.spec_proposed, r.spec_accepted) for r in run["passes"][pname]["results"]] == spec_counts,
                   f"{label} [{pname} pass]: per-request proposals or acceptances differ from the warm pass")  # fmt: skip
         extra = {}
         if (name, mode) == ("bf16", "sampled"):
-            eager, eager_peak = measured(passes=("warm",), cuda_graph=False, **kw)
-            same_results(run["results"], eager["results"], label)
-            check([(r.spec_proposed, r.spec_accepted) for r in eager["results"]] == spec_counts,
-                  f"{label}: per-request proposals or acceptances differ captured and eager")  # fmt: skip
-            s, e = run["passes"]["warm"]["stats"], eager["stats"]
-            a_eager = eager["launches"]["fused_categorical_stream"]
-            per_round, rem = divmod(a_eager - heads * e["prefill_dispatches"], e["spec_rounds"])
-            check(per_round > 0 and rem == 0, f"{label}: kernel A launched {a_eager} times eager for "
-                                              f"{e['prefill_dispatches']} prefills and {e['spec_rounds']} rounds")  # fmt: skip
-            want = heads * (s["prefill_dispatches"] + s["prefill_graph_warmups"]) + per_round * (
-                s["spec_rounds"] + s["graph_warmup_chunks"] * s["decode_chunk"])  # fmt: skip
-            got = (run["passes"]["fetching"]["launches"]["fused_categorical_stream"],
-                   run["passes"]["warm"]["launches"]["fused_categorical_stream"])  # fmt: skip
-            check(got == (a_eager, want), f"{label}: kernel A launched {got} times (after reset(), warm), "
-                                          f"{(a_eager, want)} expected")  # fmt: skip
-            extra = dict(kernel_a_per_round=per_round, capture_s=run["engine"]._program.capture_s,
-                         peak_gb_captured=peak, peak_gb_eager=eager_peak, eager_warm_wall_s=eager["wall_s"])  # fmt: skip
+            extra = dict(capture_s=run["engine"]._program.capture_s, peak_gb_captured=peak)
         launches_a += run["launches"]["fused_categorical_stream"]
         acct = run["passes"]["accounting"]
         s = acct["stats"]
@@ -2976,10 +2954,10 @@ def na_spec_runs(smi, model, config, prompts, counters, base_kw, spec) -> tuple:
                      committed_per_active_slot_round=s["spec_committed_events"] / max(s["active_slot_steps"], 1),
                      **extra)  # fmt: skip
         out[(name, mode)] = dict(run, rates=rates, generated=generated)
-        print(f"{label} {len(run['results'])} requests, {generated} generated events, every event, integer and float "
-              f"equal in each pass after reset(){' and captured vs eager' if extra else ''}; accounting pass "
-              f"{json.dumps(rates)}; {programs_line(run)}; launches over three passes {run['launches']}; warm pass "
-              f"{run['passes']['warm']['wall_s']:.3f} s ({smi})", flush=True)  # fmt: skip
+        print(f"{label} {len(run['results'])} requests, {generated} generated events, "
+              f"{'every event, integer and float equal in the pass after reset()' if 'fetching' in passes else 'the same accounting after reset()'}; "
+              f"accounting pass {json.dumps(rates)}; {programs_line(run)}; launches over {len(passes)} passes "
+              f"{run['launches']}; warm pass {run['passes']['warm']['wall_s']:.3f} s ({smi})", flush=True)  # fmt: skip
     return out, launches_a
 
 
@@ -2991,7 +2969,6 @@ def na_spec_phase(smi, na_engine) -> dict:
     from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_fwd
     from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
     from eventstreamgpt_tpu_torch.serving import SpecConfig, truncated_draft
-    from eventstreamgpt_tpu_torch.tools.profile_decode import capture_spec_parts, filled_engine
 
     t0 = time.perf_counter()
     model, config, prompts = (na_engine[k] for k in ("model", "config", "prompts"))
@@ -3031,32 +3008,11 @@ def na_spec_phase(smi, na_engine) -> dict:
           f"{json.dumps({k: report[k] for k in ('spec', 'params_bytes', 'draft_params_bytes', 'draft_kv_bytes_per_slot', 'row_bytes_per_slot', 'per_dtype')})} "
           f"({smi})", flush=True)  # fmt: skip
     small_engine_matches_cpu(spec_k=SPEC_K, phase="phase 15", na=True)
-    # The profiled engine and its round's parts are built (captured) now; they are profiled after every capture.
-    profiled = filled_engine(model, config, prompts, **base_kw, greedy=False, dispatch_depth=1, spec=spec())
-    parts = capture_spec_parts(profiled)
     t2 = time.perf_counter()
-    print(f"phase 15: passed in {t2 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft, small engine and the "
-          f"profiled engine {t2 - t1:.1f}; its profile comes last)", flush=True)  # fmt: skip
+    print(f"phase 15: passed in {t2 - t0:.1f} s (spec runs {t1 - t0:.1f}, perfect draft and small engine "
+          f"{t2 - t1:.1f})", flush=True)  # fmt: skip
     rates = {f"{k[0]} {k[1]}": v["rates"] for k, v in runs.items()}
-    return dict(launches_a=launches_a, rates=rates, perfect=perfect, greedy_equal=equal,
-                profile=lambda: na_spec_profile(profiled, parts))  # fmt: skip
-
-
-def na_spec_profile(engine, parts) -> dict:
-    """One profiled 16-round chunk of the sampled bf16 NA spec engine on 32
-    admitted slots (device ms, kernels and committed events a round) and the
-    round's parts (draft steps; verify with the accept walk; correction walk
-    and commit), each a captured program: device ms by CUDA events, kernels
-    from one profiled replay."""
-    from eventstreamgpt_tpu_torch.tools.profile_decode import profiled_engine_chunk, spec_parts
-
-    split = spec_parts(parts)
-    summary = profiled_engine_chunk(engine)
-    out = {k: summary[k] for k in ("step_wall_ms", "active_slots", "device_busy_ms_per_step", "device_kernels_per_step",
-                                   "host_launches_per_step", "device_idle_share_unprofiled",
-                                   "committed_events_per_round_and_slot") if k in summary}  # fmt: skip
-    check(summary["device_kernels_per_step"] > 0, "phase 15: no device kernel in the NA spec engine's profile")
-    return dict(out, round_parts=split)
+    return dict(launches_a=launches_a, rates=rates, perfect=perfect, greedy_equal=equal)
 
 
 # ---------------------------------------------------------------- phase 16
@@ -4099,6 +4055,392 @@ def pretrain_phase(smi) -> dict:
     return dict(launches={k: launches[k] + g_launches[k] for k in launches})
 
 
+# ---------------------------------------------------------------- phase 19
+FUNCTOR_DATA = REPO / "sample_data" / "converted" / "sample"  # the committed conversion of the sample cohort
+TOD_VOCAB = {"vocabulary": ["UNK", "EARLY_AM", "AM", "PM", "LATE_PM"], "obs_frequencies": [0.0, 0.2, 0.3, 0.35, 0.15]}
+TOD_EDGE_MIN = 4.0  # a time-of-day element this close to an edge is not recomputed (fp32 times and hours at 2010)
+ZS_TASK, ZS_SAMPLES, ZS_BATCH, ZS_SEQ, ZS_NEW = "high_utilization", 8, 12, 128, 64
+
+
+def with_functors(config):
+    """``config`` with two functional-time-dependent measurements added at
+    the end of its vocabulary: ``age``, an `AgeFunctor` (univariate
+    regression, the sample cohort's fitted ``age.csv``), and ``tod``, a
+    four-value `TimeOfDayFunctor`."""
+    from eventstreamgpt_tpu_torch.data.config import MeasurementConfig
+    from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+
+    d = config.to_dict()
+    V, n = config.vocab_size, max(config.measurements_idxmap.values())
+    d["measurement_configs"] = dict(
+        d["measurement_configs"],
+        age=MeasurementConfig(name="age", temporality="functional_time_dependent", modality="univariate_regression",
+                              functor={"class": "AgeFunctor", "params": {"dob_col": "dob"}},
+                              _measurement_metadata=str(FUNCTOR_DATA / "inferred_measurement_metadata" / "age.csv"),
+                              ).to_dict(),
+        tod=MeasurementConfig(name="tod", temporality="functional_time_dependent",
+                              modality="single_label_classification", functor={"class": "TimeOfDayFunctor",
+                              "params": {}}, vocabulary=TOD_VOCAB).to_dict(),
+    )  # fmt: skip
+    d["vocab_sizes_by_measurement"] = dict(d["vocab_sizes_by_measurement"], age=1, tod=5)
+    d["vocab_offsets_by_measurement"] = dict(d["vocab_offsets_by_measurement"], age=V, tod=V + 1)
+    d["measurements_idxmap"] = dict(d["measurements_idxmap"], age=n + 1, tod=n + 2)
+    d["vocab_size"] = V + 6
+    return StructuredTransformerConfig.from_dict(d)
+
+
+def local_midnight_2010() -> float:
+    from datetime import datetime
+
+    return datetime(2010, 1, 1).timestamp() / 60
+
+
+def tod_bucket(minutes: float) -> str:
+    """The time-of-day bucket of an absolute time (minutes since the epoch), in fp64."""
+    hour = ((minutes - local_midnight_2010()) / 60) % 24
+    return "EARLY_AM" if hour < 6 else "AM" if hour < 12 else "PM" if hour < 21 else "LATE_PM"
+
+
+def edge_distance(minutes: float) -> float:
+    hour = ((minutes - local_midnight_2010()) / 60) % 24
+    return min(abs(hour - h) * 60 for h in (0, 6, 12, 21, 24))
+
+
+def with_functor_elements(prompts, config, rng):
+    """``prompts`` with each event's age and time-of-day elements written
+    after its other elements (two more data slots): a request starts in
+    2010 (uniform over the year, local time), aged 20-90 years at its first
+    event (an age growing with the event times, normalized with
+    ``age.csv``), its time-of-day bucket that of each event's time."""
+    import numpy as np
+    import torch
+
+    age_cfg, tod_cfg = config.measurement_configs["age"], config.measurement_configs["tod"]
+    mm = age_cfg.measurement_metadata
+    mean, std = mm["normalizer"]["mean_"], mm["normalizer"]["std_"]
+    off, idx = config.vocab_offsets_by_measurement, config.measurements_idxmap
+    vocab = tod_cfg.vocabulary_object
+    out = []
+    for p, budget in prompts:
+        L, M = p.dynamic_indices.shape[1:]
+        di, dm, dv, vm = (np.zeros((1, L, M + 2), a.dtype) for a in
+                          (p.dynamic_indices.numpy(), p.dynamic_measurement_indices.numpy(),
+                           p.dynamic_values.numpy(), p.dynamic_values_mask.numpy()))  # fmt: skip
+        for a, src in ((di, p.dynamic_indices), (dm, p.dynamic_measurement_indices), (dv, p.dynamic_values),
+                       (vm, p.dynamic_values_mask)):  # fmt: skip
+            a[..., :M] = src.numpy()
+        start = np.float32(local_midnight_2010() + rng.uniform(0, 365 * 1440))
+        age0 = rng.uniform(20, 90)
+        t = np.concatenate([[0.0], np.cumsum(p.time_delta.numpy()[0].astype(np.float64))])[:L] + float(start)
+        for e in range(L):
+            k = int((di[0, e] != 0).sum())
+            age = age0 + (t[e] - t[0]) / (60 * 24 * 365.25)
+            di[0, e, k : k + 2] = (off["age"], off["tod"] + vocab[tod_bucket(t[e])])
+            dm[0, e, k : k + 2] = (idx["age"], idx["tod"])
+            dv[0, e, k], vm[0, e, k] = (age - mean) / std, True
+        out.append((p.replace(dynamic_indices=torch.from_numpy(di), dynamic_measurement_indices=torch.from_numpy(dm),
+                              dynamic_values=torch.from_numpy(dv), dynamic_values_mask=torch.from_numpy(vm),
+                              start_time=torch.tensor([start])), budget))  # fmt: skip
+    return out
+
+
+def check_functor_elements(results, config, label) -> dict:
+    """Every generated real event of every result holds exactly one
+    time-of-day element, whose bucket is that of the event's time recomputed
+    in fp64 from the returned row (unless within `TOD_EDGE_MIN` of an edge),
+    and exactly one age element: the prior event's age plus the time to
+    this event over a 365.25-day year, normalized (within 1e-4 years), or
+    value-masked where that age lies past ``age.csv``'s outlier thresholds.
+    Returns the counts checked."""
+    import numpy as np
+
+    mm = config.measurement_configs["age"].measurement_metadata
+    mean, std = mm["normalizer"]["mean_"], mm["normalizer"]["std_"]
+    hi, lo = mm["outlier_model"]["thresh_large_"], mm["outlier_model"]["thresh_small_"]
+    a_i, t_i, t_off = config.measurements_idxmap["age"], config.measurements_idxmap["tod"], \
+        config.vocab_offsets_by_measurement["tod"]  # fmt: skip
+    vocab = config.measurement_configs["tod"].vocabulary_object
+    n = dict(events=0, tod_checked=0, tod_near_edge=0, ages=0, ages_masked=0)
+    for r in results:
+        b = r.batch
+        em, td = b.event_mask[0].numpy(), b.time_delta[0].numpy().astype(np.float64)
+        di, dm = b.dynamic_indices[0].numpy(), b.dynamic_measurement_indices[0].numpy()
+        dv, vm = b.dynamic_values[0].numpy().astype(np.float64), b.dynamic_values_mask[0].numpy()
+        start = float(b.start_time[0])
+        for e in range(r.prompt_len, r.n_events):
+            if not em[e]:
+                continue
+            n["events"] += 1
+            tod, age = dm[e] == t_i, dm[e] == a_i
+            check(tod.sum() == 1 and age.sum() == 1, f"{label}: request {r.request_id} event {e} holds {tod.sum()} "
+                                                     f"time-of-day and {age.sum()} age elements")  # fmt: skip
+            t = start + td[:e][em[:e]].sum()
+            if edge_distance(t) > TOD_EDGE_MIN:
+                want = t_off + vocab[tod_bucket(t)]
+                check(di[e][tod][0] == want, f"{label}: request {r.request_id} event {e} at {t:.1f} min: time of "
+                                             f"day {di[e][tod][0]}, {want} expected")  # fmt: skip
+                n["tod_checked"] += 1
+            else:
+                n["tod_near_edge"] += 1
+            prior = dm[e - 1] == a_i
+            if not (prior.any() and vm[e - 1][prior][0]):
+                continue  # a masked prior age re-enters at the mean, as in JAX
+            years = dv[e - 1][prior][0] * std + mean + td[e - 1] / (60 * 24 * 365.25)
+            if vm[e][age][0]:
+                got = dv[e][age][0] * std + mean
+                check(abs(got - years) < 1e-4, f"{label}: request {r.request_id} event {e}: age {got}, {years} expected")
+                n["ages"] += 1
+            else:
+                check(years > hi - 1e-4 or years < lo + 1e-4, f"{label}: request {r.request_id} event {e}: age "
+                                                               f"{years} value-masked inside the thresholds")  # fmt: skip
+                n["ages_masked"] += 1
+    check(n["events"] > 0 and n["tod_checked"] > 0 and n["ages"] > 0, f"{label}: nothing checked: {n}")
+    return n
+
+
+def functor_serving_runs(smi, model, config) -> dict:
+    """Phase 19 (a): phase 2's serving model with both functors (module docstring)."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
+    from eventstreamgpt_tpu_torch.ops.decode_step import decode_stack_step
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical, fused_categorical_stream
+
+    fcfg = with_functors(config)
+    fmodel = init_params_from_seed(CIPPTForGenerativeSequenceModeling(fcfg), seed=SEED)
+    rng = np.random.default_rng(SEED)
+    prompts = with_functor_elements(synthetic_prompts(rng, N_REQUESTS, serving_config(), (128, 192), (16, 64)), fcfg,
+                                    rng)  # fmt: skip
+    counters = {"decode_stack_step": (decode_stack_step, "launches"),
+                "fused_categorical_stream": (fused_categorical_stream, "launches"),
+                "fused_categorical": (fused_categorical, "launches")}  # fmt: skip
+    kw = dict(n_slots=32, max_len=256, max_prompt_len=192, min_bucket=32, decode_chunk=16, seed=SEED, dispatch_depth=2)
+    out = dict(launches_a=0, launches_b=0, rates={}, checked={})
+    for mode in ("greedy", "sampled"):
+        label = f"phase 19 (a) [functors, {mode}, depth 2]"
+        run = engine_run(fmodel, fcfg, prompts, counters, passes=("warm", "accounting"), greedy=mode == "greedy", **kw)
+        check_results(run["results"], run["requests"], label)
+        check_graph_counts(run, label, "decode_stack_step")
+        check_passes(run, label)
+        a = run["launches"]["fused_categorical_stream"]
+        check(a > 0 if mode == "sampled" else a == 0, f"{label}: kernel A launched {a} times")
+        check(run["launches"]["fused_categorical"] == 0, f"{label}: the engine launched kernel A with given noise")
+        out["checked"][mode] = check_functor_elements(run["results"], fcfg, label)
+        if mode == "greedy":
+            eager = engine_run(fmodel, fcfg, prompts, counters, passes=("warm",), cuda_graph=False, greedy=True, **kw)
+            same_results(run["results"], eager["results"], label)
+            # A request's events do not depend on its batch (phase 17's check): 16 slots give the 32 slots' bits.
+            half = engine_run(fmodel, fcfg, prompts, counters, passes=("warm",), greedy=True, **dict(kw, n_slots=16))
+            same_results(run["results"], half["results"], label, "32 slots vs 16")
+        out["launches_a"] += a
+        out["launches_b"] += run["launches"]["decode_stack_step"]
+        acct = run["passes"]["accounting"]
+        generated = sum(r.n_generated for r in run["results"])
+        out["rates"][mode] = dict(events_per_s=generated / acct["wall_s"], wall_s=acct["wall_s"], generated=generated)
+    print(f"phase 19 (a): phase 2's serving model with an AgeFunctor and a TimeOfDayFunctor (vocabulary "
+          f"{fcfg.vocab_size}), {N_REQUESTS} requests at 32 slots, depth 2: every generated event's functor elements "
+          f"checked {json.dumps(out['checked'])}; greedy captured = eager = 16 slots bit for bit; events/s (accounting pass) "
+          f"{json.dumps(out['rates'])}; launches A {out['launches_a']}, B {out['launches_b']} ({smi})", flush=True)  # fmt: skip
+    return out
+
+
+def small_functor_engines_match_cpu() -> list:
+    """Phase 19 (b): small fp32 greedy runs with both functors on the card
+    against the CPU: `generate()`, a paged engine with a fork, the CI spec
+    engine (strict) and the NA engine; events and integers exact, floats
+    within phase 2's small-engine tolerance (1e-4)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.generation.generation_utils as gu
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.data.types import EventStreamBatch
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    exact = ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask")
+    done = []
+
+    def same(a, b, what):
+        for f in exact:
+            check(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f"phase 19 (b) [{what}]: {f} differs card and CPU")
+        for f in ("time_delta", "dynamic_values"):
+            torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f).cpu(), rtol=1e-4, atol=1e-4)
+
+    for na in (False, True):
+        config = with_functors(serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3),
+                                              hidden_size=32, head_dim=8, intermediate_size=64, seq_window_size=4,
+                                              **(NA_OVERRIDES if na else {})))  # fmt: skip
+        model = init_params_from_seed(build_model(config), seed=1, std=0.15)
+        with torch.no_grad():
+            model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+        rng = np.random.default_rng(1)
+        prompts = with_functor_elements(synthetic_prompts(rng, 6, config, (6, 12), (4, 8)), config, rng)
+        variants = [("NA engine", {})] if na else [("CI engine, paged, a fork", dict(paged_kv=True, block_size=4)),
+                                                   ("CI spec, strict", "spec")]  # fmt: skip
+        if not na:
+            rows = [p for p, _ in with_functor_elements(synthetic_prompts(rng, 4, config, (10, 10), (6, 6)), config, rng)]
+            batch = EventStreamBatch(**{f: torch.cat([getattr(r, f) for r in rows]) for f, x in vars(rows[0]).items()
+                                        if x is not None})  # fmt: skip
+            greedy, gu.sample_predictions = gu.sample_predictions, functools.partial(gu.sample_predictions, greedy=True)
+            try:
+                got = {dev: gu.generate(copy.deepcopy(model).to(dev), batch, config, seed=3, max_new_events=6,
+                                        device=dev) for dev in ("cuda", "cpu")}  # fmt: skip
+            finally:
+                gu.sample_predictions = greedy
+            same(got["cuda"], got["cpu"], "generate()")
+            done.append("CI generate()")
+        for name, extra in variants:
+            res = {}
+            for dev in ("cuda", "cpu"):
+                kw = dict(n_slots=8, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+                if extra == "spec":
+                    dcfg, draft = truncated_draft(config, model, 1)
+                    kw["spec"] = SpecConfig(model=draft, config=dcfg, k=3, value_rtol=0.0, value_atol=0.0)
+                else:
+                    kw.update(extra)
+                eng = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw)
+                reqs = [Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)]
+                if kw.get("paged_kv"):
+                    eng.fork(prompts[0][0], 3, 6, key=5, request_id="f")
+                res[dev] = {r.request_id: r for r in eng.run(reqs)}
+            check(sorted(res["cuda"], key=str) == sorted(res["cpu"], key=str), f"phase 19 (b) [{name}]: results")
+            for i, r in res["cuda"].items():
+                check(r.error is None and (r.n_events, r.n_generated) == (res["cpu"][i].n_events, res["cpu"][i].n_generated),
+                      f"phase 19 (b) [{name}]: request {i}")  # fmt: skip
+                same(r.batch, res["cpu"][i].batch, f"{name}, request {i}")
+            check_functor_elements(list(res["cuda"].values()), config, f"phase 19 (b) [{name}]")
+            done.append(name)
+    return done
+
+
+def zero_shot_runs(smi) -> dict:
+    """Phase 19 (c): `train(cfg)` on the committed converted sample cohort,
+    then `zero_shot_evaluation` on its ``high_utilization`` task through the
+    paged engine and through `generate()` (module docstring)."""
+    import tempfile
+
+    import torch
+
+    import eventstreamgpt_tpu_torch.training.zero_shot_evaluator as zs
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config
+    from eventstreamgpt_tpu_torch.data.torch_dataset import TorchDataset
+    from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical_stream
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
+    from eventstreamgpt_tpu_torch.training.checkpoint import load_pretrained
+    from eventstreamgpt_tpu_torch.training.fine_tuning import FinetuneConfig
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for fn in (vocab_gather_fwd, vocab_gather_bwd):
+            fn.launches = 0
+        train = pretrain_run("phase 19 (c)", pretrain_cfg(tmp / "pretrained", FUNCTOR_DATA, epochs=2, batch=32,
+                                                          seq=ZS_SEQ), lambda: serving_config(precision="bf16"))  # fmt: skip
+        out["launches_c"] = {"fwd": vocab_gather_fwd.launches, "bwd": vocab_gather_bwd.launches}
+        tuning = [r for r in train["log"] if r["split"] == "tuning"]
+        check(len(tuning) == 2 and all(math.isfinite(r["tuning_loss"]) for r in tuning)
+              and tuning[-1]["graph_captures"] >= 1, f"phase 19 (c): train(cfg) {tuning}")  # fmt: skip
+        # Kernel C gathers the multivariate regression plane; the cohort's numeric measurements are univariate.
+        config = json.loads((tmp / "pretrained" / "config.json").read_text())
+        multivariate = any(m["modality"] == "multivariate_regression" for m in config["measurement_configs"].values())
+        check((out["launches_c"]["bwd"] > 0) == multivariate,
+              f"phase 19 (c): kernel C launched {out['launches_c']} times, multivariate regression {multivariate}")  # fmt: skip
+        calls = []
+        real = zs.get_generative_predictions
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(*args, **dict(kw, return_generated=True))
+            torch.cuda.synchronize()
+            gen = res[2]
+            calls.append(dict(wall_s=time.perf_counter() - t0, rows=gen.batch_size,
+                              generated=int(gen.event_mask[:, ZS_SEQ:].sum())))  # fmt: skip
+            return res[:2]
+
+        zs.get_generative_predictions = timed
+        try:
+            for use_engine in (True, False):
+                name = "paged engine" if use_engine else "generate()"
+                cfg = FinetuneConfig(load_from_model_dir=tmp / "pretrained", task_df_name=ZS_TASK, seed=SEED,
+                                     save_dir=tmp / f"zs_{use_engine}",
+                                     data_config_overrides={"seq_padding_side": "left",
+                                                            "subsequence_sampling_strategy": "to_end"},
+                                     config_overrides={"max_seq_len": ZS_SEQ + ZS_NEW},
+                                     task_specific_params={"num_samples": ZS_SAMPLES},
+                                     optimization_config={"validation_batch_size": ZS_BATCH})  # fmt: skip
+                calls.clear()
+                fused_categorical_stream.launches = 0
+                t0 = time.perf_counter()
+                tuning_m, held_out_m = zs.zero_shot_evaluation(cfg, use_engine=use_engine, device="cuda")
+                wall = time.perf_counter() - t0
+                for split, m in (("tuning", tuning_m), ("held_out", held_out_m)):
+                    written = json.loads((cfg.save_dir / f"zero_shot_{split}_metrics.json").read_text())
+                    check(written == m and f"{split}_frac_unpredictable" in m, f"phase 19 (c) [{name}]: {split} metrics")
+                check(len(calls) == 2 and all(c["rows"] == ZS_BATCH * ZS_SAMPLES for c in calls),
+                      f"phase 19 (c) [{name}]: generation calls {calls}")  # fmt: skip
+                generated = sum(c["generated"] for c in calls)
+                out[name] = dict(wall_s=wall, split_wall_s=[c["wall_s"] for c in calls], generated=generated,
+                                 events_per_s=generated / sum(c["wall_s"] for c in calls),
+                                 frac_unpredictable=[tuning_m["tuning_frac_unpredictable"],
+                                                     held_out_m["held_out_frac_unpredictable"]],
+                                 metrics={**tuning_m, **held_out_m}, launches_a=fused_categorical_stream.launches)  # fmt: skip
+                check(out[name]["launches_a"] > 0, f"phase 19 (c) [{name}]: kernel A never launched")
+        finally:
+            zs.get_generative_predictions = real
+        # One subject's fork equals its per-(subject, sample) requests with the fork's seeds.
+        model, config = load_pretrained(tmp / "pretrained", device="cuda")
+        config.max_seq_len = ZS_SEQ + ZS_NEW
+        ds = TorchDataset(cfg.data_config, "tuning")
+        batch = next(ds.batches(1, shuffle=False, seed=0))
+        kw = dict(template=batch, n_slots=ZS_SAMPLES, max_len=ZS_SEQ + ZS_NEW, max_prompt_len=ZS_SEQ, paged_kv=True,
+                  block_size=16, device="cuda")  # fmt: skip
+        forked = zs._generate_via_engine(GenerationEngine(model, config, **kw), batch, 11, ZS_SAMPLES, ZS_NEW)
+        ref = GenerationEngine(model, config, **kw)
+        ref.scheduler.group_sizes = (ZS_SAMPLES,)
+        res = {r.request_id: r for r in ref.run([
+            Request(prompt=batch, max_new_events=ZS_NEW, request_id=j,
+                    key=derive_request_seed(derive_request_seed(11, 0), j)) for j in range(ZS_SAMPLES)])}  # fmt: skip
+        for j, r in res.items():
+            for f in ("event_mask", "time_delta", "dynamic_indices", "dynamic_values"):
+                check(torch.equal(getattr(forked, f)[j, : r.n_events], getattr(r.batch, f)[0]),
+                      f"phase 19 (c): branch {j}'s {f} differs from its per-request run")  # fmt: skip
+    check(not any(m in sys.modules for m in ("pandas", "pyarrow")), "phase 19 (c): pandas or pyarrow was imported")
+    print(f"phase 19 (c): train(cfg) on the converted sample cohort ({ZS_SEQ}-event rows, batches of 32, 2 epochs) "
+          f"in {train['wall']:.2f} s, kernel C {out['launches_c']} through the replays (it gathers a multivariate "
+          f"regression plane: the cohort's numeric measurements are univariate); zero-shot on "
+          f"{ZS_TASK}, {ZS_SAMPLES} samples of {ZS_NEW} new events a subject, {ZS_BATCH} subjects a batch "
+          f"({ZS_BATCH * ZS_SAMPLES} rows): {json.dumps({k: out[k] for k in ('paged engine', 'generate()')})}; "
+          f"one subject's fork equals its {ZS_SAMPLES} per-request runs bit for bit; no pandas or pyarrow ({smi})",
+          flush=True)  # fmt: skip
+    return out
+
+
+def functor_phase(smi, model, config) -> dict:
+    """Phase 19: functor measurements in generation and zero-shot evaluation (module docstring)."""
+    t0 = time.perf_counter()
+    a = functor_serving_runs(smi, model, config)
+    t1 = time.perf_counter()
+    b = small_functor_engines_match_cpu()
+    t2 = time.perf_counter()
+    print(f"phase 19 (b): small fp32 greedy runs with both functors on the card match the CPU ({', '.join(b)}): "
+          f"events and integers exact, floats within 1e-4; every generated event's functor elements checked",
+          flush=True)  # fmt: skip
+    c = zero_shot_runs(smi)
+    t3 = time.perf_counter()
+    print(f"phase 19: passed in {t3 - t0:.1f} s ((a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f})", flush=True)
+    return dict(launches_a=a["launches_a"] + c["paged engine"]["launches_a"] + c["generate()"]["launches_a"],
+                launches_b=a["launches_b"], launches_c=c["launches_c"])
+
+
 def main() -> int:
     try:
         import torch
@@ -4139,6 +4481,7 @@ def main() -> int:
     service = service_phase(smi, model, config)
     fleet = fleet_phase(smi, config, service.pop("m1"), service.pop("m2"))
     pretrain = pretrain_phase(smi)
+    functor = functor_phase(smi, model, config)
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
@@ -4148,11 +4491,7 @@ def main() -> int:
           f"{json.dumps(spec['profiles']['monolithic unfused'])}; phase 13's NA generate() step "
           f"{json.dumps(gen['profiles']['NA step'])}; events/s (accounting pass) {json.dumps(na_engine['rates'])} "
           f"({smi})", flush=True)  # fmt: skip
-    na_spec["profiles"] = na_spec.pop("profile")()
-    print(f"phase 15: one profiled captured chunk of 16 rounds at 32 admitted slots (sampled, bf16), a round: NA spec "
-          f"engine {json.dumps(na_spec['profiles'])}; beside phase 14's NA engine step and phase 12's CI spec round "
-          f"{json.dumps(spec['profiles']['spec'])}; events/s (accounting pass) {json.dumps(na_spec['rates'])} ({smi})",
-          flush=True)  # fmt: skip
+    print(f"phase 15: events/s (accounting pass) {json.dumps(na_spec['rates'])} ({smi})", flush=True)
 
     def chunk_launches(name):
         return sum(run["launches"][name] for run in chunked.values())
@@ -4162,11 +4501,12 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
              + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"]
-             + na_spec["launches_a"] + service["launches_a"] + fleet["launches_a"], **a),
+             + na_spec["launches_a"] + service["launches_a"] + fleet["launches_a"] + functor["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
-             + runs["sampled"]["launches"]["decode_stack_step"] + service["launches_b"] + fleet["launches_b"], **b),
+             + runs["sampled"]["launches"]["decode_stack_step"] + service["launches_b"] + fleet["launches_b"]
+             + functor["launches_b"], **b),
     ] + [
         dict(name=f"decode_stack_step_{kv}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297", entry="esgpt_decode_stack_step_quant",
@@ -4178,7 +4518,7 @@ def main() -> int:
         dict(name=f"vocab_gather_{d}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/vocab_gather.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182",
              launches=train["launches"][f"vocab_gather_{d}"] + chunk_launches(f"vocab_gather_{d}")
-             + pretrain["launches"][f"vocab_gather_{d}"], **c[d])
+             + pretrain["launches"][f"vocab_gather_{d}"] + functor["launches_c"][d], **c[d])
         for d in ("fwd", "bwd")
     ] + [
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",

@@ -2,24 +2,70 @@
 
 Counterpart: ``eventstreamgpt_tpu/data/config.py`` (`MeasurementConfig`,
 `VocabularyConfig`, `PytorchDatasetConfig`). The port keeps the serialized
-form of a measurement only: the vocabulary stays a plain
+form of a measurement: the vocabulary stays a plain
 ``{"vocabulary", "obs_frequencies"}`` dict, fitted metadata stays the dict
 (or path) it was serialized as, and a functor stays its dict. ``to_dict``
 returns what ``from_dict`` was given, so a ``config.json``,
 ``vocabulary_config.json`` or ``data_config.json`` written by the JAX
 package loads here and writes back unchanged, and the other way round.
+Generation reads the objects behind them: `MeasurementConfig.functor_object`,
+`vocabulary_object` and `measurement_metadata` (the fitted metadata, read
+from its CSV with ``csv`` and ``ast``, never ``eval``).
 """
 
 from __future__ import annotations
 
+import ast
+import csv
 import dataclasses
 import random
+import re
 from pathlib import Path
 from typing import Any, Hashable
 
 from ..utils import JSONableMixin, config_dataclass
 from ..utils.enums import SeqPaddingSide, SubsequenceSamplingStrategy
+from .time_dependent_functor import TimeDependentFunctor, functor_from_dict
 from .types import DataModality, TemporalityType
+from .vocabulary import Vocabulary
+
+def _literal_cell(cell: str):
+    """A metadata CSV cell read with `ast.literal_eval` (dict reprs
+    included), a ``nan`` in it (pandas' repr of a NaN) as None, both meaning
+    "no bound" to a threshold; a cell that is not a literal stays text.
+
+    Examples:
+        >>> _literal_cell("{'thresh_large_': nan, 'thresh_small_': -4.5}")
+        {'thresh_large_': None, 'thresh_small_': -4.5}
+        >>> _literal_cell("float")
+        'float'
+    """
+    try:
+        return ast.literal_eval(re.sub(r"\bnan\b", "None", cell.strip()))
+    except (SyntaxError, ValueError):
+        return cell
+
+
+def read_metadata_csv(fp: Path | str, univariate: bool) -> dict:
+    """A measurement's fitted metadata CSV (JAX's ``pd.read_csv(fp,
+    index_col=0)`` with ``outlier_model`` and ``normalizer`` parsed): a
+    univariate measurement's single column as ``{row: value}``, otherwise
+    ``{column: {row: value}}``. Cells of ``outlier_model`` and
+    ``normalizer`` are parsed with `_literal_cell`; empty cells are None."""
+    with open(fp, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0][1:], rows[1:]
+    if univariate and len(header) != 1:
+        raise ValueError(f"Expected a single-column metadata file for univariate regression; got columns {header}")
+
+    def cell(key: str, text: str):
+        if text == "":
+            return None
+        return _literal_cell(text) if key in ("outlier_model", "normalizer") else text
+
+    if univariate:
+        return {r[0]: cell(r[0], r[1]) for r in body}
+    return {c: {r[0]: cell(c, r[j + 1]) for r in body} for j, c in enumerate(header)}
 
 
 @dataclasses.dataclass
@@ -58,6 +104,27 @@ class MeasurementConfig(JSONableMixin):
     @property
     def is_dropped(self) -> bool:
         return self.modality == DataModality.DROPPED
+
+    @property
+    def functor_object(self) -> TimeDependentFunctor | None:
+        """The functor of the serialized ``functor`` dict (JAX's ``functor``)."""
+        return None if self.functor is None else functor_from_dict(self.functor)
+
+    @property
+    def vocabulary_object(self) -> Vocabulary | None:
+        """The `Vocabulary` of the serialized ``vocabulary`` dict (JAX's ``vocabulary``)."""
+        return None if self.vocabulary is None else Vocabulary(**self.vocabulary)
+
+    @property
+    def measurement_metadata(self) -> dict | None:
+        """The fitted metadata (JAX's ``measurement_metadata``): the dict it
+        was serialized as, or its CSV read by `read_metadata_csv`."""
+        mm = self._measurement_metadata
+        if mm is None or isinstance(mm, dict):
+            return mm
+        if isinstance(mm, (str, Path)):
+            return read_metadata_csv(mm, univariate=self.modality == DataModality.UNIVARIATE_REGRESSION)
+        raise ValueError(f"_measurement_metadata is invalid! Got {mm}")
 
     def to_dict(self) -> dict:
         return {

@@ -17,8 +17,8 @@ inside one graph). In the JAX package it is ``jnp`` gathers, not a Pallas
 kernel, and here it stays PyTorch.
 
 Light per-subject fields (``start_time``, subsequence bounds,
-``subject_id``, ``valid_mask``) stay on the host as CPU tensors, computed
-from the plan, as the JAX collate leaves them host arrays.
+``subject_id``, ``stream_labels``, ``valid_mask``) stay on the host as CPU
+tensors, computed from the plan, as the JAX collate leaves them host arrays.
 
 Sharded tables over several devices (``data_shards > 1``, ``mesh``,
 ``context_parallel``) are not ported (ROADMAP Queue 1 item 7).
@@ -313,6 +313,9 @@ class DeviceDataset:
             fields["subject_id"] = torch.from_numpy(
                 np.asarray([ds.subject_ids[i] for i in plan.subject_indices], dtype=np.int64)
             )
+        labels = ds.labels_of(plan.subject_indices)
+        if labels is not None:
+            fields["stream_labels"] = {t: torch.from_numpy(v) for t, v in labels.items()}
         fields["valid_mask"] = torch.from_numpy(plan.valid_mask)
         return EventStreamBatch(**fields)
 

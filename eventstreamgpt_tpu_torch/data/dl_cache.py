@@ -12,6 +12,8 @@ Layout of a converted cache (``convert_dl_cache`` writes it; so does
     inferred_measurement_configs.json   copied unchanged
     inferred_measurement_metadata/      the metadata files the configs name
     DL_reps/{split}_{k}.npz             one archive a parquet chunk
+    task_dfs/{name}.npz                 one archive a task dataframe
+    task_dfs/{name}_labeler.py          its zero-shot labeler, importing the port
 
 Each archive holds every column of its chunk as flat values plus offsets:
 
@@ -23,8 +25,11 @@ Each archive holds every column of its chunk as flat values plus offsets:
   (one entry an inner list, plus one) and, when any inner list was null,
   ``c__nulls2`` (a bool an inner list).
 
-Values keep the parquet's types: ``dynamic_indices`` stay the floats the
-reference cache writes, null values inside a float list are NaN. Reading
+A task archive holds ``subject_id``, ``start_time`` and ``end_time`` (int64
+ns) and the label columns, a row a task window. Values keep the parquet's
+types: ``dynamic_indices`` stay the floats the reference cache writes, null
+values inside a float list are NaN, a string column is a numpy ``str``
+array. Reading
 (`read_dl_cache`) concatenates a split's chunks in the numeric order of
 their suffix and needs numpy only; only `convert_dl_cache`'s body imports
 pyarrow.
@@ -39,7 +44,20 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["DLReps", "RaggedColumn", "concat_ranges", "convert_dl_cache", "read_dl_cache", "write_dl_reps"]
+__all__ = [
+    "DLReps",
+    "RaggedColumn",
+    "concat_ranges",
+    "convert_dl_cache",
+    "port_labeler_source",
+    "read_dl_cache",
+    "read_task_df",
+    "write_dl_reps",
+]
+
+# The one module of the JAX package a zero-shot labeler may import, and its port.
+_LABELER_MODULE = "eventstreamgpt_tpu.models.zero_shot_labeler"
+_PORT_LABELER_MODULE = "eventstreamgpt_tpu_torch.models.zero_shot_labeler"
 
 # Parquet's pandas index column, which the cache does not need.
 _SKIP = {"__index_level_0__"}
@@ -62,9 +80,17 @@ class RaggedColumn:
     def take(self, rows: np.ndarray) -> "RaggedColumn":
         """The column of the given rows, in that order."""
         rows = np.asarray(rows, np.int64)
+        lengths = np.diff(self.offsets.astype(np.int64))[rows]
+        return self.slice_rows(rows, np.zeros_like(lengths), lengths)
+
+    def slice_rows(self, rows: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> "RaggedColumn":
+        """Row ``i`` of the result is row ``rows[i]``'s elements (or inner
+        lists) ``lo[i]:hi[i]``."""
         off = self.offsets.astype(np.int64)
-        inner = concat_ranges(off[rows], off[rows + 1])
-        new_off = _offsets(off[rows + 1] - off[rows])
+        start = off[np.asarray(rows, np.int64)] + np.asarray(lo, np.int64)
+        end = start + (np.asarray(hi, np.int64) - np.asarray(lo, np.int64))
+        inner = concat_ranges(start, end)
+        new_off = _offsets(end - start)
         if self.offsets2 is None:
             return RaggedColumn(self.values[inner], new_off)
         off2 = self.offsets2.astype(np.int64)
@@ -185,6 +211,45 @@ def read_dl_cache(save_dir: Path | str, split: str) -> DLReps:
     return _concat([_load(fp) for fp in files])
 
 
+def read_task_df(save_dir: Path | str, task_df_name: str) -> dict:
+    """The columns of a converted task dataframe (``task_dfs/{name}.npz``)."""
+    fp = Path(save_dir) / "task_dfs" / f"{task_df_name}.npz"
+    if not fp.is_file():
+        raise FileNotFoundError(
+            f"{fp} does not exist, but config.task_df_name = {task_df_name}! (convert the parquet cache with "
+            "data.dl_cache.convert_dl_cache on a host with pandas)"
+        )
+    with np.load(fp, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def port_labeler_source(source: str, name: str = "<labeler>") -> str:
+    """A zero-shot labeler's source with its import of the JAX package's
+    ``models.zero_shot_labeler`` rewritten to the port's. Raises
+    ``ValueError`` if it imports anything else of the JAX package."""
+    import ast
+
+    lines = source.splitlines(keepends=True)
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            modules = [node.module or ""]
+        elif isinstance(node, ast.Import):
+            modules = [a.name for a in node.names]
+        else:
+            continue
+        for module in modules:
+            if module.split(".")[0] != "eventstreamgpt_tpu":
+                continue
+            if module != _LABELER_MODULE:
+                raise ValueError(
+                    f"{name} imports {module} from the JAX package; a labeler the port loads may import only "
+                    f"{_LABELER_MODULE} (rewritten to {_PORT_LABELER_MODULE})"
+                )
+            for i in range(node.lineno - 1, node.end_lineno):
+                lines[i] = lines[i].replace(_LABELER_MODULE, _PORT_LABELER_MODULE)
+    return "".join(lines)
+
+
 def _metadata_files(src: Path) -> list[Path]:
     """The metadata files ``inferred_measurement_configs.json`` names, as
     the dataset resolves them."""
@@ -240,8 +305,10 @@ def convert_dl_cache(src: Path | str, dst: Path | str) -> Path:
     Runs where pyarrow is installed (it is imported here, and nowhere else in
     the port). Copies ``vocabulary_config.json``,
     ``inferred_measurement_configs.json`` and the metadata files the latter
-    names (into ``dst/inferred_measurement_metadata``), and writes one
-    ``DL_reps/{stem}.npz`` for every ``DL_reps/{stem}.parquet``."""
+    names (into ``dst/inferred_measurement_metadata``), writes one
+    ``DL_reps/{stem}.npz`` for every ``DL_reps/{stem}.parquet`` and one
+    ``task_dfs/{name}.npz`` for every ``task_dfs/{name}.parquet``, and copies
+    each ``task_dfs/{name}_labeler.py`` through `port_labeler_source`."""
     import pyarrow.parquet as pq
 
     src, dst = Path(src), Path(dst)
@@ -257,4 +324,8 @@ def convert_dl_cache(src: Path | str, dst: Path | str) -> Path:
         raise FileNotFoundError(f"No DL_reps parquet files in {src / 'DL_reps'}")
     for fp in files:
         write_dl_reps(dst / "DL_reps" / f"{fp.stem}.npz", _encode_table(pq.read_table(fp)))
+    for fp in sorted((src / "task_dfs").glob("*.parquet")):
+        write_dl_reps(dst / "task_dfs" / f"{fp.stem}.npz", _encode_table(pq.read_table(fp)))
+    for fp in sorted((src / "task_dfs").glob("*_labeler.py")):
+        (dst / "task_dfs" / fp.name).write_text(port_labeler_source(fp.read_text(), str(fp)))
     return dst

@@ -19,8 +19,12 @@ Counterpart: ``eventstreamgpt_tpu/data/jax_dataset.py``:
   ``packed_row_plan``, ``packed_batches``), step for step and with the same
   random stream.
 
-Task data (``PytorchDatasetConfig.task_df_name``) is not ported (ROADMAP
-Queue 1 item 9): `TorchDataset` refuses it.
+* task data (``PytorchDatasetConfig.task_df_name``): ``normalize_task``,
+  ``_load_task_data`` and ``_build_task_cached_df`` over the converted
+  task dataframe (`data.dl_cache.read_task_df`), each subject's events
+  restricted to its task windows with numpy; batches carry
+  ``stream_labels``. JAX caches the restricted rows as parquet under
+  ``DL_reps/for_task``; the port computes them when the dataset is built.
 
 Packing first-fit places whole subject sequences into rows of ``seq_len``
 events, with ``segment_ids`` marking where one subject ends and the next
@@ -41,7 +45,16 @@ import torch
 
 from ..utils.enums import SeqPaddingSide, SubsequenceSamplingStrategy
 from .config import MeasurementConfig, PytorchDatasetConfig, VocabularyConfig
-from .dl_cache import DLReps, RaggedColumn, concat_ranges, read_dl_cache, write_dl_reps
+from .dl_cache import (
+    DLReps,
+    RaggedColumn,
+    _concat,
+    _load,
+    concat_ranges,
+    read_dl_cache,
+    read_task_df,
+    write_dl_reps,
+)
 from .types import EventStreamBatch
 
 __all__ = [
@@ -57,8 +70,8 @@ __all__ = [
 
 # Where multi-shard feeds wait (their ValueErrors name it).
 SHARDED_FEEDS = "ROADMAP Queue 1 item 7: multi-GPU data feeds"
-# Where task data waits.
-TASK_DATA = "ROADMAP Queue 1 item 9: task data and fine-tuning"
+# The columns of a task dataframe that are not labels.
+_TASK_KEYS = ("subject_id", "start_time", "end_time")
 
 MAX_OPEN_ROWS = 64
 
@@ -186,6 +199,8 @@ class CSRDataset:
         self.max_n_static = self.config.max_n_static or self.data.max_n_static
         self.subject_ids = list(range(self.data.n_subjects)) if subject_ids is None else list(subject_ids)
         self.has_task = False
+        self.tasks = self.task_vocabs = self.stream_labels = None
+        self.task_types: dict = {}
 
     def __len__(self) -> int:
         return self.data.n_subjects
@@ -266,6 +281,17 @@ class CSRDataset:
                 start_time=start_time,
             )
 
+    def labels_of(self, subject_indices: np.ndarray) -> dict | None:
+        """``stream_labels`` of the given subjects (JAX's dtypes: int64 for a
+        multi-class task, else float32), or None without task data."""
+        if not self.has_task:
+            return None
+        idx = np.asarray(subject_indices)
+        return {
+            t: np.asarray(self.stream_labels[t][idx],
+                          dtype=np.int64 if self.task_types[t] == "multi_class_classification" else np.float32)
+            for t in self.tasks
+        }  # fmt: skip
 
     # ------------------------------------------------------- host collation
     def collate_indices(self, subject_indices: np.ndarray, rng: np.random.Generator | None = None) -> EventStreamBatch:
@@ -330,7 +356,7 @@ class CSRDataset:
             batch["end_idx"] = starts + kept
         if self.config.do_include_subject_id:
             batch["subject_id"] = np.asarray([self.subject_ids[i] for i in subject_indices], dtype=np.int64)
-        return _to_batch(batch)
+        return _to_batch(batch, self.labels_of(subject_indices))
 
     def batches(
         self,
@@ -401,6 +427,9 @@ class CSRDataset:
         if self.config.do_include_subsequence_indices:
             out["start_idx"] = start_idx
             out["end_idx"] = end_idx
+        if self.has_task:
+            for t in self.tasks:
+                out[t] = self.stream_labels[t][idx]
         return out
 
     def collate(self, batch: list[dict]) -> EventStreamBatch:
@@ -448,7 +477,14 @@ class CSRDataset:
             out["end_idx"] = np.asarray([e["end_idx"] for e in batch], dtype=np.int64)
         if self.config.do_include_subject_id:
             out["subject_id"] = np.asarray([e["subject_id"] for e in batch], dtype=np.int64)
-        return _to_batch(out)
+        labels = None
+        if self.has_task:
+            labels = {
+                t: np.asarray([e[t] for e in batch],
+                              dtype=np.int64 if self.task_types[t] == "multi_class_classification" else np.float32)
+                for t in self.tasks
+            }  # fmt: skip
+        return _to_batch(out, labels)
 
     # ------------------------------------------------------------- packing
     def packed_rows_dealt(
@@ -484,8 +520,11 @@ class CSRDataset:
         )  # fmt: skip
 
 
-def _to_batch(fields: dict) -> EventStreamBatch:
-    return EventStreamBatch(**{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in fields.items()})
+def _to_batch(fields: dict, stream_labels: dict | None = None) -> EventStreamBatch:
+    batch = EventStreamBatch(**{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in fields.items()})
+    if stream_labels is not None:
+        batch = batch.replace(stream_labels={k: torch.from_numpy(v) for k, v in stream_labels.items()})
+    return batch
 
 
 def pack_rows(csr: CSRData, L: int, rng: np.random.Generator, order: np.ndarray, strategy) -> list:
@@ -741,23 +780,112 @@ class TorchDataset(CSRDataset):
     drawn as ``DataFrame.sample(n, random_state=train_subset_seed)`` draws
     them. The result is the `CSRDataset` of those subjects, in that order.
 
-    ``config.task_df_name`` (task data) raises ``ValueError`` naming ROADMAP
-    Queue 1 item 9.
+    With ``config.task_df_name`` the rows are task windows
+    (`_load_task_data`): each row of ``task_dfs/{name}.npz`` whose subject
+    the split holds, its events restricted to the window, its labels kept as
+    ``stream_labels`` (``tasks``, ``task_types``, ``task_vocabs``, as JAX's).
     """
 
+    @staticmethod
+    def normalize_task(col: np.ndarray) -> tuple[str, np.ndarray, list | None]:
+        """A label column's task type, normalized labels and vocabulary (JAX's
+        ``normalize_task`` on a numpy column): booleans are a binary task
+        (float32 labels), integers multi-class over ``0..max``, floats a
+        regression, strings multi-class over their sorted distinct values."""
+        col = np.asarray(col)
+        if col.dtype == bool:
+            return "binary_classification", col.astype(np.float32), [False, True]
+        if np.issubdtype(col.dtype, np.integer):
+            return "multi_class_classification", col, list(range(int(col.max()) + 1))
+        if np.issubdtype(col.dtype, np.floating):
+            return "regression", col, None
+        if col.dtype.kind in "UO":
+            vocab = sorted({v for v in col.tolist() if v is not None})
+            mapping = {v: i for i, v in enumerate(vocab)}
+            return "multi_class_classification", np.asarray([mapping[v] for v in col.tolist()], np.int64), vocab
+        raise TypeError(f"Can't process label of {col.dtype} type!")
+
+    def _load_task_data(self, save_dir: Path, task_df_name: str, split: str) -> DLReps:
+        """The split's task windows (JAX's ``_load_task_data``): the task
+        dataframe's labels normalized, then each of the split's chunks
+        restricted to its task rows (`_build_task_reps`), the chunks in the
+        lexicographic order JAX's task cache lists them."""
+        task = read_task_df(save_dir, task_df_name)
+        self.tasks = sorted(c for c in task if c not in _TASK_KEYS)
+        self.task_types, self.task_vocabs = {}, {}
+        for t in self.tasks:
+            task_type, task[t], vocab = self.normalize_task(task[t])
+            self.task_types[t] = task_type
+            if vocab is not None:
+                self.task_vocabs[t] = vocab
+        files = sorted((save_dir / "DL_reps").glob(f"{split}*.npz"))
+        if not files:
+            raise FileNotFoundError(f"No converted DL_reps chunks for split {split} in {save_dir / 'DL_reps'}")
+        return _concat([self._build_task_reps(task, self.tasks, _load(fp)) for fp in files])
+
+    @staticmethod
+    def _build_task_reps(task: dict, tasks: list, cached: DLReps) -> DLReps:
+        """One chunk's rows restricted to the task windows (JAX's
+        ``_build_task_cached_df``): for each task row whose subject the chunk
+        holds, in the task's order, the subject's events with times (minutes
+        from its start) in ``[start, end]`` by ``searchsorted``, times shifted
+        to start at 0, ``start_time`` advanced to the first (pandas'
+        ``Timestamp + Timedelta(minutes=t)``: ``int(t * 60 * 1e9)`` ns), the
+        static lists copied and the labels kept; empty windows dropped."""
+        sids = cached.scalars["subject_id"]
+        pos = {int(sid): i for i, sid in enumerate(sids.tolist())}
+        task_rows = np.asarray([i for i, sid in enumerate(task["subject_id"].tolist()) if int(sid) in pos], np.int64)
+        rows = np.asarray([pos[int(task["subject_id"][i])] for i in task_rows], np.int64)
+        base_start = cached.scalars["start_time"][rows].astype(np.int64)
+        start_min = (task["start_time"][task_rows].astype(np.int64) - base_start).astype(np.float64) / 60e9
+        end_min = (task["end_time"][task_rows].astype(np.int64) - base_start).astype(np.float64) / 60e9
+        times = cached.lists["time"]
+        t_off = times.offsets.astype(np.int64)
+        t_vals = np.asarray(times.values, np.float64)
+        keep, lo, hi = [], [], []
+        for i, (r, a, b) in enumerate(zip(rows, start_min, end_min)):
+            t = t_vals[t_off[r] : t_off[r + 1]]
+            w_lo, w_hi = int(np.searchsorted(t, a, side="left")), int(np.searchsorted(t, b, side="right"))
+            if w_hi > w_lo:
+                keep.append(i)
+                lo.append(w_lo)
+                hi.append(w_hi)
+        keep, lo, hi = (np.asarray(x, np.int64) for x in (keep, lo, hi))
+        rows, task_rows = rows[keep], task_rows[keep]
+        first = t_vals[t_off[rows] + lo] if len(rows) else np.zeros(0)
+        scalars = {
+            "subject_id": task["subject_id"][task_rows],
+            "start_time": base_start[keep] + (first * 60 * 1e9).astype(np.int64),
+            **{t: task[t][task_rows] for t in tasks},
+        }
+        lists = {}
+        for name, col in cached.lists.items():
+            if name == "time":
+                sliced = col.slice_rows(rows, lo, hi)
+                lists[name] = RaggedColumn(
+                    np.asarray(sliced.values, np.float64) - np.repeat(first, hi - lo), sliced.offsets
+                )
+            elif name.startswith("static_"):
+                lists[name] = col.take(rows)
+            else:
+                lists[name] = col.slice_rows(rows, lo, hi)
+        return DLReps(scalars, lists)
+
     def __init__(self, config: PytorchDatasetConfig, split: str):
-        if config.task_df_name is not None:
-            raise ValueError(f"task data (data_config.task_df_name) is not part of the PyTorch port yet ({TASK_DATA})")
         self.split = split
         save_dir = Path(config.save_dir)
         self.vocabulary_config = VocabularyConfig.from_json_file(save_dir / "vocabulary_config.json")
         with open(save_dir / "inferred_measurement_configs.json") as f:
             inferred = {k: MeasurementConfig.from_dict(v, base_dir=save_dir) for k, v in json.load(f).items()}
         self.measurement_configs = {k: v for k, v in inferred.items() if not v.is_dropped}
-        self.tasks = self.task_vocabs = self.stream_labels = None
+        self.tasks = self.task_vocabs = None
         self.task_types: dict = {}
 
-        reps = _time_deltas(read_dl_cache(save_dir, split))
+        if config.task_df_name is not None:
+            reps = self._load_task_data(save_dir, config.task_df_name, split)
+        else:
+            reps = read_dl_cache(save_dir, split)
+        reps = _time_deltas(reps)
         do_static = "static_indices" in reps.lists
         lens = np.diff(reps.lists["time_delta"].offsets.astype(np.int64))
         reps = reps.take(np.flatnonzero(lens >= config.min_seq_len))
@@ -797,7 +925,11 @@ class TorchDataset(CSRDataset):
             reps = reps.take(np.random.RandomState(config.train_subset_seed).choice(n_rows, size=n, replace=False))
 
         subject_ids = reps.scalars["subject_id"].tolist() if "subject_id" in reps.scalars else None
+        tasks, task_types, task_vocabs = self.tasks, self.task_types, self.task_vocabs
         super().__init__(_flatten(reps, do_static), config, do_produce_static_data=do_static, subject_ids=subject_ids)
+        if config.task_df_name is not None:
+            self.has_task, self.tasks, self.task_types, self.task_vocabs = True, tasks, task_types, task_vocabs
+            self.stream_labels = {t: np.asarray(reps.scalars[t]) for t in tasks}
 
     @staticmethod
     def _real_deltas(td: RaggedColumn) -> np.ndarray:

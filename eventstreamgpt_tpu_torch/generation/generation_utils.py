@@ -71,7 +71,6 @@ from ..utils.graphs import CapturedProgram
 from .sampling import (
     RowStreams,
     append_new_event,
-    check_generation_config,
     derive_request_seed,
     measurements_to_fill,
     sample_predictions,
@@ -209,7 +208,6 @@ def generate(
             "generate(mesh=...): data-parallel generation over a mesh is not part of the PyTorch port yet "
             "(ROADMAP Queue 1 item 7: meshes and tensor parallelism)"
         )
-    check_generation_config(config)
     device = resolve_device(device, "generate()")
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -403,7 +401,7 @@ class _Generation:
         # Kernel A draws every categorical head, the noise of the head's stream drawn inside.
         sample = sample_predictions(preds_last, em, RowStreams(self.seeds, counters), fused_categorical_stream)
         if level == 0:
-            append_new_event(big, sample, cur)
+            append_new_event(big, sample, self.config, cur)
         to_fill = self.to_fill[level]
         if to_fill:
             update_last_event_data(big, sample, self.config, cur + 1, to_fill)

@@ -35,6 +35,9 @@ from ..models.config import StructuredTransformerConfig
 from ..models.model_output import GenerativeSequenceModelPredictions
 from ..ops.tensor_ops import gather_last
 
+# The per-event data planes, in the order every writer takes them.
+_DATA_FIELDS = ("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask")
+
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
@@ -228,16 +231,6 @@ def measurements_to_fill(config: StructuredTransformerConfig) -> set:
     return set(out)
 
 
-def check_generation_config(config: StructuredTransformerConfig) -> None:
-    """Raises for measurements whose generation the port does not do yet."""
-    for m, cfg in config.measurement_configs.items():
-        if cfg.temporality == TemporalityType.FUNCTIONAL_TIME_DEPENDENT and not cfg.is_dropped:
-            raise ValueError(
-                f"measurement {m!r} is functional-time-dependent; generating functor measurements is not part of "
-                "the PyTorch port yet (ROADMAP Queue 1 item 2: functional-time-dependent measurements in generation)"
-            )
-
-
 def _masked_row_write(buf: torch.Tensor, rows, cols, values, active, drop_oob: bool = False) -> None:
     """``buf[rows, cols] = values`` for active rows; inactive rows keep theirs.
 
@@ -264,23 +257,95 @@ def _masked_row_write(buf: torch.Tensor, rows, cols, values, active, drop_oob: b
     buf[rows, cols] = values
 
 
-def append_new_event(batch: EventStreamBatch, sample, cursor: torch.Tensor, active=None, drop_oob: bool = False) -> None:
+def functor_measurements(config: StructuredTransformerConfig) -> list:
+    """``(measurement index, vocabulary offset, functor, vocabulary, metadata)``
+    of each undropped functional-time-dependent measurement, in the config's
+    order (JAX's loop in ``_functor_elements``); read when a program is
+    traced or captured."""
+    out = []
+    for m, cfg in config.measurement_configs.items():
+        if cfg.temporality != TemporalityType.FUNCTIONAL_TIME_DEPENDENT or cfg.is_dropped:
+            continue
+        out.append((config.measurements_idxmap[m], config.vocab_offsets_by_measurement[m], cfg.functor_object,
+                    cfg.vocabulary_object, cfg.measurement_metadata))  # fmt: skip
+    return out
+
+
+def functor_elements(batch: EventStreamBatch, sample, functors: list, cursor: torch.Tensor) -> tuple:
+    """The new event's functional-time-dependent elements, ``(B, nf)``
+    indices, measurement indices, values and value mask, and its absolute
+    time ``(B,)`` (JAX's ``_functor_elements``): each functor updates its
+    element of the prior event (``cursor - 1``) by the sampled time to the
+    new one. The new time is ``start_time`` plus the deltas of the real
+    events before the prior one plus that time, with the deltas summed in
+    fp64 and rounded once to fp32 (a row's sum does not depend on its
+    batch), then added in JAX's order."""
+    B, L = batch.event_mask.shape
+    rows = torch.arange(B, device=cursor.device)
+    prior = (cursor.long() - 1).clamp(0, L - 1)
+    prior_idx, prior_meas, prior_val, prior_vmask = (
+        getattr(batch, n)[rows, prior]
+        for n in ("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask")
+    )
+    positions = torch.arange(L, device=cursor.device)[None, :]
+    before = (positions < (cursor.long() - 1)[:, None]) & batch.event_mask
+    deltas_before = torch.where(before, batch.time_delta.double(), 0.0).sum(-1).float()
+    tte = sample.time_to_event
+    start = batch.start_time if batch.start_time is not None else torch.zeros_like(deltas_before)
+    new_time = torch.where(sample.event_mask, start + deltas_before + tte, 0.0)
+
+    parts = ([], [], [], [])
+    for meas_idx, offset, functor, vocab, metadata in functors:
+        is_m = prior_meas == meas_idx
+        indices = torch.where(is_m, prior_idx, 0).sum(-1)
+        vals = torch.where(is_m & prior_vmask, prior_val, 0.0).sum(-1)
+        new_indices, new_values = functor.update_from_prior_timepoint(
+            prior_indices=indices - offset, prior_values=vals, new_delta=tte, new_time=new_time, vocab=vocab,
+            measurement_metadata=metadata,
+        )  # fmt: skip
+        new_indices = (new_indices + offset).to(prior_idx.dtype)
+        parts[0].append(new_indices)
+        parts[1].append(torch.full_like(new_indices, meas_idx).to(prior_meas.dtype))
+        parts[2].append(torch.nan_to_num(new_values, nan=0.0, posinf=0.0, neginf=0.0))
+        parts[3].append(~torch.isnan(new_values))
+    return tuple(torch.stack(p, -1) for p in parts) + (new_time,)
+
+
+def append_new_event(
+    batch: EventStreamBatch, sample, config: StructuredTransformerConfig, cursor: torch.Tensor, active=None,
+    drop_oob: bool = False,
+) -> None:
     """Writes the sampled TTE as ``time_delta[cursor - 1]`` and opens event
-    ``cursor`` (filler delta 1, the sampled event mask, no content yet), in
-    place; ``drop_oob`` as in `_masked_row_write`."""
-    B = batch.event_mask.shape[0]
+    ``cursor`` in place (JAX's ``append_new_event``): filler delta 1, the
+    sampled event mask, and as content the new event's functor elements
+    (`functor_elements`) in its first data slots, zeroed for rows that are
+    not events; `update_last_event_data` appends the sampled content after
+    them. ``drop_oob`` as in `_masked_row_write`."""
+    B, _, M = batch.dynamic_indices.shape
     rows = torch.arange(B, device=cursor.device)
     cursor = cursor.long()
     prev = cursor - 1
+    functors = functor_measurements(config)
+    content = None
+    if functors:  # read the prior event before this call writes anything
+        if len(functors) > M:
+            raise ValueError(f"{len(functors)} functor measurements do not fit an event of {M} data elements")
+        em = sample.event_mask[:, None]
+        content = []
+        for f, name in zip(functor_elements(batch, sample, functors, cursor)[:4], _DATA_FIELDS):
+            plane = getattr(batch, name)
+            f = torch.nn.functional.pad(f.to(plane.dtype), (0, M - f.shape[1]))
+            content.append(f & em if plane.dtype == torch.bool else torch.where(em, f, 0))
     td_prev = batch.time_delta[rows, prev.clamp(max=batch.time_delta.shape[1] - 1)]
     _masked_row_write(
         batch.time_delta, rows, prev, torch.where(sample.event_mask, sample.time_to_event, td_prev), active, drop_oob
     )
     _masked_row_write(batch.time_delta, rows, cursor, 1.0, active, drop_oob)
     _masked_row_write(batch.event_mask, rows, cursor, sample.event_mask, active, drop_oob)
-    for name in ("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask"):
+    for i, name in enumerate(_DATA_FIELDS):
         buf = getattr(batch, name)
-        _masked_row_write(buf, rows, cursor, False if buf.dtype == torch.bool else 0, active, drop_oob)
+        value = content[i] if content is not None else (False if buf.dtype == torch.bool else 0)
+        _masked_row_write(buf, rows, cursor, value, active, drop_oob)
 
 
 def _format_new_elements(sample, config: StructuredTransformerConfig, to_fill: set, dtype: torch.dtype, current=None):
@@ -376,8 +441,7 @@ def update_last_event_data(
     B, _, M = batch.dynamic_indices.shape
     rows = torch.arange(B, device=cursor.device)
     col = (cursor.long() - 1).clamp(max=batch.dynamic_indices.shape[1] - 1)
-    prev = [getattr(batch, n)[rows, col] for n in ("dynamic_indices", "dynamic_measurement_indices",
-                                                     "dynamic_values", "dynamic_values_mask")]  # fmt: skip
+    prev = [getattr(batch, n)[rows, col] for n in _DATA_FIELDS]
     new_idx, new_meas, new_val, new_vmask = _format_new_elements(sample, config, to_fill, prev[0].dtype, prev[:2])
     # A NUMERICAL_ONLY fill replaces the elements of its measurement the event holds.
     numerical_only = [config.measurements_idxmap[m[0]] for m in to_fill
@@ -397,6 +461,5 @@ def update_last_event_data(
         torch.cat([prev[3], new_vmask], dim=1),
         M,
     )
-    for name, v in zip(("dynamic_indices", "dynamic_measurement_indices", "dynamic_values", "dynamic_values_mask"),
-                       (di, dmi, dv, dvm)):  # fmt: skip
+    for name, v in zip(_DATA_FIELDS, (di, dmi, dv, dvm)):
         _masked_row_write(getattr(batch, name), rows, cursor.long() - 1 if drop_oob else col, v, active, drop_oob)

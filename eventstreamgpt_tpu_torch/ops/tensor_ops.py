@@ -12,6 +12,69 @@ import torch
 import torch.nn.functional as F
 
 
+# Rows a partial sum of `table_grad` adds up before the partials of a table row are summed.
+_PARTIAL_ROWS = 256
+
+
+def table_grad(indices: torch.Tensor, grad: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The ``(n_rows, D)`` gradient of an embedding table with padding index 0
+    from a lookup's ``(N,)`` indices and ``(N, D)`` cotangent, summed in fp32
+    in one fixed order, whatever the device and whether the program runs
+    eagerly or as a CUDA graph: the rows sorted by index (stable), each
+    table row's run cut into partial sums of at most `_PARTIAL_ROWS` rows in
+    order, the partials summed in order (``segment_reduce``; every size
+    fixed, so it captures without a host sync). Rows of index 0 add nothing.
+
+    Examples:
+        >>> table_grad(torch.tensor([2, 0, 2, 1]), torch.tensor([[1.0], [5.0], [2.0], [4.0]]), 3).tolist()
+        [[0.0], [4.0], [3.0]]
+    """
+    N, _ = grad.shape
+    key = torch.where(indices == 0, n_rows, indices)  # padding rows sort last, outside the table
+    order = torch.argsort(key, stable=True)
+    skey = key[order]
+    rows = grad.index_select(0, order).float()
+    pos = torch.arange(N, device=grad.device)
+    new_row = torch.cat([torch.ones_like(skey[:1], dtype=torch.bool), skey[1:] != skey[:-1]])
+    run_start = torch.cummax(torch.where(new_row, pos, 0), dim=0).values
+    starts = (new_row | ((pos - run_start) % _PARTIAL_ROWS == 0))
+    n_partials = n_rows + 1 + -(-N // _PARTIAL_ROWS)
+    starts = torch.nonzero_static(starts, size=n_partials, fill_value=N).reshape(-1)
+    partial = torch.segment_reduce(rows, "sum", offsets=torch.cat([starts, starts.new_full((1,), N)]), axis=0,
+                                   unsafe=True)  # fmt: skip
+    partial_key = torch.where(starts < N, skey[starts.clamp(max=N - 1)], n_rows + 1)
+    bounds = torch.searchsorted(partial_key, torch.arange(n_rows + 1, device=grad.device))
+    return torch.segment_reduce(partial, "sum", offsets=bounds, axis=0, unsafe=True)
+
+
+class _Lookup(torch.autograd.Function):
+    """``F.embedding(indices, table, padding_idx=0)`` whose backward is
+    `table_grad`. CUDA's own embedding backward summed a table row's
+    cotangents in an order that could change from one capture of a train
+    step to another (ROADMAP Queue 3: the packed chunk-vs-single fault)."""
+
+    @staticmethod
+    def forward(ctx, table, indices):
+        ctx.save_for_backward(indices)
+        ctx.n_rows = table.shape[0]
+        return F.embedding(indices, table, padding_idx=0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (indices,) = ctx.saved_tensors
+        out = table_grad(indices.reshape(-1), grad.reshape(-1, grad.shape[-1]), ctx.n_rows)
+        return out.to(grad.dtype), None
+
+
+def lookup(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(indices, table, padding_idx=0)``; on the card, with
+    `table_grad` as its backward (deterministic under capture). The CPU's
+    own backward is deterministic and stays."""
+    if table.is_cuda and table.requires_grad and torch.is_grad_enabled():
+        return _Lookup.apply(table, indices)
+    return F.embedding(indices, table, padding_idx=0)
+
+
 def embedding_bag(
     table: torch.Tensor, indices: torch.Tensor, weights: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -21,11 +84,11 @@ def embedding_bag(
     ``per_sample_weights``: index 0 contributes nothing whatever its weight.
     Out-of-range indices read the edge row and credit it in the backward (the
     JAX ``mode="clip"`` gather): a negative index reads and credits row 0.
-    The lookup is ``F.embedding`` with ``padding_idx=0``, whose backward
-    skips every slot that reads row 0, so the many padding duplicates of a
-    training batch are not summed one after another as an indexing gather's
-    backward sums them; `_negative_slots_grad` then credits row 0 for the
-    negative slots alone.
+    The lookup is ``F.embedding`` with ``padding_idx=0`` (`lookup`), whose
+    backward skips every slot that reads row 0, so the many padding duplicates
+    of a training batch are not summed one after another as an indexing
+    gather's backward sums them; `_negative_slots_grad` then credits row 0
+    for the negative slots alone.
 
     Examples:
         >>> t = torch.arange(6.0).reshape(3, 2)
@@ -34,7 +97,7 @@ def embedding_bag(
     """
     pad_mask = (indices != 0).to(table.dtype)
     w = pad_mask if weights is None else weights.to(table.dtype) * pad_mask
-    gathered = F.embedding(indices.clamp(0, table.shape[0] - 1), table, padding_idx=0)  # (..., M, D)
+    gathered = lookup(table, indices.clamp(0, table.shape[0] - 1))  # (..., M, D)
     out = torch.einsum("...md,...m->...d", gathered, w)
     return out + _negative_slots_grad(table, indices, w)
 
@@ -43,7 +106,7 @@ def grouped_embedding_bag(
     table: torch.Tensor, indices: torch.Tensor, group_weights: torch.Tensor
 ) -> torch.Tensor:
     """`embedding_bag` over G weight groups ``(..., G, M)`` sharing one gather
-    (``F.embedding`` with ``padding_idx=0``, as in `embedding_bag`).
+    (`lookup`, as in `embedding_bag`).
 
     Examples:
         >>> t = torch.arange(6.0).reshape(3, 2)
@@ -53,7 +116,7 @@ def grouped_embedding_bag(
     """
     pad_mask = (indices != 0).to(table.dtype)
     w = group_weights.to(table.dtype) * pad_mask[..., None, :]
-    gathered = F.embedding(indices.clamp(0, table.shape[0] - 1), table, padding_idx=0)  # (..., M, D)
+    gathered = lookup(table, indices.clamp(0, table.shape[0] - 1))  # (..., M, D)
     out = torch.einsum("...md,...gm->...gd", gathered, w)
     return out + _negative_slots_grad(table, indices[..., None, :], w)
 

@@ -171,8 +171,10 @@ a decode engine's `admit_prefilled` runs the scatter alone. Together they
 give the slot state of a local prefill. On the card each half is a captured
 program keyed as the local prefill is.
 
-Not ported yet, each a ``ValueError`` at construction: meshes and tensor
-parallelism and functional-time-dependent measurements.
+Not ported yet, a ``ValueError`` at construction: meshes and tensor
+parallelism. Functional-time-dependent measurements are generated as in
+JAX: `generation.sampling.append_new_event` writes each new event's functor
+elements, reading the slot's ``start_time``.
 """
 
 from __future__ import annotations
@@ -194,7 +196,6 @@ from ..generation.sampling import (
     RowStreams,
     append_new_event,
     assemble_event_sample,
-    check_generation_config,
     derive_request_seed,
     measurements_to_fill,
     sample_head_draws,
@@ -589,7 +590,6 @@ class GenerationEngine:
                 raise ValueError(_NA_PAGED)
             if decode_step_impl == "pallas":
                 raise ValueError(_NA_MEGAKERNEL)
-        check_generation_config(config)
         self.spec = spec
         if spec is not None:
             spec.validate_against(config)
@@ -923,8 +923,13 @@ class GenerationEngine:
     def _rows_nonfinite(self, preds_last, sample=None) -> torch.Tensor:
         """Per-slot any-non-finite over the float tensors of the step's
         predictions (a spec round: of its whole verify window) and sample
-        (the health sentinel's detector; row-local, no cross-slot op)."""
-        leaves = []
+        (the health sentinel's detector; row-local, no cross-slot op). A
+        sampled regression value may be NaN: that is how the sample marks a
+        value its is-observed head left out (`assemble_event_sample`), so
+        there only an infinity counts. (JAX's detector counts that NaN too
+        and quarantines any slot whose univariate regression head samples
+        "unobserved": ROADMAP Queue 3.)"""
+        leaves, sampled = [], []
         for group in (preds_last.classification, preds_last.regression):
             for pair in (group or {}).values():
                 leaves += [t for d in pair if d is not None for t in dist_tensors(d)]
@@ -932,11 +937,12 @@ class GenerationEngine:
             leaves += dist_tensors(preds_last.time_to_event)
         if sample is not None:
             leaves += [sample.time_to_event] + list((sample.classification or {}).values())
-            leaves += list((sample.regression or {}).values())
+            sampled = list((sample.regression or {}).values())
         bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
-        for x in leaves:
+        for x, nan_ok in [(x, False) for x in leaves] + [(x, True) for x in sampled]:
             if x is not None and x.is_floating_point() and x.ndim >= 1 and x.shape[0] == self.n_slots:
-                bad = bad | ~torch.isfinite(x.reshape(self.n_slots, -1)).all(dim=1)
+                x = x.reshape(self.n_slots, -1)
+                bad = bad | (x.isinf() if nan_ok else ~torch.isfinite(x)).any(dim=1)
         return bad
 
     def _planes(self, draft: bool = False) -> tuple:
@@ -1106,7 +1112,7 @@ class GenerationEngine:
         preds_last = _slice_preds_at(out.preds, 0)
         em_last = take_event(self.big.event_mask, st["cursor"] - 1)
         sample = self._sample_rows(preds_last, em_last, seeds, counter, active=active)
-        append_new_event(self.big, sample, st["cursor"], active)
+        append_new_event(self.big, sample, self.config, st["cursor"], active)
         bad = self._rows_nonfinite(preds_last, sample) if self.health_sentinel else None
         if self._na:
             dep, bad = self._level_walk(self.big, st["cursor"], out.past_key_values.dep_graph_past, seeds, counter,
@@ -1214,7 +1220,7 @@ class GenerationEngine:
             preds = _slice_preds_at(out.preds, 1 if t == 0 else 0)
             draws = self._draw_rows(preds, event_streams(seeds, pos - self.base_len))
             sample = assemble_event_sample(preds, draws, self._take(big.event_mask, pos - 1))
-            append_new_event(big, sample, pos, active, drop_oob=True)
+            append_new_event(big, sample, self.config, pos, active, drop_oob=True)
             update_last_event_data(big, sample, cfg, pos + 1, self._to_fill, active, drop_oob=True)
             proposals.append((preds, draws))
         return proposals, mask
@@ -1273,7 +1279,7 @@ class GenerationEngine:
         m, needs_corr = self._spec_round_caps(c, a, prop_em)
         corr = select_candidate(cands, a)
         commit = active & needs_corr
-        append_new_event(big, corr, c + m - 1, commit)
+        append_new_event(big, corr, self.config, c + m - 1, commit)
         update_last_event_data(big, corr, cfg, c + m, self._to_fill, commit)
         return self._spec_advance(st, active, m, needs_corr, out.preds, cache_mask, cache_len, dmask)
 
@@ -1355,8 +1361,8 @@ class GenerationEngine:
             j = pos - base
             preds = _slice_preds_at(out.preds, 0)
             draws = self._draw_rows(preds, level_streams(seeds, j, G, 0))
-            append_new_event(big, assemble_event_sample(preds, draws, self._take(big.event_mask, pos - 1)), pos, active,
-                             drop_oob=True)  # fmt: skip
+            sample = assemble_event_sample(preds, draws, self._take(big.event_mask, pos - 1))
+            append_new_event(big, sample, self.config, pos, active, drop_oob=True)
             dep, drawn, _ = self._walk(self._draft, big, pos, dep, lambda level, j=j: level_streams(seeds, j, G, level),
                                        lambda level: active, drop_oob=True)  # fmt: skip
             proposals.append([(preds, draws)] + drawn)
@@ -1456,7 +1462,7 @@ class GenerationEngine:
         # the break is at 0; else the levels from the break up stripped (the
         # draft's elements there; the accepted levels' stay in their build
         # order) and the breaking level's residual filled in.
-        append_new_event(big, select_candidate(level_cands[0], a), corr_cursor, commit & (l_sel == 0))
+        append_new_event(big, select_candidate(level_cands[0], a), self.config, corr_cursor, commit & (l_sel == 0))
         at = corr_cursor.long().clamp(0, self.max_len - 1)
         meas = big.dynamic_measurement_indices[rows, at]
         strip = (commit & (l_sel >= 1))[:, None] & (meas != 0) & (self._level_of_meas[meas.long()] >= l_sel[:, None])
@@ -1727,7 +1733,7 @@ class GenerationEngine:
             preds = GenerativeSequenceModelPredictions(time_to_event=preds.time_to_event)
         counter = torch.zeros_like(seeds)
         sample = self._sample_rows(_slice_preds_at(preds, last), take_event(pbig.event_mask, last), seeds, counter)
-        append_new_event(pbig, sample, plen64)
+        append_new_event(pbig, sample, self.config, plen64)
         if self._na:
             dep, _ = self._level_walk(pbig, plen64, dep, seeds, counter)
             h.update(dep_key=torch.stack([c.key for c in dep]), dep_value=torch.stack([c.value for c in dep]),

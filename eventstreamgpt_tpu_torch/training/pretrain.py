@@ -31,8 +31,9 @@ preemption, the capture guard, the tuning evaluation each epoch, early
 stopping, ``save_pretrained`` and the final validation. A restore (resume
 or rollback) writes into the live parameters, AdamW state, rates,
 accumulation buffers and step counters in place, so captured programs keep
-reading them. Meshes (tensor, FSDP and context parallelism), task data and
-a profiler window inside `train` are refused (`refusals`).
+reading them. Meshes (tensor, FSDP and context parallelism) and a profiler
+window inside `train` are refused (`refusals`); task data
+(``data_config.task_df_name``) trains on the task windows, as JAX's does.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch
 from ..data.config import PytorchDatasetConfig
 from ..data.device_dataset import DeviceDataset
 from ..data.prefetch import prefetch_to_device, to_device
-from ..data.torch_dataset import SHARDED_FEEDS, TASK_DATA, TorchDataset
+from ..data.torch_dataset import SHARDED_FEEDS, TorchDataset
 from ..data.types import X32, EventStreamBatch
 from ..models.ci_model import CIPPTForGenerativeSequenceModeling
 from ..models.na_model import NAPPTForGenerativeSequenceModeling
@@ -656,15 +657,13 @@ class PretrainConfig:
 def refusals(cfg: PretrainConfig) -> None:
     """Raises ``ValueError`` for what `train` does not run yet, naming where
     it waits: meshes (tensor, FSDP and context parallelism; ROADMAP Queue 1
-    item 7), task data (item 9) and ``trainer_config["profile_dir"]`` (a
-    profiler window inside the loop would precede the captures that follow;
-    ``tools/profile_train.py`` profiles the step)."""
+    item 7) and ``trainer_config["profile_dir"]`` (a profiler window inside
+    the loop would precede the captures that follow; ``tools/profile_train.py``
+    profiles the step)."""
     tc = dict(cfg.trainer_config or {})
     for key in ("tensor_parallel_shards", "fsdp_shards", "context_parallel_shards"):
         if int(tc.get(key) or 1) > 1:
             raise ValueError(f"trainer_config.{key} > 1 is not part of the PyTorch port yet ({SHARDED_FEEDS})")
-    if cfg.data_config.task_df_name is not None:
-        raise ValueError(f"data_config.task_df_name (task data) is not part of the PyTorch port yet ({TASK_DATA})")
     if tc.get("profile_dir"):
         raise ValueError(
             "trainer_config.profile_dir is refused by the PyTorch port's train(): no capture may follow a "

@@ -132,7 +132,7 @@ def per_step_chunk(eng) -> None:
         preds_last = _slice_preds_at(out.preds, 0)
         em_last = take_event(eng.big.event_mask, eng.cursor - 1)
         sample = eng._sample_rows(preds_last, em_last, seeds, eng.counters, active=active)
-        append_new_event(eng.big, sample, eng.cursor, active)
+        append_new_event(eng.big, sample, cfg, eng.cursor, active)
         update_last_event_data(eng.big, sample, cfg, eng.cursor + 1, eng._to_fill, active)
         eng.cursor = torch.where(active, eng.cursor + 1, eng.cursor)
         eng.n_generated = eng.n_generated + (active & sample.event_mask).to(torch.int32)

@@ -9,12 +9,14 @@ with the card has none); run it there without the JAX conftest:
 
 import copy
 import ctypes
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+from eventstreamgpt_tpu_torch.data.types import EventStreamBatch
 from eventstreamgpt_tpu_torch.models.ci_model import CIPPTForGenerativeSequenceModeling
 from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
 from eventstreamgpt_tpu_torch.ops.decode_step import (
@@ -1605,3 +1607,199 @@ def test_restore_keeps_addresses_and_the_next_replay_trains_from_it(cuda, kind):
     assert step.stats()["graph_captures"] == 1
     assert torch.equal(first, again), (first, again)
     assert all(torch.equal(a, p.detach().cpu()) for a, p in zip(after, model.parameters()))
+
+
+# ------------------------------------------------------------- functor measurements in generation
+def functor_setup():
+    """`chip_smoke.py`'s functor configuration and prompts (phase 19): ``age``
+    (an `AgeFunctor`) and ``tod`` (a four-value `TimeOfDayFunctor`) added to
+    a config, each prompt event carrying both, start times in 2010."""
+    import chip_smoke
+
+    return chip_smoke.with_functors, chip_smoke.with_functor_elements
+
+
+@pytest.mark.parametrize("kind", ["generate", "engine", "paged_fork", "spec", "na_engine", "na_spec"])
+def test_functor_generation_on_card_matches_cpu(cuda, kind, monkeypatch):
+    """Small fp32 greedy runs with an `AgeFunctor` and a `TimeOfDayFunctor`:
+    the card's captured programs against the CPU's eager ones, every event
+    and integer equal, floats within 1e-4; every generated real event holds
+    one age and one time-of-day element."""
+    import eventstreamgpt_tpu_torch.generation.generation_utils as gu
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request, SpecConfig, truncated_draft
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    with_functors, functor_rows = functor_setup()
+    na = kind.startswith("na")
+    config = with_functors(serving_config(precision="fp32", mean_log=1.0, std_log=0.1, sizes=(5, 8, 6, 3),
+                                          hidden_size=32, head_dim=8, intermediate_size=64, seq_window_size=4,
+                                          **(NA_OVERRIDES if na else {})))  # fmt: skip
+    model = init_params_from_seed(build_model(config), seed=1, std=0.15)
+    with torch.no_grad():
+        model.output_layer.TTE_layer.proj.weight.mul_(0.02)
+    rng = np.random.default_rng(2)
+    got = {}
+    if kind == "generate":
+        rows = [p for p, _ in functor_rows(synthetic_prompts(rng, 4, config, (10, 10), (6, 6)), config, rng)]
+        batch = EventStreamBatch(**{f: torch.cat([getattr(r, f) for r in rows]) for f, x in vars(rows[0]).items()
+                                    if x is not None})  # fmt: skip
+        monkeypatch.setattr(gu, "sample_predictions", functools.partial(gu.sample_predictions, greedy=True))
+        for dev in ("cuda", "cpu"):
+            out = gu.generate(copy.deepcopy(model).to(dev), batch, config, seed=3, max_new_events=6, device=dev)
+            got[dev] = [(0, 10, out.map(lambda t: t.cpu()))]
+    else:
+        prompts = functor_rows(synthetic_prompts(rng, 6, config, (6, 12), (4, 8)), config, rng)
+        kw = dict(n_slots=8, max_len=24, max_prompt_len=16, min_bucket=4, decode_chunk=4, greedy=True)
+        if kind == "paged_fork":
+            kw.update(paged_kv=True, block_size=4)
+        if kind.endswith("spec"):
+            dcfg, draft = truncated_draft(config, model, 1)
+            kw["spec"] = SpecConfig(model=draft, config=dcfg, k=3, value_rtol=0.0, value_atol=0.0)
+        for dev in ("cuda", "cpu"):
+            eng = GenerationEngine(model, config, template=prompts[0][0], device=dev, **kw)
+            if kind == "paged_fork":
+                eng.fork(prompts[0][0], 3, 6, key=5, request_id="f")
+            res = eng.run([Request(prompt=p, max_new_events=b, request_id=i) for i, (p, b) in enumerate(prompts)])
+            assert all(r.error is None for r in res)
+            got[dev] = [(r.request_id, r.prompt_len, r.batch) for r in sorted(res, key=lambda r: str(r.request_id))]
+    age, tod = config.measurements_idxmap["age"], config.measurements_idxmap["tod"]
+    for (i, n, a), (j, _, b) in zip(got["cuda"], got["cpu"]):
+        assert i == j
+        for f in ("event_mask", "dynamic_indices", "dynamic_measurement_indices", "dynamic_values_mask"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (i, f)
+        for f in ("time_delta", "dynamic_values"):
+            torch.testing.assert_close(getattr(a, f).cpu(), getattr(b, f), rtol=1e-4, atol=1e-4)
+        new = b.event_mask[:, n:]
+        meas = b.dynamic_measurement_indices[:, n:]
+        assert bool(((meas == age).sum(-1) == 1)[new].all() and ((meas == tod).sum(-1) == 1)[new].all()), i
+
+
+# ------------------------------------------------------------- the embedding table's gradient under capture
+def test_embedding_bag_gradient_is_the_same_under_capture(cuda):
+    """An fp32 table of 64 rows behind 6,144 lookups (heavy duplication,
+    padding in 45% of the slots), its forward and backward captured on one
+    index set and replayed on others: every replay's table gradient equals
+    the eager one on the same indices bit for bit, and two replays of the
+    same indices agree. CUDA's own embedding backward summed in an order
+    that changed between replays and captures here."""
+    from eventstreamgpt_tpu_torch.ops.tensor_ops import embedding_bag
+
+    rng = np.random.default_rng(0)
+
+    def index_set(seed):
+        r = np.random.default_rng(seed)
+        idx = r.integers(1, 64, size=(2, 128, 24))
+        idx[r.random(idx.shape) < 0.45] = 0
+        return torch.from_numpy(idx).to(cuda)
+
+    table = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32)).to(cuda).requires_grad_(True)
+    weights = torch.from_numpy(rng.normal(size=(2, 128, 24)).astype(np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(2, 128, 128)).astype(np.float32)).to(cuda)
+    static = index_set(0)
+
+    def step():
+        table.grad = None
+        embedding_bag(table, static, weights).backward(cot)
+        return table.grad
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for seed in (1, 2, 3):
+        static.copy_(index_set(seed))
+        graph.replay()
+        first = out.clone()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = table.detach().clone().requires_grad_(True)
+        embedding_bag(eager, index_set(seed), weights).backward(cot)
+        assert torch.equal(first, out) and torch.equal(out, eager.grad), seed
+
+
+def test_packed_chunks_equal_single_steps_at_every_chunk_repeatedly(cuda):
+    """The packed case of `test_captured_chunk_equals_single_captured_steps`
+    eight times over, its weights and AdamW state compared after every chunk
+    (the single path after the same steps): equal bit for bit each time.
+    Before the table gradient's fixed order (`ops.tensor_ops.table_grad`) one
+    run in four to six differed, from the first replay that fed the captured
+    step new indices, in the embedding table alone."""
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.data.device_dataset import DeviceDataset
+    from eventstreamgpt_tpu_torch.data.synthetic import packed_training_config, serving_config, synthetic_csr
+    from eventstreamgpt_tpu_torch.data.torch_dataset import CSRDataset
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_chunked_train_step, make_train_step
+
+    csr = synthetic_csr(np.random.default_rng(0), serving_config(**GRAPH_WIDTHS), 64, mean_seq_len=20)
+    L, B, k = 128, 2, 2
+    dd = DeviceDataset(CSRDataset(csr, PytorchDatasetConfig(max_seq_len=L)), device=cuda)
+    chunks = [c for s in (1, 2) for c in list(dd.packed_plan_chunks(B, k, seq_len=L, seed=s))[:2]]
+    batches = [b for s in (1, 2) for b in list(dd.packed_batches(B, seq_len=L, seed=s))[: 2 * k]]
+    config = packed_training_config([batches[0].map(lambda t: t.cpu())], **dict(GRAPH_WIDTHS, max_seq_len=L))
+    oc = dict(init_lr=1e-3, lr_num_warmup_steps=2, lr_frac_warmup_steps=None, max_training_steps=20)
+
+    def snapshot(model, optimizer):
+        return ([p.detach().cpu().clone() for p in model.parameters()],
+                [t.cpu().clone() for st in optimizer.state.values() for _, t in sorted(st.items())])  # fmt: skip
+
+    for run in range(8):
+        base = init_params_from_seed(build_model(config), seed=run)
+        snaps = {}
+        for chunked in (True, False):
+            model = copy.deepcopy(base)
+            optimizer, scheduler = build_optimizer(model, OptimizationConfig(**oc))
+            snaps[chunked] = []
+            if chunked:
+                step = make_chunked_train_step(model, optimizer, scheduler, dd, packed=True, device=cuda)
+                for plans, _ in chunks:
+                    step(plans, 7)
+                    snaps[chunked].append(snapshot(model, optimizer))
+            else:
+                step = make_train_step(model, optimizer, scheduler, device=cuda)
+                for i, b in enumerate(batches):
+                    step(b, 7)
+                    if i % k == k - 1:
+                        snaps[chunked].append(snapshot(model, optimizer))
+        names = [n for n, _ in base.named_parameters()]
+        for c, ((p, st), (p1, st1)) in enumerate(zip(snaps[True], snaps[False])):
+            differ = [n for n, a, b in zip(names, p, p1) if not torch.equal(a, b)]
+            assert not differ and all(torch.equal(a, b) for a, b in zip(st, st1)), (run, c, differ)
+
+
+def test_functor_elements_do_not_depend_on_the_batch(cuda):
+    """A new event's functor elements and time (`generation.sampling.functor_elements`)
+    for 32 rows of 192 events at once, against each row alone and the first
+    16: bit for bit (the prior deltas are summed in fp64 a row)."""
+    from eventstreamgpt_tpu_torch.data.synthetic import serving_config, synthetic_prompts
+    from eventstreamgpt_tpu_torch.generation.sampling import (
+        GenerativeSequenceModelSamples,
+        functor_elements,
+        functor_measurements,
+    )
+
+    with_functors, functor_rows = functor_setup()
+    config = with_functors(serving_config())
+    rng = np.random.default_rng(3)
+    rows = [p for p, _ in functor_rows(synthetic_prompts(rng, 32, config, (192, 192), (1, 1)), config, rng)]
+    batch = EventStreamBatch(**{f: torch.cat([getattr(r, f) for r in rows]) for f, x in vars(rows[0]).items()
+                                if x is not None}).map(lambda t: t.to(cuda))  # fmt: skip
+    sample = GenerativeSequenceModelSamples(
+        event_mask=torch.ones(32, dtype=torch.bool, device=cuda),
+        time_to_event=torch.from_numpy(rng.uniform(1, 240, 32).astype(np.float32)).to(cuda),
+    )
+    cursor = torch.from_numpy(rng.integers(2, 192, 32)).to(cuda)
+    functors = functor_measurements(config)
+    full = functor_elements(batch, sample, functors, cursor)
+    for lo, hi in [(b, b + 1) for b in range(32)] + [(0, 16)]:
+        part = functor_elements(batch.slice((slice(lo, hi), slice(None))),
+                                GenerativeSequenceModelSamples(event_mask=sample.event_mask[lo:hi],
+                                                               time_to_event=sample.time_to_event[lo:hi]),
+                                functors, cursor[lo:hi])  # fmt: skip
+        for a, b in zip(full, part):
+            assert torch.equal(a[lo:hi], b), (lo, hi)

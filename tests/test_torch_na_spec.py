@@ -20,12 +20,11 @@ Checked, each with its tolerance (the checks that need no JAX run are in
 3. the strict-greedy NA spec engine (``k`` 2, zero tolerances), float and
    int8 caches, against JAX's NA spec engine and the port's NA engine:
    every event and integer equal, floats within 1e-4, accounting equal;
-4. a perfect fp32 draft (the target, default tolerances) accepts above 0.95
-   (JAX's rate, whose draft caches go stale, printed beside it), and its
-   events equal the NA engine's (floats within the tolerances' envelope);
-5. ``slots_report()`` equals JAX's for an NA spec engine (the refusals of
+4. ``slots_report()`` equals JAX's for an NA spec engine (the refusals of
    NA spec engines are ``tests/test_torch_na_engine.py``'s and
    ``tests/test_torch_spec.py``'s).
+
+The perfect draft is ``tests/test_torch_na_spec_law.py``'s.
 """
 
 
@@ -235,34 +234,6 @@ def test_strict_greedy_na_spec_engine_matches_jax_and_the_na_engine(na, drafts, 
             torch.testing.assert_close(getattr(t.batch, f), getattr(b.batch, f), rtol=0, atol=0)
         for f in CLOSE:
             torch.testing.assert_close(getattr(t.batch, f), getattr(b.batch, f), rtol=1e-4, atol=1e-4)
-
-
-# ---------------------------------------------------------- (4) perfect draft
-def test_perfect_draft_accepts_where_the_jax_draft_cache_goes_stale(na):
-    """The target as its own draft, default tolerances, greedy, budgets of 11
-    at ``max_len`` 16: the port accepts more than 0.95 and commits the NA
-    engine's events (floats within the tolerance envelope, JAX's
-    ``test_tolerant_greedy_perfect_draft_accepts``). JAX's draft keeps the
-    walk of its last proposal and leaves its last proposal's sequence entry
-    unwritten; its rate is printed (ROADMAP Queue 3)."""
-    jcfg, jmodel, params, tcfg, tmodel, prompt = na
-    rows = rows4(prompt)
-    teng = port_engine(na, greedy=True, spec=SpecConfig(model=tmodel, config=tcfg, k=3), max_len=16)
-    tres = teng.run([Request(prompt=to_torch(p), max_new_events=11, request_id=i) for p, i in rows])
-    rate = teng.stats()["spec_acceptance_rate"]
-    base = port_engine(na, greedy=True, max_len=16).run([Request(prompt=to_torch(p), max_new_events=11, request_id=i)
-                                                          for p, i in rows])  # fmt: skip
-    for a, b in zip(tres, base):
-        assert (a.n_events, a.n_generated) == (b.n_events, b.n_generated)
-        for f in EXACT[:4]:
-            assert torch.equal(getattr(a.batch, f), getattr(b.batch, f)), f
-        for f in ("time_delta", "dynamic_values"):
-            torch.testing.assert_close(getattr(a.batch, f)[:, :-1], getattr(b.batch, f)[:, :-1], rtol=5e-3, atol=1e-4)
-    jeng = JaxEngine(jmodel, params, jcfg, template=prompt, greedy=True,
-                     spec=JaxSpecConfig(model=jmodel, params=params, config=jcfg, k=3), **dict(ENGINE, max_len=16))  # fmt: skip
-    jeng.run([JaxRequest(prompt=p, max_new_events=11, request_id=i) for p, i in rows])
-    print(f"perfect NA draft acceptance: port {rate}, JAX {jeng.stats()['spec_acceptance_rate']}")
-    assert rate > 0.95
 
 
 # ------------------------------------------------------------- (5) slots_report

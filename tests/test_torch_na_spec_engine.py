@@ -18,28 +18,23 @@ need no JAX run, each with its tolerance:
    ``test_per_row_budgets_and_dead_rows``;
 4. the captured flow with the `RerunGraph` stand-in: one capture a key, one
    replay a chunk and a prefill group, results, proposals and acceptances
-   equal the eager engine's, again after ``reset()``;
-5. the committed ``event_type`` and time laws under the truncated and an
-   adversarial draft equal the NA engine's by chi-square (96 requests of 3
-   events each side, alpha 0.001).
+   equal the eager engine's, again after ``reset()``.
+
+The laws of the committed events are ``tests/test_torch_na_spec_law.py``'s.
 """
 
 import contextlib
 import copy
 
-import numpy as np
 import pytest
 import torch
 
-from eventstreamgpt_tpu_torch.convert import init_params_from_seed
-from eventstreamgpt_tpu_torch.models.na_model import NAPPTForGenerativeSequenceModeling
 from eventstreamgpt_tpu_torch.models.transformer import NAPast, init_kv_caches, mask_batch_to_levels
 from eventstreamgpt_tpu_torch.models.transformer import na_level_of_measurement, time_from_deltas
 from eventstreamgpt_tpu_torch.serving import Request, SpecConfig
 from eventstreamgpt_tpu_torch.serving import engine as engine_module
 from eventstreamgpt_tpu_torch.utils.graphs import CapturedProgram, ProgramFamily
 
-from .test_spec import assert_same_distribution, collect_head_samples
 from .test_torch_engine import EXACT, MAX_LEN, assert_same_results, port_requests, to_torch
 from .test_torch_na_engine import addresses, state
 from .test_torch_na_spec import PLUMBING, assert_preds_close, drafts, na, port_engine, port_spec, rows4  # noqa: F401
@@ -259,37 +254,3 @@ def test_captured_na_spec_flow_equals_the_eager_engine(na, drafts, monkeypatch):
             e["spec_rounds"], e["dispatched_chunks"], e["active_slot_steps"])
         replays, prefills = s["graph_replays"], s["prefill_graph_replays"]
         captured.reset()
-
-
-# ------------------------------------------------------------ (5) the law
-def many_requests(prompt, n=96, budget=3, seed=1000):
-    return [Request(prompt=prompt.slice((slice(i % 4, i % 4 + 1), slice(0, 4))), max_new_events=budget,
-                    key=seed + i, request_id=i) for i in range(n)]  # fmt: skip
-
-
-def test_sampled_na_spec_law_equals_the_na_engine_law(na, drafts):
-    """The committed ``event_type`` and time laws (the baseline's quartile
-    bins), spec against the NA engine, 96 requests of 3 events each side,
-    alpha 0.001 (JAX's ``test_na_distribution_and_adversarial_draft``): at
-    the truncated draft and at an adversarial one (another seed's weights),
-    whose acceptance collapses."""
-    _, _, _, tcfg, _, prompt = na
-    prompt = to_torch(prompt)
-    kw = dict(n_slots=4, decode_chunk=2)
-    ref = collect_head_samples(port_engine(na, **kw).run(many_requests(prompt)))
-    bad = init_params_from_seed(NAPPTForGenerativeSequenceModeling(tcfg), seed=999)
-    edges = np.quantile(np.asarray(ref["tte"]), [0.25, 0.5, 0.75])
-    rates = {}
-    for name, sc in (("truncated", port_spec(drafts, k=2, value_rtol=1e-3, value_atol=1e-6)),
-                     ("adversarial", SpecConfig(model=bad, config=tcfg, k=2))):  # fmt: skip
-        eng = port_engine(na, spec=sc, **kw)
-        got = collect_head_samples(eng.run(many_requests(prompt)))
-        rates[name] = eng.stats()["spec_acceptance_rate"]
-        assert_same_distribution(np.histogram(ref["event_type"], bins=np.arange(1, 5))[0],
-                                 np.histogram(got["event_type"], bins=np.arange(1, 5))[0], f"na {name}: event_type")
-        assert_same_distribution(np.histogram(np.digitize(ref["tte"], edges), bins=np.arange(5))[0],
-                                 np.histogram(np.digitize(got["tte"], edges), bins=np.arange(5))[0],
-                                 f"na {name}: tte (quartile bins)")  # fmt: skip
-    assert rates["adversarial"] < 0.3 and rates["truncated"] >= rates["adversarial"], rates
-
-

@@ -177,3 +177,27 @@ def test_row_streams():
     assert torch.equal(first, u) and not torch.equal(first, second)
     assert not torch.equal(RowStreams(seeds, counters).for_name("cls:b").uniform((3, 1000)), u)
     assert not torch.equal(RowStreams(seeds, counters + 1).for_name("cls:a").uniform((3, 1000)), u)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_table_grad_equals_the_embedding_backward(dtype):
+    """`table_grad` (the port's embedding-table gradient on the card, summed
+    in fp32 in one fixed order) against an fp64 sum of the same cotangents by
+    index, with runs longer than a partial sum and a padding index: within
+    one rounding of the output type (fp32: 1e-5), row 0 zero; and, in fp32,
+    against ``aten.embedding_dense_backward`` on the CPU within 1e-5."""
+    from eventstreamgpt_tpu_torch.ops.tensor_ops import table_grad
+
+    g = torch.Generator().manual_seed(0)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
+    for n, rows in ((7, 3), (3000, 5), (9000, 700)):
+        idx = torch.randint(0, rows, (n,), generator=g)
+        idx[torch.rand(n, generator=g) < 0.4] = 0
+        cot = torch.randn(n, 16, generator=g).to(dtype)
+        got = table_grad(idx, cot, rows).to(dtype)
+        exact = torch.zeros(rows, 16, dtype=torch.float64).index_add_(0, idx, cot.double())
+        exact[0] = 0
+        torch.testing.assert_close(got.double(), exact.to(dtype).double(), **tol)
+        assert not got[0].any()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, torch.ops.aten.embedding_dense_backward(cot, idx, rows, 0, False), **tol)

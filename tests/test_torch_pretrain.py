@@ -371,7 +371,6 @@ def test_chunked_accumulation_equals_single_steps(conv):
         (dict(trainer_config={"tensor_parallel_shards": 2}), "item 7"),
         (dict(trainer_config={"fsdp_shards": 2}), "item 7"),
         (dict(trainer_config={"context_parallel_shards": 2}), "item 7"),
-        (dict(data_config={"task_df_name": "high_utilization"}), "item 9"),
         (dict(trainer_config={"profile_dir": "profiles"}), "profile_train"),
     ],
 )
@@ -381,6 +380,17 @@ def test_refusals_name_their_item(conv, tmp_path, change, item):
         s[key] = {**s[key], **value}
     with pytest.raises(ValueError, match=item):
         train(PretrainConfig(**s), device="cpu")
+
+
+def test_train_takes_task_data_as_jax_does(conv, tmp_path):
+    """JAX's `train` runs on a task's windows (its dataset restricts each
+    subject to them; the generative model reads no labels), and so does the
+    port's: one epoch on the sample cohort's ``high_utilization`` task gives
+    finite final losses."""
+    s = settings(tmp_path, conv, max_epochs=1)
+    s["data_config"] = {**s["data_config"], "task_df_name": "high_utilization"}
+    loss, tuning, held_out = train(PretrainConfig(**s), device="cpu")
+    assert np.isfinite(loss) and np.isfinite(held_out["held_out_loss"])
 
 
 def test_train_defaults_to_the_card(conv, tmp_path, monkeypatch):
