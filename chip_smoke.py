@@ -448,7 +448,36 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    pandas and pyarrow never imported. Printed beside the card's name and
    power limit: events/s, each generation call's wall, the unpredictable
    fractions, the metrics and kernel A's launches of each zero-shot run.
-20. The wall seconds of each phase function (`tools/phase_times.py`), one
+20. Fine-tuning and embeddings from phase 18's save_dirs (kept in one
+   temporary directory for phases 18-20). (a) Two task frames written into
+   phase 18's cohort in the converted format over each subject's whole
+   record: ``long_history`` (more events than the median) and
+   ``history_quartile`` (the event count's quartile). (b)
+   `training.fine_tuning.train(cfg)` fine-tunes phase 18 (a)'s CI model on
+   the binary task (``last`` pooling, ``max_seq_len`` 256, batches of 32, 2
+   epochs of 16 steps, dropout 0.1): right after the graft every encoder
+   weight equals the pretrained save_dir's bit for bit and the logit layer
+   is flax ``Dense``'s fresh draw from the seed; one capture, replays after
+   it; every logged loss finite; both metrics files written, loss,
+   accuracy, AUROC and AUPRC finite; `load_pretrained` of the written
+   weights equals the live weights; no kernel launched. (c) A save_dir
+   seeded with (b)'s checkpoint 24 resumes and ends equal to (b) (weights,
+   AdamW, log, metrics). (d) Phase 18 (g)'s NA model on the 4-class task
+   (``mean`` pooling, one epoch): kernel D once a layer in every train step
+   both ways and in each of the 2 tuning and 2 held-out forwards, through
+   the replays. (e) (b)'s model under ``attention_implementation=
+   "pallas_flash"``, attention dropout 0 (``max`` pooling, one epoch):
+   kernel E in the global layer as D in (d); kernel F idle (the local
+   window of 32 runs the band). (f) `get_embeddings` (``last``) of the CI
+   and the NA save_dir: each split's file one row a subject, equal bit for
+   bit to a ``cuda_graph=False`` pass, one capture and a replay a later
+   batch, kernel D once a layer a batch (NA). (g) Small fp32 CI and NA
+   classifiers (hidden 32, no dropout) fine-tuned 4 steps and their
+   embeddings on the card equal the CPU's within 1e-4. Printed beside the
+   card's name and power limit: trained events/s of each epoch, the
+   captured step's ms, each epoch's wall split, the final validation's
+   seconds, embeddings' subjects/s a split, peak memory, the metrics.
+21. The wall seconds of each phase function (`tools/phase_times.py`), one
    ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -470,6 +499,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -3872,10 +3902,9 @@ def epochs_line(run) -> str:
             f"{final.get('validation_s', float('nan')):.3f} s; train() wall {run['wall']:.2f} s")
 
 
-def pretrain_phase(smi) -> dict:
-    """Phase 18: `training.pretrain.train(cfg)` from a converted DL cache on the card (module docstring)."""
-    import tempfile
-
+def pretrain_phase(smi, tmp: Path) -> dict:
+    """Phase 18: `training.pretrain.train(cfg)` from a converted DL cache on the card (module docstring); its
+    cache and save_dirs stay in ``tmp`` for phase 20."""
     import numpy as np
     import torch
 
@@ -3893,154 +3922,152 @@ def pretrain_phase(smi) -> dict:
     counters = (vocab_gather_fwd, vocab_gather_bwd, dep_graph_fwd, dep_graph_bwd)
     ci = lambda: serving_config(precision="bf16")  # noqa: E731  (bench.py's CI training model, dropout 0.1)
     na = lambda: serving_config(precision="bf16", **NA_OVERRIDES)  # noqa: E731
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        cache = write_synthetic_cache(tmp / "cache", PRETRAIN_COHORT, n_event_types=40, n_labs=3500, n_meds=500,
-                                      mean_seq_len=200, max_seq_len=512, seed=SEED)  # fmt: skip
-        cache_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cache = write_synthetic_cache(tmp / "cache", PRETRAIN_COHORT, n_event_types=40, n_labs=3500, n_meds=500,
+                                  mean_seq_len=200, max_seq_len=512, seed=SEED)  # fmt: skip
+    cache_s = time.perf_counter() - t0
 
-        # (a) resident tables, the captured chunked step
-        for fn in counters:
-            fn.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()  # what earlier phases still hold
-        a = pretrain_run("(a)", pretrain_cfg(tmp / "a", cache, final=True), ci)
-        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-        launches = {fn.__name__: fn.launches for fn in counters}
-        tuning = [r for r in a["log"] if r["split"] == "tuning"]
-        windows = [r for r in a["log"] if r["split"] == "train"]
-        check([r["epoch"] for r in tuning] == [0, 1] and tuning[1]["tuning_loss"] < tuning[0]["tuning_loss"]
-              and all(math.isfinite(r["tuning_loss"]) for r in tuning),
-              f"phase 18 (a): tuning losses {[r['tuning_loss'] for r in tuning]} not finite and falling")  # fmt: skip
-        check([r["step"] for r in windows] == [4, 8, 12, 16, 20, 24, 28, 32]
-              and all(r["split"] == "train" and math.isfinite(r["train_loss"]) for r in windows),
-              f"phase 18 (a): the train log's windows {windows}")  # fmt: skip
-        check(tuning[0]["graph_captures"] == tuning[1]["graph_captures"] == 1,
-              f"phase 18 (a): captures after each epoch {[r['graph_captures'] for r in tuning]}, not 1 and 1")  # fmt: skip
-        steps, evals = 32, 2 * 2 + 2 + 2  # two tuning passes of 2 batches, then tuning and held_out
-        want = {"vocab_gather_fwd": steps + evals, "vocab_gather_bwd": steps, "dep_graph_fwd": 0, "dep_graph_bwd": 0}
-        check(launches == want, f"phase 18 (a): launches {launches}, expected {want}")
-        live = checkpoint_state(a["save"], 32)["params"]  # the live state at the end, as its last checkpoint holds it
-        loaded, _ = load_pretrained(a["save"], device="cuda")
-        check(same_tensors({k: t.cpu() for k, t in loaded.state_dict().items()}, live),
-              "phase 18 (a): load_pretrained's weights are not the live weights")  # fmt: skip
-        loss, tuning_m, held_out_m = a["out"]
-        metrics = {**tuning_m, **held_out_m}
-        check(all(math.isfinite(v) for v in metrics.values()) and len(tuning_m) == len(held_out_m) >= 10
-              and "tuning_TTE_MSE" in tuning_m and "held_out_lab_MSE" in held_out_m,
-              f"phase 18 (a): final metrics {metrics}")  # fmt: skip
+    # (a) resident tables, the captured chunked step
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    a = pretrain_run("(a)", pretrain_cfg(tmp / "a", cache, final=True), ci)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = {fn.__name__: fn.launches for fn in counters}
+    tuning = [r for r in a["log"] if r["split"] == "tuning"]
+    windows = [r for r in a["log"] if r["split"] == "train"]
+    check([r["epoch"] for r in tuning] == [0, 1] and tuning[1]["tuning_loss"] < tuning[0]["tuning_loss"]
+          and all(math.isfinite(r["tuning_loss"]) for r in tuning),
+          f"phase 18 (a): tuning losses {[r['tuning_loss'] for r in tuning]} not finite and falling")  # fmt: skip
+    check([r["step"] for r in windows] == [4, 8, 12, 16, 20, 24, 28, 32]
+          and all(r["split"] == "train" and math.isfinite(r["train_loss"]) for r in windows),
+          f"phase 18 (a): the train log's windows {windows}")  # fmt: skip
+    check(tuning[0]["graph_captures"] == tuning[1]["graph_captures"] == 1,
+          f"phase 18 (a): captures after each epoch {[r['graph_captures'] for r in tuning]}, not 1 and 1")  # fmt: skip
+    steps, evals = 32, 2 * 2 + 2 + 2  # two tuning passes of 2 batches, then tuning and held_out
+    want = {"vocab_gather_fwd": steps + evals, "vocab_gather_bwd": steps, "dep_graph_fwd": 0, "dep_graph_bwd": 0}
+    check(launches == want, f"phase 18 (a): launches {launches}, expected {want}")
+    live = checkpoint_state(a["save"], 32)["params"]  # the live state at the end, as its last checkpoint holds it
+    loaded, _ = load_pretrained(a["save"], device="cuda")
+    check(same_tensors({k: t.cpu() for k, t in loaded.state_dict().items()}, live),
+          "phase 18 (a): load_pretrained's weights are not the live weights")  # fmt: skip
+    loss, tuning_m, held_out_m = a["out"]
+    metrics = {**tuning_m, **held_out_m}
+    check(all(math.isfinite(v) for v in metrics.values()) and len(tuning_m) == len(held_out_m) >= 10
+          and "tuning_TTE_MSE" in tuning_m and "held_out_lab_MSE" in held_out_m,
+          f"phase 18 (a): final metrics {metrics}")  # fmt: skip
 
-        # (b) host collation and the prefetch thread feeding the captured single step
-        b = pretrain_run("(b)", pretrain_cfg(tmp / "b", cache, final=True, device_resident_data=False), ci)
-        same_as(b, a, "phase 18 (b) [host path]", adam_step=32)
-        check(train_losses(b) == train_losses(a), "phase 18 (b): a logged loss differs from (a)'s")
+    # (b) host collation and the prefetch thread feeding the captured single step
+    b = pretrain_run("(b)", pretrain_cfg(tmp / "b", cache, final=True, device_resident_data=False), ci)
+    same_as(b, a, "phase 18 (b) [host path]", adam_step=32)
+    check(train_losses(b) == train_losses(a), "phase 18 (b): a logged loss differs from (a)'s")
 
-        # (c) resume at epoch 1 with 8 batches to skip, then a walk-back over a corrupt step 24
-        meta = json.loads((a["save"] / "model_checkpoints" / "metadata_24.json").read_text())
-        check(meta == {"epoch": 1, "epoch_complete": False, "step_in_epoch": 8}, f"phase 18 (c): step 24's metadata {meta}")
-        t0 = time.perf_counter()
-        c = pretrain_run("(c)", pretrain_cfg(seed_save_dir(a, tmp / "c", (8, 16, 24)), cache), ci)
-        same_as(c, a, "phase 18 (c) [resume at 24]", after=24)
-        walk = seed_save_dir(a, tmp / "c_walk", (8, 16, 24))
-        corrupt_checkpoint_step(walk / "model_checkpoints", 24)
-        c_walk = pretrain_run("(c walk-back)", pretrain_cfg(walk, cache), ci)
-        check(not (walk / "model_checkpoints" / "24").exists() or checkpoint_state(walk, 24)["step"] == 24,
-              "phase 18 (c): the corrupt step was neither removed nor rewritten")  # fmt: skip
-        same_as(c_walk, a, "phase 18 (c) [walk back to 16]", after=16)
-        resumes_s = time.perf_counter() - t0
+    # (c) resume at epoch 1 with 8 batches to skip, then a walk-back over a corrupt step 24
+    meta = json.loads((a["save"] / "model_checkpoints" / "metadata_24.json").read_text())
+    check(meta == {"epoch": 1, "epoch_complete": False, "step_in_epoch": 8}, f"phase 18 (c): step 24's metadata {meta}")
+    t0 = time.perf_counter()
+    c = pretrain_run("(c)", pretrain_cfg(seed_save_dir(a, tmp / "c", (8, 16, 24)), cache), ci)
+    same_as(c, a, "phase 18 (c) [resume at 24]", after=24)
+    walk = seed_save_dir(a, tmp / "c_walk", (8, 16, 24))
+    corrupt_checkpoint_step(walk / "model_checkpoints", 24)
+    c_walk = pretrain_run("(c walk-back)", pretrain_cfg(walk, cache), ci)
+    check(not (walk / "model_checkpoints" / "24").exists() or checkpoint_state(walk, 24)["step"] == 24,
+          "phase 18 (c): the corrupt step was neither removed nor rewritten")  # fmt: skip
+    same_as(c_walk, a, "phase 18 (c) [walk back to 16]", after=16)
+    resumes_s = time.perf_counter() - t0
 
-        # (d) a scripted SIGTERM at step 12, then the relaunch
-        plan = FaultPlan([Fault(kind="sigterm", step=12)])
-        try:
-            with fault_plan(plan):
-                pretrain_run("(d)", pretrain_cfg(tmp / "d", cache), ci)
-            fail("phase 18 (d): train() was not preempted")
-        except Preempted as e:
-            check(e.step == 12, f"phase 18 (d): preempted with its final checkpoint at {e.step}, not 12")
-        d = pretrain_run("(d relaunch)", pretrain_cfg(tmp / "d", cache), ci)
-        same_as(d, a, "phase 18 (d) [relaunch]", after=12)
+    # (d) a scripted SIGTERM at step 12, then the relaunch
+    plan = FaultPlan([Fault(kind="sigterm", step=12)])
+    try:
+        with fault_plan(plan):
+            pretrain_run("(d)", pretrain_cfg(tmp / "d", cache), ci)
+        fail("phase 18 (d): train() was not preempted")
+    except Preempted as e:
+        check(e.step == 12, f"phase 18 (d): preempted with its final checkpoint at {e.step}, not 12")
+    d = pretrain_run("(d relaunch)", pretrain_cfg(tmp / "d", cache), ci)
+    same_as(d, a, "phase 18 (d) [relaunch]", after=12)
 
-        # (e) host path, a poisoned batch in epoch 1: rollback in place
-        ptrs = {}
-        original = pretrain_module.load_train_state
+    # (e) host path, a poisoned batch in epoch 1: rollback in place
+    ptrs = {}
+    original = pretrain_module.load_train_state
 
-        def watched(sd, model, optimizer, scheduler, state):
-            before = [p.data_ptr() for p in model.parameters()] + [t.data_ptr() for st in optimizer.state.values()
-                                                                   for t in st.values()]  # fmt: skip
-            original(sd, model, optimizer, scheduler, state)
-            ptrs.setdefault("same", []).append(before == [p.data_ptr() for p in model.parameters()] + [
-                t.data_ptr() for st in optimizer.state.values() for t in st.values()])  # fmt: skip
+    def watched(sd, model, optimizer, scheduler, state):
+        before = [p.data_ptr() for p in model.parameters()] + [t.data_ptr() for st in optimizer.state.values()
+                                                               for t in st.values()]  # fmt: skip
+        original(sd, model, optimizer, scheduler, state)
+        ptrs.setdefault("same", []).append(before == [p.data_ptr() for p in model.parameters()] + [
+            t.data_ptr() for st in optimizer.state.values() for t in st.values()])  # fmt: skip
 
-        pretrain_module.load_train_state = watched
-        plan = FaultPlan([Fault(kind="nan_batch", epoch=1, batch_index=2)])
-        try:
-            with fault_plan(plan):
-                e = pretrain_run("(e)", pretrain_cfg(tmp / "e", cache, device_resident_data=False), ci)
-        finally:
-            pretrain_module.load_train_state = original
-        events = [r for r in e["log"] if r["split"] == "reliability"]
-        e_tuning = [r for r in e["log"] if r["split"] == "tuning"]
-        check(plan.fired == [{"kind": "nan_batch", "epoch": 1, "batch_index": 2}] and len(events) == 1
-              and events[0]["restored_step"] == 16, f"phase 18 (e): rollback events {events}, faults {plan.fired}")  # fmt: skip
-        check(ptrs.get("same") == [True], f"phase 18 (e): a restore moved a parameter or AdamW tensor: {ptrs}")
-        check(all(math.isfinite(r["tuning_loss"]) for r in e_tuning)
-              and [r["graph_captures"] for r in e_tuning] == [1, 1],
-              f"phase 18 (e): the run after the rollback {e_tuning}")  # fmt: skip
+    pretrain_module.load_train_state = watched
+    plan = FaultPlan([Fault(kind="nan_batch", epoch=1, batch_index=2)])
+    try:
+        with fault_plan(plan):
+            e = pretrain_run("(e)", pretrain_cfg(tmp / "e", cache, device_resident_data=False), ci)
+    finally:
+        pretrain_module.load_train_state = original
+    events = [r for r in e["log"] if r["split"] == "reliability"]
+    e_tuning = [r for r in e["log"] if r["split"] == "tuning"]
+    check(plan.fired == [{"kind": "nan_batch", "epoch": 1, "batch_index": 2}] and len(events) == 1
+          and events[0]["restored_step"] == 16, f"phase 18 (e): rollback events {events}, faults {plan.fired}")  # fmt: skip
+    check(ptrs.get("same") == [True], f"phase 18 (e): a restore moved a parameter or AdamW tensor: {ptrs}")
+    check(all(math.isfinite(r["tuning_loss"]) for r in e_tuning)
+          and [r["graph_captures"] for r in e_tuning] == [1, 1],
+          f"phase 18 (e): the run after the rollback {e_tuning}")  # fmt: skip
 
-        # (f) gradient accumulation 2 for an epoch at full width; a small fp32 run, card against CPU
-        f = pretrain_run("(f)", pretrain_cfg(tmp / "f", cache, epochs=1, accumulation=2), ci)
-        f_state = checkpoint_state(f["save"], 16)
-        check(f_state["step"] == 16 and f_state["scheduler_step"] == 8
-              and all(math.isfinite(r["train_loss"]) for r in f["log"] if r["split"] == "train"),
-              f"phase 18 (f): loop steps {f_state['step']}, scheduler steps {f_state['scheduler_step']}")  # fmt: skip
-        small_cache = write_synthetic_cache(tmp / "small_cache", {"train": 32, "tuning": 8, "held_out": 8},
-                                            n_event_types=5, n_labs=40, n_meds=6, n_static=16, mean_seq_len=20,
-                                            max_seq_len=40, seed=SEED)  # fmt: skip
-        small = lambda: serving_config(precision="fp32", attention_dropout=0.0, input_dropout=0.0,  # noqa: E731
-                                       resid_dropout=0.0, **PRETRAIN_SMALL)  # fmt: skip
-        small_runs = {dev: pretrain_run(f"(f small {dev})", pretrain_cfg(tmp / f"f_{dev}", small_cache, epochs=2,
-                                                                          batch=4, seq=16, accumulation=2), small,
-                                        device=dev) for dev in ("cuda", "cpu")}  # fmt: skip
-        gpu_l, cpu_l = train_losses(small_runs["cuda"]), train_losses(small_runs["cpu"])
-        check(sorted(gpu_l) == sorted(cpu_l) and all(abs(gpu_l[k] - cpu_l[k]) <= 1e-4 * max(1, abs(cpu_l[k]))
-                                                      for k in cpu_l),
-              f"phase 18 (f): the small run's losses on the card {gpu_l} vs the CPU {cpu_l}")  # fmt: skip
-        w_gpu, w_cpu = small_runs["cuda"]["weights"], small_runs["cpu"]["weights"]
-        worst = max(float((w_gpu[k] - w_cpu[k]).abs().max()) for k in w_cpu)
-        check(worst <= 1e-4, f"phase 18 (f): the small run's weights differ by {worst} between the card and the CPU")
+    # (f) gradient accumulation 2 for an epoch at full width; a small fp32 run, card against CPU
+    f = pretrain_run("(f)", pretrain_cfg(tmp / "f", cache, epochs=1, accumulation=2), ci)
+    f_state = checkpoint_state(f["save"], 16)
+    check(f_state["step"] == 16 and f_state["scheduler_step"] == 8
+          and all(math.isfinite(r["train_loss"]) for r in f["log"] if r["split"] == "train"),
+          f"phase 18 (f): loop steps {f_state['step']}, scheduler steps {f_state['scheduler_step']}")  # fmt: skip
+    small_cache = write_synthetic_cache(tmp / "small_cache", {"train": 32, "tuning": 8, "held_out": 8},
+                                        n_event_types=5, n_labs=40, n_meds=6, n_static=16, mean_seq_len=20,
+                                        max_seq_len=40, seed=SEED)  # fmt: skip
+    small = lambda: serving_config(precision="fp32", attention_dropout=0.0, input_dropout=0.0,  # noqa: E731
+                                   resid_dropout=0.0, **PRETRAIN_SMALL)  # fmt: skip
+    small_runs = {dev: pretrain_run(f"(f small {dev})", pretrain_cfg(tmp / f"f_{dev}", small_cache, epochs=2,
+                                                                      batch=4, seq=16, accumulation=2), small,
+                                    device=dev) for dev in ("cuda", "cpu")}  # fmt: skip
+    gpu_l, cpu_l = train_losses(small_runs["cuda"]), train_losses(small_runs["cpu"])
+    check(sorted(gpu_l) == sorted(cpu_l) and all(abs(gpu_l[k] - cpu_l[k]) <= 1e-4 * max(1, abs(cpu_l[k]))
+                                                  for k in cpu_l),
+          f"phase 18 (f): the small run's losses on the card {gpu_l} vs the CPU {cpu_l}")  # fmt: skip
+    w_gpu, w_cpu = small_runs["cuda"]["weights"], small_runs["cpu"]["weights"]
+    worst = max(float((w_gpu[k] - w_cpu[k]).abs().max()) for k in w_cpu)
+    check(worst <= 1e-4, f"phase 18 (f): the small run's weights differ by {worst} between the card and the CPU")
 
-        # (g) phase 6's NA model through train() for one epoch
-        for fn in counters:
-            fn.launches = 0
-        g = pretrain_run("(g)", pretrain_cfg(tmp / "g", cache, epochs=1), na)
-        g_launches = {fn.__name__: fn.launches for fn in counters}
-        layers = na().num_hidden_layers
-        g_evals = 2  # one tuning pass of 2 batches
-        want_g = {"vocab_gather_fwd": 16 + g_evals, "vocab_gather_bwd": 16, "dep_graph_fwd": layers * (16 + g_evals),
-                  "dep_graph_bwd": layers * 16}  # fmt: skip
-        check(g_launches == want_g, f"phase 18 (g): launches {g_launches}, expected {want_g}")
-        check(all(math.isfinite(r[k]) for r in g["log"] for k in ("train_loss", "tuning_loss") if k in r),
-              "phase 18 (g): a loss is not finite")  # fmt: skip
+    # (g) phase 6's NA model through train() for one epoch
+    for fn in counters:
+        fn.launches = 0
+    g = pretrain_run("(g)", pretrain_cfg(tmp / "g", cache, epochs=1), na)
+    g_launches = {fn.__name__: fn.launches for fn in counters}
+    layers = na().num_hidden_layers
+    g_evals = 2  # one tuning pass of 2 batches
+    want_g = {"vocab_gather_fwd": 16 + g_evals, "vocab_gather_bwd": 16, "dep_graph_fwd": layers * (16 + g_evals),
+              "dep_graph_bwd": layers * 16}  # fmt: skip
+    check(g_launches == want_g, f"phase 18 (g): launches {g_launches}, expected {want_g}")
+    check(all(math.isfinite(r[k]) for r in g["log"] for k in ("train_loss", "tuning_loss") if k in r),
+          "phase 18 (g): a loss is not finite")  # fmt: skip
 
-        # One checkpoint save and one resume (a read, verified, written into a model on the card in place).
-        state = checkpoint_state(a["save"], 32)
-        mgr = ReliableCheckpointManager(tmp / "timing")
-        t0 = time.perf_counter()
-        mgr.save(32, state, metadata={"epoch": 1, "epoch_complete": True})
-        save_s = time.perf_counter() - t0
-        model = build_model(StructuredTransformerConfig.from_json_file(a["save"] / "config.json")).cuda()
-        oc = pretrain_cfg(tmp, cache).optimization_config
-        oc.set_to_dataset(range(PRETRAIN_COHORT["train"]))
-        opt, sched = build_optimizer(model, oc)
-        make_capturable(opt, "cuda")
-        t0 = time.perf_counter()
-        restored, _ = mgr.restore_latest_verified(require_metadata=True)
-        original(restored, model, opt, sched, pretrain_module.TrainState())
-        torch.cuda.synchronize()
-        resume_s = time.perf_counter() - t0
-        ckpt_mb = sum(p.stat().st_size for p in (tmp / "timing" / "32").rglob("*")) / 1e6
+    # One checkpoint save and one resume (a read, verified, written into a model on the card in place).
+    state = checkpoint_state(a["save"], 32)
+    mgr = ReliableCheckpointManager(tmp / "timing")
+    t0 = time.perf_counter()
+    mgr.save(32, state, metadata={"epoch": 1, "epoch_complete": True})
+    save_s = time.perf_counter() - t0
+    model = build_model(StructuredTransformerConfig.from_json_file(a["save"] / "config.json")).cuda()
+    oc = pretrain_cfg(tmp, cache).optimization_config
+    oc.set_to_dataset(range(PRETRAIN_COHORT["train"]))
+    opt, sched = build_optimizer(model, oc)
+    make_capturable(opt, "cuda")
+    t0 = time.perf_counter()
+    restored, _ = mgr.restore_latest_verified(require_metadata=True)
+    original(restored, model, opt, sched, pretrain_module.TrainState())
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    ckpt_mb = sum(p.stat().st_size for p in (tmp / "timing" / "32").rglob("*")) / 1e6
 
     check("pandas" not in sys.modules and "pyarrow" not in sys.modules, "phase 18: pandas or pyarrow was imported")
     print(f"phase 18: train(cfg) from a converted DL cache ({PRETRAIN_COHORT} subjects written in {cache_s:.2f} s), "
@@ -4052,7 +4079,8 @@ def pretrain_phase(smi) -> dict:
           f"8 updates in 16 steps, small fp32 card vs CPU max weight diff {worst:.2e}; (g) NA: {epochs_line(g)}; "
           f"launches (a) {launches}, (g) {g_launches}; one checkpoint save {save_s:.3f} s and one resume "
           f"{resume_s:.3f} s ({ckpt_mb:.1f} MB); peak memory (a) {peak_gb:.3f} GB ({smi})", flush=True)  # fmt: skip
-    return dict(launches={k: launches[k] + g_launches[k] for k in launches})
+    return dict(launches={k: launches[k] + g_launches[k] for k in launches}, cache=cache, save_a=a["save"],
+                save_g=g["save"])
 
 
 # ---------------------------------------------------------------- phase 19
@@ -4441,6 +4469,307 @@ def functor_phase(smi, model, config) -> dict:
                 launches_b=a["launches_b"], launches_c=c["launches_c"])
 
 
+# ---------------------------------------------------------------- phase 20
+FT_BINARY, FT_QUARTILE = "long_history", "history_quartile"  # phase 20's task frames
+
+
+def write_task_frames(cache) -> dict:
+    """Two task frames in the converted format (``task_dfs/{name}.npz``) over
+    every subject's whole record: ``long_history`` (binary: more events than
+    the cohort's median) and ``history_quartile`` (the quartile of the event
+    count, 0-3). Returns each task's label counts."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.data.dl_cache import read_dl_cache
+
+    cols = {"subject_id": [], "start_time": [], "end_time": [], "n": []}
+    for split in ("train", "tuning", "held_out"):
+        reps = read_dl_cache(cache, split)
+        time_col = reps.lists["time"]
+        off, vals = np.asarray(time_col.offsets, np.int64), np.asarray(time_col.values, np.float64)
+        start = reps.scalars["start_time"].astype(np.int64)
+        cols["subject_id"].append(reps.scalars["subject_id"].astype(np.int64))
+        cols["start_time"].append(start)
+        # The window ends a minute after the last event (minutes since the start, fp64), so it holds every event.
+        cols["end_time"].append(start + ((vals[off[1:] - 1] + 1.0) * 60e9).astype(np.int64))
+        cols["n"].append(np.diff(off))
+    cols = {k: np.concatenate(v) for k, v in cols.items()}
+    n = cols.pop("n")
+    quartiles = np.quantile(n, [0.25, 0.5, 0.75])
+    labels = {FT_BINARY: n > quartiles[1], FT_QUARTILE: np.searchsorted(quartiles, n, side="right").astype(np.int64)}
+    (Path(cache) / "task_dfs").mkdir(exist_ok=True)
+    for name, label in labels.items():
+        np.savez(Path(cache) / "task_dfs" / f"{name}.npz", **cols, **{name: label})
+    return {name: np.bincount(label.astype(np.int64)).tolist() for name, label in labels.items()}
+
+
+def ft_cfg(pretrained_dir, save_dir, task, epochs, pooling, batch=TRAIN_BATCH, final=True, config_overrides=None,
+           oc=None, **tc):  # fmt: skip
+    """Fine-tuning from ``pretrained_dir`` with phase 18's optimizer settings
+    (rate 1e-3, warmup 0.1), batches of ``batch``, a log record every 4 steps
+    and a kept checkpoint every 8."""
+    from eventstreamgpt_tpu_torch.training.fine_tuning import FinetuneConfig
+
+    return FinetuneConfig(
+        load_from_model_dir=pretrained_dir, task_df_name=task, seed=SEED, save_dir=Path(save_dir),
+        optimization_config=dict(init_lr=1e-3, batch_size=batch, validation_batch_size=batch, max_epochs=epochs,
+                                 lr_frac_warmup_steps=0.1, **(oc or {})),
+        trainer_config={"log_every_n_steps": 4, "checkpoint_every_n_steps": 8, "max_checkpoints_to_keep": 100, **tc},
+        task_specific_params={"pooling_method": pooling}, config_overrides=config_overrides or {},
+        do_final_validation_on_metrics=final,
+    )  # fmt: skip
+
+
+def ft_run(label, cfg, device="cuda") -> dict:
+    """One fine-tuning `train(cfg)`: its outputs, log, weights and wall seconds."""
+    import torch
+
+    from eventstreamgpt_tpu_torch.training.fine_tuning import train
+
+    t0 = time.perf_counter()
+    out = train(cfg, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    save = Path(cfg.save_dir)
+    weights = torch.load(save / "pretrained_weights" / "model.pt", map_location="cpu", weights_only=True)
+    return dict(label=label, out=out, log=read_train_log(save), weights=weights, wall=wall, save=save)
+
+
+def check_ft_run(run, label, steps, captures=1) -> None:
+    """Finite logged losses, a log window every 4 steps, ``captures`` captures
+    after each epoch and, with the final validation, finite metrics files."""
+    windows = [r for r in run["log"] if r["split"] == "train"]
+    epochs = [r for r in run["log"] if r["split"] == "tuning"]
+    check([r["step"] for r in windows] == list(range(4, steps + 1, 4))
+          and all(math.isfinite(r["train_loss"]) for r in windows)
+          and all(math.isfinite(r["tuning_loss"]) for r in epochs),
+          f"{label}: the train log {run['log']}")  # fmt: skip
+    check([r["graph_captures"] for r in epochs] == [captures] * len(epochs),
+          f"{label}: captures after each epoch {[r['graph_captures'] for r in epochs]}, not {captures}")  # fmt: skip
+    if run["out"][0] is None:
+        return
+    for split, metrics in (("tuning", run["out"][1]), ("held_out", run["out"][2])):
+        written = json.loads((run["save"] / f"{split}_metrics.json").read_text())
+        check(written == metrics and all(math.isfinite(v) for v in metrics.values())
+              and f"{split}_loss" in metrics and any("accuracy" in k for k in metrics)
+              and any("AUROC" in k for k in metrics) and any("AUPRC" in k for k in metrics),
+              f"{label}: {split} metrics {metrics}")  # fmt: skip
+
+
+def embeddings_run(label, pretrained_dir, device="cuda", batch=TRAIN_BATCH, **kw) -> tuple:
+    """`get_embeddings` (``last`` pooling, the binary task's windows) of
+    ``pretrained_dir``, overwriting: ``(arrays a split, stats)``."""
+    import numpy as np
+
+    from eventstreamgpt_tpu_torch.training.embedding import get_embeddings
+    from eventstreamgpt_tpu_torch.training.fine_tuning import FinetuneConfig
+
+    cfg = FinetuneConfig(load_from_model_dir=pretrained_dir, task_df_name=FT_BINARY, do_overwrite=True,
+                         optimization_config={"validation_batch_size": batch},
+                         task_specific_params={"pooling_method": "last"})  # fmt: skip
+    stats: dict = {}
+    files = get_embeddings(cfg, device=device, stats=stats, **kw)
+    return {sp: np.load(f) for sp, f in files.items()}, stats, cfg
+
+
+def small_fine_tuning_matches_cpu(tmp) -> dict:
+    """Phase 20 (g): small fp32 CI and NA classifiers (hidden 32, dropout 0;
+    the NA model one head of 32, kernel D's narrowest) fine-tuned 4 steps
+    and their embeddings, on the card and on the CPU, within 1e-4."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.convert import init_params_from_seed
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.data.synthetic import NA_OVERRIDES, serving_config, write_synthetic_cache
+    from eventstreamgpt_tpu_torch.data.torch_dataset import TorchDataset
+    from eventstreamgpt_tpu_torch.training import build_model, save_pretrained
+
+    cache = write_synthetic_cache(tmp / "small_cache", {"train": 32, "tuning": 8, "held_out": 8}, n_event_types=5,
+                                  n_labs=40, n_meds=6, n_static=16, mean_seq_len=20, max_seq_len=40, seed=SEED)  # fmt: skip
+    write_task_frames(cache)
+    data_config = PytorchDatasetConfig(save_dir=cache, max_seq_len=16, min_seq_len=4)
+    out = {}
+    for mode, extra in (("CI", dict(head_dim=8)), ("NA", dict(num_attention_heads=1, head_dim=32, **NA_OVERRIDES))):
+        config = serving_config(precision="fp32", attention_dropout=0.0, input_dropout=0.0, resid_dropout=0.0,
+                                **{**PRETRAIN_SMALL, **extra})  # fmt: skip
+        config.set_to_dataset(TorchDataset(data_config, "train"))
+        pre = tmp / f"small_pre_{mode}"
+        save_pretrained(pre, init_params_from_seed(build_model(config), seed=SEED, std=0.1), config)
+        data_config.to_json_file(pre / "data_config.json", do_overwrite=True)
+        runs, embs = {}, {}
+        for dev in ("cuda", "cpu"):
+            cfg = ft_cfg(pre, tmp / f"small_ft_{mode}_{dev}", FT_BINARY, 1, "last", batch=4,
+                         oc={"max_training_steps": 4}, log_every_n_steps=2)  # fmt: skip
+            runs[dev] = ft_run(f"phase 20 (g) {mode} {dev}", cfg, device=dev)
+            embs[dev] = embeddings_run(f"(g) {mode} {dev}", pre, device=dev, batch=4)[0]
+        gpu_l, cpu_l = ({r["step"]: r["train_loss"] for r in runs[dev]["log"] if r["split"] == "train"}
+                        for dev in ("cuda", "cpu"))  # fmt: skip
+        check(sorted(cpu_l) == [2, 4] and sorted(gpu_l) == sorted(cpu_l)
+              and all(abs(gpu_l[k] - cpu_l[k]) <= 1e-4 * max(1, abs(cpu_l[k])) for k in cpu_l),
+              f"phase 20 (g) {mode}: losses on the card {gpu_l} vs the CPU {cpu_l}")  # fmt: skip
+        w_gpu, w_cpu = runs["cuda"]["weights"], runs["cpu"]["weights"]
+        w_worst = max(float((w_gpu[k] - w_cpu[k]).abs().max()) for k in w_cpu)
+        e_worst = max(float(np.abs(embs["cuda"][sp] - embs["cpu"][sp]).max()) for sp in embs["cpu"])
+        check(w_worst <= 1e-4 and e_worst <= 1e-4,
+              f"phase 20 (g) {mode}: card vs CPU: weights differ by {w_worst}, embeddings by {e_worst}")  # fmt: skip
+        out[mode] = dict(weights=w_worst, embeddings=e_worst)
+    return out
+
+
+def fine_tuning_phase(smi, pre: dict) -> dict:
+    """Phase 20: fine-tuning and embeddings from phase 18's save_dirs (module docstring)."""
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.training.fine_tuning as ft_module
+    from eventstreamgpt_tpu_torch.data.torch_dataset import TorchDataset
+    from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+    from eventstreamgpt_tpu_torch.models.fine_tuning_model import ESTForStreamClassification, lecun_normal_
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_bwd, dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_window_bwd,
+        flash_attention_window_fwd,
+    )
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+    from eventstreamgpt_tpu_torch.training.checkpoint import load_pretrained
+
+    counters = (dep_graph_fwd, dep_graph_bwd, flash_attention_fwd, flash_attention_bwd, flash_attention_window_fwd,
+                flash_attention_window_bwd, vocab_gather_fwd, vocab_gather_bwd)  # fmt: skip
+
+    def zero():
+        for fn in counters:
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {fn.__name__: fn.launches for fn in counters if fn.launches}
+
+    tmp = Path(pre["cache"]).parent
+    times = {}
+    t0 = time.perf_counter()
+    labels = write_task_frames(pre["cache"])
+    times["a"] = time.perf_counter() - t0
+    steps, evals = 16, 2  # an epoch of 512 subjects in batches of 32; 64 tuning (held-out) subjects, 2 batches
+
+    # (b) CI, binary, `last` pooling, 2 epochs; the model right after the graft kept
+    grafted = {}
+    graft = ft_module.init_from_pretrained_encoder
+
+    def watched(model, pretrained_dir):
+        graft(model, pretrained_dir)
+        grafted.update({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        return model
+
+    zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ft_module.init_from_pretrained_encoder = watched
+    try:
+        t0 = time.perf_counter()
+        b = ft_run("(b)", ft_cfg(pre["save_a"], tmp / "ft_b", FT_BINARY, 2, "last"))
+    finally:
+        ft_module.init_from_pretrained_encoder = graft
+    times["b"] = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(counts() == {}, f"phase 20 (b): the CI classifier launched {counts()} (no kernel is on its path)")
+    check_ft_run(b, "phase 20 (b)", 2 * steps)
+    pretrained = torch.load(pre["save_a"] / "pretrained_weights" / "model.pt", map_location="cpu", weights_only=True)
+    encoder = [k for k in grafted if k.startswith("encoder.")]
+    check(encoder and all(torch.equal(grafted[k], pretrained[k]) for k in encoder),
+          "phase 20 (b): an encoder weight differs from the pretrained save_dir's after the graft")  # fmt: skip
+    hidden = grafted["logit_layer.weight"].shape[1]
+    check(torch.equal(grafted["logit_layer.weight"], lecun_normal_(torch.empty(1, hidden), SEED))
+          and not grafted["logit_layer.bias"].any(), "phase 20 (b): the logit layer is not flax Dense's fresh draw")  # fmt: skip
+    live = checkpoint_state(b["save"], 2 * steps)["params"]
+    config = StructuredTransformerConfig.from_json_file(b["save"] / "config.json")
+    loaded, _ = load_pretrained(b["save"], model=ESTForStreamClassification(config), device="cuda")
+    check(same_tensors({k: t.cpu() for k, t in loaded.state_dict().items()}, live) and same_tensors(b["weights"], live),
+          "phase 20 (b): load_pretrained's weights are not the live weights")  # fmt: skip
+
+    # (c) resume at epoch 1 past 8 batches from (b)'s checkpoint 24
+    meta = json.loads((b["save"] / "model_checkpoints" / "metadata_24.json").read_text())
+    check(meta == {"epoch": 1, "epoch_complete": False, "step_in_epoch": 8}, f"phase 20 (c): step 24's metadata {meta}")
+    t0 = time.perf_counter()
+    c = ft_run("(c)", ft_cfg(pre["save_a"], seed_save_dir(b, tmp / "ft_c", (24,)), FT_BINARY, 2, "last"))
+    times["c"] = time.perf_counter() - t0
+    same_as(c, b, "phase 20 (c) [resume at 24]", after=24, adam_step=2 * steps)
+
+    # (d) NA, 4 classes, `mean` pooling, one epoch: kernel D in every layer of every forward
+    zero()
+    t0 = time.perf_counter()
+    d = ft_run("(d)", ft_cfg(pre["save_g"], tmp / "ft_d", FT_QUARTILE, 1, "mean"))
+    times["d"] = time.perf_counter() - t0
+    d_launches = counts()
+    layers = json.loads((pre["save_g"] / "config.json").read_text())["num_hidden_layers"]
+    want_d = {"dep_graph_fwd": layers * (steps + evals + evals), "dep_graph_bwd": layers * steps}
+    check(d_launches == want_d, f"phase 20 (d): launches {d_launches}, expected {want_d} (16 steps, 2 tuning and 2 "
+                                f"held-out batches, {layers} layers)")  # fmt: skip
+    check_ft_run(d, "phase 20 (d)", steps)
+    check(d["out"][1] is not None and "tuning_macro_AUROC" in d["out"][1], f"phase 20 (d): 4-class metrics {d['out']}")
+
+    # (e) CI under pallas_flash, attention dropout 0, `max` pooling, one epoch: kernel E in the global layer
+    zero()
+    t0 = time.perf_counter()
+    e = ft_run("(e)", ft_cfg(pre["save_a"], tmp / "ft_e", FT_BINARY, 1, "max",
+                             config_overrides={"attention_implementation": "pallas_flash", "attention_dropout": 0.0}))  # fmt: skip
+    times["e"] = time.perf_counter() - t0
+    e_launches = counts()
+    e_config = StructuredTransformerConfig.from_json_file(e["save"] / "config.json")
+    n_global = e_config.seq_attention_layers.count("global")
+    want_e = {"flash_attention_fwd": n_global * (steps + evals + evals), "flash_attention_bwd": n_global * steps}
+    check(e_launches == want_e, f"phase 20 (e): launches {e_launches}, expected {want_e} (the local window "
+                                f"{e_config.seq_window_size} <= 128 runs the band, not kernel F)")  # fmt: skip
+    check_ft_run(e, "phase 20 (e)", steps)
+
+    # (f) embeddings, `last` pooling: CI from (a)'s save_dir, NA (kernel D) from (g)'s; captured against eager
+    emb = {}
+    for mode, pre_dir in (("CI", pre["save_a"]), ("NA", pre["save_g"])):
+        zero()
+        t0 = time.perf_counter()
+        captured, stats, cfg = embeddings_run(f"(f) {mode}", pre_dir)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        eager, _, _ = embeddings_run(f"(f) {mode} eager", pre_dir, cuda_graph=False)
+        for sp, arr in captured.items():
+            n = len(TorchDataset(cfg.data_config, sp))
+            check(arr.shape == (n, cfg.config.hidden_size) and np.isfinite(arr).all(),
+                  f"phase 20 (f) {mode}: {sp} embeddings {arr.shape}, {n} subjects")  # fmt: skip
+            check(np.array_equal(arr, eager[sp]), f"phase 20 (f) {mode}: {sp}'s captured embeddings differ from eager")
+        batches = sum(-(-stats[f"{sp}_subjects"] // TRAIN_BATCH) for sp in captured)
+        check(stats["graph_captures"] == 1 and stats["graph_replays"] == batches - 1,
+              f"phase 20 (f) {mode}: {stats}, {batches} batches")  # fmt: skip
+        want = {"dep_graph_fwd": layers * batches} if mode == "NA" else {}
+        check(launches == want, f"phase 20 (f) {mode}: launches {launches}, expected {want}")
+        emb[mode] = dict(wall_s=wall, launches=launches, **{f"{sp} subjects/s": stats[f"{sp}_subjects"] / stats[f"{sp}_s"]
+                                                            for sp in captured})  # fmt: skip
+    times["f"] = sum(v["wall_s"] for v in emb.values())
+
+    # (g) small fp32 classifiers, card against CPU
+    t0 = time.perf_counter()
+    small = small_fine_tuning_matches_cpu(tmp)
+    times["g"] = time.perf_counter() - t0
+    check("pandas" not in sys.modules and "pyarrow" not in sys.modules, "phase 20: pandas or pyarrow was imported")
+
+    def windows_ms(run) -> list:
+        return [round(r["step_time_ms"], 3) for r in run["log"] if r["split"] == "train"]
+
+    metrics = {k: round(v, 4) for run in (b, d, e) for part in run["out"][1:] for k, v in part.items()}
+    print(f"phase 20: fine-tuning from phase 18's save_dirs (task label counts {labels}), B={TRAIN_BATCH}, "
+          f"L={TRAIN_SEQ}, bf16, dropout 0.1: (b) CI binary `last`, 2 epochs: {epochs_line(b)}; captured step ms a "
+          f"window {windows_ms(b)}; graft bit for bit, logit layer fresh; (c) resume at 24 equals (b) bit for bit "
+          f"(weights, AdamW, log, metrics); (d) NA 4-class `mean`: {epochs_line(d)}, step ms {windows_ms(d)}, kernel D "
+          f"{d_launches}; (e) CI pallas_flash `max`: {epochs_line(e)}, step ms {windows_ms(e)}, kernel E "
+          f"{e_launches}; (f) embeddings (captured = eager bit for bit): {json.dumps(emb)}; (g) small fp32 card vs "
+          f"CPU max diffs {json.dumps(small)}; metrics {json.dumps(metrics)}; peak memory (b) {peak_gb:.3f} GB; "
+          f"seconds {json.dumps({k: round(v, 2) for k, v in times.items()})} ({smi})", flush=True)  # fmt: skip
+    return dict(launches={k: d_launches.get(k, 0) + e_launches.get(k, 0) + emb["NA"]["launches"].get(k, 0)
+                          for k in ("dep_graph_fwd", "dep_graph_bwd", "flash_attention_fwd", "flash_attention_bwd")})
+
+
 def main() -> int:
     try:
         import torch
@@ -4480,8 +4809,11 @@ def main() -> int:
     na_spec = na_spec_phase(smi, na_engine)
     service = service_phase(smi, model, config)
     fleet = fleet_phase(smi, config, service.pop("m1"), service.pop("m2"))
-    pretrain = pretrain_phase(smi)
+    work = tempfile.TemporaryDirectory()  # phase 18's cache and save_dirs, which phase 20 fine-tunes from
+    pretrain = pretrain_phase(smi, Path(work.name))
     functor = functor_phase(smi, model, config)
+    finetune = fine_tuning_phase(smi, pretrain)
+    work.cleanup()
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
     gen["profiles"] = generate_step_profiles(smi, gen)
@@ -4524,13 +4856,14 @@ def main() -> int:
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397",
              launches=na_train["launches"][f"dep_graph_{k}"] + chunk_launches(f"dep_graph_{k}")
-             + (gen["launches_d"] if k == "fwd" else 0) + pretrain["launches"][f"dep_graph_{k}"], **d_times[k])
+             + (gen["launches_d"] if k == "fwd" else 0) + pretrain["launches"][f"dep_graph_{k}"]
+             + finetune["launches"][f"dep_graph_{k}"], **d_times[k])
         for k in ("fwd", "bwd")
     ] + [
         dict(name=f"{n}_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",
              replaces=f"eventstreamgpt_tpu/models/transformer.py:{line}",
-             launches=sum(run["launches"][f"{n}_{k}"] for run in packed.values()) + chunk_launches(f"{n}_{k}"),
-             **ef[f"{n}_{k}"])
+             launches=sum(run["launches"][f"{n}_{k}"] for run in packed.values()) + chunk_launches(f"{n}_{k}")
+             + finetune["launches"].get(f"{n}_{k}", 0), **ef[f"{n}_{k}"])
         for n, line in (("flash_attention", 864), ("flash_attention_window", 900))
         for k in ("fwd", "bwd")
     ]  # fmt: skip

@@ -1,9 +1,10 @@
 """Moving parameters between JAX (flax) trees and the port's modules.
 
 `load_jax_params` takes the flax parameter tree of a
-``CIPPTForGenerativeSequenceModeling`` or ``NAPPTForGenerativeSequenceModeling``
-(or of any module whose attribute paths follow the flax names, such as a
-``DataEmbeddingLayer``) as a nested dict of numpy arrays
+``CIPPTForGenerativeSequenceModeling``, a ``NAPPTForGenerativeSequenceModeling``
+or a fine-tuning ``ESTForStreamClassification`` (``encoder`` and
+``logit_layer``), or of any module whose attribute paths follow the flax
+names, such as a ``DataEmbeddingLayer``, as a nested dict of numpy arrays
 (the caller does the ``np.asarray``; this module imports no JAX) and fills
 the port model's parameters in place:
 
@@ -17,7 +18,9 @@ and every port parameter must be filled; anything else raises.
 tree of fp32 numpy arrays. `checkpoint_from_jax` writes JAX parameters as a
 port checkpoint directory (`training.checkpoint.save_pretrained`);
 `train_state_from_jax` turns a JAX resume step (parameters, AdamW moments,
-counts) into the port's resume state.
+counts) into the port's resume state. Both build the model the tree is of
+(`model_for_tree`): the stream classifier when it holds a ``logit_layer``,
+else the generative model of the config.
 """
 
 from __future__ import annotations
@@ -101,20 +104,38 @@ def export_params(model: nn.Module) -> dict:
     return {"params": tree}
 
 
-def checkpoint_from_jax(params: dict, config, save_dir):
-    """Writes JAX parameters (the flax tree as numpy arrays) as the port's
-    checkpoint under ``save_dir``: the model of ``config`` (the port's
-    configuration, or any object whose ``to_dict()`` gives its fields, such
-    as JAX's) built by `training.pretrain.build_model`, filled by
-    `load_jax_params`, then `training.checkpoint.save_pretrained` with the
-    config. Returns the weights directory."""
+def _port_config(config):
     from .models.config import StructuredTransformerConfig
-    from .training.checkpoint import save_pretrained
-    from .training.pretrain import build_model
 
     if not isinstance(config, StructuredTransformerConfig):
         config = StructuredTransformerConfig.from_dict(config.to_dict())
-    model = load_jax_params(build_model(config), params)
+    return config
+
+
+def model_for_tree(config, params: dict) -> nn.Module:
+    """The port model a flax tree is of: ``ESTForStreamClassification`` when
+    the tree holds a ``logit_layer``, else `training.pretrain.build_model`'s
+    generative model of ``config`` (the port's configuration, or any object
+    whose ``to_dict()`` gives its fields, such as JAX's)."""
+    from .models.fine_tuning_model import ESTForStreamClassification
+    from .training.pretrain import build_model
+
+    config = _port_config(config)
+    if set(params) == {"params"}:
+        params = params["params"]
+    return ESTForStreamClassification(config) if "logit_layer" in params else build_model(config)
+
+
+def checkpoint_from_jax(params: dict, config, save_dir):
+    """Writes JAX parameters (the flax tree as numpy arrays) as the port's
+    checkpoint under ``save_dir``: the model of the tree and ``config``
+    (`model_for_tree`), filled by `load_jax_params`, then
+    `training.checkpoint.save_pretrained` with the config. Returns the
+    weights directory."""
+    from .training.checkpoint import save_pretrained
+
+    config = _port_config(config)
+    model = load_jax_params(model_for_tree(config, params), params)
     return save_pretrained(save_dir, model, config)
 
 
@@ -147,13 +168,9 @@ def train_state_from_jax(config, params: dict, mu: dict, nu: dict, count: int, s
     numpy (the caller restores them; this module imports no JAX). The
     moments cross over as the parameters do (`port_name`); AdamW's step and
     the scheduler's position are ``count``. The result goes to
-    `training.checkpoint.TrainCheckpointManager.save`."""
-    from .models.config import StructuredTransformerConfig
-    from .training.pretrain import build_model
-
-    if not isinstance(config, StructuredTransformerConfig):
-        config = StructuredTransformerConfig.from_dict(config.to_dict())
-    names = set(dict(build_model(config).named_parameters()))
+    `training.checkpoint.TrainCheckpointManager.save`. A fine-tuning tree
+    gives the stream classifier's state (`model_for_tree`)."""
+    names = set(dict(model_for_tree(config, params).named_parameters()))
 
     def port_tree(tree: dict) -> dict:
         if set(tree) == {"params"}:

@@ -69,15 +69,16 @@ class DataEmbeddingLayer(nn.Module):
         self.categorical_frac = categorical_weight / (categorical_weight + numerical_weight)
         self.numerical_frac = numerical_weight / (categorical_weight + numerical_weight)
         self.joint = categorical_embedding_dim is None
+        # Drawn as flax draws them (normal, std 0.02), never left as uninitialised memory.
         if self.joint:
-            self.embed_table = nn.Parameter(torch.empty(n_total_embeddings, out_dim))
+            self.embed_table = nn.Parameter(torch.empty(n_total_embeddings, out_dim).normal_(std=0.02))
         else:
             self.categorical_embed_table = nn.Parameter(
-                torch.empty(n_total_embeddings, categorical_embedding_dim)
+                torch.empty(n_total_embeddings, categorical_embedding_dim).normal_(std=0.02)
             )
             self.cat_proj = nn.Linear(categorical_embedding_dim, out_dim)
             self.numerical_embed_table = nn.Parameter(
-                torch.empty(n_total_embeddings, numerical_embedding_dim)
+                torch.empty(n_total_embeddings, numerical_embedding_dim).normal_(std=0.02)
             )
             self.num_proj = nn.Linear(numerical_embedding_dim, out_dim)
 

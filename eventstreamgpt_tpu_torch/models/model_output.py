@@ -3,7 +3,7 @@
 Counterpart: ``eventstreamgpt_tpu/models/model_output.py``
 (`GenerativeSequenceModelLosses`, `GenerativeSequenceModelPredictions`,
 `GenerativeSequenceModelLabels`, `GenerativeSequenceModelOutput`,
-`GenerativeOutputLayerBase`). Each head returns its predicted
+`StreamClassificationModelOutput`, `GenerativeOutputLayerBase`). Each head returns its predicted
 distributions and, in training (``is_generation=False``), its loss and
 labels with the JAX layer's averaging contracts: per label, then per event,
 then per subject, then over the batch (`ops.tensor_ops.weighted_loss`).
@@ -86,6 +86,15 @@ class GenerativeSequenceModelOutput:
     dynamic_values_mask: Optional[torch.Tensor] = None
     past_key_values: Optional[tuple] = None
     contextualized: Optional[tuple] = None  # an NA forward's, with ``return_contextualized``
+
+
+@dataclasses.dataclass
+class StreamClassificationModelOutput:
+    """A stream classifier's output: the loss, the fp32 logits (``preds``) and the labels."""
+
+    loss: torch.Tensor
+    preds: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
 
 
 def get_measurement_vocab_slice(config: StructuredTransformerConfig, measurement: str) -> tuple[int, int]:

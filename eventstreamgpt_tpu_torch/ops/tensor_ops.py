@@ -176,6 +176,31 @@ def segment_starts(segment_ids: torch.Tensor) -> torch.Tensor:
     )
 
 
+def safe_masked_max(X: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Max over the last axis of ``X`` where ``mask`` is True; 0 for empty rows.
+
+    ``mask`` has X's shape, or X's shape without its second-to-last axis
+    (column masks).
+
+    Examples:
+        >>> X = torch.tensor([[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]])
+        >>> safe_masked_max(X, torch.tensor([[True, True, False], [False, False, False]]))
+        tensor([2., 0.])
+        >>> X = torch.tensor([[[1.0, 2.0, 3.0], [4.0, 5.0, 6.0]], [[7.0, 8.0, 9.0], [10.0, 11.0, 12.0]]])
+        >>> safe_masked_max(X, torch.tensor([[False, True, False], [True, False, True]]))
+        tensor([[ 2.,  5.],
+                [ 9., 12.]])
+    """
+    if mask.ndim < X.ndim:
+        if mask.shape != X.shape[:-2] + X.shape[-1:]:
+            raise AssertionError(f"mask {tuple(mask.shape)} does not fit X {tuple(X.shape)}")
+        mask = mask[..., None, :].expand(X.shape)
+    elif mask.shape != X.shape:
+        raise AssertionError(f"mask {tuple(mask.shape)} does not fit X {tuple(X.shape)}")
+    maxes = torch.where(mask, X, float("-inf")).amax(dim=-1)
+    return torch.where(torch.isneginf(maxes), 0.0, maxes)
+
+
 def safe_weighted_avg(X: torch.Tensor, weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Weighted average over the last axis; ``(0, 0)`` where the weights sum to zero.
 

@@ -17,8 +17,12 @@ from .pretrain import (
     train,
     train_steps,
 )
+from .fine_tuning import FinetuneConfig, init_from_pretrained_encoder
+from .fine_tuning import train as finetune
+from .embedding import get_embeddings
 
 __all__ = [
+    "FinetuneConfig",
     "PRETRAINED_WEIGHTS_DIR",
     "PretrainConfig",
     "TrainCheckpointManager",
@@ -26,6 +30,9 @@ __all__ = [
     "build_model",
     "build_optimizer",
     "evaluate",
+    "finetune",
+    "get_embeddings",
+    "init_from_pretrained_encoder",
     "make_chunked_train_step",
     "make_eval_step",
     "load_pretrained",

@@ -1,30 +1,42 @@
-"""The stream-classification metrics and the fine-tuning configuration.
+"""Fine-tuning a stream classifier from a pretrained encoder.
 
 Counterpart: ``eventstreamgpt_tpu/training/fine_tuning.py``:
 `StreamClassificationMetrics` (binary, multiclass and multilabel accuracy,
-AUROC and AUPRC over `training.metrics`) and `FinetuneConfig` (bootstraps
+AUROC and AUPRC over `training.metrics`), `FinetuneConfig` (bootstraps
 from a pretraining ``save_dir``: loads ``config.json`` and
 ``data_config.json``, applies the overrides, sets the task dataframe and
-derives few-shot save directories). Zero-shot evaluation reads both.
+derives few-shot save directories), `init_from_pretrained_encoder` (the
+encoder's weights grafted by name from a `save_pretrained` directory) and
+`train` (JAX's fine-tuning loop on `models.fine_tuning_model.ESTForStreamClassification`).
+Zero-shot evaluation and embedding extraction read the configuration too.
 
-Fine-tuning itself (``init_from_pretrained_encoder``, ``train`` and
-``models/fine_tuning_model.py``) is not ported yet: `train` and
-`init_from_pretrained_encoder` raise ``ValueError`` naming ROADMAP Queue 1
-item 9.
+`train` runs `training.pretrain`'s machinery: the captured single step of
+`make_train_step` (one CUDA graph a batch signature), the epochs of
+`training.pretrain.fit` (log windows, vetted checkpoints, the sentinel and
+its rollback, preemption, early stopping) and its refusals; only the model,
+the loss and the metrics differ.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import random
+import time
 from pathlib import Path
-from typing import Any
+from types import SimpleNamespace
+from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from ..data.config import PytorchDatasetConfig
-from ..models.config import OptimizationConfig, StructuredTransformerConfig
+from ..data.device_dataset import DeviceDataset
+from ..data.torch_dataset import TorchDataset
+from ..models.config import OptimizationConfig, Split, StructuredTransformerConfig
+from ..models.fine_tuning_model import ESTForStreamClassification
 from ..utils import config_dataclass
+from ..utils.device import resolve_device
 from .metrics import (
     BinaryAccuracy,
     BinaryAUROC,
@@ -37,10 +49,8 @@ from .metrics import (
     MultilabelAUROC,
     MultilabelAveragePrecision,
 )
-
-# Where fine-tuning waits (its ValueErrors name it).
-FINE_TUNING = "ROADMAP Queue 1 item 9: fine-tuning (ESTForStreamClassification and its train loop)"
-
+from .checkpoint import PRETRAINED_WEIGHTS_DIR, WEIGHTS_FILE, save_pretrained
+from .pretrain import eval_batches
 
 class StreamClassificationMetrics:
     """The binary, multiclass or multilabel metric set of a config's
@@ -216,11 +226,186 @@ class FinetuneConfig:
             setattr(self.config, param, val)
 
 
-def init_from_pretrained_encoder(*args, **kwargs):
-    """JAX's warm start of a stream classifier from a pretrained encoder: not ported yet."""
-    raise ValueError(f"init_from_pretrained_encoder is not part of the PyTorch port yet ({FINE_TUNING})")
+def init_from_pretrained_encoder(model: torch.nn.Module, pretrained_dir: Path | str) -> torch.nn.Module:
+    """Grafts a `save_pretrained` directory's encoder weights into ``model``
+    (a stream classifier or an encoder-only model) in place; returns it.
+
+    JAX's graft walks the destination: each ``encoder.*`` tensor of
+    ``model`` takes the pretrained tensor of the same name; one that is
+    missing there, or has another shape, keeps its fresh init with a
+    warning. Everything else (the logit layer; a generative checkpoint's
+    heads) stays as it is, silently."""
+    weights = Path(pretrained_dir).expanduser().resolve() / PRETRAINED_WEIGHTS_DIR / WEIGHTS_FILE
+    pretrained = torch.load(weights, map_location="cpu", weights_only=True)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if not name.startswith("encoder."):
+                continue
+            src = pretrained.get(name)
+            if src is None:
+                print(f"WARNING: {name} missing from pretrained weights; keeping fresh init")
+            elif tuple(src.shape) != tuple(t.shape):
+                print(f"WARNING: shape mismatch at {name}; keeping fresh init")
+            else:
+                t.copy_(src)
+    return model
 
 
-def train(cfg: FinetuneConfig, *args, **kwargs):
-    """JAX's fine-tuning loop: not ported yet."""
-    raise ValueError(f"fine-tuning's train is not part of the PyTorch port yet ({FINE_TUNING})")
+def new_classifier(config: StructuredTransformerConfig, seed: int) -> ESTForStreamClassification:
+    """A fresh stream classifier: the encoder numpy-seeded from ``seed``
+    (`convert.init_params_from_seed`), the logit layer drawn as flax's
+    ``Dense`` draws one (`ESTForStreamClassification.reset_logit_layer`)."""
+    from ..convert import init_params_from_seed
+
+    return init_params_from_seed(ESTForStreamClassification(config), seed=seed).reset_logit_layer(seed)
+
+
+def evaluate(eval_step, dataset, batch_size: int, config: StructuredTransformerConfig, split: str,
+             device_data=None) -> dict[str, float]:  # fmt: skip
+    """One pass over a split (`training.pretrain.eval_batches`); returns its
+    ``{split}_...`` classification metrics, the fill rows of the last batch
+    dropped by ``valid_mask``. The outputs are read from the device once,
+    after the pass."""
+    metrics = StreamClassificationMetrics(config, split)
+    outs = []
+    for batch, valid in eval_batches(dataset, batch_size, device_data):
+        out = eval_step(batch)
+        outs.append((out.loss, out.preds, out.labels, valid))
+    for loss, preds, labels, valid in [tuple(t.cpu() for t in row) for row in outs]:
+        metrics.update(SimpleNamespace(loss=loss, preds=preds.numpy(), labels=labels.numpy()), valid_mask=valid.numpy())
+    return metrics.compute()
+
+
+def device_dispatches(train_step: Callable, device_data, batch_size: int, seed: int, epoch_seed: int, skip: int):
+    """`training.pretrain.fit`'s ``(run, 1, n_events)`` over batches
+    collated on the device from resident tables, one step each."""
+    for batch, n_events in device_data.batches(batch_size, shuffle=True, seed=epoch_seed, skip_batches=skip,
+                                               with_counts=True):  # fmt: skip
+        yield functools.partial(train_step, batch, seed), 1, n_events
+
+
+def train(cfg: FinetuneConfig, device=None) -> tuple[float | None, dict | None, dict | None]:
+    """End-to-end fine-tuning from a pretraining ``save_dir`` (JAX's ``train``).
+
+    Returns ``(tuning_loss, tuning_metrics, held_out_metrics)`` of the final
+    validation, or ``(None, None, None)`` without it. ``device=None`` means
+    the CUDA device (and raises without one); the tests pass ``"cpu"``.
+
+    In JAX's order: ``train`` and ``tuning`` `TorchDataset`s of the task,
+    the configs set to the dataset, ``config.json``, ``data_config.json``
+    and ``optimization_config.json`` under ``cfg.save_dir``, a fresh
+    classifier (`new_classifier` from ``cfg.seed``) with the encoder of
+    ``cfg.pretrained_weights_fp`` grafted in (`init_from_pretrained_encoder`),
+    AdamW, resume from the newest verified checkpoint, then the epochs of
+    `training.pretrain.fit` on the captured single step: with the tables
+    resident (``trainer_config["device_resident_data"]``: ``"auto"``, True
+    or False, as pretraining reads it) each batch collated on the device,
+    otherwise on the host with the prefetch thread. Each epoch ends with the
+    tuning evaluation (`StreamClassificationMetrics`), the epoch-end
+    checkpoint and early stopping. Then ``save_pretrained`` of the final
+    weights and, unless ``do_final_validation_on_metrics`` is off, the
+    held-out evaluation beside the last epoch's tuning metrics
+    (``tuning_metrics.json``, ``held_out_metrics.json``). The log records
+    are pretraining's (`training.pretrain.fit`), with a ``"final"`` record.
+
+    Raises ``ValueError`` for what `training.pretrain.refusals` names.
+    """
+    from ..reliability import faults
+    from ..reliability.integrity import resume_training_state
+    from .pretrain import (
+        check_train_size,
+        fit,
+        host_dispatches,
+        json_logger,
+        load_train_state,
+        make_eval_step,
+        make_train_step,
+        optimizer_setup,
+        refusals,
+        reliability_setup,
+        resident_datasets,
+        train_state_dict,
+        write_final_metrics,
+        write_run_configs,
+    )
+
+    device = resolve_device(device, "train")
+    refusals(cfg)
+    np.random.seed(cfg.seed)
+    anomaly = bool(cfg.do_detect_anomaly)
+
+    train_ds = TorchDataset(cfg.data_config, split="train")
+    tuning_ds = TorchDataset(cfg.data_config, split="tuning")
+    config, oc = cfg.config, cfg.optimization_config
+    config.set_to_dataset(train_ds)
+    oc.set_to_dataset(train_ds)
+    save_dir = Path(cfg.save_dir)
+    write_run_configs(cfg, config, save_dir)
+
+    check_train_size(train_ds, oc)
+    model = new_classifier(config, cfg.seed)
+    if cfg.pretrained_weights_fp is not None:
+        init_from_pretrained_encoder(model, cfg.pretrained_weights_fp)
+    model.to(device).train()
+    optimizer, scheduler, state = optimizer_setup(model, oc, device)
+
+    def state_dict() -> dict:
+        return train_state_dict(model, optimizer, scheduler, state)
+
+    def load_state(sd: dict) -> None:
+        load_train_state(sd, model, optimizer, scheduler, state)
+
+    tc = dict(cfg.trainer_config or {})
+    sentinel, rollback_ctl, ckpt_mgr = reliability_setup(tc, save_dir)
+    start_epoch = skip_batches = 0
+    if cfg.do_resume_from_checkpoint and ckpt_mgr.latest_step() is not None:
+        _, start_epoch, skip_batches = resume_training_state(ckpt_mgr, load_state)
+
+    device_train, device_tuning, budget = resident_datasets(tc, train_ds, tuning_ds, device)
+    train_step = make_train_step(model, optimizer, scheduler, with_health=sentinel is not None, device=device,
+                                 cuda_graph=not anomaly, state=state)  # fmt: skip
+    eval_step = make_eval_step(model, device)
+
+    def dispatches(epoch: int, skip: int):
+        if device_train is not None:
+            return device_dispatches(train_step, device_train, oc.batch_size, cfg.seed, cfg.seed + epoch, skip)
+        batches = train_ds.batches(oc.batch_size, shuffle=True, seed=cfg.seed + epoch, skip_batches=skip)
+        return host_dispatches(train_step, faults.wrap_batches(batches, epoch=epoch, first_index=skip), device,
+                               cfg.seed)  # fmt: skip
+
+    def evaluate_epoch(epoch: int) -> dict:
+        return evaluate(eval_step, tuning_ds, oc.validation_batch_size, config, Split.TUNING, device_tuning)
+
+    log_record = json_logger(save_dir / "train_log.jsonl")
+    steps_per_epoch = len(train_ds) // oc.batch_size
+    tuning_metrics = fit(
+        label="fine-tuning", oc=oc, tc=tc, device=device, state=state, step_fn=train_step, dispatches=dispatches,
+        full_dispatch=1, evaluate_epoch=evaluate_epoch, sentinel=sentinel, rollback_ctl=rollback_ctl,
+        ckpt_mgr=ckpt_mgr, start_epoch=start_epoch, skip_batches=skip_batches, state_dict=state_dict,
+        load_state=load_state, log_record=log_record,
+        total_steps=oc.max_training_steps or steps_per_epoch * oc.max_epochs, anomaly=anomaly,
+    )  # fmt: skip
+
+    ckpt_mgr.wait_until_finished()
+    t0 = time.perf_counter()
+    save_pretrained(save_dir, model)
+    save_s = time.perf_counter() - t0
+    if not cfg.do_final_validation_on_metrics:
+        log_record({"split": "final", "save_pretrained_s": save_s})
+        ckpt_mgr.close()
+        return None, None, None
+
+    held_out_ds = TorchDataset(cfg.data_config, split="held_out")
+    device_held_out = (
+        DeviceDataset.try_create(held_out_ds, device=device, max_bytes=budget) if device_train is not None else None
+    )
+    # The last epoch's tuning evaluation ran on these weights: JAX reuses it.
+    final_tuning = tuning_metrics
+    if final_tuning is None:
+        final_tuning = evaluate(eval_step, tuning_ds, oc.validation_batch_size, config, Split.TUNING, device_tuning)
+    final_held_out = evaluate(eval_step, held_out_ds, oc.validation_batch_size, config, Split.HELD_OUT,
+                              device_held_out)  # fmt: skip
+    log_record({"split": "final", "save_pretrained_s": save_s, "validation_s": time.perf_counter() - t0 - save_s})
+    write_final_metrics(save_dir, final_tuning, final_held_out)
+    ckpt_mgr.close()
+    return final_tuning.get("tuning_loss"), final_tuning, final_held_out

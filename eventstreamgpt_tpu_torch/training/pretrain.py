@@ -39,6 +39,7 @@ window inside `train` are refused (`refusals`); task data
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import time
@@ -485,6 +486,28 @@ def make_eval_step(model, device=None) -> Callable:
     return eval_step
 
 
+def eval_batches(dataset, batch_size: int, device_data: DeviceDataset | None = None) -> Iterable[tuple]:
+    """``(batch, valid_mask)`` over one evaluation pass of a split: crops
+    drawn with ``seed=0`` so every pass scores the same data, the last short
+    batch filled and its fill rows flagged False in ``valid_mask`` (a host
+    tensor). With ``device_data`` (a `DeviceDataset` over the same split)
+    the batches are collated on the device, otherwise on the host with the
+    prefetch thread."""
+    if device_data is not None:
+        for batch in device_data.batches(batch_size, shuffle=False, drop_last=False, seed=0):
+            yield batch, batch.valid_mask
+        return
+    batch_iter = prefetch_to_device(
+        dataset.batches(batch_size, shuffle=False, drop_last=False, seed=0),
+        lambda b: b,
+        host_stats_fn=lambda b: b.valid_mask,
+    )
+    try:
+        yield from batch_iter
+    finally:
+        batch_iter.close()
+
+
 def evaluate(
     eval_step: Callable,
     dataset,
@@ -495,29 +518,12 @@ def evaluate(
     generator: torch.Generator | None = None,
     device_data: DeviceDataset | None = None,
 ) -> dict[str, float]:
-    """One pass over a split; returns its ``{split}_...`` metrics.
-
-    Crops are drawn with ``seed=0`` so every pass scores the same data; the
-    fill rows of the last short batch are blanked and flagged by
-    ``valid_mask`` and the loss parts re-weighted by its count. With
-    ``device_data`` (a `DeviceDataset` over the same split) the batches are
-    collated on the device, otherwise on the host with the prefetch thread.
+    """One pass over a split (`eval_batches`); returns its ``{split}_...``
+    metrics, the loss parts re-weighted by each batch's count of valid rows.
     ``generator`` draws the sampled TTE and regression metrics."""
     metrics = GenerativeMetrics(config, metrics_config, split=split)
-    if device_data is not None:
-        for batch in device_data.batches(batch_size, shuffle=False, drop_last=False, seed=0):
-            metrics.update(eval_step(batch), generator=generator, n_valid=int(batch.valid_mask.sum()))
-        return metrics.compute()
-    batch_iter = prefetch_to_device(
-        dataset.batches(batch_size, shuffle=False, drop_last=False, seed=0),
-        lambda b: b,
-        host_stats_fn=lambda b: int(b.valid_mask.sum()),
-    )
-    try:
-        for batch, n_valid in batch_iter:
-            metrics.update(eval_step(batch), generator=generator, n_valid=n_valid)
-    finally:
-        batch_iter.close()
+    for batch, valid in eval_batches(dataset, batch_size, device_data):
+        metrics.update(eval_step(batch), generator=generator, n_valid=int(valid.sum()))
     return metrics.compute()
 
 
@@ -696,79 +702,11 @@ def _eval_generator(device, seed: int, which: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(dropout_seed(seed, (1 << 40) + which))
 
 
-def train(
-    cfg: PretrainConfig, model_config: StructuredTransformerConfig | None = None, device=None
-) -> tuple[float | None, dict | None, dict | None]:
-    """End-to-end pretraining from a converted DL cache (JAX's ``train``).
-
-    Returns ``(tuning_loss, tuning_metrics, held_out_metrics)`` of the final
-    validation, or ``(None, None, None)`` without it. ``device=None`` means
-    the CUDA device (and raises without one); the tests pass ``"cpu"``.
-
-    In JAX's order: ``train`` and ``tuning`` `TorchDataset`s, the configs set
-    to the dataset, the five config files under ``cfg.save_dir``, the model
-    (numpy-seeded from ``cfg.seed``) and AdamW, resume from the newest
-    verified checkpoint in ``save_dir/model_checkpoints``, then the epochs:
-    with the tables resident (``trainer_config["device_resident_data"]``:
-    ``"auto"`` when they fit `DeviceDataset.DEFAULT_BUDGET_BYTES`, True, or
-    False) the captured chunked step over ``steps_per_execution`` plans a
-    dispatch (default ``min(log_every, checkpoint_every, 16)``), otherwise
-    host collation with the prefetch thread feeding the captured single
-    step. Each dispatch: the window record every ``log_every_n_steps``
-    (``train_log.jsonl``), a sentinel-vetted checkpoint every
-    ``checkpoint_every_n_steps``, the capture guard (armed from the second
-    in-process epoch), ``max_training_steps`` and preemption. Each epoch:
-    `reliability.sentinel.finish_epoch` (rollback, or the drain and
-    `reliability.Preempted`), the tuning evaluation, the epoch-end
-    checkpoint and early stopping on the tuning loss. Then
-    ``save_pretrained`` and the final validation on ``tuning`` and
-    ``held_out`` with the full metrics config (``tuning_metrics.json``,
-    ``held_out_metrics.json``). Beside JAX's fields, ``train_log.jsonl``'s
-    window records carry their ``events``, the epoch records the seconds of
-    the steps, the evaluation and the checkpoint saves and the step's
-    ``graph_captures`` so far, and a ``"final"`` record the seconds of
-    ``save_pretrained`` and the final validation. A window's
-    ``events_per_sec`` and ``step_time_ms`` and an epoch's ``steps_s`` are
-    read off the device's timeline (CUDA events around the window's steps,
-    read when the loop next waits for the device), so the loop never waits
-    to time them; on the CPU, off the host clock.
-
-    Raises `reliability.sentinel.DivergenceError` when rollbacks are spent,
-    and ``ValueError`` for what `refusals` names.
-    """
-    from ..analysis.compile_guard import CompileGuard
-    from ..reliability import faults
-    from ..reliability.integrity import ReliableCheckpointManager, resume_training_state
-    from ..reliability.preemption import GracefulShutdown
-    from ..reliability.sentinel import DivergenceSentinel, HealthMonitor, RollbackController, SentinelConfig, finish_epoch
-    from ..convert import init_params_from_seed
-    from .checkpoint import save_pretrained
-
-    device = resolve_device(device, "train")
-    refusals(cfg)
-    np.random.seed(cfg.seed)
-    anomaly = bool(cfg.do_detect_anomaly)
-
-    train_ds = TorchDataset(cfg.data_config, split="train")
-    tuning_ds = TorchDataset(cfg.data_config, split="tuning")
-    config = model_config if model_config is not None else cfg.build_model_config()
-    oc, data_config = cfg.optimization_config, cfg.data_config
-    configured_max_seq_len = config.max_seq_len
-    config.set_to_dataset(train_ds)
-
-    tc = dict(cfg.trainer_config or {})
-    use_packed = bool(tc.get("use_packed_batches"))
-    packed_L = int(tc.get("packed_seq_len") or max(configured_max_seq_len, train_ds.max_seq_len))
-    if use_packed:
-        config.max_seq_len = packed_L
-    steps_per_epoch = (
-        train_ds.packed_batch_count(oc.batch_size, seq_len=packed_L, seed=cfg.seed) if use_packed else None
-    )
-    oc.set_to_dataset(train_ds, steps_per_epoch=steps_per_epoch)
-    if steps_per_epoch is None:
-        steps_per_epoch = len(train_ds) // oc.batch_size
-
-    save_dir = Path(cfg.save_dir)
+def write_run_configs(cfg, config: StructuredTransformerConfig, save_dir: Path) -> None:
+    """Writes ``config.json``, ``data_config.json`` and
+    ``optimization_config.json`` under ``save_dir``; raises
+    ``FileExistsError`` over an existing ``config.json`` unless
+    ``cfg.do_overwrite`` or a checkpoint to resume from is there."""
     save_dir.mkdir(parents=True, exist_ok=True)
     config_fp = save_dir / "config.json"
     has_resume_target = cfg.do_resume_from_checkpoint and any(
@@ -777,58 +715,34 @@ def train(
     if config_fp.exists() and not cfg.do_overwrite and not has_resume_target:
         raise FileExistsError(f"{config_fp} already exists!")
     config.to_json_file(config_fp, do_overwrite=True)
-    data_config.to_json_file(save_dir / "data_config.json", do_overwrite=True)
-    oc.to_json_file(save_dir / "optimization_config.json", do_overwrite=True)
-    cfg.pretraining_metrics_config.to_json_file(save_dir / "pretraining_metrics_config.json", do_overwrite=True)
-    cfg.final_validation_metrics_config.to_json_file(
-        save_dir / "final_validation_metrics_config.json", do_overwrite=True
-    )
+    cfg.data_config.to_json_file(save_dir / "data_config.json", do_overwrite=True)
+    cfg.optimization_config.to_json_file(save_dir / "optimization_config.json", do_overwrite=True)
 
+
+def check_train_size(train_ds, oc: OptimizationConfig) -> None:
     if len(train_ds) < oc.batch_size:
         raise ValueError(
             f"Train split has {len(train_ds)} subjects but batch_size is {oc.batch_size}; training batches drop the "
             "last short batch, so no batch can be formed. Lower optimization_config.batch_size."
         )
-    model = init_params_from_seed(build_model(config), seed=cfg.seed).to(device).train()
+
+
+def optimizer_setup(model, oc: OptimizationConfig, device: torch.device) -> tuple:
+    """``(optimizer, scheduler, TrainState())`` for ``model`` on ``device``:
+    `build_optimizer`'s AdamW, capturable on the card, its accumulator bound."""
     optimizer, scheduler = build_optimizer(model, oc)
     if device.type == "cuda":
         make_capturable(optimizer, device)
     if optimizer.accumulator is not None:
         optimizer.accumulator.bind([p for p in model.parameters() if p.requires_grad])
-    accum = oc.gradient_accumulation or 1
-    state = TrainState()
-    schedule = polynomial_decay_with_warmup(
-        oc.init_lr, oc.end_lr, oc.lr_num_warmup_steps, oc.max_training_steps, oc.lr_decay_power
-    )
+    return optimizer, scheduler, TrainState()
 
-    def state_dict() -> dict:
-        return train_state_dict(model, optimizer, scheduler, state)
 
-    def load_state(sd: dict) -> None:
-        load_train_state(sd, model, optimizer, scheduler, state)
-
-    log_every = int(tc.get("log_every_n_steps") or 10)
-    ckpt_every = int(tc.get("checkpoint_every_n_steps") or 100)
-    keep = int(tc.get("max_checkpoints_to_keep") or 2)
-
-    sentinel_cfg = SentinelConfig.from_trainer_config(tc)
-    sentinel = DivergenceSentinel(sentinel_cfg) if sentinel_cfg is not None else None
-    rollback_ctl = (
-        RollbackController(sentinel_cfg.max_rollbacks, save_dir / "divergence_diagnostics.json")
-        if sentinel_cfg is not None
-        else None
-    )
-    with_health = sentinel is not None
-    ckpt_mgr = ReliableCheckpointManager(
-        save_dir / "model_checkpoints",
-        max_to_keep=keep,
-        retries=int(tc.get("ckpt_retries", 3)),
-        backoff_base=float(tc.get("ckpt_backoff_base", 0.5)),
-    )
-    start_epoch = skip_batches = 0
-    if cfg.do_resume_from_checkpoint and ckpt_mgr.latest_step() is not None:
-        _, start_epoch, skip_batches = resume_training_state(ckpt_mgr, load_state)
-
+def resident_datasets(tc: dict, train_ds, tuning_ds, device) -> tuple:
+    """``(device_train, device_tuning, budget)``: the train and tuning splits'
+    `DeviceDataset`s as ``trainer_config["device_resident_data"]`` asks
+    (True; ``"auto"``, when they fit ``device_resident_max_bytes``; False:
+    None for both)."""
     resident_mode = tc.get("device_resident_data", "auto")
     budget = int(tc.get("device_resident_max_bytes") or DeviceDataset.DEFAULT_BUDGET_BYTES)
     device_train = device_tuning = None
@@ -839,54 +753,125 @@ def train(
         device_train = DeviceDataset.try_create(train_ds, device=device, max_bytes=budget)
         if device_train is not None:
             device_tuning = DeviceDataset.try_create(tuning_ds, device=device, max_bytes=budget)
-    chunk_steps = tc.get("steps_per_execution") or "auto"
-    if chunk_steps == "auto":
-        chunk_steps = max(min(log_every, ckpt_every, 16), 1)
-    chunk_steps = int(chunk_steps)
-    step_kw = dict(with_health=with_health, device=device, cuda_graph=not anomaly, state=state)
-    if device_train is not None:
-        chunked_step = make_chunked_train_step(model, optimizer, scheduler, device_train, packed=use_packed, **step_kw)
-        train_step = None
-    else:
-        chunked_step = None
-        train_step = make_train_step(model, optimizer, scheduler, **step_kw)
-    eval_step = make_eval_step(model, device)
-    step_guard = None
-    if bool(tc.get("guard_recompiles", True)):
-        step_guard = CompileGuard(watch=[chunked_step or train_step], label="pretrain step (mid-epoch)")
+    return device_train, device_tuning, budget
 
-    def train_batches(epoch: int, skip: int):
-        if not use_packed:
-            return train_ds.batches(oc.batch_size, shuffle=True, seed=cfg.seed + epoch, skip_batches=skip)
-        packed = (
-            b for b in train_ds.packed_batches(oc.batch_size, seq_len=packed_L, seed=cfg.seed + epoch)
-            if b.event_mask.shape[0] == oc.batch_size
-        )  # fmt: skip
-        return itertools.islice(packed, skip, None)
 
-    def train_plan_chunks(epoch: int, skip: int):
-        if use_packed:
-            return device_train.packed_plan_chunks(
-                oc.batch_size, chunk_steps, seq_len=packed_L, seed=cfg.seed + epoch, skip_batches=skip
-            )
-        return device_train.plan_chunks(oc.batch_size, chunk_steps, shuffle=True, seed=cfg.seed + epoch,
-                                        skip_batches=skip)  # fmt: skip
+def host_dispatches(train_step: Callable, batches: Iterable[EventStreamBatch], device, seed: int):
+    """`fit`'s ``(run, 1, n_events)`` over host batches, the prefetch thread
+    copying each to ``device`` ahead of its step."""
+    batch_iter = prefetch_to_device(batches, to_device(device), host_stats_fn=lambda b: int(b.event_mask.sum()))
+    try:
+        for batch, n_events in batch_iter:
+            yield functools.partial(train_step, batch, seed), 1, n_events
+    finally:
+        batch_iter.close()
 
-    log_fp = save_dir / "train_log.jsonl"
+
+def json_logger(log_fp: Path) -> Callable:
+    """``log_record(rec)``: appends ``rec`` to ``log_fp`` as one JSON line."""
 
     def log_record(rec: dict) -> None:
         with open(log_fp, "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    return log_record
+
+
+def write_final_metrics(save_dir: Path, tuning: dict, held_out: dict) -> None:
+    print("Saving final metrics...")
+    with open(save_dir / "tuning_metrics.json", "w") as f:
+        json.dump(tuning, f)
+    with open(save_dir / "held_out_metrics.json", "w") as f:
+        json.dump(held_out, f)
+
+
+def reliability_setup(tc: dict, save_dir: Path) -> tuple:
+    """``(sentinel, rollback_ctl, ckpt_mgr)`` of a trainer config: the
+    divergence sentinel and its rollback controller (None without the
+    sentinel's keys) and the checksummed checkpoint manager of
+    ``save_dir/model_checkpoints``."""
+    from ..reliability.integrity import ReliableCheckpointManager
+    from ..reliability.sentinel import DivergenceSentinel, RollbackController, SentinelConfig
+
+    sentinel_cfg = SentinelConfig.from_trainer_config(tc)
+    sentinel = DivergenceSentinel(sentinel_cfg) if sentinel_cfg is not None else None
+    rollback_ctl = (
+        RollbackController(sentinel_cfg.max_rollbacks, save_dir / "divergence_diagnostics.json")
+        if sentinel_cfg is not None
+        else None
+    )
+    ckpt_mgr = ReliableCheckpointManager(
+        save_dir / "model_checkpoints",
+        max_to_keep=int(tc.get("max_checkpoints_to_keep") or 2),
+        retries=int(tc.get("ckpt_retries", 3)),
+        backoff_base=float(tc.get("ckpt_backoff_base", 0.5)),
+    )
+    return sentinel, rollback_ctl, ckpt_mgr
+
+
+def fit(
+    *,
+    label: str,
+    oc: OptimizationConfig,
+    tc: dict,
+    device: torch.device,
+    state: TrainState,
+    step_fn: Callable,
+    dispatches: Callable,
+    full_dispatch: int,
+    evaluate_epoch: Callable,
+    sentinel,
+    rollback_ctl,
+    ckpt_mgr,
+    start_epoch: int,
+    skip_batches: int,
+    state_dict: Callable,
+    load_state: Callable,
+    log_record: Callable,
+    total_steps: int,
+    anomaly: bool = False,
+) -> dict | None:
+    """The epochs of a training run, shared by pretraining's and fine-tuning's
+    `train`; returns the last epoch's tuning metrics (None if no epoch ran).
+
+    ``dispatches(epoch, skip)`` yields ``(run, k, n_events)``: ``run()``
+    trains ``k`` steps (one single step, or one chunk of ``full_dispatch``
+    steps or fewer) on ``n_events`` events and returns the losses (with
+    ``(losses, healths)`` when the sentinel is on), after skipping the
+    epoch's first ``skip`` batches. ``step_fn`` is the step behind it (its
+    ``stats()`` and the capture guard's watch), ``evaluate_epoch(epoch)``
+    the tuning metrics. Each dispatch: the window record every
+    ``log_every_n_steps``, a sentinel-vetted checkpoint every
+    ``checkpoint_every_n_steps``, the capture guard (armed from the second
+    in-process epoch), ``max_training_steps`` and preemption. Each epoch:
+    `reliability.sentinel.finish_epoch` (``label`` names the run in its
+    errors), the tuning evaluation, the epoch-end checkpoint and early
+    stopping on the tuning loss."""
+    from ..analysis.compile_guard import CompileGuard
+    from ..reliability import faults
+    from ..reliability.preemption import GracefulShutdown
+    from ..reliability.sentinel import HealthMonitor, finish_epoch
+
+    log_every = int(tc.get("log_every_n_steps") or 10)
+    ckpt_every = int(tc.get("checkpoint_every_n_steps") or 100)
+    accum = oc.gradient_accumulation or 1
+    with_health = sentinel is not None
+    schedule = polynomial_decay_with_warmup(
+        oc.init_lr, oc.end_lr, oc.lr_num_warmup_steps, oc.max_training_steps, oc.lr_decay_power
+    )
+    step_guard = None
+    if bool(tc.get("guard_recompiles", True)):
+        step_guard = CompileGuard(watch=[step_fn], label=f"{label} step (mid-epoch)")
 
     best_tuning_loss = float("inf")
     epochs_since_best = 0
     global_step = state.step
     stop = False
     full_epoch_completed_in_process = False
+    tuning_metrics = None
     shutdown = GracefulShutdown()
     resume_epoch, resume_skip = start_epoch, skip_batches
     epoch = start_epoch
-    place = to_device(device)
     clock = _Clock(device)
     anomaly_prev = torch.is_anomaly_enabled()
     torch.autograd.set_detect_anomaly(anomaly)
@@ -951,7 +936,7 @@ def train(
                             pending.clear()
                         timing["save_s"] += time.perf_counter() - t0
                     if step_guard is not None and step_guard.armed:
-                        if chunked_step is None or stepped == chunk_steps:
+                        if stepped == full_dispatch:
                             step_guard.check()
                         elif step_guard.compiles > 0:
                             step_guard.arm()  # a short tail chunk owns its key
@@ -961,59 +946,27 @@ def train(
                         preempt_requested = True
 
                 pending_logs: list[dict] = []
+                dispatch_iter = dispatches(epoch, epoch_skip)
                 try:
-                    if chunked_step is not None:
-                        step_in_epoch = epoch_skip
-                        for plans, n_events in train_plan_chunks(epoch, epoch_skip):
-                            k = int(next(iter(plans.values())).shape[0])
-                            if oc.max_training_steps is not None:
-                                remaining = oc.max_training_steps * accum - global_step
-                                if remaining < k:
-                                    plans = {key: v[:remaining] for key, v in plans.items()}
-                                    k = remaining
-                                    n_events = _plan_event_count(plans, train_ds) if k > 0 else 0
-                            if k <= 0:
-                                break
-                            window_mark = window_mark or clock.mark()
-                            out = chunked_step(plans, cfg.seed)
-                            losses = out[0] if with_health else out
-                            if with_health:
-                                health_mon.record(out[1])
-                            global_step += k
-                            step_in_epoch += k
-                            epoch_progress = step_in_epoch
-                            faults.maybe_sigterm(global_step, shutdown)
-                            window_events += n_events
-                            window_losses.append(losses)
-                            window_n += k
-                            handle_window(step_in_epoch, k, pending_logs)
-                            if stop or health_mon.rollback_requested or preempt_requested:
-                                break
-                    else:
-                        batch_iter = prefetch_to_device(
-                            faults.wrap_batches(train_batches(epoch, epoch_skip), epoch=epoch, first_index=epoch_skip),
-                            place,
-                            host_stats_fn=lambda b: int(b.event_mask.sum()),
-                        )
-                        try:
-                            for step_in_epoch, (batch, n_events) in enumerate(batch_iter, start=epoch_skip):
-                                window_mark = window_mark or clock.mark()
-                                out = train_step(batch, cfg.seed)
-                                loss = out[0] if with_health else out
-                                if with_health:
-                                    health_mon.record(out[1])
-                                global_step += 1
-                                epoch_progress = step_in_epoch + 1
-                                faults.maybe_sigterm(global_step, shutdown)
-                                window_events += n_events
-                                window_losses.append(loss)
-                                window_n += 1
-                                handle_window(step_in_epoch + 1, 1, pending_logs)
-                                if stop or health_mon.rollback_requested or preempt_requested:
-                                    break
-                        finally:
-                            batch_iter.close()
+                    step_in_epoch = epoch_skip
+                    for run, k, n_events in dispatch_iter:
+                        window_mark = window_mark or clock.mark()
+                        out = run()
+                        losses = out[0] if with_health else out
+                        if with_health:
+                            health_mon.record(out[1])
+                        global_step += k
+                        step_in_epoch += k
+                        epoch_progress = step_in_epoch
+                        faults.maybe_sigterm(global_step, shutdown)
+                        window_events += n_events
+                        window_losses.append(losses)
+                        window_n += k
+                        handle_window(step_in_epoch, k, pending_logs)
+                        if stop or health_mon.rollback_requested or preempt_requested:
+                            break
                 finally:
+                    dispatch_iter.close()
                     if window_mark is not None:  # a tail shorter than a window
                         spans.append((window_mark, clock.mark()))
                     for rec in pending_logs:
@@ -1032,7 +985,7 @@ def train(
                     global_step=global_step,
                     accum=accum,
                     max_training_steps=oc.max_training_steps,
-                    label="pretraining",
+                    label=label,
                 )
                 if outcome.action == "rollback":
                     global_step = outcome.global_step
@@ -1044,10 +997,7 @@ def train(
                     full_epoch_completed_in_process = True
 
                 eval_t0 = time.perf_counter()
-                tuning_metrics = evaluate(
-                    eval_step, tuning_ds, oc.validation_batch_size, config, cfg.pretraining_metrics_config,
-                    Split.TUNING, generator=_eval_generator(device, cfg.seed, epoch), device_data=device_tuning,
-                )  # fmt: skip
+                tuning_metrics = evaluate_epoch(epoch)
                 eval_s = time.perf_counter() - eval_t0
                 tuning_loss = tuning_metrics.get("tuning_loss", float("nan"))
                 t0 = time.perf_counter()
@@ -1064,13 +1014,10 @@ def train(
                         "steps_s": sum(clock.seconds(span) for span in spans),
                         "eval_s": eval_s,
                         "checkpoint_s": timing["save_s"],
-                        "graph_captures": (chunked_step or train_step).stats()["graph_captures"],
+                        "graph_captures": step_fn.stats()["graph_captures"],
                     }
                 )
-                print(
-                    f"epoch {epoch}: opt step {global_step // accum}/"
-                    f"{oc.max_training_steps or steps_per_epoch * oc.max_epochs} tuning_loss={tuning_loss:.4f}"
-                )
+                print(f"epoch {epoch}: opt step {global_step // accum}/{total_steps} tuning_loss={tuning_loss:.4f}")
                 if np.isfinite(tuning_loss) and tuning_loss < best_tuning_loss - 1e-12:
                     best_tuning_loss = tuning_loss
                     epochs_since_best = 0
@@ -1084,6 +1031,161 @@ def train(
                 epoch += 1
     finally:
         torch.autograd.set_detect_anomaly(anomaly_prev)
+    return tuning_metrics
+
+
+def train(
+    cfg: PretrainConfig, model_config: StructuredTransformerConfig | None = None, device=None
+) -> tuple[float | None, dict | None, dict | None]:
+    """End-to-end pretraining from a converted DL cache (JAX's ``train``).
+
+    Returns ``(tuning_loss, tuning_metrics, held_out_metrics)`` of the final
+    validation, or ``(None, None, None)`` without it. ``device=None`` means
+    the CUDA device (and raises without one); the tests pass ``"cpu"``.
+
+    In JAX's order: ``train`` and ``tuning`` `TorchDataset`s, the configs set
+    to the dataset, the five config files under ``cfg.save_dir``, the model
+    (numpy-seeded from ``cfg.seed``) and AdamW, resume from the newest
+    verified checkpoint in ``save_dir/model_checkpoints``, then the epochs
+    (`fit`): with the tables resident (``trainer_config["device_resident_data"]``:
+    ``"auto"`` when they fit `DeviceDataset.DEFAULT_BUDGET_BYTES`, True, or
+    False) the captured chunked step over ``steps_per_execution`` plans a
+    dispatch (default ``min(log_every, checkpoint_every, 16)``), otherwise
+    host collation with the prefetch thread feeding the captured single
+    step. Then ``save_pretrained`` and the final validation on ``tuning`` and
+    ``held_out`` with the full metrics config (``tuning_metrics.json``,
+    ``held_out_metrics.json``). Beside JAX's fields, ``train_log.jsonl``'s
+    window records carry their ``events``, the epoch records the seconds of
+    the steps, the evaluation and the checkpoint saves and the step's
+    ``graph_captures`` so far, and a ``"final"`` record the seconds of
+    ``save_pretrained`` and the final validation. A window's
+    ``events_per_sec`` and ``step_time_ms`` and an epoch's ``steps_s`` are
+    read off the device's timeline (CUDA events around the window's steps,
+    read when the loop next waits for the device), so the loop never waits
+    to time them; on the CPU, off the host clock.
+
+    Raises `reliability.sentinel.DivergenceError` when rollbacks are spent,
+    and ``ValueError`` for what `refusals` names.
+    """
+    from ..convert import init_params_from_seed
+    from ..reliability import faults
+    from ..reliability.integrity import resume_training_state
+    from .checkpoint import save_pretrained
+
+    device = resolve_device(device, "train")
+    refusals(cfg)
+    np.random.seed(cfg.seed)
+    anomaly = bool(cfg.do_detect_anomaly)
+
+    train_ds = TorchDataset(cfg.data_config, split="train")
+    tuning_ds = TorchDataset(cfg.data_config, split="tuning")
+    config = model_config if model_config is not None else cfg.build_model_config()
+    oc, data_config = cfg.optimization_config, cfg.data_config
+    configured_max_seq_len = config.max_seq_len
+    config.set_to_dataset(train_ds)
+
+    tc = dict(cfg.trainer_config or {})
+    use_packed = bool(tc.get("use_packed_batches"))
+    packed_L = int(tc.get("packed_seq_len") or max(configured_max_seq_len, train_ds.max_seq_len))
+    if use_packed:
+        config.max_seq_len = packed_L
+    steps_per_epoch = (
+        train_ds.packed_batch_count(oc.batch_size, seq_len=packed_L, seed=cfg.seed) if use_packed else None
+    )
+    oc.set_to_dataset(train_ds, steps_per_epoch=steps_per_epoch)
+    if steps_per_epoch is None:
+        steps_per_epoch = len(train_ds) // oc.batch_size
+
+    save_dir = Path(cfg.save_dir)
+    write_run_configs(cfg, config, save_dir)
+    cfg.pretraining_metrics_config.to_json_file(save_dir / "pretraining_metrics_config.json", do_overwrite=True)
+    cfg.final_validation_metrics_config.to_json_file(
+        save_dir / "final_validation_metrics_config.json", do_overwrite=True
+    )
+
+    check_train_size(train_ds, oc)
+    model = init_params_from_seed(build_model(config), seed=cfg.seed).to(device).train()
+    optimizer, scheduler, state = optimizer_setup(model, oc, device)
+    accum = oc.gradient_accumulation or 1
+
+    def state_dict() -> dict:
+        return train_state_dict(model, optimizer, scheduler, state)
+
+    def load_state(sd: dict) -> None:
+        load_train_state(sd, model, optimizer, scheduler, state)
+
+    log_every = int(tc.get("log_every_n_steps") or 10)
+    ckpt_every = int(tc.get("checkpoint_every_n_steps") or 100)
+    sentinel, rollback_ctl, ckpt_mgr = reliability_setup(tc, save_dir)
+    start_epoch = skip_batches = 0
+    if cfg.do_resume_from_checkpoint and ckpt_mgr.latest_step() is not None:
+        _, start_epoch, skip_batches = resume_training_state(ckpt_mgr, load_state)
+
+    device_train, device_tuning, budget = resident_datasets(tc, train_ds, tuning_ds, device)
+    chunk_steps = tc.get("steps_per_execution") or "auto"
+    if chunk_steps == "auto":
+        chunk_steps = max(min(log_every, ckpt_every, 16), 1)
+    chunk_steps = int(chunk_steps)
+    step_kw = dict(with_health=sentinel is not None, device=device, cuda_graph=not anomaly, state=state)
+    if device_train is not None:
+        chunked_step = make_chunked_train_step(model, optimizer, scheduler, device_train, packed=use_packed, **step_kw)
+        train_step = None
+    else:
+        chunked_step = None
+        train_step = make_train_step(model, optimizer, scheduler, **step_kw)
+    eval_step = make_eval_step(model, device)
+
+    def train_batches(epoch: int, skip: int):
+        if not use_packed:
+            return train_ds.batches(oc.batch_size, shuffle=True, seed=cfg.seed + epoch, skip_batches=skip)
+        packed = (
+            b for b in train_ds.packed_batches(oc.batch_size, seq_len=packed_L, seed=cfg.seed + epoch)
+            if b.event_mask.shape[0] == oc.batch_size
+        )  # fmt: skip
+        return itertools.islice(packed, skip, None)
+
+    def train_plan_chunks(epoch: int, skip: int):
+        if use_packed:
+            return device_train.packed_plan_chunks(
+                oc.batch_size, chunk_steps, seq_len=packed_L, seed=cfg.seed + epoch, skip_batches=skip
+            )
+        return device_train.plan_chunks(oc.batch_size, chunk_steps, shuffle=True, seed=cfg.seed + epoch,
+                                        skip_batches=skip)  # fmt: skip
+
+    def dispatches(epoch: int, skip: int):
+        if chunked_step is None:
+            yield from host_dispatches(
+                train_step, faults.wrap_batches(train_batches(epoch, skip), epoch=epoch, first_index=skip),
+                device, cfg.seed,
+            )  # fmt: skip
+            return
+        for plans, n_events in train_plan_chunks(epoch, skip):
+            k = int(next(iter(plans.values())).shape[0])
+            if oc.max_training_steps is not None:
+                remaining = oc.max_training_steps * accum - state.step
+                if remaining < k:
+                    plans = {key: v[:remaining] for key, v in plans.items()}
+                    k = remaining
+                    n_events = _plan_event_count(plans, train_ds) if k > 0 else 0
+            if k <= 0:
+                return
+            yield functools.partial(chunked_step, plans, cfg.seed), k, n_events
+
+    def evaluate_epoch(epoch: int) -> dict:
+        return evaluate(
+            eval_step, tuning_ds, oc.validation_batch_size, config, cfg.pretraining_metrics_config,
+            Split.TUNING, generator=_eval_generator(device, cfg.seed, epoch), device_data=device_tuning,
+        )  # fmt: skip
+
+    log_record = json_logger(save_dir / "train_log.jsonl")
+    fit(
+        label="pretraining", oc=oc, tc=tc, device=device, state=state, step_fn=chunked_step or train_step,
+        dispatches=dispatches, full_dispatch=chunk_steps if chunked_step is not None else 1,
+        evaluate_epoch=evaluate_epoch, sentinel=sentinel, rollback_ctl=rollback_ctl, ckpt_mgr=ckpt_mgr,
+        start_epoch=start_epoch, skip_batches=skip_batches, state_dict=state_dict, load_state=load_state,
+        log_record=log_record, total_steps=oc.max_training_steps or steps_per_epoch * oc.max_epochs,
+        anomaly=anomaly,
+    )  # fmt: skip
 
     ckpt_mgr.wait_until_finished()
     t0 = time.perf_counter()
@@ -1107,10 +1209,6 @@ def train(
         Split.HELD_OUT, generator=_eval_generator(device, cfg.seed, -2), device_data=device_held_out,
     )  # fmt: skip
     log_record({"split": "final", "save_pretrained_s": save_s, "validation_s": time.perf_counter() - t0 - save_s})
-    print("Saving final metrics...")
-    with open(save_dir / "tuning_metrics.json", "w") as f:
-        json.dump(final_tuning, f)
-    with open(save_dir / "held_out_metrics.json", "w") as f:
-        json.dump(final_held_out, f)
+    write_final_metrics(save_dir, final_tuning, final_held_out)
     ckpt_mgr.close()
     return final_tuning.get("tuning_loss"), final_tuning, final_held_out

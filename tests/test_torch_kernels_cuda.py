@@ -1803,3 +1803,113 @@ def test_functor_elements_do_not_depend_on_the_batch(cuda):
                                 functors, cursor[lo:hi])  # fmt: skip
         for a, b in zip(full, part):
             assert torch.equal(a[lo:hi], b), (lo, hi)
+
+
+# ------------------------------------------------------------- fine-tuning and embeddings
+def classifier_setup(na: bool, pooling: str = "last", n_batches: int = 4, precision="bf16", **widths):
+    """A stream classifier (bf16, dropout 0.1 by default) of phase 4's
+    synthetic vocabulary on a binary task, and ``n_batches`` labelled 4 x 32
+    batches of one shape (one batch's rows rolled) with a ``valid_mask``
+    (the last row a fill row)."""
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        serving_config,
+        synthetic_training_batches,
+        training_config,
+    )
+    from eventstreamgpt_tpu_torch.models.fine_tuning_model import ESTForStreamClassification
+
+    widths = widths or GRAPH_WIDTHS
+    first = next(synthetic_training_batches(np.random.default_rng(0), serving_config(**widths), 4, 32))
+    first = first.replace(stream_labels={"task": torch.tensor([0.0, 1.0, 1.0, 0.0])})
+    batches = [first.map(lambda t, k=k: t.roll(k, 0)).replace(valid_mask=torch.tensor([True, True, True, False]))
+               for k in range(n_batches)]  # fmt: skip
+    config = (na_training_config if na else training_config)(batches, precision=precision, **widths)
+    config.finetuning_task, config.id2label, config.num_labels = "task", {0: False, 1: True}, 2
+    config.problem_type = "single_label_classification"
+    config.task_specific_params = {"pooling_method": pooling}
+    return init_params_from_seed(ESTForStreamClassification(config), seed=0), batches
+
+
+@pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
+def test_captured_fine_tuning_step_equals_eager_step(cuda, na):
+    """Three bf16 steps of a stream classifier (dropout 0.1) through
+    `make_train_step`: the captured step equals its ``cuda_graph=False`` run
+    bit for bit (losses, health vectors, weights); kernel D launches once a
+    layer a step each way through the replays (NA)."""
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_optimizer, make_train_step
+
+    base, batches = classifier_setup(na, pooling="mean" if na else "last")
+    assert base.config.attention_dropout == base.config.resid_dropout == 0.1
+    oc = dict(init_lr=1e-3, lr_num_warmup_steps=0, lr_frac_warmup_steps=None, max_training_steps=10)
+    out = {}
+    for graph in (True, False):
+        model = copy.deepcopy(base)
+        step = make_train_step(model, *build_optimizer(model, OptimizationConfig(**oc)), device=cuda,
+                               with_health=True, cuda_graph=graph)  # fmt: skip
+        dep_graph_fwd.launches = dep_graph_bwd.launches = vocab_gather_fwd.launches = 0
+        healths = [step(b, 7)[1] for b in batches[:3]]
+        layers = base.config.num_hidden_layers if na else 0
+        assert (dep_graph_fwd.launches, dep_graph_bwd.launches, vocab_gather_fwd.launches) == (3 * layers, 3 * layers, 0)
+        s = step.stats()
+        assert (s["graph_warmup_steps"], s["graph_captures"], s["graph_replays"]) == ((1, 1, 2) if graph else (0, 0, 0))
+        out[graph] = torch.stack(healths).cpu(), [p.detach().cpu() for p in model.parameters()]
+    assert torch.equal(out[True][0], out[False][0]), (out[True][0], out[False][0])
+    assert torch.isfinite(out[True][0]).all() and len(set(out[True][0][:, 0].tolist())) == 3
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pooling", ["last", "max", "mean", "none"])
+@pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
+def test_captured_embedding_forward_equals_eager(cuda, na, pooling):
+    """`make_embed_step` captured on its second batch and replayed gives the
+    eager forward's pooled encodings bit for bit; kernel D once a layer a
+    batch through the replays (NA)."""
+    from eventstreamgpt_tpu_torch.training.embedding import EmbeddingsOnlyModel, make_embed_step
+
+    classifier, batches = classifier_setup(na)
+    model = EmbeddingsOnlyModel(classifier.config)
+    model.encoder = classifier.encoder
+    out = {}
+    for graph in (True, False):
+        embed = make_embed_step(model, model.config, pooling, device=cuda, cuda_graph=graph)
+        dep_graph_fwd.launches = 0
+        out[graph] = [embed(b).cpu() for b in batches]
+        assert dep_graph_fwd.launches == (len(batches) * model.config.num_hidden_layers if na else 0)
+        s = embed.stats()
+        want = (1, 1, len(batches) - 1) if graph else (0, 0, 0)
+        assert (s["graph_warmups"], s["graph_captures"], s["graph_replays"]) == want
+    for a, b in zip(out[True], out[False]):
+        assert a.shape == ((4, 32, 128) if pooling == "none" else (4, 128)) and torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("na", [False, True], ids=["ci", "na"])
+def test_fine_tuning_on_card_matches_cpu(cuda, na):
+    """A small fp32 classifier (hidden 32, dropout 0; NA: one head of 32,
+    kernel D's narrowest) trained 4 steps and its pooled encodings, on the
+    card and on the CPU: losses, weights and encodings within 1e-4."""
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_optimizer, make_train_step, train_steps
+    from eventstreamgpt_tpu_torch.training.embedding import EmbeddingsOnlyModel, embed_batch
+
+    heads = dict(num_attention_heads=1, head_dim=32) if na else dict(head_dim=8)
+    widths = dict(sizes=(5, 40, 6, 3), hidden_size=32, intermediate_size=64, seq_window_size=4, attention_dropout=0.0,
+                  input_dropout=0.0, resid_dropout=0.0, **heads)  # fmt: skip
+    base, batches = classifier_setup(na, precision="fp32", **widths)
+    oc = dict(init_lr=1e-3, lr_num_warmup_steps=1, lr_frac_warmup_steps=None, max_training_steps=10)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base)
+        step = make_train_step(model, *build_optimizer(model, OptimizationConfig(**oc)), device=dev)
+        losses = train_steps(step, batches, seed=3)
+        encoder = EmbeddingsOnlyModel(model.config)
+        encoder.encoder = model.encoder
+        emb = embed_batch(encoder.eval(), model.config, batches[0].map(lambda t: t.to(dev)), "last").cpu()
+        out[dev] = torch.tensor(losses), {n: p.detach().cpu() for n, p in model.named_parameters()}, emb
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for name, w in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][name], w, rtol=0, atol=1e-4, msg=lambda m: f"{name}: {m}")
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-4)

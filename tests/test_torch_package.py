@@ -63,13 +63,15 @@ def test_every_module_imports_with_jax_blocked():
      "eventstreamgpt_tpu_torch.data.dl_cache", "eventstreamgpt_tpu_torch.data.prefetch",
      "eventstreamgpt_tpu_torch.training.metrics", "eventstreamgpt_tpu_torch.training.generative_metrics",
      "eventstreamgpt_tpu_torch.reliability.faults", "eventstreamgpt_tpu_torch.reliability.integrity",
-     "eventstreamgpt_tpu_torch.reliability.sentinel", "eventstreamgpt_tpu_torch.analysis.compile_guard"],
+     "eventstreamgpt_tpu_torch.reliability.sentinel", "eventstreamgpt_tpu_torch.analysis.compile_guard",
+     "eventstreamgpt_tpu_torch.models.fine_tuning_model", "eventstreamgpt_tpu_torch.training.embedding"],
 )  # fmt: skip
 def test_sweep_covers_the_resident_feed(module):
     """The resident feed, the chunked step, speculative decoding, the fleet's
     router, the serving fault plan, the row-invariance tool, the DL-cache
     reader, the prefetch thread, the metrics, the training reliability
-    modules and the capture guard are in the blocked import sweep above."""
+    modules, the capture guard, the stream classifier and embedding
+    extraction are in the blocked import sweep above."""
     assert module in MODULES
 
 

@@ -55,7 +55,7 @@ from eventstreamgpt_tpu_torch.generation.sampling import derive_request_seed
 from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
 from eventstreamgpt_tpu_torch.serving import GenerationEngine, Request
 from eventstreamgpt_tpu_torch.training import build_model
-from eventstreamgpt_tpu_torch.training.fine_tuning import FinetuneConfig, StreamClassificationMetrics, train
+from eventstreamgpt_tpu_torch.training.fine_tuning import FinetuneConfig, StreamClassificationMetrics
 from eventstreamgpt_tpu_torch.training.pretrain import PretrainConfig
 from eventstreamgpt_tpu_torch.training.pretrain import train as pretrain
 
@@ -258,8 +258,6 @@ def test_zero_shot_evaluation_runs_end_to_end(pretrained, tmp_path, use_engine):
     assert "tuning_accuracy" in tuning
 
 
-def test_fine_tuning_waits_for_its_item():
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        train(FinetuneConfig())
+def test_binary_task_metric_set():
     config = StructuredTransformerConfig(problem_type="single_label_classification", num_labels=2)
     assert set(StreamClassificationMetrics(config, "tuning").metrics) == {"AUROC", "accuracy", "AUPRC"}
