@@ -477,7 +477,52 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    card's name and power limit: trained events/s of each epoch, the
    captured step's ms, each epoch's wall split, the final validation's
    seconds, embeddings' subjects/s a split, peak memory, the metrics.
-21. The wall seconds of each phase function (`tools/phase_times.py`), one
+21. Remat and scan-over-layers at bench.py's width-1024 probe
+   (`wide_config_for`, ``bench.py:1446-1463``: hidden 1,024, 12 layers
+   local/global with window 32, 8 heads of 128, intermediate 4,096,
+   ``pallas_flash``, attention dropout 0, residual and input dropout 0.1,
+   bf16) set to phase 18's cohort, on its train split's first packed batch
+   of 8 x 1,024 (`packed_batches`, seed 1), weights from the seed. (a) The
+   captured single step under ``none``, ``block``, ``dots_no_batch`` and
+   ``save_attention``, 3 steps each from the same weights (eager warm-up,
+   capture, replay): every health vector, weight and AdamW tensor equal to
+   ``none``'s bit for bit. (b) Kernel E's forward once a global layer a step
+   (6) under ``none`` and ``save_attention``, twice under ``block`` and
+   ``dots_no_batch`` (the recompute), its backward once, kernel C as under
+   ``none``, counted through the replays. (c) ``block``'s peak memory (reset
+   before each run's first step; above what was allocated then) below
+   ``none``'s. (d) ``scan_layers=True``
+   under the faster of ``dots_no_batch`` and ``save_attention``, its weights
+   loaded through `convert.load_jax_params` from the stacked (``h_scan``)
+   tree `convert.export_params` builds in numpy of (a)'s initial weights:
+   equal to (a)'s run under that policy bit for bit. (e) Phase 6's NA model
+   under ``block``, 3 captured steps, dropout 0.1: equal to ``none``'s bit
+   for bit; kernel D's forward twice a layer a step, its backward once. (f)
+   A small fp32 CI step (hidden 32) under ``block`` with dropout 0.1 on the
+   card equals the CPU's within 1e-4 (loss and gradients; the keep masks
+   drawn on the CPU for both). Then kernel E at D = 128 against its plain
+   version on the inputs captured from (a)'s first ``none`` step
+   (``(8, 8, 1024, 128)``), fp32 and bf16, and timed as phase 9 times it.
+   Printed beside the card's name and power limit: each run's captured step
+   in ms (median of 5 replays), trained events/s, peak memory and kernel E's
+   forward launches a step.
+22. Trajectories and the MCF evaluation: `evaluation.generate_trajectories`
+   from phase 18 (a)'s save_dir over its cohort's tuning and held-out
+   splits, 4 samples of 32 new events a subject, batches of 32: every split
+   writes 4 files, one row a subject (`data.dl_cache.read_dl_reps` reads
+   them back), each row's prompt events (indices, values, times) equal to
+   its input row's, every generated time finite and later than the
+   prompt's last; kernel A counted through `generate()`'s replays, at least
+   once a categorical head a new event a call; pandas and pyarrow never
+   imported. (b) `evaluation.get_MCF_coordinates` over the written samples
+   for the prompts' most frequent lab code, aligned at each subject's last
+   prompt event (64 timestamps drawn by a seeded generator): JAX's shapes,
+   censor masks true in the first column, incidences finite where a
+   subject's bucket is populated, and `crps` of the samples' incidences
+   after the prompt finite. Printed beside the card's name and power limit:
+   generated events/s of each split (each `generate` call's host clock) and
+   the MCF step's seconds.
+23. The wall seconds of each phase function (`tools/phase_times.py`), one
    ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -1968,9 +2013,10 @@ def packed_kernels_match_plain_on_card():
 
 
 # ---------------------------------------------------------------- phase 9
-def kernel_ef_phase(args):
+def kernel_ef_phase(args, phase="phase 9", tag=""):
     """Kernels E (``window`` None) and F against their plain versions on the
-    captured inputs, then timed in bf16 beside their bound and the library call."""
+    captured inputs, then timed in bf16 beside their bound and the library
+    call; each row named with ``tag`` after the kernel's name."""
     import torch
     import torch.nn.functional as F
 
@@ -1983,7 +2029,7 @@ def kernel_ef_phase(args):
         fwd = fa.flash_attention_fwd if window is None else fa.flash_attention_window_fwd
         bwd = fa.flash_attention_bwd if window is None else fa.flash_attention_window_bwd
         extra = () if window is None else (window,)
-        name = "flash_attention" if window is None else "flash_attention_window"
+        name = ("flash_attention" if window is None else "flash_attention_window") + tag
         # The captured cotangent is small (the loss averages over ~8k events);
         # scaled to a largest magnitude of 1 it gives O(1) gradients.
         g_unit = a["g"] / a["g"].float().abs().max()
@@ -2023,7 +2069,7 @@ def kernel_ef_phase(args):
                 if dt == torch.bfloat16:
                     key = "fwd" if part == "out" else "bwd"
                     max_err[key] = max(max_err[key], errs[-1])
-            print(f"phase 9: {name} ({dt}) at (B={B}, H={H}, S={S}, D={D}), window {window}: max |diff| "
+            print(f"{phase}: {name} ({dt}) at (B={B}, H={H}, S={S}, D={D}), window {window}: max |diff| "
                   f"out/dq/dk/dv {', '.join(f'{e:.3g}' for e in errs)} (largest |plain| "
                   f"{', '.join(f'{y.float().abs().max().item():.3g}' for y in (want, *want_grads))}); not "
                   f"checked, vs fp64: kernel {', '.join(f'{e:.3g}' for e in kernel64)}, plain "
@@ -2071,7 +2117,7 @@ def kernel_ef_phase(args):
         one_out, one_stats = fwd(q, k, v, one, *extra)
         t_one = {"fwd": time_ms(lambda: fwd(q, k, v, one, *extra))["ms"],
                  "bwd": time_ms(lambda: bwd(q, k, v, one, one_out, one_stats, g, *extra))["ms"]}  # fmt: skip
-        print(f"phase 9: {name} (window {window}) walked {walked['packed']} tiles (counted on the card; "
+        print(f"{phase}: {name} (window {window}) walked {walked['packed']} tiles (counted on the card; "
               f"tile_schedule's count) of {in_range} causal tiles over {B} rows x {H} heads: share {share:.4f}; "
               f"with one segment a row it walked {walked['one-segment']} (all) in forward {t_one['fwd']:.4f} ms, "
               f"backward {t_one['bwd']:.4f} ms against {t_fwd['ms']:.4f} / {t_bwd['ms']:.4f} ms on the packed batch",
@@ -2088,7 +2134,7 @@ def kernel_ef_phase(args):
                                             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                                             max_abs_err=max_err[part], shape=[B, H, S, D], window=window,
                                             visited_share=share, one_segment_ms=t_one[part])  # fmt: skip
-            print(f"phase 9: {name} {part} (bf16, window {window}): {fmt_times(t)}; bound "
+            print(f"{phase}: {name} {part} (bf16, window {window}): {fmt_times(t)}; bound "
                   f"{result[f'{name}_{part}']['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP over "
                   f"{pairs} allowed pairs, {pairs / (B * H * S * (S + 1) / 2):.3f} of the causal triangle)",
                   flush=True)  # fmt: skip
@@ -4770,6 +4816,351 @@ def fine_tuning_phase(smi, pre: dict) -> dict:
                           for k in ("dep_graph_fwd", "dep_graph_bwd", "flash_attention_fwd", "flash_attention_bwd")})
 
 
+# ---------------------------------------------------------------- phase 21
+# bench.py's production-width probe (`wide_config_for`, bench.py:1446-1463): hidden 1,024, 12 layers of
+# 8 heads of 128, intermediate 4,096, on the packed rows under pallas_flash (attention dropout 0, bf16).
+PROBE_WIDTHS = dict(hidden_size=1024, head_dim=128, num_attention_heads=8, num_hidden_layers=12,
+                    intermediate_size=4096)
+PROBE_POLICIES = ("none", "block", "dots_no_batch", "save_attention")
+PROBE_STEPS, PROBE_TIMED = 3, 5  # the compared steps (warm-up, capture, replay), then replays timed
+
+
+class HostMasks:
+    """A dropout source whose keep masks are drawn on the CPU from a seeded
+    generator and moved to the tensor's device: the card and the CPU draw the
+    same masks (`ops.tensor_ops.keep_mask`)."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def keep(self, shape, keep_prob, device):
+        import torch
+
+        return (torch.rand(shape, generator=self.generator) < keep_prob).to(device)
+
+
+def probe_config(ds, policy: str, scan: bool = False):
+    """bench.py's `wide_config_for(policy)` over the synthetic cohort's vocabulary, set to its train split."""
+    from eventstreamgpt_tpu_torch.data.synthetic import PACKED_OVERRIDES, serving_config
+
+    config = serving_config(precision="bf16", **PACKED_OVERRIDES, **PROBE_WIDTHS,
+                            gradient_checkpointing=policy, scan_layers=scan)  # fmt: skip
+    config.set_to_dataset(ds)
+    config.max_seq_len = PACKED_SEQ
+    return config
+
+
+def probe_run(label, config, batch, load, counters, capture=None) -> dict:
+    """`PROBE_STEPS` captured steps (the first eager, the second captured) of
+    the model ``load`` fills, then `PROBE_TIMED` timed replays; the peak
+    memory of the steps above what was allocated before the first (the
+    weights, and what earlier runs still hold; AdamW's state, made in the
+    first step, counts), the launches of
+    ``counters`` in the compared steps, and the final weights and AdamW
+    tensors (on the card) of the compared steps."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
+
+    with torch.device("cuda"):
+        model = build_model(config)
+    load(model)
+    oc = OptimizationConfig(init_lr=1e-3, batch_size=PACKED_BATCH, max_epochs=3, lr_frac_warmup_steps=0.1)
+    oc.set_to_dataset(range(COHORT))
+    optimizer, scheduler = build_optimizer(model, oc)
+    step = make_train_step(model, optimizer, scheduler, with_health=True)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    healths = []
+    for i in range(PROBE_STEPS):
+        if capture is not None:
+            capture.armed = i == 0
+        healths.append(step(batch, SEED)[1])
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if capture is not None:
+        capture.restore()
+    s = step.stats()
+    check((s["graph_warmup_steps"], s["graph_captures"], s["graph_replays"]) == (1, 1, PROBE_STEPS - 1),
+          f"{label}: the step was not warmed up, captured and replayed: {s}")  # fmt: skip
+    weights = [p.detach().clone() for p in model.parameters()]
+    adam = [t.detach().clone() for p in model.parameters() for t in (optimizer.state[p]["exp_avg"],
+                                                                      optimizer.state[p]["exp_avg_sq"])]  # fmt: skip
+    walls = []
+    for _ in range(PROBE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch, SEED)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    healths = torch.stack(healths).cpu()
+    check(bool(torch.isfinite(healths).all()), f"{label}: a loss or gradient norm is not finite: {healths.tolist()}")
+    del step, optimizer, scheduler, model
+    return dict(healths=healths, weights=weights, adam=adam, launches=launches, peak_gb=peak_gb,
+                step_ms=float(np.median(walls)) * 1e3)
+
+
+def same_run(a, b) -> bool:
+    import torch
+
+    return torch.equal(a["healths"], b["healths"]) and all(
+        torch.equal(x, y) for x, y in zip(a["weights"] + a["adam"], b["weights"] + b["adam"]))
+
+
+def free_cuda():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def small_remat_step_matches_cpu():
+    """(f): one fp32 step of the small CI model (hidden 32) under ``block``
+    with dropout 0.1 on the card against the same step on the CPU, the keep
+    masks drawn on the CPU for both (`HostMasks`): loss and every gradient
+    within 1e-4 (gradients, as phase 4's small step: Adam's first update
+    moves a noise-level gradient's element by the rate either way)."""
+    import copy
+
+    base, batch = small_fp32_setup(False, hidden_size=32, head_dim=8)
+    base.config.gradient_checkpointing = "block"
+    base.config.input_dropout = base.config.resid_dropout = base.config.attention_dropout = 0.1
+    for mod in base.modules():
+        for attr in ("input_dropout", "resid_dropout", "attention_dropout"):
+            if hasattr(mod, attr):
+                setattr(mod, attr, 0.1)
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        loss = model(batch.map(lambda t: t.to(dev)), is_generation=False, dropout=HostMasks(SEED)).loss
+        loss.backward()
+        out.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    steps_match(out[0], out[1], 1e-4, "phase 21 (f): small fp32 block-remat step with dropout, card vs CPU")
+    return out[1][0], grad_diff(out[0], out[1])
+
+
+def remat_scan_phase(smi, pre: dict) -> dict:
+    """Phase 21: remat and scan at bench.py's width-1024 probe (module docstring)."""
+    import numpy as np
+    import torch
+
+    import eventstreamgpt_tpu_torch.models.transformer as transformer_module
+    from eventstreamgpt_tpu_torch.convert import export_params, init_params_from_seed, load_jax_params
+    from eventstreamgpt_tpu_torch.data.config import PytorchDatasetConfig
+    from eventstreamgpt_tpu_torch.data.synthetic import na_training_config
+    from eventstreamgpt_tpu_torch.data.torch_dataset import TorchDataset
+    from eventstreamgpt_tpu_torch.ops import flash_attention as fa
+    from eventstreamgpt_tpu_torch.ops.dep_graph import dep_graph_bwd, dep_graph_fwd
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    t0 = time.perf_counter()
+    ds = TorchDataset(PytorchDatasetConfig(save_dir=pre["cache"], max_seq_len=PACKED_SEQ, min_seq_len=4), "train")
+    batch = next(ds.packed_batches(PACKED_BATCH, PACKED_SEQ, seed=1)).map(lambda t: t.cuda())
+    events = int(batch.event_mask.sum())
+    base = probe_config(ds, "none")
+    check(base.seq_attention_layers == ["local", "global"] * 6 and base.seq_window_size == 32
+          and base.attention_dropout == 0.0 and base.resid_dropout == 0.1 and base.precision == "bf16",
+          "phase 21: not bench.py's width-1024 probe")  # fmt: skip
+    init = init_params_from_seed(build_model(base), seed=SEED).state_dict()
+    n_params = sum(t.numel() for t in init.values())
+
+    def load_init(model):
+        model.load_state_dict(init)
+
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd, vocab_gather_fwd, vocab_gather_bwd)
+    n_global = base.seq_attention_layers.count("global")
+    runs, flash_args = {}, None
+    for policy in PROBE_POLICIES:
+        capture = FlashCapture(transformer_module) if policy == "none" else None
+        runs[policy] = probe_run(f"phase 21 (a) [{policy}]", probe_config(ds, policy), batch, load_init, counters,
+                                capture)  # fmt: skip
+        if capture is not None:
+            flash_args = capture.args.get(None)
+        free_cuda()
+    check(flash_args is not None and flash_args["g"] is not None, "phase 21: kernel E's inputs were not captured")
+    none = runs["none"]
+    for policy, run in runs.items():
+        check(same_run(run, none), f"phase 21 (a): {policy}'s losses, weights or AdamW tensors differ from none's: "
+                                   f"{run['healths'].tolist()} vs {none['healths'].tolist()}")  # fmt: skip
+        twice = policy in ("block", "dots_no_batch")
+        want = {"flash_attention_fwd": PROBE_STEPS * n_global * (2 if twice else 1),
+                "flash_attention_bwd": PROBE_STEPS * n_global,
+                "vocab_gather_fwd": none["launches"]["vocab_gather_fwd"],
+                "vocab_gather_bwd": none["launches"]["vocab_gather_bwd"]}  # fmt: skip
+        check(run["launches"] == want, f"phase 21 (b) [{policy}]: launches {run['launches']}, expected {want}")
+    check(none["launches"]["vocab_gather_fwd"] == PROBE_STEPS, f"phase 21: kernel C launches {none['launches']}")
+    check(runs["block"]["peak_gb"] < none["peak_gb"],
+          f"phase 21 (c): block's peak {runs['block']['peak_gb']:.3f} GB is not below none's {none['peak_gb']:.3f}")
+
+    # (d) scan_layers under the faster selective policy, from a scanned tree built in numpy
+    faster = min(("dots_no_batch", "save_attention"), key=lambda p: runs[p]["step_ms"])
+    scan_config = probe_config(ds, faster, scan=True)
+
+    def load_scanned(model):
+        with torch.device("cuda"):
+            holder = build_model(scan_config)
+        holder.load_state_dict(init)
+        tree = export_params(holder)  # the stacked (h_scan) layout JAX's scanned model holds
+        check("h_scan" in tree["params"]["encoder"] and not any(k.startswith("h") and k[1:].isdigit()
+                                                                for k in tree["params"]["encoder"]),
+              "phase 21 (d): the exported tree is not the scanned layout")  # fmt: skip
+        load_jax_params(model, tree)
+
+    scanned = probe_run(f"phase 21 (d) [scan, {faster}]", scan_config, batch, load_scanned, counters)
+    check(same_run(scanned, runs[faster]), f"phase 21 (d): the scanned model's steps differ from {faster}'s")
+    check(scanned["launches"] == runs[faster]["launches"], f"phase 21 (d): launches {scanned['launches']}")
+    free_cuda()
+
+    # (e) phase 6's NA model under block against none, dropout 0.1
+    na_batch = training_batch()
+    na_runs = {}
+    for policy in ("none", "block"):
+        na_config = na_training_config([na_batch], gradient_checkpointing=policy)
+        na_runs[policy] = probe_run(f"phase 21 (e) [NA, {policy}]", na_config, na_batch.map(lambda t: t.cuda()),
+                                   lambda m: init_params_from_seed(m, seed=SEED), (dep_graph_fwd, dep_graph_bwd))
+        free_cuda()
+    layers = na_config.num_hidden_layers
+    check(same_run(na_runs["block"], na_runs["none"]), "phase 21 (e): the NA model under block differs from none")
+    check(na_runs["none"]["launches"] == {"dep_graph_fwd": PROBE_STEPS * layers,
+                                          "dep_graph_bwd": PROBE_STEPS * layers}
+          and na_runs["block"]["launches"] == {"dep_graph_fwd": 2 * PROBE_STEPS * layers,
+                                               "dep_graph_bwd": PROBE_STEPS * layers},
+          f"phase 21 (e): kernel D launches {na_runs['none']['launches']} / "
+          f"{na_runs['block']['launches']}")  # fmt: skip
+
+    small_loss, small_diff = small_remat_step_matches_cpu()
+    na_events = int(na_batch.event_mask.sum())
+
+    def row(r, n_events, kernel):
+        return dict(step_ms=round(r["step_ms"], 3), events_per_s=round(n_events / (r["step_ms"] / 1e3), 1),
+                    peak_gb=round(r["peak_gb"], 3), **{f"{kernel}_a_step": r["launches"][kernel] / PROBE_STEPS})
+
+    rows = {**{p: row(r, events, "flash_attention_fwd") for p, r in {**runs, f"scan+{faster}": scanned}.items()},
+            **{f"NA {p}": row(r, na_events, "dep_graph_fwd") for p, r in na_runs.items()}}
+    print(f"phase 21: bench.py's width-1024 probe ({n_params} parameters; packed batch "
+          f"{tuple(batch.event_mask.shape)}, "
+          f"{events} real events; 12 layers local/global, 8 heads of 128): (a) every policy's 3 captured steps equal "
+          f"none's bit for bit (losses {none['healths'][:, 0].tolist()}, weights, AdamW); (b) kernel E launches as "
+          f"expected; (c) block's peak below none's; (d) scan_layers under {faster} from the scanned tree equals it "
+          f"bit for bit; (e) NA block equals none, kernel D twice a layer a step forward; (f) small fp32 block step "
+          f"with dropout card vs CPU: loss {small_loss:.6f}, max |grad diff| {small_diff:.3g}; per run "
+          f"{json.dumps(rows)}; {time.perf_counter() - t0:.1f} s ({smi})", flush=True)  # fmt: skip
+    launches = {k: sum(r["launches"].get(k, 0) for r in (*runs.values(), scanned))
+                for k in ("flash_attention_fwd", "flash_attention_bwd", "vocab_gather_fwd", "vocab_gather_bwd")}
+    launches.update({k: sum(r["launches"][k] for r in na_runs.values()) for k in ("dep_graph_fwd", "dep_graph_bwd")})
+    return dict(launches=launches, flash_args=flash_args, rows=rows)
+
+
+# ---------------------------------------------------------------- phase 22
+TRAJ_SAMPLES, TRAJ_NEW, TRAJ_BATCH = 4, 32, 32
+TRAJ_LAB = "lab"  # the measurement whose most frequent code is the MCF predicate
+
+
+def trajectories_phase(smi, pre: dict, tmp: Path) -> dict:
+    """Phase 22: trajectories and the MCF evaluation (module docstring)."""
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.data.dl_cache import concat_dl_reps, read_dl_reps
+    from eventstreamgpt_tpu_torch.data.torch_dataset import TorchDataset
+    from eventstreamgpt_tpu_torch.evaluation import (
+        GenerateConfig,
+        crps,
+        dl_frame,
+        generate_trajectories,
+        get_MCF_coordinates,
+    )
+    from eventstreamgpt_tpu_torch.models.config import StructuredTransformerConfig
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical_stream
+    from eventstreamgpt_tpu_torch.training import build_model
+
+    t0 = time.perf_counter()
+    cfg = GenerateConfig(load_from_model_dir=pre["save_a"], save_dir=tmp / "trajectories",
+                         task_specific_params={"num_samples": TRAJ_SAMPLES, "max_new_events": TRAJ_NEW},
+                         optimization_config={"validation_batch_size": TRAJ_BATCH})  # fmt: skip
+    heads = categorical_heads(build_model(StructuredTransformerConfig.from_json_file(pre["save_a"] / "config.json")))
+    fused_categorical_stream.launches = 0
+    stats: dict = {}
+    out = generate_trajectories(cfg, device="cuda", stats=stats)
+    launches_a = fused_categorical_stream.launches
+    gen_s = time.perf_counter() - t0
+    calls = sum(len(v) for v in stats.values())
+    check(launches_a >= heads * TRAJ_NEW * calls > 0,
+          f"phase 22 (a): kernel A launched {launches_a} times over {calls} generate() calls")  # fmt: skip
+
+    t1 = time.perf_counter()
+    mcf = {}
+    for split in ("tuning", "held_out"):
+        files = sorted(p.name for p in (out / split).iterdir())
+        check(files == [f"sample_{i}_local_rank_0.npz" for i in range(TRAJ_SAMPLES)],
+              f"phase 22 (a): {split} files {files}")  # fmt: skip
+        ds = TorchDataset(cfg.data_config, split=split)
+        prompts = concat_dl_reps([b.convert_to_DL() for b in ds.batches(TRAJ_BATCH, shuffle=False, drop_last=False,
+                                                                         seed=0)])  # fmt: skip
+        n = len(ds)
+        control = dl_frame(prompts.take(np.arange(n)))
+        samples = []
+        for i in range(TRAJ_SAMPLES):
+            reps = read_dl_reps(out / split / f"sample_{i}_local_rank_0.npz")
+            check(reps.n_rows == n, f"phase 22 (a): {split} sample {i} holds {reps.n_rows} rows, not {n}")
+            frame = dl_frame(reps)
+            for r in range(n):
+                k = len(control["dynamic_indices"][r])
+                same = (frame["subject_id"][r] == control["subject_id"][r]
+                        and frame["dynamic_indices"][r][:k] == control["dynamic_indices"][r]
+                        and frame["dynamic_values"][r][:k] == control["dynamic_values"][r]
+                        and frame["time"][r][:k] == control["time"][r])  # fmt: skip
+                check(same, f"phase 22 (a): {split} sample {i} row {r}'s prompt differs from its input row")
+                times = np.asarray(frame["time"][r])
+                check(len(times) > k and bool(np.isfinite(times).all()) and bool((times[k:] > times[k - 1]).all()),
+                      f"phase 22 (a): {split} sample {i} row {r}'s generated times {times[k - 1:].tolist()}")
+            samples.append(frame)
+        # (b) one lab predicate (the prompts' most frequent lab code), aligned at each subject's last prompt event
+        lab_lo = ds.vocabulary_config.vocab_offsets_by_measurement[TRAJ_LAB]
+        lab_hi = lab_lo + ds.vocabulary_config.vocab_sizes_by_measurement[TRAJ_LAB]
+        codes = np.concatenate([np.asarray(sum(r, []), np.int64) for r in control["dynamic_indices"]])
+        codes = codes[(codes >= lab_lo) & (codes < lab_hi)]
+        lab = int(np.bincount(codes).argmax())
+        control["control_align_idx"] = [len(t) - 1 for t in control["time"]]
+        ids, ts, idx, c_censor, c_mcf, s_censor, s_mcf = get_MCF_coordinates(
+            control, samples, {lab: True}, n_timestamps=64, rng=np.random.default_rng(SEED))  # fmt: skip
+        T = len(ts) + 1
+        check(c_censor.shape == (1, n, T) and c_mcf.shape == (1, n, T, 1) and s_censor.shape == (TRAJ_SAMPLES, n, T)
+              and s_mcf.shape == (TRAJ_SAMPLES, n, T, 1) and len(ids) == n and idx == [lab],
+              f"phase 22 (b): {split} MCF shapes {c_censor.shape} {c_mcf.shape} {s_censor.shape} {s_mcf.shape}")
+        check(bool(c_censor[..., 0].all() and s_censor[..., 0].all()), f"phase 22 (b): {split} censor masks")
+        populated = ~np.isnan(s_mcf)
+        check(bool(populated.any() and np.isfinite(s_mcf[populated]).all()),
+              f"phase 22 (b): {split} sample incidences not finite where populated")  # fmt: skip
+        after = np.asarray(ts) > 0
+        counts = np.nansum(s_mcf[:, :, 1:][:, :, after], axis=2)  # (samples, subjects, 1) after the prompt
+        score = crps(counts, np.nansum(c_mcf[:, :, 1:][:, :, after], axis=2)[0])
+        check(score.shape == (n, 1) and bool(np.isfinite(score).all()), f"phase 22 (b): {split} CRPS {score}")
+        mcf[split] = dict(lab=lab, timestamps=len(ts), crps_mean=float(score.mean()),
+                          mean_incidences_after=float(counts.mean()))  # fmt: skip
+    mcf_s = time.perf_counter() - t1
+    check("pandas" not in sys.modules and "pyarrow" not in sys.modules, "phase 22: pandas or pyarrow was imported")
+    rates = {split: sum(e for e, _ in v) / sum(s for _, s in v) for split, v in stats.items()}
+    print(f"phase 22: generate_trajectories from phase 18 (a)'s save_dir, {TRAJ_SAMPLES} samples of {TRAJ_NEW} new "
+          f"events a subject, batches of {TRAJ_BATCH}: every split {TRAJ_SAMPLES} files, one row a subject, prompts "
+          f"equal, generated times finite and later; kernel A {launches_a} launches over {calls} calls; generated "
+          f"events/s {json.dumps({k: round(v, 1) for k, v in rates.items()})} (each call's host clock: "
+          f"{json.dumps({k: [round(s, 3) for _, s in v] for k, v in stats.items()})} s); generation {gen_s:.2f} s; "
+          f"MCF and CRPS {mcf_s:.2f} s {json.dumps(mcf)} ({smi})", flush=True)  # fmt: skip
+    return dict(launches_a=launches_a, rates=rates, mcf_s=mcf_s)
+
+
 def main() -> int:
     try:
         import torch
@@ -4813,6 +5204,9 @@ def main() -> int:
     pretrain = pretrain_phase(smi, Path(work.name))
     functor = functor_phase(smi, model, config)
     finetune = fine_tuning_phase(smi, pretrain)
+    remat = remat_scan_phase(smi, pretrain)
+    ef128 = kernel_ef_phase({None: remat.pop("flash_args")}, phase="phase 21", tag="_d128")
+    traj = trajectories_phase(smi, pretrain, Path(work.name))
     work.cleanup()
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
@@ -4833,7 +5227,8 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/fused_sampling.py:171", entry="fused_categorical_stream",
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
              + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"]
-             + na_spec["launches_a"] + service["launches_a"] + fleet["launches_a"] + functor["launches_a"], **a),
+             + na_spec["launches_a"] + service["launches_a"] + fleet["launches_a"] + functor["launches_a"]
+             + traj["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
@@ -4850,14 +5245,15 @@ def main() -> int:
         dict(name=f"vocab_gather_{d}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/vocab_gather.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182",
              launches=train["launches"][f"vocab_gather_{d}"] + chunk_launches(f"vocab_gather_{d}")
-             + pretrain["launches"][f"vocab_gather_{d}"] + functor["launches_c"][d], **c[d])
+             + pretrain["launches"][f"vocab_gather_{d}"] + functor["launches_c"][d]
+             + remat["launches"][f"vocab_gather_{d}"], **c[d])
         for d in ("fwd", "bwd")
     ] + [
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_dep_graph.py:397",
              launches=na_train["launches"][f"dep_graph_{k}"] + chunk_launches(f"dep_graph_{k}")
              + (gen["launches_d"] if k == "fwd" else 0) + pretrain["launches"][f"dep_graph_{k}"]
-             + finetune["launches"][f"dep_graph_{k}"], **d_times[k])
+             + finetune["launches"][f"dep_graph_{k}"] + remat["launches"][f"dep_graph_{k}"], **d_times[k])
         for k in ("fwd", "bwd")
     ] + [
         dict(name=f"{n}_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",
@@ -4865,6 +5261,11 @@ def main() -> int:
              launches=sum(run["launches"][f"{n}_{k}"] for run in packed.values()) + chunk_launches(f"{n}_{k}")
              + finetune["launches"].get(f"{n}_{k}", 0), **ef[f"{n}_{k}"])
         for n, line in (("flash_attention", 864), ("flash_attention_window", 900))
+        for k in ("fwd", "bwd")
+    ] + [
+        dict(name=f"flash_attention_d128_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/flash_attention.cu",
+             replaces="eventstreamgpt_tpu/models/transformer.py:864",
+             launches=remat["launches"][f"flash_attention_{k}"], **ef128[f"flash_attention_d128_{k}"])
         for k in ("fwd", "bwd")
     ]  # fmt: skip
     for k in kernels:

@@ -15,7 +15,17 @@ the port model's parameters in place:
 Every flax leaf must land on exactly one port parameter of the same shape,
 and every port parameter must be filled; anything else raises.
 `export_params` is the inverse: the port model's parameters as a flax-shaped
-tree of fp32 numpy arrays. `checkpoint_from_jax` writes JAX parameters as a
+tree of fp32 numpy arrays.
+
+Scan-over-layers. A ``scan_layers=True`` flax tree holds an encoder's layers
+as one ``h_scan`` scope whose children ``b0 .. b{p-1}`` stack layer
+``g * p + j`` as group ``g`` along a new leading axis (JAX's
+`stack_layer_params`). The port builds the per-layer modules ``h{i}`` either
+way, so every function here takes that tree too: `unstack_layer_params`
+splits it back into ``h{i}`` in numpy as JAX's `unstack_layer_params` does
+(bit for bit; the AdamW moments of a scanned resume step likewise), and
+`export_params` of a ``scan_layers`` model stacks it (`stack_layer_params`,
+``models.transformer.scan_period``), the tree JAX's scanned model loads. `checkpoint_from_jax` writes JAX parameters as a
 port checkpoint directory (`training.checkpoint.save_pretrained`);
 `train_state_from_jax` turns a JAX resume step (parameters, AdamW moments,
 counts) into the port's resume state. Both build the model the tree is of
@@ -25,11 +35,69 @@ else the generative model of the config.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
 
-from .models.transformer import LayerNorm
+from .models.transformer import LayerNorm, scan_period
+
+_LAYER_KEY = re.compile(r"^h(\d+)$")
+
+
+def unstack_layer_params(tree: dict) -> dict:
+    """``tree`` with every ``h_scan`` scope (children ``b{j}``, leaves stacked
+    ``(n_groups, ...)``) replaced by the per-layer scopes ``h{g * p + j}``,
+    ``p`` the number of children (JAX's `unstack_layer_params`); a tree
+    without one comes back as it is.
+
+    Examples:
+        >>> b0, b1 = {"w": np.arange(4).reshape(2, 2)}, {"w": np.ones((2, 2))}
+        >>> t = unstack_layer_params({"h_scan": {"b0": b0, "b1": b1}})
+        >>> sorted(t), t["h2"]["w"].tolist()
+        (['h0', 'h1', 'h2', 'h3'], [2, 3])
+    """
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: unstack_layer_params(v) for k, v in tree.items() if k != "h_scan"}
+    if isinstance(tree.get("h_scan"), dict):
+        groups = tree["h_scan"]
+        p = len(groups)
+        for j in range(p):
+            flat = _flatten(groups[f"b{j}"])
+            for g in range(len(next(iter(flat.values())))):
+                out[f"h{g * p + j}"] = _unflatten({path: arr[g] for path, arr in flat.items()})
+    return out
+
+
+def stack_layer_params(tree: dict, config) -> dict:
+    """``tree`` with the per-layer scopes ``h0 .. h{L-1}`` of every scope
+    that holds them all replaced by one ``h_scan`` scope: ``b{j}`` stacks
+    layer ``g * p + j`` as group ``g`` (JAX's `stack_layer_params`, ``p`` and
+    the groups from ``scan_period(config)``)."""
+    L = config.num_hidden_layers
+    p, G = scan_period(config)
+    if not isinstance(tree, dict):
+        return tree
+    if not all(f"h{i}" in tree for i in range(L)):
+        return {k: stack_layer_params(v, config) for k, v in tree.items()}
+    out = {k: stack_layer_params(v, config) for k, v in tree.items() if not _LAYER_KEY.match(str(k))}
+    out["h_scan"] = {}
+    for j in range(p):
+        layers = [_flatten(tree[f"h{g * p + j}"]) for g in range(G)]
+        out["h_scan"][f"b{j}"] = _unflatten({path: np.stack([lay[path] for lay in layers]) for path in layers[0]})
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for path, arr in flat.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
@@ -60,9 +128,11 @@ def port_name(path: tuple) -> tuple[str, bool]:
 
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
-    """Fills ``model``'s parameters from a flax tree of numpy arrays; returns ``model``."""
+    """Fills ``model``'s parameters from a flax tree of numpy arrays, unrolled
+    or scanned (`unstack_layer_params`); returns ``model``."""
     if set(params) == {"params"}:
         params = params["params"]
+    params = unstack_layer_params(params)
     targets = dict(model.named_parameters())
     filled = set()
     for path, arr in _flatten(params).items():
@@ -88,7 +158,8 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
 def export_params(model: nn.Module) -> dict:
     """``{"params": tree}`` of fp32 numpy arrays under the flax names
     (`load_jax_params`' inverse: a Linear ``weight`` goes out transposed as
-    ``kernel``, a LayerNorm ``weight`` as ``scale``)."""
+    ``kernel``, a LayerNorm ``weight`` as ``scale``), in the scanned layout
+    (`stack_layer_params`) when the model's config sets ``scan_layers``."""
     tree: dict = {}
     for module_name, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
@@ -101,6 +172,9 @@ def export_params(model: nn.Module) -> dict:
             for key in module_name.split(".") if module_name else []:
                 node = node.setdefault(key, {})
             node[name] = arr
+    config = getattr(model, "config", None)
+    if config is not None and getattr(config, "scan_layers", False):
+        tree = stack_layer_params(tree, config)
     return {"params": tree}
 
 
@@ -116,7 +190,7 @@ def model_for_tree(config, params: dict) -> nn.Module:
     """The port model a flax tree is of: ``ESTForStreamClassification`` when
     the tree holds a ``logit_layer``, else `training.pretrain.build_model`'s
     generative model of ``config`` (the port's configuration, or any object
-    whose ``to_dict()`` gives its fields, such as JAX's)."""
+    whose ``to_dict()`` gives its fields, such as JAX's); unrolled or scanned."""
     from .models.fine_tuning_model import ESTForStreamClassification
     from .training.pretrain import build_model
 
@@ -169,14 +243,15 @@ def train_state_from_jax(config, params: dict, mu: dict, nu: dict, count: int, s
     moments cross over as the parameters do (`port_name`); AdamW's step and
     the scheduler's position are ``count``. The result goes to
     `training.checkpoint.TrainCheckpointManager.save`. A fine-tuning tree
-    gives the stream classifier's state (`model_for_tree`)."""
+    gives the stream classifier's state (`model_for_tree`); a scanned tree
+    and its stacked moments are unstacked (`unstack_layer_params`)."""
     names = set(dict(model_for_tree(config, params).named_parameters()))
 
     def port_tree(tree: dict) -> dict:
         if set(tree) == {"params"}:
             tree = tree["params"]
         out = {}
-        for path, arr in _flatten(tree).items():
+        for path, arr in _flatten(unstack_layer_params(tree)).items():
             name, transpose = port_name(path)
             out[name] = torch.tensor(np.ascontiguousarray(arr.T if transpose else arr), dtype=torch.float32)
         if set(out) != names:

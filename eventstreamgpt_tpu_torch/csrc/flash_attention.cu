@@ -89,6 +89,14 @@
 //   bf16 dk/dv   168 (161) registers, the same bytes, 3 blocks an SM;
 //   fp32 forward 124 (80), dq 128 (128), dk/dv 128 (128) registers at 256
 //   threads; 67,140 (42,564), 84,548 (51,780), 101,188 (68,420) bytes.
+// At D = 128 a thread holds 64 fp32 accumulators (128 in dk/dv) beside its
+// kept operand fragments, so the forward and dk/dv kernels are compiled for
+// two blocks an SM (mma_min_blocks): bf16 forward 238, dq 246 and dk/dv 255
+// registers (dk/dv spills 4 bytes), 71,748 bytes, two blocks an SM; fp32
+// forward 128, dq 128, dk/dv 180 registers, no spills. The same tiles and
+// schedule; on an H100 (700 W) at (8, 8, 1024, 128) on the packed batch the
+// bf16 kernels take about 3x the bytes bound forward and 4.6x backward
+// (PERF.md).
 // On an H100 (700 W) at the packed shape the bf16 kernels take about 4x the
 // bytes bound forward and 6x backward (tools/ab_flash.py, --trace for the
 // per-block record, on the global timer): a block walks 3.6 tiles on average
@@ -103,7 +111,8 @@
 // the D axis contiguous and 16-byte aligned rows (the wrapper checks); seg is
 // (B, S) int32; stats (2, B, H, S) fp32 (m, then l) and the backward's rows
 // (3, B, H, S) fp32 scratch, all contiguous and 16-byte aligned. S must be a
-// multiple of 64; D is 32 or 64.
+// multiple of 64; D is 32, 64 or 128 (bench.py's production widths: 8 heads
+// of 128 at hidden 1,024).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -300,6 +309,14 @@ struct Trace {
 constexpr int kMmaThreads = 128;  // four warps, 16 rows of the tile each
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Blocks an SM the forward and dk/dv kernels are compiled for. At D = 128 a
+// thread holds 64 fp32 accumulators (128 in dk/dv) and 32 (64) registers of
+// operand fragments, more than the 170 registers three blocks allow.
+template <int D>
+constexpr int mma_min_blocks() {
+  return D <= 64 ? 3 : 2;
+}
+
 template <int D>
 struct Tiles {
   static constexpr int kLd = D + 8;               // padded row, in elements (16 bytes more than D)
@@ -425,7 +442,7 @@ constexpr int mma_smem_bytes(int n_tiles) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>())
     mma_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ stats, Problem p) {
   Trace trace;
@@ -736,7 +753,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 // dk and dv for one key tile, over the query tiles that see it; rows is
 // what the dq kernel wrote: di, m log2(e) and 1 / l of every query.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<D>())
     mma_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                 const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ rows,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, Problem p) {
@@ -1261,8 +1278,8 @@ int run_bwd(int dtype, const void* q, const void* k, const void* v, const int* s
 View view(const long long* strides, int i) { return View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]}; }
 
 bool valid(int dtype, int B, int H, int S, int D) {
-  return (dtype == 0 || dtype == 1) && B >= 0 && H >= 1 && S >= 0 && S % kTile == 0 && (D == 32 || D == 64) &&
-         S / kTile <= 65535 && static_cast<long long>(B) * H <= INT_MAX;  // the grid's y and x dimensions
+  return (dtype == 0 || dtype == 1) && B >= 0 && H >= 1 && S >= 0 && S % kTile == 0 &&
+         (D == 32 || D == 64 || D == 128) && S / kTile <= 65535 && static_cast<long long>(B) * H <= INT_MAX;  // the grid's y and x dimensions
 }
 
 }  // namespace
@@ -1286,8 +1303,9 @@ extern "C" int esgpt_flash_fwd(int dtype, const void* q, const void* k, const vo
   p.v = view(strides, 2);
   p.o = view(strides, 3);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 32 ? run_fwd<32>(dtype, q, k, v, seg, o, stats, p, st)
-                 : run_fwd<64>(dtype, q, k, v, seg, o, stats, p, st);
+  if (D == 32) return run_fwd<32>(dtype, q, k, v, seg, o, stats, p, st);
+  if (D == 64) return run_fwd<64>(dtype, q, k, v, seg, o, stats, p, st);
+  return run_fwd<128>(dtype, q, k, v, seg, o, stats, p, st);
 }
 
 extern "C" int esgpt_flash_bwd(int dtype, const void* q, const void* k, const void* v, const int* seg, const void* o,
@@ -1309,8 +1327,9 @@ extern "C" int esgpt_flash_bwd(int dtype, const void* q, const void* k, const vo
   p.dk = view(strides, 6);
   p.dv = view(strides, 7);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 32 ? run_bwd<32>(dtype, q, k, v, seg, o, g, stats, rows, dq, dk, dv, p, st)
-                 : run_bwd<64>(dtype, q, k, v, seg, o, g, stats, rows, dq, dk, dv, p, st);
+  if (D == 32) return run_bwd<32>(dtype, q, k, v, seg, o, g, stats, rows, dq, dk, dv, p, st);
+  if (D == 64) return run_bwd<64>(dtype, q, k, v, seg, o, g, stats, rows, dq, dk, dv, p, st);
+  return run_bwd<128>(dtype, q, k, v, seg, o, g, stats, rows, dq, dk, dv, p, st);
 }
 
 // Copies the tiles walked since the last call (3 uint64: forward, dq, dk/dv)

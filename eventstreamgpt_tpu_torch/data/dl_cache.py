@@ -33,6 +33,12 @@ array. Reading
 (`read_dl_cache`) concatenates a split's chunks in the numeric order of
 their suffix and needs numpy only; only `convert_dl_cache`'s body imports
 pyarrow.
+
+Generated trajectories (`evaluation.generate_trajectories`) are written in
+the same format, one archive a sample (`write_dl_reps` of
+`data.types.EventStreamBatch.convert_to_DL`), and read back with
+`read_dl_reps`; `dl_reps_to_parquet` exports such an archive, on a host
+with pyarrow, as the parquet frame the JAX package writes.
 """
 
 from __future__ import annotations
@@ -47,10 +53,14 @@ import numpy as np
 __all__ = [
     "DLReps",
     "RaggedColumn",
+    "concat_dl_reps",
     "concat_ranges",
     "convert_dl_cache",
+    "dl_reps_to_parquet",
+    "lengths_to_offsets",
     "port_labeler_source",
     "read_dl_cache",
+    "read_dl_reps",
     "read_task_df",
     "write_dl_reps",
 ]
@@ -90,16 +100,22 @@ class RaggedColumn:
         start = off[np.asarray(rows, np.int64)] + np.asarray(lo, np.int64)
         end = start + (np.asarray(hi, np.int64) - np.asarray(lo, np.int64))
         inner = concat_ranges(start, end)
-        new_off = _offsets(end - start)
+        new_off = lengths_to_offsets(end - start)
         if self.offsets2 is None:
             return RaggedColumn(self.values[inner], new_off)
         off2 = self.offsets2.astype(np.int64)
         return RaggedColumn(
             self.values[concat_ranges(off2[inner], off2[inner + 1])],
             new_off,
-            _offsets(off2[inner + 1] - off2[inner]),
+            lengths_to_offsets(off2[inner + 1] - off2[inner]),
             None if self.nulls2 is None else self.nulls2[inner],
         )
+
+
+# The column order of JAX's ``EventStreamBatch.convert_to_DL_DF`` frame: its list
+# columns, then its scalar ones.
+_FRAME_COLUMNS = ("time_delta", "time", "static_indices", "static_measurement_indices", "dynamic_indices",
+                  "dynamic_measurement_indices", "dynamic_values", "start_time", "subject_id", "start_idx", "end_idx")
 
 
 @dataclasses.dataclass
@@ -119,17 +135,43 @@ class DLReps:
         rows = np.asarray(rows, np.int64)
         return DLReps({k: v[rows] for k, v in self.scalars.items()}, {k: c.take(rows) for k, c in self.lists.items()})
 
+    def to_columns(self) -> dict:
+        """The rows as JAX's ``convert_to_DL_DF`` frame holds them, without
+        pandas: its columns in its order (`_FRAME_COLUMNS`, those present),
+        each a list a row of Python numbers, lists or lists of lists, an
+        unobserved ``dynamic_values`` entry (NaN) as None."""
+        columns = {}
+        for name in _FRAME_COLUMNS:
+            if name in self.scalars:
+                columns[name] = self.scalars[name].tolist()
+            elif name in self.lists:
+                col = self.lists[name]
+                flat = col.values.tolist()
+                if name == "dynamic_values":
+                    flat = [None if v != v else v for v in flat]
+                if col.offsets2 is not None:
+                    flat = [flat[a:b] for a, b in zip(col.offsets2[:-1].tolist(), col.offsets2[1:].tolist())]
+                columns[name] = [flat[a:b] for a, b in zip(col.offsets[:-1].tolist(), col.offsets[1:].tolist())]
+        return columns
 
-def _offsets(lengths: np.ndarray) -> np.ndarray:
+
+def lengths_to_offsets(lengths: np.ndarray) -> np.ndarray:
+    """``n + 1`` int64 offsets of ``n`` consecutive runs of the given lengths.
+
+    Examples:
+        >>> lengths_to_offsets(np.array([2, 0, 3])).tolist()
+        [0, 2, 2, 5]
+    """
     out = np.zeros(len(lengths) + 1, np.int64)
     np.cumsum(lengths, out=out[1:])
     return out
 
 
+
 def concat_ranges(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     """The concatenation of ``arange(lo[i], hi[i])`` for every ``i``."""
     lengths = hi - lo
-    starts = np.repeat(lo - _offsets(lengths)[:-1], lengths)
+    starts = np.repeat(lo - lengths_to_offsets(lengths)[:-1], lengths)
     return starts + np.arange(int(lengths.sum()), dtype=np.int64)
 
 
@@ -155,7 +197,8 @@ def write_dl_reps(fp: Path | str, reps: DLReps) -> None:
         np.savez(f, **arrays)
 
 
-def _load(fp: Path) -> DLReps:
+def read_dl_reps(fp: Path | str) -> DLReps:
+    """One archive of the converted format (`write_dl_reps`' inverse)."""
     with np.load(fp, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
     names = [k for k in arrays if "__" not in k]
@@ -170,7 +213,8 @@ def _load(fp: Path) -> DLReps:
     return DLReps(scalars, lists)
 
 
-def _concat(parts: list[DLReps]) -> DLReps:
+def concat_dl_reps(parts: list[DLReps]) -> DLReps:
+    """The rows of ``parts``, one after the other (the columns of the first)."""
     if len(parts) == 1:
         return parts[0]
     scalars = {k: np.concatenate([p.scalars[k] for p in parts]) for k in parts[0].scalars}
@@ -208,7 +252,7 @@ def read_dl_cache(save_dir: Path | str, split: str) -> DLReps:
             f"No converted DL_reps chunks for split {split} in {dl_dir} (convert a parquet cache with "
             "data.dl_cache.convert_dl_cache on a host with pandas)"
         )
-    return _concat([_load(fp) for fp in files])
+    return concat_dl_reps([read_dl_reps(fp) for fp in files])
 
 
 def read_task_df(save_dir: Path | str, task_df_name: str) -> dict:
@@ -250,6 +294,20 @@ def port_labeler_source(source: str, name: str = "<labeler>") -> str:
     return "".join(lines)
 
 
+def dl_reps_to_parquet(reps: DLReps, fp: Path | str) -> Path:
+    """Writes ``reps`` (`data.types.EventStreamBatch.convert_to_DL` rows) as
+    the parquet file the JAX package writes of ``convert_to_DL_DF``'s frame
+    (`DLReps.to_columns`). Runs where pyarrow is installed (imported here,
+    lazily); returns ``fp``."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    fp = Path(fp)
+    fp.parent.mkdir(parents=True, exist_ok=True)
+    pq.write_table(pa.table(reps.to_columns()), fp)
+    return fp
+
+
 def _metadata_files(src: Path) -> list[Path]:
     """The metadata files ``inferred_measurement_configs.json`` names, as
     the dataset resolves them."""
@@ -272,7 +330,7 @@ def _arrow_list(col):
 
     lengths = pc.fill_null(pc.list_value_length(col), 0).to_numpy(zero_copy_only=False).astype(np.int64)
     nulls = col.is_null().to_numpy(zero_copy_only=False).astype(bool)
-    return col.flatten(), _offsets(lengths), nulls
+    return col.flatten(), lengths_to_offsets(lengths), nulls
 
 
 def _encode_table(table) -> DLReps:

@@ -48,10 +48,10 @@ from .config import MeasurementConfig, PytorchDatasetConfig, VocabularyConfig
 from .dl_cache import (
     DLReps,
     RaggedColumn,
-    _concat,
-    _load,
+    concat_dl_reps,
     concat_ranges,
     read_dl_cache,
+    read_dl_reps,
     read_task_df,
     write_dl_reps,
 )
@@ -821,7 +821,7 @@ class TorchDataset(CSRDataset):
         files = sorted((save_dir / "DL_reps").glob(f"{split}*.npz"))
         if not files:
             raise FileNotFoundError(f"No converted DL_reps chunks for split {split} in {save_dir / 'DL_reps'}")
-        return _concat([self._build_task_reps(task, self.tasks, _load(fp)) for fp in files])
+        return concat_dl_reps([self._build_task_reps(task, self.tasks, read_dl_reps(fp)) for fp in files])
 
     @staticmethod
     def _build_task_reps(task: dict, tasks: list, cached: DLReps) -> DLReps:

@@ -125,6 +125,55 @@ class EventStreamBatch:
 
         return [self.map(lambda x, i=i: sel(x, i)) for i in range(n_splits)]
 
+    def convert_to_DL(self):
+        """The batch in the sparse deep-learning format, as the converted cache
+        holds it (`data.dl_cache.DLReps`; JAX's ``convert_to_DL_DF`` without
+        pandas): a row a subject. ``time_delta`` / ``time`` keep each row's
+        real events (``event_mask``); ``static_indices`` /
+        ``static_measurement_indices`` the static elements whose index is not
+        0; ``dynamic_indices`` / ``dynamic_measurement_indices`` /
+        ``dynamic_values`` an inner list an event of the elements whose index
+        is not 0, an unobserved value (``dynamic_values_mask`` False) as NaN,
+        the converted format's null. ``start_time``, ``subject_id``,
+        ``start_idx`` and ``end_idx`` pass through as scalar columns, as the
+        batch holds them (``start_time`` in minutes). Values keep the batch's
+        types, read to the host.
+
+        Examples:
+            >>> b = EventStreamBatch(event_mask=torch.tensor([[True, False]]), time=torch.tensor([[0.0, 2.0]]),
+            ...                      dynamic_indices=torch.tensor([[[3, 0], [4, 5]]]),
+            ...                      dynamic_measurement_indices=torch.tensor([[[1, 0], [1, 2]]]),
+            ...                      dynamic_values=torch.tensor([[[0.5, 0.0], [1.0, 2.0]]]),
+            ...                      dynamic_values_mask=torch.tensor([[[False, False], [True, True]]]))
+            >>> reps = b.convert_to_DL()
+            >>> reps.lists["time"].values.tolist(), reps.lists["dynamic_values"].values.tolist()
+            ([0.0], [nan])
+        """
+        import numpy as np
+
+        from .dl_cache import DLReps, RaggedColumn, lengths_to_offsets
+
+        b = self.map(lambda x: x.detach().cpu().numpy())
+        events = b.event_mask.astype(bool)
+        event_offsets = lengths_to_offsets(events.sum(1))
+        lists = {k: RaggedColumn(getattr(b, k)[events], event_offsets)
+                 for k in ("time_delta", "time") if getattr(b, k) is not None}  # fmt: skip
+        if b.static_indices is not None:
+            keep = b.static_indices != 0
+            offsets = lengths_to_offsets(keep.sum(1))
+            for k in ("static_indices", "static_measurement_indices"):
+                lists[k] = RaggedColumn(getattr(b, k)[keep], offsets)
+        dyn = b.dynamic_indices[events]
+        keep = dyn != 0
+        inner = lengths_to_offsets(keep.sum(1))
+        values = np.where(b.dynamic_values_mask, b.dynamic_values, np.nan).astype(b.dynamic_values.dtype)
+        for k, x in (("dynamic_indices", dyn), ("dynamic_measurement_indices", b.dynamic_measurement_indices[events]),
+                     ("dynamic_values", values[events])):  # fmt: skip
+            lists[k] = RaggedColumn(x[keep], event_offsets, inner)
+        scalars = {k: getattr(b, k) for k in ("start_time", "subject_id", "start_idx", "end_idx")
+                   if getattr(b, k) is not None}  # fmt: skip
+        return DLReps(scalars, lists)
+
     def slice(self, index) -> "EventStreamBatch":
         """Slices batch (dim 0), sequence (dim 1), and data-element (dim 2) axes."""
         if not isinstance(index, tuple):

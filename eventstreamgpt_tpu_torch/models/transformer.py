@@ -8,8 +8,12 @@ dep-graph route to kernel D, and the ``pallas_flash`` routes: kernel E for
 global layers, the band for narrow local windows, kernel F for wide ones),
 `InnerMLP`, `InnerBlock`, the CI input layer
 and transformer, and the nested-attention (NA) input layer and transformer
-with `StructuredTransformerBlock`, `NAPast` and the cached per-level walk
-(scan-over-layers and remat are not ported). Module attribute names
+with `StructuredTransformerBlock`, `NAPast` and the cached per-level walk,
+and `scan_period`. Remat runs each block under the configured policy
+(`models.remat`). Scan-over-layers (``scan_layers=True``) is a parameter
+layout in torch, not a compile saving: the scanned model builds the same
+per-layer modules ``h{i}`` and computes what the unrolled one does bit for
+bit; `convert.py` stacks and unstacks JAX's ``h_scan`` tree. Module attribute names
 follow the flax parameter paths (``encoder.h0.attn.attention.q_proj``,
 ``encoder.h0.block.dep_graph_block.mlp.c_fc``...), so
 `convert.load_jax_params` maps one tree onto the other by name.
@@ -42,9 +46,10 @@ from ..ops.band_attention import band_local_attention
 from ..ops.dep_graph import dep_graph_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.kv_quant import dequantize_kv, is_quantized_dtype, quantize_kv, resolve_cache_dtype, storage
-from ..ops.tensor_ops import dense, dropout, flax_layer_norm, segment_starts, take_event
+from ..ops.tensor_ops import dense, dropout, flax_layer_norm, generator_of, keep_mask, segment_starts, take_event
 from .config import StructuredTransformerConfig
 from .embedding import DataEmbeddingLayer
+from .remat import attend, remat_block
 from .structured_attention import StructuredAttention
 
 F32_MIN = torch.finfo(torch.float32).min
@@ -483,7 +488,9 @@ class InnerSelfAttention(nn.Module):
         # device picks the kernel or its plain version in ops/flash_attention.py.
         local = self.window_size is not None
         pallas = self.attention_implementation == "pallas_flash"
-        fused_ok = layer_past is None and not use_cache and (self.attention_dropout == 0.0 or dropout_rng is None)
+        fused_ok = layer_past is None and not use_cache and (
+            self.attention_dropout == 0.0 or generator_of(dropout_rng) is None
+        )
         kernel_ok = pallas and fused_ok and S % 128 == 0
         use_flash = kernel_ok and not local
         use_band = fused_ok and pallas and local and 1 <= self.window_size <= 128 and S % self.window_size == 0
@@ -494,9 +501,10 @@ class InnerSelfAttention(nn.Module):
             base = segment_ids if segment_ids is not None else torch.zeros_like(chunk_mask, dtype=torch.int32)
             seg = torch.where(chunk_mask, base.to(torch.int32), -1)
             if use_band:
-                out = band_local_attention(query, key, value, seg, self.window_size)
+                out = attend(dropout_rng, lambda rng: band_local_attention(query, key, value, seg, self.window_size))
             else:
-                out = flash_attention(query, key, value, seg, self.window_size if use_splash else None)
+                window = self.window_size if use_splash else None
+                out = attend(dropout_rng, lambda rng: flash_attention(query, key, value, seg, window))
             out = out.transpose(1, 2).reshape(B, S, E)
             return dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng), None
 
@@ -568,16 +576,19 @@ class InnerSelfAttention(nn.Module):
                 raise ValueError("packed (segment_ids) batches do not support KV caching")
             # Packed rows: queries attend only within their own segment.
             mask = mask & (segment_ids[:, None, :, None] == segment_ids[:, None, None, :])
-        # fp32 logits, no 1/sqrt(d) scaling (GPT-Neo lineage, as the JAX model).
-        attn = torch.matmul(query.float(), key.float().transpose(-1, -2))
-        attn = torch.where(mask, attn, F32_MIN)
-        if attention_mask is not None:
-            attn = attn + torch.where(attention_mask[:, None, None, :], 0.0, F32_MIN)
-        attn = torch.clamp(attn, min=F32_MIN)
-        attn = torch.softmax(attn, dim=-1).to(value.dtype)
-        attn = dropout(attn, self.attention_dropout, dropout_rng)
-        out = torch.matmul(attn, value)  # (B, H, q_len, D)
-        out = out.transpose(1, 2).reshape(B, q_len, E)
+
+        def core(rng):
+            # fp32 logits, no 1/sqrt(d) scaling (GPT-Neo lineage, as the JAX model).
+            attn = torch.matmul(query.float(), key.float().transpose(-1, -2))
+            attn = torch.where(mask, attn, F32_MIN)
+            if attention_mask is not None:
+                attn = attn + torch.where(attention_mask[:, None, None, :], 0.0, F32_MIN)
+            attn = torch.clamp(attn, min=F32_MIN)
+            attn = torch.softmax(attn, dim=-1).to(value.dtype)
+            attn = dropout(attn, self.attention_dropout, rng)
+            return torch.matmul(attn, value)  # (B, H, q_len, D)
+
+        out = attend(dropout_rng, core).transpose(1, 2).reshape(B, q_len, E)
         out = dropout(dense(out, self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
         return out, (present if use_cache else None)
 
@@ -599,15 +610,18 @@ class InnerSelfAttention(nn.Module):
         key = dense(hidden_states, self.k_proj, self.dtype).reshape(B, S, H, D)
         value = dense(hidden_states, self.v_proj, self.dtype).reshape(B, S, H, D)
         q_len = S - q_offset
-        # The keep-mask is drawn here, outside the kernel, as the JAX model draws it.
-        keep = None
-        if dropout_rng is not None and self.attention_dropout > 0.0:
-            keep_prob = 1.0 - self.attention_dropout
-            keep = torch.rand((B, q_len, S, H), generator=dropout_rng, device=query.device) < keep_prob
-        out = dep_graph_attention(
-            query, key, value, q_offset=q_offset, window=self.window_size, dropout_mask=keep,
-            dropout_rate=self.attention_dropout,
-        )  # fmt: skip
+
+        def core(rng):
+            # The keep-mask is drawn here, outside the kernel, as the JAX model draws it.
+            keep = None
+            if generator_of(rng) is not None and self.attention_dropout > 0.0:
+                keep = keep_mask((B, q_len, S, H), 1.0 - self.attention_dropout, rng, query.device)
+            return dep_graph_attention(
+                query, key, value, q_offset=q_offset, window=self.window_size, dropout_mask=keep,
+                dropout_rate=self.attention_dropout,
+            )  # fmt: skip
+
+        out = attend(dropout_rng, core)
         return dropout(dense(out.reshape(B, q_len, E), self.out_proj, self.dtype), self.resid_dropout, dropout_rng)
 
 
@@ -723,21 +737,37 @@ class TransformerOutputWithPast:
     contextualized: Optional[tuple] = None
 
 
-CI_REMAT_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 8: CI remat and scan-over-layers)"
+def scan_period(config: StructuredTransformerConfig) -> tuple[int, int]:
+    """``(period, n_groups)`` of the attention-type pattern under scan (JAX's
+    `scan_period`): the smallest ``p`` dividing ``num_hidden_layers`` such
+    that every attention-type list (``seq_attention_layers`` and, for NA
+    models, ``dep_graph_attention_layers``) is ``p``-periodic; JAX's scanned
+    tree stacks layer ``g * p + j`` as group ``g`` of ``h_scan/b{j}``.
+
+    Examples:
+        >>> scan_period(StructuredTransformerConfig(num_hidden_layers=4, seq_attention_types=["local", "global"]))
+        (2, 2)
+        >>> scan_period(StructuredTransformerConfig(num_hidden_layers=3, seq_attention_types=["global"]))
+        (1, 3)
+    """
+    L = config.num_hidden_layers
+    lists = [config.seq_attention_layers]
+    if getattr(config, "dep_graph_attention_layers", None) is not None:
+        lists.append(config.dep_graph_attention_layers)
+    for p in range(1, L + 1):
+        if L % p != 0:
+            continue
+        if all(lst[i] == lst[i % p] for lst in lists for i in range(L)):
+            return p, L // p
+    return L, 1
 
 
 class ConditionallyIndependentPointProcessTransformer(nn.Module):
-    """Stack of `InnerBlock`s over whole-event embeddings (flax names ``h{i}``)."""
+    """Stack of `InnerBlock`s over whole-event embeddings (flax names
+    ``h{i}``), each under ``config.gradient_checkpointing`` (`models.remat`)."""
 
     def __init__(self, config: StructuredTransformerConfig):
         super().__init__()
-        if config.scan_layers:
-            raise ValueError(
-                "scan_layers checkpoints store the stacked h_scan layout; migrate with "
-                "eventstreamgpt_tpu's unstack_layer_params before loading into the port"
-            )
-        if config.gradient_checkpointing != "none":
-            raise ValueError(f"gradient_checkpointing={config.gradient_checkpointing!r} (remat) {CI_REMAT_WAITS}")
         self.config = config
         self.input_layer = ConditionallyIndependentPointProcessInputLayer(config)
         self.layer_names = [f"h{i}" for i in range(config.num_hidden_layers)]
@@ -753,8 +783,11 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
         dropout on; None (the default) is deterministic."""
         hidden_states = self.input_layer(batch, dropout)
         presents = [] if use_cache else None
+        policy = "none" if use_cache or past is not None else self.config.gradient_checkpointing
         for i, block in enumerate(self.blocks()):
-            hidden_states, present = block(
+            hidden_states, present = remat_block(
+                policy,
+                block,
                 hidden_states,
                 attention_mask=batch.event_mask,
                 layer_past=past[i] if past is not None else None,
@@ -770,9 +803,6 @@ class ConditionallyIndependentPointProcessTransformer(nn.Module):
             last_hidden_state=self.ln_f(hidden_states),
             past_key_values=tuple(presents) if use_cache else None,
         )
-
-
-NA_WAITS = "is not part of the PyTorch port yet (ROADMAP Queue 1 item 4: NA scan-over-layers and remat)"
 
 
 @dataclasses.dataclass
@@ -948,10 +978,6 @@ class NestedAttentionPointProcessTransformer(nn.Module):
 
     def __init__(self, config: StructuredTransformerConfig):
         super().__init__()
-        if config.scan_layers:
-            raise ValueError(f"scan_layers for nested-attention models {NA_WAITS}")
-        if config.gradient_checkpointing != "none":
-            raise ValueError(f"gradient_checkpointing (remat) for nested-attention models {NA_WAITS}")
         self.config = config
         self.input_layer = NestedAttentionPointProcessInputLayer(config)
         self.layer_names = [f"h{i}" for i in range(config.num_hidden_layers)]
@@ -980,7 +1006,14 @@ class NestedAttentionPointProcessTransformer(nn.Module):
         in JAX: ``partial_content_levels`` (the input layer's),
         ``history_head`` (one ``(B, hidden)`` history a layer for the first
         event) and ``return_contextualized`` (each layer's contextualized
-        events on the output)."""
+        events on the output); they need the unrolled stack, and a
+        ``scan_layers`` model refuses them with JAX's words. Each block runs
+        under ``config.gradient_checkpointing`` (`models.remat`)."""
+        if (history_head is not None or return_contextualized) and self.config.scan_layers:
+            raise NotImplementedError(
+                "history_head / return_contextualized (the speculative-decoding verify plumbing) require the "
+                "unrolled layer stack; migrate the checkpoint with unstack_layer_params"
+            )
         if batch.segment_ids is not None and (use_cache or past is not None):
             raise NotImplementedError(
                 "Packed (segment_ids) batches do not support KV-cached NA decoding; train/eval forwards handle "
@@ -1013,8 +1046,11 @@ class NestedAttentionPointProcessTransformer(nn.Module):
                                          partial_content_levels=partial_content_levels)  # fmt: skip
         B, L = hidden_states.shape[:2]
         presents_seq, presents_dep, contextualized = [], [], []
+        policy = "none" if use_cache or past is not None else self.config.gradient_checkpointing
         for i, name in enumerate(self.layer_names):
-            hidden_states, seq_present, dep_present, ctx = getattr(self, name)(
+            hidden_states, seq_present, dep_present, ctx = remat_block(
+                policy,
+                getattr(self, name),
                 hidden_states,
                 history_head=None if history_head is None else history_head[i],
                 seq_attention_mask=batch.event_mask,

@@ -53,7 +53,7 @@ __all__ = [
 
 SOURCE = "flash_attention.cu"
 DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-HEAD_DIMS = (32, 64)  # the kernel's template instances
+HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
 TILE = 64  # queries and keys per tile: S must be a multiple
 MAX_TILES = 65535  # tiles of a row: the grid's y dimension
 ALIGN = 16  # bytes: the kernels load rows in 16-byte pieces

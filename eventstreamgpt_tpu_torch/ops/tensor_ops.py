@@ -265,10 +265,27 @@ def exact_dense(x: torch.Tensor, layer, dtype: torch.dtype) -> torch.Tensor:
     return dense(x, layer, dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def generator_of(rng) -> torch.Generator | None:
+    """The ``torch.Generator`` behind a dropout source: the generator itself,
+    None, or the one a `models.remat.RematTape` draws from."""
+    return rng if rng is None or isinstance(rng, torch.Generator) else rng.generator
+
+
+def keep_mask(shape, keep_prob: float, rng, device) -> torch.Tensor:
+    """A dropout keep mask, ``rand(shape) < keep_prob``, drawn from a
+    ``torch.Generator`` or handed out by a `models.remat.RematTape` (which
+    draws it once and gives the recompute of a rematerialized block the same
+    mask)."""
+    if isinstance(rng, torch.Generator):
+        return torch.rand(shape, generator=rng, device=device) < keep_prob
+    return rng.keep(shape, keep_prob, device)
+
+
+def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
     """flax ``nn.Dropout``: ``where(keep, x / keep_prob, 0)`` in x's dtype,
-    with the keep mask drawn from ``generator``; the identity when
-    ``generator`` is None (deterministic mode) or ``rate`` is 0.
+    with the keep mask drawn from ``generator`` (a ``torch.Generator`` or a
+    `models.remat.RematTape`, `keep_mask`); the identity when there is no
+    generator (deterministic mode) or ``rate`` is 0.
 
     Examples:
         >>> dropout(torch.ones(4), 0.5, None)
@@ -276,10 +293,10 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> 
         >>> sorted(set(dropout(torch.ones(64), 0.5, torch.Generator().manual_seed(0)).tolist()))
         [0.0, 2.0]
     """
-    if generator is None or rate == 0.0:
+    if generator_of(generator) is None or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = keep_mask(x.shape, keep_prob, generator, x.device)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -319,6 +319,11 @@ _NA_PAGED = (
     "paged KV cache does not support nested-attention models yet: the dep-graph caches reset per event and do not "
     "page; run NA engines with paged_kv=False"
 )
+# JAX's refusal of NA speculative decoding over a scan_layers model (its words).
+_NA_SPEC_SCAN = (
+    "NA speculative decoding requires the unrolled layer stack (the verify pass threads per-layer history heads); "
+    "migrate the checkpoint with unstack_layer_params"
+)
 # JAX's refusals of the prefill stream on a paged engine (its words).
 _PAGED_STREAM = (
     "paged engines do not serve behind a dedicated prefill stream yet: the handoff admit would need the decode "
@@ -591,6 +596,8 @@ class GenerationEngine:
             if decode_step_impl == "pallas":
                 raise ValueError(_NA_MEGAKERNEL)
         self.spec = spec
+        if spec is not None and self._na and config.scan_layers:
+            raise ValueError(_NA_SPEC_SCAN)
         if spec is not None:
             spec.validate_against(config)
             if tuple(device_criteria):

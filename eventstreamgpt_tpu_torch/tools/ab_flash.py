@@ -23,6 +23,11 @@ Run from the root of a checkout:
     python -m eventstreamgpt_tpu_torch.tools.ab_flash                       # the checkout's source
     python -m eventstreamgpt_tpu_torch.tools.ab_flash old=build/old.cu new=build/new.cu:NAME=1
     python -m eventstreamgpt_tpu_torch.tools.ab_flash --trace --out build/ab_flash.json
+    python -m eventstreamgpt_tpu_torch.tools.ab_flash --heads 8 --head-dim 128 --registers
+
+``--heads`` / ``--head-dim`` set the shape (bench.py's production width is
+8 heads of 128); ``--registers`` prints each kernel's registers, shared
+memory and spills as ``nvcc -Xptxas -v`` reports them for every version.
 
 A version is ``name=path`` with optional ``:NAME=VALUE,NAME2`` macro
 definitions; it must have this source's C interface. It exits non-zero
@@ -129,16 +134,30 @@ def run(lib, q, k, v, g, seg, window, trace: bool) -> dict:
         fwd()
         bwd()
         torch.cuda.synchronize()
-        result["trace"] = trace_summary(read_trace(lib, B * H * S // fa.TILE))
+        result["trace"] = trace_summary(read_trace(lib, q.shape[0] * q.shape[1] * q.shape[2] // fa.TILE))
     return result
+
+
+def ptxas_report(path: str) -> str:
+    """``nvcc -Xptxas -v``'s lines for the source at ``path`` (compiled to a
+    cubin that is thrown away): each kernel's registers, shared memory and spills."""
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [build.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v", "-o", "/dev/null", path]
+    out = subprocess.run(cmd, capture_output=True, text=True, check=True)
+    keep = ("Compiling entry", "registers", "spill")
+    return "\n".join(line for line in (out.stdout + out.stderr).splitlines() if any(k in line for k in keep))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     parser.add_argument("versions", nargs="*", help="name=path[:MACRO=VALUE,...]; default: the checkout's source")
     parser.add_argument("--trace", action="store_true", help="build with the per-block trace and summarise it")
+    parser.add_argument("--heads", type=int, default=H)
+    parser.add_argument("--head-dim", type=int, default=D)
+    parser.add_argument("--registers", action="store_true", help="print nvcc -Xptxas -v for each version")
     parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
+    heads, head_dim = args.heads, args.head_dim
     if not torch.cuda.is_available():
         print("ab_flash: no CUDA device", file=sys.stderr)
         return 2
@@ -147,18 +166,21 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     versions = args.versions or [f"checkout={build.CSRC_DIR / fa.SOURCE}"]
     libs = build_versions(versions, args.trace)
+    if args.registers:
+        for spec in versions:
+            print(f"{spec}:\n{ptxas_report(spec.split('=', 1)[1].partition(':')[0])}", flush=True)
     batch = packed_batch(serving_config(), 512, B, S)
     packed = torch.where(batch.event_mask, batch.segment_ids.to(torch.int32), -1).cuda()
     rng = np.random.default_rng(0)
-    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(np.float32) * scale).to(torch.bfloat16)
-                  .cuda().transpose(1, 2) for scale in (0.3, 0.3, 1.0, 1.0))  # fmt: skip
-    report = dict(card=smi, shape=[B, H, S, D], cases={})
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, S, heads, head_dim)).astype(np.float32) * scale)
+                  .to(torch.bfloat16).cuda().transpose(1, 2) for scale in (0.3, 0.3, 1.0, 1.0))  # fmt: skip
+    report = dict(card=smi, shape=[B, heads, S, head_dim], cases={})
     order = list(libs) + [next(iter(libs))]  # each version, then the first again
     for case, seg, window in (("packed", packed, None), ("packed_w256", packed, 256),
                               ("one_segment", torch.zeros_like(packed), None)):  # fmt: skip
-        causal = fa.causal_tiles(S // fa.TILE, window).sum().item() * B * H
-        report["cases"][case] = dict(causal_tiles=causal, schedule_tiles=fa.tile_schedule(seg, window).sum().item() * H,
-                                     runs=[])  # fmt: skip
+        causal = fa.causal_tiles(S // fa.TILE, window).sum().item() * B * heads
+        report["cases"][case] = dict(causal_tiles=causal, runs=[],
+                                     schedule_tiles=fa.tile_schedule(seg, window).sum().item() * heads)  # fmt: skip
         for turn, name in enumerate(order):
             res = dict(version=name, turn=turn, **run(libs[name], q, k, v, g, seg, window, args.trace))
             report["cases"][case]["runs"].append(res)

@@ -711,6 +711,11 @@ FLASH_CASES = [
     (2, 2, 384, 64, None, "padmid"),
     (2, 2, 256, 64, None, "single"),
     (1, 2, 256, 32, 200, "single"),
+    # head_dim 128 (bench.py's production width: 8 heads of 128 at hidden 1,024)
+    (2, 2, 256, 128, None),
+    (1, 3, 320, 128, 160),
+    (2, 2, 384, 128, None, "unordered"),
+    (1, 2, 256, 128, 40, "padmid"),
 ]
 
 
@@ -1111,6 +1116,75 @@ def test_captured_train_step_equals_eager_step(cuda, na):
     assert len(set(out[True][0][:, 0].tolist())) == 3
     for a, b in zip(out[True][1], out[False][1]):
         assert torch.equal(a, b)
+
+
+REMAT_WIDTHS = dict(sizes=(5, 8, 6, 3), hidden_size=256, num_attention_heads=2, head_dim=128, intermediate_size=512,
+                    seq_window_size=32)
+
+
+def remat_steps(cuda, policy, graph, na=False):
+    """Three bf16 steps (dropout 0.1) of the packed model at head_dim 128
+    (global layer on kernel E, local on the band) or of the NA model under
+    ``policy``: ``(health vectors, weights, AdamW tensors, launches)``."""
+    from eventstreamgpt_tpu_torch.data.synthetic import (
+        na_training_config,
+        packed_batch,
+        packed_training_config,
+        serving_config,
+        synthetic_training_batches,
+    )
+    from eventstreamgpt_tpu_torch.models.config import OptimizationConfig
+    from eventstreamgpt_tpu_torch.training import build_model, build_optimizer, make_train_step
+
+    if na:
+        widths = dict(GRAPH_WIDTHS)
+        batch = next(synthetic_training_batches(np.random.default_rng(0), serving_config(**widths), 4, 32))
+        config = na_training_config([batch], gradient_checkpointing=policy, **widths)
+    else:
+        batch = packed_batch(serving_config(**REMAT_WIDTHS), 40, 2, 256, seed=0, mean_seq_len=16)
+        config = packed_training_config([batch], gradient_checkpointing=policy, **REMAT_WIDTHS)
+    model = init_params_from_seed(build_model(config), seed=0)
+    optimizer, scheduler = build_optimizer(model, OptimizationConfig(init_lr=1e-3, lr_num_warmup_steps=0,
+                                                                     lr_frac_warmup_steps=None, max_training_steps=10))
+    step = make_train_step(model, optimizer, scheduler, device=cuda, with_health=True, cuda_graph=graph)
+    counters = (flash_attention_fwd, flash_attention_bwd, dep_graph_fwd, dep_graph_bwd)
+    for fn in counters:
+        fn.launches = 0
+    healths = torch.stack([step(batch, 7)[1] for _ in range(3)]).cpu()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    adam = [t.detach().cpu() for st in optimizer.state.values() for t in (st["exp_avg"], st["exp_avg_sq"])]
+    return healths, [p.detach().cpu() for p in model.parameters()], adam, launches
+
+
+@pytest.mark.parametrize("policy", ["none", "block", "dots", "dots_no_batch", "save_attention"])
+def test_captured_remat_step_equals_eager_and_the_plain_step(cuda, policy):
+    """Under capture each remat policy's step equals its eager run and the
+    ``"none"`` step, bit for bit (losses, health, weights, AdamW tensors),
+    with dropout 0.1; kernel E's forward launches once a global layer a
+    step under ``none`` and ``save_attention`` and twice under the
+    recomputing policies, its backward once, counted through the replays."""
+    plain = remat_steps(cuda, "none", True)
+    for graph in (True, False):
+        got = remat_steps(cuda, policy, graph)
+        assert torch.equal(got[0], plain[0]), (policy, graph, got[0], plain[0])
+        for a, b in zip(got[1] + got[2], plain[1] + plain[2]):
+            assert torch.equal(a, b)
+        fwd = 3 if policy in ("none", "save_attention") else 6
+        assert got[3] == {"flash_attention_fwd": fwd, "flash_attention_bwd": 3, "dep_graph_fwd": 0,
+                          "dep_graph_bwd": 0}, got[3]  # fmt: skip
+
+
+def test_captured_na_block_remat_step_equals_the_plain_step(cuda):
+    """The NA model under ``block``, captured, equals its ``none`` step bit
+    for bit with dropout 0.1; kernel D's forward runs twice a layer a step
+    (the recompute), its backward once."""
+    plain, got = remat_steps(cuda, "none", True, na=True), remat_steps(cuda, "block", True, na=True)
+    assert torch.equal(got[0], plain[0])
+    for a, b in zip(got[1] + got[2], plain[1] + plain[2]):
+        assert torch.equal(a, b)
+    L = 2  # GRAPH_WIDTHS' layers (the serving config's)
+    assert plain[3]["dep_graph_fwd"] == 3 * L and got[3]["dep_graph_fwd"] == 6 * L
+    assert got[3]["dep_graph_bwd"] == plain[3]["dep_graph_bwd"] == 3 * L
 
 
 @pytest.mark.parametrize("name", ["ci", "na", "packed"])

@@ -2,7 +2,8 @@
 
 * ``import eventstreamgpt_tpu_torch`` (every module) works with JAX, pandas
   and pyarrow blocked; no module imports pandas or pyarrow at module level,
-  and only `data.dl_cache.convert_dl_cache`'s body imports pyarrow at all.
+  and only `data.dl_cache`'s converter and parquet export (their bodies)
+  import pyarrow at all.
 * An AST scan finds no ``jax``, ``flax`` or ``eventstreamgpt_tpu`` import in
   the port or in ``chip_smoke.py``, and no ``triton`` import.
 * A JAX config's ``to_dict()`` round-trips through the port's config (and
@@ -64,14 +65,18 @@ def test_every_module_imports_with_jax_blocked():
      "eventstreamgpt_tpu_torch.training.metrics", "eventstreamgpt_tpu_torch.training.generative_metrics",
      "eventstreamgpt_tpu_torch.reliability.faults", "eventstreamgpt_tpu_torch.reliability.integrity",
      "eventstreamgpt_tpu_torch.reliability.sentinel", "eventstreamgpt_tpu_torch.analysis.compile_guard",
-     "eventstreamgpt_tpu_torch.models.fine_tuning_model", "eventstreamgpt_tpu_torch.training.embedding"],
+     "eventstreamgpt_tpu_torch.models.fine_tuning_model", "eventstreamgpt_tpu_torch.training.embedding",
+     "eventstreamgpt_tpu_torch.models.remat", "eventstreamgpt_tpu_torch.evaluation",
+     "eventstreamgpt_tpu_torch.evaluation.general_generative_evaluation",
+     "eventstreamgpt_tpu_torch.evaluation.mcf_evaluation"],
 )  # fmt: skip
 def test_sweep_covers_the_resident_feed(module):
     """The resident feed, the chunked step, speculative decoding, the fleet's
     router, the serving fault plan, the row-invariance tool, the DL-cache
     reader, the prefetch thread, the metrics, the training reliability
-    modules, the capture guard, the stream classifier and embedding
-    extraction are in the blocked import sweep above."""
+    modules, the capture guard, the stream classifier, embedding
+    extraction, remat, and trajectory generation with the MCF evaluation
+    are in the blocked import sweep above."""
     assert module in MODULES
 
 
@@ -143,7 +148,7 @@ def module_level_roots(path: Path) -> set[str]:
 )
 def test_no_pandas_or_pyarrow_at_import(path):
     """The card's machine has neither: nothing imports them at module level,
-    and only the converter (``data/dl_cache.py``) imports pyarrow at all."""
+    and only the converter and parquet export (``data/dl_cache.py``) import pyarrow at all."""
     assert not (module_level_roots(path) & {"pandas", "pyarrow"}), path
     if path.name != "dl_cache.py":
         assert not (imported_roots(path) & {"pandas", "pyarrow"}), path

@@ -324,9 +324,10 @@ def test_make_train_step_defaults_to_cuda(cases):
 def test_build_model_refuses_nested_attention():
     """`build_model` builds the NA model, whose encoder takes the engine's
     bucket-padded prefill (``last_event_index``: each row's dep-graph
-    history seeded from that event, ``tests/test_torch_na_engine.py``); what
-    the port still refuses of it is scan and remat (the NA caches and the
-    per-level walk are ported: ``tests/test_torch_generate.py``)."""
+    history seeded from that event, ``tests/test_torch_na_engine.py``), and
+    under scan and remat builds the same modules (the NA caches and the
+    per-level walk are ported: ``tests/test_torch_generate.py``; remat and
+    scan: ``tests/test_torch_remat_scan.py``)."""
     na = dict(SMALL, structured_event_processing_mode="nested_attention", measurements_per_dep_graph_level=[[], ["a"]])
     config = StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na)
     model = build_model(config)
@@ -345,17 +346,6 @@ def test_build_model_refuses_nested_attention():
     with pytest.raises(ValueError, match="is_generation"):
         model.output_layer(batch, torch.zeros(1, 2, 2, 32), is_generation=False, dep_graph_el_generation_target=1)
     for knob in (dict(scan_layers=True), dict(gradient_checkpointing="block")):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            build_model(StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na, **knob))
-
-
-@pytest.mark.parametrize("policy", ["block", "dots", "dots_no_batch", "save_attention"])
-def test_ci_model_refuses_remat(policy):
-    """A CI model with any of JAX's remat policies raises, naming Queue 1
-    item 8 (the policy names still load, so one ``config.json`` serves both
-    packages); ``"none"`` builds."""
-    config = StructuredTransformerConfig(**SMALL, gradient_checkpointing=policy)
-    assert config.gradient_checkpointing == policy
-    with pytest.raises(ValueError, match="remat.*ROADMAP Queue 1 item 8"):
-        build_model(config)
-    assert build_model(StructuredTransformerConfig(**SMALL)) is not None
+        knobbed = build_model(StructuredTransformerConfig(measurements_idxmap={"a": 1}, **na, **knob))
+        assert isinstance(knobbed, NAPPTForGenerativeSequenceModeling)
+        assert sorted(dict(knobbed.named_parameters())) == sorted(dict(model.named_parameters()))
