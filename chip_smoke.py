@@ -522,7 +522,38 @@ Phases (a failed phase exits non-zero; nothing is caught and passed over):
    after the prompt finite. Printed beside the card's name and power limit:
    generated events/s of each split (each `generate` call's host clock) and
    the MCF step's seconds.
-23. The wall seconds of each phase function (`tools/phase_times.py`), one
+23. The entry points (`eventstreamgpt_tpu_torch.scripts`) on the card,
+   each through its ``main(argv)`` with no device, at phase 4's CI widths
+   (hidden 256, 4 heads x 64, 2 layers local/global, window 32,
+   intermediate 1,024, bf16, dropout 0.1), every config read by
+   `utils.yaml_subset` (PyYAML never imported). (a) The chain: `pretrain`
+   with ``--config configs/pretrain_base.yaml`` and overrides (the widths,
+   the committed converted sample cohort at rows of 128, batches of 32, 2
+   epochs of 3 steps, a log window an epoch, ``save_dir=${experiment_dir}/pretrain``,
+   the final metrics skipped): its ``pretrain_config.yaml`` reads back to the resolved
+   config, losses finite, a capture; then `finetune`, `zeroshot` (8 samples
+   of 64 new events, the paged engine), `get_embeddings` and
+   `generate_trajectories` (4 samples of 32) on its ``high_utilization``
+   task from that save_dir: JAX's files, finite values, kernel A counted
+   in zero-shot and trajectories (kernel C idle: the cohort's numeric
+   measurements are univariate). (b) `launch_hp_sweep --run` with a sweep
+   YAML in the repository's dialect (``defaults: [_self_]``, the widths as
+   ``value`` leaves, ``resid_dropout``, ``init_lr`` and ``weight_decay``
+   sampled), 3 trials, ``early_terminate: {type: hyperband, min_iter: 1,
+   eta: 3}``, 3 epochs on phase 18's cohort: two trials stopped at rung 0,
+   the rung-0 best promoted and resumed in a fresh `pretrain.main` to
+   epoch 3, its tuning loss and weights equal to the same trial run
+   uninterrupted, bit for bit; kernel C counted. (c) ``python -m
+   eventstreamgpt_tpu_torch.scripts.pretrain --config <yaml>`` as a
+   subprocess on phase 18's cohort (the kernels found built), SIGTERM once
+   ``train_log.jsonl`` has records: exit 85, the newest checkpoint verified
+   and covering every logged step; a second launch resumes and finishes,
+   its weights and logged losses equal to an uninterrupted in-process run
+   bit for bit. Printed beside the card's name and power limit: each
+   part's seconds, the chain's trained events/s a log window, the
+   trajectories' generated events/s over the entry point's wall, each
+   main's wall, the sweep's rung-0 losses and kernels A and C's launches.
+24. The wall seconds of each phase function (`tools/phase_times.py`), one
    ``{"kernels": [...]}`` line, then the device line as the last line.
 
 Timing: each kernel, its plain version and the nearest single PyTorch call
@@ -5161,6 +5192,268 @@ def trajectories_phase(smi, pre: dict, tmp: Path) -> dict:
     return dict(launches_a=launches_a, rates=rates, mcf_s=mcf_s)
 
 
+ENTRY_CONFIG = dict(hidden_size=256, head_dim=64, intermediate_size=1024, seq_window_size=32,
+                    num_attention_heads=4, num_hidden_layers=2, seq_attention_types=["local", "global"],
+                    TTE_generation_layer_type="log_normal_mixture", TTE_lognormal_generation_num_components=3,
+                    precision="bf16")  # phase 4's CI model (bench.py's serving and training widths), dropout 0.1
+ENTRY_TRAJ_SAMPLES, ENTRY_TRAJ_NEW = 4, 32
+SWEEP_EPOCHS, SIGTERM_EPOCHS = 3, 6
+
+
+def config_args(prefix: str, values: dict) -> list:
+    """``prefix.key=value`` overrides, each value as the sweep writes it (JSON)."""
+    return [f"{prefix}.{k}={v if isinstance(v, str) else json.dumps(v)}" for k, v in values.items()]
+
+
+def entry_points_phase(smi, pre: dict, tmp: Path) -> dict:
+    """Phase 23: the port's entry points on the card (module docstring)."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+
+    from eventstreamgpt_tpu_torch.data.dl_cache import read_dl_reps
+    from eventstreamgpt_tpu_torch.data.torch_dataset import TorchDataset
+    from eventstreamgpt_tpu_torch.evaluation import GenerateConfig
+    from eventstreamgpt_tpu_torch.ops.fused_sampling import fused_categorical_stream
+    from eventstreamgpt_tpu_torch.ops.vocab_gather import vocab_gather_bwd, vocab_gather_fwd
+    from eventstreamgpt_tpu_torch.reliability import EXIT_PREEMPTED
+    from eventstreamgpt_tpu_torch.reliability.integrity import ReliableCheckpointManager
+    from eventstreamgpt_tpu_torch.scripts import (
+        finetune,
+        generate_trajectories,
+        get_embeddings,
+        launch_hp_sweep,
+        parse_cli,
+        pretrain,
+        zeroshot,
+    )
+    from eventstreamgpt_tpu_torch.utils import yaml_subset
+    from eventstreamgpt_tpu_torch.utils.config_tool import load_config
+
+    counters = (fused_categorical_stream, vocab_gather_fwd, vocab_gather_bwd)
+    root = tmp / "entry_points"
+    runs: dict = {}
+
+    def run(name, main, args):
+        """``main(args)`` with the counters zeroed before; its wall and launches."""
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = main(args)
+        torch.cuda.synchronize()
+        runs[name] = dict(wall=time.perf_counter() - t0, launches={fn.__name__: fn.launches for fn in counters})
+        return out
+
+    def launches(*names, kernel):
+        return sum(runs[n]["launches"][kernel] for n in names)
+
+    # (a) the chain through each main() on the committed converted sample cohort
+    t_a = time.perf_counter()
+    chain = root / "chain"
+    pre_args = ["--config", str(REPO / "configs" / "pretrain_base.yaml"), f"data_config.save_dir={FUNCTOR_DATA}",
+                f"data_config.max_seq_len={ZS_SEQ}", "data_config.min_seq_len=4", *config_args("config", ENTRY_CONFIG),
+                "optimization_config.init_lr=1e-3", "optimization_config.max_epochs=2", "optimization_config.batch_size=32",
+                "optimization_config.validation_batch_size=32", "optimization_config.lr_frac_warmup_steps=0.1",
+                "final_validation_metrics_config.do_skip_all_metrics=true", "trainer_config.log_every_n_steps=3",
+                f"experiment_dir={chain}",
+                "save_dir=${experiment_dir}/pretrain", "do_overwrite=true"]  # fmt: skip
+    loss, tuning_m, held_out_m = run("pretrain", pretrain.main, pre_args)
+    save = chain / "pretrain"
+    yaml_fp, overrides, _ = parse_cli(pre_args)
+    resolved = pretrain.resolved_config(load_config(pretrain.PretrainConfig, yaml_file=yaml_fp, overrides=overrides))
+    check(yaml_subset.load_file(save / "pretrain_config.yaml") == resolved and resolved["save_dir"] == str(save),
+          "phase 23 (a): pretrain_config.yaml does not read back to the resolved config")  # fmt: skip
+    log = read_train_log(save)
+    epochs = [r for r in log if r["split"] == "tuning"]
+    check(math.isfinite(loss) and len(epochs) == 2 and all(math.isfinite(r["tuning_loss"]) for r in epochs)
+          and epochs[-1]["graph_captures"] >= 1 and all(math.isfinite(v) for v in {**tuning_m, **held_out_m}.values()),
+          f"phase 23 (a): pretrain {loss} {epochs}")  # fmt: skip
+    config = json.loads((save / "config.json").read_text())
+    check(config["hidden_size"] == 256 and config["precision"] == "bf16" and config["seq_attention_types"] == ["local", "global"],
+          f"phase 23 (a): the written config.json {config}")  # fmt: skip
+    multivariate = any(m["modality"] == "multivariate_regression" for m in config["measurement_configs"].values())
+    check((launches("pretrain", kernel="vocab_gather_fwd") > 0) == multivariate,
+          f"phase 23 (a): kernel C {runs['pretrain']['launches']}, multivariate regression {multivariate}")  # fmt: skip
+    opt = ["optimization_config.init_lr=1e-3", "optimization_config.max_epochs=2", "optimization_config.batch_size=32",
+           "optimization_config.validation_batch_size=32", "optimization_config.lr_frac_warmup_steps=0.1",
+           "trainer_config.log_every_n_steps=3"]  # fmt: skip
+    ft_loss, _, _ = run("finetune", finetune.main, [f"load_from_model_dir={save}", f"task_df_name={ZS_TASK}", *opt])
+    ft_dir = save / "finetuning" / ZS_TASK
+    check(math.isfinite(ft_loss) and (ft_dir / "tuning_metrics.json").exists() and (ft_dir / "held_out_metrics.json").exists(),
+          f"phase 23 (a): finetune {ft_loss}")  # fmt: skip
+    zs_tuning, zs_held_out = run("zeroshot", zeroshot.main, [
+        f"load_from_model_dir={save}", f"task_df_name={ZS_TASK}", "data_config_overrides.seq_padding_side=left",
+        f"config_overrides.max_seq_len={ZS_SEQ + ZS_NEW}", f"task_specific_params.num_samples={ZS_SAMPLES}",
+        f"optimization_config.validation_batch_size={ZS_BATCH}", f"save_dir={chain / 'zeroshot'}"])  # fmt: skip
+    for split, m in (("tuning", zs_tuning), ("held_out", zs_held_out)):
+        written = json.loads((chain / "zeroshot" / f"zero_shot_{split}_metrics.json").read_text())
+        check(written == m and f"{split}_frac_unpredictable" in m, f"phase 23 (a): zeroshot {split} metrics {m}")
+    check(launches("zeroshot", kernel="fused_categorical_stream") > 0, f"phase 23 (a): zeroshot {runs['zeroshot']}")
+    emb = run("get_embeddings", get_embeddings.main, [f"load_from_model_dir={save}", f"task_df_name={ZS_TASK}"])
+    shapes = {split: np.load(fp).shape for split, fp in emb.items()}
+    check(sorted(emb) == ["held_out", "train", "tuning"] and all(s[0] > 0 and s[1:] == (256,) for s in shapes.values())
+          and all(np.isfinite(np.load(fp)).all() for fp in emb.values()), f"phase 23 (a): embeddings {shapes}")  # fmt: skip
+    traj_args = [f"load_from_model_dir={save}", f"task_specific_params.num_samples={ENTRY_TRAJ_SAMPLES}",
+                 f"task_specific_params.max_new_events={ENTRY_TRAJ_NEW}", "optimization_config.validation_batch_size=32",
+                 f"save_dir={chain / 'trajectories'}"]  # fmt: skip
+    out = run("generate_trajectories", generate_trajectories.main, traj_args)
+    check(launches("generate_trajectories", kernel="fused_categorical_stream") > 0,
+          f"phase 23 (a): generate_trajectories {runs['generate_trajectories']}")  # fmt: skip
+    gcfg = load_config(GenerateConfig, overrides=traj_args)
+    generated = 0
+    for split in ("tuning", "held_out"):
+        files = sorted(p.name for p in (out / split).iterdir())
+        check(files == [f"sample_{i}_local_rank_0.npz" for i in range(ENTRY_TRAJ_SAMPLES)],
+              f"phase 23 (a): {split} files {files}")  # fmt: skip
+        prompt = sum(int(b.event_mask.sum()) for b in TorchDataset(gcfg.data_config, split).batches(
+            32, shuffle=False, drop_last=False, seed=0))  # fmt: skip
+        for name in files:
+            total = int(read_dl_reps(out / split / name).lists["time_delta"].offsets[-1])
+            check(total > prompt, f"phase 23 (a): {split} {name} holds {total} events, its prompts {prompt}")
+            generated += total - prompt
+    a_s = time.perf_counter() - t_a
+
+    # (b) the sweep: ASHA over phase 18's cohort, the promoted trial against its uninterrupted run
+    t_b = time.perf_counter()
+    sweep = {
+        "defaults": ["_self_"], "program": "pretrain.py", "method": "random", "name": "phase_23", "n_trials": 3,
+        "seed": SEED, "sweep_dir": str(root / "sweep"), "metric": {"goal": "minimize", "name": "tuning_loss"},
+        "early_terminate": {"type": "hyperband", "min_iter": 1, "eta": 3},
+        "parameters": {
+            "config": {**{k: {"value": v} for k, v in ENTRY_CONFIG.items()}, "resid_dropout": {"min": 0.0, "max": 0.2}},
+            "optimization_config": {
+                "init_lr": {"distribution": "log_uniform_values", "min": 1.0e-4, "max": 3.0e-3},
+                "weight_decay": {"min": 0.0, "max": 0.1}, "max_epochs": {"value": SWEEP_EPOCHS},
+                "batch_size": {"value": TRAIN_BATCH}, "validation_batch_size": {"value": TRAIN_BATCH},
+                "lr_frac_warmup_steps": {"value": 0.1}},
+            "data_config": {"save_dir": {"value": str(pre["cache"])}, "max_seq_len": {"value": TRAIN_SEQ},
+                            "min_seq_len": {"value": 4}},
+            "final_validation_metrics_config": {"do_skip_all_metrics": {"value": True}},
+        },
+    }  # fmt: skip
+    yaml_subset.dump_file(sweep, root / "sweep.yaml")
+    results = run("sweep", launch_hp_sweep.main, ["--run", "--config", str(root / "sweep.yaml")])
+    stopped = [r for r in results if r["status"] != "completed"]
+    done = [r for r in results if r["status"] == "completed"]
+    check(len(results) == 3 and len(done) == 1 and all(r["status"] == "stopped_rung_0" and r["epochs_trained"] == 1
+                                                       for r in stopped),
+          f"phase 23 (b): statuses {[(r['status'], r['epochs_trained']) for r in results]}")  # fmt: skip
+    survivor = done[0]
+    rung0 = {r["trial"]: r["rungs"][0]["tuning_loss"] for r in results}
+    check(survivor["epochs_trained"] == SWEEP_EPOCHS and [g["epochs"] for g in survivor["rungs"]] == [1, SWEEP_EPOCHS]
+          and survivor["trial"] == min(rung0, key=rung0.get) and all(math.isfinite(v) for v in rung0.values()),
+          f"phase 23 (b): the survivor {survivor}")  # fmt: skip
+    trial = {k: v for k, v in survivor.items() if "." in k}
+    full_epochs, full_steps = launch_hp_sweep._full_horizon(trial)
+    ref_loss, _, _ = run("sweep reference", pretrain.main, launch_hp_sweep._trial_args(trial, {
+        "optimization_config.max_epochs": full_epochs, "optimization_config.max_training_steps": full_steps,
+        "save_dir": str(root / "sweep_reference")}))  # fmt: skip
+    check(ref_loss == survivor["tuning_loss"],
+          f"phase 23 (b): the promoted trial's tuning loss {survivor['tuning_loss']} differs from its uninterrupted "
+          f"run's {ref_loss}")  # fmt: skip
+    check(same_tensors(torch.load(Path(survivor["save_dir"]) / "pretrained_weights" / "model.pt", weights_only=True),
+                       torch.load(root / "sweep_reference" / "pretrained_weights" / "model.pt", weights_only=True)),
+          "phase 23 (b): the promoted trial's weights differ from its uninterrupted run's")  # fmt: skip
+    check(launches("sweep", "sweep reference", kernel="vocab_gather_fwd") > 0 and launches(
+        "sweep", "sweep reference", kernel="vocab_gather_bwd") > 0, f"phase 23 (b): kernel C {runs['sweep']}")  # fmt: skip
+    b_s = time.perf_counter() - t_b
+
+    # (c) the operator contract: SIGTERM, exit 85, a clean relaunch, against an uninterrupted run
+    t_c = time.perf_counter()
+
+    def operator_config(save_dir) -> Path:
+        fp = root / f"{Path(save_dir).name}.yaml"
+        yaml_subset.dump_file({
+            "seed": SEED, "config": ENTRY_CONFIG, "experiment_dir": str(root), "save_dir": str(save_dir),
+            "optimization_config": {"init_lr": 1e-3, "max_epochs": SIGTERM_EPOCHS, "batch_size": TRAIN_BATCH,
+                                    "validation_batch_size": TRAIN_BATCH, "lr_frac_warmup_steps": 0.1},
+            "data_config": {"save_dir": str(pre["cache"]), "max_seq_len": TRAIN_SEQ, "min_seq_len": 4},
+            "pretraining_metrics_config": {"do_skip_all_metrics": True}, "do_final_validation_on_metrics": False,
+            "trainer_config": {"log_every_n_steps": 4, "checkpoint_every_n_steps": 8, "max_checkpoints_to_keep": 100},
+        }, fp)  # fmt: skip
+        return fp
+
+    def launch(fp, log_fp):
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)}
+        return subprocess.Popen([sys.executable, "-m", "eventstreamgpt_tpu_torch.scripts.pretrain", "--config", str(fp)],
+                                cwd=REPO, stdout=open(log_fp, "w"), stderr=subprocess.STDOUT, env=env)  # fmt: skip
+
+    op = root / "operator"
+    fp = operator_config(op)
+    torch.cuda.empty_cache()
+    proc = launch(fp, root / "operator_1.log")
+    try:
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and proc.poll() is None:
+            if (op / "train_log.jsonl").exists() and (op / "train_log.jsonl").read_text().count("\n") >= 2:
+                break
+            time.sleep(0.05)
+        log1 = (root / "operator_1.log").read_text()
+        check(proc.poll() is None, f"phase 23 (c): the run ended (rc {proc.poll()}) before SIGTERM: {log1[-2000:]}")
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log1 = (root / "operator_1.log").read_text()
+    check(rc == EXIT_PREEMPTED and f"exiting {EXIT_PREEMPTED} for reschedule" in log1,
+          f"phase 23 (c): SIGTERM gave exit {rc}: {log1[-2000:]}")  # fmt: skip
+    mgr = ReliableCheckpointManager(op / "model_checkpoints")
+    final_step = mgr.latest_step()
+    logged = [r["step"] for r in read_train_log(op) if r["split"] == "train"]
+    check(final_step is not None and mgr._verify_status(final_step) == "verified" and logged
+          and final_step >= max(logged), f"phase 23 (c): checkpoint {final_step}, logged steps {logged}")  # fmt: skip
+    mgr.close()
+    proc2 = launch(fp, root / "operator_2.log")
+    try:
+        rc2 = proc2.wait(timeout=600)
+    finally:
+        if proc2.poll() is None:
+            proc2.kill()
+            proc2.wait()
+    log2 = (root / "operator_2.log").read_text()
+    check(rc2 == 0 and f"Resumed from checkpoint at step {final_step}" in log2,
+          f"phase 23 (c): the relaunch gave exit {rc2}: {log2[-2000:]}")  # fmt: skip
+    relaunch_s = time.perf_counter() - t_term - drain_s
+    run("operator reference", pretrain.main, ["--config", str(operator_config(root / "operator_reference"))])
+    ref = {"weights": torch.load(root / "operator_reference" / "pretrained_weights" / "model.pt", weights_only=True),
+           "log": read_train_log(root / "operator_reference")}  # fmt: skip
+    mine = {"weights": torch.load(op / "pretrained_weights" / "model.pt", weights_only=True), "log": read_train_log(op)}
+    check(same_tensors(mine["weights"], ref["weights"]), "phase 23 (c): the relaunched run's weights differ from the "
+          "uninterrupted run's")  # fmt: skip
+    losses, ref_losses = train_losses(mine), train_losses(ref)
+    check(set(losses) == set(ref_losses) and all(losses[k] == ref_losses[k] for k in losses),
+          f"phase 23 (c): logged losses {losses} differ from the uninterrupted run's {ref_losses}")  # fmt: skip
+    c_s = time.perf_counter() - t_c
+    check(not any(m in sys.modules for m in ("pandas", "pyarrow", "yaml")), "phase 23: pandas, pyarrow or PyYAML was imported")
+
+    trained = {name: [round(r["events_per_sec"], 1) for r in read_train_log(d) if r["split"] == "train"]
+               for name, d in (("pretrain", save), ("finetune", ft_dir))}  # fmt: skip
+    launches_c = {d: launches("sweep", "sweep reference", "operator reference", "pretrain", "finetune",
+                              kernel=f"vocab_gather_{d}") for d in ("fwd", "bwd")}  # fmt: skip
+    launches_a = sum(r["launches"]["fused_categorical_stream"] for r in runs.values())
+    walls = {k: round(v["wall"], 2) for k, v in runs.items()}
+    print(f"phase 23: the entry points' main(argv) on the card, phase 4's CI model. (a) the chain on the converted sample "
+          f"cohort ({ZS_SEQ}-event rows, batches of 32, 2 epochs each) {a_s:.2f} s: trained events/s a log window "
+          f"{json.dumps(trained)}; generate_trajectories {generated} events in {runs['generate_trajectories']['wall']:.2f} s "
+          f"({generated / runs['generate_trajectories']['wall']:.1f} generated events/s over the entry point's wall, "
+          f"{ENTRY_TRAJ_SAMPLES} samples of {ENTRY_TRAJ_NEW}); zero-shot ({ZS_SAMPLES} samples of {ZS_NEW}) "
+          f"{runs['zeroshot']['wall']:.2f} s; pretrain_config.yaml reads back; (b) ASHA, 3 trials, eta 3, "
+          f"{SWEEP_EPOCHS} epochs on phase 18's cohort, {b_s:.2f} s: rung-0 tuning losses {json.dumps(rung0)}, trial "
+          f"{survivor['trial']} promoted and equal to its uninterrupted run bit for bit (loss {ref_loss}); (c) SIGTERM "
+          f"at step >= 8: exit {rc} after {drain_s:.2f} s, checkpoint {final_step} verified, the relaunch resumed and "
+          f"finished in {relaunch_s:.2f} s, equal to the uninterrupted run bit for bit, {c_s:.2f} s; each main's wall "
+          f"{json.dumps(walls)}; kernel A {launches_a}, kernel C {json.dumps(launches_c)} launches ({smi})",
+          flush=True)  # fmt: skip
+    return dict(launches_a=launches_a, launches_c=launches_c, seconds={"a": a_s, "b": b_s, "c": c_s})
+
+
 def main() -> int:
     try:
         import torch
@@ -5207,6 +5500,7 @@ def main() -> int:
     remat = remat_scan_phase(smi, pretrain)
     ef128 = kernel_ef_phase({None: remat.pop("flash_args")}, phase="phase 21", tag="_d128")
     traj = trajectories_phase(smi, pretrain, Path(work.name))
+    entry = entry_points_phase(smi, pretrain, Path(work.name))
     work.cleanup()
     # Profiles last: no capture follows a torch.profiler session.
     spec["profiles"] = spec.pop("profile")()
@@ -5228,7 +5522,7 @@ def main() -> int:
              launches=runs["sampled"]["launches"]["fused_categorical_stream"] + paged["launches_a"]
              + spec["launches_a"] + gen["CI"]["launches_a"] + gen["NA"]["launches_a"] + na_engine["launches_a"]
              + na_spec["launches_a"] + service["launches_a"] + fleet["launches_a"] + functor["launches_a"]
-             + traj["launches_a"], **a),
+             + traj["launches_a"] + entry["launches_a"], **a),
         dict(name="decode_stack_step", route="cuda", source="eventstreamgpt_tpu_torch/csrc/decode_step.cu",
              replaces="eventstreamgpt_tpu/ops/pallas_decode_step.py:297",
              launches=runs["greedy"]["launches"]["decode_stack_step"]
@@ -5246,7 +5540,7 @@ def main() -> int:
              replaces="eventstreamgpt_tpu/ops/pallas_heads.py:182",
              launches=train["launches"][f"vocab_gather_{d}"] + chunk_launches(f"vocab_gather_{d}")
              + pretrain["launches"][f"vocab_gather_{d}"] + functor["launches_c"][d]
-             + remat["launches"][f"vocab_gather_{d}"], **c[d])
+             + remat["launches"][f"vocab_gather_{d}"] + entry["launches_c"][d], **c[d])
         for d in ("fwd", "bwd")
     ] + [
         dict(name=f"dep_graph_{k}", route="cuda", source="eventstreamgpt_tpu_torch/csrc/dep_graph.cu",

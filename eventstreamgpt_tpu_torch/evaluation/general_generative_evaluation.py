@@ -40,6 +40,7 @@ from ..models.config import OptimizationConfig, Split, StructuredTransformerConf
 from ..training.checkpoint import load_pretrained
 from ..training.pretrain import build_model
 from ..utils import config_dataclass
+from ..utils.config_tool import coerce_to_signature
 from ..utils.device import resolve_device
 
 __all__ = ["GenerateConfig", "generate_trajectories"]
@@ -120,7 +121,9 @@ class GenerateConfig:
         config_fp = self.load_from_model_dir / "config.json"
         print(f"Loading config from {config_fp}")
         self.config = StructuredTransformerConfig.from_json_file(config_fp)
-        apply_overrides(self.config, self.config_overrides, "config")
+        # The port's repair: a string for an int, float or bool parameter is coerced to it.
+        apply_overrides(self.config, coerce_to_signature(StructuredTransformerConfig.__init__, self.config_overrides),
+                        "config")  # fmt: skip
 
         if self.task_specific_params is None:
             raise ValueError("Must specify num samples to generate")

@@ -36,6 +36,7 @@ from ..data.torch_dataset import TorchDataset
 from ..models.config import OptimizationConfig, Split, StructuredTransformerConfig
 from ..models.fine_tuning_model import ESTForStreamClassification
 from ..utils import config_dataclass
+from ..utils.config_tool import coerce_to_signature
 from ..utils.device import resolve_device
 from .metrics import (
     BinaryAccuracy,
@@ -221,7 +222,8 @@ class FinetuneConfig:
                 self.config.task_specific_params = {}
             self.config.task_specific_params.update(self.task_specific_params)
 
-        for param, val in (self.config_overrides or {}).items():
+        # The port's repair: a string for an int, float or bool parameter is coerced to it.
+        for param, val in coerce_to_signature(StructuredTransformerConfig.__init__, self.config_overrides or {}).items():
             print(f"Overwriting {param} in config from {getattr(self.config, param)} to {val}")
             setattr(self.config, param, val)
 

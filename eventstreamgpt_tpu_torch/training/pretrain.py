@@ -64,6 +64,7 @@ from ..models.config import (
     StructuredTransformerConfig,
 )
 from ..utils import config_dataclass
+from ..utils.config_tool import coerce_to_signature
 from ..utils.device import resolve_device
 from ..utils.graphs import ByteLayout, CapturedProgram
 from .generative_metrics import GenerativeMetrics
@@ -190,7 +191,7 @@ def make_train_step(
     unsynchronised. ``with_health=True`` returns ``(loss, health)`` with
     ``health = [loss, grad_global_norm]`` (fp32), the JAX step's
     divergence-sentinel vector. ``step.state`` is the `TrainState`;
-    ``step.stats()`` counts warm-up steps, captures and replays.
+    ``step.stats()`` counts programs, warm-up steps, captures and replays.
 
     The step (JAX's ``jax.jit(step, donate_argnums=(0,))``) reads and writes
     tensors at fixed addresses: the static batch buffers, the parameters,
@@ -257,6 +258,7 @@ def make_train_step(
         return {
             "cuda_graph": capture,
             "batch_signatures": len(statics),
+            "graph_programs": len(progs),
             "graph_warmup_steps": sum(p.warmups for p in progs),
             "graph_captures": sum(p.captures for p in progs),
             "graph_replays": sum(p.replays for p in progs),
@@ -438,6 +440,7 @@ def make_chunked_train_step(
         return {
             "cuda_graph": capture,
             "chunk_keys": len(chunks),
+            "graph_programs": len(progs),
             "graph_warmup_chunks": sum(p.warmups for p in progs),
             "graph_captures": sum(p.captures for p in progs),
             "graph_replays": sum(p.replays for p in progs),
@@ -656,8 +659,12 @@ class PretrainConfig:
         self.save_dir = str(self.save_dir).replace("${experiment_dir}", str(self.experiment_dir))
 
     def build_model_config(self) -> StructuredTransformerConfig:
+        """The model config of ``config``, each string entry whose parameter
+        is annotated ``int``, ``float`` or ``bool`` coerced to it (the port's
+        repair: JAX passes ``config.resid_dropout=1e-05``, a YAML 1.1
+        string, on as a string)."""
         kwargs = {k: v for k, v in self.config.items() if k not in SKIP_CFG_PARAMS and k != "_target_"}
-        return StructuredTransformerConfig(**kwargs)
+        return StructuredTransformerConfig(**coerce_to_signature(StructuredTransformerConfig.__init__, kwargs))
 
 
 def refusals(cfg: PretrainConfig) -> None:

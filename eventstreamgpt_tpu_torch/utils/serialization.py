@@ -1,8 +1,8 @@
 """JSON round-tripping for config objects.
 
-Counterpart: ``eventstreamgpt_tpu/utils/serialization.py`` (``JSONableMixin``)
-and ``utils/config_tool.py`` (``config_dataclass``). The port has no config
-store, so `config_dataclass` only makes the class a dataclass.
+Counterpart: ``eventstreamgpt_tpu/utils/serialization.py`` (``JSONableMixin``).
+`config_dataclass` is `utils.config_tool`'s: it makes a class a dataclass
+and registers it in the config store.
 """
 
 from __future__ import annotations
@@ -14,7 +14,11 @@ import os
 from pathlib import Path
 from typing import Any, TypeVar
 
+from .config_tool import config_dataclass
+
 T = TypeVar("T", bound="JSONableMixin")
+
+__all__ = ["JSONableMixin", "atomic_write_json", "config_dataclass"]
 
 
 def _jsonify(obj: Any) -> Any:
@@ -32,11 +36,6 @@ def _jsonify(obj: Any) -> Any:
     if isinstance(obj, Path):
         return str(obj)
     return obj
-
-
-def config_dataclass(cls: type[T]) -> type[T]:
-    """Makes ``cls`` a dataclass (if it is not one already)."""
-    return cls if dataclasses.is_dataclass(cls) else dataclasses.dataclass(cls)
 
 
 class JSONableMixin:

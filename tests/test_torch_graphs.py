@@ -309,7 +309,7 @@ def test_train_step_keeps_its_state_at_fixed_addresses(trained):
     losses = [float(step(batch, 0)[0]) for _ in range(2)]
     assert snapshot() == first
     assert all(np.isfinite(losses)) and step.state.step == 3
-    assert step.stats() == {"cuda_graph": False, "batch_signatures": 1, "graph_warmup_steps": 0,
+    assert step.stats() == {"cuda_graph": False, "batch_signatures": 1, "graph_programs": 0, "graph_warmup_steps": 0,
                             "graph_captures": 0, "graph_replays": 0, "capture_s": 0}  # fmt: skip
 
 

@@ -1987,3 +1987,28 @@ def test_fine_tuning_on_card_matches_cpu(cuda, na):
     for name, w in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][name], w, rtol=0, atol=1e-4, msg=lambda m: f"{name}: {m}")
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-4, atol=1e-4)
+
+
+def test_pretrain_entry_point_trains_on_the_card(cuda, tmp_path):
+    """``scripts.pretrain.main`` with no device trains a tiny CI model on the
+    card (a synthetic cohort whose labs are a multivariate regression plane),
+    and kernel C's counters move through its steps and replays. An epoch is
+    one chunk (4 steps, a log window of 4): its key warms up in epoch 0 and
+    is captured in epoch 1, which the capture guard allows."""
+    from eventstreamgpt_tpu_torch.data.synthetic import write_synthetic_cache
+    from eventstreamgpt_tpu_torch.scripts import pretrain
+
+    data = write_synthetic_cache(tmp_path / "cache", {"train": 32, "tuning": 8, "held_out": 8}, n_event_types=8,
+                                 n_labs=40, n_meds=8, n_static=4, mean_seq_len=16, max_seq_len=32, seed=0)  # fmt: skip
+    for fn in (vocab_gather_fwd, vocab_gather_bwd):
+        fn.launches = 0
+    tuning_loss, _, _ = pretrain.main(
+        [f"data_config.save_dir={data}", "data_config.max_seq_len=16", "config.hidden_size=32", "config.head_dim=8",
+         "config.num_attention_heads=4", "config.intermediate_size=64", "optimization_config.max_epochs=2",
+         "optimization_config.batch_size=8", "optimization_config.validation_batch_size=8",
+         "optimization_config.lr_frac_warmup_steps=0.5", "final_validation_metrics_config.do_skip_all_metrics=true",
+         "trainer_config.log_every_n_steps=4", f"save_dir={tmp_path / 'run'}"])  # fmt: skip
+    assert np.isfinite(tuning_loss)
+    assert vocab_gather_fwd.launches >= 8 and vocab_gather_bwd.launches >= 8
+    weights = torch.load(tmp_path / "run" / "pretrained_weights" / "model.pt", map_location="cpu", weights_only=True)
+    assert all(torch.isfinite(w).all() for w in weights.values())

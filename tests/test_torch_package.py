@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no JAX in it, configs and weights cross over.
 
-* ``import eventstreamgpt_tpu_torch`` (every module) works with JAX, pandas
-  and pyarrow blocked; no module imports pandas or pyarrow at module level,
-  and only `data.dl_cache`'s converter and parquet export (their bodies)
-  import pyarrow at all.
+* ``import eventstreamgpt_tpu_torch`` (every module) works with JAX, PyYAML,
+  pandas and pyarrow blocked; no module imports pandas or pyarrow at module
+  level, and only `data.dl_cache`'s converter and parquet export (their
+  bodies) import pyarrow at all. No module imports ``yaml`` or the root
+  ``scripts`` package at any level (`utils.yaml_subset` reads the configs).
 * An AST scan finds no ``jax``, ``flax`` or ``eventstreamgpt_tpu`` import in
   the port or in ``chip_smoke.py``, and no ``triton`` import.
 * A JAX config's ``to_dict()`` round-trips through the port's config (and
@@ -43,7 +44,7 @@ MODULES = sorted(
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import importlib, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'eventstreamgpt_tpu', 'pandas', 'pyarrow'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'eventstreamgpt_tpu', 'pandas', 'pyarrow', 'yaml'):\n"
         "    sys.modules[name] = None\n"
         f"for m in {['eventstreamgpt_tpu_torch'] + MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -68,15 +69,21 @@ def test_every_module_imports_with_jax_blocked():
      "eventstreamgpt_tpu_torch.models.fine_tuning_model", "eventstreamgpt_tpu_torch.training.embedding",
      "eventstreamgpt_tpu_torch.models.remat", "eventstreamgpt_tpu_torch.evaluation",
      "eventstreamgpt_tpu_torch.evaluation.general_generative_evaluation",
-     "eventstreamgpt_tpu_torch.evaluation.mcf_evaluation"],
+     "eventstreamgpt_tpu_torch.evaluation.mcf_evaluation", "eventstreamgpt_tpu_torch.utils.yaml_subset",
+     "eventstreamgpt_tpu_torch.utils.config_tool", "eventstreamgpt_tpu_torch.scripts",
+     "eventstreamgpt_tpu_torch.scripts.pretrain", "eventstreamgpt_tpu_torch.scripts.finetune",
+     "eventstreamgpt_tpu_torch.scripts.zeroshot", "eventstreamgpt_tpu_torch.scripts.get_embeddings",
+     "eventstreamgpt_tpu_torch.scripts.generate_trajectories", "eventstreamgpt_tpu_torch.scripts.launch_hp_sweep",
+     "eventstreamgpt_tpu_torch.scripts.prepare_pretrain_subsets"],
 )  # fmt: skip
 def test_sweep_covers_the_resident_feed(module):
     """The resident feed, the chunked step, speculative decoding, the fleet's
     router, the serving fault plan, the row-invariance tool, the DL-cache
     reader, the prefetch thread, the metrics, the training reliability
     modules, the capture guard, the stream classifier, embedding
-    extraction, remat, and trajectory generation with the MCF evaluation
-    are in the blocked import sweep above."""
+    extraction, remat, trajectory generation with the MCF evaluation, the
+    YAML reader, the config tool and the entry points are in the blocked
+    import sweep above."""
     assert module in MODULES
 
 
@@ -128,6 +135,18 @@ def test_no_jax_imports(path):
 def test_no_triton_imports(path):
     """Every kernel of the port is CUDA C++ under ``csrc/``; nothing imports Triton."""
     assert "triton" not in imported_roots(path), path
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_yaml_or_root_scripts_imports(path):
+    """The card's machine has no PyYAML (`utils.yaml_subset` reads the
+    configs), and the port's entry points are its own (`scripts`), not the
+    repository's root ``scripts`` package."""
+    assert not (imported_roots(path) & {"yaml", "scripts"}), path
 
 
 def module_level_roots(path: Path) -> set[str]:

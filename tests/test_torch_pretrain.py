@@ -399,23 +399,40 @@ def test_train_defaults_to_the_card(conv, tmp_path, monkeypatch):
         train(port_cfg(tmp_path, conv))
 
 
+class GuardedStep:
+    """A step's ``stats()``: programs made (each warmed up once) and captures."""
+
+    programs = captures = 0
+
+    def stats(self):
+        return {"graph_programs": self.programs, "graph_captures": self.captures}
+
+
 def test_capture_guard_counts_captures():
-    class Step:
-        captures = 0
-
-        def stats(self):
-            return {"graph_captures": self.captures}
-
-    step = Step()
+    step = GuardedStep()
     guard = CompileGuard(watch=[step], label="test step")
     guard.check()  # unarmed: nothing to check
     guard.arm()
     guard.check()
+    step.programs += 1  # a new program's warm-up, then its capture
     step.captures += 1
     assert guard.compiles == 1
     with pytest.raises(RecompileError, match="test step"):
         guard.check()
     assert dataclasses.is_dataclass(TrainState())
+
+
+def test_capture_guard_allows_the_capture_of_a_program_warmed_up_before_arm():
+    """An epoch of one chunk warms its key up in epoch 0 and captures it in
+    epoch 1 (JAX compiled it in epoch 0): not a new program."""
+    step = GuardedStep()
+    step.programs = 1  # epoch 0: the key's warm-up
+    guard = CompileGuard(watch=[step], label="test step").arm()
+    step.captures = 1  # epoch 1: its capture
+    guard.check()
+    step.programs, step.captures = 2, 2  # a drifted shape: a new program, captured
+    with pytest.raises(RecompileError, match="1 new capture"):
+        guard.check()
 
 
 def test_prefetch_keeps_order_surfaces_errors_and_stops():
